@@ -1,0 +1,11 @@
+"""Q-StaR on PyTorch and CUDA: the port of the JAX reproduction.
+
+Slice 1 runs the paper's main path — topology + traffic matrix, N-Rank
+plan, BiDOR choice table with its deadlock certificate, table-routed
+flit simulation, campaign statistics — for XY and BiDOR, with the
+planner's possibility pass and the simulator's flit step as
+hand-written CUDA kernels (:mod:`repro_torch.kernels`).  The package
+imports torch, numpy and the standard library only.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,73 @@
+"""Carry tables, state and plans across between the reference and the port.
+
+The reference keeps a cell's tables as a NamedTuple of arrays and a
+lane-stacked state as a dict of arrays (scalars stacked to (L,)); the
+port keeps the same fields as torch tensors on a device.  These helpers
+take the reference's arrays as numpy — so nothing here imports the
+reference — and give the port's tensors, or back:
+
+* ``rbits`` is uint32 in the reference and int32 holding the same bit
+  pattern in the port;
+* ``key`` is a (L, 2) uint32 numpy array on both sides (the port
+  advances the key chain on the host).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .core.bidor import BiDORTable
+from .device import resolve_device
+from .noc.sim import Tables, state_to_host
+
+__all__ = ["tables_from_numpy", "state_from_numpy", "state_to_numpy",
+           "plan_from_numpy"]
+
+
+def tables_from_numpy(tables, device=None) -> Tables:
+    """Port :class:`~repro_torch.noc.sim.Tables` from the reference's
+    tables (any object with the same field names, or a dict of arrays)."""
+    dev = resolve_device(device)
+    get = tables.get if isinstance(tables, dict) else (
+        lambda k: getattr(tables, k))
+    return Tables(**{k: torch.as_tensor(np.array(get(k), order="C"),
+                                        device=dev)
+                     for k in Tables._fields})
+
+
+def state_from_numpy(state: dict, device=None) -> dict:
+    """Port state from a lane-stacked reference state (numpy arrays)."""
+    dev = resolve_device(device)
+    out = {}
+    for k, a in state.items():
+        a = np.asarray(a)
+        if k == "key":
+            out[k] = a.astype(np.uint32).reshape(-1, 2).copy()
+        elif k == "rbits":
+            out[k] = torch.as_tensor(
+                np.ascontiguousarray(a.astype(np.uint32)).view(np.int32),
+                device=dev)
+        else:
+            out[k] = torch.as_tensor(np.array(a, order="C"), device=dev)
+    return out
+
+
+def state_to_numpy(state: dict) -> dict:
+    """Reference-layout numpy copy of a port state (``rbits`` uint32)."""
+    return state_to_host(state)
+
+
+def plan_from_numpy(choice, port_tables, orders=((0, 1), (1, 0)),
+                    costs=None, unroutable=None) -> BiDORTable:
+    """A :class:`BiDORTable` from a choice table and per-order port
+    tables (e.g. a reference plan's ``table.choice`` / ``.port_tables``)."""
+    choice = np.asarray(choice, np.int8)
+    port_tables = np.asarray(port_tables, np.int8)
+    if costs is None:
+        costs = np.zeros(port_tables.shape, np.float64)
+    return BiDORTable(choice=choice, orders=tuple(map(tuple, orders)),
+                      costs=np.asarray(costs, np.float64),
+                      port_tables=port_tables,
+                      unroutable=(None if unroutable is None
+                                  else np.asarray(unroutable, bool)))

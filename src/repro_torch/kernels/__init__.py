@@ -1,0 +1,16 @@
+"""Hand-written CUDA kernels of the port, each beside its plain twin.
+
+Every wrapper launches its kernel for tensors on the card and runs the
+plain-torch version for tensors on the CPU; nothing falls back from one
+to the other.  :data:`LAUNCHES` counts kernel launches by name: a wrapper
+adds one where it launches and nowhere else, so a run can show that the
+main path went through the kernels.
+"""
+
+LAUNCHES = {"possibility_v": 0, "simstep_tile": 0, "simstep_finish": 0}
+
+
+def reset_launches() -> None:
+    """Set every launch count to 0."""
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0

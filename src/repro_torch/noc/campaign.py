@@ -1,0 +1,365 @@
+"""Batched simulation-campaign engine (static cells).
+
+A :class:`CampaignSpec` names a grid of (traffic pattern × algorithm ×
+rate × seed) on one topology.  Every (rate, seed) point of a cell — one
+(algorithm, pattern) pair — is one lane of a single lane-batched state,
+advanced in ``chunk``-cycle slices with the reference's warmup →
+measure → drain phasing and its saturation early exit: after each
+post-warmup slice the host reads source-queue occupancy, and once every
+lane is saturated the remaining cycles are skipped (per-lane
+``meas_cnt`` keeps the statistics normalised).
+
+BiDOR plans come from one batched planner call
+(:func:`repro_torch.core.plan_fast.build_plans_batched`), each gated by
+the deadlock certifier.  Not ported yet: ``scenarios`` (the control
+plane, ROADMAP queue 1, item 6), ``topos`` (item 7), ``workloads`` (ML
+traffic, item 10), the plan cache and explicit ``bidor_tables`` (item
+9); each raises ``NotImplementedError`` or is absent.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Sequence
+
+import numpy as np
+
+from ..core import traffic as traffic_mod
+from ..core.plan_fast import build_plans_batched
+from ..core.topology import Topology
+from ..device import resolve_device
+from .sim import (build_tables, lane, make_states, postprocess,
+                  queue_occupancy, run_cycles, source_queue_meta,
+                  state_to_host)
+from .simconfig import Algo, SimConfig, SimResult, check_supported
+
+__all__ = ["CampaignSpec", "CampaignPoint", "CampaignResult",
+           "run_campaign", "CellKey", "CellOutcome", "campaign_cells",
+           "CampaignExecutor", "csv_rows"]
+
+
+@dataclasses.dataclass(frozen=True)
+class CampaignSpec:
+    """Declarative grid of simulations.
+
+    Attributes:
+      topo: the network under test.
+      algos: routing algorithms to sweep (XY and BIDOR in this slice).
+      patterns: traffic patterns — names from
+        ``repro_torch.core.traffic.PATTERNS`` or ``(name, matrix)`` pairs.
+      rates: injection rates (flits/cycle/I/O-port).
+      seeds: RNG seeds; each (rate, seed) is one lane of the batch.
+      base: parameters shared by every point (``algo`` is overridden per
+        cell, ``injection_rate`` and ``seed`` per lane).
+      chunk: host-loop granularity in cycles for the saturation early
+        exit; 0 runs each cell as one chunk of ``base.cycles``.
+      sat_occupancy: source-queue occupancy fraction above which a lane
+        is declared saturated.
+      scenarios, workloads, topos: not ported yet; must stay empty.
+    """
+
+    topo: Topology
+    algos: tuple[Algo, ...]
+    patterns: tuple
+    rates: tuple[float, ...]
+    seeds: tuple[int, ...] = (0,)
+    base: SimConfig = SimConfig()
+    chunk: int = 0
+    sat_occupancy: float = 0.9
+    scenarios: tuple = ()
+    topos: tuple = ()
+    workloads: tuple = ()
+
+    def __post_init__(self):
+        if not (self.algos and (self.patterns or self.workloads)
+                and self.rates and self.seeds):
+            raise ValueError("campaign grid must be non-empty on all axes")
+
+    @property
+    def num_points(self) -> int:
+        return (len(self.algos) * len(self.patterns) * len(self.rates)
+                * len(self.seeds))
+
+    def pattern_items(self) -> list[tuple[str, np.ndarray]]:
+        """The pattern axis as (name, traffic matrix) pairs."""
+        topo = self.topo
+        items = []
+        for p in self.patterns:
+            if isinstance(p, str):
+                if p not in traffic_mod.PATTERNS:
+                    raise KeyError(
+                        f"unknown traffic pattern {p!r}; available: "
+                        f"{sorted(traffic_mod.PATTERNS)}")
+                items.append((p, traffic_mod.PATTERNS[p](topo)))
+            else:
+                name, tm = p
+                items.append((str(name), np.asarray(tm, np.float64)))
+        return items
+
+
+def check_spec(spec: CampaignSpec) -> None:
+    """Raise for the parts of a spec this slice does not port."""
+    if spec.scenarios:
+        raise NotImplementedError(
+            "campaign scenarios (the control plane) are not ported yet "
+            "(ROADMAP queue 1, item 6)")
+    if spec.workloads:
+        raise NotImplementedError(
+            "ML workloads are not ported yet (ROADMAP queue 1, item 10)")
+    if spec.topos:
+        raise NotImplementedError(
+            "the topology axis is not ported yet (ROADMAP queue 1, item 7)")
+    for algo in spec.algos:
+        check_supported(spec.base.replace(algo=algo))
+
+
+@dataclasses.dataclass(frozen=True)
+class CampaignPoint:
+    """One grid point: the cell coordinates plus its SimResult."""
+
+    algo: Algo
+    pattern: str
+    rate: float
+    seed: int
+    result: SimResult
+    scenario: str = "static"
+    topo: str = ""
+    workload: str = ""
+
+
+@dataclasses.dataclass
+class CampaignResult:
+    """Structured campaign output.
+
+    ``points`` is ordered (pattern, algo, rate, seed) nested-loop major.
+    ``wall_clock_s`` maps each cell's ``(algo name, pattern)`` to the
+    wall-clock of its batched run (plan building excluded; it is
+    ``plan_wall_clock_s``, split by stage in ``plan_stage_ms`` as
+    :func:`repro_torch.core.plan_fast.build_plans_batched` reports it).
+    """
+
+    spec: CampaignSpec
+    points: list[CampaignPoint]
+    wall_clock_s: dict[tuple[str, ...], float]
+    total_wall_clock_s: float
+    plan_wall_clock_s: float = 0.0
+    plan_stage_ms: dict[str, float] = dataclasses.field(default_factory=dict)
+
+    def select(self, algo: Algo | None = None, pattern: str | None = None,
+               rate: float | None = None,
+               seed: int | None = None) -> list[CampaignPoint]:
+        return [p for p in self.points
+                if (algo is None or p.algo == algo)
+                and (pattern is None or p.pattern == pattern)
+                and (rate is None or p.rate == rate)
+                and (seed is None or p.seed == seed)]
+
+    def grid(self, field: str, algo: Algo, pattern: str) -> np.ndarray:
+        """(num_rates, num_seeds) array of a SimResult field for ONE cell."""
+        rates, seeds = list(self.spec.rates), list(self.spec.seeds)
+        g = np.zeros((len(rates), len(seeds)))
+        filled = np.zeros((len(rates), len(seeds)), bool)
+        for p in self.select(algo=algo, pattern=pattern):
+            ij = rates.index(p.rate), seeds.index(p.seed)
+            if filled[ij]:
+                raise ValueError(
+                    f"duplicate point for (rate={p.rate}, seed={p.seed}) "
+                    f"in cell ({algo.name}, {pattern!r}); use explicit "
+                    f"(name, matrix) labels")
+            filled[ij] = True
+            g[ij] = getattr(p.result, field)
+        if not filled.all():
+            raise ValueError(
+                f"cell ({algo.name}, {pattern!r}) is missing "
+                f"{int((~filled).sum())} of the {filled.size} points")
+        return g
+
+    CSV_HEADER = ["topo", "scenario", "pattern", "workload", "algo",
+                  "rate", "seed", "throughput", "offered", "avg_lat",
+                  "p50_lat", "p90_lat", "p99_lat", "max_lat", "lcv",
+                  "link_load_max", "reorder", "saturated", "meas_cycles"]
+
+    def to_rows(self) -> list[list]:
+        return csv_rows(self.points)
+
+    def summary(self) -> str:
+        lines = [f"campaign: {self.spec.num_points} points in "
+                 f"{self.total_wall_clock_s:.1f}s wall-clock"]
+        for (algo, pattern), dt in self.wall_clock_s.items():
+            lines.append(f"  cell algo={algo:8s} pattern={pattern:14s} "
+                         f"{dt:6.2f}s")
+        return "\n".join(lines)
+
+
+def csv_rows(points: Sequence[CampaignPoint]) -> list[list]:
+    """CSV rows (matching ``CampaignResult.CSV_HEADER``) for points."""
+    rows = []
+    for p in points:
+        r = p.result
+        rows.append([p.topo, p.scenario, p.pattern, p.workload,
+                     p.algo.name, p.rate, p.seed,
+                     f"{r.throughput:.4f}", f"{r.offered:.4f}",
+                     f"{r.avg_latency:.1f}", f"{r.p50_latency:.1f}",
+                     f"{r.p90_latency:.1f}", f"{r.p99_latency:.1f}",
+                     f"{r.max_latency:.0f}", f"{r.lcv:.3f}",
+                     f"{r.link_load_max:.4f}", r.reorder_value,
+                     int(r.saturated), r.meas_cycles])
+    return rows
+
+
+def _run_cell(spec: CampaignSpec, cfg: SimConfig, tables, meta,
+              points: list[tuple[float, int]], device):
+    """Advance one (algo, pattern) cell; returns (host state, sat flags).
+
+    The cell is one lane batch over ``points``, advanced in chunk-cycle
+    slices; the host stops the whole batch once every lane is saturated.
+    """
+    state = make_states(meta, cfg, points, device)
+    total = int(cfg.cycles)
+    chunk = int(spec.chunk) or total
+    sat = np.zeros(len(points), bool)
+    q_meta = source_queue_meta(tables, cfg)   # static for the whole cell
+    done = 0
+    while done < total:
+        step_cycles = min(chunk, total - done)
+        run_cycles(tables, meta, cfg, state, step_cycles)
+        done += step_cycles
+        if done > cfg.warmup:
+            # saturation accumulates from post-warmup reads only — a
+            # transient warmup spike must not latch a lane
+            occ = queue_occupancy(tables, cfg, state["q_size"], q_meta)
+            sat |= occ >= spec.sat_occupancy
+            if done < total and sat.all():
+                break  # every lane saturated: verdict reached
+    return state_to_host(state), sat
+
+
+@dataclasses.dataclass(frozen=True)
+class CellKey:
+    """Coordinates of one campaign cell in the spec's enumeration order
+    (pattern item → algo)."""
+
+    index: int
+    item_i: int
+    pattern: str
+    algo: Algo
+
+
+@dataclasses.dataclass
+class CellOutcome:
+    """One executed cell: its per-lane results plus wall-clock."""
+
+    key: CellKey
+    results: list[SimResult]    # one per (rate, seed) lane, rate-major
+    wall_s: float
+
+
+def campaign_cells(spec: CampaignSpec) -> list[CellKey]:
+    """The spec's cells in canonical execution order."""
+    names = [p if isinstance(p, str) else str(p[0]) for p in spec.patterns]
+    return [CellKey(index=i * len(spec.algos) + j, item_i=i, pattern=name,
+                    algo=algo)
+            for i, name in enumerate(names)
+            for j, algo in enumerate(spec.algos)]
+
+
+@dataclasses.dataclass
+class _ItemPrep:
+    """Per-pattern execution inputs."""
+
+    tm: np.ndarray
+    table: object | None       # BiDORTable (None when BiDOR absent)
+    bidor_tm: np.ndarray       # admission-controlled generation matrix
+
+
+class CampaignExecutor:
+    """Executes static campaign cells one at a time, in any order.
+
+    Plans are built on first use: one batched planner call covers every
+    pattern."""
+
+    def __init__(self, spec: CampaignSpec, *, device=None):
+        check_spec(spec)
+        self.spec = spec
+        self.device = resolve_device(device)
+        self.points = [(float(r), int(s))
+                       for r in spec.rates for s in spec.seeds]
+        self._prepped: list[_ItemPrep] | None = None
+        self.plan_s = 0.0           # wall-clock spent building plans
+        self.plan_stage_ms: dict[str, float] = {}
+
+    def _prep(self) -> list[_ItemPrep]:
+        if self._prepped is not None:
+            return self._prepped
+        spec, topo = self.spec, self.spec.topo
+        items = spec.pattern_items()
+        tables = [None] * len(items)
+        if Algo.BIDOR in spec.algos:
+            t0 = time.perf_counter()
+            down = topo.down_channels
+            plans = build_plans_batched(
+                topo, [tm for _, tm in items],
+                down_channels=down if down.size else None,
+                device=self.device, stage_ms=self.plan_stage_ms)
+            self.plan_s += time.perf_counter() - t0
+            tables = [plan.table for plan in plans]
+        self._prepped = []
+        for (_, tm), table in zip(items, tables):
+            # admission control: pairs no dimension order can serve on a
+            # degraded topology are shed from BiDOR's generation matrix
+            bidor_tm = tm
+            if (table is not None and table.unroutable is not None
+                    and table.unroutable.any()):
+                bidor_tm = np.where(table.unroutable, 0.0, tm)
+            self._prepped.append(_ItemPrep(tm=tm, table=table,
+                                           bidor_tm=bidor_tm))
+        return self._prepped
+
+    def run_cell(self, key: CellKey) -> CellOutcome:
+        """Execute one cell: all its (rate, seed) lanes, one batch."""
+        spec, topo = self.spec, self.spec.topo
+        prep = self._prep()[key.item_i]
+        cfg = spec.base.replace(algo=key.algo)
+        t0 = time.perf_counter()
+        bidor = key.algo == Algo.BIDOR
+        tables, meta = build_tables(
+            topo, prep.bidor_tm if bidor else prep.tm,
+            prep.table if bidor else None, cfg.num_vcs, self.device)
+        host, sat = _run_cell(spec, cfg, tables, meta, self.points,
+                              self.device)
+        results = [postprocess(lane(host, i), cfg, topo, rate=rate,
+                               seed=seed, saturated=bool(sat[i]))
+                   for i, (rate, seed) in enumerate(self.points)]
+        return CellOutcome(key=key, results=results,
+                           wall_s=time.perf_counter() - t0)
+
+    def cell_points(self, outcome: CellOutcome) -> list[CampaignPoint]:
+        """The cell's CampaignPoints, in canonical lane order."""
+        k = outcome.key
+        return [CampaignPoint(algo=k.algo, pattern=k.pattern, rate=rate,
+                              seed=seed, result=res,
+                              topo=self.spec.topo.name)
+                for (rate, seed), res in zip(self.points, outcome.results)]
+
+
+def run_campaign(spec: CampaignSpec, *, plan_cache=None,
+                 device=None) -> CampaignResult:
+    """Execute the full campaign grid on ``device`` (default: the card).
+
+    BiDOR plans are built per pattern from that pattern's own matrix."""
+    if plan_cache is not None:
+        raise NotImplementedError(
+            "the plan cache is not ported yet (ROADMAP queue 1, item 9)")
+    t_start = time.perf_counter()
+    executor = CampaignExecutor(spec, device=device)
+    out_points: list[CampaignPoint] = []
+    wall: dict[tuple, float] = {}
+    for key in campaign_cells(spec):
+        outcome = executor.run_cell(key)
+        wall[(key.algo.name, key.pattern)] = outcome.wall_s
+        out_points.extend(executor.cell_points(outcome))
+    return CampaignResult(spec=spec, points=out_points, wall_clock_s=wall,
+                          total_wall_clock_s=time.perf_counter() - t_start,
+                          plan_wall_clock_s=executor.plan_s,
+                          plan_stage_ms=executor.plan_stage_ms)

@@ -1,0 +1,305 @@
+"""Flit-level NoC simulator on torch (lane-batched, table-routed).
+
+The model is the reference's (paper §4.1): input-queued wormhole
+routers, ``num_vcs`` virtual channels per input port, credit-based flow
+control, one flit per channel per cycle, round-robin switch allocation,
+single-cycle routing, every routing decision a gather over a
+:class:`repro_torch.core.bidor.BiDORTable`.
+
+What changes in the port:
+
+* the (rate, seed) lanes that the reference ``vmap``s become a leading
+  lane axis ``L`` on every state tensor; scalars become (L,) vectors and
+  the tables are shared by all lanes;
+* ``lax.scan`` over cycles becomes a Python loop of two kernel launches
+  per cycle (:mod:`repro_torch.kernels.simstep`), the state updated in
+  place;
+* the random draws of a whole chunk are made up front
+  (:func:`repro_torch.kernels.simstep.draw_chunk`), bit-identical to the
+  reference's per-cycle ``split_rand``;
+* the PRNG key of each lane is a (2,) uint32 row of ``state["key"]``, a
+  numpy array on the host, since the key chain advances on the host.
+
+Entry points run on the card unless ``device="cpu"`` is passed.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from ..core.bidor import BiDORTable, dor_table
+from ..core.topology import Topology
+from ..device import resolve_device
+from .. import prng
+from .simconfig import Algo, SimConfig, SimResult, NF, NQ, check_supported
+
+__all__ = ["Tables", "build_tables", "fresh_state", "make_states",
+           "point_key", "run_cycles", "run_sweep", "run_sim", "postprocess",
+           "hist_percentile", "queue_occupancy", "source_queue_meta"]
+
+
+class Tables(NamedTuple):
+    """Lookup tables of one cell (shared by every lane)."""
+
+    port: torch.Tensor      # (O, N, N) int32: plan out-port (order, cur, target)
+    choice: torch.Tensor    # (N, N) int32: plan order per (s, d)
+    neighbor: torch.Tensor  # (N, P) int32
+    recv_port: torch.Tensor  # (N, P) int32: input port at the neighbor
+    cdf: torch.Tensor       # (N, N) float32 destination CDF per source
+    p_gen: torch.Tensor     # (N,) float32 packet-generation probability @rate 1
+    n_of: torch.Tensor      # (NIN,) node of each input
+    v_of: torch.Tensor      # (NIN,) vc of each input
+    chan_src_n: torch.Tensor  # (C,) source node of each channel
+    chan_src_p: torch.Tensor  # (C,) output port of each channel at its source
+    chan_of: torch.Tensor   # (N, P) int32: channel at (node, out-port); C if none
+    chan_bw: torch.Tensor   # (C,) float32 relative bandwidth (0 = link down)
+
+
+def _gen_tables(topo: Topology, traffic) -> tuple[np.ndarray, np.ndarray]:
+    """Per-source destination CDF and per-node generation probability at
+    rate 1 (× rate / packet_len at run time), as float32."""
+    t = np.asarray(traffic, np.float64)
+    row = t.sum(1)
+    with np.errstate(invalid="ignore"):
+        cdf = np.cumsum(
+            np.where(row[:, None] > 0,
+                     t / np.maximum(row, 1e-300)[:, None], 0), 1)
+    p_gen = row * topo.io_weights.sum()
+    return cdf.astype(np.float32), p_gen.astype(np.float32)
+
+
+def build_tables(topo: Topology, traffic: np.ndarray,
+                 table: BiDORTable | None, num_vcs: int,
+                 device=None) -> tuple[Tables, dict]:
+    """Tables of one simulation cell, on ``device``.  ``table`` is the
+    BiDOR plan's routing artifact; ``None`` routes over the trivial DOR
+    artifact (:func:`repro_torch.core.bidor.dor_table`)."""
+    dev = resolve_device(device)
+    if table is None:
+        table = dor_table(topo)
+    n, p, v = topo.num_nodes, topo.num_ports, num_vcs
+    port = np.asarray(table.port_tables, np.int32)
+    if port.shape[1:] != (n, n):
+        raise ValueError(f"port tables {port.shape} do not match {n} nodes")
+    recv_port = np.zeros((n, p), np.int32)
+    for c in range(topo.num_channels):
+        u = int(topo.channels[c, 0])
+        recv_port[u, topo.channel_port[c]] = topo.port_of_channel_at_receiver[c]
+    cdf, p_gen = _gen_tables(topo, traffic)
+    nin = n * p * v
+    idx = np.arange(nin, dtype=np.int32)
+    chan_of = np.full((n, p), topo.num_channels, np.int32)
+    chan_of[topo.channels[:, 0], topo.channel_port] = np.arange(
+        topo.num_channels, dtype=np.int32)
+    arrays = dict(
+        port=port, choice=np.asarray(table.choice, np.int32),
+        neighbor=topo.neighbor_table.astype(np.int32), recv_port=recv_port,
+        cdf=cdf, p_gen=p_gen, n_of=idx // (p * v), v_of=idx % v,
+        chan_src_n=topo.channels[:, 0].astype(np.int32),
+        chan_src_p=topo.channel_port.astype(np.int32),
+        chan_of=chan_of,
+        chan_bw=np.asarray(topo.channel_bw, np.float32))
+    tables = Tables(**{k: torch.as_tensor(np.ascontiguousarray(a),
+                                          device=dev)
+                       for k, a in arrays.items()})
+    meta = dict(N=n, P=p, V=v, NIN=nin, P_LOCAL=topo.port_local,
+                NDIM=topo.ndim, O=port.shape[0], C=topo.num_channels)
+    return tables, meta
+
+
+def source_queue_meta(tables: Tables,
+                      cfg: SimConfig) -> tuple[np.ndarray, float]:
+    """(io_mask, qcap) for :func:`queue_occupancy`: compute once per cell."""
+    io_mask = tables.p_gen.cpu().numpy() > 0
+    qcap = float(io_mask.sum() * cfg.src_queue_pkts)
+    return io_mask, qcap
+
+
+def queue_occupancy(tables: Tables, cfg: SimConfig, q_size,
+                    meta: tuple[np.ndarray, float] | None = None,
+                    ) -> np.ndarray:
+    """Per-lane source-queue occupancy fraction over the I/O-capable
+    nodes — the campaign's lane-saturation criterion (0.0 when no node
+    can source traffic)."""
+    io_mask, qcap = source_queue_meta(tables, cfg) if meta is None else meta
+    q = (q_size.cpu().numpy() if isinstance(q_size, torch.Tensor)
+         else np.asarray(q_size))
+    if qcap <= 0:
+        return np.zeros(q.shape[0])
+    return q[:, io_mask].sum(1) / qcap
+
+
+def fresh_state(meta: dict, cfg: SimConfig, num_lanes: int,
+                device=None) -> dict:
+    """Lane-batched initial state: a dict of (L, ...) tensors plus the
+    (L, 2) uint32 host ``key`` array (``PRNGKey(cfg.seed)`` per lane)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    n, nin, L = meta["N"], meta["NIN"], num_lanes
+    b, q = cfg.buf_per_vc, cfg.src_queue_pkts
+    i32 = torch.int32
+
+    def z(*shape):
+        return torch.zeros((L,) + shape, dtype=i32, device=dev)
+
+    def full(val, *shape):
+        return torch.full((L,) + shape, val, dtype=i32, device=dev)
+
+    return dict(
+        flits=z(nin, b, NF),
+        fifo_start=z(nin), fifo_size=z(nin),
+        lock_op=full(-1, nin), lock_ov=full(-1, nin),
+        out_held=full(-1, n, meta["P"], meta["V"]),
+        rr=z(n, meta["P"]),
+        qpkts=z(n, q, NQ),
+        q_start=z(n), q_size=z(n), prog=z(n),
+        next_seq=z(n, n),
+        exp_seq=z(n, n), rbits=z(n, n),
+        node_fwd=z(n), eject_flits=z(n), chan_fwd=z(meta["C"]),
+        chan_seen=z(meta["C"]),
+        lat_sum=z(), lat_cnt=z(), lat_max=z(),
+        lat_hist=z(cfg.lat_bins),
+        reorder_max=z(), injected=z(), offered=z(), dropped=z(),
+        eject_total=z(), meas_cnt=z(),
+        rate=torch.zeros(L, dtype=torch.float32, device=dev),
+        cycle0=z(),
+        inject_until=full(cfg.cycles - cfg.drain),
+        measure_until=full(cfg.cycles - cfg.drain),
+        key=np.tile(prng.key(cfg.seed), (L, 1)),
+    )
+
+
+def point_key(seed: int, rate: float) -> np.ndarray:
+    """PRNG key of a (rate, seed) campaign point:
+    ``fold_in(PRNGKey(seed), float32 bits of rate)``."""
+    rate_bits = int(np.float32(rate).view(np.uint32))
+    return prng.fold_in(prng.key(seed), rate_bits)
+
+
+def make_states(meta: dict, cfg: SimConfig,
+                points: list[tuple[float, int]], device=None) -> dict:
+    """Fresh lane-batched state for a list of (rate, seed) points."""
+    st = fresh_state(meta, cfg, len(points), device)
+    st["rate"].copy_(torch.tensor([r for r, _ in points],
+                                  dtype=torch.float32))
+    st["key"] = np.stack([point_key(s, r) for r, s in points])
+    return st
+
+
+def run_cycles(tables: Tables, meta: dict, cfg: SimConfig, state: dict,
+               num_cycles: int) -> dict:
+    """Advance every lane by ``num_cycles`` cycles, in place (one chunk:
+    the draws first, then two kernel launches per cycle), then advance
+    ``cycle0`` as the reference's chunk runner does.  Returns ``state``."""
+    # deferred: the kernel package imports this package's simconfig
+    from ..kernels.simstep import draw_chunk, make_step
+
+    step = make_step(meta, cfg, tables, state)
+    keys, u, ud = draw_chunk(state["key"], num_cycles, meta["N"],
+                             step.device)
+    for c in range(num_cycles):
+        step.step(u[c], ud[c], c)
+    state["key"] = keys
+    state["cycle0"] += num_cycles
+    return state
+
+
+def state_to_host(state: dict) -> dict:
+    """numpy copy of a lane-batched state (``rbits`` as uint32)."""
+    out = {}
+    for k, x in state.items():
+        if isinstance(x, torch.Tensor):
+            a = x.cpu().numpy()
+            out[k] = a.view(np.uint32) if k == "rbits" else a
+        else:
+            out[k] = np.array(x)
+    return out
+
+
+def hist_percentile(hist: np.ndarray, bin_width: int, q: float) -> float:
+    """q-quantile (0 < q < 1) from a fixed-width latency histogram, with
+    linear interpolation inside the bin.  The last bin is an overflow
+    bucket, so quantiles landing there are lower bounds."""
+    hist = np.asarray(hist, dtype=np.float64)
+    total = hist.sum()
+    if total <= 0:
+        return 0.0
+    target = q * total
+    cum = np.cumsum(hist)
+    b = int(np.searchsorted(cum, target))
+    before = cum[b - 1] if b > 0 else 0.0
+    frac = (target - before) / max(hist[b], 1.0)
+    return float((b + frac) * bin_width)
+
+
+def postprocess(o: dict, cfg: SimConfig, topo: Topology, *,
+                rate: float, seed: int, saturated: bool = False,
+                meas_cycles: int | None = None) -> SimResult:
+    """Turn one lane's host state into a SimResult."""
+    meas = int(o["meas_cnt"]) if meas_cycles is None else int(meas_cycles)
+    meas = max(meas, 1)
+    ports = float(topo.io_weights.sum())
+    load = o["node_fwd"].astype(np.float64) / meas
+    active = load[load > 1e-9]
+    lat_cnt = max(int(o["lat_cnt"]), 1)
+    bw = np.asarray(topo.channel_bw, np.float64)
+    flits = o["chan_fwd"].astype(np.float64) / meas
+    # dead (bw = 0) channels never forward, so 0/0 → 0 by convention
+    link = flits / np.where(bw > 0, bw, 1.0)
+    hist = o["lat_hist"]
+    return SimResult(
+        algo=Algo(cfg.algo), injection_rate=float(rate),
+        throughput=int(o["eject_flits"].sum()) / meas / ports,
+        offered=float(o["offered"]) / meas / ports,
+        avg_latency=float(o["lat_sum"]) / lat_cnt,
+        max_latency=float(o["lat_max"]),
+        node_load=load,
+        lcv=float(active.std() / active.mean()) if active.size else 0.0,
+        reorder_value=int(o["reorder_max"]),
+        ejected_flits=int(o["eject_total"]),
+        injected_flits=int(o["injected"]),
+        in_flight_flits=int(o["fifo_size"].sum()),
+        seed=int(seed),
+        meas_cycles=meas,
+        saturated=bool(saturated),
+        p50_latency=hist_percentile(hist, cfg.lat_bin_width, 0.50),
+        p90_latency=hist_percentile(hist, cfg.lat_bin_width, 0.90),
+        p99_latency=hist_percentile(hist, cfg.lat_bin_width, 0.99),
+        link_load_max=float(link.max()) if link.size else 0.0,
+    )
+
+
+def lane(host: dict, i: int) -> dict:
+    """Lane ``i`` of a host state."""
+    return {k: v[i] for k, v in host.items()}
+
+
+def run_sweep(topo: Topology, traffic: np.ndarray, cfg: SimConfig,
+              rates: list[float], bidor_table: BiDORTable | None = None,
+              seeds: list[int] | None = None, *,
+              device=None) -> list[SimResult]:
+    """All (rate, seed) points as lanes of one batch, rate-major:
+    ``[(r, s) for r in rates for s in seeds]``."""
+    check_supported(cfg)
+    table = None
+    if cfg.algo == Algo.BIDOR:
+        if bidor_table is None:
+            raise ValueError("BIDOR needs a BiDORTable")
+        table = bidor_table
+    tables, meta = build_tables(topo, traffic, table, cfg.num_vcs, device)
+    points = [(r, s) for r in rates for s in (seeds or [cfg.seed])]
+    state = make_states(meta, cfg, points, device)
+    host = state_to_host(run_cycles(tables, meta, cfg, state, cfg.cycles))
+    return [postprocess(lane(host, i), cfg, topo, rate=r, seed=s)
+            for i, (r, s) in enumerate(points)]
+
+
+def run_sim(topo: Topology, traffic: np.ndarray, cfg: SimConfig,
+            bidor_table: BiDORTable | None = None, *,
+            device=None) -> SimResult:
+    """Run one simulation and post-process its statistics."""
+    return run_sweep(topo, traffic, cfg, [cfg.injection_rate], bidor_table,
+                     device=device)[0]

@@ -1,0 +1,115 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Needs no JAX, so it runs on the GPU machine:
+``PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py``.
+Every test skips where no CUDA device is visible (the kernels have no
+CPU mode); the CPU-side cases here check the wrappers' dispatch rules.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import convert, kernels
+from repro_torch.core import build_plans_batched, mesh2d, mesh2d_edge_io
+from repro_torch.core import traffic
+from repro_torch.kernels.possibility import possibility_v, possibility_v_plain
+from repro_torch.kernels.simstep import draw_chunk, make_step
+from repro_torch.noc import sim
+from repro_torch.noc.simconfig import Algo, SimConfig
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the port's kernels have no CPU "
+                    "mode")
+    return torch.device("cuda")
+
+
+def _poss_inputs(topo, integer, seed):
+    rng = np.random.default_rng(seed)
+    n = topo.num_nodes
+    t = (rng.integers(0, 7, (n, n)).astype(np.float64) if integer
+         else rng.random((n, n)))
+    dist = torch.as_tensor(topo.distances)
+    us = torch.as_tensor(topo.channels[:, 0])
+    ns = torch.as_tensor(topo.channels[:, 1])
+    return (dist[:, us].contiguous(), dist[ns, :].contiguous(),
+            torch.as_tensor(t), dist)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("integer", [True, False], ids=["intT", "realT"])
+@pytest.mark.parametrize("offset", [0, 1, 2])
+def test_possibility_kernel_vs_plain(cuda, offset, integer):
+    args = _poss_inputs(mesh2d(8, 8), integer, seed=offset)
+    want = possibility_v_plain(*args, offset=offset).numpy()
+    before = kernels.LAUNCHES["possibility_v"]
+    got = possibility_v(*[a.to(cuda) for a in args], offset=offset)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["possibility_v"] == before + 1
+    if integer:
+        assert np.array_equal(got.cpu().numpy(), want)
+    else:
+        np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-12)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo", [Algo.XY, Algo.BIDOR])
+@pytest.mark.parametrize("topo_fn", ["mesh4x4", "edge5x5"])
+def test_simstep_kernels_vs_plain(cuda, topo_fn, algo):
+    """From a plain mid-flight state, 40 cycles of the kernel pair at
+    the whole-network tile and at a proper divisor: every state key bit
+    for bit."""
+    topo = mesh2d(4, 4) if topo_fn == "mesh4x4" else mesh2d_edge_io(5, 5)
+    tm = traffic.uniform(topo)
+    table = (build_plans_batched(topo, [tm], device="cpu")[0].table
+             if algo == Algo.BIDOR else None)
+    cfg = SimConfig(algo=algo, cycles=4000, warmup=50)
+    tables, meta = sim.build_tables(topo, tm, table, 2, device="cpu")
+    mid = sim.make_states(meta, cfg, [(1.0, 0), (0.4, 1)], device="cpu")
+    sim.run_cycles(tables, meta, cfg, mid, 80)
+    host = convert.state_to_numpy(mid)
+    _, u, ud = draw_chunk(host["key"], 40, meta["N"], "cpu")
+    tcard = convert.tables_from_numpy(
+        {f: getattr(tables, f).numpy() for f in tables._fields}, cuda)
+    n = meta["N"]
+    for tile in (n, 4 if n % 4 == 0 else 5):
+        plain = convert.state_from_numpy(host, "cpu")
+        card = convert.state_from_numpy(host, cuda)
+        sp = make_step(meta, cfg.replace(sim_tile_nodes=tile), tables, plain)
+        sc = make_step(meta, cfg.replace(sim_tile_nodes=tile), tcard, card)
+        before = dict(kernels.LAUNCHES)
+        for c in range(40):
+            sp.step(u[c], ud[c], c)
+            sc.step(u[c].to(cuda), ud[c].to(cuda), c)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["simstep_tile"] == before["simstep_tile"] + 40
+        want, got = convert.state_to_numpy(plain), convert.state_to_numpy(card)
+        bad = [k for k in want if not np.array_equal(want[k], got[k])]
+        assert not bad, f"tile={tile}: {bad}"
+
+
+def test_cpu_tensors_take_the_plain_path():
+    """A CPU tensor never reaches a kernel: no launch is counted."""
+    before = dict(kernels.LAUNCHES)
+    args = _poss_inputs(mesh2d(4, 4), True, 0)
+    possibility_v(*args, offset=1)
+    topo = mesh2d(4, 4)
+    cfg = SimConfig(cycles=400, warmup=50)
+    tables, meta = sim.build_tables(topo, traffic.uniform(topo), None, 2,
+                                    device="cpu")
+    st = sim.make_states(meta, cfg, [(0.5, 0)], device="cpu")
+    sim.run_cycles(tables, meta, cfg, st, 5)
+    assert kernels.LAUNCHES == before
+
+
+def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    args = _poss_inputs(mesh2d(4, 4), True, 0)
+    with pytest.raises(TypeError):
+        possibility_v(*[a.to(cuda) for a in args[:2]],
+                      args[2].float().to(cuda), args[3].to(cuda))
+    with pytest.raises(ValueError):
+        possibility_v(args[0].to(cuda), args[1].to(cuda),
+                      args[2].to(cuda), args[3])
