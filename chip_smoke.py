@@ -13,18 +13,32 @@ before printing any result.
               (one nvcc each, in parallel) into ``build/repro_torch/``;
 3. kernels  — each kernel against its plain version on the card:
               ``possibility_v`` at N = 1024 (integer T bit for bit, real
-              T to rtol 1e-12); the ``simstep_tile``/``simstep_finish``
-              pair on the 5x5 edge-I/O, 16x16 and 32x32 meshes, XY and
-              BiDOR, at the whole-network tile and a proper divisor, 1
-              and 50 cycles from a plain mid-flight state, every state
-              key bit for bit;
+              T to rtol 1e-12); ``possibility_weights`` on torus(16,16)
+              (uniform and random T, offsets 1 and 2) and a 256-channel
+              slice of mesh2d(32,32), within one float32 ulp, and over
+              all of mesh2d(32,32) against ``possibility_v``'s
+              ``V.sum(1)`` and ``V[c, n_c]``; the
+              ``simstep_tile``/``simstep_finish`` pair on the 5x5
+              edge-I/O, 16x16 and 32x32 meshes, XY and BiDOR, at the
+              whole-network tile and a proper divisor, 1 and 50 cycles
+              from a plain mid-flight state, every state key bit for bit;
+Main path of slice 1 (launch counts from 0):
 4. golden   — ``run_campaign`` on the 4x4 golden parameters against
               ``tests/goldens/campaign_4x4.json``;
 5. paper    — the paper's 5x5 edge-I/O cells at fig8's full length;
 6. scale    — 32x32 uniform, XY and BiDOR, on the auto (multi-tile) path;
-7. summary  — launches of each kernel on the main path (phases 4–6),
-              event-timed µs per launch, the plain version's time and the
-              bound, as one JSON line; then the card line and the result.
+Main path of slice 2 (launch counts from 0 again):
+7. nrank    — ``build_plan(use_kernel=True)`` on the paper's Fig. 1
+              scenarios, channel and node modes, equal to
+              ``use_kernel=False``; on torus(16,16) and mesh2d(32,32)
+              against ``build_plan_fast``;
+8. fig1     — those plans through ``run_campaign(bidor_tables=...)`` at
+              ``benchmarks/fig1_load.py``'s full length;
+9. ctrl     — ``tests/goldens/ctrl_4x4.json`` through the control plane,
+              then ``benchmarks/dynamics.py`` at full size (BiDOR);
+10. summary — launches of each kernel on each main path, event-timed µs
+              per launch, the plain version's time and the bound, as one
+              JSON line; then the card line and the result.
 """
 
 from __future__ import annotations
@@ -159,6 +173,298 @@ def check_possibility(torch, np, cuda):
                 max_abs_err=out["real"], ms=ms, plain_ms=plain_ms,
                 bound_ms=bound[bound_by], bound_by=bound_by,
                 library_ms=None)
+
+
+def _ulps(np, got, want) -> int:
+    """Largest distance in float32 ulps between two float32 arrays."""
+    g, w = (np.asarray(a, np.float32) for a in (got, want))
+    return int(np.max(np.abs(g.view(np.int32).astype(np.int64)
+                             - w.view(np.int32).astype(np.int64)),
+                      initial=0))
+
+
+def check_possibility_weights(torch, np, cuda):
+    """possibility_weights against its plain twin (on the Fig. 1 5x5
+    plans, whose 25 nodes fill no tile, and on torus(16,16)) and against
+    possibility_v; event-timed at torus(16,16) and mesh2d(32,32), where
+    the nrank phase runs it.  Returns (kernel row, {label: ms})."""
+    from repro_torch import core
+    from repro_torch.core import mesh2d, torus
+    from repro_torch.kernels.possibility import (
+        possibility_v, possibility_weights_op, possibility_weights_plain,
+        prepare_weights)
+
+    rng = np.random.default_rng(1)
+    worst_err, worst_ulp = 0.0, 0
+    cases = [(f"{name} (5x5)", getattr(core, topo_fn)(5, 5), pattern)
+             for name, topo_fn, pattern in FIG1]
+    t16 = torus(16, 16)
+    cases += [("torus16x16 uniform", t16, "uniform"),
+              ("torus16x16 random", t16, "random")]
+    for label, topo, kind in cases:
+        n = topo.num_nodes
+        t = (rng.random((n, n)) if kind == "random"
+             else core.traffic.PATTERNS[kind](topo))
+        for offset in (1, 2):
+            args = prepare_weights(topo.distances, t, topo.channels, cuda)
+            got = possibility_weights_op(*args, offset=offset)
+            want = possibility_weights_plain(*args, offset=offset)
+            torch.cuda.synchronize()
+            ulp = max(_ulps(np, g.cpu().numpy(), w.cpu().numpy())
+                      for g, w in zip(got, want))
+            err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+            worst_err, worst_ulp = max(worst_err, err), max(worst_ulp, ulp)
+            log(f"kernels: possibility_weights {label} T "
+                f"offset={offset}: max_abs_err={err!r} ulps={ulp} "
+                f"{'ok' if ulp <= 1 else 'MISMATCH'}")
+            if ulp > 1:
+                raise SystemExit(f"possibility_weights disagrees with plain "
+                                 f"on {label}, offset {offset}")
+    m32 = mesh2d(32, 32)
+    n, c = m32.num_nodes, m32.num_channels
+    t = rng.random((n, n))
+    args = prepare_weights(m32.distances, t, m32.channels, cuda)
+    got = possibility_weights_op(*args)
+    # a 256-channel slice of the plain pass (columns of du/dsn/tn, rows
+    # of dn): the kernel's channels are independent of each other
+    lo, hi = 1024, 1280
+    du, dn, dsn, tn, t32, dist = args
+    want = possibility_weights_plain(
+        du[:, lo:hi].contiguous(), dn[lo:hi].contiguous(),
+        dsn[:, lo:hi].contiguous(), tn[:, lo:hi].contiguous(), t32, dist)
+    torch.cuda.synchronize()
+    ulp = max(_ulps(np, g[lo:hi].cpu().numpy(), w.cpu().numpy())
+              for g, w in zip(got, want))
+    err = max(float((g[lo:hi] - w).abs().max()) for g, w in zip(got, want))
+    worst_err, worst_ulp = max(worst_err, err), max(worst_ulp, ulp)
+    log(f"kernels: possibility_weights mesh32x32 channels {lo}:{hi} vs "
+        f"plain: max_abs_err={err!r} ulps={ulp} "
+        f"{'ok' if ulp <= 1 else 'MISMATCH'}")
+    if ulp > 1:
+        raise SystemExit("possibility_weights disagrees with plain (32x32)")
+    # the other kernel: W = V.sum(1), W_drn = V[c, n_c] (dn[c, n_c] = 0)
+    v = possibility_v(du, dn, t32.double(), dist, offset=1)
+    ns = torch.as_tensor(m32.channels[:, 1], device=cuda)
+    via_v = (v.sum(1).float(), v[torch.arange(c, device=cuda), ns].float())
+    torch.cuda.synchronize()
+    ulp_v = max(_ulps(np, g.cpu().numpy(), w.cpu().numpy())
+                for g, w in zip(got, via_v))
+    log(f"kernels: possibility_weights mesh32x32 vs possibility_v "
+        f"V.sum(1), V[c,n_c]: ulps={ulp_v} "
+        f"{'ok' if ulp_v <= 1 else 'MISMATCH'}")
+    if ulp_v > 1:
+        raise SystemExit("possibility_weights disagrees with possibility_v")
+
+    kernel_ms = {}
+    for label, topo in (("torus16x16", t16), ("mesh32x32", m32)):
+        a = prepare_weights(topo.distances, rng.random((topo.num_nodes,) * 2),
+                            topo.channels, cuda)
+        kernel_ms[label] = time_launches(
+            torch, [lambda r: possibility_weights_op(*a)], 20)[0]
+    plain_ms = time_wall(torch, lambda: possibility_weights_plain(*args), 1)
+    ops = 2 * c * n * n
+    nbytes = 4 * (4 * n * c + 2 * n * n + 2 * c)
+    bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": ops / INT32_OPS_PER_S * 1e3}
+    bound_by = max(bound, key=bound.get)
+    log(f"kernels: possibility_weights mesh32x32 (N={n}, C={c}) "
+        f"{kernel_ms['mesh32x32'] * 1e3:.2f}us per launch, torus16x16 "
+        f"{kernel_ms['torus16x16'] * 1e3:.2f}us; bound {ops} int32 ops, "
+        f"{nbytes} bytes -> {bound[bound_by] * 1e3:.2f}us ({bound_by}); "
+        f"plain {plain_ms:.3f}ms")
+    row = dict(name="possibility_weights", route="cuda",
+               source="src/repro_torch/kernels/csrc/possibility_weights.cu",
+               replaces="src/repro/kernels/possibility/kernel.py:61",
+               max_abs_err=worst_err, ms=kernel_ms["mesh32x32"],
+               plain_ms=plain_ms, bound_ms=bound[bound_by],
+               bound_by=bound_by, library_ms=None)
+    return row, kernel_ms
+
+
+FIG1 = (("mesh_uniform", "mesh2d", "uniform"),
+        ("edgeio_uniform", "mesh2d_edge_io", "uniform"),
+        ("edgeio_overturn", "mesh2d_edge_io", "overturn"))
+
+
+def run_nrank(torch, np, cuda, kernel_ms):
+    """build_plan's kernel path against its host path (Fig. 1) and
+    against the device planner (torus16x16, mesh32x32).  Returns the
+    channel-mode Fig. 1 plans for the fig1 phase."""
+    from repro_torch import core
+
+    plans = {}
+    for name, topo_fn, pattern in FIG1:
+        topo = getattr(core, topo_fn)(5, 5)
+        t = core.traffic.PATTERNS[pattern](topo)
+        for mode in ("channel", "node"):
+            t0 = time.perf_counter()
+            kern = core.build_plan(topo, t, mode=mode, use_kernel=True,
+                                   device=cuda)
+            kern_ms = (time.perf_counter() - t0) * 1e3
+            host = core.build_plan(topo, t, mode=mode, device=cuda)
+            diff = np.argwhere(kern.table.choice != host.table.choice)
+            log(f"nrank: {name} {mode}: iterations kernel="
+                f"{kern.nrank.iterations} host={host.nrank.iterations}, "
+                f"choice entries differing={len(diff)} "
+                f"{diff[:8].tolist()} plan_ms={kern_ms:.1f} "
+                f"{'ok' if not len(diff) else 'MISMATCH'}")
+            if len(diff):
+                raise SystemExit(f"build_plan kernel path differs from the "
+                                 f"host path on {name}/{mode}")
+            if mode == "channel":
+                plans[name] = (topo, t, kern)
+    for label, topo in (("torus16x16", core.torus(16, 16)),
+                        ("mesh32x32", core.mesh2d(32, 32))):
+        t = core.traffic.uniform(topo)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan = core.build_plan(topo, t, use_kernel=True, device=cuda)
+        plan_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        core.bidor(topo, plan.w_nr)             # the host BiDOR stage alone
+        bidor_ms = (time.perf_counter() - t0) * 1e3
+        fast = core.build_plan_fast(topo, t, device=cuda)
+        ndiff = int((plan.table.choice != fast.table.choice).sum())
+        rel = float(np.max(np.abs(plan.w_nr - fast.w_nr)
+                           / np.maximum(np.abs(fast.w_nr), 1e-300)))
+        log(f"nrank: {label} uniform: build_plan(use_kernel=True) vs "
+            f"build_plan_fast: choice entries differing={ndiff} of "
+            f"{topo.num_nodes ** 2}, max rel diff w_nr={rel!r}, "
+            f"iterations {plan.nrank.iterations}/{fast.nrank.iterations}, "
+            f"plan_ms={plan_ms:.1f} (N-Rank {plan_ms - bidor_ms:.1f}, "
+            f"BiDOR {bidor_ms:.1f}), possibility_weights kernel "
+            f"{kernel_ms[label] * 1e3:.2f}us")
+        if not np.all(np.isfinite(plan.w_nr)):
+            raise SystemExit(f"non-finite w_nr on {label}")
+    return plans
+
+
+def run_fig1(torch, np, cuda, plans):
+    """benchmarks/fig1_load.py at full length, on the kernel-path plans."""
+    from repro_torch.noc import Algo, CampaignSpec, SimConfig, run_campaign
+
+    cycles = 16000
+    for name, (topo, t, plan) in plans.items():
+        pattern = name.split("_")[1]
+        spec = CampaignSpec(
+            topo=topo, algos=(Algo.XY, Algo.BIDOR),
+            patterns=((pattern, t),), rates=(0.35,),
+            base=SimConfig(cycles=cycles, warmup=cycles // 3))
+        res = run_campaign(spec, bidor_tables={pattern: plan.table.choice},
+                           device=cuda)
+        _check_results(res, np)
+        r_xy = res.select(algo=Algo.XY)[0].result
+        r_bd = res.select(algo=Algo.BIDOR)[0].result
+        mask = r_xy.node_load > 1e-9
+        corr = float(np.corrcoef(plan.w_nr[mask], r_xy.node_load[mask])[0, 1])
+
+        def lcv(load):
+            a = load[load > 1e-12]
+            return float(a.std() / a.mean()) if a.size else 0.0
+
+        conserved = all(p.result.injected_flits == p.result.ejected_flits
+                        + p.result.in_flight_flits for p in res.points)
+        log(f"fig1: {name}: corr(w_NR, XY load)={corr:.3f} LCV XY="
+            f"{lcv(r_xy.node_load):.3f} BiDOR={lcv(r_bd.node_load):.3f} "
+            f"thr XY={r_xy.throughput:.4f} BiDOR={r_bd.throughput:.4f} "
+            f"conserved={conserved} wall={res.total_wall_clock_s:.2f}s")
+        if not np.isfinite(corr):
+            raise SystemExit(f"fig1 {name}: correlation is not finite")
+
+
+def run_ctrl(torch, np, cuda):
+    """ctrl_4x4.json on the card, then benchmarks/dynamics.py at full
+    size (edge-I/O 5x5, BiDOR; each scenario one run_controlled call over
+    seeds 0-2, as a campaign scenario cell makes it)."""
+    from repro_torch.core import build_plan_fast, mesh2d, mesh2d_edge_io
+    from repro_torch.core import traffic
+    from repro_torch.noc import (Algo, CampaignSpec, LinkFail, ReplanConfig,
+                                 Scenario, SimConfig, TrafficDrift,
+                                 run_campaign, run_controlled)
+
+    with open(os.path.join(HERE, "tests", "goldens", "ctrl_4x4.json")) as f:
+        golden = json.load(f)["points"]
+    fail = (LinkFail(cycle=1200, links=((5, 6), (6, 5)), bw_scale=0.25),)
+    rc = ReplanConfig(epoch=400)
+    spec = CampaignSpec(
+        topo=mesh2d(4, 4), algos=(Algo.BIDOR,), patterns=("uniform",),
+        rates=(0.35,), seeds=(0, 1), base=SimConfig(cycles=2400, warmup=400),
+        scenarios=tuple(Scenario(f"linkfail_{p}", events=fail, policy=p,
+                                 replan=rc) for p in ("stale", "online")))
+    res = run_campaign(spec, device=cuda)
+    bad = []
+    for p in res.points:
+        r = p.result
+        want = golden[f"{p.scenario}/{p.algo.name}/r{p.rate}/s{p.seed}"]
+        ints = dict(injected=r.injected_flits, ejected=r.ejected_flits,
+                    in_flight=r.in_flight_flits, reorder=r.reorder_value,
+                    meas_cycles=r.meas_cycles)
+        floats = dict(throughput=r.throughput, avg_latency=r.avg_latency,
+                      p50_latency=r.p50_latency, p99_latency=r.p99_latency,
+                      link_load_max=r.link_load_max, lcv=r.lcv)
+        bad += [f"{p.scenario}/s{p.seed} {k}: {v} != {want[k]}"
+                for k, v in ints.items() if v != want[k]]
+        bad += [f"{p.scenario}/s{p.seed} {k}: {v} != {want[k]}"
+                for k, v in floats.items()
+                if not np.isclose(round(v, 6), want[k], rtol=1e-5,
+                                  atol=1e-6)]
+    log(f"ctrl: {len(res.points)} points vs ctrl_4x4.json: "
+        f"{'ok' if not bad else 'MISMATCH'} ({res.total_wall_clock_s:.2f}s)")
+    if len(res.points) != len(golden) or bad:
+        raise SystemExit("ctrl golden mismatch:\n  " + "\n  ".join(bad))
+    for seed in (0, 1):
+        st, on = (res.select(scenario=f"linkfail_{p}", seed=seed)[0].result
+                  for p in ("stale", "online"))
+        if not on.link_load_max < st.link_load_max:
+            raise SystemExit(f"ctrl golden: online does not beat stale "
+                             f"(seed {seed})")
+
+    # benchmarks/dynamics.py, full size (BENCH_QUICK=0)
+    topo = mesh2d_edge_io(5, 5)
+    t = traffic.uniform(topo)
+    cycles = 12000
+    epoch = cycles // 8
+    w = topo.dims[0]
+    mid = topo.node_id((w // 2 - 1, topo.dims[1] // 2))
+    links = ((int(mid), int(mid + 1)), (int(mid + 1), int(mid)))
+    events = {
+        "linkfail": (LinkFail(cycle=cycles // 2, links=links,
+                              bw_scale=0.25),),
+        "drift": (TrafficDrift(cycle=cycles // 2,
+                               traffic=traffic.transpose(topo)),)}
+    rc = ReplanConfig(epoch=epoch, drift_threshold=0.15)
+    cfg = SimConfig(algo=Algo.BIDOR, cycles=cycles, warmup=cycles // 8)
+    plan = build_plan_fast(topo, t, device=cuda)
+    peaks = {}
+    for scen_name, evs in events.items():
+        for policy in ("oracle", "stale", "online"):
+            scen = Scenario(f"{scen_name}_{policy}", events=evs,
+                            policy=policy, replan=rc)
+            t0 = time.perf_counter()
+            out = run_controlled(topo, t, cfg, scen, rates=[0.35],
+                                 seeds=[0, 1, 2], bidor_table=plan.table,
+                                 nrank0=plan.nrank, device=cuda)
+            wall = time.perf_counter() - t0
+            rs = [out.result_with_peak(i) for i in range(len(out.points))]
+            for r in rs:
+                if r.injected_flits != r.ejected_flits + r.in_flight_flits:
+                    raise SystemExit(f"dynamics {scen.name}: flits not "
+                                     f"conserved: {r}")
+            peak = float(np.mean([r.link_load_max for r in rs]))
+            peaks[scen.name] = peak
+            log(f"ctrl: dynamics {scen.name:16s} peak_maxlinkload="
+                f"{peak:.4f} thr={np.mean([r.throughput for r in rs]):.4f} "
+                f"lat={np.mean([r.avg_latency for r in rs]):.1f} "
+                f"replans={len(out.replans)} replan_ms="
+                f"{json.dumps([round(x, 1) for x in out.replan_ms])} "
+                f"wall={wall:.2f}s")
+    st, on = peaks["linkfail_stale"], peaks["linkfail_online"]
+    log(f"ctrl: dynamics SUMMARY linkfail: peak max link load "
+        f"stale={st:.4f} -> online={on:.4f} ({(1 - on / st) * 100:+.1f}%), "
+        f"oracle={peaks['linkfail_oracle']:.4f}")
+    if not on < st:
+        raise SystemExit("dynamics: online replanning does not beat the "
+                         "stale plan under the link failure")
 
 
 def _cell(torch, cuda, topo, algo, lanes):
@@ -471,22 +777,39 @@ def main() -> int:
                 log(f"build: {name}: {line.strip()}")
 
     poss = check_possibility(torch, np, cuda)
+    weights, weights_ms = check_possibility_weights(torch, np, cuda)
     simstep_err = check_simstep(torch, np, cuda)
 
-    kernels.reset_launches()                 # the main path: phases 4–6
-    check_golden(torch, np, cuda)
-    run_paper(torch, np, cuda)
-    run_scale(torch, np, cuda)
-    launches = dict(kernels.LAUNCHES)
-    log(f"main path launches: {json.dumps(launches)}")
-    missing = [k for k, v in launches.items() if v <= 0]
-    if missing:
-        raise SystemExit(f"kernels never launched on the main path: "
-                         f"{missing}")
+    # each main path runs with the counts from 0 and must launch every
+    # kernel it goes through
+    paths = {
+        "slice 1 (plan, flit step, campaign)": (
+            ("possibility_v", "simstep_tile", "simstep_finish"),
+            lambda: (check_golden(torch, np, cuda),
+                     run_paper(torch, np, cuda),
+                     run_scale(torch, np, cuda))),
+        "slice 2 (N-Rank oracle, fig1, control plane)": (
+            ("possibility_weights", "possibility_v", "simstep_tile",
+             "simstep_finish"),
+            lambda: (run_fig1(torch, np, cuda,
+                              run_nrank(torch, np, cuda, weights_ms)),
+                     run_ctrl(torch, np, cuda)))}
+    launches = {k: 0 for k in kernels.LAUNCHES}
+    for label, (needed, drive) in paths.items():
+        kernels.reset_launches()
+        drive()
+        counts = dict(kernels.LAUNCHES)
+        log(f"main path {label} launches: {json.dumps(counts)}")
+        missing = [k for k in needed if counts[k] <= 0]
+        if missing:
+            raise SystemExit(f"kernels never launched on the main path "
+                             f"{label}: {missing}")
+        for k, v in counts.items():
+            launches[k] += v
 
     timed = time_simstep(torch, np, cuda, mesh2d(32, 32), "32x32")
     time_simstep(torch, np, cuda, mesh2d_edge_io(5, 5), "5x5")
-    rows = [poss] + timed
+    rows = [poss, weights] + timed
     for row in rows:
         row["launches"] = launches[row["name"]]
         row.setdefault("max_abs_err", float(simstep_err))

@@ -10,19 +10,28 @@ reference — and give the port's tensors, or back:
   pattern in the port;
 * ``key`` is a (L, 2) uint32 numpy array on both sides (the port
   advances the key chain on the host).
+
+The control plane's records come across too: :func:`nrank_result` (a
+warm start for ``replan(prev=...)``) and :func:`scenario` (events,
+policy and re-planner knobs).  Both read the reference objects by their
+field names only.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from .core.bidor import BiDORTable
+from .core.nrank import NRankResult
 from .device import resolve_device
+from .noc import ctrl
 from .noc.sim import Tables, state_to_host
 
 __all__ = ["tables_from_numpy", "state_from_numpy", "state_to_numpy",
-           "plan_from_numpy"]
+           "plan_from_numpy", "nrank_result", "scenario"]
 
 
 def tables_from_numpy(tables, device=None) -> Tables:
@@ -71,3 +80,40 @@ def plan_from_numpy(choice, port_tables, orders=((0, 1), (1, 0)),
                       port_tables=port_tables,
                       unroutable=(None if unroutable is None
                                   else np.asarray(unroutable, bool)))
+
+
+def nrank_result(ref) -> NRankResult:
+    """The port's :class:`NRankResult` from a reference one, every array
+    copied with its dtype (the node-level evolution's float32 fields
+    stay float32)."""
+    fields = [f.name for f in dataclasses.fields(NRankResult)]
+    return NRankResult(**{
+        f: (int(getattr(ref, f)) if f == "iterations"
+            else np.array(getattr(ref, f))) for f in fields})
+
+
+_EVENTS = {"LinkFail": ctrl.LinkFail, "LinkRecover": ctrl.LinkRecover,
+           "TrafficDrift": ctrl.TrafficDrift}
+
+
+def _event(ev):
+    cls = _EVENTS.get(type(ev).__name__)
+    if cls is None:
+        raise TypeError(f"unknown event {ev!r}")
+    kw = {f.name: getattr(ev, f.name) for f in dataclasses.fields(cls)}
+    if "traffic" in kw:
+        kw["traffic"] = np.array(kw["traffic"], np.float64)
+    return cls(**kw)
+
+
+def scenario(ref) -> ctrl.Scenario:
+    """The port's :class:`~repro_torch.noc.ctrl.Scenario` from a
+    reference one: its events, policy and :class:`ReplanConfig`."""
+    rc = None
+    if ref.replan is not None:
+        rc = ctrl.ReplanConfig(**{
+            f.name: getattr(ref.replan, f.name)
+            for f in dataclasses.fields(ctrl.ReplanConfig)})
+    return ctrl.Scenario(name=ref.name,
+                         events=tuple(_event(e) for e in ref.events),
+                         policy=ref.policy, replan=rc)

@@ -42,7 +42,7 @@ from .routes import dimension_orders, next_hop_table, next_port_table
 from .topology import Topology
 
 __all__ = ["build_plan_fast", "build_plans_batched", "plan_statics",
-           "gate_plan"]
+           "gate_plan", "joint_possibility_fast"]
 
 F64 = torch.float64
 _TINY = 1e-300
@@ -413,3 +413,22 @@ def build_plan_fast(topo: Topology, traffic: np.ndarray, *,
                                k_orders=k_orders, w_th=w_th,
                                iter_th=iter_th, down_channels=down_channels,
                                device=device)[0]
+
+
+def joint_possibility_fast(topo: Topology, traffic: np.ndarray, *,
+                           device=None) -> np.ndarray:
+    """Device path for :func:`repro_torch.core.nrank.joint_possibility`:
+    the dense (C, C) consecutive-channel joint weights (fp64, on the
+    host) from the factored V — one ``possibility_v`` launch, then the
+    O(P·N) contraction — instead of the host loop's O(P·N²)."""
+    dev = resolve_device(device)
+    st = plan_statics(topo)
+    dist = torch.as_tensor(np.asarray(topo.distances, np.int32), device=dev)
+    t = torch.as_tensor(np.asarray(traffic, np.float64), device=dev)[None]
+    us, ns, c1, c2 = (torch.as_tensor(a, device=dev)
+                      for a in (st.us, st.ns, st.pair_c1, st.pair_c2))
+    v = _factored_v(dist, t, us, ns, _StageClock(None, dev))
+    flat = _joint_vals(dist, v, ns, c1, c2)[0].cpu().numpy()
+    j = np.zeros((st.c, st.c), np.float64)
+    j[st.pair_c1, st.pair_c2] = flat
+    return j

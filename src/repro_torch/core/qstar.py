@@ -1,14 +1,15 @@
-"""Q-StaR plan record and route-table analysis helpers (numpy).
+"""Q-StaR facade: N-Rank + BiDOR (paper Fig. 3 workflow).
 
-:class:`QStarPlan` is what the planner (:mod:`repro_torch.core.plan_fast`)
-returns: the NR-weights, the BiDOR routing artifact and its deadlock
-certificate.  ``predicted_node_load`` / ``link_load`` evaluate a routing
-choice against a traffic matrix without running the simulator
-(:func:`repro_torch.core.bidor.greedy_refine` uses ``link_load``).
+``build_plan`` is the complete offline pipeline, stage by stage:
 
-The host ``build_plan`` oracle (stage-by-stage N-Rank) is not ported
-yet (ROADMAP queue 1, item 3); the device planner replaces it on the
-main path.
+    (topology, traffic distribution) ──N-Rank──▶ w_NR ──BiDOR──▶ bitmaps
+
+The returned :class:`QStarPlan` holds the NR-weights, the BiDOR routing
+artifact and, on the gated paths of :mod:`repro_torch.core.plan_fast`,
+its deadlock certificate.  ``predicted_node_load`` / ``link_load``
+evaluate a routing choice against a traffic matrix without running the
+simulator (:func:`repro_torch.core.bidor.greedy_refine` uses
+``link_load``).
 """
 
 from __future__ import annotations
@@ -17,12 +18,12 @@ import dataclasses
 
 import numpy as np
 
-from .bidor import BiDORTable
-from .nrank import NRankResult
+from .bidor import BiDORTable, bidor, bidor_k
+from .nrank import NRankResult, nrank, nrank_channel
 from .routes import walk_routes
 from .topology import Topology
 
-__all__ = ["QStarPlan", "predicted_node_load", "link_load",
+__all__ = ["QStarPlan", "build_plan", "predicted_node_load", "link_load",
            "link_load_stats"]
 
 
@@ -43,6 +44,50 @@ class QStarPlan:
     @property
     def choice(self) -> np.ndarray:
         return self.table.choice
+
+
+def build_plan(topo: Topology, traffic: np.ndarray, *,
+               k_orders: bool = False,
+               mode: str = "channel",
+               w_th: float = 0.01, iter_th: int = 100,
+               use_kernel: bool = False,
+               w0: np.ndarray | None = None,
+               down_channels: np.ndarray | None = None,
+               device=None) -> QStarPlan:
+    """Offline Q-StaR pipeline (not certified: the gated planners are
+    :func:`repro_torch.core.plan_fast.build_plan_fast` and
+    ``build_plans_batched``).
+
+    Args:
+      k_orders: False → paper-faithful binary BiDOR (XY/YX); True → the
+        BiDOR-k generalization over all dimension orders.
+      mode: "channel" (default) — channel-level evolution; "node" — the
+        literal node-level eq. (2)–(3) evolution, in float32.
+      use_kernel: compute the possibility stages on the device kernels
+        (``possibility_weights``; in channel mode also the joint through
+        ``possibility_v``) instead of the host numpy loops.
+      w0: warm-start carry for the N-Rank evolution (node-level initial
+        weights).
+      down_channels: hard-failed channel mask/ids over ``topo.channels``;
+        dimension orders whose route crosses one leave the BiDOR
+        minimization (see :func:`repro_torch.core.bidor.bidor_k`).
+      device: where the evolution (and, with ``use_kernel``, the
+        kernels) run; default the card.
+    """
+    if mode == "channel":
+        nr = nrank_channel(topo, traffic, w_th=w_th, iter_th=iter_th, w0=w0,
+                           use_kernel=use_kernel, device=device)
+    elif mode == "node":
+        nr = nrank(topo, traffic, w_th=w_th, iter_th=iter_th,
+                   use_kernel=use_kernel, w0=w0, device=device)
+    else:
+        raise ValueError(f"unknown mode {mode!r}")
+    if k_orders:
+        table = bidor_k(topo, nr.w_nr, down_channels=down_channels)
+    else:
+        table = bidor(topo, nr.w_nr, down_channels=down_channels)
+    return QStarPlan(topology=topo, traffic=np.asarray(traffic), nrank=nr,
+                     table=table)
 
 
 def _route_seqs(topo: Topology,

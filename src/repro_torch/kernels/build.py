@@ -24,7 +24,9 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"possibility_v": "possibility_v.cu", "simstep": "simstep.cu"}
+SOURCES = {"possibility_v": "possibility_v.cu",
+           "possibility_weights": "possibility_weights.cu",
+           "simstep": "simstep.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

@@ -1,20 +1,23 @@
-"""Batched simulation-campaign engine (static cells).
+"""Batched simulation-campaign engine.
 
 A :class:`CampaignSpec` names a grid of (traffic pattern × algorithm ×
-rate × seed) on one topology.  Every (rate, seed) point of a cell — one
-(algorithm, pattern) pair — is one lane of a single lane-batched state,
-advanced in ``chunk``-cycle slices with the reference's warmup →
-measure → drain phasing and its saturation early exit: after each
-post-warmup slice the host reads source-queue occupancy, and once every
-lane is saturated the remaining cycles are skipped (per-lane
-``meas_cnt`` keeps the statistics normalised).
+scenario × rate × seed) on one topology.  Every (rate, seed) point of a
+cell — one (pattern, algorithm, scenario) — is one lane of a single
+lane-batched state.  A static cell advances in ``chunk``-cycle slices
+with the reference's warmup → measure → drain phasing and its saturation
+early exit: after each post-warmup slice the host reads source-queue
+occupancy, and once every lane is saturated the remaining cycles are
+skipped (per-lane ``meas_cnt`` keeps the statistics normalised).  A
+scenario cell runs the control plane's event-driven loop
+(:func:`repro_torch.noc.ctrl.run_controlled`), and its
+``link_load_max`` is the time-resolved peak.
 
 BiDOR plans come from one batched planner call
 (:func:`repro_torch.core.plan_fast.build_plans_batched`), each gated by
-the deadlock certifier.  Not ported yet: ``scenarios`` (the control
-plane, ROADMAP queue 1, item 6), ``topos`` (item 7), ``workloads`` (ML
-traffic, item 10), the plan cache and explicit ``bidor_tables`` (item
-9); each raises ``NotImplementedError`` or is absent.
+the deadlock certifier, unless ``run_campaign(bidor_tables=...)``
+supplies a pattern's choice table.  Not ported yet: ``topos`` (ROADMAP
+queue 1, item 7), ``workloads`` (ML traffic, item 10) and the plan
+cache (item 9); each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -26,9 +29,12 @@ from typing import Sequence
 import numpy as np
 
 from ..core import traffic as traffic_mod
+from ..core.bidor import dor_table
 from ..core.plan_fast import build_plans_batched
 from ..core.topology import Topology
 from ..device import resolve_device
+from ..obs.log import EventLog
+from .ctrl import run_controlled
 from .sim import (build_tables, lane, make_states, postprocess,
                   queue_occupancy, run_cycles, source_queue_meta,
                   state_to_host)
@@ -56,7 +62,11 @@ class CampaignSpec:
         exit; 0 runs each cell as one chunk of ``base.cycles``.
       sat_occupancy: source-queue occupancy fraction above which a lane
         is declared saturated.
-      scenarios, workloads, topos: not ported yet; must stay empty.
+      scenarios: optional fault/drift dynamics axis —
+        :class:`repro_torch.noc.ctrl.Scenario` entries; each (pattern,
+        algo, scenario) cell runs through the control plane.  Empty ()
+        keeps the static grid.
+      workloads, topos: not ported yet; must stay empty.
     """
 
     topo: Topology
@@ -79,7 +89,7 @@ class CampaignSpec:
     @property
     def num_points(self) -> int:
         return (len(self.algos) * len(self.patterns) * len(self.rates)
-                * len(self.seeds))
+                * len(self.seeds) * max(len(self.scenarios), 1))
 
     def pattern_items(self) -> list[tuple[str, np.ndarray]]:
         """The pattern axis as (name, traffic matrix) pairs."""
@@ -99,11 +109,7 @@ class CampaignSpec:
 
 
 def check_spec(spec: CampaignSpec) -> None:
-    """Raise for the parts of a spec this slice does not port."""
-    if spec.scenarios:
-        raise NotImplementedError(
-            "campaign scenarios (the control plane) are not ported yet "
-            "(ROADMAP queue 1, item 6)")
+    """Raise for the parts of a spec the port does not run yet."""
     if spec.workloads:
         raise NotImplementedError(
             "ML workloads are not ported yet (ROADMAP queue 1, item 10)")
@@ -132,10 +138,11 @@ class CampaignPoint:
 class CampaignResult:
     """Structured campaign output.
 
-    ``points`` is ordered (pattern, algo, rate, seed) nested-loop major.
-    ``wall_clock_s`` maps each cell's ``(algo name, pattern)`` to the
-    wall-clock of its batched run (plan building excluded; it is
-    ``plan_wall_clock_s``, split by stage in ``plan_stage_ms`` as
+    ``points`` is ordered (pattern, algo, scenario, rate, seed)
+    nested-loop major.  ``wall_clock_s`` maps each cell's ``(algo name,
+    pattern)`` — ``(algo name, pattern, scenario)`` with a scenario axis
+    — to the wall-clock of its batched run (plan building excluded; it
+    is ``plan_wall_clock_s``, split by stage in ``plan_stage_ms`` as
     :func:`repro_torch.core.plan_fast.build_plans_batched` reports it).
     """
 
@@ -147,31 +154,54 @@ class CampaignResult:
     plan_stage_ms: dict[str, float] = dataclasses.field(default_factory=dict)
 
     def select(self, algo: Algo | None = None, pattern: str | None = None,
-               rate: float | None = None,
-               seed: int | None = None) -> list[CampaignPoint]:
+               rate: float | None = None, seed: int | None = None,
+               scenario: str | None = None) -> list[CampaignPoint]:
         return [p for p in self.points
                 if (algo is None or p.algo == algo)
                 and (pattern is None or p.pattern == pattern)
                 and (rate is None or p.rate == rate)
-                and (seed is None or p.seed == seed)]
+                and (seed is None or p.seed == seed)
+                and (scenario is None or p.scenario == scenario)]
 
-    def grid(self, field: str, algo: Algo, pattern: str) -> np.ndarray:
-        """(num_rates, num_seeds) array of a SimResult field for ONE cell."""
+    @property
+    def scenario_names(self) -> tuple[str, ...]:
+        return tuple(s.name for s in self.spec.scenarios) or ("static",)
+
+    def _resolve_scenario(self, value: str | None) -> str:
+        """Default the scenario axis only when it has one value: pooling
+        points across scenarios would overlay them into one grid."""
+        options = self.scenario_names
+        if value is not None:
+            if value not in options:
+                raise KeyError(f"unknown scenario {value!r}; campaign has "
+                               f"{list(options)}")
+            return value
+        if len(options) == 1:
+            return options[0]
+        raise ValueError(
+            f"ambiguous scenario axis: this campaign has {list(options)}; "
+            f"pass scenario=... to the accessor")
+
+    def grid(self, field: str, algo: Algo, pattern: str,
+             scenario: str | None = None) -> np.ndarray:
+        """(num_rates, num_seeds) array of a SimResult field for ONE cell
+        (``scenario`` is required when the campaign has several)."""
+        scenario = self._resolve_scenario(scenario)
         rates, seeds = list(self.spec.rates), list(self.spec.seeds)
         g = np.zeros((len(rates), len(seeds)))
         filled = np.zeros((len(rates), len(seeds)), bool)
-        for p in self.select(algo=algo, pattern=pattern):
+        for p in self.select(algo=algo, pattern=pattern, scenario=scenario):
             ij = rates.index(p.rate), seeds.index(p.seed)
             if filled[ij]:
                 raise ValueError(
                     f"duplicate point for (rate={p.rate}, seed={p.seed}) "
-                    f"in cell ({algo.name}, {pattern!r}); use explicit "
-                    f"(name, matrix) labels")
+                    f"in cell ({algo.name}, {pattern!r}, {scenario!r}); "
+                    f"use explicit (name, matrix) labels")
             filled[ij] = True
             g[ij] = getattr(p.result, field)
         if not filled.all():
             raise ValueError(
-                f"cell ({algo.name}, {pattern!r}) is missing "
+                f"cell ({algo.name}, {pattern!r}, {scenario!r}) is missing "
                 f"{int((~filled).sum())} of the {filled.size} points")
         return g
 
@@ -186,9 +216,11 @@ class CampaignResult:
     def summary(self) -> str:
         lines = [f"campaign: {self.spec.num_points} points in "
                  f"{self.total_wall_clock_s:.1f}s wall-clock"]
-        for (algo, pattern), dt in self.wall_clock_s.items():
-            lines.append(f"  cell algo={algo:8s} pattern={pattern:14s} "
-                         f"{dt:6.2f}s")
+        labels = ("algo", "pattern", "scenario")
+        for key, dt in self.wall_clock_s.items():
+            cell = " ".join(f"{f'{lab}={part}':22s}"
+                            for lab, part in zip(labels, key))
+            lines.append(f"  cell {cell} {dt:6.2f}s")
         return "\n".join(lines)
 
 
@@ -238,12 +270,21 @@ def _run_cell(spec: CampaignSpec, cfg: SimConfig, tables, meta,
 @dataclasses.dataclass(frozen=True)
 class CellKey:
     """Coordinates of one campaign cell in the spec's enumeration order
-    (pattern item → algo)."""
+    (pattern item → algo → scenario); ``scen_i`` is -1 for the static
+    (no-scenario) cell."""
 
     index: int
     item_i: int
     pattern: str
     algo: Algo
+    scen_i: int = -1
+    scenario: str = "static"
+
+    @property
+    def wall_key(self) -> tuple[str, ...]:
+        """The cell's ``CampaignResult.wall_clock_s`` key."""
+        key = (self.algo.name, self.pattern)
+        return key + (self.scenario,) if self.scen_i >= 0 else key
 
 
 @dataclasses.dataclass
@@ -258,10 +299,12 @@ class CellOutcome:
 def campaign_cells(spec: CampaignSpec) -> list[CellKey]:
     """The spec's cells in canonical execution order."""
     names = [p if isinstance(p, str) else str(p[0]) for p in spec.patterns]
-    return [CellKey(index=i * len(spec.algos) + j, item_i=i, pattern=name,
-                    algo=algo)
-            for i, name in enumerate(names)
-            for j, algo in enumerate(spec.algos)]
+    scens = list(enumerate(spec.scenarios)) or [(-1, None)]
+    cells = [(i, name, algo, k, scen) for i, name in enumerate(names)
+             for algo in spec.algos for k, scen in scens]
+    return [CellKey(index=idx, item_i=i, pattern=name, algo=algo, scen_i=k,
+                    scenario="static" if scen is None else scen.name)
+            for idx, (i, name, algo, k, scen) in enumerate(cells)]
 
 
 @dataclasses.dataclass
@@ -270,18 +313,26 @@ class _ItemPrep:
 
     tm: np.ndarray
     table: object | None       # BiDORTable (None when BiDOR absent)
+    nrank: object | None       # warm-start fixed point for replans
     bidor_tm: np.ndarray       # admission-controlled generation matrix
 
 
 class CampaignExecutor:
-    """Executes static campaign cells one at a time, in any order.
+    """Executes campaign cells one at a time, in any order.
 
     Plans are built on first use: one batched planner call covers every
-    pattern."""
+    pattern that needs one.  ``bidor_tables`` (pattern name → (N, N)
+    choice table) overrides a pattern's plan; scenario cells still build
+    the plan, whose N-Rank fixed point seeds their replans."""
 
-    def __init__(self, spec: CampaignSpec, *, device=None):
+    def __init__(self, spec: CampaignSpec, *,
+                 bidor_tables: dict[str, np.ndarray] | None = None,
+                 verbose: bool = False, device=None):
         check_spec(spec)
         self.spec = spec
+        self.bidor_tables = bidor_tables or {}
+        self.verbose = verbose
+        self.log = EventLog(verbose=verbose)
         self.device = resolve_device(device)
         self.points = [(float(r), int(s))
                        for r in spec.rates for s in spec.seeds]
@@ -294,25 +345,39 @@ class CampaignExecutor:
             return self._prepped
         spec, topo = self.spec, self.spec.topo
         items = spec.pattern_items()
-        tables = [None] * len(items)
+        given = self.bidor_tables
+        plans: dict[int, object] = {}
         if Algo.BIDOR in spec.algos:
-            t0 = time.perf_counter()
-            down = topo.down_channels
-            plans = build_plans_batched(
-                topo, [tm for _, tm in items],
-                down_channels=down if down.size else None,
-                device=self.device, stage_ms=self.plan_stage_ms)
-            self.plan_s += time.perf_counter() - t0
-            tables = [plan.table for plan in plans]
+            # keyed by item index: explicit (name, matrix) patterns may
+            # repeat a name with different matrices
+            need = [i for i, (name, _) in enumerate(items)
+                    if name not in given or spec.scenarios]
+            if need:
+                t0 = time.perf_counter()
+                down = topo.down_channels
+                built = build_plans_batched(
+                    topo, [items[i][1] for i in need],
+                    down_channels=down if down.size else None,
+                    device=self.device, stage_ms=self.plan_stage_ms)
+                self.plan_s += time.perf_counter() - t0
+                plans = dict(zip(need, built))
         self._prepped = []
-        for (_, tm), table in zip(items, tables):
+        for i, (name, tm) in enumerate(items):
+            table = nrank = None
+            if Algo.BIDOR in spec.algos:
+                plan = plans.get(i)
+                table = dor_table(topo) if plan is None else plan.table
+                nrank = None if plan is None else plan.nrank
+                if name in given:
+                    table = dataclasses.replace(
+                        table, choice=np.asarray(given[name], np.int8))
             # admission control: pairs no dimension order can serve on a
             # degraded topology are shed from BiDOR's generation matrix
             bidor_tm = tm
             if (table is not None and table.unroutable is not None
                     and table.unroutable.any()):
                 bidor_tm = np.where(table.unroutable, 0.0, tm)
-            self._prepped.append(_ItemPrep(tm=tm, table=table,
+            self._prepped.append(_ItemPrep(tm=tm, table=table, nrank=nrank,
                                            bidor_tm=bidor_tm))
         return self._prepped
 
@@ -323,41 +388,67 @@ class CampaignExecutor:
         cfg = spec.base.replace(algo=key.algo)
         t0 = time.perf_counter()
         bidor = key.algo == Algo.BIDOR
-        tables, meta = build_tables(
-            topo, prep.bidor_tm if bidor else prep.tm,
-            prep.table if bidor else None, cfg.num_vcs, self.device)
-        host, sat = _run_cell(spec, cfg, tables, meta, self.points,
-                              self.device)
-        results = [postprocess(lane(host, i), cfg, topo, rate=rate,
-                               seed=seed, saturated=bool(sat[i]))
-                   for i, (rate, seed) in enumerate(self.points)]
-        return CellOutcome(key=key, results=results,
-                           wall_s=time.perf_counter() - t0)
+        cell_tm = prep.bidor_tm if bidor else prep.tm
+        if key.scen_i < 0:
+            tables, meta = build_tables(
+                topo, cell_tm, prep.table if bidor else None, cfg.num_vcs,
+                self.device)
+            host, sat = _run_cell(spec, cfg, tables, meta, self.points,
+                                  self.device)
+            results = [postprocess(lane(host, i), cfg, topo, rate=rate,
+                                   seed=seed, saturated=bool(sat[i]))
+                       for i, (rate, seed) in enumerate(self.points)]
+        else:
+            ctrl = run_controlled(
+                topo, cell_tm, cfg, spec.scenarios[key.scen_i],
+                rates=[float(r) for r in spec.rates],
+                seeds=[int(s) for s in spec.seeds],
+                bidor_table=prep.table if bidor else None,
+                nrank0=prep.nrank if bidor else None,
+                sat_occupancy=spec.sat_occupancy, verbose=self.verbose,
+                device=self.device)
+            results = [ctrl.result_with_peak(i)
+                       for i in range(len(self.points))]
+        dt = time.perf_counter() - t0
+        self.log.event("cell_done",
+                       f"campaign cell {key.pattern:12s} {key.algo.name:8s} "
+                       f"{key.scenario:12s} {len(self.points)} pts in "
+                       f"{dt:.2f}s", wall_s=round(dt, 3))
+        return CellOutcome(key=key, results=results, wall_s=dt)
 
     def cell_points(self, outcome: CellOutcome) -> list[CampaignPoint]:
         """The cell's CampaignPoints, in canonical lane order."""
         k = outcome.key
         return [CampaignPoint(algo=k.algo, pattern=k.pattern, rate=rate,
-                              seed=seed, result=res,
+                              seed=seed, result=res, scenario=k.scenario,
                               topo=self.spec.topo.name)
                 for (rate, seed), res in zip(self.points, outcome.results)]
 
 
-def run_campaign(spec: CampaignSpec, *, plan_cache=None,
+def run_campaign(spec: CampaignSpec, *,
+                 bidor_tables: dict[str, np.ndarray] | None = None,
+                 plan_cache=None, verbose: bool = False,
                  device=None) -> CampaignResult:
     """Execute the full campaign grid on ``device`` (default: the card).
 
-    BiDOR plans are built per pattern from that pattern's own matrix."""
+    BiDOR plans are built per pattern from that pattern's own matrix;
+    ``bidor_tables`` (pattern name → (N, N) choice table) overrides them,
+    e.g. with :func:`repro_torch.core.qstar.build_plan`'s tables.  With
+    ``spec.scenarios`` every (pattern, algo, scenario) cell runs the
+    control plane's event-driven loop, and ``SimResult.link_load_max``
+    reports the time-resolved peak (max over control epochs of the max
+    bandwidth-normalized link load)."""
     if plan_cache is not None:
         raise NotImplementedError(
             "the plan cache is not ported yet (ROADMAP queue 1, item 9)")
     t_start = time.perf_counter()
-    executor = CampaignExecutor(spec, device=device)
+    executor = CampaignExecutor(spec, bidor_tables=bidor_tables,
+                                verbose=verbose, device=device)
     out_points: list[CampaignPoint] = []
     wall: dict[tuple, float] = {}
     for key in campaign_cells(spec):
         outcome = executor.run_cell(key)
-        wall[(key.algo.name, key.pattern)] = outcome.wall_s
+        wall[key.wall_key] = outcome.wall_s
         out_points.extend(executor.cell_points(outcome))
     return CampaignResult(spec=spec, points=out_points, wall_clock_s=wall,
                           total_wall_clock_s=time.perf_counter() - t_start,

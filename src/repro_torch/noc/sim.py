@@ -36,9 +36,10 @@ from ..device import resolve_device
 from .. import prng
 from .simconfig import Algo, SimConfig, SimResult, NF, NQ, check_supported
 
-__all__ = ["Tables", "build_tables", "fresh_state", "make_states",
-           "point_key", "run_cycles", "run_sweep", "run_sim", "postprocess",
-           "hist_percentile", "queue_occupancy", "source_queue_meta"]
+__all__ = ["Tables", "build_tables", "retarget_tables", "fresh_state",
+           "make_states", "point_key", "run_cycles", "run_sweep", "run_sim",
+           "postprocess", "hist_percentile", "queue_occupancy",
+           "source_queue_meta"]
 
 
 class Tables(NamedTuple):
@@ -108,6 +109,39 @@ def build_tables(topo: Topology, traffic: np.ndarray,
     meta = dict(N=n, P=p, V=v, NIN=nin, P_LOCAL=topo.port_local,
                 NDIM=topo.ndim, O=port.shape[0], C=topo.num_channels)
     return tables, meta
+
+
+def retarget_tables(tables: Tables, topo: Topology, *,
+                    traffic: np.ndarray | None = None,
+                    choice: np.ndarray | None = None,
+                    channel_bw: np.ndarray | None = None) -> Tables:
+    """Plan hot-swap: new :class:`Tables` with only the requested fields
+    replaced, on the device of the old ones.
+
+    Called between chunks only (:func:`run_cycles` draws a whole chunk
+    against the tables it was given), so in-flight state is untouched:
+
+    * ``traffic`` — new generation matrix (destination CDF and per-node
+      injection probability are rebuilt; drift epochs);
+    * ``choice`` — new BiDOR plan; only packets generated after the swap
+      follow it, in-flight packets keep the order stamped at injection;
+    * ``channel_bw`` — link fail / recover / degrade events.
+
+    Passing nothing returns the same tables.
+    """
+    dev = tables.choice.device
+    kw = {}
+    if traffic is not None:
+        cdf, p_gen = _gen_tables(topo, traffic)
+        kw["cdf"] = torch.as_tensor(cdf, device=dev)
+        kw["p_gen"] = torch.as_tensor(p_gen, device=dev)
+    if choice is not None:
+        kw["choice"] = torch.as_tensor(
+            np.ascontiguousarray(choice, np.int32), device=dev)
+    if channel_bw is not None:
+        kw["chan_bw"] = torch.as_tensor(
+            np.ascontiguousarray(channel_bw, np.float32), device=dev)
+    return tables._replace(**kw) if kw else tables
 
 
 def source_queue_meta(tables: Tables,

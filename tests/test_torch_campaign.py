@@ -12,7 +12,8 @@ from test_torch_oracle import torch_one_thread  # noqa: F401  (a pytest fixture)
 pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
 from repro_torch.core import mesh2d, traffic
-from repro_torch.noc import Algo, CampaignSpec, SimConfig, run_campaign
+from repro_torch.noc import (Algo, CampaignSpec, ReplanConfig, Scenario,
+                             SimConfig, run_campaign)
 
 GOLDEN = load_golden("campaign_4x4.json")
 
@@ -126,6 +127,43 @@ def test_run_sweep_matches_reference(algo):
         assert np.array_equal(w.node_load, g.node_load)
 
 
+def test_bidor_tables_match_reference():
+    """``run_campaign(bidor_tables=...)`` with host ``build_plan`` tables,
+    as the paper-figure benchmarks call it, against the reference."""
+    from test_torch_oracle import reference
+
+    import repro.core as jcore
+    from repro.noc import (Algo as JAlgo, CampaignSpec as JSpec,
+                           SimConfig as JCfg, run_campaign as jrun)
+
+    import repro_torch.core as tcore
+
+    jt = jcore.mesh2d_edge_io(5, 5)
+    tm = jcore.traffic.overturn(jt)
+    base = dict(patterns=(("overturn", tm),), rates=(0.35,), seeds=(0, 2))
+    with reference():
+        plan = jcore.build_plan(jt, tm)
+        want = jrun(JSpec(topo=jt, algos=(JAlgo.XY, JAlgo.BIDOR),
+                          base=JCfg(cycles=600, warmup=200), **base),
+                    bidor_tables={"overturn": plan.table.choice})
+    tt = tcore.mesh2d_edge_io(5, 5)
+    tplan = tcore.build_plan(tt, tm, device="cpu")
+    assert np.array_equal(tplan.table.choice, plan.table.choice)
+    got = run_campaign(CampaignSpec(topo=tt, algos=(Algo.XY, Algo.BIDOR),
+                                    base=SimConfig(cycles=600, warmup=200),
+                                    **base),
+                       bidor_tables={"overturn": tplan.table.choice},
+                       device="cpu")
+    assert got.plan_wall_clock_s == 0.0        # no plan was built
+    assert len(got.points) == len(want.points) == 4
+    for g, w in zip(got.points, want.points):
+        assert (g.algo.name, g.seed) == (w.algo.name, w.seed)
+        for f in ("injected_flits", "ejected_flits", "in_flight_flits",
+                  "meas_cycles", "avg_latency", "link_load_max"):
+            assert getattr(g.result, f) == getattr(w.result, f), f
+        assert np.array_equal(g.result.node_load, w.result.node_load)
+
+
 def test_saturation_early_exit():
     """A chunked cell whose lanes all saturate stops early; per-lane
     ``meas_cnt`` keeps the statistics normalised."""
@@ -151,7 +189,15 @@ def test_unported_options_raise(what):
     elif what in ("telemetry", "watchdog"):
         kw["base"] = kw["base"].replace(**{what: True})
     elif what == "scenarios":
-        kw["scenarios"] = ("linkfail",)
+        # ported: a scenario cell runs through the control plane
+        kw["scenarios"] = (Scenario("quiet",
+                                    replan=ReplanConfig(epoch=100)),)
+        res = run_campaign(CampaignSpec(**kw), device="cpu")
+        assert [p.scenario for p in res.points] == ["quiet"]
+        assert set(res.wall_clock_s) == {("XY", "uniform", "quiet")}
+        r = res.points[0].result
+        assert r.injected_flits == r.ejected_flits + r.in_flight_flits
+        return
     elif what == "workloads":
         kw["workloads"] = (("w", traffic.uniform(topo)),)
     elif what == "topos":

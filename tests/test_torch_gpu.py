@@ -6,14 +6,22 @@ Every test skips where no CUDA device is visible (the kernels have no
 CPU mode); the CPU-side cases here check the wrappers' dispatch rules.
 """
 
+import json
+import os
+
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import convert, kernels
-from repro_torch.core import build_plans_batched, mesh2d, mesh2d_edge_io
+from repro_torch.core import (build_plans_batched, mesh2d, mesh2d_edge_io,
+                              torus)
 from repro_torch.core import traffic
-from repro_torch.kernels.possibility import possibility_v, possibility_v_plain
+from repro_torch.kernels.possibility import (possibility_v,
+                                             possibility_v_plain,
+                                             possibility_weights_op,
+                                             possibility_weights_plain,
+                                             prepare_weights)
 from repro_torch.kernels.simstep import draw_chunk, make_step
 from repro_torch.noc import sim
 from repro_torch.noc.simconfig import Algo, SimConfig
@@ -55,6 +63,59 @@ def test_possibility_kernel_vs_plain(cuda, offset, integer):
         np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-12)
 
 
+WEIGHT_TOPOS = {
+    # C and N not multiples of the kernel's 16-channel and 32-wide tiles
+    "mesh6x5": lambda: mesh2d(6, 5),       # N = 30, C = 98
+    "torus5x7": lambda: torus(5, 7),       # N = 35, C = 140
+    "mesh8x8": lambda: mesh2d(8, 8),       # N = 64, C = 224
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("integer", [True, False], ids=["intT", "realT"])
+@pytest.mark.parametrize("offset", [1, 2])
+@pytest.mark.parametrize("topo_fn", sorted(WEIGHT_TOPOS))
+def test_possibility_weights_kernel_vs_plain(cuda, topo_fn, offset,
+                                             integer):
+    """fp64 sums in another order, one rounding to float32: integer T bit
+    for bit, real T within one float32 ulp."""
+    topo = WEIGHT_TOPOS[topo_fn]()
+    rng = np.random.default_rng(offset)
+    n = topo.num_nodes
+    t = (rng.integers(0, 7, (n, n)).astype(np.float64) if integer
+         else rng.random((n, n)))
+    args = prepare_weights(topo.distances, t, topo.channels, "cpu")
+    want = possibility_weights_plain(*args, offset=offset)
+    before = kernels.LAUNCHES["possibility_weights"]
+    got = possibility_weights_op(*[a.to(cuda) for a in args], offset=offset)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["possibility_weights"] == before + 1
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == (topo.num_channels,)
+        if integer:
+            assert np.array_equal(g.cpu().numpy(), w.numpy())
+        else:
+            np.testing.assert_array_max_ulp(g.cpu().numpy(), w.numpy(), 1)
+
+
+@pytest.mark.gpu
+def test_possibility_weights_is_v_summed(cuda):
+    """Independent check through the other kernel: W = V.sum(1) and
+    W_drn = V[c, n_c] (since dn[c, n_c] = 0), to float32 rounding."""
+    topo = mesh2d(8, 8)
+    t = np.random.default_rng(3).random((64, 64)).astype(np.float32)
+    du, dn, dsn, tn, t32, dist = prepare_weights(topo.distances, t,
+                                                 topo.channels, cuda)
+    w, w_drn = possibility_weights_op(du, dn, dsn, tn, t32, dist)
+    v = possibility_v(du, dn, t32.double(), dist, offset=1)
+    ns = torch.as_tensor(topo.channels[:, 1], device=cuda)
+    idx = torch.arange(topo.num_channels, device=cuda)
+    np.testing.assert_array_max_ulp(
+        w.cpu().numpy(), v.sum(1).float().cpu().numpy(), 1)
+    np.testing.assert_array_max_ulp(
+        w_drn.cpu().numpy(), v[idx, ns].float().cpu().numpy(), 1)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("algo", [Algo.XY, Algo.BIDOR])
 @pytest.mark.parametrize("topo_fn", ["mesh4x4", "edge5x5"])
@@ -91,12 +152,52 @@ def test_simstep_kernels_vs_plain(cuda, topo_fn, algo):
         assert not bad, f"tile={tile}: {bad}"
 
 
+@pytest.mark.gpu
+def test_ctrl_golden_on_the_card(cuda):
+    """``tests/goldens/ctrl_4x4.json`` through the control plane on the
+    card: a link retrains at 25 % width, stale and online policies;
+    integers exact, floats within rtol 1e-5."""
+    from repro_torch.noc import (CampaignSpec, LinkFail, ReplanConfig,
+                                 Scenario, run_campaign)
+
+    with open(os.path.join(os.path.dirname(__file__), "goldens",
+                           "ctrl_4x4.json")) as f:
+        golden = json.load(f)["points"]
+    fail = (LinkFail(cycle=1200, links=((5, 6), (6, 5)), bw_scale=0.25),)
+    rc = ReplanConfig(epoch=400)
+    spec = CampaignSpec(
+        topo=mesh2d(4, 4), algos=(Algo.BIDOR,), patterns=("uniform",),
+        rates=(0.35,), seeds=(0, 1), base=SimConfig(cycles=2400, warmup=400),
+        scenarios=tuple(Scenario(f"linkfail_{p}", events=fail, policy=p,
+                                 replan=rc) for p in ("stale", "online")))
+    before = dict(kernels.LAUNCHES)
+    res = run_campaign(spec, device=cuda)
+    assert kernels.LAUNCHES["simstep_tile"] > before["simstep_tile"]
+    assert kernels.LAUNCHES["possibility_v"] > before["possibility_v"]
+    assert len(res.points) == len(golden)
+    for p in res.points:
+        r = p.result
+        want = golden[f"{p.scenario}/{p.algo.name}/r{p.rate}/s{p.seed}"]
+        assert (r.injected_flits, r.ejected_flits, r.in_flight_flits,
+                r.reorder_value, r.meas_cycles) == (
+            want["injected"], want["ejected"], want["in_flight"],
+            want["reorder"], want["meas_cycles"])
+        for f, v in (("throughput", r.throughput),
+                     ("avg_latency", r.avg_latency),
+                     ("p50_latency", r.p50_latency),
+                     ("p99_latency", r.p99_latency),
+                     ("link_load_max", r.link_load_max), ("lcv", r.lcv)):
+            assert np.isclose(round(v, 6), want[f], rtol=1e-5, atol=1e-6), f
+
+
 def test_cpu_tensors_take_the_plain_path():
     """A CPU tensor never reaches a kernel: no launch is counted."""
     before = dict(kernels.LAUNCHES)
     args = _poss_inputs(mesh2d(4, 4), True, 0)
     possibility_v(*args, offset=1)
     topo = mesh2d(4, 4)
+    possibility_weights_op(*prepare_weights(
+        topo.distances, traffic.uniform(topo), topo.channels, "cpu"))
     cfg = SimConfig(cycles=400, warmup=50)
     tables, meta = sim.build_tables(topo, traffic.uniform(topo), None, 2,
                                     device="cpu")
@@ -113,3 +214,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     with pytest.raises(ValueError):
         possibility_v(args[0].to(cuda), args[1].to(cuda),
                       args[2].to(cuda), args[3])
+    topo = mesh2d(4, 4)
+    wargs = prepare_weights(topo.distances, traffic.uniform(topo),
+                            topo.channels, cuda)
+    with pytest.raises(TypeError):      # T must be float32
+        possibility_weights_op(*wargs[:4], wargs[4].double(), wargs[5])
+    with pytest.raises(ValueError):     # all on one device
+        possibility_weights_op(*wargs[:5], wargs[5].cpu())

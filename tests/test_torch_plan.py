@@ -55,6 +55,22 @@ def test_plans_match_reference(case):
             assert np.array_equal(w.table.unroutable, g.table.unroutable)
 
 
+def test_plan_32x32_matches_reference():
+    """The scale cell's plan (mesh2d(32,32), uniform): where BiDOR
+    delivers less than XY on the card, the plan is the reference's own —
+    identical choice table, both evolutions at the 100-iteration cap,
+    both certificates clean."""
+    jt, tt = jcore.mesh2d(32, 32), tcore.mesh2d(32, 32)
+    tm = jcore.traffic.uniform(jt)
+    with reference():
+        (want,) = jcore.build_plans_batched(jt, [tm])
+    (got,) = tcore.build_plans_batched(tt, [tm], device="cpu")
+    assert int((got.table.choice != want.table.choice).sum()) == 0
+    np.testing.assert_allclose(got.nrank.w_nr, want.nrank.w_nr, rtol=RTOL)
+    assert got.nrank.iterations == want.nrank.iterations == 100
+    assert got.cert.verdict == want.cert.verdict == "clean"
+
+
 def test_single_plan_warm_start():
     """``build_plan_fast`` with a warm-start carry ``w0``."""
     jt, tt = jcore.mesh2d(4, 4), tcore.mesh2d(4, 4)
