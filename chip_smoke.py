@@ -36,18 +36,34 @@ Main path of slice 2 (launch counts from 0 again):
               ``benchmarks/fig1_load.py``'s full length;
 9. ctrl     — ``tests/goldens/ctrl_4x4.json`` through the control plane,
               then ``benchmarks/dynamics.py`` at full size (BiDOR);
-10. summary — launches of each kernel on each main path, event-timed µs
+10. flash   — ``flash_attention`` against its plain twin at whisper-base's
+              shapes (B 4, H = KV = 8, D 64: the encoder, cross-attention
+              and cached self-attention at Sq 16 and 1) and at a GQA
+              (internlm2) and a D = 80 (stablelm) shape, bf16 and fp32;
+              µs per launch beside the twin, ``scaled_dot_product_attention``
+              and the bound;
+Main path of slice 3 (launch counts from 0 again):
+11. serve   — whisper-base at full width (bf16, random weights from numpy
+              seed 0 at the serve golden's scales, so the greedy tokens
+              vary): encode, then ``ServeEngine.generate`` for 4 requests of
+              16 prompt and 24 new tokens; then, off the counted path, the
+              same run on the plain twin (logits of every step), the run in
+              fp32 (tokens identical), ``tests/goldens/serve_whisper_smoke.json``
+              on the card, and a timed repeat with ``cross_kv``'s share;
+12. summary — launches of each kernel on each main path, event-timed µs
               per launch, the plain version's time and the bound, as one
               JSON line; then the card line and the result.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
@@ -60,6 +76,10 @@ sys.path.insert(0, os.path.join(HERE, "src"))
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 67e12 / 4
 F64_ADDS_PER_S = 34e12 / 2
+# dense tensor-core bf16 FLOP/s, and float32 FLOP/s outside the tensor
+# cores (an fp32 attention has no tensor-core path at fp32 precision)
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
 
 
 def log(*parts):
@@ -752,6 +772,353 @@ def time_simstep(torch, np, cuda, topo, label):
     ]
 
 
+# --------------------------------------------------------------------- #
+# slice 3: flash attention and whisper-base serving
+# --------------------------------------------------------------------- #
+WHISPER_B, SERVE_PROMPT, SERVE_NEW = 4, 16, 24
+SERVE_MAX_LEN = SERVE_PROMPT + SERVE_NEW + 8
+# (label, B, Sq, Skv, H, KV, D, causal, cache index or None)
+FLASH_SHAPES = (
+    ("encoder", 4, 1500, 1500, 8, 8, 64, False, None),
+    ("cross prefill", 4, 16, 1500, 8, 8, 64, False, None),
+    ("cross decode", 4, 1, 1500, 8, 8, 64, False, None),
+    ("self prefill", 4, 16, SERVE_MAX_LEN, 8, 8, 64, False, 0),
+    ("self decode", 4, 1, SERVE_MAX_LEN, 8, 8, 64, False,
+     SERVE_PROMPT + SERVE_NEW - 2),
+    ("gqa causal (internlm2)", 1, 2048, 2048, 16, 8, 128, True, None),
+    ("d80 causal (stablelm)", 1, 1024, 1024, 32, 32, 80, True, None),
+)
+# fp32 at the reference's 2e-5; bf16 at one bf16 unit (2**-7), about four
+# times the worst error measured at these shapes, tighter than the
+# reference's 2e-2, which is half a typical output at Skv 1 500
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 8e-3}
+
+
+def _flash_case(torch, cuda, shape, dtype, seed):
+    _, b, sq, skv, h, kv, d, causal, index = shape
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    q, k, v = (torch.randn(s, generator=gen, device=cuda).to(dtype)
+               for s in ((b, sq, h, d), (b, skv, kv, d), (b, skv, kv, d)))
+    ml = None
+    if index is not None:       # a cached step: query t sees index + t + 1
+        ml = (torch.arange(sq, dtype=torch.int32, device=cuda)
+              + index + 1)[None].expand(b, sq)
+    return q, k, v, ml
+
+
+def _flash_bound(shape, itemsize, flops_per_s):
+    """Least time for the function on this run's data: each needed input
+    byte read once and the output written once (keys past every row's
+    limit are not needed), and 4·D FLOP per (query, key) pair that
+    counts, at the card's peak for the type."""
+    _, b, sq, skv, h, kv, d, causal, index = shape
+    limits = [min(skv, (index + t + 1) if index is not None else skv,
+                  (t + skv - sq + 1) if causal else skv) for t in range(sq)]
+    pairs = b * h * sum(limits)
+    keys = max(limits)
+    nbytes = itemsize * (2 * b * sq * h * d + 2 * b * keys * kv * d)
+    if index is not None:
+        nbytes += 4 * b * sq
+    bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": 4 * d * pairs / flops_per_s * 1e3}
+    by = max(bound, key=bound.get)
+    return bound[by], by, 4 * d * pairs, nbytes
+
+
+def _sdpa(torch, q, k, v, ml, causal):
+    """One library call for the same function, on (B, H, S, D) copies."""
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    mask = None
+    if ml is not None:
+        keys = torch.arange(k.shape[1], device=q.device)
+        mask = (keys[None, None] < ml[..., None])[:, None]
+    gqa = q.shape[2] != k.shape[2]
+    return lambda r: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=causal, enable_gqa=gqa)
+
+
+def check_flash(torch, np, cuda):
+    """flash_attention against its plain twin at every listed shape, bf16
+    and fp32, at the reference's tolerances; event-timed in bf16 (and the
+    encoder in fp32) beside the twin, scaled_dot_product_attention and the
+    bound.  Returns the kernel row (timings at the encoder shape, bf16)."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+
+    worst = 0.0
+    row = None
+    for shape in FLASH_SHAPES:
+        label, causal = shape[0], shape[7]
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            q, k, v, ml = _flash_case(torch, cuda, shape, dt, seed=len(label))
+            got = flash_attention(q, k, v, causal=causal, mask_len=ml)
+            want = flash_attention_ref(q, k, v, causal=causal,
+                                       bias_mask_len=ml)
+            torch.cuda.synchronize()
+            err = float((got.float() - want.float()).abs().max())
+            tol = FLASH_TOL[dtype]
+            ok = bool(torch.allclose(got.float(), want.float(), rtol=tol,
+                                     atol=tol))
+            worst = max(worst, err)
+            log(f"flash: {label} {dtype} B={shape[1]} Sq={shape[2]} "
+                f"Skv={shape[3]} H={shape[4]} KV={shape[5]} D={shape[6]} "
+                f"causal={causal} mask={'2d' if ml is not None else 'none'}: "
+                f"max_abs_err={err!r} tol {tol} {'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                raise SystemExit(f"flash_attention disagrees with plain at "
+                                 f"{label} {dtype}")
+            if dtype == "float32" and label != "encoder":
+                continue
+            reps = 20 if shape[2] * shape[3] > 1e6 else 200
+            fns = [lambda r: flash_attention(q, k, v, causal=causal,
+                                             mask_len=ml),
+                   _sdpa(torch, q, k, v, ml, causal)]
+            for fn in fns:      # first calls: the library picks and plans
+                fn(0)           # its backend on the host
+            ms, lib_ms = time_launches(torch, fns, reps)
+            plain_ms = time_wall(torch, lambda: flash_attention_ref(
+                q, k, v, causal=causal, bias_mask_len=ml), 3)
+            peak = BF16_FLOPS if dtype == "bfloat16" else F32_FLOPS
+            bound, by, flops, nbytes = _flash_bound(shape, q.element_size(),
+                                                    peak)
+            log(f"flash: {label} {dtype}: {ms * 1e3:.2f}us per launch, "
+                f"bound {bound * 1e3:.2f}us ({by}: {flops:.3e} FLOP, "
+                f"{nbytes} bytes), {bound / ms:.3f} of it; plain "
+                f"{plain_ms:.3f}ms; scaled_dot_product_attention "
+                f"{lib_ms * 1e3:.2f}us")
+            if label == "encoder" and dtype == "bfloat16":
+                row = dict(name="flash_attention", route="cuda",
+                           source="src/repro_torch/kernels/csrc/"
+                                  "flash_attention.cu",
+                           replaces="src/repro/kernels/flash_attention/"
+                                    "kernel.py:77",
+                           ms=ms, plain_ms=plain_ms, bound_ms=bound,
+                           bound_by=by, library_ms=lib_ms)
+    row["max_abs_err"] = worst
+    return row
+
+
+def _whisper_tree(np):
+    """whisper-base's parameter tree at full width, float32, drawn from
+    numpy seed 0 at the serve golden's scales: with the registry's init
+    the tied embedding dominates and greedy decoding repeats one token,
+    so neither token agreement nor the logits would test attention."""
+    from repro_torch.configs import get_arch
+    from repro_torch.serve import golden
+
+    return golden.numpy_params(get_arch("whisper-base").full,
+                               np.random.default_rng(0))
+
+
+def _whisper(torch, np, cuda, dtype, tree):
+    """whisper-base at full width in ``dtype``: the weights of ``tree``,
+    stub-frontend frames (seed 1), prompts (numpy seed 0)."""
+    from repro_torch import convert
+    from repro_torch.configs import get_arch
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_arch("whisper-base").full.replace(dtype=dtype)
+    model = convert.encdec_params_from_numpy(tree, cfg, cuda)
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    frames = torch.randn((WHISPER_B, cfg.enc_seq, cfg.d_model),
+                         generator=gen, device=cuda).to(cfg.torch_dtype)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab, (WHISPER_B, SERVE_PROMPT)).astype(np.int32)
+    return cfg, ServeEngine(cfg, model, SERVE_MAX_LEN), frames, prompts
+
+
+def _serve(torch, engine, frames, prompts):
+    """encode + generate, host-timed around synchronised work."""
+    from repro_torch.models import encdec
+
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        enc = encdec.encode(engine.cfg, engine.params, frames)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        toks, logits = engine.generate(prompts, SERVE_NEW, enc_out=enc,
+                                       return_logits=True)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    return enc, toks, logits, (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Within this scope the model's attention calls run the plain twin,
+    on the card too: the whole-model reference for the kernel."""
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.models.layers import attention
+
+    def twin(q, k, v, *, causal, mask_len=None, **chunks):
+        return flash_attention_ref(q, k, v, causal=causal,
+                                   bias_mask_len=mask_len, **chunks)
+
+    real = attention.flash_ops
+    attention.flash_ops = SimpleNamespace(flash_attention=twin)
+    try:
+        yield
+    finally:
+        attention.flash_ops = real
+
+
+def _check_logits(np, label, got, want, rtol, atol, scaled):
+    """Every step's logits; ``scaled`` holds each step to ``atol`` times
+    that step's largest logit."""
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = g.float().cpu().numpy(), w.float().cpu().numpy()
+        if not np.all(np.isfinite(g)):
+            raise SystemExit(f"serve {label}: non-finite logits at step {i}")
+        d = np.abs(g - w)
+        worst = max(worst, float(d.max()))
+        lim = (atol * np.abs(w).max() if scaled
+               else atol + rtol * np.abs(w))
+        if (d > lim).any():
+            raise SystemExit(f"serve {label}: step {i} logits differ by "
+                             f"{d.max()!r} (limit {np.max(lim)!r})")
+    return worst
+
+
+def run_serve_main(torch, np, cuda, out):
+    """Slice 3's main path: whisper-base bf16, encode then generate; one
+    kernel launch per attention call (the encoder's layers, then each
+    decoder layer's self- and cross-attention per generated token)."""
+    from repro_torch import kernels
+
+    tree = _whisper_tree(np)
+    cfg, engine, frames, prompts = _whisper(torch, np, cuda, "bfloat16",
+                                            tree)
+    before = kernels.LAUNCHES["flash_attention"]
+    enc, toks, logits, enc_ms, gen_ms = _serve(torch, engine, frames,
+                                              prompts)
+    calls = cfg.enc_layers + 2 * cfg.n_layers * SERVE_NEW
+    if kernels.LAUNCHES["flash_attention"] - before != calls:
+        raise SystemExit(f"serve: {kernels.LAUNCHES['flash_attention']} "
+                         f"flash_attention launches, expected {calls}")
+    if toks.shape != (WHISPER_B, SERVE_NEW) or not (
+            (toks >= 0) & (toks < cfg.vocab)).all():
+        raise SystemExit(f"serve: bad tokens {toks}")
+    distinct = min(len(set(row)) for row in toks.tolist())
+    if distinct < 2:
+        raise SystemExit(f"serve: a request repeats one token, so the "
+                         f"checks below would prove little: {toks}")
+    log(f"serve: whisper-base bf16 B={WHISPER_B} prompt={SERVE_PROMPT} "
+        f"new={SERVE_NEW} (first run) encode {enc_ms:.1f}ms generate "
+        f"{gen_ms:.1f}ms; fewest distinct tokens in a request {distinct}; "
+        f"tokens[0]={toks[0].tolist()}")
+    out.update(cfg=cfg, engine=engine, frames=frames, prompts=prompts,
+               enc=enc, toks=toks, logits=logits, tree=tree)
+
+
+def run_serve_checks(torch, np, cuda, main):
+    """Off the counted path: the plain twin on the same card inputs, the
+    fp32 run, the smoke golden, and the warm timings."""
+    from repro_torch import convert
+    from repro_torch.models import encdec
+    from repro_torch.models.layers.attention import cross_kv
+    from repro_torch.serve import ServeEngine, golden, make_prefill
+
+    engine, frames, prompts = main["engine"], main["frames"], main["prompts"]
+    toks = main["toks"]
+    with plain_attention():
+        p_enc, p_toks, _, _, _ = _serve(torch, engine, frames, prompts)
+        p_logits = engine.teacher_forced_logits(prompts, toks,
+                                                enc_out=p_enc)
+    enc_err = float((main["enc"].float() - p_enc.float()).abs().max())
+    err = _check_logits(np, "bf16 kernel vs plain", main["logits"],
+                        p_logits, 0.0, 2e-2, scaled=True)
+    agree = float((toks == p_toks).mean())
+    log(f"serve: bf16 kernel vs plain twin on the card: encoder max_abs_err="
+        f"{enc_err!r}, logits of every step max_abs_err={err!r} (limit 2e-2 "
+        f"x the step's largest logit), greedy token agreement {agree:.3f}")
+
+    _, e32, f32, p32 = _whisper(torch, np, cuda, "float32", main["tree"])
+    _, t32, l32, _, _ = _serve(torch, e32, f32, p32)
+    with plain_attention():
+        _, pt32, pl32, _, _ = _serve(torch, e32, f32, p32)
+    err32 = _check_logits(np, "fp32 kernel vs plain", l32, pl32, 1e-4,
+                          1e-4, scaled=False)
+    log(f"serve: fp32 kernel vs plain twin: tokens identical="
+        f"{bool((t32 == pt32).all())}, logits of every step max_abs_err="
+        f"{err32!r} (rtol/atol 1e-4)")
+    if not (t32 == pt32).all():
+        raise SystemExit("serve fp32: kernel tokens differ from the plain "
+                         "twin's")
+    del e32, f32
+
+    with open(os.path.join(HERE, "tests", "goldens",
+                           golden.GOLDEN_NAME)) as f:
+        want = json.load(f)
+    gcfg = golden.config()
+    tree, gframes, gprompts = golden.numpy_case(gcfg)
+    gmodel = convert.encdec_params_from_numpy(tree, gcfg, cuda)
+    with torch.inference_mode():
+        genc = encdec.encode(gcfg, gmodel, torch.as_tensor(gframes,
+                                                           device=cuda))
+    gtoks, glogits = ServeEngine(
+        gcfg, gmodel, golden.PROMPT_LEN + golden.NEW_TOKENS
+        + golden.CACHE_SLACK).generate(gprompts, golden.NEW_TOKENS,
+                                       enc_out=genc, return_logits=True)
+    bad = golden.mismatches(want, glogits[0].cpu(),
+                            [x.cpu() for x in glogits[1:]], gtoks, 1e-5)
+    log(f"serve: {golden.GOLDEN_NAME} on the card (fp32, kernel path): "
+        f"{'ok' if not bad else 'MISMATCH'}")
+    if bad:
+        raise SystemExit("serve golden mismatch:\n  " + "\n  ".join(bad))
+
+    # warm timings: encode, generate, the prefill alone, cross_kv alone
+    reps = 3
+    runs = [_serve(torch, engine, frames, prompts) for _ in range(reps)]
+    enc_ms = min(r[3] for r in runs)
+    gen_ms = min(r[4] for r in runs)
+    prefill = make_prefill(engine.cfg)
+    cfg = engine.cfg
+
+    def prefill_once():
+        cache = encdec.init_cache(cfg, WHISPER_B, SERVE_MAX_LEN, device=cuda)
+        prefill(engine.params, torch.as_tensor(prompts, device=cuda), cache,
+                enc_out=main["enc"])
+
+    with torch.inference_mode():
+        pre_ms = time_wall(torch, prefill_once, reps)
+        xkv_ms = time_launches(torch, [lambda r: [
+            cross_kv(cfg, p.xattn, main["enc"])
+            for p in engine.params.dec_blocks]], 20)[0]
+    step_ms = (gen_ms - pre_ms) / (SERVE_NEW - 1)
+    # where a generate call's time goes on the device (torch.profiler)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with torch.inference_mode():
+            engine.generate(prompts, SERVE_NEW, enc_out=main["enc"])
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+    dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    if dev_ms > 0:
+        top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
+        log(f"serve: profiled generate: {sum(e.count for e in kern)} kernels"
+            f", device busy {dev_ms:.2f}ms = {dev_ms / gen_ms:.3f} of the "
+            f"unprofiled {gen_ms:.2f}ms wall; top: " + "; ".join(
+                f"{e.key[:48]} x{e.count} {e.self_device_time_total / 1e3:.2f}"
+                f"ms" for e in top))
+    else:
+        log("serve: profiled generate: no device time in the trace (device "
+            "busy share not measured)")
+    log(f"serve: warm (best of {reps}): encode {enc_ms:.2f}ms, generate "
+        f"{gen_ms:.2f}ms = prefill {pre_ms:.2f}ms + {SERVE_NEW - 1} decode "
+        f"steps at {step_ms:.3f}ms; {WHISPER_B * SERVE_NEW / gen_ms * 1e3:.1f}"
+        f" new tokens/s ({WHISPER_B * SERVE_NEW / (enc_ms + gen_ms) * 1e3:.1f}"
+        f" with the encoder); cross_kv of the {cfg.n_layers} layers "
+        f"{xkv_ms:.3f}ms device time, {xkv_ms / step_ms:.3f} of a decode step")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -779,9 +1146,11 @@ def main() -> int:
     poss = check_possibility(torch, np, cuda)
     weights, weights_ms = check_possibility_weights(torch, np, cuda)
     simstep_err = check_simstep(torch, np, cuda)
+    flash = check_flash(torch, np, cuda)
 
     # each main path runs with the counts from 0 and must launch every
     # kernel it goes through
+    serve = {}
     paths = {
         "slice 1 (plan, flit step, campaign)": (
             ("possibility_v", "simstep_tile", "simstep_finish"),
@@ -793,7 +1162,10 @@ def main() -> int:
              "simstep_finish"),
             lambda: (run_fig1(torch, np, cuda,
                               run_nrank(torch, np, cuda, weights_ms)),
-                     run_ctrl(torch, np, cuda)))}
+                     run_ctrl(torch, np, cuda))),
+        "slice 3 (whisper-base serving)": (
+            ("flash_attention",),
+            lambda: run_serve_main(torch, np, cuda, serve))}
     launches = {k: 0 for k in kernels.LAUNCHES}
     for label, (needed, drive) in paths.items():
         kernels.reset_launches()
@@ -807,9 +1179,10 @@ def main() -> int:
         for k, v in counts.items():
             launches[k] += v
 
+    run_serve_checks(torch, np, cuda, serve)
     timed = time_simstep(torch, np, cuda, mesh2d(32, 32), "32x32")
     time_simstep(torch, np, cuda, mesh2d_edge_io(5, 5), "5x5")
-    rows = [poss, weights] + timed
+    rows = [poss, weights] + timed + [flash]
     for row in rows:
         row["launches"] = launches[row["name"]]
         row.setdefault("max_abs_err", float(simstep_err))

@@ -1,0 +1,7 @@
+"""Architecture configurations of the port (whisper-base so far)."""
+
+from .base import (ARCH_MODULES, SHAPES, ArchSpec, ShapeSpec, get_arch,
+                   list_archs)
+
+__all__ = ["ARCH_MODULES", "SHAPES", "ArchSpec", "ShapeSpec", "get_arch",
+           "list_archs"]

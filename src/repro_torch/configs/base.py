@@ -1,0 +1,79 @@
+"""Architecture × input-shape registry.
+
+Every architecture exposes:
+  * ``full``  — the exact published configuration;
+  * ``smoke`` — a reduced same-family configuration for CPU tests
+    (small widths, tiny vocab).
+
+Only whisper-base is ported so far; the reference's other nine
+configurations wait for their model families (ROADMAP item 11).
+
+Shapes:
+  train_4k     seq 4096,   global_batch 256   → train_step
+  prefill_32k  seq 32768,  global_batch 32    → prefill (serve)
+  decode_32k   KV 32768,   global_batch 128   → serve_step (1 new token)
+  long_500k    KV 524288,  global_batch 1     → serve_step; SSM/hybrid only
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import importlib
+
+from ..models.common import ModelConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+SHAPES: dict[str, ShapeSpec] = {
+    "train_4k": ShapeSpec("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchSpec:
+    arch_id: str
+    full: ModelConfig
+    smoke: ModelConfig
+    shapes: tuple[str, ...]          # applicable shape names
+    skipped_shapes: tuple[str, ...]
+    notes: str = ""
+
+
+_REGISTRY: dict[str, ArchSpec] = {}
+ARCH_MODULES = ["whisper_base"]
+
+FULL_ATTN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+
+
+def register(spec: ArchSpec) -> ArchSpec:
+    _REGISTRY[spec.arch_id] = spec
+    return spec
+
+
+def _load_all():
+    for m in ARCH_MODULES:
+        importlib.import_module(f"{__package__}.{m}")
+
+
+def get_arch(arch_id: str) -> ArchSpec:
+    if arch_id not in _REGISTRY:
+        _load_all()
+    if arch_id not in _REGISTRY:
+        raise KeyError(f"{arch_id!r} is not ported (have {list_archs()}; "
+                       f"the rest wait for ROADMAP item 11)")
+    return _REGISTRY[arch_id]
+
+
+def list_archs() -> list[str]:
+    _load_all()
+    return sorted(_REGISTRY)

@@ -14,7 +14,9 @@ reference — and give the port's tensors, or back:
 The control plane's records come across too: :func:`nrank_result` (a
 warm start for ``replan(prev=...)``) and :func:`scenario` (events,
 policy and re-planner knobs).  Both read the reference objects by their
-field names only.
+field names only.  So do a model's parameters:
+:func:`encdec_params_from_numpy` takes the reference's whisper parameter
+tree (nested dicts of numpy arrays, layers stacked on a leading axis).
 """
 
 from __future__ import annotations
@@ -27,11 +29,14 @@ import torch
 from .core.bidor import BiDORTable
 from .core.nrank import NRankResult
 from .device import resolve_device
+from .models import encdec
+from .models.common import ModelConfig
 from .noc import ctrl
 from .noc.sim import Tables, state_to_host
 
 __all__ = ["tables_from_numpy", "state_from_numpy", "state_to_numpy",
-           "plan_from_numpy", "nrank_result", "scenario"]
+           "plan_from_numpy", "nrank_result", "scenario",
+           "encdec_params_from_numpy"]
 
 
 def tables_from_numpy(tables, device=None) -> Tables:
@@ -117,3 +122,37 @@ def scenario(ref) -> ctrl.Scenario:
     return ctrl.Scenario(name=ref.name,
                          events=tuple(_event(e) for e in ref.events),
                          policy=ref.policy, replan=rc)
+
+
+_STACKED = ("enc_blocks", "dec_blocks")
+
+
+def encdec_params_from_numpy(tree: dict, cfg: ModelConfig,
+                             device=None) -> encdec.EncDec:
+    """The port's whisper parameters from the reference's tree: every
+    array is copied into the parameter of the same path (``enc_blocks``
+    and ``dec_blocks`` slice their leading layer axis) and cast to that
+    parameter's dtype.  bfloat16 arrays (numpy's ``ml_dtypes``) pass
+    through float32, which holds them exactly."""
+    dev = resolve_device(device)
+    model = encdec.EncDec(cfg, None, "meta").to_empty(device=dev)
+    for name, param in model.named_parameters():
+        path = name.split(".")
+        if path[0] in _STACKED:
+            node, layer = tree[path[0]], int(path[1])
+            path = path[2:]
+        else:
+            node, layer = tree, None
+        for key in path:
+            node = node[key]
+        a = np.asarray(node)
+        if a.dtype.name == "bfloat16":
+            a = a.astype(np.float32)
+        if layer is not None:
+            a = a[layer]
+        if a.shape != tuple(param.shape):
+            raise ValueError(f"{name}: reference shape {a.shape}, port "
+                             f"{tuple(param.shape)}")
+        with torch.no_grad():
+            param.copy_(torch.as_tensor(np.ascontiguousarray(a)))
+    return model

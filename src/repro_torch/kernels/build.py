@@ -10,7 +10,8 @@ per source, all at once.
 
 ``--fmad=false`` keeps nvcc from contracting ``a*b + c`` into one fused
 multiply-add: the flit step's float comparisons must round every step
-as the reference does.
+as the reference does.  Attention's inner products call ``fmaf``
+themselves, which the flag leaves alone.
 """
 
 from __future__ import annotations
@@ -26,7 +27,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"possibility_v": "possibility_v.cu",
            "possibility_weights": "possibility_weights.cu",
-           "simstep": "simstep.cu"}
+           "simstep": "simstep.cu",
+           "flash_attention": "flash_attention.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

@@ -1,0 +1,6 @@
+"""Flash attention: the CUDA kernel and its plain twin."""
+
+from .ops import flash_attention
+from .ref import flash_attention_ref
+
+__all__ = ["flash_attention", "flash_attention_ref"]

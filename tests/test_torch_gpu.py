@@ -221,3 +221,121 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda):
         possibility_weights_op(*wargs[:4], wargs[4].double(), wargs[5])
     with pytest.raises(ValueError):     # all on one device
         possibility_weights_op(*wargs[:5], wargs[5].cpu())
+
+
+# --------------------------------------------------------------------- #
+# flash attention
+# --------------------------------------------------------------------- #
+# name: (B, Sq, Skv, H, KV, D, causal, mask)
+FLASH_CASES = {
+    "encoder_full_ragged": (2, 150, 150, 4, 4, 64, False, None),
+    "cross_prefill": (2, 16, 150, 4, 4, 64, False, None),
+    "cross_decode": (3, 1, 150, 4, 4, 64, False, None),
+    "cache_prefill_2d": (2, 16, 48, 4, 4, 64, False, "2d"),
+    "cache_decode_2d": (2, 1, 48, 4, 4, 64, False, "2d"),
+    "causal_gqa_d128": (1, 200, 200, 8, 4, 128, True, None),
+    "causal_sq_lt_skv_d80": (2, 40, 100, 4, 4, 80, True, None),
+    "mask_1d_d16": (2, 70, 90, 2, 1, 16, False, "1d"),
+    "causal_mask_2d_d48": (2, 20, 64, 4, 2, 48, True, "2d"),
+}
+
+
+def _flash_inputs(b, sq, skv, h, kv, d, mask, dtype, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    q = torch.randn((b, sq, h, d), generator=g).to(dtype)
+    k = torch.randn((b, skv, kv, d), generator=g).to(dtype)
+    v = torch.randn((b, skv, kv, d), generator=g).to(dtype)
+    if mask == "1d":
+        ml = torch.randint(1, skv + 1, (b,), generator=g, dtype=torch.int32)
+    elif mask == "2d":
+        index = torch.randint(0, skv - sq + 1, (b, 1), generator=g)
+        ml = (index + torch.arange(sq)[None] + 1).to(torch.int32)
+    else:
+        ml = None
+    return q, k, v, ml
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(FLASH_CASES))
+def test_flash_attention_kernel_vs_plain(cuda, case, dtype):
+    """2e-5 in float32, the reference's tolerance; 8e-3 (one bfloat16
+    unit) in bfloat16, tighter than the reference's 2e-2."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+
+    b, sq, skv, h, kv, d, causal, mask = FLASH_CASES[case]
+    dt = getattr(torch, dtype)
+    q, k, v, ml = _flash_inputs(b, sq, skv, h, kv, d, mask, dt)
+    want = flash_attention_ref(q, k, v, causal=causal, bias_mask_len=ml)
+    before = kernels.LAUNCHES["flash_attention"]
+    got = flash_attention(*[None if x is None else x.to(cuda)
+                            for x in (q, k, v)], causal=causal,
+                          mask_len=None if ml is None else ml.to(cuda))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dt and got.shape == (b, sq, h, d)
+    tol = 2e-5 if dtype == "float32" else 8e-3
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_takes_strided_views(cuda):
+    """A cache slice and a broadcast length, as the decoder passes them."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+
+    q, k, v, _ = _flash_inputs(2, 3, 64, 4, 2, 32, None, torch.float32)
+    kc = torch.zeros((3, 2, 64, 2, 32))
+    kc[1] = k
+    ml = (torch.arange(3, dtype=torch.int32) + 30)[None].expand(2, 3)
+    want = flash_attention_ref(q, k, v, causal=False, bias_mask_len=ml)
+    got = flash_attention(q.to(cuda), kc.to(cuda)[1], v.to(cuda)[:, :, :],
+                          causal=False, mask_len=ml.to(cuda))
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=2e-5,
+                               atol=2e-5)
+
+
+@pytest.mark.gpu
+def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(
+        cuda):
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q, k, v, ml = (x.to(cuda) for x in _flash_inputs(
+        1, 4, 8, 2, 2, 16, "1d", torch.float32))
+    with pytest.raises(ValueError):     # head dim not a multiple of 16
+        flash_attention(q[..., :8], k[..., :8], v[..., :8], causal=True)
+    with pytest.raises(TypeError):      # float16 is not a kernel type
+        flash_attention(q.half(), k.half(), v.half(), causal=True)
+    with pytest.raises(TypeError):      # lengths must be int32
+        flash_attention(q, k, v, causal=False, mask_len=ml.long())
+    with pytest.raises(ValueError):     # last dimension must be contiguous
+        flash_attention(q.transpose(1, 3).contiguous().transpose(1, 3), k,
+                        v, causal=True)
+
+
+@pytest.mark.gpu
+def test_serve_golden_on_the_card(cuda):
+    """``tests/goldens/serve_whisper_smoke.json`` (the reference's fp32
+    logits and greedy tokens) through the port's serving path on the card,
+    every attention call a kernel launch."""
+    from repro_torch.models import encdec
+    from repro_torch.serve import ServeEngine, golden
+
+    with open(os.path.join(os.path.dirname(__file__), "goldens",
+                           golden.GOLDEN_NAME)) as f:
+        want = json.load(f)
+    cfg = golden.config()
+    tree, frames, prompts = golden.numpy_case(cfg)
+    model = convert.encdec_params_from_numpy(tree, cfg, cuda)
+    before = kernels.LAUNCHES["flash_attention"]
+    enc = encdec.encode(cfg, model, torch.as_tensor(frames, device=cuda))
+    max_len = golden.PROMPT_LEN + golden.NEW_TOKENS + golden.CACHE_SLACK
+    toks, logits = ServeEngine(cfg, model, max_len).generate(
+        prompts, golden.NEW_TOKENS, enc_out=enc, return_logits=True)
+    n_dec = cfg.n_layers * 2 * golden.NEW_TOKENS
+    assert kernels.LAUNCHES["flash_attention"] - before == (
+        cfg.enc_layers + n_dec)
+    logits = [x.cpu() for x in logits]
+    assert not golden.mismatches(want, logits[0], logits[1:], toks, 1e-5)
