@@ -40,17 +40,35 @@ Main path of slice 2 (launch counts from 0 again):
               shapes (B 4, H = KV = 8, D 64: the encoder, cross-attention
               and cached self-attention at Sq 16 and 1) and at a GQA
               (internlm2) and a D = 80 (stablelm) shape, bf16 and fp32;
+              and at Jamba's (B 4, GQA 64/8, D 128: the prefill's 2 048
+              queries and a decode step against the 2 080-row cache);
               µs per launch beside the twin, ``scaled_dot_product_attention``
               and the bound;
+11. scan    — ``selective_scan`` against its plain twin (y and h_last
+              within 1e-5 of the twin's largest value) at Jamba's prefill
+              (B 4, S 2 048, Di 16 384, Ds 16; h0 zero and given) and
+              decode (S 1) shapes and a ragged one (S 33, Di 100, Ds 4);
+              µs per launch beside the twin and the bound;
 Main path of slice 3 (launch counts from 0 again):
-11. serve   — whisper-base at full width (bf16, random weights from numpy
+12. serve   — whisper-base at full width (bf16, random weights from numpy
               seed 0 at the serve golden's scales, so the greedy tokens
               vary): encode, then ``ServeEngine.generate`` for 4 requests of
               16 prompt and 24 new tokens; then, off the counted path, the
               same run on the plain twin (logits of every step), the run in
               fp32 (tokens identical), ``tests/goldens/serve_whisper_smoke.json``
               on the card, and a timed repeat with ``cross_kv``'s share;
-12. summary — launches of each kernel on each main path, event-timed µs
+Main path of slice 4 (launch counts from 0 again):
+13. jamba   — jamba-1.5-large-398b at its published widths, cut to one
+              super-block (1 attention + 7 Mamba layers) without experts,
+              bf16, the registry's weights drawn on the card from seed 0:
+              ``ServeEngine.generate`` for 4 requests of 2 048 prompt and
+              24 new tokens (168 ``selective_scan`` and 24
+              ``flash_attention`` launches); then, off the counted path,
+              the same run on the plain twins (logits of every step), warm
+              timings and the device profile, the run in fp32 (tokens
+              identical), and ``tests/goldens/serve_jamba_smoke.json`` on
+              the card;
+14. summary — launches of each kernel on each main path, event-timed µs
               per launch, the plain version's time and the bound, as one
               JSON line; then the card line and the result.
 """
@@ -787,6 +805,9 @@ FLASH_SHAPES = (
      SERVE_PROMPT + SERVE_NEW - 2),
     ("gqa causal (internlm2)", 1, 2048, 2048, 16, 8, 128, True, None),
     ("d80 causal (stablelm)", 1, 1024, 1024, 32, 32, 80, True, None),
+    # slice 4's attention layer against its 2 080-row cache (GQA 64/8)
+    ("jamba prefill", 4, 2048, 2080, 64, 8, 128, False, 0),
+    ("jamba decode", 4, 1, 2080, 64, 8, 128, False, 2070),
 )
 # fp32 at the reference's 2e-5; bf16 at one bf16 unit (2**-7), about four
 # times the worst error measured at these shapes, tighter than the
@@ -948,22 +969,25 @@ def _serve(torch, engine, frames, prompts):
 
 
 @contextlib.contextmanager
-def plain_attention():
-    """Within this scope the model's attention calls run the plain twin,
-    on the card too: the whole-model reference for the kernel."""
+def plain_twins():
+    """Within this scope the model's attention and selective-scan calls
+    run their plain twins, on the card too: the whole-model reference for
+    the kernels."""
     from repro_torch.kernels.flash_attention import flash_attention_ref
-    from repro_torch.models.layers import attention
+    from repro_torch.kernels.mamba_scan import selective_scan_ref
+    from repro_torch.models.layers import attention, recurrent
 
     def twin(q, k, v, *, causal, mask_len=None, **chunks):
         return flash_attention_ref(q, k, v, causal=causal,
                                    bias_mask_len=mask_len, **chunks)
 
-    real = attention.flash_ops
+    real = attention.flash_ops, recurrent.scan_ops
     attention.flash_ops = SimpleNamespace(flash_attention=twin)
+    recurrent.scan_ops = SimpleNamespace(selective_scan=selective_scan_ref)
     try:
         yield
     finally:
-        attention.flash_ops = real
+        attention.flash_ops, recurrent.scan_ops = real
 
 
 def _check_logits(np, label, got, want, rtol, atol, scaled):
@@ -1025,7 +1049,7 @@ def run_serve_checks(torch, np, cuda, main):
 
     engine, frames, prompts = main["engine"], main["frames"], main["prompts"]
     toks = main["toks"]
-    with plain_attention():
+    with plain_twins():
         p_enc, p_toks, _, _, _ = _serve(torch, engine, frames, prompts)
         p_logits = engine.teacher_forced_logits(prompts, toks,
                                                 enc_out=p_enc)
@@ -1039,7 +1063,7 @@ def run_serve_checks(torch, np, cuda, main):
 
     _, e32, f32, p32 = _whisper(torch, np, cuda, "float32", main["tree"])
     _, t32, l32, _, _ = _serve(torch, e32, f32, p32)
-    with plain_attention():
+    with plain_twins():
         _, pt32, pl32, _, _ = _serve(torch, e32, f32, p32)
     err32 = _check_logits(np, "fp32 kernel vs plain", l32, pl32, 1e-4,
                           1e-4, scaled=False)
@@ -1119,6 +1143,318 @@ def run_serve_checks(torch, np, cuda, main):
         f"{xkv_ms:.3f}ms device time, {xkv_ms / step_ms:.3f} of a decode step")
 
 
+# --------------------------------------------------------------------- #
+# slice 4: the selective scan and Jamba hybrid serving
+# --------------------------------------------------------------------- #
+# Jamba-1.5-Large at its published widths, cut to one of its nine
+# super-blocks (1 attention + 7 Mamba layers) and without experts: the 4
+# MoE FFNs of a super-block alone are 77 GB in bf16
+JAMBA = "jamba-1.5-large-398b"
+JAMBA_CUT = {"n_layers": 8, "moe_experts": 0, "moe_topk": 0}
+JAMBA_B, JAMBA_PROMPT, JAMBA_NEW = 4, 2048, 24
+JAMBA_MAX_LEN = JAMBA_PROMPT + JAMBA_NEW + 8
+# special-function-unit results per second (expf's ex2): 16 a cycle per
+# SM, 132 SMs at 1.98 GHz
+SFU_OPS_PER_S = 132 * 16 * 1.98e9
+# (label, B, S, Di, Ds, with h0): the prefill and decode shapes of the
+# served model, and a ragged one (Di not a block multiple, S not a chunk
+# multiple, a small state)
+SCAN_SHAPES = (
+    ("prefill", 4, 2048, 16384, 16, False),
+    ("prefill, h0", 4, 2048, 16384, 16, True),
+    ("decode", 4, 1, 16384, 16, True),
+    ("ragged", 2, 33, 100, 4, True),
+)
+# kernel and twin round every step alike (--fmad=false); only y's sum
+# over the state runs in another order: |err| <= 1e-5 x max |twin|
+SCAN_TOL = 1e-5
+
+
+def _scan_case(torch, cuda, shape, seed):
+    """delta = 0.1·softplus(N), A = −exp(0.2·N), B, C, x, h0 ~ N (the
+    reference kernel test's draws), on the card."""
+    import torch.nn.functional as F
+
+    _, b, s, di, ds, with_h0 = shape
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+
+    def n(*size):
+        return torch.randn(size, generator=gen, device=cuda)
+
+    delta = 0.1 * F.softplus(n(b, s, di))
+    a = -torch.exp(0.2 * n(di, ds))
+    bm, cm, x = n(b, s, ds), n(b, s, ds), n(b, s, di)
+    return delta, a, bm, cm, x, (n(b, di, ds) if with_h0 else None)
+
+
+def _scan_bound(shape):
+    """Least time on this run's inputs: delta, x, A, B, C and h0 read once,
+    y and h_last written once; per (b, t, channel, state) one exp on the
+    special-function units and 6 FLOP (Δ·A, the update's two products
+    and sum, y's product and sum) plus Δ·x per (b, t, channel) on the
+    float32 pipes, which issue beside the SFU: the slower of the two."""
+    _, b, s, di, ds, with_h0 = shape
+    nbytes = 4 * (3 * b * s * di + di * ds + 2 * b * s * ds
+                  + (2 if with_h0 else 1) * b * di * ds)
+    exps = b * s * di * ds
+    flops = 6 * exps + b * s * di
+    bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": max(exps / SFU_OPS_PER_S,
+                               flops / F32_FLOPS) * 1e3}
+    by = max(bound, key=bound.get)
+    return bound[by], by, exps, flops, nbytes
+
+
+def check_scan(torch, np, cuda):
+    """selective_scan against its plain twin at every listed shape, y and
+    h_last; event-timed beside the twin and the bound.  Returns the
+    kernel row (timings at the prefill shape with h0, as the served
+    model calls it)."""
+    from repro_torch.kernels.mamba_scan import (selective_scan,
+                                                selective_scan_ref)
+
+    worst, row = 0.0, None
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=cuda)
+    for shape in SCAN_SHAPES:
+        label = shape[0]
+        delta, a, bm, cm, x, h0 = _scan_case(torch, cuda, shape, len(label))
+        y, h = selective_scan(delta, a, bm, cm, x, h0=h0)
+        wy, wh = selective_scan_ref(delta, a, bm, cm, x, h0)
+        torch.cuda.synchronize()
+        errs = []
+        for name, got, want in (("y", y, wy), ("h_last", h, wh)):
+            err = float((got - want).abs().max())
+            lim = SCAN_TOL * float(want.abs().max())
+            errs.append(f"{name} max_abs_err={err!r} (limit {lim:.3e}, "
+                        f"{int((got != want).sum())} of {want.numel()} "
+                        f"differ)")
+            worst = max(worst, err)
+            if not err <= lim:
+                raise SystemExit(f"selective_scan disagrees with plain at "
+                                 f"{label}: {name} {err!r} > {lim!r}")
+        log(f"scan: {label} B={shape[1]} S={shape[2]} Di={shape[3]} "
+            f"Ds={shape[4]} h0={'given' if shape[5] else 'zero'}: "
+            + ", ".join(errs) + " ok")
+        if label == "ragged":
+            continue
+        fns = [lambda r: selective_scan(delta, a, bm, cm, x, h0=h0)]
+        if shape[2] == 1:   # a decode step finds h0 cold: flush the L2
+            fns.insert(0, lambda r: flush.zero_())
+        ms = time_launches(torch, fns, 20 if shape[2] > 1 else 200)[-1]
+        plain_ms = time_wall(torch, lambda: selective_scan_ref(
+            delta, a, bm, cm, x, h0), 2 if shape[2] > 1 else 20)
+        bound, by, exps, flops, nbytes = _scan_bound(shape)
+        log(f"scan: {label}: {ms * 1e3:.2f}us per launch, bound "
+            f"{bound * 1e3:.2f}us ({by}: {exps:.3e} exp, {flops:.3e} FLOP, "
+            f"{nbytes} bytes), {bound / ms:.3f} of it; plain {plain_ms:.3f}ms")
+        if label == "prefill, h0":
+            row = dict(name="selective_scan", route="cuda",
+                       source="src/repro_torch/kernels/csrc/"
+                              "selective_scan.cu",
+                       replaces="src/repro/kernels/mamba_scan/kernel.py:52",
+                       ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                       library_ms=None)
+        del delta, x, y, wy
+    row["max_abs_err"] = worst
+    return row
+
+
+def _jamba(torch, np, cuda, dtype):
+    """The served configuration in ``dtype``: the registry's weights
+    (seed 0, the reference's init scales, drawn on the card), prompts
+    from numpy seed 1."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import registry
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_arch(JAMBA).full.replace(dtype=dtype, **JAMBA_CUT)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = registry.init(cfg, seed=0, device=cuda)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = np.random.default_rng(1).integers(
+        0, cfg.vocab, (JAMBA_B, JAMBA_PROMPT)).astype(np.int32)
+    return cfg, ServeEngine(cfg, model, JAMBA_MAX_LEN), prompts, init_s
+
+
+def _generate(torch, engine, prompts):
+    """generate with every call's logits, host-timed around synchronised
+    work."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, logits = engine.generate(prompts, JAMBA_NEW, return_logits=True)
+    torch.cuda.synchronize()
+    return toks, logits, (time.perf_counter() - t0) * 1e3
+
+
+def run_jamba_main(torch, np, cuda, out):
+    """Slice 4's main path: Jamba bf16 through ``ServeEngine.generate``;
+    one ``selective_scan`` launch per Mamba layer and call (the prefill and
+    each decode step), one ``flash_attention`` launch per attention layer
+    and call."""
+    from repro_torch import kernels
+    from repro_torch.models.common import param_count_tree
+
+    cfg, engine, prompts, init_s = _jamba(torch, np, cuda, "bfloat16")
+    torch.cuda.reset_peak_memory_stats()
+    before = {k: kernels.LAUNCHES[k]
+              for k in ("selective_scan", "flash_attention")}
+    toks, logits, gen_ms = _generate(torch, engine, prompts)
+    n_attn = cfg.n_layers // cfg.attn_period
+    want = {"selective_scan": (cfg.n_layers - n_attn) * JAMBA_NEW,
+            "flash_attention": n_attn * JAMBA_NEW}
+    got = {k: kernels.LAUNCHES[k] - before[k] for k in want}
+    if got != want:
+        raise SystemExit(f"jamba: launches {got}, expected {want}")
+    if toks.shape != (JAMBA_B, JAMBA_NEW) or not (
+            (toks >= 0) & (toks < cfg.vocab)).all():
+        raise SystemExit(f"jamba: bad tokens {toks}")
+    if not all(bool(torch.isfinite(x).all()) for x in logits):
+        raise SystemExit("jamba: non-finite logits")
+    distinct = min(len(set(row)) for row in toks.tolist())
+    if distinct < 2:
+        raise SystemExit(f"jamba: a request repeats one token, so the "
+                         f"checks below would prove little: {toks}")
+    log(f"jamba: {cfg.name} cut to {JAMBA_CUT} "
+        f"({param_count_tree(engine.params)} parameters, bf16, init "
+        f"{init_s:.2f}s) B={JAMBA_B} prompt={JAMBA_PROMPT} new={JAMBA_NEW} "
+        f"(first run) generate {gen_ms:.1f}ms, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; fewest "
+        f"distinct tokens in a request {distinct}; tokens[0]="
+        f"{toks[0].tolist()}")
+    out.update(cfg=cfg, engine=engine, prompts=prompts, toks=toks,
+               logits=logits)
+
+
+def _profile(torch, fn):
+    """Device ms in total and by kernel name of one call of ``fn``
+    (torch.profiler), or None when the trace holds no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages()
+            if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
+    if not kern:
+        return None
+    return {e.key: (e.count, e.self_device_time_total / 1e3) for e in kern}
+
+
+def _share(prof, part):
+    return sum(ms for k, (_, ms) in prof.items() if part in k)
+
+
+def run_jamba_checks(torch, np, cuda, main):
+    """Off the counted path: the plain twins on the same card inputs, warm
+    timings and the device profile, the fp32 run, the smoke golden."""
+    from repro_torch import convert
+    from repro_torch.models import hybrid
+    from repro_torch.serve import ServeEngine, golden, make_prefill
+
+    cfg, engine, prompts = main["cfg"], main["engine"], main["prompts"]
+    toks = main["toks"]
+    with torch.inference_mode(), plain_twins():
+        p_toks, _, p_ms = _generate(torch, engine, prompts)
+        p_logits = engine.teacher_forced_logits(prompts, toks)
+    err = _check_logits(np, "jamba bf16 kernel vs plain", main.pop("logits"),
+                        p_logits, 0.0, 2e-2, scaled=True)
+    del p_logits
+    agree = float((toks == p_toks).mean())
+    log(f"jamba: bf16 kernels vs plain twins on the card: logits of every "
+        f"step max_abs_err={err!r} (limit 2e-2 x the step's largest logit), "
+        f"greedy token agreement {agree:.3f}; the twins' generate "
+        f"{p_ms:.1f}ms")
+
+    # warm timings: generate, the prefill alone; the device profile
+    runs = [_generate(torch, engine, prompts)[2] for _ in range(2)]
+    gen_ms = min(runs)
+    prefill = make_prefill(cfg)
+    toks_dev = torch.as_tensor(prompts, device=cuda)
+
+    def prefill_once():
+        cache = hybrid.init_cache(cfg, JAMBA_B, JAMBA_MAX_LEN, device=cuda)
+        prefill(engine.params, toks_dev, cache)
+
+    with torch.inference_mode():
+        pre_ms = time_wall(torch, prefill_once, 2)
+        prof_pre = _profile(torch, prefill_once)
+        prof_gen = _profile(torch, lambda: engine.generate(prompts,
+                                                           JAMBA_NEW))
+    step_ms = (gen_ms - pre_ms) / (JAMBA_NEW - 1)
+    log(f"jamba: warm (best of 2): generate {gen_ms:.2f}ms = prefill "
+        f"{pre_ms:.2f}ms + {JAMBA_NEW - 1} decode steps at {step_ms:.3f}ms; "
+        f"{JAMBA_B * JAMBA_NEW / gen_ms * 1e3:.1f} new tokens/s "
+        f"({JAMBA_B * (JAMBA_NEW - 1) / (gen_ms - pre_ms) * 1e3:.1f} in the "
+        f"decode steps); weights {cfg.param_count() * 2 / 1e9:.2f} GB, read "
+        f"once a step at 3.35e12 B/s: {cfg.param_count() * 2 / 3.35e9:.2f}ms")
+    if prof_pre is None or prof_gen is None:
+        log("jamba: profile: no device time in the trace (busy share and "
+            "kernel shares not measured)")
+    else:
+        dev_pre = sum(ms for _, ms in prof_pre.values())
+        dev_gen = sum(ms for _, ms in prof_gen.values())
+        dev_dec = dev_gen - dev_pre
+        dec = {k: (c - prof_pre.get(k, (0, 0.0))[0],
+                   ms - prof_pre.get(k, (0, 0.0))[1])
+               for k, (c, ms) in prof_gen.items()}
+        n_dec = sum(c for c, _ in dec.values()) / (JAMBA_NEW - 1)
+        for label, part in (("selective_scan", "selective_scan"),
+                            ("flash_attention", "flash_fwd")):
+            pre, gen = _share(prof_pre, part), _share(prof_gen, part)
+            log(f"jamba: {label}: prefill {pre:.3f}ms = {pre / dev_pre:.4f} "
+                f"of its device time; decode steps {gen - pre:.3f}ms = "
+                f"{(gen - pre) / dev_dec:.4f} of theirs")
+        log(f"jamba: profiled: prefill device busy {dev_pre:.2f}ms "
+            f"({dev_pre / pre_ms:.3f} of its wall); decode steps "
+            f"{dev_dec / (JAMBA_NEW - 1):.3f}ms busy a step "
+            f"({dev_dec / (gen_ms - pre_ms):.3f} of the wall), "
+            f"{n_dec:.0f} kernels a step")
+        for label, prof in (("prefill", prof_pre), ("decode steps", dec)):
+            top = sorted(prof.items(), key=lambda kv: -kv[1][1])[:8]
+            log(f"jamba: top kernels of the {label}: " + "; ".join(
+                f"{k[:56]} x{c} {ms:.2f}ms" for k, (c, ms) in top))
+
+    # fp32: the kernels' tokens are the twins' exactly; bf16 freed first
+    main.clear()
+    del engine, prefill
+    torch.cuda.empty_cache()
+    _, e32, p32, init32 = _jamba(torch, np, cuda, "float32")
+    t32, l32, ms32 = _generate(torch, e32, p32)
+    with torch.inference_mode(), plain_twins():
+        pt32, pl32, pms32 = _generate(torch, e32, p32)
+    err32 = _check_logits(np, "jamba fp32 kernel vs plain", l32, pl32, 1e-4,
+                          1e-4, scaled=False)
+    log(f"jamba: fp32 (init {init32:.2f}s, generate {ms32:.1f}ms, twins "
+        f"{pms32:.1f}ms) kernels vs plain twins: tokens identical="
+        f"{bool((t32 == pt32).all())}, logits of every step max_abs_err="
+        f"{err32!r} (rtol/atol 1e-4)")
+    if not (t32 == pt32).all():
+        raise SystemExit("jamba fp32: kernel tokens differ from the plain "
+                         "twins'")
+    del e32, l32, pl32
+    torch.cuda.empty_cache()
+
+    with open(os.path.join(HERE, "tests", "goldens",
+                           golden.JAMBA_GOLDEN_NAME)) as f:
+        want = json.load(f)
+    gcfg = golden.jamba_config()
+    tree, gprompts = golden.jamba_numpy_case(gcfg)
+    gmodel = convert.hybrid_params_from_numpy(tree, gcfg, cuda)
+    gtoks, glogits = ServeEngine(
+        gcfg, gmodel, golden.JAMBA_PROMPT_LEN + golden.NEW_TOKENS
+        + golden.CACHE_SLACK).generate(gprompts, golden.NEW_TOKENS,
+                                       return_logits=True)
+    bad = golden.mismatches(want, glogits[0].cpu(),
+                            [x.cpu() for x in glogits[1:]], gtoks, 1e-5)
+    log(f"jamba: {golden.JAMBA_GOLDEN_NAME} on the card (fp32, kernel "
+        f"path): {'ok' if not bad else 'MISMATCH'}")
+    if bad:
+        raise SystemExit("jamba golden mismatch:\n  " + "\n  ".join(bad))
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1147,10 +1483,11 @@ def main() -> int:
     weights, weights_ms = check_possibility_weights(torch, np, cuda)
     simstep_err = check_simstep(torch, np, cuda)
     flash = check_flash(torch, np, cuda)
+    scan = check_scan(torch, np, cuda)
 
     # each main path runs with the counts from 0 and must launch every
     # kernel it goes through
-    serve = {}
+    serve, jamba = {}, {}
     paths = {
         "slice 1 (plan, flit step, campaign)": (
             ("possibility_v", "simstep_tile", "simstep_finish"),
@@ -1165,7 +1502,10 @@ def main() -> int:
                      run_ctrl(torch, np, cuda))),
         "slice 3 (whisper-base serving)": (
             ("flash_attention",),
-            lambda: run_serve_main(torch, np, cuda, serve))}
+            lambda: run_serve_main(torch, np, cuda, serve)),
+        "slice 4 (jamba hybrid serving)": (
+            ("selective_scan", "flash_attention"),
+            lambda: run_jamba_main(torch, np, cuda, jamba))}
     launches = {k: 0 for k in kernels.LAUNCHES}
     for label, (needed, drive) in paths.items():
         kernels.reset_launches()
@@ -1180,9 +1520,11 @@ def main() -> int:
             launches[k] += v
 
     run_serve_checks(torch, np, cuda, serve)
+    serve.clear()
+    run_jamba_checks(torch, np, cuda, jamba)
     timed = time_simstep(torch, np, cuda, mesh2d(32, 32), "32x32")
     time_simstep(torch, np, cuda, mesh2d_edge_io(5, 5), "5x5")
-    rows = [poss, weights] + timed + [flash]
+    rows = [poss, weights] + timed + [flash, scan]
     for row in rows:
         row["launches"] = launches[row["name"]]
         row.setdefault("max_abs_err", float(simstep_err))

@@ -1,4 +1,4 @@
-"""Architecture configurations of the port (whisper-base so far)."""
+"""Architecture configurations of the port (whisper-base and jamba-1.5-large-398b so far)."""
 
 from .base import (ARCH_MODULES, SHAPES, ArchSpec, ShapeSpec, get_arch,
                    list_archs)

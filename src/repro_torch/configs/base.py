@@ -5,8 +5,8 @@ Every architecture exposes:
   * ``smoke`` — a reduced same-family configuration for CPU tests
     (small widths, tiny vocab).
 
-Only whisper-base is ported so far; the reference's other nine
-configurations wait for their model families (ROADMAP item 11).
+whisper-base and jamba-1.5-large-398b are ported; the reference's other
+eight configurations wait for their model families (ROADMAP item 11).
 
 Shapes:
   train_4k     seq 4096,   global_batch 256   → train_step
@@ -50,9 +50,10 @@ class ArchSpec:
 
 
 _REGISTRY: dict[str, ArchSpec] = {}
-ARCH_MODULES = ["whisper_base"]
+ARCH_MODULES = ["whisper_base", "jamba_1_5_large"]
 
 FULL_ATTN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
+SUBQUADRATIC_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
 
 
 def register(spec: ArchSpec) -> ArchSpec:

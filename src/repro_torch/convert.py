@@ -15,8 +15,9 @@ The control plane's records come across too: :func:`nrank_result` (a
 warm start for ``replan(prev=...)``) and :func:`scenario` (events,
 policy and re-planner knobs).  Both read the reference objects by their
 field names only.  So do a model's parameters:
-:func:`encdec_params_from_numpy` takes the reference's whisper parameter
-tree (nested dicts of numpy arrays, layers stacked on a leading axis).
+:func:`encdec_params_from_numpy` and :func:`hybrid_params_from_numpy`
+take the reference's whisper and Jamba parameter trees (nested dicts of
+numpy arrays, layers stacked on leading axes).
 """
 
 from __future__ import annotations
@@ -29,14 +30,14 @@ import torch
 from .core.bidor import BiDORTable
 from .core.nrank import NRankResult
 from .device import resolve_device
-from .models import encdec
+from .models import encdec, hybrid
 from .models.common import ModelConfig
 from .noc import ctrl
 from .noc.sim import Tables, state_to_host
 
 __all__ = ["tables_from_numpy", "state_from_numpy", "state_to_numpy",
            "plan_from_numpy", "nrank_result", "scenario",
-           "encdec_params_from_numpy"]
+           "encdec_params_from_numpy", "hybrid_params_from_numpy"]
 
 
 def tables_from_numpy(tables, device=None) -> Tables:
@@ -124,35 +125,45 @@ def scenario(ref) -> ctrl.Scenario:
                          policy=ref.policy, replan=rc)
 
 
-_STACKED = ("enc_blocks", "dec_blocks")
-
-
-def encdec_params_from_numpy(tree: dict, cfg: ModelConfig,
-                             device=None) -> encdec.EncDec:
-    """The port's whisper parameters from the reference's tree: every
-    array is copied into the parameter of the same path (``enc_blocks``
-    and ``dec_blocks`` slice their leading layer axis) and cast to that
-    parameter's dtype.  bfloat16 arrays (numpy's ``ml_dtypes``) pass
-    through float32, which holds them exactly."""
-    dev = resolve_device(device)
-    model = encdec.EncDec(cfg, None, "meta").to_empty(device=dev)
+def _params_from_numpy(model: torch.nn.Module, tree: dict) -> None:
+    """Copy the reference's tree into ``model``: a parameter's dotted name
+    walks the tree by its keys, and each integer in it (a ``ModuleList``
+    index) indexes the stacked array found there, outermost first.
+    Arrays are cast to the parameter's dtype; bfloat16 arrays (numpy's
+    ``ml_dtypes``) pass through float32, which holds them exactly."""
     for name, param in model.named_parameters():
-        path = name.split(".")
-        if path[0] in _STACKED:
-            node, layer = tree[path[0]], int(path[1])
-            path = path[2:]
-        else:
-            node, layer = tree, None
-        for key in path:
-            node = node[key]
-        a = np.asarray(node)
+        node, layers = tree, []
+        for key in name.split("."):
+            if key.isdigit():
+                layers.append(int(key))
+            else:
+                node = node[key]
+        a = np.asarray(node)[tuple(layers)]
         if a.dtype.name == "bfloat16":
             a = a.astype(np.float32)
-        if layer is not None:
-            a = a[layer]
         if a.shape != tuple(param.shape):
             raise ValueError(f"{name}: reference shape {a.shape}, port "
                              f"{tuple(param.shape)}")
         with torch.no_grad():
             param.copy_(torch.as_tensor(np.ascontiguousarray(a)))
+
+
+def encdec_params_from_numpy(tree: dict, cfg: ModelConfig,
+                             device=None) -> encdec.EncDec:
+    """The port's whisper parameters from the reference's tree
+    (``enc_blocks`` and ``dec_blocks`` stacked on a leading layer axis)."""
+    model = encdec.EncDec(cfg, None, "meta").to_empty(
+        device=resolve_device(device))
+    _params_from_numpy(model, tree)
+    return model
+
+
+def hybrid_params_from_numpy(tree: dict, cfg: ModelConfig,
+                             device=None) -> hybrid.Hybrid:
+    """The port's Jamba parameters from the reference's tree: ``blocks``
+    stacked on axis 0 by super-block, and inside it ``mamba``,
+    ``mamba_ln``, ``ffn_ln`` and ``ffn_dense`` on axis 1 by layer."""
+    model = hybrid.Hybrid(cfg, None, "meta").to_empty(
+        device=resolve_device(device))
+    _params_from_numpy(model, tree)
     return model

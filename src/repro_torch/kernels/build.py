@@ -10,8 +10,9 @@ per source, all at once.
 
 ``--fmad=false`` keeps nvcc from contracting ``a*b + c`` into one fused
 multiply-add: the flit step's float comparisons must round every step
-as the reference does.  Attention's inner products call ``fmaf``
-themselves, which the flag leaves alone.
+as the reference does, and the selective scan's update rounds each
+product as its plain twin does.  Attention's inner products call
+``fmaf`` themselves, which the flag leaves alone.
 """
 
 from __future__ import annotations
@@ -28,7 +29,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"possibility_v": "possibility_v.cu",
            "possibility_weights": "possibility_weights.cu",
            "simstep": "simstep.cu",
-           "flash_attention": "flash_attention.cu"}
+           "flash_attention": "flash_attention.cu",
+           "selective_scan": "selective_scan.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

@@ -1,0 +1,6 @@
+"""Mamba's selective scan: the CUDA kernel and its plain twin."""
+
+from .ops import selective_scan
+from .ref import selective_scan_ref
+
+__all__ = ["selective_scan", "selective_scan_ref"]

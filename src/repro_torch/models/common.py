@@ -87,6 +87,10 @@ class ModelConfig:
     def torch_dtype(self) -> torch.dtype:
         return _DTYPES[self.dtype]
 
+    @property
+    def is_moe(self) -> bool:
+        return self.moe_experts > 0
+
     def param_count(self) -> int:
         """Exact parameter count, from a model built on the meta device."""
         from .registry import count_params  # lazy, avoids a cycle

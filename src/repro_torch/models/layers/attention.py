@@ -13,6 +13,7 @@ from torch import nn
 
 from ...kernels.flash_attention import ops as flash_ops
 from ..common import ModelConfig, dense_init
+from .rope import apply_rope
 
 
 def attention_op(cfg: ModelConfig, q, k, v, *, causal, mask_len=None):
@@ -38,18 +39,22 @@ class GQA(nn.Module):
         self.wo = dense_init(gen, (h * hd, d), dt, device=device)
 
 
-def gqa_apply(cfg: ModelConfig, p: GQA, x, *, causal=True, cache=None,
-              cache_index=None):
-    """x: (B, S, d).  ``cache``: optional dict(k, v) of (B, T, KV, hd) for
-    decoding — new K/V are written at ``cache_index`` (in place, where
-    the reference returns an updated copy) and attention runs over the
-    whole cache, query t seeing keys < cache_index + t + 1; returns
-    (out, cache)."""
+def gqa_apply(cfg: ModelConfig, p: GQA, x, *, angles=None, causal=True,
+              cache=None, cache_index=None):
+    """x: (B, S, d).  ``angles``: optional RoPE angles (B, S, hd/2),
+    applied to q and k before the cache write.  ``cache``: optional
+    dict(k, v) of (B, T, KV, hd) for decoding — new K/V are written at
+    ``cache_index`` (in place, where the reference returns an updated
+    copy) and attention runs over the whole cache, query t seeing keys
+    < cache_index + t + 1; returns (out, cache)."""
     b, s, _ = x.shape
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = torch.matmul(x, p.wq).reshape(b, s, h, hd)
     k = torch.matmul(x, p.wk).reshape(b, s, kv, hd)
     v = torch.matmul(x, p.wv).reshape(b, s, kv, hd)
+    if angles is not None:
+        q = apply_rope(q, angles)
+        k = apply_rope(k, angles)
     if cache is not None:
         ck, cv = cache["k"], cache["v"]
         ck[:, cache_index:cache_index + s] = k.to(ck.dtype)

@@ -55,6 +55,15 @@ def embed(p: Embedding, tokens: torch.Tensor) -> torch.Tensor:
     return p.table[tokens]
 
 
+class Head(nn.Module):
+    """An untied output projection (vocab, d), fan-in init over the vocab
+    axis as the reference's ``head_init``."""
+
+    def __init__(self, gen, vocab: int, d: int, dtype, device=None):
+        super().__init__()
+        self.w = dense_init(gen, (vocab, d), dtype, device=device)
+
+
 def unembed(p_emb: Embedding, p_head, x: torch.Tensor,
             tie: bool) -> torch.Tensor:
     """Vocabulary logits in fp32, accumulated in fp32 (tied to the

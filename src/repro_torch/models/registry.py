@@ -1,17 +1,19 @@
 """Model registry: family dispatch and parameter counting.
 
-Only the ``encdec`` family (whisper) is ported; the dense, moe, vlm,
-hybrid and ssm families raise until ROADMAP item 11 brings them.
+The ``encdec`` (whisper) and ``hybrid`` (Jamba, without its MoE FFN)
+families are ported; the dense, moe, vlm and ssm families raise until
+ROADMAP item 11 brings them.
 """
 
 from __future__ import annotations
 
 from types import ModuleType
 
-from . import encdec
+from . import encdec, hybrid
 from .common import ModelConfig, param_count_tree
 
-_FAMILY_MODULE: dict[str, ModuleType] = {"encdec": encdec}
+_FAMILY_MODULE: dict[str, ModuleType] = {"encdec": encdec,
+                                          "hybrid": hybrid}
 
 
 def model_module(cfg: ModelConfig) -> ModuleType:

@@ -1,23 +1,30 @@
-"""The serve golden: one whisper smoke case drawn from numpy, and the
-record of what serving it gives.
+"""The serve goldens: a whisper and a Jamba smoke case drawn from numpy,
+and the record of what serving them gives.
 
 The reference and the port draw parameters from different generators,
 so a case they can both run must come from neither: :func:`numpy_case`
-draws the reference's parameter tree, the encoder frames and the prompts
-from one numpy seed.  ``tests/goldens/serve_whisper_smoke.json`` holds
-the reference's float32 logits (prefill and every decode step) and its
-greedy tokens for that case; the port is held against it on the CPU and,
-where there is no JAX, on the card.
+draws the reference's whisper parameter tree, the encoder frames and the
+prompts from one numpy seed, :func:`jamba_numpy_case` the Jamba tree
+(no experts) and the prompts.  ``tests/goldens/serve_whisper_smoke.json``
+and ``serve_jamba_smoke.json`` hold the reference's float32 logits
+(prefill and every decode step) and its greedy tokens for those cases;
+the port is held against them on the CPU and, where there is no JAX, on
+the card.
 
-The weights are drawn with a small embedding scale and a gain on the
-attention weights: with the reference's own init the tied embedding
+The whisper weights are drawn with a small embedding scale and a gain on
+the attention weights: with the reference's own init the tied embedding
 dominates the residual stream, so the model greedily repeats its input
-token and token equality would prove little.
+token and token equality would prove little.  Jamba's head is untied;
+its weights keep the reference's fan-in scales, with the parameters the
+reference initialises to constants (norm scales, biases, the SSM's A,
+skip and step size) drawn around those constants, so that a transposed
+or misplaced one shows.
 """
 
 from __future__ import annotations
 
 import json
+import math
 
 import numpy as np
 
@@ -35,6 +42,9 @@ CACHE_SLACK = 8        # max_len = prompt + new tokens + slack, as the
 DECIMALS = 4
 EMBED_SCALE = 0.03
 ATTN_GAIN = 1.8
+JAMBA_GOLDEN_NAME = "serve_jamba_smoke.json"
+JAMBA_PROMPT_LEN = 20  # two of the attention twin's 16-row chunks, three
+                       # of the reference's 8-step Mamba chunks; ragged
 
 
 def config() -> ModelConfig:
@@ -88,6 +98,73 @@ def numpy_params(cfg: ModelConfig, rng: np.random.Generator) -> dict:
     }
 
 
+def jamba_config() -> ModelConfig:
+    """The Jamba golden's configuration: the smoke config without
+    experts (float32, one super-block of 1 attention + 3 Mamba layers)."""
+    return get_arch("jamba-1.5-large-398b").smoke.replace(moe_experts=0,
+                                                          moe_topk=0)
+
+
+def jamba_numpy_params(cfg: ModelConfig, rng: np.random.Generator) -> dict:
+    """The reference's hybrid parameter tree (super-blocks stacked on
+    axis 0, a super-block's layers on axis 1), float32, every FFN dense,
+    drawn from ``rng`` in a fixed order."""
+    d, f, h, kv, hd = (cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.head_dim)
+    ap = cfg.attn_period
+    nsb, nm = cfg.n_layers // ap, ap - 1
+    di = cfg.mamba_expand * d
+    dtr = max(1, -(-d // 16))
+    ds, dc = cfg.mamba_d_state, cfg.mamba_d_conv
+
+    def normal(shape, fan_in):
+        return _normal(rng, shape, fan_in ** -0.5)
+
+    def near(shape, centre, spread=0.1):
+        return (centre + spread * rng.standard_normal(shape)
+                ).astype(np.float32)
+
+    # step sizes log-uniform in [1e-3, 1e-1] (the Mamba paper's dt init)
+    dt = np.exp(rng.uniform(math.log(1e-3), math.log(1e-1), (nsb, nm, di)))
+    mamba = {
+        "in_proj": normal((nsb, nm, d, 2 * di), d),
+        "conv_w": _normal(rng, (nsb, nm, dc, di), dc ** -0.5),
+        "conv_b": near((nsb, nm, di), 0.0),
+        "x_proj": normal((nsb, nm, di, dtr + 2 * ds), di),
+        "dt_proj": normal((nsb, nm, dtr, di), dtr),
+        "dt_bias": np.log(np.expm1(dt)).astype(np.float32),
+        "a_log": near((nsb, nm, di, ds), np.log(np.arange(1, ds + 1))),
+        "d_skip": near((nsb, nm, di), 1.0),
+        "out_proj": normal((nsb, nm, di, d), di),
+    }
+    blocks = {
+        "attn": {"wq": normal((nsb, d, h * hd), d),
+                 "wk": normal((nsb, d, kv * hd), d),
+                 "wv": normal((nsb, d, kv * hd), d),
+                 "wo": normal((nsb, h * hd, d), h * hd)},
+        "attn_ln": {"scale": near((nsb, d), 1.0)},
+        "mamba": mamba,
+        "mamba_ln": {"scale": near((nsb, nm, d), 1.0)},
+        "ffn_ln": {"scale": near((nsb, ap, d), 1.0)},
+        "ffn_dense": {"w_gate": normal((nsb, ap, d, f), d),
+                      "w_up": normal((nsb, ap, d, f), d),
+                      "w_down": normal((nsb, ap, f, d), f)},
+    }
+    return {"embed": {"table": _normal(rng, (cfg.vocab, d), 1.0)},
+            "blocks": blocks,
+            "ln_f": {"scale": near((d,), 1.0)},
+            "head": {"w": normal((cfg.vocab, d), cfg.vocab)}}
+
+
+def jamba_numpy_case(cfg: ModelConfig, seed: int = SEED, batch: int = BATCH,
+                     prompt_len: int = JAMBA_PROMPT_LEN):
+    """(parameter tree, prompts (B, P) int32), both from ``seed``."""
+    rng = np.random.default_rng(seed)
+    tree = jamba_numpy_params(cfg, rng)
+    prompts = rng.integers(0, cfg.vocab, (batch, prompt_len)).astype(np.int32)
+    return tree, prompts
+
+
 def numpy_case(cfg: ModelConfig, seed: int = SEED, batch: int = BATCH,
                prompt_len: int = PROMPT_LEN):
     """(parameter tree, frames (B, enc_seq, d) float32, prompts (B, P)
@@ -109,9 +186,11 @@ def record(cfg: ModelConfig, prefill_logits, step_logits, tokens) -> dict:
     last-position logits (T-1, B, V), rounded to ``DECIMALS``, and the
     greedy tokens (B, T)."""
     steps = np.stack([np.asarray(s, np.float32)[:, -1] for s in step_logits])
-    return {"config": cfg.name, "enc_seq": cfg.enc_seq, "seed": SEED,
-            "batch": BATCH, "prompt_len": PROMPT_LEN,
-            "new_tokens": NEW_TOKENS, "decimals": DECIMALS,
+    b, p = np.shape(prefill_logits)[:2]
+    enc = {"enc_seq": cfg.enc_seq} if cfg.family == "encdec" else {}
+    return {"config": cfg.name, **enc, "seed": SEED, "batch": b,
+            "prompt_len": p, "new_tokens": np.shape(tokens)[1],
+            "decimals": DECIMALS,
             "tokens": np.asarray(tokens, np.int64).tolist(),
             "prefill_logits": _rounded(prefill_logits),
             "step_logits": _rounded(steps)}

@@ -339,3 +339,93 @@ def test_serve_golden_on_the_card(cuda):
         cfg.enc_layers + n_dec)
     logits = [x.cpu() for x in logits]
     assert not golden.mismatches(want, logits[0], logits[1:], toks, 1e-5)
+
+
+# --------------------------------------------------------------------- #
+# selective scan and Jamba serving
+# --------------------------------------------------------------------- #
+# name: (B, S, Di, Ds, h0)
+SCAN_CASES = {
+    "prefill_like": (2, 300, 512, 16, False),       # several 64-step chunks
+    "prefill_h0": (2, 300, 512, 16, True),
+    "decode": (4, 1, 1024, 16, True),
+    "ragged_ds4": (2, 33, 100, 4, True),            # Di not a block multiple
+    "ds8": (1, 96, 256, 8, False),
+    "ds1_one_channel": (3, 5, 1, 1, True),
+}
+
+
+def _scan_inputs(b, s, di, ds, h0, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    delta = 0.1 * torch.nn.functional.softplus(
+        torch.randn((b, s, di), generator=g))
+    a = -torch.exp(0.2 * torch.randn((di, ds), generator=g))
+    bm, cm = (torch.randn((b, s, ds), generator=g) for _ in "bc")
+    x = torch.randn((b, s, di), generator=g)
+    return delta, a, bm, cm, x, (torch.randn((b, di, ds), generator=g)
+                                 if h0 else None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(SCAN_CASES))
+def test_selective_scan_kernel_vs_plain(cuda, case):
+    """y and h_last within 1e-5 of the twin's largest value: every step
+    rounds alike (--fmad=false), y's sum over the state runs in another
+    order."""
+    from repro_torch.kernels.mamba_scan import (selective_scan,
+                                                selective_scan_ref)
+
+    args = _scan_inputs(*SCAN_CASES[case])
+    want_y, want_h = selective_scan_ref(*args[:5], args[5])
+    before = kernels.LAUNCHES["selective_scan"]
+    y, h = selective_scan(*[None if t is None else t.to(cuda)
+                            for t in args[:5]],
+                          h0=None if args[5] is None else args[5].to(cuda))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["selective_scan"] == before + 1
+    for got, want in ((y, want_y), (h, want_h)):
+        assert got.shape == want.shape and got.dtype == torch.float32
+        lim = 1e-5 * float(want.abs().max())
+        assert float((got.cpu() - want).abs().max()) <= lim
+
+
+@pytest.mark.gpu
+def test_selective_scan_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from repro_torch.kernels.mamba_scan import selective_scan
+
+    args = [t.to(cuda) for t in _scan_inputs(1, 4, 8, 17, True)]
+    with pytest.raises(ValueError):     # a state wider than 16
+        selective_scan(*args[:5], h0=args[5])
+    args = [t.to(cuda) for t in _scan_inputs(1, 4, 8, 4, True)]
+    with pytest.raises(TypeError):      # float32 only
+        selective_scan(*args[:4], args[4].half())
+    with pytest.raises(ValueError):     # contiguous inputs
+        selective_scan(args[0], args[1].t().contiguous().t(), *args[2:5])
+    with pytest.raises(ValueError):     # all on one device
+        selective_scan(*args[:5], h0=args[5].cpu())
+
+
+@pytest.mark.gpu
+def test_jamba_golden_on_the_card(cuda):
+    """``tests/goldens/serve_jamba_smoke.json`` (the reference's fp32
+    logits and greedy tokens) through the port's serving path on the card,
+    every Mamba layer's scan and every attention call a kernel launch."""
+    from repro_torch.serve import ServeEngine, golden
+
+    with open(os.path.join(os.path.dirname(__file__), "goldens",
+                           golden.JAMBA_GOLDEN_NAME)) as f:
+        want = json.load(f)
+    cfg = golden.jamba_config()
+    tree, prompts = golden.jamba_numpy_case(cfg)
+    model = convert.hybrid_params_from_numpy(tree, cfg, cuda)
+    before = dict(kernels.LAUNCHES)
+    max_len = golden.JAMBA_PROMPT_LEN + golden.NEW_TOKENS + golden.CACHE_SLACK
+    toks, logits = ServeEngine(cfg, model, max_len).generate(
+        prompts, golden.NEW_TOKENS, return_logits=True)
+    n_attn = cfg.n_layers // cfg.attn_period
+    assert kernels.LAUNCHES["flash_attention"] - before["flash_attention"] \
+        == n_attn * golden.NEW_TOKENS
+    assert kernels.LAUNCHES["selective_scan"] - before["selective_scan"] \
+        == (cfg.n_layers - n_attn) * golden.NEW_TOKENS
+    logits = [x.cpu() for x in logits]
+    assert not golden.mismatches(want, logits[0], logits[1:], toks, 1e-5)
