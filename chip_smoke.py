@@ -41,9 +41,10 @@ Main path of slice 2 (launch counts from 0 again):
               and cached self-attention at Sq 16 and 1) and at a GQA
               (internlm2) and a D = 80 (stablelm) shape, bf16 and fp32;
               and at Jamba's (B 4, GQA 64/8, D 128: the prefill's 2 048
-              queries and a decode step against the 2 080-row cache);
-              µs per launch beside the twin, ``scaled_dot_product_attention``
-              and the bound;
+              queries and a decode step against the 2 080-row cache); the
+              path each shape takes (split-KV, tensor cores, CUDA cores)
+              and its split count, µs per launch beside the twin,
+              ``scaled_dot_product_attention`` and the bound;
 11. scan    — ``selective_scan`` against its plain twin (y and h_last
               within 1e-5 of the twin's largest value) at Jamba's prefill
               (B 4, S 2 048, Di 16 384, Ds 16; h0 zero and given) and
@@ -68,13 +69,26 @@ Main path of slice 4 (launch counts from 0 again):
               timings and the device profile, the run in fp32 (tokens
               identical), and ``tests/goldens/serve_jamba_smoke.json`` on
               the card;
-14. summary — launches of each kernel on each main path, event-timed µs
-              per launch, the plain version's time and the bound, as one
+14. summary — attention end to end (whisper's ``generate`` busy time
+              and a Jamba decode step's, with the ``flash_fwd*`` kernels'
+              share); launches of each kernel on each main path, event-timed
+              µs per launch, the plain version's time and the bound, as one
               JSON line; then the card line and the result.
+
+    python3 chip_smoke.py --serve-wall [--src DIR] [--rounds N]
+
+times whisper-base's serving alone (slice 3's main path: encode, the
+prefill, ``generate``), warm, over N rounds, and the host time spent in
+the attention op per call, in serving and alone at the decode step's
+two shapes, with no profiler and no other phase.  With
+``--src`` it imports the port from ``DIR`` instead of ``src/`` beside
+this file, so two trees unpacked side by side (``git archive``) are
+compared by one harness on one card.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import os
@@ -142,6 +156,23 @@ def time_launches(torch, fns, reps: int) -> list[float]:
             out[i] += evs[k - 1].elapsed_time(evs[k])
             k += 1
     return [x / reps for x in out]
+
+
+def time_enqueue(torch, fn, reps: int, hold: bool = True) -> float:
+    """Mean host ms to enqueue one call of ``fn`` (called as ``fn(r)``):
+    with ``hold``, the card held busy so that no call waits for it;
+    without, the card runs each call's kernels as they arrive, as in
+    serving."""
+    fn(0)
+    torch.cuda.synchronize()
+    if hold:
+        _hold_stream(torch)
+    t0 = time.perf_counter()
+    for r in range(reps):
+        fn(r)
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e3 / reps
 
 
 def time_wall(torch, fn, reps: int) -> float:
@@ -867,13 +898,21 @@ def check_flash(torch, np, cuda):
     bound.  Returns the kernel row (timings at the encoder shape, bf16)."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_ref)
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ops import Path, choose_path
 
     worst = 0.0
     row = None
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     for shape in FLASH_SHAPES:
         label, causal = shape[0], shape[7]
         for dtype in ("bfloat16", "float32"):
             dt = getattr(torch, dtype)
+            _, b, sq, skv, h, kv, d = shape[:7]
+            path = choose_path(dt, b, sq, h, kv, skv, sms=sms)
+            route = (f"{path.kind} x{path.splits}" if path.kind == "split"
+                     else path.kind)
             q, k, v, ml = _flash_case(torch, cuda, shape, dt, seed=len(label))
             got = flash_attention(q, k, v, causal=causal, mask_len=ml)
             want = flash_attention_ref(q, k, v, causal=causal,
@@ -886,34 +925,58 @@ def check_flash(torch, np, cuda):
             worst = max(worst, err)
             log(f"flash: {label} {dtype} B={shape[1]} Sq={shape[2]} "
                 f"Skv={shape[3]} H={shape[4]} KV={shape[5]} D={shape[6]} "
-                f"causal={causal} mask={'2d' if ml is not None else 'none'}: "
-                f"max_abs_err={err!r} tol {tol} {'ok' if ok else 'MISMATCH'}")
+                f"causal={causal} mask={'2d' if ml is not None else 'none'} "
+                f"path {route}: max_abs_err={err!r} tol {tol} "
+                f"{'ok' if ok else 'MISMATCH'}")
             if not ok:
                 raise SystemExit(f"flash_attention disagrees with plain at "
                                  f"{label} {dtype}")
-            if dtype == "float32" and label != "encoder":
+            # fp32 is timed at the encoder and wherever it takes the split
+            # path, beside the CUDA-core kernel that would take it else
+            if (dtype == "float32" and label != "encoder"
+                    and path.kind != "split"):
                 continue
-            reps = 20 if shape[2] * shape[3] > 1e6 else 200
+            # 40 rounds of three calls stay inside the card's launch queue,
+            # so the host is ahead of the device and the events time the
+            # device (at 200 rounds the small shapes timed the host's
+            # enqueue); the profiler's device time of the op's kernels
+            # stands beside it
+            reps = 20 if shape[2] * shape[3] > 1e6 else 40
+            # the CUDA-core kernel that took every shape before the split
+            # and tensor-core paths, timed beside them in the same call
+            simt = Path("simt", 1, 0)
             fns = [lambda r: flash_attention(q, k, v, causal=causal,
                                              mask_len=ml),
-                   _sdpa(torch, q, k, v, ml, causal)]
+                   _sdpa(torch, q, k, v, ml, causal),
+                   lambda r: flash_attention_cuda(q, k, v, causal, ml,
+                                                  shape[6] ** -0.5, simt)]
             for fn in fns:      # first calls: the library picks and plans
                 fn(0)           # its backend on the host
-            ms, lib_ms = time_launches(torch, fns, reps)
+            ms, lib_ms, simt_ms = time_launches(torch, fns, reps)
+            enq_ms = time_enqueue(torch, fns[0], reps)
+            prof = _profile(torch, lambda: [fns[0](0) for _ in range(10)])
+            dev = "not measured" if prof is None else ", ".join(
+                f"{name.split('<')[0].split('::')[-1]} "
+                f"{kernel_ms * 100:.2f}us x{count // 10}"
+                for name, (count, kernel_ms) in sorted(prof.items())
+                if "flash_fwd" in name)
             plain_ms = time_wall(torch, lambda: flash_attention_ref(
                 q, k, v, causal=causal, bias_mask_len=ml), 3)
             peak = BF16_FLOPS if dtype == "bfloat16" else F32_FLOPS
             bound, by, flops, nbytes = _flash_bound(shape, q.element_size(),
                                                     peak)
-            log(f"flash: {label} {dtype}: {ms * 1e3:.2f}us per launch, "
+            log(f"flash: {label} {dtype} path {route}: {ms * 1e3:.2f}us per "
+                f"launch (device time by kernel, profiler: {dev}; host "
+                f"{enq_ms * 1e3:.2f}us to enqueue a call), "
                 f"bound {bound * 1e3:.2f}us ({by}: {flops:.3e} FLOP, "
                 f"{nbytes} bytes), {bound / ms:.3f} of it; plain "
                 f"{plain_ms:.3f}ms; scaled_dot_product_attention "
-                f"{lib_ms * 1e3:.2f}us")
+                f"{lib_ms * 1e3:.2f}us; the CUDA-core kernel "
+                f"{simt_ms * 1e3:.2f}us")
             if label == "encoder" and dtype == "bfloat16":
                 row = dict(name="flash_attention", route="cuda",
                            source="src/repro_torch/kernels/csrc/"
-                                  "flash_attention.cu",
+                                  "flash_attention_tc.cu",
                            replaces="src/repro/kernels/flash_attention/"
                                     "kernel.py:77",
                            ms=ms, plain_ms=plain_ms, bound_ms=bound,
@@ -1125,7 +1188,11 @@ def run_serve_checks(torch, np, cuda, main):
     kern = [e for e in prof.key_averages()
             if e.device_type.name == "CUDA" and e.self_device_time_total > 0]
     dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    e2e = {}
     if dev_ms > 0:
+        e2e = {"busy": dev_ms, "flash": sum(
+            e.self_device_time_total for e in kern
+            if "flash_fwd" in e.key) / 1e3}
         top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
         log(f"serve: profiled generate: {sum(e.count for e in kern)} kernels"
             f", device busy {dev_ms:.2f}ms = {dev_ms / gen_ms:.3f} of the "
@@ -1141,6 +1208,7 @@ def run_serve_checks(torch, np, cuda, main):
         f" new tokens/s ({WHISPER_B * SERVE_NEW / (enc_ms + gen_ms) * 1e3:.1f}"
         f" with the encoder); cross_kv of the {cfg.n_layers} layers "
         f"{xkv_ms:.3f}ms device time, {xkv_ms / step_ms:.3f} of a decode step")
+    return e2e
 
 
 # --------------------------------------------------------------------- #
@@ -1347,6 +1415,12 @@ def _share(prof, part):
     return sum(ms for k, (_, ms) in prof.items() if part in k)
 
 
+def _ms(d, key) -> str:
+    """``d[key]`` in ms, or "not measured" where the profile held no
+    device time."""
+    return "not measured" if d.get(key) is None else f"{d[key]:.3f}ms"
+
+
 def run_jamba_checks(torch, np, cuda, main):
     """Off the counted path: the plain twins on the same card inputs, warm
     timings and the device profile, the fp32 run, the smoke golden."""
@@ -1390,6 +1464,7 @@ def run_jamba_checks(torch, np, cuda, main):
         f"({JAMBA_B * (JAMBA_NEW - 1) / (gen_ms - pre_ms) * 1e3:.1f} in the "
         f"decode steps); weights {cfg.param_count() * 2 / 1e9:.2f} GB, read "
         f"once a step at 3.35e12 B/s: {cfg.param_count() * 2 / 3.35e9:.2f}ms")
+    e2e = {}
     if prof_pre is None or prof_gen is None:
         log("jamba: profile: no device time in the trace (busy share and "
             "kernel shares not measured)")
@@ -1401,6 +1476,10 @@ def run_jamba_checks(torch, np, cuda, main):
                    ms - prof_pre.get(k, (0, 0.0))[1])
                for k, (c, ms) in prof_gen.items()}
         n_dec = sum(c for c, _ in dec.values()) / (JAMBA_NEW - 1)
+        e2e = {"busy": dev_dec / (JAMBA_NEW - 1),
+               "flash": (_share(prof_gen, "flash_fwd")
+                         - _share(prof_pre, "flash_fwd")) / (JAMBA_NEW - 1),
+               "prefill_flash": _share(prof_pre, "flash_fwd")}
         for label, part in (("selective_scan", "selective_scan"),
                             ("flash_attention", "flash_fwd")):
             pre, gen = _share(prof_pre, part), _share(prof_gen, part)
@@ -1453,6 +1532,7 @@ def run_jamba_checks(torch, np, cuda, main):
         f"path): {'ok' if not bad else 'MISMATCH'}")
     if bad:
         raise SystemExit("jamba golden mismatch:\n  " + "\n  ".join(bad))
+    return e2e
 
 
 def main() -> int:
@@ -1464,6 +1544,7 @@ def main() -> int:
         return 2
     from repro_torch import kernels
     from repro_torch.kernels import build
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.core import mesh2d, mesh2d_edge_io
 
     cuda = torch.device("cuda")
@@ -1506,22 +1587,39 @@ def main() -> int:
         "slice 4 (jamba hybrid serving)": (
             ("selective_scan", "flash_attention"),
             lambda: run_jamba_main(torch, np, cuda, jamba))}
+    # both serving paths run attention's split kernel and its combine
+    # (decode, cross-attention) and the tensor-core kernel (encoder,
+    # prefill); flash_attention counts one launch per call whatever its
+    # path, the path counts each kernel
+    flash_paths = ("split", "combine", "tc")
     launches = {k: 0 for k in kernels.LAUNCHES}
     for label, (needed, drive) in paths.items():
         kernels.reset_launches()
+        flash_kernel.reset_path_launches()
         drive()
         counts = dict(kernels.LAUNCHES)
         log(f"main path {label} launches: {json.dumps(counts)}")
         missing = [k for k in needed if counts[k] <= 0]
+        if "flash_attention" in needed:
+            per_path = dict(flash_kernel.PATH_LAUNCHES)
+            log(f"main path {label} flash_attention kernels by path: "
+                f"{json.dumps(per_path)}")
+            missing += [f"flash_attention {p}" for p in flash_paths
+                        if per_path[p] <= 0]
         if missing:
             raise SystemExit(f"kernels never launched on the main path "
                              f"{label}: {missing}")
         for k, v in counts.items():
             launches[k] += v
 
-    run_serve_checks(torch, np, cuda, serve)
+    whisper_e2e = run_serve_checks(torch, np, cuda, serve)
     serve.clear()
-    run_jamba_checks(torch, np, cuda, jamba)
+    jamba_e2e = run_jamba_checks(torch, np, cuda, jamba)
+    log(f"flash: end to end: whisper generate device busy "
+        f"{_ms(whisper_e2e, 'busy')}, flash_fwd* {_ms(whisper_e2e, 'flash')}"
+        f"; jamba decode step device busy {_ms(jamba_e2e, 'busy')}, "
+        f"flash_fwd* {_ms(jamba_e2e, 'flash')}; jamba prefill flash_fwd* "
+        f"{_ms(jamba_e2e, 'prefill_flash')}")
     timed = time_simstep(torch, np, cuda, mesh2d(32, 32), "32x32")
     time_simstep(torch, np, cuda, mesh2d_edge_io(5, 5), "5x5")
     rows = [poss, weights] + timed + [flash, scan]
@@ -1540,5 +1638,94 @@ def main() -> int:
     return 0
 
 
+def serve_wall(rounds: int) -> int:
+    """``--serve-wall``: whisper-base's serving alone, warm, as slice 3's
+    main path drives it (see the module note)."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 2
+    import repro_torch
+    from repro_torch.models import encdec
+    from repro_torch.models.layers import attention
+    from repro_torch.serve import make_prefill
+
+    cuda = torch.device("cuda")
+    log(f"card: {card_line()}")
+    log(f"serve-wall: the port from {os.path.dirname(repro_torch.__file__)}")
+    cfg, engine, frames, prompts = _whisper(torch, np, cuda, "bfloat16",
+                                            _whisper_tree(np))
+    prefill = make_prefill(cfg)
+    real = attention.flash_ops
+    host = {"s": 0.0, "calls": 0}
+
+    def timed(*args, **kw):     # host time in the attention op
+        t0 = time.perf_counter()
+        out = real.flash_attention(*args, **kw)
+        host["s"] += time.perf_counter() - t0
+        host["calls"] += 1
+        return out
+
+    enc = _serve(torch, engine, frames, prompts)[0]   # first run: builds
+
+    def prefill_once():
+        cache = encdec.init_cache(cfg, WHISPER_B, SERVE_MAX_LEN, device=cuda)
+        prefill(engine.params, torch.as_tensor(prompts, device=cuda), cache,
+                enc_out=enc)
+
+    cols = {"encode": [], "generate": [], "prefill": [], "op_host_us": []}
+    for i in range(rounds):
+        _, _, _, enc_ms, gen_ms = _serve(torch, engine, frames, prompts)
+        with torch.inference_mode():
+            pre_ms = time_wall(torch, prefill_once, 1)
+        host.update(s=0.0, calls=0)
+        attention.flash_ops = SimpleNamespace(flash_attention=timed)
+        try:
+            _serve(torch, engine, frames, prompts)
+        finally:
+            attention.flash_ops = real
+        op_us = host["s"] / host["calls"] * 1e6
+        for key, x in zip(cols, (enc_ms, gen_ms, pre_ms, op_us)):
+            cols[key].append(x)
+        log(f"serve-wall: round {i}: encode {enc_ms!r}ms, generate "
+            f"{gen_ms!r}ms, prefill {pre_ms!r}ms; attention op "
+            f"{op_us!r}us of host time a call over {host['calls']} calls")
+    med = {k: float(np.median(v)) for k, v in cols.items()}
+    log(f"serve-wall: median of {rounds}: {json.dumps(med)}; least: "
+        f"{json.dumps({k: min(v) for k, v in cols.items()})}")
+    # the op alone at the two shapes a decode step calls: host time to
+    # enqueue a call, 20 batches of 50 calls, with the card held busy and
+    # with the card running each call as it arrives
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    for shape in FLASH_SHAPES:
+        if shape[0] not in ("cross decode", "self decode"):
+            continue
+        q, k, v, ml = _flash_case(torch, cuda, shape, torch.bfloat16,
+                                  seed=len(shape[0]))
+        for hold, how in ((True, "card held"), (False, "card free")):
+            per = sorted(time_enqueue(torch, lambda r: flash_attention(
+                q, k, v, causal=shape[7], mask_len=ml), 50, hold)
+                for _ in range(20))
+            log(f"serve-wall: the op alone at {shape[0]}, {how}: median "
+                f"{per[10] * 1e3!r}us of host time a call over 20 batches "
+                f"of 50 calls, least {per[0] * 1e3!r}us")
+    return 0
+
+
 if __name__ == "__main__":
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--serve-wall", action="store_true",
+                    help="time whisper-base's serving alone")
+    ap.add_argument("--src", help="with --serve-wall: import the port "
+                    "from this directory")
+    ap.add_argument("--rounds", type=int, default=5,
+                    help="with --serve-wall: timed rounds")
+    args = ap.parse_args()
+    if args.serve_wall:
+        if args.src:
+            sys.path.insert(0, os.path.abspath(args.src))
+        sys.exit(serve_wall(args.rounds))
     sys.exit(main())

@@ -12,7 +12,8 @@ per source, all at once.
 multiply-add: the flit step's float comparisons must round every step
 as the reference does, and the selective scan's update rounds each
 product as its plain twin does.  Attention's inner products call
-``fmaf`` themselves, which the flag leaves alone.
+``fmaf`` themselves or run on the tensor cores (``mma``), which the flag
+leaves alone.
 """
 
 from __future__ import annotations
@@ -30,6 +31,8 @@ SOURCES = {"possibility_v": "possibility_v.cu",
            "possibility_weights": "possibility_weights.cu",
            "simstep": "simstep.cu",
            "flash_attention": "flash_attention.cu",
+           "flash_attention_split": "flash_attention_split.cu",
+           "flash_attention_tc": "flash_attention_tc.cu",
            "selective_scan": "selective_scan.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",

@@ -1,51 +1,135 @@
-"""Launch binding of ``csrc/flash_attention.cu`` (ctypes, plain C ABI)."""
+"""Launch bindings of the attention kernels (ctypes, plain C ABI):
+``csrc/flash_attention_split.cu`` (the split path in both dtypes and its
+combine, one entry), ``csrc/flash_attention_tc.cu`` (tensor cores, bf16
+prefill) and ``csrc/flash_attention.cu`` (CUDA cores, fp32 prefill).
+
+The split and tensor-core entries take one launch record, packed by
+:data:`_RECORD`, so a call crosses into C once with two arguments.
+``LAUNCHES["flash_attention"]`` counts one per op call, whatever the
+path and however many kernels it launches; :data:`PATH_LAUNCHES` counts
+each kernel of each path.
+"""
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import struct
 
 import torch
 
 from .. import LAUNCHES
 from ..build import library
 
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
-             + [ctypes.c_longlong] * 11 + [ctypes.c_int, ctypes.c_float,
-                                           ctypes.c_void_p])
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# FlashArgs of csrc/flash_attention_split.cu and csrc/flash_attention_tc.cu:
+# q, k, v, o, part, lens; eleven strides; dtype, b, h, kvh, sq, skv, d,
+# splits, chunk, causal; scale; native alignment, padded to 8 bytes
+_RECORD = struct.Struct("@6P11q10if0q")
+
+# kernel launches by path: "split" (first kernel of the split path),
+# "combine" (its second kernel, when splits > 1), "tc", "simt"
+PATH_LAUNCHES = {"split": 0, "combine": 0, "tc": 0, "simt": 0}
 
 
-@functools.cache
-def _launcher():
-    fn = library("flash_attention").flash_attention_launch
-    fn.argtypes = _ARGTYPES
+def reset_path_launches() -> None:
+    for k in PATH_LAUNCHES:
+        PATH_LAUNCHES[k] = 0
+
+
+def _record_entry(lib: str, name: str):
+    so = library(lib)
+    size = so.flash_attention_args_size()
+    if size != _RECORD.size:
+        raise RuntimeError(f"FlashArgs layout mismatch in {lib}: C {size} "
+                           f"bytes, binding {_RECORD.size}")
+    fn = getattr(so, name)
+    fn.argtypes = [ctypes.c_char_p, _P]
     fn.restype = ctypes.c_int
     return fn
 
 
+@functools.cache
+def _split():
+    return _record_entry("flash_attention_split",
+                         "flash_attention_split_launch")
+
+
+@functools.cache
+def _tc():
+    return _record_entry("flash_attention_tc", "flash_attention_tc_launch")
+
+
+@functools.cache
+def _simt():
+    fn = library("flash_attention").flash_attention_launch
+    fn.argtypes = [_P] * 5 + [_I] * 7 + [_L] * 11 + [_I, ctypes.c_float, _P]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _raise(err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"flash_attention {what} launch failed: "
+                           f"cudaError {err}")
+
+
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool, mask_len: torch.Tensor | None,
-                         scale: float) -> torch.Tensor:
-    """Launch the kernel on the current stream; inputs already checked
-    (see :func:`repro_torch.kernels.flash_attention.ops.flash_attention`).
+                         scale: float, path) -> torch.Tensor:
+    """Launch ``path`` (:func:`..ops.choose_path`) on the current stream;
+    inputs already checked (see
+    :func:`repro_torch.kernels.flash_attention.ops.flash_attention`).
     Returns a new contiguous (B, Sq, H, D) tensor in q's dtype."""
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     if mask_len is None:
-        lens, len_sb, len_sq = None, 0, 0
+        lens, len_sb, len_sq = 0, 0, 0
     else:
         lens = mask_len.data_ptr()
         len_sb = mask_len.stride(0)
         len_sq = mask_len.stride(1) if mask_len.ndim == 2 else 0
-    err = _launcher()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      o.data_ptr(), lens,
-                      _DTYPE_CODE[q.dtype], b, h, kvh, sq, skv, d,
-                      *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                      len_sb, len_sq, int(causal), float(scale),
-                      torch.cuda.current_stream(q.device).cuda_stream)
+    q_sb, q_ss, q_sh, _ = q.stride()
+    k_sb, k_ss, k_sh, _ = k.stride()
+    v_sb, v_ss, v_sh, _ = v.stride()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    dtype = _DTYPE_CODE[q.dtype]
+    kind = path.kind
     LAUNCHES["flash_attention"] += 1
-    if err:
-        raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
+    if kind == "simt":
+        err = _simt()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                      o.data_ptr(), lens or None, dtype, b, h, kvh, sq, skv,
+                      d, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
+                      v_sh, len_sb, len_sq, int(causal), float(scale), stream)
+        PATH_LAUNCHES["simt"] += 1
+        _raise(err, "CUDA-core")
+        return o
+    part = 0
+    if kind == "split" and path.splits > 1:
+        # m and l, then acc, of every (range, batch, KV head, packed row);
+        # held until the launch is enqueued
+        scratch = torch.empty(path.splits * b * sq * h * (d + 2),
+                              dtype=torch.float32, device=q.device)
+        part = scratch.data_ptr()
+    record = _RECORD.pack(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), part, lens,
+        q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, len_sb, len_sq,
+        dtype, b, h, kvh, sq, skv, d, path.splits, path.chunk, int(causal),
+        scale)
+    if kind == "split":
+        err = _split()(record, stream)
+        PATH_LAUNCHES["split"] += 1
+        PATH_LAUNCHES["combine"] += path.splits > 1
+        _raise(err, "split")
+    elif kind == "tc":
+        if q.dtype != torch.bfloat16:
+            raise TypeError(f"the tensor-core path takes bfloat16, got "
+                            f"{q.dtype}")
+        err = _tc()(record, stream)
+        PATH_LAUNCHES["tc"] += 1
+        _raise(err, "tensor-core")
+    else:
+        raise ValueError(f"unknown path {kind!r}")
     return o

@@ -1,11 +1,25 @@
 """Public op: attention in the model layout, dispatched by the device of
 its inputs.
 
-Tensors on the card go through the CUDA kernel; tensors on the CPU go
-through the plain twin.  The two never stand in for each other.
+Tensors on the card go through the CUDA kernels; tensors on the CPU go
+through the plain twin.  The two never stand in for each other.  On the
+card, :func:`choose_path` picks one of three kernels by shape and dtype:
+
+* ``"split"`` — few query rows per KV head (decode, cross-attention,
+  cached self-attention): Sq·(H/KV) ≤ 64.  The rows that share a KV head
+  are packed into one tile and the keys are cut into ``splits`` ranges,
+  one block each; a second kernel combines the ranges (none when there
+  is one range).  bf16 and fp32.
+* ``"tc"`` — bf16 prefill and encoder: the tensor-core kernel.
+* ``"simt"`` — fp32 prefill and encoder: the CUDA-core kernel (TF32
+  would not meet fp32's 2e-5).
 """
 
 from __future__ import annotations
+
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -13,39 +27,101 @@ from .kernel import flash_attention_cuda
 from .ref import flash_attention_ref
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+SPLIT_MAX_ROWS = 64     # packed query rows a split block holds
+SPLIT_TILE = 64         # keys a split block loads at a time
+SPLIT_BLOCKS_PER_SM = 1  # one wave of split blocks (see choose_path)
+H100_SMS = 132
+
+
+class Path(NamedTuple):
+    kind: str           # "split", "tc" or "simt"
+    splits: int         # key ranges of the split path (1 elsewhere)
+    chunk: int          # keys a range holds (a tile multiple; 0 elsewhere)
+
+
+@functools.lru_cache(maxsize=256)
+def choose_path(dtype: torch.dtype, b: int, sq: int, h: int, kv: int,
+                skv: int, sms: int = H100_SMS) -> Path:
+    """The kernel the op launches for these shapes.  The split path cuts
+    the Skv keys into ranges of whole tiles, as many as keep B·KV·splits
+    within ``SPLIT_BLOCKS_PER_SM`` blocks per SM (one wave: a second,
+    part-filled wave would take as long as the first); on the card each
+    range stops at its rows' largest limit, so the lengths, which live on
+    the card, need not be read back."""
+    rows = sq * (h // kv)
+    if rows <= SPLIT_MAX_ROWS:
+        tiles = max(1, math.ceil(skv / SPLIT_TILE))
+        want = max(1, SPLIT_BLOCKS_PER_SM * sms // (b * kv))
+        per = math.ceil(tiles / min(want, tiles))
+        return Path("split", math.ceil(tiles / per), per * SPLIT_TILE)
+    if dtype == torch.bfloat16:
+        return Path("tc", 1, 0)
+    return Path("simt", 1, 0)
 
 
 def _check(q, k, v, mask_len):
     if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
         raise ValueError("q, k, v must be (B, S, heads, D)")
-    b, sq, h, _ = q.shape
-    if k.shape[:3] != v.shape[:3] or k.shape[0] != b or k.shape[3] != q.shape[3]:
+    b, sq, h, dk = q.shape
+    kb, skv, kvh, kd = k.shape
+    vb, vs, vh, _ = v.shape
+    if kb != b or vb != b or vs != skv or vh != kvh or kd != dk:
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
-    if h % k.shape[2]:
-        raise ValueError(f"{h} query heads do not group over "
-                         f"{k.shape[2]} kv heads")
-    if not q.dtype == k.dtype == v.dtype:
+    if h % kvh:
+        raise ValueError(f"{h} query heads do not group over {kvh} kv heads")
+    dt = q.dtype
+    if k.dtype != dt or v.dtype != dt:
         raise TypeError(f"dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
-    xs = [q, k, v] + ([] if mask_len is None else [mask_len])
-    devs = {x.device for x in xs}
-    if len(devs) != 1:
-        raise ValueError(f"inputs on several devices: {devs}")
+    dev = q.device
+    if (k.device != dev or v.device != dev
+            or (mask_len is not None and mask_len.device != dev)):
+        xs = [q, k, v] + ([] if mask_len is None else [mask_len])
+        raise ValueError(f"inputs on several devices: "
+                         f"{ {x.device for x in xs} }")
     if mask_len is not None and (mask_len.shape not in ((b,), (b, sq))):
         raise ValueError(f"mask_len must be (B,) or (B, Sq), got "
                          f"{tuple(mask_len.shape)}")
 
 
+def _check_kernel(q, k, v, mask_len):
+    """What every path of the kernels takes; raises on anything else."""
+    d = q.shape[3]
+    if v.shape[3] != d:
+        raise ValueError(f"the kernel takes V with the head dim of Q and K "
+                         f"({d}), got {v.shape[3]}")
+    if d % 16 or not 0 < d <= 128:
+        raise ValueError(f"the kernel takes a head dim that is a multiple "
+                         f"of 16 up to 128, got {d}")
+    if q.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"the kernel takes {KERNEL_DTYPES}, got {q.dtype}")
+    # the split and tensor-core paths copy 16-byte pieces of each row
+    vec = 16 // q.element_size()
+    for x in (q, k, v):
+        sb, ss, sh, sd = x.stride()
+        if sd != 1:
+            raise ValueError("the kernel takes a contiguous last dimension")
+        if x.data_ptr() % 16 or (sb | ss | sh) % vec:
+            raise ValueError("the kernel takes rows that start on 16 bytes "
+                             "(aligned storage, strides a multiple of "
+                             f"{vec} elements)")
+    if mask_len is not None and mask_len.dtype != torch.int32:
+        raise TypeError(f"mask_len must be int32, got {mask_len.dtype}")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, mask_len: torch.Tensor | None = None,
                     q_chunk: int = 512, kv_chunk: int = 512) -> torch.Tensor:
-    """q (B, Sq, H, D), k/v (B, Skv, KV, D) → (B, Sq, H, D) in q's dtype.
+    """q (B, Sq, H, Dk), k (B, Skv, KV, Dk), v (B, Skv, KV, Dv) →
+    (B, Sq, H, Dv) in q's dtype.
 
     ``causal`` aligns the diagonal at the end (query i sees keys
     ≤ i + Skv − Sq); ``mask_len`` — int32 (B,) or (B, Sq) — masks keys
     ≥ the length.  ``q_chunk``/``kv_chunk`` are the plain twin's chunks
-    (the kernel has its own tiles).  On the card: D a multiple of 16 up to
-    128, float32 or bfloat16, each input's last dimension contiguous."""
+    (the kernels have their own tiles).  The CPU twin takes Dv ≠ Dk, as
+    the reference's oracle does.  On the card: Dv = Dk, a multiple of 16
+    up to 128, float32 or bfloat16, each input's last dimension
+    contiguous and its rows on 16 bytes."""
     _check(q, k, v, mask_len)
     dev = q.device
     if dev.type == "cpu":
@@ -53,14 +129,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                    kv_chunk=kv_chunk, bias_mask_len=mask_len)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    d = q.shape[3]
-    if d % 16 or not 0 < d <= 128:
-        raise ValueError(f"the kernel takes a head dim that is a multiple "
-                         f"of 16 up to 128, got {d}")
-    if q.dtype not in KERNEL_DTYPES:
-        raise TypeError(f"the kernel takes {KERNEL_DTYPES}, got {q.dtype}")
-    if any(x.stride(3) != 1 for x in (q, k, v)):
-        raise ValueError("the kernel takes a contiguous last dimension")
-    if mask_len is not None and mask_len.dtype != torch.int32:
-        raise TypeError(f"mask_len must be int32, got {mask_len.dtype}")
-    return flash_attention_cuda(q, k, v, causal, mask_len, d ** -0.5)
+    _check_kernel(q, k, v, mask_len)
+    b, sq, h, d = q.shape
+    skv, kvh = k.shape[1], k.shape[2]
+    path = choose_path(q.dtype, b, sq, h, kvh, skv, sms=_sm_count(dev.index))
+    return flash_attention_cuda(q, k, v, causal, mask_len, d ** -0.5, path)
+
+
+@functools.cache
+def _sm_count(index: int | None) -> int:
+    return torch.cuda.get_device_properties(
+        index if index is not None else torch.cuda.current_device()
+    ).multi_processor_count

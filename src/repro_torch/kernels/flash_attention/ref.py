@@ -16,10 +16,18 @@ the reference oracle's, not the TPU kernel's:
 
 A row with no valid key at all comes out as the mean of the masked rows
 of V here (every masked score is the same −1e30) and as zeros from the
-kernel; no caller makes such a row (a cached query always sees itself).
+kernels; no caller makes such a row (a cached query always sees itself).
+
+:func:`split_partials` and :func:`combine_partials` are the plain
+version of the card's split-KV path: per key range, the base-2 online
+softmax state (m, l, acc) of the packed query rows that share a KV head,
+then one combine in a fixed order.  Composed, they compute the twin's
+function (zeros for a row with no valid key, as the kernels).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -97,3 +105,68 @@ def flash_attention_ref(q, k, v, *, causal: bool, q_chunk: int = 512,
         outs.append(acc / torch.clamp(l[..., None], min=1e-30))
     out = torch.stack(outs, 1).reshape(b, sq_p, h, dv)[:, :sq]
     return out.to(q.dtype)
+
+
+LOG2E = 1.4426950408889634
+
+
+def _row_limits(b, sq, skv, causal, mask_len, device):
+    """(B, Sq) int64: query t of batch row b counts keys j < lim[b, t]."""
+    lim = torch.full((b, sq), skv, dtype=torch.int64, device=device)
+    if mask_len is not None:
+        ml = mask_len.to(torch.int64)
+        lim = torch.minimum(lim, ml[:, None] if ml.ndim == 1 else ml)
+    if causal:
+        diag = torch.arange(sq, device=device) + (skv - sq + 1)
+        lim = torch.minimum(lim, diag[None])
+    return lim.clamp(min=0)
+
+
+def split_partials(q, k, v, *, causal: bool, splits: int, chunk: int,
+                   mask_len=None, scale: float | None = None):
+    """The split path's first kernel, in plain torch.
+
+    Query rows are packed per KV head: row r = t·G + j holds query t of
+    head g·G + j (G = H/KV).  Range s holds keys [s·chunk, (s+1)·chunk).
+    Returns fp32 m, l of shape (splits, B, KV, Sq·G) and acc of shape
+    (splits, B, KV, Sq·G, Dv): the base-2 running max of the counted
+    scores (scale·log2(e) folded in; −inf where the range counts no key),
+    Σ 2^(s − m) and Σ 2^(s − m)·v over the range's counted keys."""
+    b, sq, h, dk = q.shape
+    _, skv, kv, dv = v.shape
+    g = h // kv
+    scale = dk ** -0.5 if scale is None else scale
+    f32 = torch.float32
+    qp = q.to(f32).reshape(b, sq, kv, g, dk).permute(0, 2, 1, 3, 4)
+    qp = qp.reshape(b, kv, sq * g, dk)
+    s = torch.einsum("bkrd,bskd->bkrs", qp, k.to(f32)) * (scale * LOG2E)
+    lim = _row_limits(b, sq, skv, causal, mask_len, q.device)
+    lim = lim.repeat_interleave(g, dim=1)[:, None, :, None]   # (B,1,R,1)
+    keys = torch.arange(skv, device=q.device)
+    ms, ls, accs = [], [], []
+    for i in range(splits):
+        inside = (keys >= i * chunk) & (keys < (i + 1) * chunk)
+        counted = (keys < lim) & inside
+        si = torch.where(counted, s, torch.tensor(-math.inf, device=q.device))
+        m = si.amax(-1)
+        m_ref = torch.where(torch.isinf(m), torch.zeros_like(m), m)
+        p = torch.exp2(si - m_ref[..., None])
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bkrs,bskd->bkrd", p, v.to(f32)))
+    return torch.stack(ms), torch.stack(ls), torch.stack(accs)
+
+
+def combine_partials(m, l, acc, h: int, dtype=torch.float32):
+    """The split path's second kernel: ranges merged in order, each
+    weighted by 2^(m_s − max m); returns (B, Sq, H, Dv) in ``dtype``."""
+    _, b, kv, rows, dv = acc.shape
+    g = h // kv
+    top = m.amax(0)
+    top = torch.where(torch.isinf(top), torch.zeros_like(top), top)
+    w = torch.exp2(m - top)
+    den = (l * w).sum(0)
+    out = (acc * w[..., None]).sum(0) / torch.clamp(den[..., None],
+                                                     min=1e-30)
+    out = out.reshape(b, kv, rows // g, g, dv).permute(0, 2, 1, 3, 4)
+    return out.reshape(b, rows // g, h, dv).to(dtype)

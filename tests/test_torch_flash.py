@@ -10,7 +10,14 @@ reference fault the port does not carry over: the Pallas op's wrapper
 pads K/V to a block multiple and the kernel then counts the zero keys.
 Tolerances are the reference's own (``tests/test_kernels.py``): 2e-5 in
 float32, 2e-2 in bfloat16.
+
+The card's split-KV path is held here through its plain version (the
+per-range partials and their combine), and the op's choice of path is
+pinned at every shape ``chip_smoke.py`` times and the two served models
+run, so that a change of path shows in review.
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -25,6 +32,10 @@ from repro.models.layers.attention import (  # noqa: E402
 from repro_torch import kernels  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, flash_attention_ref)
+from repro_torch.kernels.flash_attention.ops import (  # noqa: E402
+    Path, choose_path)
+from repro_torch.kernels.flash_attention.ref import (  # noqa: E402
+    combine_partials, split_partials)
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -164,3 +175,106 @@ def test_op_rejects_inconsistent_inputs(bad):
         v = v.double()
     with pytest.raises((ValueError, TypeError)):
         flash_attention(q, k, v, **kw)
+
+
+def test_twin_takes_dv_other_than_dk():
+    """MLA's shapes: the twin returns V's head dim, as the oracle does
+    (the kernels on the card refuse Dv != Dk)."""
+    rng = np.random.default_rng(4)
+    q = rng.standard_normal((1, 4, 2, 96)).astype(np.float32)
+    k = rng.standard_normal((1, 8, 2, 96)).astype(np.float32)
+    v = rng.standard_normal((1, 8, 2, 64)).astype(np.float32)
+    want = ref_attention(*[_ref(a, "float32") for a in (q, k, v)],
+                         causal=True)
+    got = flash_attention(*[_port(a, "float32") for a in (q, k, v)],
+                          causal=True)
+    assert got.shape == (1, 4, 2, 64)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+@pytest.mark.parametrize("splits", [1, 3, 16])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_split_partials_compose_to_the_twin_and_oracle(case, splits):
+    """The card's split path in plain torch: ranges of ceil(Skv / splits)
+    keys, partials per range, one combine; float32 at 2e-5."""
+    b, sq, skv, h, kv, d, causal, mask = CASES[case]
+    arrays = _inputs(b, sq, skv, h, kv, d, mask, seed=5)
+    q, k, v, ml = [_port(a, "float32") for a in arrays]
+    want = ref_attention(*[_ref(a, "float32") for a in arrays[:3]],
+                         causal=causal,
+                         bias_mask_len=_ref(arrays[3], "float32"))
+    twin = flash_attention_ref(q, k, v, causal=causal, bias_mask_len=ml)
+    m, l, acc = split_partials(q, k, v, causal=causal, mask_len=ml,
+                               splits=splits, chunk=math.ceil(skv / splits))
+    assert m.shape == l.shape == (splits, b, kv, sq * (h // kv))
+    got = combine_partials(m, l, acc, h)
+    assert got.shape == (b, sq, h, d)
+    for other in (twin.numpy(), np.asarray(want)):
+        np.testing.assert_allclose(got.numpy(), other, rtol=2e-5,
+                                   atol=2e-5)
+
+
+def test_split_partials_with_an_empty_range_and_an_empty_row():
+    """Range 2 of 3 counts no key of batch row 0 (limits 0 and 9 < 10),
+    and query 0 of batch row 0 counts none at all: its range partials are
+    (−inf, 0, 0) and it comes out as zeros, as from the kernels; every
+    other row is the twin's and the oracle's."""
+    b, sq, skv, h, kv, d = 2, 2, 30, 4, 2, 16
+    arrays = list(_inputs(b, sq, skv, h, kv, d, None, seed=6))
+    arrays[3] = np.array([[0, 9], [25, 30]], np.int32)
+    q, k, v, ml = [_port(a, "float32") for a in arrays]
+    m, l, acc = split_partials(q, k, v, causal=False, mask_len=ml, splits=3,
+                               chunk=10)
+    g = h // kv
+    assert bool(torch.isinf(m[1:, 0]).all())          # ranges 1, 2: nothing
+    assert bool(torch.isinf(m[:, 0, :, :g]).all())    # query 0: nothing
+    assert not bool(torch.isinf(m[0, 0, :, g:]).any())
+    assert float(l[:, 0, :, :g].abs().max()) == 0.0
+    got = combine_partials(m, l, acc, h)
+    assert float(got[0, 0].abs().max()) == 0.0
+    want = np.asarray(ref_attention(*[_ref(a, "float32") for a in arrays[:3]],
+                                    causal=False,
+                                    bias_mask_len=_ref(arrays[3], "float32")))
+    twin = flash_attention_ref(q, k, v, causal=False, bias_mask_len=ml)
+    for other in (twin.numpy(), want):
+        np.testing.assert_allclose(got.numpy()[0, 1:], other[0, 1:],
+                                   rtol=2e-5, atol=2e-5)
+        np.testing.assert_allclose(got.numpy()[1], other[1], rtol=2e-5,
+                                   atol=2e-5)
+
+
+# (B, Sq, Skv, H, KV, D) → (path in bf16, path in fp32): every shape of
+# chip_smoke.FLASH_SHAPES (whisper-base's encoder, cross- and cached
+# self-attention; internlm2 and stablelm; Jamba's prefill and decode),
+# which are the calls the two served models make, and the edges of the
+# split path (64 and 65 packed rows)
+SPLIT = {"cross": Path("split", 4, 384), "self": Path("split", 1, 64),
+         "jamba": Path("split", 4, 576)}
+PATH_CASES = {
+    "whisper encoder": ((4, 1500, 1500, 8, 8, 64), "tc", "simt"),
+    "whisper cross prefill": ((4, 16, 1500, 8, 8, 64), SPLIT["cross"], None),
+    "whisper cross decode": ((4, 1, 1500, 8, 8, 64), SPLIT["cross"], None),
+    "whisper self prefill": ((4, 16, 48, 8, 8, 64), SPLIT["self"], None),
+    "whisper self decode": ((4, 1, 48, 8, 8, 64), SPLIT["self"], None),
+    "internlm2 gqa causal": ((1, 2048, 2048, 16, 8, 128), "tc", "simt"),
+    "stablelm d80 causal": ((1, 1024, 1024, 32, 32, 80), "tc", "simt"),
+    "jamba prefill": ((4, 2048, 2080, 64, 8, 128), "tc", "simt"),
+    "jamba decode": ((4, 1, 2080, 64, 8, 128), SPLIT["jamba"], None),
+    "64 packed rows": ((1, 8, 200, 64, 8, 128), Path("split", 4, 64), None),
+    "65 packed rows": ((1, 13, 100, 5, 1, 64), "tc", "simt"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PATH_CASES))
+def test_path_choice_at_the_served_shapes(case):
+    (b, sq, skv, h, kv, _), bf16, fp32 = PATH_CASES[case]
+    fp32 = bf16 if fp32 is None else fp32
+    for dtype, want in ((torch.bfloat16, bf16), (torch.float32, fp32)):
+        got = choose_path(dtype, b, sq, h, kv, skv)
+        if isinstance(want, str):
+            want = Path(want, 1, 0)
+        assert got == want, (dtype, got)
+        if got.kind == "split":     # whole tiles, no range past the keys
+            assert got.chunk % 64 == 0
+            assert (got.splits - 1) * got.chunk < skv <= got.splits * got.chunk

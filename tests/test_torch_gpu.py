@@ -313,6 +313,84 @@ def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(
     with pytest.raises(ValueError):     # last dimension must be contiguous
         flash_attention(q.transpose(1, 3).contiguous().transpose(1, 3), k,
                         v, causal=True)
+    g = torch.Generator().manual_seed(1)
+    qk = [torch.randn(s, generator=g).to(cuda)
+          for s in ((1, 4, 2, 96), (1, 8, 2, 96))]
+    with pytest.raises(ValueError):     # V's head dim must be Q's and K's
+        flash_attention(*qk, torch.randn((1, 8, 2, 64), generator=g).to(
+            cuda), causal=False)
+    shifted = torch.empty(k.numel() + 1, device=cuda)[1:].view(k.shape)
+    shifted.copy_(k)
+    with pytest.raises(ValueError):     # rows must start on 16 bytes
+        flash_attention(q, shifted, v, causal=True)
+
+
+# name: (B, Sq, Skv, H, KV, D, causal, mask) — each lands on one path of
+# the op (ops.choose_path) or on its edge: 64 packed rows (Sq * H/KV)
+# still split, 65 do not; Skv not a multiple of the 64-key tile or of a
+# range; GQA 64/8 at D 128 (Jamba), D 64 (whisper); (B, Sq) lengths;
+# causal with Sq < Skv
+PATH_CASES = {
+    "split_rows64_gqa_d128": (1, 8, 200, 64, 8, 128, False, None),
+    "rows65_d64": (1, 13, 100, 5, 1, 64, False, None),
+    "split_jamba_decode_2d": (2, 1, 2080, 64, 8, 128, False, "2d"),
+    "split_whisper_cross_decode": (2, 1, 1500, 8, 8, 64, False, None),
+    "split_cross_prefill_ragged": (2, 16, 333, 4, 4, 64, False, None),
+    "split_causal_sq_lt_skv": (2, 4, 150, 8, 2, 64, True, None),
+    "split_mask_1d_d80": (3, 2, 90, 6, 2, 80, False, "1d"),
+    "split_self_one_range_2d": (2, 16, 48, 4, 4, 64, False, "2d"),
+    "wide_causal_sq_lt_skv": (1, 130, 300, 4, 2, 64, True, None),
+    "wide_mask_2d_d128": (1, 100, 164, 8, 8, 128, False, "2d"),
+    "wide_gqa_causal_d96": (2, 150, 150, 8, 2, 96, True, None),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(PATH_CASES))
+def test_flash_attention_paths_vs_plain(cuda, case, dtype):
+    """Each path against the twin (2e-5 fp32, 8e-3 bf16); the op counts
+    one launch and its path's kernels."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.flash_attention.kernel import PATH_LAUNCHES
+    from repro_torch.kernels.flash_attention.ops import choose_path
+
+    b, sq, skv, h, kv, d, causal, mask = PATH_CASES[case]
+    dt = getattr(torch, dtype)
+    path = choose_path(dt, b, sq, h, kv, skv)
+    assert path.kind == ("split" if case.startswith("split")
+                         else "tc" if dtype == "bfloat16" else "simt")
+    q, k, v, ml = _flash_inputs(b, sq, skv, h, kv, d, mask, dt, seed=3)
+    want = flash_attention_ref(q, k, v, causal=causal, bias_mask_len=ml)
+    before = kernels.LAUNCHES["flash_attention"]
+    paths = dict(PATH_LAUNCHES)
+    got = flash_attention(q.to(cuda), k.to(cuda), v.to(cuda), causal=causal,
+                          mask_len=None if ml is None else ml.to(cuda))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention"] == before + 1
+    grew = {k: PATH_LAUNCHES[k] - paths[k] for k in paths}
+    assert grew[path.kind] == 1
+    assert grew["combine"] == (path.kind == "split" and path.splits > 1)
+    assert got.dtype == dt and got.shape == (b, sq, h, d)
+    tol = 2e-5 if dtype == "float32" else 8e-3
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["split_jamba_decode_2d",
+                                  "split_self_one_range_2d",
+                                  "wide_causal_sq_lt_skv"])
+def test_flash_attention_two_launches_give_the_same_bits(cuda, case):
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    b, sq, skv, h, kv, d, causal, mask = PATH_CASES[case]
+    q, k, v, ml = (None if x is None else x.to(cuda) for x in _flash_inputs(
+        b, sq, skv, h, kv, d, mask, torch.bfloat16, seed=4))
+    first = flash_attention(q, k, v, causal=causal, mask_len=ml)
+    second = flash_attention(q, k, v, causal=causal, mask_len=ml)
+    assert torch.equal(first, second)
 
 
 @pytest.mark.gpu
