@@ -17,16 +17,21 @@ before printing any result.
               (uniform and random T, offsets 1 and 2) and a 256-channel
               slice of mesh2d(32,32), within one float32 ulp, and over
               all of mesh2d(32,32) against ``possibility_v``'s
-              ``V.sum(1)`` and ``V[c, n_c]``; the
-              ``simstep_tile``/``simstep_finish`` pair on the 5x5
-              edge-I/O, 16x16 and 32x32 meshes, XY and BiDOR, at the
-              whole-network tile and a proper divisor, 1 and 50 cycles
-              from a plain mid-flight state, every state key bit for bit;
+              ``V.sum(1)`` and ``V[c, n_c]``; the ``simstep_chunk``
+              kernel on the 5x5 edge-I/O, 16x16 and 32x32 meshes and the
+              ``simstep_tile``/``simstep_finish`` pair on 17x17 and 64x64
+              (no cluster holds their lanes), XY and BiDOR (XY alone at
+              64x64), at the auto tile and the largest other one the card
+              lays out, chunks of 1 and 50 cycles from a plain mid-flight
+              state, every state key bit for bit, the PRNG key included,
+              and the launches each chunk makes;
 Main path of slice 1 (launch counts from 0):
 4. golden   — ``run_campaign`` on the 4x4 golden parameters against
               ``tests/goldens/campaign_4x4.json``;
 5. paper    — the paper's 5x5 edge-I/O cells at fig8's full length;
-6. scale    — 32x32 uniform, XY and BiDOR, on the auto (multi-tile) path;
+6. scale    — 32x32 uniform, XY and BiDOR, on 16-block clusters, twice
+              (the second round warm), then 64x64 uniform, XY, on the
+              kernel pair;
 Main path of slice 2 (launch counts from 0 again):
 7. nrank    — ``build_plan(use_kernel=True)`` on the paper's Fig. 1
               scenarios, channel and node modes, equal to
@@ -71,9 +76,15 @@ Main path of slice 4 (launch counts from 0 again):
               the card;
 14. summary — attention end to end (whisper's ``generate`` busy time
               and a Jamba decode step's, with the ``flash_fwd*`` kernels'
-              share); launches of each kernel on each main path, event-timed
-              µs per launch, the plain version's time and the bound, as one
-              JSON line; then the card line and the result.
+              share); the flit step at 4x4, 5x5, 16x16 and 32x32 (µs per
+              simulated cycle of a 1 000-cycle chunk, its empty-body
+              floor, its byte bound, the cycle wall through
+              ``run_cycles``) and the kernel pair at 64x64 (µs per launch
+              of each, its plain part and byte bound, the cycle wall);
+              launches of each kernel on each main path,
+              event-timed time per launch, the plain version's time and
+              the bound, as one JSON line; then the card line and the
+              result.
 
     python3 chip_smoke.py --serve-wall [--src DIR] [--rounds N]
 
@@ -84,6 +95,12 @@ two shapes, with no profiler and no other phase.  With
 ``--src`` it imports the port from ``DIR`` instead of ``src/`` beside
 this file, so two trees unpacked side by side (``git archive``) are
 compared by one harness on one card.
+
+    python3 chip_smoke.py --cycle-wall [--src DIR] [--rounds N]
+
+times the flit step alone through ``run_cycles`` (µs per simulated cycle
+of a 1 000-cycle chunk at each mesh above, 4 lanes) and the paper cell's
+wall, N rounds, with no other phase; ``--src`` as above.
 """
 
 from __future__ import annotations
@@ -555,51 +572,99 @@ def _clone(torch, state):
             for k, v in state.items()}
 
 
+def _card_tiles(torch, cuda, meta, cfg, lanes):
+    """(auto tile, every tile the card can lay out) for a cell."""
+    from repro_torch.kernels.simstep.ops import card_tile, resolve_path
+
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    n = meta["N"]
+    fit = []
+    for d in (d for d in range(1, n + 1) if n % d == 0):
+        try:
+            fit.append(card_tile(n, meta["P"], meta["V"], cfg.lat_bins,
+                                 lanes, d, sms=sms))
+        except ValueError:
+            pass
+    return resolve_path(meta, cfg, lanes, cuda), fit
+
+
+def _plain_chunk(tables, meta, cfg, state, cycles, cuda):
+    """``run_cycles`` as the plain twin computes it, on the card's
+    tensors: the chunk's draws and key chain, then ``make_cycle_fn``
+    cycle by cycle."""
+    from repro_torch.kernels.simstep import draw_chunk, ref
+
+    cycle_fn = ref.make_cycle_fn(meta, cfg)
+    keys, u, ud = draw_chunk(state["key"], cycles, meta["N"], cuda)
+    for c in range(cycles):
+        cycle_fn(tables, state, u[c], ud[c], c)
+    state["key"] = keys
+    state["cycle0"] += cycles
+
+
 def check_simstep(torch, np, cuda):
-    """The kernel pair against the plain version, from plain mid-flight
-    states: three meshes × XY/BiDOR × two tiles × (1, 50) cycles."""
+    """The flit-step kernels against the plain twin, from plain mid-flight
+    states, every state key bit for bit, the PRNG key included: chunks
+    of 1 and 50 cycles at two tiles (the auto one and the largest other
+    the card lays out), XY and BiDOR.  The chunk kernel on the 5x5
+    edge-I/O, 16x16 and 32x32 meshes; the kernel pair on 17x17 and 64x64,
+    which no cluster of the chunk kernel holds (XY alone at 64x64, whose
+    BiDOR plan no path builds).  Returns the largest difference by
+    kernel."""
+    from repro_torch import kernels
     from repro_torch.core import mesh2d, mesh2d_edge_io
-    from repro_torch.kernels.simstep import draw_chunk, make_step, ref
-    from repro_torch.kernels.simstep.ops import resolve_path
+    from repro_torch.kernels.simstep import card_kernel
     from repro_torch.noc import sim
     from repro_torch.noc.simconfig import Algo
 
-    worst = 0
-    for topo in (mesh2d_edge_io(5, 5), mesh2d(16, 16), mesh2d(32, 32)):
-        for algo in (Algo.XY, Algo.BIDOR):
+    both = (Algo.XY, Algo.BIDOR)
+    worst = {"chunk": 0, "pair": 0}
+    for topo, algos in ((mesh2d_edge_io(5, 5), both), (mesh2d(16, 16), both),
+                        (mesh2d(17, 17), both), (mesh2d(32, 32), both),
+                        (mesh2d(64, 64), (Algo.XY,))):
+        for algo in algos:
             tables, meta, cfg, points = _cell(torch, cuda, topo, algo, 4)
-            n = meta["N"]
+            kernel = card_kernel(meta["N"], meta["P"], meta["V"],
+                                 cfg.lat_bins)
             mid = sim.make_states(meta, cfg, points, device=cuda)
-            cycle_fn = ref.make_cycle_fn(meta, cfg)
-            keys, u, ud = draw_chunk(mid["key"], 250, n, cuda)
-            for c in range(200):        # plain mid-flight warm-in
-                cycle_fn(tables, mid, u[c], ud[c], c)
-            divisor = resolve_path(meta, cfg, len(points), cuda)
-            if divisor == n:        # auto chose one tile: take the largest
-                divisor = max(d for d in range(1, n) if n % d == 0)
-            for tile in (n, divisor):
-                for cycles in (1, 50):
-                    plain = _clone(torch, mid)
+            _plain_chunk(tables, meta, cfg, mid, 200, cuda)   # warm-in
+            auto, fit = _card_tiles(torch, cuda, meta, cfg, len(points))
+            for cycles in (1, 50):
+                plain = _clone(torch, mid)
+                _plain_chunk(tables, meta, cfg, plain, cycles, cuda)
+                for tile in (auto, max(d for d in fit if d != auto)):
                     card = _clone(torch, mid)
-                    step = make_step(meta, cfg.replace(sim_tile_nodes=tile),
-                                     tables, card)
-                    for c in range(cycles):
-                        cycle_fn(tables, plain, u[200 + c], ud[200 + c],
-                                 200 + c)
-                        step.step(u[200 + c], ud[200 + c], 200 + c)
+                    before = dict(kernels.LAUNCHES)
+                    sim.run_cycles(tables, meta,
+                                   cfg.replace(sim_tile_nodes=tile), card,
+                                   cycles)
                     torch.cuda.synchronize()
-                    bad = [k for k in plain if k != "key"
-                           and not torch.equal(plain[k], card[k])]
+                    grew = {k: kernels.LAUNCHES[k] - before[k]
+                            for k in ("simstep_chunk", "simstep_tile",
+                                      "simstep_finish")}
+                    want = ({"simstep_chunk": 1, "simstep_tile": 0,
+                             "simstep_finish": 0} if kernel == "chunk" else
+                            {"simstep_chunk": 0, "simstep_tile": cycles,
+                             "simstep_finish": cycles})
+                    bad = [k for k in plain if not (
+                        np.array_equal(plain[k], card[k]) if k == "key"
+                        else torch.equal(plain[k], card[k]))]
                     diff = max(int((plain[k].double() - card[k].double())
                                    .abs().max()) for k in plain
                                if k != "key")
-                    worst = max(worst, diff)
-                    log(f"kernels: simstep {topo.name} {algo.name} "
-                        f"tile={tile} cycles={cycles}: "
-                        f"{'bitwise ok' if not bad else f'MISMATCH {bad}'}")
+                    worst[kernel] = max(worst[kernel], diff)
+                    verdict = (f"MISMATCH {bad}" if bad
+                               else "bitwise ok, key included")
+                    log(f"kernels: simstep {kernel} {topo.name} {algo.name} "
+                        f"tile={tile} ({meta['N'] // tile} blocks a lane) "
+                        f"cycles={cycles}: {verdict}; launches "
+                        f"{json.dumps(grew)}")
                     if bad:
                         raise SystemExit(
-                            f"simstep kernels disagree with plain on {bad}")
+                            f"simstep {kernel} disagrees with plain on {bad}")
+                    if grew != want:
+                        raise SystemExit(f"simstep {kernel}: launches {grew}, "
+                                         f"expected {want}")
     return worst
 
 
@@ -649,14 +714,21 @@ def _check_results(res, np):
             raise SystemExit(f"out-of-order delivery: {r}")
 
 
-def run_paper(torch, np, cuda):
+def paper_spec():
+    """The paper's 5x5 edge-I/O cells at fig8's full length."""
     from repro_torch.core import mesh2d_edge_io
-    from repro_torch.noc import Algo, CampaignSpec, SimConfig, run_campaign
+    from repro_torch.noc import Algo, CampaignSpec, SimConfig
 
-    spec = CampaignSpec(
+    return CampaignSpec(
         topo=mesh2d_edge_io(5, 5), algos=(Algo.XY, Algo.BIDOR),
         patterns=("uniform", "overturn"), rates=(0.2, 0.4, 0.55, 0.7),
         seeds=(0,), base=SimConfig(cycles=14000, warmup=4666), chunk=3500)
+
+
+def run_paper(torch, np, cuda):
+    from repro_torch.noc import run_campaign
+
+    spec = paper_spec()
     res = run_campaign(spec, device=cuda)
     _check_results(res, np)
     for p in res.points:
@@ -670,56 +742,204 @@ def run_paper(torch, np, cuda):
 
 
 def run_scale(torch, np, cuda):
-    from repro_torch.core import mesh2d
+    """32x32 uniform, XY and BiDOR, on the chunk kernel's 16-block
+    clusters, in two rounds: a cell's wall holds its tables (for XY the
+    DOR routes, built on the host and timed here alone), states and
+    results besides the cycles, and the first round also the first use
+    of each shape.  Then 64x64 uniform, XY, on the kernel pair."""
+    from repro_torch.core import mesh2d, traffic
+    from repro_torch.kernels.simstep import card_kernel
     from repro_torch.kernels.simstep.ops import resolve_path
     from repro_torch.noc import Algo, CampaignSpec, SimConfig, run_campaign
+    from repro_torch.noc import sim
 
-    spec = CampaignSpec(
+    def layout(spec):
+        """The kernel and tile ``FlitStep`` resolves for the cell."""
+        meta = dict(N=spec.topo.num_nodes, P=spec.topo.num_ports,
+                    V=spec.base.num_vcs)
+        lanes = len(spec.rates) * len(spec.seeds)
+        kernel = card_kernel(meta["N"], meta["P"], meta["V"],
+                             spec.base.lat_bins)
+        return kernel, resolve_path(meta, spec.base, lanes, cuda)
+
+    big = CampaignSpec(
         topo=mesh2d(32, 32), algos=(Algo.XY, Algo.BIDOR),
         patterns=("uniform",), rates=(0.1, 0.3), seeds=(0, 1),
         base=SimConfig(cycles=3000, warmup=1000), chunk=1000)
+    huge = CampaignSpec(
+        topo=mesh2d(64, 64), algos=(Algo.XY,), patterns=("uniform",),
+        rates=(0.1, 0.3), seeds=(0, 1),
+        base=SimConfig(cycles=600, warmup=200), chunk=200)
     torch.cuda.reset_peak_memory_stats()
-    res = run_campaign(spec, device=cuda)
-    _check_results(res, np)
-    meta = dict(N=1024)
-    tile = resolve_path(meta, spec.base, 4, cuda)
-    for p in res.points:
-        log(f"scale: {p.result.summary()} meas={p.result.meas_cycles}")
-    for key, dt in res.wall_clock_s.items():
-        log(f"scale: cell {'/'.join(key)} tile={tile} wall={dt:.3f}s "
-            f"ms_per_cycle={dt * 1e3 / spec.base.cycles:.4f}")
-    log(f"scale: plan_ms={res.plan_wall_clock_s * 1e3:.1f} "
-        f"stages_ms={json.dumps(res.plan_stage_ms)} "
-        f"max_memory_allocated={torch.cuda.max_memory_allocated()}")
+    for spec, rounds in ((big, 2), (huge, 1)):
+        kernel, tile = layout(spec)
+        t0 = time.perf_counter()
+        sim.build_tables(spec.topo, traffic.uniform(spec.topo), None,
+                         spec.base.num_vcs, device=cuda)
+        log(f"scale: {spec.topo.name} XY cell's tables (DOR routes built "
+            f"on the host) {time.perf_counter() - t0:.4f}s, inside its wall")
+        for i in range(rounds):
+            res = run_campaign(spec, device=cuda)
+            _check_results(res, np)
+            for p in res.points:
+                log(f"scale: {spec.topo.name} round {i}: "
+                    f"{p.result.summary()} meas={p.result.meas_cycles}")
+            for key, dt in res.wall_clock_s.items():
+                log(f"scale: {spec.topo.name} round {i} cell "
+                    f"{'/'.join(key)} kernel={kernel} tile={tile} "
+                    f"wall={dt:.4f}s ms_per_cycle="
+                    f"{dt * 1e3 / spec.base.cycles:.4f}")
+            log(f"scale: {spec.topo.name} round {i} plan_ms="
+                f"{res.plan_wall_clock_s * 1e3:.1f} "
+                f"stages_ms={json.dumps(res.plan_stage_ms)}")
+    log(f"scale: max_memory_allocated={torch.cuda.max_memory_allocated()}")
 
 
-def simstep_bytes(torch, meta, cfg, step, u, ud, cycle):
-    """Bytes each kernel of one cycle must move, counted on the cycle run
-    here: each array read once and written once, shared tables once per
-    launch, per-port tables per port, gathers per entry the cycle's data
-    needs (a head flit only where an input holds one, a pop's writes only
-    where an input pops, generation's reads only where a packet is made).
-    The snapshot copy of ``fifo_size`` is this design's cost and is left
-    out.  Returns (tile bytes, finish bytes)."""
+def simstep_bytes(np, meta, cfg, before, after, lanes):
+    """Bytes a chunk must move, counted on the chunk run here from the
+    state before and after it: the per-input, per-node and per-lane state
+    the kernel keeps on chip read once and written once, the shared
+    tables it reads once, and per event what the chunk's data needs: a
+    flit written once where it enters a FIFO (injection or push) and read
+    once where it leaves (pop), a packet's queue record written and read
+    once and its flow's sequence number read and written, a tail
+    ejection's reorder words read and written."""
+    from repro_torch.noc.simconfig import NF, NQ
+
+    n, p, v, c = meta["N"], meta["P"], meta["V"], meta["C"]
+    nin = meta["NIN"]
+
+    def delta(k):
+        return int(after[k].astype(np.int64).sum()
+                   - before[k].astype(np.int64).sum())
+
+    injected, ejects = delta("injected"), delta("eject_total")
+    pushes, packets = delta("chan_seen"), delta("next_seq")
+    delivered = delta("exp_seq")            # in-order: one per tail
+    hot = lanes * (5 * nin + n * p + 5 * n + 2 * c + cfg.lat_bins + 16)
+    words = (2 * hot + 3 * n * p + c + n
+             + NF * (injected + pushes) + NF * (pushes + ejects)
+             + 2 * NQ * packets + 2 * packets + 4 * delivered)
+    return 4 * words
+
+
+def cycle_wall_us(torch, cuda, topo, chunk=1000):
+    """µs per simulated cycle of one ``chunk``-cycle ``run_cycles`` call
+    as the campaigns make it (XY, 4 lanes, after a 300-cycle warm-in;
+    host clock around a synchronised call)."""
+    from repro_torch.noc import sim
+    from repro_torch.noc.simconfig import Algo
+
+    tables, meta, cfg, points = _cell(torch, cuda, topo, Algo.XY, 4)
+    st = sim.make_states(meta, cfg, points, device=cuda)
+    sim.run_cycles(tables, meta, cfg, st, 300)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sim.run_cycles(tables, meta, cfg, st, chunk)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e6 / chunk
+
+
+def time_simstep(torch, np, cuda, topo, label, row=False):
+    """The chunk kernel at one cell's shapes (XY, 4 lanes, in its
+    measurement window): event-timed µs per simulated cycle of a
+    1 000-cycle chunk, the empty-body floor of the same launch, the byte
+    bound, and the cycle wall through ``run_cycles``.  With ``row``, also
+    a 100-cycle chunk beside the plain twin: the kernel-summary row."""
+    from repro_torch.kernels.simstep import make_step
+    from repro_torch.noc import sim
+    from repro_torch.noc.simconfig import Algo
+
+    tables, meta, cfg, points = _cell(torch, cuda, topo, Algo.XY, 4)
+    lanes = len(points)
+    st = sim.make_states(meta, cfg, points, device=cuda)
+    sim.run_cycles(tables, meta, cfg, st, 300)      # into measurement
+    step = make_step(meta, cfg, tables, st)
+    chunk = 1000
+    step.key.copy_(torch.from_numpy(st["key"].view(np.int32)))
+
+    def launch(cycles):
+        def fn(_):
+            step.args.num_cycles = cycles
+            step.launcher.chunk(step.args)
+            st["cycle0"] += cycles          # as run_cycles does
+        return fn
+
+    def floor(cycles):
+        return lambda _: step.floor(cycles)
+
+    before = sim.state_to_host(st)
+    kern_ms, floor_ms = time_launches(torch, [launch(chunk), floor(chunk)],
+                                      1)
+    after = sim.state_to_host(st)
+    nbytes = simstep_bytes(np, meta, cfg, before, after, lanes)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    reps = 3
+    kern_ms = time_launches(torch, [launch(chunk)], reps)[0]
+    floor_ms = time_launches(torch, [floor(chunk)], reps)[0]
+    st["key"] = step.key.cpu().numpy().view(np.uint32).copy()
+    wall_us = cycle_wall_us(torch, cuda, topo, chunk)
+    us = lambda ms: ms * 1e3 / chunk            # noqa: E731
+    log(f"timing {label}: simstep_chunk {us(kern_ms):.3f}us per simulated "
+        f"cycle (1000-cycle chunk, tile={step.tile_nodes}, "
+        f"{step.ntiles} blocks a lane, lanes={lanes}); empty-body floor "
+        f"{us(floor_ms):.3f}us; byte bound {us(bound_ms):.4f}us "
+        f"({nbytes} bytes a chunk); cycle wall through run_cycles "
+        f"{wall_us:.3f}us")
+    out = dict(label=label, us=us(kern_ms), floor_us=us(floor_ms),
+               bound_us=us(bound_ms), wall_us=wall_us,
+               tile=step.tile_nodes)
+    if not row:
+        return out, None
+    short = 100
+    before = sim.state_to_host(st)
+    step.key.copy_(torch.from_numpy(st["key"].view(np.int32)))
+    ms = time_launches(torch, [launch(short)], 1)[0]
+    after = sim.state_to_host(st)
+    short_bound = (simstep_bytes(np, meta, cfg, before, after, lanes)
+                   / HBM_BYTES_PER_S * 1e3)
+    plain = _clone(torch, st)
+    plain["key"] = after["key"]
+    plain_ms = time_wall(torch, lambda: _plain_chunk(
+        tables, meta, cfg, plain, short, cuda), 1)
+    log(f"timing {label}: simstep_chunk {ms:.4f}ms a 100-cycle chunk "
+        f"(bound {short_bound:.5f}ms, bytes); plain twin {plain_ms:.1f}ms")
+    return out, dict(
+        name="simstep_chunk", route="cuda",
+        source="src/repro_torch/kernels/csrc/simstep.cu",
+        replaces="src/repro/kernels/simstep/kernel.py:50,121",
+        ms=ms, plain_ms=plain_ms, bound_ms=short_bound, bound_by="bytes",
+        library_ms=None)
+
+
+def pair_bytes(torch, meta, cfg, step, u, ud, cycle):
+    """Bytes each kernel of the pair must move in one cycle, counted on
+    the cycle run here: each array read once and written once, shared
+    tables once per launch, per-port tables per port, gathers per entry
+    the cycle's data needs (a head flit only where an input holds one, a
+    pop's writes only where an input pops, generation's reads only where
+    a packet is made).  The snapshot copy of ``fifo_size`` is this
+    design's cost and is left out.  Returns (tile bytes, finish bytes)."""
     from repro_torch.kernels.simstep.ref import MOV_W
     from repro_torch.noc.simconfig import F_TAIL, NF, NQ, Algo
 
     st = step.state
-    n, p, v, c = meta["N"], meta["P"], meta["V"], meta["C"]
+    mov, parts = step.scratch["mov"], step.scratch["parts"]
+    n, p, c = meta["N"], meta["P"], meta["C"]
     lanes, pv = st["fifo_size"].shape[0], meta["P"] * meta["V"]
     full = st["fifo_size"] > 0                      # inputs with a head flit
     nonempty = int(full.sum())
     locked = int((full & (st["lock_op"] >= 0)).sum())
     queued = int((st["q_size"] > 0).sum())
     measuring = int(st["cycle0"][0]) + cycle >= cfg.warmup
-    step.step(u, ud, cycle)
+    step.pair_cycle(u, ud, cycle)
     torch.cuda.synchronize()
-    gen, push, _, inj, _ = (int(x) for x in step.parts.sum((0, 1)))
-    granted = step.mov[..., NF + 3] != 0
-    local = step.mov[..., NF] == meta["P_LOCAL"]
+    gen, push, _, inj, _ = (int(x) for x in parts.sum((0, 1)))
+    granted = mov[..., NF + 3] != 0
+    local = mov[..., NF] == meta["P_LOCAL"]
     grants = int(granted.sum())
     net = int((granted & ~local).sum())
-    tails = int((granted & local & (step.mov[..., F_TAIL] != 0)).sum())
+    tails = int((granted & local & (mov[..., F_TAIL] != 0)).sum())
     search = max(int(n).bit_length(), 1)
     bidor = cfg.algo == Algo.BIDOR
     tile_words = (
@@ -752,9 +972,12 @@ def simstep_bytes(torch, meta, cfg, step, u, ud, cycle):
     return 4 * tile_words, 4 * finish_words
 
 
-def time_simstep(torch, np, cuda, topo, label):
-    """Event-timed kernel pair and plain twins at one cell's shapes."""
-    from repro_torch import prng
+def time_simstep_pair(torch, np, cuda, topo, label):
+    """The kernel pair at a cell the chunk kernel cannot lay out (XY, 4
+    lanes, in its measurement window): event-timed ms per launch of each
+    kernel beside its plain part (one tile, host clock) and its byte
+    bound, and the cycle wall through ``run_cycles``.  Returns the two
+    kernel-summary rows."""
     from repro_torch.kernels.simstep import draw_chunk, make_step, ref
     from repro_torch.noc import sim
     from repro_torch.noc.simconfig import Algo
@@ -764,61 +987,56 @@ def time_simstep(torch, np, cuda, topo, label):
     st = sim.make_states(meta, cfg, points, device=cuda)
     sim.run_cycles(tables, meta, cfg, st, 300)      # into measurement
     step = make_step(meta, cfg, tables, st)
-    reps = 200
+    if step.kernel != "pair":
+        raise SystemExit(f"{label} runs {step.kernel}, not the pair")
+    reps = 100
     _, u, ud = draw_chunk(st["key"], reps + 1, n, cuda)
-    tile_ms, finish_ms = time_launches(torch, [
-        lambda r: step.simstep_tile(u[r], ud[r], 300 + r),
-        lambda r: step.simstep_finish(300 + r)], reps)
-    # plain twins on the same state, one tile
+
+    def tile(r):
+        step.args.u, step.args.ud = u[r].data_ptr(), ud[r].data_ptr()
+        step.args.cycle = r
+        step.launcher.tile(step.args)
+
+    def finish(r):
+        step.args.cycle = r
+        step.launcher.finish(step.args)
+
+    tile_ms, finish_ms = time_launches(torch, [tile, finish], reps)
+    tile_bytes, finish_bytes = pair_bytes(torch, meta, cfg, step, u[reps],
+                                          ud[reps], reps)
+    tile_bound = tile_bytes / HBM_BYTES_PER_S * 1e3
+    finish_bound = finish_bytes / HBM_BYTES_PER_S * 1e3
+    # the plain parts on the same state, the whole network as one tile
     tile_fn, finish_fn = ref.make_cycle_parts(meta, cfg)
     fs_pre = st["fifo_size"].clone()
     box = {}
 
     def plain_tile():
         box["mov"], box["parts"] = tile_fn(tables, st, u[0], ud[0], fs_pre,
-                                           300, 0, n)
+                                           reps, 0, n)
 
-    plain_tile_ms = time_wall(torch, plain_tile, 10)
+    plain_tile_ms = time_wall(torch, plain_tile, 5)
     plain_finish_ms = time_wall(
-        torch, lambda: finish_fn(tables, st, box["mov"], box["parts"], 300),
-        10)
-    # where a simulated cycle's wall time goes: a 1000-cycle chunk through
-    # the entry point, the host key chain alone, and the kernels' share
-    chunk = 1000
-    t0 = time.perf_counter()
-    prng.chain_keys(st["key"], chunk)
-    chain_us = (time.perf_counter() - t0) * 1e6 / chunk
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    sim.run_cycles(tables, meta, cfg, st, chunk)
-    torch.cuda.synchronize()
-    cycle_us = (time.perf_counter() - t0) * 1e6 / chunk
-    busy = (tile_ms + finish_ms) * 1e3 / cycle_us
-    log(f"timing {label}: cycle wall {cycle_us:.2f}us, of it host key "
-        f"chain {chain_us:.2f}us; device busy share of the cycle "
-        f"(kernel time / wall) {busy:.3f}")
-    lanes = len(points)
-    tile_bytes, finish_bytes = simstep_bytes(torch, meta, cfg, step, u[reps],
-                                             ud[reps], 300 + reps)
-    tile_bound = tile_bytes / HBM_BYTES_PER_S * 1e3
-    finish_bound = finish_bytes / HBM_BYTES_PER_S * 1e3
-    log(f"timing {label}: simstep_tile {tile_ms * 1e3:.2f}us "
-        f"(bound {tile_bound * 1e3:.3f}us) simstep_finish "
-        f"{finish_ms * 1e3:.2f}us (bound {finish_bound * 1e3:.3f}us) per "
-        f"launch (tile={step.tile_nodes}, lanes={lanes}); plain tile "
-        f"{plain_tile_ms:.3f}ms finish {plain_finish_ms:.3f}ms")
+        torch, lambda: finish_fn(tables, st, box["mov"], box["parts"], reps),
+        5)
+    wall_us = cycle_wall_us(torch, cuda, topo)
+    log(f"timing {label}: kernel pair simstep_tile {tile_ms * 1e3:.2f}us "
+        f"(bound {tile_bound * 1e3:.3f}us) + simstep_finish "
+        f"{finish_ms * 1e3:.2f}us (bound {finish_bound * 1e3:.3f}us) a "
+        f"cycle (tile={step.tile_nodes}, {step.ntiles} blocks a lane, "
+        f"lanes={len(points)}); plain tile {plain_tile_ms:.3f}ms finish "
+        f"{plain_finish_ms:.3f}ms; cycle wall through run_cycles "
+        f"{wall_us:.3f}us (host key chain, draws, two launches a cycle)")
+    source = "src/repro_torch/kernels/csrc/simstep_pair.cu"
     return [
-        dict(name="simstep_tile", route="cuda",
-             source="src/repro_torch/kernels/csrc/simstep.cu",
+        dict(name="simstep_tile", route="cuda", source=source,
              replaces="src/repro/kernels/simstep/kernel.py:50,121",
              ms=tile_ms, plain_ms=plain_tile_ms, bound_ms=tile_bound,
              bound_by="bytes", library_ms=None),
-        dict(name="simstep_finish", route="cuda",
-             source="src/repro_torch/kernels/csrc/simstep.cu",
+        dict(name="simstep_finish", route="cuda", source=source,
              replaces="src/repro/kernels/simstep/kernel.py:50,121",
              ms=finish_ms, plain_ms=plain_finish_ms, bound_ms=finish_bound,
-             bound_by="bytes", library_ms=None),
-    ]
+             bound_by="bytes", library_ms=None)]
 
 
 # --------------------------------------------------------------------- #
@@ -1571,13 +1789,13 @@ def main() -> int:
     serve, jamba = {}, {}
     paths = {
         "slice 1 (plan, flit step, campaign)": (
-            ("possibility_v", "simstep_tile", "simstep_finish"),
+            ("possibility_v", "simstep_chunk", "simstep_tile",
+             "simstep_finish"),
             lambda: (check_golden(torch, np, cuda),
                      run_paper(torch, np, cuda),
                      run_scale(torch, np, cuda))),
         "slice 2 (N-Rank oracle, fig1, control plane)": (
-            ("possibility_weights", "possibility_v", "simstep_tile",
-             "simstep_finish"),
+            ("possibility_weights", "possibility_v", "simstep_chunk"),
             lambda: (run_fig1(torch, np, cuda,
                               run_nrank(torch, np, cuda, weights_ms)),
                      run_ctrl(torch, np, cuda))),
@@ -1620,12 +1838,20 @@ def main() -> int:
         f"; jamba decode step device busy {_ms(jamba_e2e, 'busy')}, "
         f"flash_fwd* {_ms(jamba_e2e, 'flash')}; jamba prefill flash_fwd* "
         f"{_ms(jamba_e2e, 'prefill_flash')}")
-    timed = time_simstep(torch, np, cuda, mesh2d(32, 32), "32x32")
-    time_simstep(torch, np, cuda, mesh2d_edge_io(5, 5), "5x5")
-    rows = [poss, weights] + timed + [flash, scan]
+    simstep_row = None
+    for topo, label in ((mesh2d(4, 4), "4x4"), (mesh2d_edge_io(5, 5), "5x5"),
+                        (mesh2d(16, 16), "16x16"),
+                        (mesh2d(32, 32), "32x32")):
+        _, row = time_simstep(torch, np, cuda, topo, label,
+                              row=label == "32x32")
+        simstep_row = row or simstep_row
+    simstep_row["max_abs_err"] = float(simstep_err["chunk"])
+    pair_rows = time_simstep_pair(torch, np, cuda, mesh2d(64, 64), "64x64")
+    for row in pair_rows:
+        row["max_abs_err"] = float(simstep_err["pair"])
+    rows = [poss, weights, simstep_row, *pair_rows, flash, scan]
     for row in rows:
         row["launches"] = launches[row["name"]]
-        row.setdefault("max_abs_err", float(simstep_err))
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
@@ -1715,17 +1941,60 @@ def serve_wall(rounds: int) -> int:
     return 0
 
 
+def cycle_wall(rounds: int) -> int:
+    """``--cycle-wall``: the flit step alone through its entry point, as
+    the campaigns drive it: µs per simulated cycle of a 1 000-cycle
+    ``run_cycles`` chunk (XY, 4 lanes, after a 300-cycle warm-in) at
+    every mesh the script runs, and the paper cell's wall per
+    (pattern, algorithm), with no other phase."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 2
+    import repro_torch
+    from repro_torch.core import mesh2d, mesh2d_edge_io
+    from repro_torch.noc import run_campaign
+
+    cuda = torch.device("cuda")
+    log(f"card: {card_line()}")
+    log(f"cycle-wall: the port from {os.path.dirname(repro_torch.__file__)}")
+    shapes = (("4x4", mesh2d(4, 4)), ("5x5", mesh2d_edge_io(5, 5)),
+              ("16x16", mesh2d(16, 16)), ("32x32", mesh2d(32, 32)))
+    cols = {label: [] for label, _ in shapes}
+    paper = paper_spec()
+    for i in range(rounds):
+        for label, topo in shapes:
+            cols[label].append(cycle_wall_us(torch, cuda, topo))
+        res = run_campaign(paper, device=cuda)
+        walls = {"/".join(k): round(v, 4)
+                 for k, v in res.wall_clock_s.items()}
+        log(f"cycle-wall: round {i}: us per cycle "
+            f"{json.dumps({k: round(v[-1], 3) for k, v in cols.items()})}; "
+            f"paper cell walls (s) {json.dumps(walls)}")
+    med = {k: float(np.median(v)) for k, v in cols.items()}
+    log(f"cycle-wall: median of {rounds} (us per simulated cycle): "
+        f"{json.dumps(med)}")
+    return 0
+
+
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--serve-wall", action="store_true",
                     help="time whisper-base's serving alone")
-    ap.add_argument("--src", help="with --serve-wall: import the port "
-                    "from this directory")
+    ap.add_argument("--cycle-wall", action="store_true",
+                    help="time the flit step's chunks and the paper cell "
+                    "alone")
+    ap.add_argument("--src", help="with --serve-wall or --cycle-wall: "
+                    "import the port from this directory")
     ap.add_argument("--rounds", type=int, default=5,
-                    help="with --serve-wall: timed rounds")
+                    help="with --serve-wall or --cycle-wall: timed rounds")
     args = ap.parse_args()
+    if args.src:
+        sys.path.insert(0, os.path.abspath(args.src))
     if args.serve_wall:
-        if args.src:
-            sys.path.insert(0, os.path.abspath(args.src))
         sys.exit(serve_wall(args.rounds))
+    if args.cycle_wall:
+        sys.exit(cycle_wall(args.rounds))
     sys.exit(main())

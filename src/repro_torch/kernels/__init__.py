@@ -7,8 +7,8 @@ adds one where it launches and nowhere else, so a run can show that the
 main path went through the kernels.
 """
 
-LAUNCHES = {"possibility_v": 0, "possibility_weights": 0, "simstep_tile": 0,
-            "simstep_finish": 0, "flash_attention": 0,
+LAUNCHES = {"possibility_v": 0, "possibility_weights": 0, "simstep_chunk": 0,
+            "simstep_tile": 0, "simstep_finish": 0, "flash_attention": 0,
             "selective_scan": 0}
 
 

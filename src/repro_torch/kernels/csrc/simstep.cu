@@ -1,42 +1,77 @@
-// simstep: one simulated cycle of the flit-level NoC simulator, for every
-// lane of a campaign cell, as two kernels.
+// simstep: the flit-level NoC simulator's per-cycle transition, a whole
+// chunk of cycles per launch, for every lane of a campaign cell.
 //
-//   simstep_tile    stages 1-6 of the cycle for one node tile per block:
-//                   packet generation, source-queue push, flit injection,
+//   simstep_chunk   one launch advances every lane by `num_cycles` cycles:
+//                   the PRNG key chain and the per-node draws, packet
+//                   generation, source-queue push, flit injection,
 //                   table-routed port selection, eligibility, round-robin
-//                   switch allocation, pops, wormhole locks, out_held; it
-//                   writes the per-(node, port) `mov` record of the granted
-//                   flit and the tile's integer partial sums.
-//   simstep_finish  the receive-side pushes of the moved flits and the
-//                   statistics, one thread per (lane, node).
+//                   switch allocation, pops, wormhole locks, out_held,
+//                   the receive-side pushes and the statistics.
 //
 // Replaces the TPU kernels repro/kernels/simstep/kernel.py:
 // make_simstep_pallas (the whole cycle as one single-program kernel) and
-// make_simstep_blocked (tile_fn gridded over node tiles, finish_fn outside).
-// The whole-array kernel is this pair with tile_nodes = N; the blocked one
-// is the pair with tile_nodes a proper divisor of N.
+// make_simstep_blocked (tile_fn gridded over node tiles, finish_fn
+// outside).  The whole-array kernel is this one with tile_nodes = N (one
+// block a lane); the blocked one is tile_nodes a proper divisor of N
+// (N / tile_nodes blocks a lane, one thread-block cluster).
 //
-// What bounds it on an H100: latency, not bytes or operations.  A cycle
-// moves a few KB per (lane, node) (the head flit of each of the router's
-// P*V inputs, its queues and tables) and every access is a dependent
-// gather, so at the sizes the paper runs (25 to 1024 nodes, a few lanes)
-// the two launches take a few microseconds of kernel time each and the
-// cycle costs about what launching them costs.  At 32x32 the statistics'
-// reorder scan (a popcount over each node's N reorder words, every
-// measured cycle) is the one O(N^2) term.
+// What bounds it on an H100: latency and instruction issue, not bytes.  A
+// cycle moves a few KB per lane (byte bound 0.005 us a cycle at 5x5, 0.21
+// at 32x32, 4 lanes), but every step is a short chain of dependent
+// accesses (queue head, CDF row, port table, the receiver's credit), and
+// each SM issues its warps' chains one instruction at a time.  Measured
+// (NVIDIA H100 80GB HBM3, 700 W, PERF.md): ~4.5 us a cycle at 5x5 against
+// a 0.04 us floor of the same launch with an empty body, ~11 us at 32x32
+// against 1.5 us (the cluster barriers).  The design:
 //
-// What this simple design does about it: one thread per (lane, node)
-// carries the node's whole router in registers and local memory, so a
-// cycle is two launches with no atomics on the state and no
-// synchronisation beyond the kernel boundary.  Blocks of a launch run
-// concurrently and a tile pops its own FIFOs while other tiles read
-// their credits, so the launch function first copies fifo_size into the
-// fs_pre snapshot and every credit check reads only the snapshot (the
-// TPU grid ran tiles in order and took fs_pre as a separate operand).
-// Receive pushes target distinct inputs within a cycle (one winner per
-// channel) and take their slot from the post-pop start and size, so they
-// need no atomics; per-lane integer sums use integer atomics, exact in
-// any order and wrapping at 2^32 as XLA's int32 sums do.
+// * One launch per chunk.  Lanes are independent, so a lane is one block
+//   or one thread-block cluster (up to 16 blocks; past 8 with the
+//   non-portable size), and a cycle synchronises only inside it: two
+//   barriers (__syncthreads, or the cluster barrier, whose release and
+//   acquire order shared and global memory across the cluster).  Phase A
+//   (generation, injection, routing, allocation, pops, ejections) runs
+//   per node; phase B (the receive-side pushes and the popped inputs'
+//   next head flits) after the first barrier; the second ends the cycle.
+// * Parallel work within a router.  A node is a segment of P*V lanes of
+//   a warp (three nodes a warp at P*V = 10), one lane per input: each
+//   lane routes its own head flit, and the round-robin grant of each
+//   out-port is one warp ballot plus a rotate-and-find-first-set, so the
+//   switch allocation takes P ballots in place of a P x P*V scan.  The
+//   destination search of a generated packet is a (P*V + 1)-ary search
+//   over the node's CDF row by the segment's lanes.  Spreading a lane
+//   over more blocks puts fewer warps on each SM and shortens the cycle
+//   (ops.card_tile picks the layout).
+// * Hot state on chip.  Each block keeps its nodes' per-input state
+//   (FIFO start and size, locks, the credit snapshot, and the head flit
+//   of every non-empty input), out_held, rr, the source-queue pointers
+//   and the per-node counters in shared memory for the whole chunk and
+//   writes them back at its end; a push into another block's input goes
+//   through distributed shared memory.  A flit is read from global memory
+//   once, when it becomes a head after a pop (or at the chunk's start);
+//   an injected or pushed flit that lands in an empty FIFO is the head
+//   at once.  Flit payloads, source queues and the N x N arrays stay in
+//   global memory; flits are read and written at L2 (ld.cg / st.cg),
+//   since another SM of the cluster reads what this one writes.  Per-lane
+//   sums accumulate in registers and shared memory and are flushed once,
+//   as int32 sums that wrap at 2^32 as the reference's do.
+// * The credit snapshot without a copy.  Credits read fs_pre, the FIFO
+//   sizes before the cycle.  Two buffers alternate by cycle parity: in
+//   phase A each input's owner writes its post-pop size into the next
+//   buffer, and a push in phase B adds its flit there, so the next
+//   buffer holds the next cycle's snapshot when the cycle ends.
+// * The key chain and the draws on the card.  The lane's per-cycle keys
+//   come from split(key, 5) (five threefry2x32 blocks on five lanes of a
+//   spare warp, one cycle ahead, handed over through shared memory at a
+//   barrier the cycle has anyway; warp 0 takes them after its nodes when
+//   the block has no spare warp), each block of a cluster deriving its
+//   own copy.  Each node hashes its own u and ud as jax.random.uniform
+//   lays them out (prng.py: node n < h = ceil(N/2) takes word 0 of block
+//   n, the rest word 1 of block n - h; at odd N block h - 1 hashes
+//   (h - 1, 0)).
+// * The reorder occupancy in O(1).  A per-node count of set reorder bits
+//   is filled once a chunk from the node's rbits row and updated on each
+//   tail ejection by popc(new word) - popc(old word); an ejection
+//   candidate fetches its flow's reorder words before the allocation.
 //
 // Float steps round exactly as the reference's: generation compares
 // u < p_gen * (rate / packet_len) with the division first, and the
@@ -44,8 +79,11 @@
 // rounded on its own (__fadd_rn/__fmul_rn; the build also passes
 // --fmad=false).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -54,14 +92,18 @@ constexpr int F_SRC = 0, F_DST = 1, F_INTER = 2, F_SEQ = 3, F_TIME = 4,
               F_HOPS = 5, F_ORDER = 6, F_HEAD = 7, F_TAIL = 8, F_PHASE = 9;
 constexpr int NQ = 5;
 constexpr int Q_DST = 0, Q_INTER = 1, Q_ORDER = 2, Q_TIME = 3, Q_SEQ = 4;
-constexpr int MOV_W = NF + 4;
-constexpr int N_PART = 5;
-constexpr int PART_GEN = 0, PART_PUSH = 1, PART_SHED = 2, PART_INJ = 3;
 constexpr int MAX_PV = 32;
 constexpr int MAX_P = 16;
+constexpr int MAX_CLUSTER = 16;
+constexpr int WARP = 32;
+constexpr int MAX_WARPS = 32;
 constexpr int ALGO_BIDOR = 6;
-constexpr int BIG = 1 << 30;
-constexpr int FINISH_THREADS = 128;
+constexpr unsigned FULL = 0xFFFFFFFFu;
+// per-block sums in shared memory
+constexpr int S_LAT_SUM = 0, S_LAT_CNT = 1, S_LAT_MAX = 2, S_RMAX = 3,
+              S_INJ = 4, S_OFF = 5, S_DROP = 6, S_EJECT = 7, S_MEAS = 8;
+constexpr int N_SUMS = 16;
+constexpr int N_KEYS = 10;  // two cycles of (kg0, kg1, kd0, kd1), the chain
 
 }  // namespace
 
@@ -76,14 +118,12 @@ struct SimArgs {
   const float* p_gen;     // (N,)
   const int* chan_of;     // (N, P), C where no channel
   const float* chan_bw;   // (C,)
-  // this cycle's draws
-  const float* u;         // (L, N)
-  const float* ud;        // (L, N)
+  // the PRNG key of each lane, uint32 words; advanced in place
+  int* key;               // (L, 2)
   // lane-batched state
   int* flits;             // (L, NIN, B, NF)
   int* fifo_start;        // (L, NIN)
   int* fifo_size;         // (L, NIN)
-  int* fs_pre;            // (L, NIN) pre-cycle snapshot of fifo_size
   int* lock_op;           // (L, NIN)
   int* lock_ov;           // (L, NIN)
   int* out_held;          // (L, N, P, V)
@@ -97,8 +137,6 @@ struct SimArgs {
   const int* cycle0;      // (L,)
   const int* inject_until;   // (L,)
   const int* measure_until;  // (L,)
-  int* mov;               // (L, N, P, MOV_W)
-  int* parts;             // (L, ntiles, N_PART)
   int* exp_seq;           // (L, N, N)
   int* rbits;             // (L, N, N) uint32 bit patterns
   int* node_fwd;          // (L, N)
@@ -117,10 +155,64 @@ struct SimArgs {
   int* meas_cnt;          // (L,)
   // sizes
   int L, N, P, V, NIN, C, O, B, Q, PKT, p_local, algo;
-  int tile_nodes, ntiles, cycle, warmup, lat_bins, lat_bin_width;
+  int tile_nodes, ntiles, num_cycles, warmup, lat_bins, lat_bin_width;
 };
 
 namespace {
+
+// Shared-memory layout of one block (int32 words), for `tn` nodes.
+struct Layout {
+  int start, size, lop, lov, fs0, fs1, pop, pov, oh, rl, head;  // per input
+  int rr, cseen, cfwd, mov;                            // per (node, port)
+  int qstart, qsize, prog, occ, nfwd, ejf;             // per node
+  int hist, sums, keys, words;
+};
+
+__host__ __device__ inline Layout layout(int tn, int P, int V, int bins) {
+  const int ti = tn * P * V, po = tn * P, pm = po * NF, hm = ti * NF;
+  Layout s;
+  int w = 0;
+  s.start = w; w += ti;
+  s.size = w; w += ti;
+  s.lop = w; w += ti;
+  s.lov = w; w += ti;
+  s.fs0 = w; w += ti;
+  s.fs1 = w; w += ti;
+  s.pop = w; w += ti;
+  s.pov = w; w += ti;
+  s.oh = w; w += ti;
+  s.rl = w; w += ti;
+  s.head = w; w += hm;        // the head flit of each non-empty input
+  s.rr = w; w += po;
+  s.cseen = w; w += po;
+  s.cfwd = w; w += po;
+  s.mov = w; w += pm;         // the flit a granted port pushes
+  s.qstart = w; w += tn;
+  s.qsize = w; w += tn;
+  s.prog = w; w += tn;
+  s.occ = w; w += tn;
+  s.nfwd = w; w += tn;
+  s.ejf = w; w += tn;
+  s.hist = w; w += bins;
+  s.sums = w; w += N_SUMS;
+  s.keys = w; w += N_KEYS;
+  s.words = w;
+  return s;
+}
+
+// Warps that carry nodes: enough segments of P*V lanes for the tile's
+// nodes, at most 32 (the rest run in rounds).  A block adds one spare warp
+// for the key chain when it has room.
+__host__ __device__ inline int node_warps(int tn, int pv) {
+  const int per_warp = WARP / pv;
+  const int w = (tn + per_warp - 1) / per_warp;
+  return w < MAX_WARPS ? w : MAX_WARPS;
+}
+
+__host__ __device__ inline int block_threads(int tn, int pv) {
+  const int w = node_warps(tn, pv);
+  return WARP * (w < MAX_WARPS ? w + 1 : w);
+}
 
 __device__ __forceinline__ int pmod(int a, int m) {
   const int r = a % m;
@@ -136,302 +228,679 @@ __device__ __forceinline__ int floordiv(int a, int b) {
   return (a % b != 0 && ((a < 0) != (b < 0))) ? q - 1 : q;
 }
 
-__global__ void __launch_bounds__(1024)
-simstep_tile_kernel(const SimArgs a) {
-  __shared__ int sparts[N_PART];
-  for (int i = threadIdx.x; i < N_PART; i += blockDim.x) sparts[i] = 0;
-  __syncthreads();
+// threefry2x32, 20 rounds, as JAX lowers it (repro_torch/prng.py).
+#define TF_MIX(r)                          \
+  x0 += x1;                                \
+  x1 = __funnelshift_l(x1, x1, (r));       \
+  x1 ^= x0;
 
-  const int lane = blockIdx.y;
-  const int tile = blockIdx.x;
-  const int n = tile * a.tile_nodes + threadIdx.x;
-  if ((int)threadIdx.x < a.tile_nodes && n < a.N) {
-    const int N = a.N, P = a.P, V = a.V, PV = P * V, NIN = a.NIN;
-    const int B = a.B, Q = a.Q, C = a.C;
-    const bool bidor = a.algo == ALGO_BIDOR;
-    const long long ln = (long long)lane * N + n;      // (lane, node) row
-    const long long lin = (long long)lane * NIN;       // lane's input base
-    const int cyc = a.cycle0[lane] + a.cycle;
+__device__ __forceinline__ void threefry(uint32_t k0, uint32_t k1,
+                                         uint32_t& x0, uint32_t& x1) {
+  const uint32_t k2 = k0 ^ k1 ^ 0x1BD11BDAu;
+  x0 += k0; x1 += k1;
+  TF_MIX(13) TF_MIX(15) TF_MIX(26) TF_MIX(6)
+  x0 += k1; x1 += k2 + 1u;
+  TF_MIX(17) TF_MIX(29) TF_MIX(16) TF_MIX(24)
+  x0 += k2; x1 += k0 + 2u;
+  TF_MIX(13) TF_MIX(15) TF_MIX(26) TF_MIX(6)
+  x0 += k0; x1 += k1 + 3u;
+  TF_MIX(17) TF_MIX(29) TF_MIX(16) TF_MIX(24)
+  x0 += k1; x1 += k2 + 4u;
+  TF_MIX(13) TF_MIX(15) TF_MIX(26) TF_MIX(6)
+  x0 += k2; x1 += k0 + 5u;
+}
+#undef TF_MIX
 
-    // ---------------- 1. packet generation (open loop) ---------------- //
-    const float u = a.u[ln];
-    const float ud = a.ud[ln];
-    const float per_flit = __fdiv_rn(a.rate[lane], (float)a.PKT);
-    const bool gen = (u < __fmul_rn(a.p_gen[n], per_flit)) &&
-                     (cyc < a.inject_until[lane]);
-    // upper-bound binary search: the count of CDF entries <= ud (the row
-    // is non-decreasing, so this equals the reference's dense count)
-    const float* row = a.cdf + (long long)n * N;
-    int lo = 0, hi = N;
-    while (lo < hi) {
-      const int mid = (lo + hi) >> 1;
-      if (row[mid] <= ud) lo = mid + 1; else hi = mid;
-    }
-    const int dst = clampi(lo, 0, N - 1);
-    const int order = bidor ? a.choice[(long long)n * N + dst] : 0;
-    int qs = a.q_size[ln];
-    const int qst = a.q_start[ln];
-    const bool space = qs < Q;
-    const bool push = gen && space;
-    int* nseq = a.next_seq + ln * N;
-    const int seq = nseq[dst];
-    int* qrow = a.qpkts + ln * (long long)Q * NQ;
-    if (push) {
-      nseq[dst] = seq + 1;
-      int* r = qrow + pmod(qst + qs, Q) * NQ;
-      r[Q_DST] = dst; r[Q_INTER] = -1; r[Q_ORDER] = order;
-      r[Q_TIME] = cyc; r[Q_SEQ] = seq;
-      qs += 1;
-    }
-
-    // ---------------- 2. flit injection (1/cycle/node) ---------------- //
-    const int* h = qrow + qst * NQ;
-    const int h_dst = h[Q_DST], h_inter = h[Q_INTER], h_order = h[Q_ORDER];
-    const int pr = a.prog[ln];
-    const bool phase0 = (h_inter < 0) || (h_inter == n);
-    const int vc_in = bidor ? pmod(h_order, V) : pmod(n + h_dst, V);
-    const int lf = (n * P + a.p_local) * V + vc_in;
-    const int lf_size = a.fifo_size[lin + lf];
-    const bool can = (qs > 0) && (lf_size < B);
-    if (can) {
-      int* r = a.flits +
-               ((lin + lf) * B + pmod(a.fifo_start[lin + lf] + lf_size, B)) *
-                   NF;
-      r[F_SRC] = n; r[F_DST] = h_dst; r[F_INTER] = h_inter;
-      r[F_SEQ] = h[Q_SEQ]; r[F_TIME] = h[Q_TIME]; r[F_HOPS] = 0;
-      r[F_ORDER] = h_order; r[F_HEAD] = pr == 0; r[F_TAIL] = pr == a.PKT - 1;
-      r[F_PHASE] = phase0;
-      a.fifo_size[lin + lf] = lf_size + 1;
-    }
-    int pr2 = can ? pr + 1 : pr;
-    const bool done = can && pr2 >= a.PKT;
-    if (done) pr2 = 0;
-    a.prog[ln] = pr2;
-    a.q_start[ln] = done ? (qst + 1) % Q : qst;
-    a.q_size[ln] = qs - (done ? 1 : 0);
-
-    // ---------------- 3-4. routing and eligibility per input ---------- //
-    int op_[MAX_PV], ov_[MAX_PV], st_[MAX_PV];
-    bool elig_[MAX_PV], rph_[MAX_PV];
-    const float cf = (float)cyc;
-    const float cf1 = __fadd_rn(cf, 1.0f);
-    for (int k = 0; k < PV; ++k) {
-      const long long gi = lin + (long long)n * PV + k;
-      const int st = a.fifo_start[gi];
-      st_[k] = st;
-      const int* g = a.flits + (gi * B + st) * NF;
-      const bool valid = a.fifo_size[gi] > 0;
-      const bool rph = g[F_PHASE] != 0 || g[F_INTER] < 0 || g[F_INTER] == n;
-      const int target = clampi(rph ? g[F_DST] : g[F_INTER], 0, N - 1);
-      const bool at_dest = target == n;
-      const int lop = a.lock_op[gi];
-      const bool locked = lop >= 0;
-      const int eff = bidor ? clampi(g[F_ORDER], 0, a.O - 1) : 0;
-      int op = a.port[((long long)eff * N + n) * N + target];
-      int ov = bidor ? pmod(g[F_ORDER], V) : k % V;
-      if (at_dest) { op = a.p_local; ov = 0; }
-      if (locked) { op = lop; ov = a.lock_ov[gi]; }
-      const bool is_eject = op == a.p_local;
-      const int cop = clampi(op, 0, P - 1);
-      const int nei = a.neighbor[n * P + cop];
-      const int rp = a.recv_port[n * P + cop];
-      const int ridx = clampi((nei * P + rp) * V + ov, 0, NIN - 1);
-      const bool credit = is_eject || a.fs_pre[lin + ridx] < B;
-      const bool vc_free =
-          a.out_held[(ln * P + cop) * V + clampi(ov, 0, V - 1)] == -1;
-      const bool needs_alloc = g[F_HEAD] != 0 && !locked && !is_eject;
-      const int ch = a.chan_of[n * P + cop];
-      bool live = false;
-      if (ch >= 0 && ch < C) {
-        const float bw = a.chan_bw[ch];
-        live = __fsub_rn(floorf(__fmul_rn(cf1, bw)),
-                         floorf(__fmul_rn(cf, bw))) >= 1.0f;
-      }
-      elig_[k] = valid && credit && (is_eject || live) &&
-                 (vc_free || !needs_alloc);
-      op_[k] = op;
-      ov_[k] = ov;
-      rph_[k] = rph;
-    }
-
-    // ---------------- 5. switch allocation (round-robin) -------------- //
-    int grants[MAX_P];
-    for (int po = 0; po < P; ++po) {
-      const int r = a.rr[ln * P + po];
-      int best = BIG, win = 0;
-      for (int k = 0; k < PV; ++k) {
-        if (elig_[k] && op_[k] == po) {
-          const int s = pmod(k - r, PV);
-          if (s < best) { best = s; win = k; }
-        }
-      }
-      const bool ok = best < BIG;
-      grants[po] = ok ? win : -1;
-      if (ok) a.rr[ln * P + po] = (win + 1) % PV;
-    }
-
-    // ---------------- 6. pops, locks, out_held, mov ------------------- //
-    for (int k = 0; k < PV; ++k) {
-      const long long gi = lin + (long long)n * PV + k;
-      const bool popped = elig_[k] && grants[clampi(op_[k], 0, P - 1)] == k;
-      if (!popped) continue;
-      const int* g = a.flits + (gi * B + st_[k]) * NF;
-      const bool head = g[F_HEAD] != 0, tail = g[F_TAIL] != 0;
-      a.fifo_start[gi] = (st_[k] + 1) % B;
-      a.fifo_size[gi] -= 1;
-      if (head && !tail) { a.lock_op[gi] = op_[k]; a.lock_ov[gi] = ov_[k]; }
-      else if (tail) { a.lock_op[gi] = -1; a.lock_ov[gi] = -1; }
-    }
-    for (int po = 0; po < P; ++po) {
-      int* m = a.mov + (ln * P + po) * MOV_W;
-      const int w = grants[po];
-      if (w < 0) {
-        for (int f = 0; f < MOV_W; ++f) m[f] = 0;
-        continue;
-      }
-      const long long gi = lin + (long long)n * PV + w;
-      const int* g = a.flits + (gi * B + st_[w]) * NF;
-      for (int f = 0; f < NF; ++f) m[f] = g[f];
-      m[NF] = op_[w];
-      m[NF + 1] = ov_[w];
-      m[NF + 2] = rph_[w];
-      m[NF + 3] = 1;
-      const bool net = op_[w] != a.p_local;
-      const bool w_head = g[F_HEAD] != 0, w_tail = g[F_TAIL] != 0;
-      const int wov = ov_[w];
-      if (net && (w_tail || w_head) && wov >= 0 && wov < V)
-        a.out_held[(ln * P + po) * V + wov] = (w_head && !w_tail) ? w : -1;
-    }
-
-    atomicAdd(&sparts[PART_GEN], gen ? 1 : 0);
-    atomicAdd(&sparts[PART_PUSH], push ? 1 : 0);
-    atomicAdd(&sparts[PART_SHED], (gen && !space) ? 1 : 0);
-    atomicAdd(&sparts[PART_INJ], can ? 1 : 0);
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < N_PART; i += blockDim.x)
-    a.parts[((long long)lane * a.ntiles + tile) * N_PART + i] = sparts[i];
+// jax.random.uniform(k, (N,))[n] (prng.uniform): node n < h = ceil(N/2)
+// takes word 0 of count block n, node n >= h word 1 of block n - h; the
+// counts of block b are (b, b + h), except (h - 1, 0) at odd N, where
+// the iota is padded with one zero.
+__device__ __forceinline__ float node_uniform(uint32_t k0, uint32_t k1,
+                                              int n, int N) {
+  const int h = (N + 1) >> 1;
+  const int b = n < h ? n : n - h;
+  uint32_t x0 = (uint32_t)b;
+  uint32_t x1 = ((N & 1) && b == h - 1) ? 0u : (uint32_t)(b + h);
+  threefry(k0, k1, x0, x1);
+  const uint32_t bits = n < h ? x0 : x1;
+  return __fsub_rn(__uint_as_float((bits >> 9) | 0x3F800000u), 1.0f);
 }
 
-__global__ void simstep_finish_kernel(const SimArgs a) {
-  const int lane = blockIdx.y;
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  if (n >= a.N) return;
-  const int N = a.N, P = a.P, V = a.V, NIN = a.NIN, B = a.B, C = a.C;
-  const long long ln = (long long)lane * N + n;
-  const long long lin = (long long)lane * NIN;
-  const int cyc = a.cycle0[lane] + a.cycle;
-  const bool measuring = cyc >= a.warmup && cyc < a.measure_until[lane];
+// One cycle of the key chain on lanes 0-4 of a warp (all 32 lanes call
+// it): split(key, 5) hashes blocks j = 0..4 with counts (j, 5 + j) into
+// (a_j, b_j); key' = (a0, a1), kg = (a2, a3), kd = (a4, b0).  Writes
+// (kg, kd) to `out` and key' to `chain`.
+__device__ __forceinline__ void advance_key(int* chain, int* out) {
+  const int lane = threadIdx.x & (WARP - 1);
+  const uint32_t k0 = (uint32_t)chain[0], k1 = (uint32_t)chain[1];
+  uint32_t a = (uint32_t)lane, b = (uint32_t)(lane + 5);
+  if (lane < 5) threefry(k0, k1, a, b);
+  const uint32_t a0 = __shfl_sync(FULL, a, 0), b0 = __shfl_sync(FULL, b, 0);
+  const uint32_t a1 = __shfl_sync(FULL, a, 1), a2 = __shfl_sync(FULL, a, 2);
+  const uint32_t a3 = __shfl_sync(FULL, a, 3), a4 = __shfl_sync(FULL, a, 4);
+  __syncwarp();
+  if (lane == 0) {
+    out[0] = (int)a2; out[1] = (int)a3; out[2] = (int)a4; out[3] = (int)b0;
+    chain[0] = (int)a0; chain[1] = (int)a1;
+  }
+}
 
-  if (n == 0) {
-    int gen = 0, shed = 0, inj = 0;
-    for (int t = 0; t < a.ntiles; ++t) {
-      const int* pt = a.parts + ((long long)lane * a.ntiles + t) * N_PART;
-      gen += pt[PART_GEN]; shed += pt[PART_SHED]; inj += pt[PART_INJ];
+template <bool CLUSTERED>
+__device__ __forceinline__ void lane_sync() {
+  if (CLUSTERED) cg::this_cluster().sync();
+  else __syncthreads();
+}
+
+// Shared memory of block `rank` of this lane's cluster.
+template <bool CLUSTERED>
+__device__ __forceinline__ int* rank_ptr(int* p, int rank, int me) {
+  if (!CLUSTERED || rank == me) return p;
+  return cg::this_cluster().map_shared_rank(p, rank);
+}
+
+// MAXT bounds the block size, so a small block gets more registers.
+template <bool CLUSTERED, bool EMPTY, int MAXT>
+__global__ void __launch_bounds__(MAXT, 1)
+simstep_chunk_kernel(const SimArgs a) {
+  extern __shared__ int sm[];
+  const int N = a.N, P = a.P, V = a.V, PV = P * V, NIN = a.NIN;
+  const int B = a.B, Q = a.Q, C = a.C;
+  const int tn = a.tile_nodes;
+  const int ti = tn * PV;
+  const int lane = blockIdx.y;
+  const int me = CLUSTERED ? (int)cg::this_cluster().block_rank() : 0;
+  const int node0 = me * tn;
+  const int in0 = node0 * PV;                          // first input owned
+  const Layout lay = layout(tn, P, V, a.lat_bins);
+  const int nthreads = blockDim.x;
+  const int warp = threadIdx.x / WARP, wl = threadIdx.x % WARP;
+  const int nwarps = node_warps(tn, PV);               // warps with nodes
+  const bool key_warp = warp == nwarps;                // the spare warp
+  const int spw = WARP / PV;                           // nodes a warp
+  const int g = wl / PV, k = wl - g * PV;              // segment, input
+  const bool seg_lane = g < spw;
+  const unsigned segmask = PV == 32 ? FULL : ((1u << PV) - 1u);
+  const int rounds = (tn + nwarps * spw - 1) / (nwarps * spw);
+
+  if (EMPTY) {
+    if (CLUSTERED) cg::this_cluster().sync();
+    for (int c = 0; c < a.num_cycles; ++c) {
+      lane_sync<CLUSTERED>();
+      lane_sync<CLUSTERED>();
     }
-    a.meas_cnt[lane] += measuring ? 1 : 0;
-    if (measuring) { a.offered[lane] += gen; a.dropped[lane] += shed; }
-    a.injected[lane] += inj;
-    atomicMax(&a.lat_max[lane], 0);
-    atomicMax(&a.reorder_max[lane], 0);
+    return;
   }
 
-  // ------------- 6b. receive-side pushes, 7. channel stats ----------- //
-  int granted_n = 0;
-  for (int po = 0; po < P; ++po) {
-    const int* m = a.mov + (ln * P + po) * MOV_W;
-    const bool granted = m[NF + 3] != 0;
-    granted_n += granted ? 1 : 0;
-    const bool net = granted && m[NF] != a.p_local;
-    if (net) {
-      const int cop = clampi(m[NF], 0, P - 1);
-      const int di = (a.neighbor[n * P + cop] * P + a.recv_port[n * P + cop]) *
-                         V + m[NF + 1];
-      if (di >= 0 && di < NIN) {
-        const long long gdi = lin + di;
-        const int size = a.fifo_size[gdi];
-        int* r = a.flits + (gdi * B + (a.fifo_start[gdi] + size) % B) * NF;
-        for (int f = 0; f < NF; ++f) r[f] = m[f];
-        r[F_HOPS] = m[F_HOPS] + 1;
-        r[F_PHASE] = m[NF + 2];
-        a.fifo_size[gdi] = size + 1;
+  int* s_start = sm + lay.start;
+  int* s_size = sm + lay.size;
+  int* s_lop = sm + lay.lop;
+  int* s_lov = sm + lay.lov;
+  int* s_pop = sm + lay.pop;
+  int* s_pov = sm + lay.pov;
+  int* s_oh = sm + lay.oh;
+  int* s_rr = sm + lay.rr;
+  int* s_cseen = sm + lay.cseen;
+  int* s_cfwd = sm + lay.cfwd;
+  int* s_mov = sm + lay.mov;
+  int* s_rl = sm + lay.rl;
+  int* s_head = sm + lay.head;
+  int* s_qstart = sm + lay.qstart;
+  int* s_qsize = sm + lay.qsize;
+  int* s_prog = sm + lay.prog;
+  int* s_occ = sm + lay.occ;
+  int* s_nfwd = sm + lay.nfwd;
+  int* s_ejf = sm + lay.ejf;
+  int* s_hist = sm + lay.hist;
+  int* s_sums = sm + lay.sums;
+  int* s_keys = sm + lay.keys;
+
+  const long long lin = (long long)lane * NIN;         // lane's input base
+  const long long lnn = (long long)lane * N;           // lane's node base
+
+  // ---------------- load the block's hot state ------------------------ //
+  for (int i = threadIdx.x; i < ti; i += nthreads) {
+    const long long gi = lin + in0 + i;
+    const int size = a.fifo_size[gi];
+    s_start[i] = a.fifo_start[gi];
+    s_size[i] = size;
+    sm[lay.fs0 + i] = size;
+    s_lop[i] = a.lock_op[gi];
+    s_lov[i] = a.lock_ov[gi];
+    s_oh[i] = a.out_held[gi];                // (N, P, V) = NIN per lane
+    if (size > 0) {
+      const int* hf = a.flits + (gi * B + s_start[i]) * NF;
+      for (int x = 0; x < NF; ++x) s_head[i * NF + x] = __ldcg(hf + x);
+    }
+  }
+  for (int j = threadIdx.x; j < tn * P; j += nthreads) {
+    s_rr[j] = a.rr[lnn * P + node0 * P + j];
+    s_cseen[j] = 0;
+    s_cfwd[j] = 0;
+  }
+  for (int t = threadIdx.x; t < tn; t += nthreads) {
+    const long long ln = lnn + node0 + t;
+    s_qstart[t] = a.q_start[ln];
+    s_qsize[t] = a.q_size[ln];
+    s_prog[t] = a.prog[ln];
+    s_nfwd[t] = a.node_fwd[ln];
+    s_ejf[t] = a.eject_flits[ln];
+  }
+  for (int j = threadIdx.x; j < a.lat_bins; j += nthreads) s_hist[j] = 0;
+  for (int j = threadIdx.x; j < N_SUMS; j += nthreads) s_sums[j] = 0;
+  // reorder occupancy: one warp a node pop-counts its rbits row
+  for (int t = warp; t < tn; t += nthreads / WARP) {
+    const uint32_t* row =
+        reinterpret_cast<const uint32_t*>(a.rbits) + (lnn + node0 + t) * N;
+    int occ = 0;
+    for (int j = wl; j < N; j += WARP) occ += __popc(row[j]);
+    occ = __reduce_add_sync(FULL, occ);
+    if (wl == 0) s_occ[t] = occ;
+  }
+  int* chain = s_keys + 8;
+  if (warp == 0) {
+    if (wl == 0) {
+      chain[0] = a.key[2 * lane];
+      chain[1] = a.key[2 * lane + 1];
+    }
+    __syncwarp();
+    advance_key(chain, s_keys);              // cycle 0's (kg, kd)
+  }
+
+  const int cyc0 = a.cycle0[lane];
+  const int inj_until = a.inject_until[lane];
+  const int meas_until = a.measure_until[lane];
+  const float per_flit = __fdiv_rn(a.rate[lane], (float)a.PKT);
+  const bool bidor = a.algo == ALGO_BIDOR;
+  // per-thread sums over the chunk (uint32: they wrap as int32 sums do)
+  uint32_t r_inj = 0, r_off = 0, r_drop = 0, r_eject = 0, r_lat_sum = 0,
+           r_lat_cnt = 0, r_meas = 0;
+  int r_lat_max = 0, r_rmax = 0;
+
+  if (CLUSTERED) cg::this_cluster().sync();   // every block's state loaded
+  else __syncthreads();
+
+  for (int c = 0; c < a.num_cycles; ++c) {
+    const int cyc = cyc0 + c;
+    const bool measuring = cyc >= a.warmup && cyc < meas_until;
+    int* fs_cur = sm + ((c & 1) ? lay.fs1 : lay.fs0);
+    int* fs_next = sm + ((c & 1) ? lay.fs0 : lay.fs1);
+    const int* kk = s_keys + 4 * (c & 1);
+    const uint32_t kg0 = (uint32_t)kk[0], kg1 = (uint32_t)kk[1];
+    const uint32_t kd0 = (uint32_t)kk[2], kd1 = (uint32_t)kk[3];
+    const float cf = (float)cyc;
+    const float cf1 = __fadd_rn(cf, 1.0f);
+
+    // ====== phase A: per node, generation to pops and ejections ======== //
+    if (key_warp) {
+      // the next cycle's (kg, kd), visible after the barrier
+      if (c + 1 < a.num_cycles)
+        advance_key(chain, s_keys + 4 * ((c + 1) & 1));
+    } else {
+      for (int r = 0; r < rounds; ++r) {
+        const int t = (r * nwarps + warp) * spw + g;   // node in the tile
+        const bool act = seg_lane && t < tn;
+        const int n = node0 + t;
+        const long long ln = lnn + n;
+        const int base = g * PV;                        // segment's lane 0
+        const int i = t * PV + k;                       // tile-local input
+
+        // ---- 0. what needs no draw: the queue head ------------------ //
+        int st = 0, size = 0;
+        if (act) {
+          st = s_start[i];
+          size = s_size[i];
+        }
+        int qs = 0, qst = 0;
+        int h[NQ];
+#pragma unroll
+        for (int x = 0; x < NQ; ++x) h[x] = 0;
+        int* qrow = a.qpkts + ln * (long long)Q * NQ;
+        if (act && k == 0) {
+          qs = s_qsize[t];
+          qst = s_qstart[t];
+          if (qs > 0) {
+#pragma unroll
+            for (int x = 0; x < NQ; ++x) h[x] = qrow[qst * NQ + x];
+          }
+        }
+
+        // ---- 1. packet generation: the draws, then the CDF search -- //
+        // lane 0 of the segment hashes u, lane 1 ud, on one path
+        float draw = 0.0f;
+        if (act && k < 2)
+          draw = node_uniform(k ? kd0 : kg0, k ? kd1 : kg1, n, N);
+        const float u = __shfl_sync(FULL, draw, base & (WARP - 1));
+        const float ud = __shfl_sync(FULL, draw, (base + 1) & (WARP - 1));
+        const bool gen = act &&
+                         (u < __fmul_rn(__ldg(a.p_gen + n), per_flit)) &&
+                         (cyc < inj_until);
+        // the count of CDF entries <= ud (the row is non-decreasing): a
+        // (PV + 1)-ary search, one probe a lane of the segment
+        int lo = 0, hi = N;
+        const float* row = a.cdf + (long long)n * N;
+        while (__any_sync(FULL, gen && lo < hi)) {
+          const bool probe = gen && lo < hi;
+          const int width = hi - lo;
+          bool le = false;
+          if (probe)
+            le = __ldg(row + lo + ((k + 1) * width) / (PV + 1)) <= ud;
+          const unsigned m = __ballot_sync(FULL, le);
+          if (probe) {
+            const int cnt = __popc((m >> base) & segmask);
+            const int nlo = cnt > 0 ? lo + (cnt * width) / (PV + 1) + 1 : lo;
+            const int nhi =
+                cnt < PV ? lo + ((cnt + 1) * width) / (PV + 1) : hi;
+            lo = nlo;
+            hi = nhi;
+          }
+        }
+        // ---- 1b. source-queue push, 2. flit injection (segment lane 0) //
+        int inj_k = -1;                   // the segment lane injected into
+        if (act && k == 0) {
+          int pr = s_prog[t];
+          const int dst = clampi(lo, 0, N - 1);
+          const bool space = qs < Q;
+          if (gen && space) {
+            const int order =
+                bidor ? __ldg(a.choice + (long long)n * N + dst) : 0;
+            int* nseq = a.next_seq + ln * N + dst;
+            const int seq = *nseq;
+            *nseq = seq + 1;
+            int* rec = qrow + pmod(qst + qs, Q) * NQ;
+            rec[Q_DST] = dst; rec[Q_INTER] = -1; rec[Q_ORDER] = order;
+            rec[Q_TIME] = cyc; rec[Q_SEQ] = seq;
+            if (qs == 0) {                // the new packet is the head
+              h[Q_DST] = dst; h[Q_INTER] = -1; h[Q_ORDER] = order;
+              h[Q_TIME] = cyc; h[Q_SEQ] = seq;
+            }
+            qs += 1;
+          }
+          if (measuring) {
+            r_off += gen ? 1u : 0u;
+            r_drop += (gen && !space) ? 1u : 0u;
+          }
+          bool done = false;
+          if (qs > 0) {
+            const int vc_in =
+                bidor ? pmod(h[Q_ORDER], V) : pmod(n + h[Q_DST], V);
+            const int lk = a.p_local * V + vc_in;       // segment lane
+            const int lf = t * PV + lk;                 // tile-local
+            const int lf_size = s_size[lf];             // before the pops
+            if (lf_size < B) {
+              int jf[NF];
+              jf[F_SRC] = n; jf[F_DST] = h[Q_DST]; jf[F_INTER] = h[Q_INTER];
+              jf[F_SEQ] = h[Q_SEQ]; jf[F_TIME] = h[Q_TIME]; jf[F_HOPS] = 0;
+              jf[F_ORDER] = h[Q_ORDER]; jf[F_HEAD] = pr == 0 ? 1 : 0;
+              jf[F_TAIL] = pr == a.PKT - 1 ? 1 : 0;
+              jf[F_PHASE] = (h[Q_INTER] < 0 || h[Q_INTER] == n) ? 1 : 0;
+              int* rec = a.flits + ((lin + in0 + lf) * B +
+                                    pmod(s_start[lf] + lf_size, B)) * NF;
+#pragma unroll
+              for (int x = 0; x < NF; ++x) __stcg(rec + x, jf[x]);
+              if (lf_size == 0) {         // the new flit is the head
+#pragma unroll
+                for (int x = 0; x < NF; ++x) s_head[lf * NF + x] = jf[x];
+              }
+              inj_k = lk;
+              pr += 1;
+              done = pr >= a.PKT;
+              if (done) pr = 0;
+              r_inj += 1u;
+            }
+          }
+          s_prog[t] = pr;
+          s_qstart[t] = done ? (qst + 1) % Q : qst;
+          s_qsize[t] = qs - (done ? 1 : 0);
+        }
+        inj_k = __shfl_sync(FULL, inj_k, base & (WARP - 1));
+        __syncwarp();
+        if (act && k == inj_k) size += 1;
+        int f[NF];                        // the head flit, from shared memory
+#pragma unroll
+        for (int x = 0; x < NF; ++x)
+          f[x] = (act && size > 0) ? s_head[i * NF + x] : 0;
+
+        // ---- 3-4. routing and eligibility, one lane per input ------ //
+        bool elig = false, rph = false;
+        int op = -1, ov = 0;
+        const bool head = f[F_HEAD] != 0, tail = f[F_TAIL] != 0;
+        int* erow = a.exp_seq + ln * N;
+        uint32_t* brow = reinterpret_cast<uint32_t*>(a.rbits + ln * N);
+        int pre_exp = 0;
+        uint32_t pre_bits = 0;
+        if (act && size > 0) {
+          rph = f[F_PHASE] != 0 || f[F_INTER] < 0 || f[F_INTER] == n;
+          const int target = clampi(rph ? f[F_DST] : f[F_INTER], 0, N - 1);
+          const int lop = s_lop[i];
+          const bool locked = lop >= 0;
+          if (locked) {
+            op = lop;
+            ov = s_lov[i];
+          } else if (target == n) {
+            op = a.p_local;
+            ov = 0;
+          } else {
+            const int eff = bidor ? clampi(f[F_ORDER], 0, a.O - 1) : 0;
+            op = __ldg(a.port + ((long long)eff * N + n) * N + target);
+            ov = bidor ? pmod(f[F_ORDER], V) : k % V;
+          }
+          const bool is_eject = op == a.p_local;
+          const int cop = clampi(op, 0, P - 1);
+          bool live = is_eject;
+          if (is_eject) {
+            // an ejection candidate: fetch its flow's reorder words now
+            const int src = f[F_SRC];
+            if (tail && src >= 0 && src < N) {
+              pre_exp = erow[src];
+              pre_bits = brow[src];
+            }
+          } else {
+            const int ch = __ldg(a.chan_of + n * P + cop);
+            if (ch >= 0 && ch < C) {
+              const float bw = __ldg(a.chan_bw + ch);
+              live = __fsub_rn(floorf(__fmul_rn(cf1, bw)),
+                               floorf(__fmul_rn(cf, bw))) >= 1.0f;
+            }
+          }
+          const bool vc_free =
+              s_oh[(t * P + cop) * V + clampi(ov, 0, V - 1)] == -1;
+          const bool needs_alloc = head && !locked && !is_eject;
+          elig = live && (vc_free || !needs_alloc);
+          if (elig && !is_eject) {        // the receiver's credit
+            const int nei = __ldg(a.neighbor + n * P + cop);
+            const int rp = __ldg(a.recv_port + n * P + cop);
+            const int ridx = clampi((nei * P + rp) * V + ov, 0, NIN - 1);
+            const int rank = ridx / ti;
+            elig = rank_ptr<CLUSTERED>(fs_cur, rank, me)[ridx - rank * ti] <
+                   B;
+          }
+        }
+
+        // ---- 5. switch allocation: a ballot per out-port ----------- //
+        const int r_own = elig ? s_rr[t * P + clampi(op, 0, P - 1)] : 0;
+        unsigned mine = 0;
+        for (int po = 0; po < P; ++po) {
+          const unsigned m = __ballot_sync(FULL, elig && op == po);
+          if (elig && op == po) mine = m;
+        }
+        __syncwarp();
+        bool won = false;
+        if (elig) {
+          const unsigned bits = (mine >> base) & segmask;
+          const unsigned upper = bits & (FULL << pmod(r_own, PV));
+          const int win = (upper ? __ffs(upper) : __ffs(bits)) - 1;
+          won = win == k;
+        }
+
+        // ---- 6. pops, locks, out_held; 7. ejections ---------------- //
+        if (act) {
+          int push_op = -1;
+          bool reload = false;
+          if (won) {
+            s_rr[t * P + op] = (k + 1) % PV;
+            s_start[i] = (st + 1) % B;
+            size -= 1;
+            reload = size > 0;            // a new head to fetch
+            if (head && !tail) { s_lop[i] = op; s_lov[i] = ov; }
+            else if (tail) { s_lop[i] = -1; s_lov[i] = -1; }
+            if (op != a.p_local) {
+              if ((tail || head) && ov >= 0 && ov < V)
+                s_oh[(t * P + op) * V + ov] = (head && !tail) ? k : -1;
+              // stage the flit as the receiver will hold it
+              int* m = s_mov + (t * P + op) * NF;
+#pragma unroll
+              for (int x = 0; x < NF; ++x)
+                m[x] = x == F_HOPS ? f[x] + 1
+                       : x == F_PHASE ? (rph ? 1 : 0) : f[x];
+              s_cseen[t * P + op] += 1;
+              if (measuring) s_cfwd[t * P + op] += 1;
+              push_op = op;
+              s_pov[i] = ov;
+            } else {
+              r_eject += 1u;
+              if (measuring) s_ejf[t] += 1;
+              const int lat = (cyc - f[F_TIME]) + f[F_HOPS] + 1;  // +1: eject
+              if (tail && f[F_TIME] >= a.warmup) {
+                r_lat_sum += (uint32_t)lat;
+                r_lat_cnt += 1u;
+                r_lat_max = max(r_lat_max, lat);
+                atomicAdd(&s_hist[clampi(floordiv(lat, a.lat_bin_width), 0,
+                                         a.lat_bins - 1)], 1);
+              }
+              // reorder tracking: this node's window of the packet's flow
+              const int src = f[F_SRC];
+              if (tail && src >= 0 && src < N) {
+                const int off = f[F_SEQ] - pre_exp;
+                const bool in_win = off >= 0 && off < 32;
+                const uint32_t bits2 =
+                    in_win ? (pre_bits | (1u << clampi(off, 0, 31)))
+                           : pre_bits;
+                const uint32_t lowmask = bits2 & ~(bits2 + 1u);  // low 1s
+                const int run = __popc(lowmask);
+                uint32_t bits3 = bits2;
+                if (bits2 & 1u) {
+                  erow[src] = pre_exp + run;
+                  bits3 = run >= 32 ? 0u : (bits2 >> min(run, 31));
+                }
+                brow[src] = bits3;
+                s_occ[t] += __popc(bits3) - __popc(pre_bits);
+              }
+            }
+          }
+          s_size[i] = size;
+          s_pop[i] = push_op;
+          s_rl[i] = reload ? 1 : 0;
+          fs_next[i] = size;
+        }
+        const unsigned granted = __ballot_sync(FULL, won);
+        __syncwarp();
+        if (act && k == 0 && measuring) {
+          s_nfwd[t] += __popc((granted >> base) & segmask);
+          r_rmax = max(r_rmax, s_occ[t] * a.PKT);
+        }
+      }
+      // no spare warp: warp 0 carries the key chain after its nodes
+      if (nwarps == MAX_WARPS && warp == 0 && c + 1 < a.num_cycles)
+        advance_key(chain, s_keys + 4 * ((c + 1) & 1));
+    }
+    lane_sync<CLUSTERED>();
+
+    // ====== phase B: the receive-side pushes, the new heads ============ //
+    // (one winner per channel, so every target input takes at most one
+    // push a cycle; its slot comes from the post-pop start and size, and
+    // it is the head if the input is empty after its pop)
+    if (!key_warp) {
+      for (int r = 0; r < rounds; ++r) {
+        const int t = (r * nwarps + warp) * spw + g;
+        const int i = t * PV + k;
+        if (!(seg_lane && t < tn)) continue;
+        if (s_rl[i]) {                    // the popped input's next flit
+          const int* hf =
+              a.flits + ((lin + in0 + i) * B + s_start[i]) * NF;
+#pragma unroll
+          for (int x = 0; x < NF; ++x) s_head[i * NF + x] = __ldcg(hf + x);
+        }
+        const int op = s_pop[i];
+        if (op < 0) continue;
+        const int n = node0 + t;
+        const int di = (__ldg(a.neighbor + n * P + op) * P +
+                        __ldg(a.recv_port + n * P + op)) * V + s_pov[i];
+        if (di < 0 || di >= NIN) continue;
+        const int rank = di / ti, li = di - rank * ti;
+        int* dsize = rank_ptr<CLUSTERED>(s_size, rank, me) + li;
+        const int dst_start = rank_ptr<CLUSTERED>(s_start, rank, me)[li];
+        const int dsz = *dsize;
+        int* rec = a.flits + ((lin + di) * B + (dst_start + dsz) % B) * NF;
+        const int* m = s_mov + (t * P + op) * NF;
+        int* dh = rank_ptr<CLUSTERED>(s_head, rank, me) + li * NF;
+#pragma unroll
+        for (int x = 0; x < NF; ++x) {
+          const int v = m[x];
+          __stcg(rec + x, v);
+          if (dsz == 0) dh[x] = v;        // the target was empty
+        }
+        *dsize = dsz + 1;
+        const int fsn_off = (int)(fs_next - sm);
+        rank_ptr<CLUSTERED>(sm + fsn_off, rank, me)[li] = dsz + 1;
       }
     }
-    const int ch = a.chan_of[n * P + po];
-    if (ch >= 0 && ch < C) {
-      a.chan_seen[(long long)lane * C + ch] += net ? 1 : 0;
-      if (measuring) a.chan_fwd[(long long)lane * C + ch] += net ? 1 : 0;
-    }
+    if (threadIdx.x == 0 && me == 0) r_meas += measuring ? 1u : 0u;
+    lane_sync<CLUSTERED>();
   }
-  if (measuring) a.node_fwd[ln] += granted_n;
 
-  // ---------------- 7. eject statistics (local port) ------------------ //
-  const int* wl = a.mov + (ln * P + a.p_local) * MOV_W;
-  const bool ej = wl[NF + 3] != 0;
-  if (ej) {
-    atomicAdd(&a.eject_total[lane], 1);
-    if (measuring) a.eject_flits[ln] += 1;
+  // ---------------- flush the chunk ----------------------------------- //
+  if (a.num_cycles > 0) {
+    r_inj = __reduce_add_sync(FULL, r_inj);
+    r_off = __reduce_add_sync(FULL, r_off);
+    r_drop = __reduce_add_sync(FULL, r_drop);
+    r_eject = __reduce_add_sync(FULL, r_eject);
+    r_lat_sum = __reduce_add_sync(FULL, r_lat_sum);
+    r_lat_cnt = __reduce_add_sync(FULL, r_lat_cnt);
+    r_lat_max = __reduce_max_sync(FULL, r_lat_max);
+    r_rmax = __reduce_max_sync(FULL, r_rmax);
+    if (wl == 0) {
+      atomicAdd(reinterpret_cast<unsigned*>(s_sums + S_INJ), r_inj);
+      atomicAdd(reinterpret_cast<unsigned*>(s_sums + S_OFF), r_off);
+      atomicAdd(reinterpret_cast<unsigned*>(s_sums + S_DROP), r_drop);
+      atomicAdd(reinterpret_cast<unsigned*>(s_sums + S_EJECT), r_eject);
+      atomicAdd(reinterpret_cast<unsigned*>(s_sums + S_LAT_SUM), r_lat_sum);
+      atomicAdd(reinterpret_cast<unsigned*>(s_sums + S_LAT_CNT), r_lat_cnt);
+      atomicMax(s_sums + S_LAT_MAX, r_lat_max);
+      atomicMax(s_sums + S_RMAX, r_rmax);
+    }
+    if (threadIdx.x == 0)
+      atomicAdd(reinterpret_cast<unsigned*>(s_sums + S_MEAS), r_meas);
   }
-  const bool tail_ej = ej && wl[F_TAIL] != 0;
-  const int lat = (cyc - wl[F_TIME]) + wl[F_HOPS] + 1;  // +1: eject hop
-  if (tail_ej && wl[F_TIME] >= a.warmup) {
-    atomicAdd(&a.lat_sum[lane], lat);
-    atomicAdd(&a.lat_cnt[lane], 1);
-    atomicMax(&a.lat_max[lane], lat);
-    const int hbin = min(floordiv(lat, a.lat_bin_width), a.lat_bins - 1);
-    if (hbin >= 0) atomicAdd(&a.lat_hist[(long long)lane * a.lat_bins + hbin],
-                             1);
+  __syncthreads();
+  for (int i = threadIdx.x; i < ti; i += nthreads) {
+    const long long gi = lin + in0 + i;
+    a.fifo_start[gi] = s_start[i];
+    a.fifo_size[gi] = s_size[i];
+    a.lock_op[gi] = s_lop[i];
+    a.lock_ov[gi] = s_lov[i];
+    a.out_held[gi] = s_oh[i];
   }
-  // reorder tracking: this node's row of the per-flow windows
-  int* erow = a.exp_seq + ln * N;
-  uint32_t* brow = reinterpret_cast<uint32_t*>(a.rbits + ln * N);
-  const int src = wl[F_SRC];
-  if (tail_ej && src >= 0 && src < N) {
-    const int exp = erow[src];
-    const uint32_t bits = brow[src];
-    const int off = wl[F_SEQ] - exp;
-    const bool in_win = off >= 0 && off < 32;
-    const uint32_t bits2 =
-        in_win ? (bits | (1u << clampi(off, 0, 31))) : bits;
-    const uint32_t lowmask = bits2 & ~(bits2 + 1u);     // trailing ones
-    const int run = __popc(lowmask);
-    if (bits2 & 1u) {
-      erow[src] = exp + run;
-      brow[src] = run >= 32 ? 0u : (bits2 >> min(run, 31));
-    } else {
-      brow[src] = bits2;
+  for (int j = threadIdx.x; j < tn * P; j += nthreads) {
+    a.rr[lnn * P + node0 * P + j] = s_rr[j];
+    const int ch = __ldg(a.chan_of + node0 * P + j);
+    if (ch >= 0 && ch < C) {              // each channel has one source
+      a.chan_seen[(long long)lane * C + ch] += s_cseen[j];
+      a.chan_fwd[(long long)lane * C + ch] += s_cfwd[j];
     }
   }
-  if (measuring) {
-    int occ = 0;
-    for (int j = 0; j < N; ++j) occ += __popc(brow[j]);
-    atomicMax(&a.reorder_max[lane], occ * a.PKT);
+  for (int t = threadIdx.x; t < tn; t += nthreads) {
+    const long long ln = lnn + node0 + t;
+    a.q_start[ln] = s_qstart[t];
+    a.q_size[ln] = s_qsize[t];
+    a.prog[ln] = s_prog[t];
+    a.node_fwd[ln] = s_nfwd[t];
+    a.eject_flits[ln] = s_ejf[t];
   }
+  if (a.num_cycles > 0) {
+    for (int j = threadIdx.x; j < a.lat_bins; j += nthreads)
+      if (s_hist[j]) atomicAdd(a.lat_hist + (long long)lane * a.lat_bins + j,
+                               s_hist[j]);
+    if (threadIdx.x == 0) {
+      auto add = [](int* p, int v) {
+        atomicAdd(reinterpret_cast<unsigned*>(p), (unsigned)v);
+      };
+      add(a.lat_sum + lane, s_sums[S_LAT_SUM]);
+      add(a.lat_cnt + lane, s_sums[S_LAT_CNT]);
+      add(a.injected + lane, s_sums[S_INJ]);
+      add(a.offered + lane, s_sums[S_OFF]);
+      add(a.dropped + lane, s_sums[S_DROP]);
+      add(a.eject_total + lane, s_sums[S_EJECT]);
+      add(a.meas_cnt + lane, s_sums[S_MEAS]);
+      atomicMax(a.lat_max + lane, s_sums[S_LAT_MAX]);
+      atomicMax(a.reorder_max + lane, s_sums[S_RMAX]);
+      if (me == 0) {
+        a.key[2 * lane] = chain[0];
+        a.key[2 * lane + 1] = chain[1];
+      }
+    }
+  }
+}
+
+template <bool CLUSTERED, bool EMPTY, int MAXT>
+int launch(const SimArgs& a, cudaStream_t stream) {
+  const int pv = a.P * a.V;
+  const size_t smem =
+      sizeof(int) * (size_t)layout(a.tile_nodes, a.P, a.V, a.lat_bins).words;
+  auto kernel = simstep_chunk_kernel<CLUSTERED, EMPTY, MAXT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (a.ntiles > 8) {           // past the portable cluster size
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.ntiles, a.L, 1);
+  cfg.blockDim = dim3(block_threads(a.tile_nodes, pv), 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.ntiles;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// The register budget follows the block: 128 a thread up to 512 threads,
+// 80 up to 768, else 64.
+template <bool CLUSTERED, bool EMPTY>
+int launch_sized(const SimArgs& a, cudaStream_t stream) {
+  const int threads = block_threads(a.tile_nodes, a.P * a.V);
+  if (threads <= 512) return launch<CLUSTERED, EMPTY, 512>(a, stream);
+  if (threads <= 768) return launch<CLUSTERED, EMPTY, 768>(a, stream);
+  return launch<CLUSTERED, EMPTY, 1024>(a, stream);
+}
+
+int checked_launch(const SimArgs* args, void* stream, bool empty) {
+  const SimArgs a = *args;
+  const int pv = a.P * a.V;
+  if (pv < 2 || pv > MAX_PV || a.P > MAX_P || a.tile_nodes <= 0 ||
+      a.N % a.tile_nodes != 0 || a.ntiles != a.N / a.tile_nodes ||
+      a.ntiles > MAX_CLUSTER || a.num_cycles < 0 || a.lat_bins <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (a.num_cycles == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (a.ntiles > 1)
+    return empty ? launch_sized<true, true>(a, s)
+                 : launch_sized<true, false>(a, s);
+  return empty ? launch_sized<false, true>(a, s)
+               : launch_sized<false, false>(a, s);
 }
 
 }  // namespace
 
-// Snapshot fifo_size into fs_pre, then one block per (tile, lane) with
-// tile_nodes threads.  Returns cudaGetLastError().
-extern "C" int simstep_tile_launch(const SimArgs* args, void* stream) {
-  const SimArgs a = *args;
-  if (a.P * a.V > MAX_PV || a.P > MAX_P) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t err = cudaMemcpyAsync(a.fs_pre, a.fifo_size,
-                                    sizeof(int) * (size_t)a.L * a.NIN,
-                                    cudaMemcpyDeviceToDevice, s);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(a.ntiles, a.L);
-  simstep_tile_kernel<<<grid, a.tile_nodes, 0, s>>>(a);
-  return (int)cudaGetLastError();
+// Advance every lane by num_cycles cycles: one block per (lane, tile),
+// the tiles of a lane one cluster.  Returns a cudaError_t (0 = launched).
+extern "C" int simstep_chunk_launch(const SimArgs* args, void* stream) {
+  return checked_launch(args, stream, false);
 }
 
-// One thread per (lane, node).  Returns cudaGetLastError().
-extern "C" int simstep_finish_launch(const SimArgs* args, void* stream) {
-  const SimArgs a = *args;
-  dim3 grid((a.N + FINISH_THREADS - 1) / FINISH_THREADS, a.L);
-  simstep_finish_kernel<<<grid, FINISH_THREADS, 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+// The same launch shape and per-cycle barriers with an empty body: the
+// chunk kernel's latency floor, for measurement only.
+extern "C" int simstep_floor_launch(const SimArgs* args, void* stream) {
+  return checked_launch(args, stream, true);
+}
+
+// Shared-memory bytes of a block of `tile_nodes` nodes, and its threads,
+// so the binding can check its own layout arithmetic.
+extern "C" int simstep_smem_bytes(int tile_nodes, int P, int V,
+                                  int lat_bins) {
+  return (int)sizeof(int) * layout(tile_nodes, P, V, lat_bins).words;
+}
+
+extern "C" int simstep_block_threads(int tile_nodes, int P, int V) {
+  return block_threads(tile_nodes, P * V);
 }
 
 // sizeof(SimArgs), so the binding can check its record layout.

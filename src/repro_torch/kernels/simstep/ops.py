@@ -1,32 +1,47 @@
 """Public op: the flit step of one simulation cell, by device.
 
 :func:`make_step` binds a cell's tables and lane-batched state to a
-:class:`FlitStep`, whose ``step(u, ud, cycle)`` advances every lane by
-one cycle in place.  Each cycle is two wrappers:
+:class:`FlitStep`, whose ``run(num_cycles, keys)`` advances every lane
+by a chunk of cycles in place and returns the advanced PRNG keys.
 
-* :meth:`FlitStep.simstep_tile` — stages 1–6 over every node tile;
-* :meth:`FlitStep.simstep_finish` — receive pushes and statistics.
+For state on the card it launches a CUDA kernel, chosen by the cell's
+shape (:func:`card_kernel`):
 
-For state on the card each wrapper launches its CUDA kernel
-(``csrc/simstep.cu``); for state on the CPU it runs the plain version
-(:mod:`.ref`), tile by tile.  Neither stands in for the other.
+* ``chunk`` (``csrc/simstep.cu``): one launch a chunk; the key chain,
+  the draws and every cycle run on the card.  A lane is one block or
+  one cluster of up to 16 blocks, each block holding its nodes'
+  per-input state in shared memory.
+* ``pair`` (``csrc/simstep_pair.cu``), for the cells no such layout
+  fits (17x17, 64x64, 96x96; :func:`card_kernel` lists the square
+  meshes): the chunk's draws made up front (:func:`.ref.draw_chunk`),
+  then ``simstep_tile`` and ``simstep_finish`` each cycle.
+
+For state on the CPU it runs the plain version (:mod:`.ref`): the
+chunk's draws, then per cycle ``tile_fn`` tile by tile and
+``finish_fn``.  Neither stands in for the other.
 
 :func:`resolve_path` picks the node tile.  The reference sized it to the
-TPU's 10 MiB VMEM budget; here a tile is one CUDA block with one thread
-per node, so it is bounded by the 1024 threads a block may hold and
-chosen so that the (lane × tile) grid covers the card's SMs.
+TPU's 10 MiB VMEM budget; on the card a tile is the nodes of one CUDA
+block (:func:`card_tile`).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ...noc.simconfig import NF, NQ, SimConfig, check_supported
-from .kernel import INT_FIELDS, MAX_PV, Launcher, sim_args
-from .ref import MOV_W, N_PART, make_cycle_parts
+from .kernel import (INT_FIELDS, MAX_CLUSTER, MAX_P, MAX_PV, MIN_PV,
+                     PAIR_INT_FIELDS, PAIR_MAX_THREADS, WARP, Launcher,
+                     PairArgs, PairLauncher, block_threads, rounds, sim_args,
+                     smem_bytes)
+from .ref import MOV_W, N_PART, draw_chunk, make_cycle_parts
 
-MAX_THREADS_PER_BLOCK = 1024
-WARP = 32
+# an H100 SM (sm_90): dynamic shared memory one block may use, and the
+# shared memory and threads the SM holds for all its resident blocks
+SMEM_MAX = 232_448
+SM_SMEM = 233_472
+SM_THREADS = 2048
 
 TABLE_DTYPES = dict(port=torch.int32, choice=torch.int32,
                     neighbor=torch.int32, recv_port=torch.int32,
@@ -35,7 +50,7 @@ TABLE_DTYPES = dict(port=torch.int32, choice=torch.int32,
 
 
 def _shapes(meta: dict, cfg: SimConfig, lanes: int) -> dict:
-    """The shape of every table and state tensor the kernels index."""
+    """The shape of every table and state tensor the kernel indexes."""
     n, p, v, nin, c = meta["N"], meta["P"], meta["V"], meta["NIN"], meta["C"]
     lane = {k: (lanes,) for k in (
         "rate", "cycle0", "inject_until", "measure_until", "lat_sum",
@@ -59,45 +74,140 @@ def _divisors(n: int) -> list[int]:
     return [d for d in range(1, n + 1) if n % d == 0]
 
 
+def chunk_tiles(n: int, p: int, v: int, lat_bins: int,
+                cluster_max: int = MAX_CLUSTER) -> list[int]:
+    """The tiles with which the chunk kernel lays out an ``n``-node
+    lane: divisors of ``n`` that leave at most ``cluster_max`` blocks
+    (one cluster) and fit a block's per-input state and head flits in
+    its shared memory (``SMEM_MAX``)."""
+    return [d for d in _divisors(n) if n // d <= cluster_max
+            and smem_bytes(d, p, v, lat_bins) <= SMEM_MAX]
+
+
+def card_kernel(n: int, p: int, v: int, lat_bins: int,
+                cluster_max: int = MAX_CLUSTER) -> str:
+    """The card's flit-step kernel for a shape: ``"chunk"`` where some
+    tile lays a lane out as one cluster (:func:`chunk_tiles`), else
+    ``"pair"``.  At P·V = 10 a block holds at most 213 nodes and a lane
+    16 blocks, so a lane fits where ``n`` has a divisor from ``n / 16``
+    to 213: every square mesh up to 16x16, and 18x18 to 48x48 bar 19,
+    23, 29, 31, 34, 37, 38, 41, 43, 46 and 47 a side.  Those, 17x17,
+    and every side from 49 to 96 bar 52 and 56 (64x64 and 96x96 among
+    them) take the pair."""
+    if not MIN_PV <= p * v <= MAX_PV or p > MAX_P:
+        raise ValueError(f"P·V = {p * v} (P = {p}) is outside the kernels' "
+                         f"{MIN_PV}–{MAX_PV} inputs ({MAX_P} ports) per "
+                         f"router")
+    return "chunk" if chunk_tiles(n, p, v, lat_bins, cluster_max) else "pair"
+
+
+def _pair_tile(n: int, lanes: int, tile: int, sms: int) -> int:
+    """The pair's tile: one thread a node, so a divisor of ``n`` of at
+    most 1 024.  Auto: among those that fill a warp (or are ``n``), the
+    largest whose ``lanes × n / tile`` blocks still cover every SM, else
+    the smallest, which spreads the cell over the most SMs."""
+    if tile > 0:
+        if n % tile:
+            raise ValueError(f"sim_tile_nodes={tile} must be a positive "
+                             f"divisor of the node count ({n})")
+        if tile > PAIR_MAX_THREADS:
+            raise ValueError(f"sim_tile_nodes={tile} exceeds the "
+                             f"{PAIR_MAX_THREADS} threads of one CUDA block")
+        return tile
+    fit = [d for d in _divisors(n) if d <= PAIR_MAX_THREADS]
+    full = [d for d in fit if d >= WARP or d == n]
+    if not full:
+        return max(fit)
+    spread = [d for d in full if lanes * (n // d) >= sms]
+    return max(spread) if spread else min(full)
+
+
+def card_tile(n: int, p: int, v: int, lat_bins: int, lanes: int,
+              tile: int = 0, *, sms: int,
+              cluster_max: int = MAX_CLUSTER) -> int:
+    """Nodes per block for an ``n``-node cell of ``lanes`` lanes on a
+    card of ``sms`` SMs, for the kernel :func:`card_kernel` picks.
+
+    Chunk kernel: a lane is ``n / tile`` blocks, one cluster, so a tile
+    must divide ``n``, leave at most ``cluster_max`` blocks and fit its
+    per-input state in a block's shared memory.  A pinned ``tile > 0``
+    that breaks any of these raises ``ValueError``; it is never swapped
+    for another tile or the pair.
+
+    Auto (0): the whole network as one block where its warps hold every
+    node in one round (a ``__syncthreads`` barrier costs ~0.02 µs, a
+    cluster's ~0.7 µs on an H100).  Otherwise the tile of least cost,
+    node rounds per phase times the waves its ``lanes × n / tile``
+    blocks need on the SMs (a lane that waits for a wave waits a whole
+    chunk), then the smallest: a cycle is bound by each SM's issue of
+    its warps' dependent chains, so a lane spread over more SMs runs
+    faster (NVIDIA H100, PERF.md).  At P·V = 10 and 4 lanes: one block
+    up to 96 nodes, 16 blocks at 16x16 and at 32x32.
+
+    The pair: see :func:`_pair_tile` (64 nodes a block at 64x64, the
+    whole network at 17x17).
+    """
+    if card_kernel(n, p, v, lat_bins, cluster_max) == "pair":
+        return _pair_tile(n, lanes, tile, sms)
+
+    def why_not(d: int) -> str | None:
+        if n % d:
+            return f"must be a positive divisor of the node count ({n})"
+        if n // d > cluster_max:
+            return (f"needs {n // d} blocks a lane; one cluster holds "
+                    f"{cluster_max}")
+        if smem_bytes(d, p, v, lat_bins) > SMEM_MAX:
+            return (f"needs {smem_bytes(d, p, v, lat_bins)} bytes of shared "
+                    f"memory a block; the card has {SMEM_MAX}")
+        return None
+
+    if tile > 0:
+        reason = why_not(tile)
+        if reason:
+            raise ValueError(f"sim_tile_nodes={tile} {reason}")
+        return tile
+    fit = chunk_tiles(n, p, v, lat_bins, cluster_max)
+
+    def cost(d: int) -> int:
+        per_sm = min(SM_SMEM // smem_bytes(d, p, v, lat_bins),
+                     SM_THREADS // block_threads(d, p * v))
+        waves = -(-lanes * (n // d) // (sms * max(per_sm, 1)))
+        return rounds(d, p * v) * waves
+
+    if n in fit and rounds(n, p * v) == 1:
+        return n
+    return min(fit, key=lambda d: (cost(d), d))
+
+
 def resolve_path(meta: dict, cfg: SimConfig, num_lanes: int,
                  device) -> int:
     """Node-tile size for a cell.
 
-    ``cfg.sim_tile_nodes > 0`` pins it (it must divide the node count
-    and fit one block).  Auto (0) on the CPU is the whole network, one
-    plain pass.  Auto on the card: among divisors of N that fit a block
-    and fill at least one warp (or are N itself), the largest whose
-    ``lanes × N / tile`` blocks still cover every SM; else the smallest
-    such tile, which spreads the cell over the most SMs.  With
-    ``tile == N`` this is the reference's whole-array path, with a
-    proper divisor its blocked path.
+    ``cfg.sim_tile_nodes > 0`` pins it; it must divide the node count.
+    On the CPU auto (0) is the whole network, one plain pass, and any
+    divisor runs tile by tile (the reference's blocked-path contract).
+    On the card the tile is the nodes of one block and
+    :func:`card_tile` checks a pin or picks one for the kernel
+    :func:`card_kernel` chooses.  With ``tile == N``
+    this is the reference's whole-array path, with a proper divisor its
+    blocked path.
     """
     n = meta["N"]
     tile = int(cfg.sim_tile_nodes)
-    if tile > 0:
-        if n % tile:
+    device = torch.device(device)
+    if device.type == "cpu":
+        if tile > 0 and n % tile:
             raise ValueError(
                 f"sim_tile_nodes={tile} must be a positive divisor of the "
                 f"node count ({n})")
-        if tile > MAX_THREADS_PER_BLOCK:
-            raise ValueError(
-                f"sim_tile_nodes={tile} exceeds the {MAX_THREADS_PER_BLOCK} "
-                f"threads of one CUDA block")
-        return tile
-    device = torch.device(device)
-    if device.type == "cpu":
-        return n
+        return tile or n
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    fit = [d for d in _divisors(n) if d <= MAX_THREADS_PER_BLOCK]
-    full = [d for d in fit if d >= WARP or d == n]
-    if not full:
-        return max(fit)
-    spread = [d for d in full if num_lanes * (n // d) >= sms]
-    return max(spread) if spread else min(full)
+    return card_tile(n, meta["P"], meta["V"], cfg.lat_bins, num_lanes, tile,
+                     sms=sms)
 
 
 class FlitStep:
-    """One cell's per-cycle transition, bound to its tables and state.
+    """One cell's flit step, bound to its tables and state.
 
     The state dict is updated in place; its tensors must stay the same
     objects while the step is in use (rebinding a key needs a new
@@ -108,30 +218,23 @@ class FlitStep:
         self.meta, self.cfg = meta, cfg
         self.tables, self.state = tables, state
         self.device = state["fifo_size"].device
-        lanes = state["fifo_size"].shape[0]
-        n, p = meta["N"], meta["P"]
-        self.tile_nodes = resolve_path(meta, cfg, lanes, self.device)
-        self.ntiles = n // self.tile_nodes
-        i32 = torch.int32
-        self.fs_pre = torch.empty_like(state["fifo_size"])
-        self.mov = torch.zeros((lanes, n, p, MOV_W), dtype=i32,
-                               device=self.device)
-        self.parts = torch.zeros((lanes, self.ntiles, N_PART), dtype=i32,
-                                 device=self.device)
+        self.lanes = state["fifo_size"].shape[0]
+        self.tile_nodes = resolve_path(meta, cfg, self.lanes, self.device)
+        self.ntiles = meta["N"] // self.tile_nodes
         if self.device.type == "cuda":
-            self._bind_cuda(lanes)
+            self.kernel = card_kernel(meta["N"], meta["P"], meta["V"],
+                                      cfg.lat_bins)
+            self._bind_cuda()
         elif self.device.type == "cpu":
+            self.kernel = "plain"
             self._tile_fn, self._finish_fn = make_cycle_parts(meta, cfg)
         else:
             raise ValueError(f"unsupported device {self.device}")
 
     # ------------------------------------------------------------- #
-    def _bind_cuda(self, lanes: int) -> None:
+    def _bind_cuda(self) -> None:
         meta, cfg, t, st = self.meta, self.cfg, self.tables, self.state
-        if meta["P"] * meta["V"] > MAX_PV:
-            raise ValueError(f"P·V = {meta['P'] * meta['V']} exceeds the "
-                             f"kernel's {MAX_PV} inputs per router")
-        shapes = _shapes(meta, cfg, lanes)
+        shapes = _shapes(meta, cfg, self.lanes)
         ptrs = {}
         for name, dt in TABLE_DTYPES.items():
             ptrs[name] = self._checked(name, getattr(t, name), dt,
@@ -142,18 +245,35 @@ class FlitStep:
             dt = torch.float32 if name == "rate" else torch.int32
             ptrs[name] = self._checked(f"state[{name!r}]", x, dt,
                                        shapes[name])
-        ptrs.update(fs_pre=self.fs_pre, mov=self.mov, parts=self.parts)
         sizes = dict(
-            L=lanes, N=meta["N"], P=meta["P"], V=meta["V"],
+            L=self.lanes, N=meta["N"], P=meta["P"], V=meta["V"],
             NIN=meta["NIN"], C=meta["C"], O=meta["O"], B=cfg.buf_per_vc,
             Q=cfg.src_queue_pkts, PKT=cfg.packet_len,
             p_local=meta["P_LOCAL"], algo=int(cfg.algo),
-            tile_nodes=self.tile_nodes, ntiles=self.ntiles, cycle=0,
+            tile_nodes=self.tile_nodes, ntiles=self.ntiles,
             warmup=cfg.warmup, lat_bins=cfg.lat_bins,
             lat_bin_width=cfg.lat_bin_width)
+        if self.kernel == "pair":
+            i32, n, p = torch.int32, meta["N"], meta["P"]
+            ptrs.update(
+                fs_pre=torch.empty_like(st["fifo_size"]),
+                mov=torch.zeros((self.lanes, n, p, MOV_W), dtype=i32,
+                                device=self.device),
+                parts=torch.zeros((self.lanes, self.ntiles, N_PART),
+                                  dtype=i32, device=self.device))
+            self.scratch = ptrs       # keeps the scratch alive
+            sizes.update(cycle=0)
+            assert set(sizes) == set(PAIR_INT_FIELDS)
+            self.args = sim_args(ptrs, sizes, PairArgs)
+            self.launcher = PairLauncher(self.device)
+            return
+        self.key = torch.zeros((self.lanes, 2), dtype=torch.int32,
+                               device=self.device)
+        ptrs["key"] = self.key
+        sizes.update(num_cycles=0)
         assert set(sizes) == set(INT_FIELDS)
         self.args = sim_args(ptrs, sizes)
-        self.launcher = Launcher(self.device)
+        self.launcher = Launcher(self.device, self.args)
 
     def _checked(self, name: str, x: torch.Tensor, dtype,
                  shape: tuple) -> torch.Tensor:
@@ -168,44 +288,67 @@ class FlitStep:
             raise ValueError(f"{name} must be contiguous")
         return x
 
-    def _check_draws(self, u: torch.Tensor, ud: torch.Tensor) -> None:
-        want = (self.fs_pre.shape[0], self.meta["N"])
-        for name, x in (("u", u), ("ud", ud)):
-            self._checked(name, x, torch.float32, want)
-
     # ------------------------------------------------------------- #
-    def simstep_tile(self, u: torch.Tensor, ud: torch.Tensor,
+    def run(self, num_cycles: int, keys) -> np.ndarray:
+        """Advance every lane by ``num_cycles`` cycles in place, starting
+        from the (L, 2) uint32 PRNG ``keys``; returns the advanced keys.
+
+        With the chunk kernel: one ``simstep_chunk`` launch, the keys in
+        and out through an 8·L-byte tensor.  With the pair and on the
+        CPU: the chunk's draws, then cycle by cycle ``simstep_tile`` and
+        ``simstep_finish`` (or their plain parts)."""
+        keys = np.asarray(keys, np.uint32).reshape(self.lanes, 2)
+        if self.kernel == "chunk":
+            if num_cycles <= 0:
+                return keys.copy()
+            self.key.copy_(torch.from_numpy(keys.view(np.int32)))
+            self.args.num_cycles = int(num_cycles)
+            self.launcher.chunk(self.args)
+            return self.key.cpu().numpy().view(np.uint32).copy()
+        new_keys, u, ud = draw_chunk(keys, num_cycles, self.meta["N"],
+                                     self.device)
+        cycle = self.pair_cycle if self.kernel == "pair" else self._plain_cycle
+        for c in range(num_cycles):
+            cycle(u[c], ud[c], c)
+        return new_keys
+
+    def pair_cycle(self, u: torch.Tensor, ud: torch.Tensor,
+                   cycle: int) -> None:
+        """One cycle of the kernel pair: ``simstep_tile`` snapshots
+        ``fifo_size`` and runs stages 1–6 on ``u``/``ud`` (contiguous
+        (L, N) float32 on the card), then ``simstep_finish``."""
+        self.args.u = u.data_ptr()
+        self.args.ud = ud.data_ptr()
+        self.args.cycle = int(cycle)
+        self.launcher.tile(self.args)
+        self.launcher.finish(self.args)
+
+    def _plain_cycle(self, u: torch.Tensor, ud: torch.Tensor,
                      cycle: int) -> None:
-        """Stages 1–6 for every (lane, tile), reading credits from a
-        snapshot of ``fifo_size`` taken before the tiles run."""
-        self._check_draws(u, ud)
-        if self.device.type == "cuda":
-            self.args.u = u.data_ptr()
-            self.args.ud = ud.data_ptr()
-            self.args.cycle = int(cycle)
-            self.launcher.tile(self.args)
-            return
-        self.fs_pre.copy_(self.state["fifo_size"])
+        """One cycle of the plain twin, tile by tile: stages 1–6 read
+        credits from a snapshot of ``fifo_size`` taken before the tiles
+        run, then the receive pushes and statistics."""
+        st = self.state
+        lanes, n, p = self.lanes, self.meta["N"], self.meta["P"]
+        fs_pre = st["fifo_size"].clone()
+        mov = torch.zeros((lanes, n, p, MOV_W), dtype=torch.int32)
+        parts = torch.zeros((lanes, self.ntiles, N_PART), dtype=torch.int32)
         tn = self.tile_nodes
         for i in range(self.ntiles):
-            mov, parts = self._tile_fn(self.tables, self.state, u, ud,
-                                       self.fs_pre, cycle, i * tn, tn)
-            self.mov[:, i * tn:(i + 1) * tn] = mov
-            self.parts[:, i] = parts
+            mov[:, i * tn:(i + 1) * tn], parts[:, i] = self._tile_fn(
+                self.tables, st, u, ud, fs_pre, cycle, i * tn, tn)
+        self._finish_fn(self.tables, st, mov,
+                        parts.sum(1, dtype=torch.int32), cycle)
 
-    def simstep_finish(self, cycle: int) -> None:
-        """Receive pushes from ``mov`` and the statistics."""
-        if self.device.type == "cuda":
-            self.args.cycle = int(cycle)
-            self.launcher.finish(self.args)
-            return
-        self._finish_fn(self.tables, self.state, self.mov,
-                        self.parts.sum(1, dtype=torch.int32), cycle)
-
-    def step(self, u: torch.Tensor, ud: torch.Tensor, cycle: int) -> None:
-        """One cycle for every lane, in place."""
-        self.simstep_tile(u, ud, cycle)
-        self.simstep_finish(cycle)
+    def floor(self, num_cycles: int) -> None:
+        """The chunk kernel's launch shape and per-cycle barriers with an
+        empty body (its latency floor; the state is untouched).  Card
+        only: a measurement, not a step."""
+        if self.kernel != "chunk":
+            raise ValueError("the latency floor is a card measurement of "
+                             "the chunk kernel")
+        self.args.num_cycles = int(num_cycles)
+        self.launcher.floor(self.args)
 
 
 def make_step(meta: dict, cfg: SimConfig, tables, state: dict) -> FlitStep:

@@ -1,4 +1,4 @@
-"""Plain-torch flit step: the CPU path and the CUDA kernels' yardstick.
+"""Plain-torch flit step: the CPU path and the CUDA kernel's yardstick.
 
 The reference's per-cycle transition (``repro.kernels.simstep.ref``)
 split into the same two parts, lane-batched (a leading lane axis ``L``
@@ -13,7 +13,7 @@ on every state tensor; the tables are shared by all lanes):
 * ``finish_fn`` — the receive-side pushes from ``mov`` and the
   statistics.
 
-Both update the state dict **in place** (the CUDA kernels do too); a
+Both update the state dict **in place** (the CUDA kernel does too); a
 caller that needs the old state keeps a copy.  A ``mov`` record of a
 port that granted nothing is all zeros (the reference leaves the tile's
 last input there; nothing reads it).
@@ -84,6 +84,43 @@ def draw_chunk(keys: np.ndarray, cycles: int, n: int, device):
                            device=device)
     draws = prng.uniform_torch(both, n)          # (2, cycles, L, n)
     return new_keys, draws[0], draws[1]
+
+
+def node_uniform(kg, n, num_nodes: int) -> np.ndarray:
+    """``uniform(kg, num_nodes)[n]`` computed for node ``n`` alone, as
+    the chunk kernel does on the card: one threefry2x32 block per node.
+
+    ``jax.random.uniform`` hashes ``iota(N)`` in two halves (h = ⌈N/2⌉):
+    block ``b`` takes counts ``(b, b + h)``, except ``(h − 1, 0)`` at odd
+    N, where the iota is padded with one zero.  Node ``n < h`` takes
+    word 0 of block ``n``, node ``n ≥ h`` word 1 of block ``n − h``.
+    ``kg`` is a (..., 2) uint32 key and ``n`` an int array that
+    broadcasts against its leading axes; returns float32."""
+    kg = np.asarray(kg, np.uint32).astype(np.int64)
+    n = np.asarray(n, np.int64)
+    h = (num_nodes + 1) // 2
+    b = np.where(n < h, n, n - h)
+    x1 = np.where((num_nodes % 2 == 1) & (b == h - 1), 0, b + h)
+    y0, y1 = prng.threefry2x32(kg[..., 0], kg[..., 1], b, x1)
+    return prng._bits_to_unit(np.where(n < h, y0, y1))
+
+
+def reorder_occupancy(rbits: torch.Tensor) -> torch.Tensor:
+    """Set reorder bits per (lane, node): the full scan of each node's
+    row of the (L, N, N) ``rbits`` (uint32 patterns in int32), as the
+    plain ``finish_fn`` takes it every measured cycle; int64 (L, N)."""
+    return popcount32(rbits.long() & MASK32).sum(-1)
+
+
+def reorder_occupancy_update(occ: torch.Tensor, old_word: torch.Tensor,
+                             new_word: torch.Tensor) -> torch.Tensor:
+    """The chunk kernel's O(1) update of :func:`reorder_occupancy`: a
+    tail ejection rewrites one word of its node's row (at the packet's
+    source), so the node's count moves by popc(new) − popc(old).
+    ``old_word``/``new_word`` are (L, N) words at that position (equal
+    where nothing was ejected)."""
+    return (occ + popcount32(new_word.long() & MASK32)
+            - popcount32(old_word.long() & MASK32))
 
 
 def popcount32(x: torch.Tensor) -> torch.Tensor:

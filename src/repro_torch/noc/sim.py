@@ -11,14 +11,15 @@ What changes in the port:
 * the (rate, seed) lanes that the reference ``vmap``s become a leading
   lane axis ``L`` on every state tensor; scalars become (L,) vectors and
   the tables are shared by all lanes;
-* ``lax.scan`` over cycles becomes a Python loop of two kernel launches
-  per cycle (:mod:`repro_torch.kernels.simstep`), the state updated in
-  place;
-* the random draws of a whole chunk are made up front
-  (:func:`repro_torch.kernels.simstep.draw_chunk`), bit-identical to the
-  reference's per-cycle ``split_rand``;
+* ``lax.scan`` over a chunk of cycles becomes one launch of the chunk
+  kernel on the card (:mod:`repro_torch.kernels.simstep`), which runs
+  the key chain, the draws and every cycle there, the state updated in
+  place; on the CPU the chunk's draws are made up front
+  (:func:`repro_torch.kernels.simstep.draw_chunk`) and the plain twin
+  runs cycle by cycle, bit-identical to the reference's per-cycle
+  ``split_rand``;
 * the PRNG key of each lane is a (2,) uint32 row of ``state["key"]``, a
-  numpy array on the host, since the key chain advances on the host.
+  numpy array on the host, copied to the card and back once a chunk.
 
 Entry points run on the card unless ``device="cpu"`` is passed.
 """
@@ -226,17 +227,14 @@ def make_states(meta: dict, cfg: SimConfig,
 def run_cycles(tables: Tables, meta: dict, cfg: SimConfig, state: dict,
                num_cycles: int) -> dict:
     """Advance every lane by ``num_cycles`` cycles, in place (one chunk:
-    the draws first, then two kernel launches per cycle), then advance
-    ``cycle0`` as the reference's chunk runner does.  Returns ``state``."""
+    on the card one kernel launch, on the CPU the plain twin cycle by
+    cycle), the PRNG keys with them, then advance ``cycle0`` as the
+    reference's chunk runner does.  Returns ``state``."""
     # deferred: the kernel package imports this package's simconfig
-    from ..kernels.simstep import draw_chunk, make_step
+    from ..kernels.simstep import make_step
 
     step = make_step(meta, cfg, tables, state)
-    keys, u, ud = draw_chunk(state["key"], num_cycles, meta["N"],
-                             step.device)
-    for c in range(num_cycles):
-        step.step(u[c], ud[c], c)
-    state["key"] = keys
+    state["key"] = step.run(num_cycles, state["key"])
     state["cycle0"] += num_cycles
     return state
 

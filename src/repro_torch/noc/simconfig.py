@@ -62,8 +62,11 @@ class SimConfig:
     # so this flag selects nothing.
     use_kernel: bool = True
     # Node-tile size of the flit-step kernel (repro_torch.kernels.simstep):
-    # one CUDA block per (lane, tile), one thread per node.  Must divide
-    # the node count and fit one block (<= 1024 threads).  0 = auto:
+    # the nodes of one CUDA block; with the chunk kernel a lane's blocks
+    # form one cluster.  Must divide the node count; on the card it must
+    # also fit the layout of the kernel the shape takes (chunk: at most 16
+    # blocks a lane within a block's shared memory; pair: at most 1024
+    # nodes a block).  0 = auto:
     # repro_torch.kernels.simstep.ops.resolve_path picks the tile from
     # the card's limits.  Every tile size gives bit-identical states.
     sim_tile_nodes: int = 0

@@ -22,7 +22,7 @@ from repro_torch.kernels.possibility import (possibility_v,
                                              possibility_weights_op,
                                              possibility_weights_plain,
                                              prepare_weights)
-from repro_torch.kernels.simstep import draw_chunk, make_step
+from repro_torch.kernels.simstep import draw_chunk, make_cycle_fn
 from repro_torch.noc import sim
 from repro_torch.noc.simconfig import Algo, SimConfig
 
@@ -116,40 +116,123 @@ def test_possibility_weights_is_v_summed(cuda):
         w_drn.cpu().numpy(), v[idx, ns].float().cpu().numpy(), 1)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("algo", [Algo.XY, Algo.BIDOR])
-@pytest.mark.parametrize("topo_fn", ["mesh4x4", "edge5x5"])
-def test_simstep_kernels_vs_plain(cuda, topo_fn, algo):
-    """From a plain mid-flight state, 40 cycles of the kernel pair at
-    the whole-network tile and at a proper divisor: every state key bit
-    for bit."""
-    topo = mesh2d(4, 4) if topo_fn == "mesh4x4" else mesh2d_edge_io(5, 5)
+def _simstep_cell(topo_fn, algo, seed_points):
+    """(tables on the CPU, meta, cfg, a plain mid-flight host state)."""
+    topo = {"mesh4x4": lambda: mesh2d(4, 4),
+            "edge5x5": lambda: mesh2d_edge_io(5, 5),
+            "mesh16x16": lambda: mesh2d(16, 16)}[topo_fn]()
     tm = traffic.uniform(topo)
     table = (build_plans_batched(topo, [tm], device="cpu")[0].table
              if algo == Algo.BIDOR else None)
     cfg = SimConfig(algo=algo, cycles=4000, warmup=50)
     tables, meta = sim.build_tables(topo, tm, table, 2, device="cpu")
-    mid = sim.make_states(meta, cfg, [(1.0, 0), (0.4, 1)], device="cpu")
+    mid = sim.make_states(meta, cfg, seed_points, device="cpu")
     sim.run_cycles(tables, meta, cfg, mid, 80)
-    host = convert.state_to_numpy(mid)
-    _, u, ud = draw_chunk(host["key"], 40, meta["N"], "cpu")
-    tcard = convert.tables_from_numpy(
-        {f: getattr(tables, f).numpy() for f in tables._fields}, cuda)
+    return tables, meta, cfg, convert.state_to_numpy(mid)
+
+
+def _on(tables, device):
+    return convert.tables_from_numpy(
+        {f: getattr(tables, f).numpy() for f in tables._fields}, device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo", [Algo.XY, Algo.BIDOR])
+@pytest.mark.parametrize("topo_fn", ["mesh4x4", "edge5x5"])
+def test_simstep_kernels_vs_plain(cuda, topo_fn, algo):
+    """From a plain mid-flight state, chunks of 1, 40 and 997 cycles of
+    the chunk kernel at the whole-network tile (one block a lane) and at
+    a proper divisor (a cluster of blocks) against the plain twin: every
+    state key bit for bit, the PRNG key included, and one launch a
+    chunk."""
+    tables, meta, cfg, host = _simstep_cell(topo_fn, algo,
+                                            [(1.0, 0), (0.4, 1)])
+    tcard = _on(tables, cuda)
     n = meta["N"]
-    for tile in (n, 4 if n % 4 == 0 else 5):
+    for cycles in (1, 40, 997):
         plain = convert.state_from_numpy(host, "cpu")
+        sim.run_cycles(tables, meta, cfg, plain, cycles)
+        want = convert.state_to_numpy(plain)
+        for tile in (n, 4 if n % 4 == 0 else 5):
+            card = convert.state_from_numpy(host, cuda)
+            before = kernels.LAUNCHES["simstep_chunk"]
+            sim.run_cycles(tcard, meta, cfg.replace(sim_tile_nodes=tile),
+                           card, cycles)
+            torch.cuda.synchronize()
+            assert kernels.LAUNCHES["simstep_chunk"] == before + 1
+            got = convert.state_to_numpy(card)
+            assert set(got) == set(want)
+            bad = [k for k in want if not np.array_equal(want[k], got[k])]
+            assert not bad, f"tile={tile} cycles={cycles}: {bad}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("topo_fn,tile", [("edge5x5", 25), ("edge5x5", 5),
+                                          ("mesh16x16", 64)])
+def test_simstep_chunk_is_deterministic(cuda, topo_fn, tile):
+    """Two runs of 300 cycles from the same state give the same bits (a
+    race between a cycle's phases or the blocks of a cluster would show
+    here as a difference)."""
+    tables, meta, cfg, host = _simstep_cell(
+        topo_fn, Algo.XY, [(1.2, 0), (0.9, 1), (0.6, 2), (0.3, 3)])
+    tcard = _on(tables, cuda)
+    cfg = cfg.replace(sim_tile_nodes=tile)
+    runs = []
+    for _ in range(2):
         card = convert.state_from_numpy(host, cuda)
-        sp = make_step(meta, cfg.replace(sim_tile_nodes=tile), tables, plain)
-        sc = make_step(meta, cfg.replace(sim_tile_nodes=tile), tcard, card)
-        before = dict(kernels.LAUNCHES)
-        for c in range(40):
-            sp.step(u[c], ud[c], c)
-            sc.step(u[c].to(cuda), ud[c].to(cuda), c)
-        torch.cuda.synchronize()
-        assert kernels.LAUNCHES["simstep_tile"] == before["simstep_tile"] + 40
-        want, got = convert.state_to_numpy(plain), convert.state_to_numpy(card)
-        bad = [k for k in want if not np.array_equal(want[k], got[k])]
-        assert not bad, f"tile={tile}: {bad}"
+        sim.run_cycles(tcard, meta, cfg, card, 300)
+        runs.append(convert.state_to_numpy(card))
+    bad = [k for k in runs[0] if not np.array_equal(runs[0][k], runs[1][k])]
+    assert not bad, bad
+    assert int(runs[0]["eject_total"].sum()) > 0
+
+
+def _plain_run(tables, meta, cfg, state, cycles, device):
+    """``run_cycles`` as the plain twin computes it, on ``device``."""
+    keys, u, ud = draw_chunk(state["key"], cycles, meta["N"], device)
+    cycle_fn = make_cycle_fn(meta, cfg)
+    for c in range(cycles):
+        cycle_fn(tables, state, u[c], ud[c], c)
+    state["key"] = keys
+    state["cycle0"] += cycles
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("side,algo", [(17, Algo.XY), (17, Algo.BIDOR),
+                                       (64, Algo.XY)])
+def test_simstep_pair_vs_plain(cuda, side, algo):
+    """Meshes no cluster of the chunk kernel holds take the kernel pair
+    (17x17: 289 nodes fit neither one block's shared memory nor 16
+    blocks; 64x64).  From a mid-flight state, chunks of 1 and 40 cycles
+    at the auto tile and at another, against the plain twin on the card:
+    every state key bit for bit, the PRNG key included, and one
+    ``simstep_tile`` and one ``simstep_finish`` launch a cycle."""
+    topo = mesh2d(side, side)
+    tm = traffic.uniform(topo)
+    table = (build_plans_batched(topo, [tm], device=cuda)[0].table
+             if algo == Algo.BIDOR else None)
+    cfg = SimConfig(algo=algo, cycles=4000, warmup=50)
+    tables, meta = sim.build_tables(topo, tm, table, 2, device=cuda)
+    mid = sim.make_states(meta, cfg, [(1.0, 0), (0.4, 1)], device=cuda)
+    _plain_run(tables, meta, cfg, mid, 80, cuda)
+    host = convert.state_to_numpy(mid)
+    for cycles in (1, 40):
+        plain = convert.state_from_numpy(host, cuda)
+        _plain_run(tables, meta, cfg, plain, cycles, cuda)
+        want = convert.state_to_numpy(plain)
+        for tile in (0, 17 if side == 17 else 1024):
+            card = convert.state_from_numpy(host, cuda)
+            before = dict(kernels.LAUNCHES)
+            sim.run_cycles(tables, meta, cfg.replace(sim_tile_nodes=tile),
+                           card, cycles)
+            torch.cuda.synchronize()
+            grew = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+            assert grew["simstep_tile"] == grew["simstep_finish"] == cycles
+            assert grew["simstep_chunk"] == 0
+            got = convert.state_to_numpy(card)
+            assert set(got) == set(want)
+            bad = [k for k in want if not np.array_equal(want[k], got[k])]
+            assert not bad, f"tile={tile} cycles={cycles}: {bad}"
 
 
 @pytest.mark.gpu
@@ -172,7 +255,7 @@ def test_ctrl_golden_on_the_card(cuda):
                                  replan=rc) for p in ("stale", "online")))
     before = dict(kernels.LAUNCHES)
     res = run_campaign(spec, device=cuda)
-    assert kernels.LAUNCHES["simstep_tile"] > before["simstep_tile"]
+    assert kernels.LAUNCHES["simstep_chunk"] > before["simstep_chunk"]
     assert kernels.LAUNCHES["possibility_v"] > before["possibility_v"]
     assert len(res.points) == len(golden)
     for p in res.points:
