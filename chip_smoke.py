@@ -19,19 +19,19 @@ before printing any result.
               all of mesh2d(32,32) against ``possibility_v``'s
               ``V.sum(1)`` and ``V[c, n_c]``; the ``simstep_chunk``
               kernel on the 5x5 edge-I/O, 16x16 and 32x32 meshes and the
-              ``simstep_tile``/``simstep_finish`` pair on 17x17 and 64x64
-              (no cluster holds their lanes), XY and BiDOR (XY alone at
-              64x64), at the auto tile and the largest other one the card
-              lays out, chunks of 1 and 50 cycles from a plain mid-flight
-              state, every state key bit for bit, the PRNG key included,
-              and the launches each chunk makes;
+              ``simstep_grid`` kernel on 17x17, 64x64 and 96x96 (no
+              cluster holds their lanes), XY and BiDOR (XY alone at 64x64
+              and 96x96), at the auto tile and the largest other one the
+              card lays out, chunks of 1 and 50 cycles from a plain
+              mid-flight state, every state key bit for bit, the PRNG key
+              included, and one launch a chunk;
 Main path of slice 1 (launch counts from 0):
 4. golden   — ``run_campaign`` on the 4x4 golden parameters against
               ``tests/goldens/campaign_4x4.json``;
 5. paper    — the paper's 5x5 edge-I/O cells at fig8's full length;
 6. scale    — 32x32 uniform, XY and BiDOR, on 16-block clusters, twice
               (the second round warm), then 64x64 uniform, XY, on the
-              kernel pair;
+              grid kernel;
 Main path of slice 2 (launch counts from 0 again):
 7. nrank    — ``build_plan(use_kernel=True)`` on the paper's Fig. 1
               scenarios, channel and node modes, equal to
@@ -76,11 +76,12 @@ Main path of slice 4 (launch counts from 0 again):
               the card;
 14. summary — attention end to end (whisper's ``generate`` busy time
               and a Jamba decode step's, with the ``flash_fwd*`` kernels'
-              share); the flit step at 4x4, 5x5, 16x16 and 32x32 (µs per
-              simulated cycle of a 1 000-cycle chunk, its empty-body
+              share); the flit step at 4x4, 5x5, 16x16 and 32x32 (the
+              chunk kernel) and 17x17 and 64x64 (the grid kernel): µs
+              per simulated cycle of a 1 000-cycle chunk, its empty-body
               floor, its byte bound, the cycle wall through
-              ``run_cycles``) and the kernel pair at 64x64 (µs per launch
-              of each, its plain part and byte bound, the cycle wall);
+              ``run_cycles``; a 100-cycle chunk beside the plain twin at
+              32x32 and 64x64;
               launches of each kernel on each main path,
               event-timed time per launch, the plain version's time and
               the bound, as one JSON line; then the card line and the
@@ -606,10 +607,11 @@ def check_simstep(torch, np, cuda):
     """The flit-step kernels against the plain twin, from plain mid-flight
     states, every state key bit for bit, the PRNG key included: chunks
     of 1 and 50 cycles at two tiles (the auto one and the largest other
-    the card lays out), XY and BiDOR.  The chunk kernel on the 5x5
-    edge-I/O, 16x16 and 32x32 meshes; the kernel pair on 17x17 and 64x64,
-    which no cluster of the chunk kernel holds (XY alone at 64x64, whose
-    BiDOR plan no path builds).  Returns the largest difference by
+    the card lays out), XY and BiDOR, one launch a chunk.  The chunk
+    kernel on the 5x5 edge-I/O, 16x16 and 32x32 meshes; the grid kernel
+    on 17x17, 64x64 and 96x96, which no cluster of the chunk kernel holds
+    (XY alone at 64x64 and 96x96, whose BiDOR plans no path builds;
+    96x96 after a shorter warm-in).  Returns the largest difference by
     kernel."""
     from repro_torch import kernels
     from repro_torch.core import mesh2d, mesh2d_edge_io
@@ -617,17 +619,20 @@ def check_simstep(torch, np, cuda):
     from repro_torch.noc import sim
     from repro_torch.noc.simconfig import Algo
 
-    both = (Algo.XY, Algo.BIDOR)
-    worst = {"chunk": 0, "pair": 0}
-    for topo, algos in ((mesh2d_edge_io(5, 5), both), (mesh2d(16, 16), both),
-                        (mesh2d(17, 17), both), (mesh2d(32, 32), both),
-                        (mesh2d(64, 64), (Algo.XY,))):
+    both, xy = (Algo.XY, Algo.BIDOR), (Algo.XY,)
+    worst = {"chunk": 0, "grid": 0}
+    for topo, algos, warm in ((mesh2d_edge_io(5, 5), both, 200),
+                              (mesh2d(16, 16), both, 200),
+                              (mesh2d(17, 17), both, 200),
+                              (mesh2d(32, 32), both, 200),
+                              (mesh2d(64, 64), xy, 200),
+                              (mesh2d(96, 96), xy, 60)):
         for algo in algos:
             tables, meta, cfg, points = _cell(torch, cuda, topo, algo, 4)
             kernel = card_kernel(meta["N"], meta["P"], meta["V"],
                                  cfg.lat_bins)
             mid = sim.make_states(meta, cfg, points, device=cuda)
-            _plain_chunk(tables, meta, cfg, mid, 200, cuda)   # warm-in
+            _plain_chunk(tables, meta, cfg, mid, warm, cuda)   # warm-in
             auto, fit = _card_tiles(torch, cuda, meta, cfg, len(points))
             for cycles in (1, 50):
                 plain = _clone(torch, mid)
@@ -640,12 +645,9 @@ def check_simstep(torch, np, cuda):
                                    cycles)
                     torch.cuda.synchronize()
                     grew = {k: kernels.LAUNCHES[k] - before[k]
-                            for k in ("simstep_chunk", "simstep_tile",
-                                      "simstep_finish")}
-                    want = ({"simstep_chunk": 1, "simstep_tile": 0,
-                             "simstep_finish": 0} if kernel == "chunk" else
-                            {"simstep_chunk": 0, "simstep_tile": cycles,
-                             "simstep_finish": cycles})
+                            for k in ("simstep_chunk", "simstep_grid")}
+                    want = {"simstep_chunk": int(kernel == "chunk"),
+                            "simstep_grid": int(kernel == "grid")}
                     bad = [k for k in plain if not (
                         np.array_equal(plain[k], card[k]) if k == "key"
                         else torch.equal(plain[k], card[k]))]
@@ -655,8 +657,9 @@ def check_simstep(torch, np, cuda):
                     worst[kernel] = max(worst[kernel], diff)
                     verdict = (f"MISMATCH {bad}" if bad
                                else "bitwise ok, key included")
+                    unit = "blocks" if kernel == "chunk" else "units"
                     log(f"kernels: simstep {kernel} {topo.name} {algo.name} "
-                        f"tile={tile} ({meta['N'] // tile} blocks a lane) "
+                        f"tile={tile} ({meta['N'] // tile} {unit} a lane) "
                         f"cycles={cycles}: {verdict}; launches "
                         f"{json.dumps(grew)}")
                     if bad:
@@ -746,7 +749,7 @@ def run_scale(torch, np, cuda):
     clusters, in two rounds: a cell's wall holds its tables (for XY the
     DOR routes, built on the host and timed here alone), states and
     results besides the cycles, and the first round also the first use
-    of each shape.  Then 64x64 uniform, XY, on the kernel pair."""
+    of each shape.  Then 64x64 uniform, XY, on the grid kernel."""
     from repro_torch.core import mesh2d, traffic
     from repro_torch.kernels.simstep import card_kernel
     from repro_torch.kernels.simstep.ops import resolve_path
@@ -841,11 +844,12 @@ def cycle_wall_us(torch, cuda, topo, chunk=1000):
 
 
 def time_simstep(torch, np, cuda, topo, label, row=False):
-    """The chunk kernel at one cell's shapes (XY, 4 lanes, in its
-    measurement window): event-timed µs per simulated cycle of a
-    1 000-cycle chunk, the empty-body floor of the same launch, the byte
-    bound, and the cycle wall through ``run_cycles``.  With ``row``, also
-    a 100-cycle chunk beside the plain twin: the kernel-summary row."""
+    """The card kernel a cell's shape takes (``simstep_chunk`` or
+    ``simstep_grid``) at its shapes (XY, 4 lanes, in its measurement
+    window): event-timed µs per simulated cycle of a 1 000-cycle chunk,
+    the empty-body floor of the same launch, the byte bound, and the
+    cycle wall through ``run_cycles``.  With ``row``, also a 100-cycle
+    chunk beside the plain twin: the kernel-summary row."""
     from repro_torch.kernels.simstep import make_step
     from repro_torch.noc import sim
     from repro_torch.noc.simconfig import Algo
@@ -855,13 +859,18 @@ def time_simstep(torch, np, cuda, topo, label, row=False):
     st = sim.make_states(meta, cfg, points, device=cuda)
     sim.run_cycles(tables, meta, cfg, st, 300)      # into measurement
     step = make_step(meta, cfg, tables, st)
+    name = f"simstep_{step.kernel}"
+    layout = (f"tile={step.tile_nodes}, {step.ntiles} blocks a lane"
+              if step.kernel == "chunk" else
+              f"tile={step.tile_nodes}, {step.grid} blocks, {step.rounds} "
+              f"rounds")
     chunk = 1000
     step.key.copy_(torch.from_numpy(st["key"].view(np.int32)))
 
     def launch(cycles):
         def fn(_):
             step.args.num_cycles = cycles
-            step.launcher.chunk(step.args)
+            step.launcher.launch(step.args)
             st["cycle0"] += cycles          # as run_cycles does
         return fn
 
@@ -880,10 +889,9 @@ def time_simstep(torch, np, cuda, topo, label, row=False):
     st["key"] = step.key.cpu().numpy().view(np.uint32).copy()
     wall_us = cycle_wall_us(torch, cuda, topo, chunk)
     us = lambda ms: ms * 1e3 / chunk            # noqa: E731
-    log(f"timing {label}: simstep_chunk {us(kern_ms):.3f}us per simulated "
-        f"cycle (1000-cycle chunk, tile={step.tile_nodes}, "
-        f"{step.ntiles} blocks a lane, lanes={lanes}); empty-body floor "
-        f"{us(floor_ms):.3f}us; byte bound {us(bound_ms):.4f}us "
+    log(f"timing {label}: {name} {us(kern_ms):.3f}us per simulated "
+        f"cycle (1000-cycle chunk, {layout}, lanes={lanes}); empty-body "
+        f"floor {us(floor_ms):.3f}us; byte bound {us(bound_ms):.4f}us "
         f"({nbytes} bytes a chunk); cycle wall through run_cycles "
         f"{wall_us:.3f}us")
     out = dict(label=label, us=us(kern_ms), floor_us=us(floor_ms),
@@ -902,141 +910,14 @@ def time_simstep(torch, np, cuda, topo, label, row=False):
     plain["key"] = after["key"]
     plain_ms = time_wall(torch, lambda: _plain_chunk(
         tables, meta, cfg, plain, short, cuda), 1)
-    log(f"timing {label}: simstep_chunk {ms:.4f}ms a 100-cycle chunk "
+    log(f"timing {label}: {name} {ms:.4f}ms a 100-cycle chunk "
         f"(bound {short_bound:.5f}ms, bytes); plain twin {plain_ms:.1f}ms")
     return out, dict(
-        name="simstep_chunk", route="cuda",
+        name=name, route="cuda",
         source="src/repro_torch/kernels/csrc/simstep.cu",
         replaces="src/repro/kernels/simstep/kernel.py:50,121",
         ms=ms, plain_ms=plain_ms, bound_ms=short_bound, bound_by="bytes",
         library_ms=None)
-
-
-def pair_bytes(torch, meta, cfg, step, u, ud, cycle):
-    """Bytes each kernel of the pair must move in one cycle, counted on
-    the cycle run here: each array read once and written once, shared
-    tables once per launch, per-port tables per port, gathers per entry
-    the cycle's data needs (a head flit only where an input holds one, a
-    pop's writes only where an input pops, generation's reads only where
-    a packet is made).  The snapshot copy of ``fifo_size`` is this
-    design's cost and is left out.  Returns (tile bytes, finish bytes)."""
-    from repro_torch.kernels.simstep.ref import MOV_W
-    from repro_torch.noc.simconfig import F_TAIL, NF, NQ, Algo
-
-    st = step.state
-    mov, parts = step.scratch["mov"], step.scratch["parts"]
-    n, p, c = meta["N"], meta["P"], meta["C"]
-    lanes, pv = st["fifo_size"].shape[0], meta["P"] * meta["V"]
-    full = st["fifo_size"] > 0                      # inputs with a head flit
-    nonempty = int(full.sum())
-    locked = int((full & (st["lock_op"] >= 0)).sum())
-    queued = int((st["q_size"] > 0).sum())
-    measuring = int(st["cycle0"][0]) + cycle >= cfg.warmup
-    step.pair_cycle(u, ud, cycle)
-    torch.cuda.synchronize()
-    gen, push, _, inj, _ = (int(x) for x in parts.sum((0, 1)))
-    granted = mov[..., NF + 3] != 0
-    local = mov[..., NF] == meta["P_LOCAL"]
-    grants = int(granted.sum())
-    net = int((granted & ~local).sum())
-    tails = int((granted & local & (mov[..., F_TAIL] != 0)).sum())
-    search = max(int(n).bit_length(), 1)
-    bidor = cfg.algo == Algo.BIDOR
-    tile_words = (
-        3 * n * p + c + n                       # neighbor, recv_port, chan_of,
-                                                # chan_bw, p_gen: once a launch
-        + lanes * (3 + step.ntiles * 5)         # rate, cycle0, until; parts out
-        + lanes * n * (1 + 3 + p + p * MOV_W)   # u, queue head/size/progress,
-                                                # rr; mov out
-        + lanes * n * pv                        # fifo_size, read once
-        + gen * (1 + search + 2 + bidor)        # ud, CDF search, next_seq r/w,
-                                                # choice
-        + push * NQ                             # queue record out
-        + queued * (NQ + 1)                     # head record, local FIFO start
-        + inj * (NF + 1 + 3)                    # flit, FIFO size, queue state out
-        + nonempty * (1 + NF + 1 + 1 + 1)       # start, head flit, lock, port
-                                                # gather, out_held
-        + locked                                # lock_ov
-        + grants * (2 + 2 + 1)                  # start/size, locks, rr out
-        + net)                                  # out_held out
-    finish_words = (
-        n * p + 2 * min(net, n * p)             # chan_of; neighbor, recv_port
-        + lanes * (2 + step.ntiles * 5 + 10)    # cycle0, until, parts; sums
-        + lanes * n * p * MOV_W                 # mov in
-        + net * (2 + NF + 1 + 2 + 2 * measuring)  # receiving FIFO, flit, size;
-                                                # channel counters
-        + 2 * measuring * (grants + tails)      # node_fwd, eject_flits r/w
-        + tails * (1 + 2 + 2)                   # exp_seq in; exp_seq, rbits,
-                                                # lat_hist out
-        + measuring * lanes * n * n)            # the reorder scan reads rbits
-    return 4 * tile_words, 4 * finish_words
-
-
-def time_simstep_pair(torch, np, cuda, topo, label):
-    """The kernel pair at a cell the chunk kernel cannot lay out (XY, 4
-    lanes, in its measurement window): event-timed ms per launch of each
-    kernel beside its plain part (one tile, host clock) and its byte
-    bound, and the cycle wall through ``run_cycles``.  Returns the two
-    kernel-summary rows."""
-    from repro_torch.kernels.simstep import draw_chunk, make_step, ref
-    from repro_torch.noc import sim
-    from repro_torch.noc.simconfig import Algo
-
-    tables, meta, cfg, points = _cell(torch, cuda, topo, Algo.XY, 4)
-    n = meta["N"]
-    st = sim.make_states(meta, cfg, points, device=cuda)
-    sim.run_cycles(tables, meta, cfg, st, 300)      # into measurement
-    step = make_step(meta, cfg, tables, st)
-    if step.kernel != "pair":
-        raise SystemExit(f"{label} runs {step.kernel}, not the pair")
-    reps = 100
-    _, u, ud = draw_chunk(st["key"], reps + 1, n, cuda)
-
-    def tile(r):
-        step.args.u, step.args.ud = u[r].data_ptr(), ud[r].data_ptr()
-        step.args.cycle = r
-        step.launcher.tile(step.args)
-
-    def finish(r):
-        step.args.cycle = r
-        step.launcher.finish(step.args)
-
-    tile_ms, finish_ms = time_launches(torch, [tile, finish], reps)
-    tile_bytes, finish_bytes = pair_bytes(torch, meta, cfg, step, u[reps],
-                                          ud[reps], reps)
-    tile_bound = tile_bytes / HBM_BYTES_PER_S * 1e3
-    finish_bound = finish_bytes / HBM_BYTES_PER_S * 1e3
-    # the plain parts on the same state, the whole network as one tile
-    tile_fn, finish_fn = ref.make_cycle_parts(meta, cfg)
-    fs_pre = st["fifo_size"].clone()
-    box = {}
-
-    def plain_tile():
-        box["mov"], box["parts"] = tile_fn(tables, st, u[0], ud[0], fs_pre,
-                                           reps, 0, n)
-
-    plain_tile_ms = time_wall(torch, plain_tile, 5)
-    plain_finish_ms = time_wall(
-        torch, lambda: finish_fn(tables, st, box["mov"], box["parts"], reps),
-        5)
-    wall_us = cycle_wall_us(torch, cuda, topo)
-    log(f"timing {label}: kernel pair simstep_tile {tile_ms * 1e3:.2f}us "
-        f"(bound {tile_bound * 1e3:.3f}us) + simstep_finish "
-        f"{finish_ms * 1e3:.2f}us (bound {finish_bound * 1e3:.3f}us) a "
-        f"cycle (tile={step.tile_nodes}, {step.ntiles} blocks a lane, "
-        f"lanes={len(points)}); plain tile {plain_tile_ms:.3f}ms finish "
-        f"{plain_finish_ms:.3f}ms; cycle wall through run_cycles "
-        f"{wall_us:.3f}us (host key chain, draws, two launches a cycle)")
-    source = "src/repro_torch/kernels/csrc/simstep_pair.cu"
-    return [
-        dict(name="simstep_tile", route="cuda", source=source,
-             replaces="src/repro/kernels/simstep/kernel.py:50,121",
-             ms=tile_ms, plain_ms=plain_tile_ms, bound_ms=tile_bound,
-             bound_by="bytes", library_ms=None),
-        dict(name="simstep_finish", route="cuda", source=source,
-             replaces="src/repro/kernels/simstep/kernel.py:50,121",
-             ms=finish_ms, plain_ms=plain_finish_ms, bound_ms=finish_bound,
-             bound_by="bytes", library_ms=None)]
 
 
 # --------------------------------------------------------------------- #
@@ -1789,8 +1670,7 @@ def main() -> int:
     serve, jamba = {}, {}
     paths = {
         "slice 1 (plan, flit step, campaign)": (
-            ("possibility_v", "simstep_chunk", "simstep_tile",
-             "simstep_finish"),
+            ("possibility_v", "simstep_chunk", "simstep_grid"),
             lambda: (check_golden(torch, np, cuda),
                      run_paper(torch, np, cuda),
                      run_scale(torch, np, cuda))),
@@ -1838,18 +1718,17 @@ def main() -> int:
         f"; jamba decode step device busy {_ms(jamba_e2e, 'busy')}, "
         f"flash_fwd* {_ms(jamba_e2e, 'flash')}; jamba prefill flash_fwd* "
         f"{_ms(jamba_e2e, 'prefill_flash')}")
-    simstep_row = None
+    simstep_rows = []
     for topo, label in ((mesh2d(4, 4), "4x4"), (mesh2d_edge_io(5, 5), "5x5"),
-                        (mesh2d(16, 16), "16x16"),
-                        (mesh2d(32, 32), "32x32")):
+                        (mesh2d(16, 16), "16x16"), (mesh2d(17, 17), "17x17"),
+                        (mesh2d(32, 32), "32x32"), (mesh2d(64, 64), "64x64")):
         _, row = time_simstep(torch, np, cuda, topo, label,
-                              row=label == "32x32")
-        simstep_row = row or simstep_row
-    simstep_row["max_abs_err"] = float(simstep_err["chunk"])
-    pair_rows = time_simstep_pair(torch, np, cuda, mesh2d(64, 64), "64x64")
-    for row in pair_rows:
-        row["max_abs_err"] = float(simstep_err["pair"])
-    rows = [poss, weights, simstep_row, *pair_rows, flash, scan]
+                              row=label in ("32x32", "64x64"))
+        if row:
+            kernel = row["name"].removeprefix("simstep_")
+            row["max_abs_err"] = float(simstep_err[kernel])
+            simstep_rows.append(row)
+    rows = [poss, weights, *simstep_rows, flash, scan]
     for row in rows:
         row["launches"] = launches[row["name"]]
     keys = ("name", "route", "source", "replaces", "launches",
@@ -1961,7 +1840,8 @@ def cycle_wall(rounds: int) -> int:
     log(f"card: {card_line()}")
     log(f"cycle-wall: the port from {os.path.dirname(repro_torch.__file__)}")
     shapes = (("4x4", mesh2d(4, 4)), ("5x5", mesh2d_edge_io(5, 5)),
-              ("16x16", mesh2d(16, 16)), ("32x32", mesh2d(32, 32)))
+              ("16x16", mesh2d(16, 16)), ("17x17", mesh2d(17, 17)),
+              ("32x32", mesh2d(32, 32)), ("64x64", mesh2d(64, 64)))
     cols = {label: [] for label, _ in shapes}
     paper = paper_spec()
     for i in range(rounds):

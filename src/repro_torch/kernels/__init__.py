@@ -8,8 +8,7 @@ main path went through the kernels.
 """
 
 LAUNCHES = {"possibility_v": 0, "possibility_weights": 0, "simstep_chunk": 0,
-            "simstep_tile": 0, "simstep_finish": 0, "flash_attention": 0,
-            "selective_scan": 0}
+            "simstep_grid": 0, "flash_attention": 0, "selective_scan": 0}
 
 
 def reset_launches() -> None:

@@ -30,7 +30,6 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"possibility_v": "possibility_v.cu",
            "possibility_weights": "possibility_weights.cu",
            "simstep": "simstep.cu",
-           "simstep_pair": "simstep_pair.cu",
            "flash_attention": "flash_attention.cu",
            "flash_attention_split": "flash_attention_split.cu",
            "flash_attention_tc": "flash_attention_tc.cu",

@@ -6,14 +6,21 @@
 //                   generation, source-queue push, flit injection,
 //                   table-routed port selection, eligibility, round-robin
 //                   switch allocation, pops, wormhole locks, out_held,
-//                   the receive-side pushes and the statistics.
+//                   the receive-side pushes and the statistics.  A lane
+//                   is one block or one thread-block cluster.
+//   simstep_grid    the same chunk for lanes no cluster holds (17x17,
+//                   64x64, 96x96: ops.card_kernel decides by shape), as
+//                   one cooperative launch over the whole card with the
+//                   per-input state in global memory (see the note above
+//                   simstep_grid_kernel).
 //
-// Replaces the TPU kernels repro/kernels/simstep/kernel.py:
+// Both replace the TPU kernels repro/kernels/simstep/kernel.py:
 // make_simstep_pallas (the whole cycle as one single-program kernel) and
 // make_simstep_blocked (tile_fn gridded over node tiles, finish_fn
-// outside).  The whole-array kernel is this one with tile_nodes = N (one
-// block a lane); the blocked one is tile_nodes a proper divisor of N
-// (N / tile_nodes blocks a lane, one thread-block cluster).
+// outside).  The whole-array kernel is the chunk kernel with tile_nodes =
+// N (one block a lane); the blocked one is tile_nodes a proper divisor of
+// N (N / tile_nodes blocks a lane, one thread-block cluster, or tiles of
+// every lane spread over the grid kernel's blocks).
 //
 // What bounds it on an H100: latency and instruction issue, not bytes.  A
 // cycle moves a few KB per lane (byte bound 0.005 us a cycle at 5x5, 0.21
@@ -880,6 +887,642 @@ int checked_launch(const SimArgs* args, void* stream, bool empty) {
 
 }  // namespace
 
+// ======================================================================= //
+// simstep_grid: the chunk for lanes no cluster holds
+// ======================================================================= //
+//
+// At P*V = 10 a node's per-input state and head flits take 1 084 B of
+// shared memory, so a block holds at most 213 nodes and a 16-block
+// cluster 3 408; and the node count must split evenly.  17x17 (289, a
+// prime square), 64x64 (4 096) and 96x96 (9 216) fail one or both, and
+// 96x96 with 4 lanes is 40 MB of such state, more than the card's 132 SMs
+// hold in shared memory (~30 MB).  This kernel keeps the chunk kernel's
+// arithmetic and its router parallelism (a node is a segment of P*V
+// lanes of a warp; the grant of each out-port is one ballot; the CDF
+// search is (P*V + 1)-ary) and moves what does not fit:
+//
+// * The whole card in one cooperative launch.  A tile of `tile_nodes`
+//   consecutive nodes of one lane is a unit; the L * N / tile_nodes units
+//   are cut into runs of `rounds` consecutive units, one run a block, and
+//   a block runs its units one after another (rounds).  The grid is what
+//   the card holds at once (SMs x cudaOccupancyMaxActiveBlocksPerMultiprocessor,
+//   chosen by ops.grid_layout), so any N x L runs.  A cycle is two
+//   grid-wide barriers (cg::this_grid().sync(), whose fences order global
+//   memory across the card): phase A per node, phase B the pushes.
+// * Per-input state in global memory, where the L2 (50 MB) holds the hot
+//   part at 64x64 and 4 lanes (~10 MB): FIFO start and size, locks,
+//   out_held, rr, the queues and the counters are read and written in
+//   place by the one block that owns the node.  What another block wrote
+//   in this launch (FIFO sizes, the receiver's start, pushed flits) is
+//   read at L2 (ld.cg) and written there (st.cg), never through the
+//   read-only path.  A head flit is read where it sits, at its FIFO's
+//   start; an injected flit that lands in an empty FIFO is handed to its
+//   lane by shuffles.
+// * The credit snapshot in two buffers by cycle parity (fs0, fs1): phase
+//   A writes each input's post-pop size into the next buffer, a push adds
+//   its flit there, and the current buffer is the FIFO size at the start
+//   of the cycle, so there is no copy.  A popped flit stays in its slot
+//   until the next cycle (a push never lands in the slot just popped:
+//   credits keep a full FIFO from receiving), so phase B reads it there
+//   and needs only the target input, push_to.
+// * The key chain and the draws on the card, as the chunk kernel makes
+//   them: each block derives, one cycle ahead, the keys of the lanes its
+//   units belong to (a warp a lane, after its nodes), into shared memory.
+// * The reorder occupancy in O(1): a per-(lane, node) count in occ,
+//   filled once a chunk from the rbits row (only for lanes that measure
+//   in the chunk), updated by popc(new) - popc(old) on each tail ejection.
+// * Per-lane sums in registers while a thread's units stay in one lane,
+//   then in the block's shared memory, flushed once a chunk with integer
+//   atomics (wrapping at 2^32 as the reference's int32 sums do).
+//
+// What bounds it: latency, as the chunk kernel; every dependent access
+// that the chunk kernel takes from shared memory is an L2 access here,
+// and the two grid barriers a cycle are its floor (FlitStep.floor).
+
+// The grid kernel's scratch and launch size, beside SimArgs.
+// Field order must match repro_torch/kernels/simstep/kernel.py.
+struct GridArgs {
+  int* fs0;               // (L, NIN) FIFO sizes at the start of even cycles
+  int* fs1;               // (L, NIN) ... of odd cycles
+  int* push_to;           // (L, NIN) the input a popped flit moves to, or -1
+  int* occ;               // (L, N) set reorder bits of each node's row
+  int grid;               // blocks of the launch
+};
+
+namespace {
+
+// per lane slot of a block: the keys (N_KEYS), the sums (N_SUMS), the
+// lane's constants (cycle0, inject_until, measure_until, rate / PKT as
+// float bits) and the latency histogram
+constexpr int G_KEYS = 0, G_SUMS = N_KEYS, G_LANE = N_KEYS + N_SUMS,
+              G_HIST = N_KEYS + N_SUMS + 4;
+
+__host__ __device__ inline int grid_slot_words(int bins) {
+  return G_HIST + bins;
+}
+
+// A block's `rounds` consecutive units of `tpl` units a lane span at
+// most this many lanes.
+__host__ __device__ inline int grid_lane_slots(int rounds, int tpl, int L) {
+  const int s = (rounds - 1) / tpl + 2;
+  return s < L ? s : L;
+}
+
+// A block carries one unit a round: one segment of P*V lanes a node.
+__host__ __device__ inline int grid_threads(int tn, int pv) {
+  const int per_warp = WARP / pv;
+  return WARP * ((tn + per_warp - 1) / per_warp);
+}
+
+__device__ __forceinline__ void load_flit(int* f, const int* p) {
+  const int2* q = reinterpret_cast<const int2*>(p);
+#pragma unroll
+  for (int x = 0; x < NF / 2; ++x) {
+    const int2 v = __ldcg(q + x);
+    f[2 * x] = v.x;
+    f[2 * x + 1] = v.y;
+  }
+}
+
+__device__ __forceinline__ void store_flit(int* p, const int* f) {
+  int2* q = reinterpret_cast<int2*>(p);
+#pragma unroll
+  for (int x = 0; x < NF / 2; ++x) __stcg(q + x, make_int2(f[2 * x], f[2 * x + 1]));
+}
+
+// A thread's sums over the cycles of one lane.
+struct Sums {
+  uint32_t inj, off, drop, eject, lat_sum, lat_cnt;
+  int lat_max, rmax;
+};
+
+// Add a warp's sums into a lane slot's shared sums and clear them; the
+// whole warp calls it.
+__device__ __forceinline__ void flush_sums(Sums& s, int* sums) {
+  const bool any = __any_sync(
+      FULL, (s.inj | s.off | s.drop | s.eject | s.lat_sum | s.lat_cnt) != 0u ||
+                s.lat_max != 0 || s.rmax != 0);
+  if (!any) return;
+  const uint32_t inj = __reduce_add_sync(FULL, s.inj);
+  const uint32_t off = __reduce_add_sync(FULL, s.off);
+  const uint32_t drop = __reduce_add_sync(FULL, s.drop);
+  const uint32_t eject = __reduce_add_sync(FULL, s.eject);
+  const uint32_t lat_sum = __reduce_add_sync(FULL, s.lat_sum);
+  const uint32_t lat_cnt = __reduce_add_sync(FULL, s.lat_cnt);
+  const int lat_max = __reduce_max_sync(FULL, s.lat_max);
+  const int rmax = __reduce_max_sync(FULL, s.rmax);
+  if ((threadIdx.x & (WARP - 1)) == 0) {
+    atomicAdd(reinterpret_cast<unsigned*>(sums + S_INJ), inj);
+    atomicAdd(reinterpret_cast<unsigned*>(sums + S_OFF), off);
+    atomicAdd(reinterpret_cast<unsigned*>(sums + S_DROP), drop);
+    atomicAdd(reinterpret_cast<unsigned*>(sums + S_EJECT), eject);
+    atomicAdd(reinterpret_cast<unsigned*>(sums + S_LAT_SUM), lat_sum);
+    atomicAdd(reinterpret_cast<unsigned*>(sums + S_LAT_CNT), lat_cnt);
+    atomicMax(sums + S_LAT_MAX, lat_max);
+    atomicMax(sums + S_RMAX, rmax);
+  }
+  s = Sums{0u, 0u, 0u, 0u, 0u, 0u, 0, 0};
+}
+
+// Cycles of [cyc0, cyc0 + nc) that measure: cyc >= warmup, cyc < until.
+__device__ __forceinline__ int measured_cycles(int cyc0, int until,
+                                               int warmup, int nc) {
+  const int lo = max(cyc0, warmup), hi = min(cyc0 + nc, until);
+  return hi > lo ? hi - lo : 0;
+}
+
+// MAXT bounds the block; with 1024 / MAXT blocks an SM the budget is 64
+// registers a thread, so 32 warps of the kernel fit on one SM.
+template <bool EMPTY, int MAXT>
+__global__ void __launch_bounds__(MAXT, 1024 / MAXT)
+simstep_grid_kernel(const SimArgs a, const GridArgs gr) {
+  extern __shared__ int sm[];
+  cg::grid_group grid = cg::this_grid();
+  const int nc = a.num_cycles;
+  if (EMPTY) {
+    grid.sync();
+    for (int c = 0; c < nc; ++c) {
+      grid.sync();
+      grid.sync();
+    }
+    return;
+  }
+  const int N = a.N, P = a.P, V = a.V, PV = P * V, NIN = a.NIN;
+  const int B = a.B, Q = a.Q, C = a.C, bins = a.lat_bins;
+  const int tn = a.tile_nodes, tpl = a.ntiles;
+  const int units = a.L * tpl;
+  const int rounds = (units + (int)gridDim.x - 1) / (int)gridDim.x;
+  const int u0 = blockIdx.x * rounds;                  // the block's units
+  const int nu = min(u0 + rounds, units) - u0;
+  const int lane_lo = u0 / tpl;
+  const int nslots = (u0 + nu - 1) / tpl - lane_lo + 1;  // lanes it serves
+  const int sw = grid_slot_words(bins);
+  const int nthreads = blockDim.x;
+  const int warp = threadIdx.x / WARP, wl = threadIdx.x % WARP;
+  const int nwarps = nthreads / WARP;
+  const int spw = WARP / PV;                           // nodes a warp
+  const int g = wl / PV, k = wl - g * PV;              // segment, input
+  const int sidx = warp * spw + g;                     // node of a unit
+  const bool act = g < spw && sidx < tn;
+  const int base = g * PV;                             // segment's lane 0
+  const int seg0 = base & (WARP - 1);
+  const unsigned segmask = PV == 32 ? FULL : ((1u << PV) - 1u);
+  const bool bidor = a.algo == ALGO_BIDOR;
+
+  // ---------------- the block's lanes: constants, sums, keys ----------- //
+  for (int j = threadIdx.x; j < nslots * sw; j += nthreads) sm[j] = 0;
+  __syncthreads();
+  for (int s = threadIdx.x; s < nslots; s += nthreads) {
+    const int lane = lane_lo + s;
+    int* lw = sm + s * sw + G_LANE;
+    lw[0] = a.cycle0[lane];
+    lw[1] = a.inject_until[lane];
+    lw[2] = a.measure_until[lane];
+    lw[3] = __float_as_int(__fdiv_rn(a.rate[lane], (float)a.PKT));
+  }
+  for (int s = warp; s < nslots; s += nwarps) {
+    int* kw = sm + s * sw + G_KEYS;
+    if (wl == 0) {
+      kw[8] = a.key[2 * (lane_lo + s)];
+      kw[9] = a.key[2 * (lane_lo + s) + 1];
+    }
+    __syncwarp();
+    advance_key(kw + 8, kw);                           // cycle 0's (kg, kd)
+  }
+  __syncthreads();
+  // the credit snapshot of cycle 0: the FIFO sizes as they stand
+  if (act) {
+    for (int r = 0; r < nu; ++r) {
+      const int u = u0 + r, lane = u / tpl;
+      const int n = (u - lane * tpl) * tn + sidx;
+      const long long gi = (long long)lane * NIN + (long long)n * PV + k;
+      __stcg(gr.fs0 + gi, a.fifo_size[gi]);
+    }
+  }
+  // reorder occupancy of the lanes that measure in this chunk: one warp a
+  // node pop-counts its rbits row
+  for (int j = warp; j < nu * tn; j += nwarps) {
+    const int u = u0 + j / tn, lane = u / tpl;
+    const int* lw = sm + (lane - lane_lo) * sw + G_LANE;
+    if (measured_cycles(lw[0], lw[2], a.warmup, nc) == 0) continue;
+    const long long ln = (long long)lane * N + (u - lane * tpl) * tn + j % tn;
+    const uint32_t* row = reinterpret_cast<const uint32_t*>(a.rbits) + ln * N;
+    int cnt = 0;
+    for (int x = wl; x < N; x += WARP) cnt += __popc(row[x]);
+    cnt = __reduce_add_sync(FULL, cnt);
+    if (wl == 0) gr.occ[ln] = cnt;
+  }
+  Sums sums = {0u, 0u, 0u, 0u, 0u, 0u, 0, 0};
+  int cur = 0;                       // the lane slot `sums` belongs to
+  grid.sync();
+
+  for (int c = 0; c < nc; ++c) {
+    const int* fs_cur = (c & 1) ? gr.fs1 : gr.fs0;
+    int* fs_next = (c & 1) ? gr.fs0 : gr.fs1;
+
+    // ====== phase A: per node, generation to pops and ejections ======== //
+    for (int r = 0; r < nu; ++r) {
+      const int u = u0 + r, lane = u / tpl, slot = lane - lane_lo;
+      if (slot != cur) {                                // block-uniform
+        flush_sums(sums, sm + cur * sw + G_SUMS);
+        cur = slot;
+      }
+      const int* lw = sm + slot * sw;
+      const int cyc = lw[G_LANE] + c;
+      const int inj_until = lw[G_LANE + 1];
+      const bool measuring = cyc >= a.warmup && cyc < lw[G_LANE + 2];
+      const float per_flit = __int_as_float(lw[G_LANE + 3]);
+      const int* kk = lw + G_KEYS + 4 * (c & 1);
+      const uint32_t kg0 = (uint32_t)kk[0], kg1 = (uint32_t)kk[1];
+      const uint32_t kd0 = (uint32_t)kk[2], kd1 = (uint32_t)kk[3];
+      const float cf = (float)cyc;
+      const float cf1 = __fadd_rn(cf, 1.0f);
+      const int n = (u - lane * tpl) * tn + sidx;      // valid where act
+      const long long lin = (long long)lane * NIN;
+      const long long ln = (long long)lane * N + n;
+      const long long gi = lin + (long long)n * PV + k;
+
+      // ---- 0. the input's state and head flit, the queue head -------- //
+      int st = 0, size = 0, lop = -1;
+      int f[NF];
+#pragma unroll
+      for (int x = 0; x < NF; ++x) f[x] = 0;
+      if (act) {
+        st = a.fifo_start[gi];
+        size = __ldcg(fs_cur + gi);
+        lop = a.lock_op[gi];
+        if (size > 0) load_flit(f, a.flits + (gi * B + st) * NF);
+      }
+      int qs = 0, qst = 0, pr = 0;
+      int h[NQ];
+#pragma unroll
+      for (int x = 0; x < NQ; ++x) h[x] = 0;
+      int* qrow = a.qpkts + ln * (long long)Q * NQ;
+      if (act && k == 0) {
+        qs = a.q_size[ln];
+        qst = a.q_start[ln];
+        pr = a.prog[ln];
+        if (qs > 0) {
+#pragma unroll
+          for (int x = 0; x < NQ; ++x) h[x] = qrow[qst * NQ + x];
+        }
+      }
+
+      // ---- 1. packet generation: the draws, then the CDF search ---- //
+      float draw = 0.0f;
+      if (act && k < 2)
+        draw = node_uniform(k ? kd0 : kg0, k ? kd1 : kg1, n, N);
+      const float uu = __shfl_sync(FULL, draw, seg0);
+      const float ud = __shfl_sync(FULL, draw, (base + 1) & (WARP - 1));
+      const bool gen = act && (uu < __fmul_rn(__ldg(a.p_gen + n), per_flit)) &&
+                       (cyc < inj_until);
+      int lo = 0, hi = N;
+      const float* row = a.cdf + (long long)n * N;
+      while (__any_sync(FULL, gen && lo < hi)) {
+        const bool probe = gen && lo < hi;
+        const int width = hi - lo;
+        bool le = false;
+        if (probe) le = __ldg(row + lo + ((k + 1) * width) / (PV + 1)) <= ud;
+        const unsigned m = __ballot_sync(FULL, le);
+        if (probe) {
+          const int cnt = __popc((m >> base) & segmask);
+          const int nlo = cnt > 0 ? lo + (cnt * width) / (PV + 1) + 1 : lo;
+          const int nhi = cnt < PV ? lo + ((cnt + 1) * width) / (PV + 1) : hi;
+          lo = nlo;
+          hi = nhi;
+        }
+      }
+      // ---- 1b. source-queue push (segment lane 0) ------------------- //
+      int lk = -1;                      // the input the head packet enters
+      if (act && k == 0) {
+        const int dst = clampi(lo, 0, N - 1);
+        const bool space = qs < Q;
+        if (gen && space) {
+          const int order = bidor ? __ldg(a.choice + (long long)n * N + dst) : 0;
+          int* nseq = a.next_seq + ln * N + dst;
+          const int seq = *nseq;
+          *nseq = seq + 1;
+          int* rec = qrow + pmod(qst + qs, Q) * NQ;
+          rec[Q_DST] = dst; rec[Q_INTER] = -1; rec[Q_ORDER] = order;
+          rec[Q_TIME] = cyc; rec[Q_SEQ] = seq;
+          if (qs == 0) {
+            h[Q_DST] = dst; h[Q_INTER] = -1; h[Q_ORDER] = order;
+            h[Q_TIME] = cyc; h[Q_SEQ] = seq;
+          }
+          qs += 1;
+        }
+        if (measuring) {
+          sums.off += gen ? 1u : 0u;
+          sums.drop += (gen && !space) ? 1u : 0u;
+        }
+        if (qs > 0)
+          lk = a.p_local * V +
+               (bidor ? pmod(h[Q_ORDER], V) : pmod(n + h[Q_DST], V));
+      }
+      // ---- 2. flit injection: the input's size and start from its lane //
+      lk = __shfl_sync(FULL, lk, seg0);
+      const int from = (base + (lk < 0 ? 0 : lk)) & (WARP - 1);
+      const int lf_size = __shfl_sync(FULL, size, from);  // before the pops
+      const int lf_start = __shfl_sync(FULL, st, from);
+      int jf[NF];
+#pragma unroll
+      for (int x = 0; x < NF; ++x) jf[x] = 0;
+      int inj_k = -1;
+      if (act && k == 0) {
+        bool done = false;
+        if (lk >= 0 && lf_size < B) {
+          jf[F_SRC] = n; jf[F_DST] = h[Q_DST]; jf[F_INTER] = h[Q_INTER];
+          jf[F_SEQ] = h[Q_SEQ]; jf[F_TIME] = h[Q_TIME]; jf[F_HOPS] = 0;
+          jf[F_ORDER] = h[Q_ORDER]; jf[F_HEAD] = pr == 0 ? 1 : 0;
+          jf[F_TAIL] = pr == a.PKT - 1 ? 1 : 0;
+          jf[F_PHASE] = (h[Q_INTER] < 0 || h[Q_INTER] == n) ? 1 : 0;
+          store_flit(a.flits + ((gi + lk) * B + pmod(lf_start + lf_size, B)) * NF,
+                     jf);
+          inj_k = lk;
+          pr += 1;
+          done = pr >= a.PKT;
+          if (done) pr = 0;
+          sums.inj += 1u;
+        }
+        a.prog[ln] = pr;
+        a.q_start[ln] = done ? (qst + 1) % Q : qst;
+        a.q_size[ln] = qs - (done ? 1 : 0);
+      }
+      inj_k = __shfl_sync(FULL, inj_k, seg0);
+      const bool took = act && k == inj_k;
+      if (__any_sync(FULL, took && size == 0)) {   // the new flit is the head
+#pragma unroll
+        for (int x = 0; x < NF; ++x) {
+          const int v = __shfl_sync(FULL, jf[x], seg0);
+          if (took && size == 0) f[x] = v;
+        }
+      }
+      if (took) size += 1;
+
+      // ---- 3-4. routing and eligibility, one lane per input -------- //
+      bool elig = false, rph = false;
+      int op = -1, ov = 0, nei = 0, rp = 0;
+      const bool head = f[F_HEAD] != 0, tail = f[F_TAIL] != 0;
+      int* erow = a.exp_seq + ln * N;
+      uint32_t* brow = reinterpret_cast<uint32_t*>(a.rbits) + ln * N;
+      int pre_exp = 0;
+      uint32_t pre_bits = 0;
+      if (act && size > 0) {
+        rph = f[F_PHASE] != 0 || f[F_INTER] < 0 || f[F_INTER] == n;
+        const int target = clampi(rph ? f[F_DST] : f[F_INTER], 0, N - 1);
+        const bool locked = lop >= 0;
+        if (locked) {
+          op = lop;
+          ov = a.lock_ov[gi];
+        } else if (target == n) {
+          op = a.p_local;
+          ov = 0;
+        } else {
+          const int eff = bidor ? clampi(f[F_ORDER], 0, a.O - 1) : 0;
+          op = __ldg(a.port + ((long long)eff * N + n) * N + target);
+          ov = bidor ? pmod(f[F_ORDER], V) : k % V;
+        }
+        const bool is_eject = op == a.p_local;
+        const int cop = clampi(op, 0, P - 1);
+        bool live = is_eject;
+        if (is_eject) {
+          const int src = f[F_SRC];
+          if (tail && src >= 0 && src < N) {
+            pre_exp = erow[src];
+            pre_bits = brow[src];
+          }
+        } else {
+          const int ch = __ldg(a.chan_of + n * P + cop);
+          if (ch >= 0 && ch < C) {
+            const float bw = __ldg(a.chan_bw + ch);
+            live = __fsub_rn(floorf(__fmul_rn(cf1, bw)),
+                             floorf(__fmul_rn(cf, bw))) >= 1.0f;
+          }
+        }
+        const bool vc_free =
+            a.out_held[(ln * P + cop) * V + clampi(ov, 0, V - 1)] == -1;
+        const bool needs_alloc = head && !locked && !is_eject;
+        elig = live && (vc_free || !needs_alloc);
+        if (elig && !is_eject) {          // the receiver's credit
+          nei = __ldg(a.neighbor + n * P + cop);
+          rp = __ldg(a.recv_port + n * P + cop);
+          const int ridx = clampi((nei * P + rp) * V + ov, 0, NIN - 1);
+          elig = __ldcg(fs_cur + lin + ridx) < B;
+        }
+      }
+
+      // ---- 5. switch allocation: a ballot per out-port ----------- //
+      const int r_own = elig ? a.rr[ln * P + clampi(op, 0, P - 1)] : 0;
+      unsigned mine = 0;
+      for (int po = 0; po < P; ++po) {
+        const unsigned m = __ballot_sync(FULL, elig && op == po);
+        if (elig && op == po) mine = m;
+      }
+      __syncwarp();
+      bool won = false;
+      if (elig) {
+        const unsigned bits = (mine >> base) & segmask;
+        const unsigned upper = bits & (FULL << pmod(r_own, PV));
+        const int win = (upper ? __ffs(upper) : __ffs(bits)) - 1;
+        won = win == k;
+      }
+
+      // ---- 6. pops, locks, out_held; 7. ejections ---------------- //
+      if (act) {
+        int to = -1;
+        if (won) {
+          a.rr[ln * P + op] = (k + 1) % PV;
+          a.fifo_start[gi] = (st + 1) % B;
+          size -= 1;
+          if (head && !tail) { a.lock_op[gi] = op; a.lock_ov[gi] = ov; }
+          else if (tail) { a.lock_op[gi] = -1; a.lock_ov[gi] = -1; }
+          if (op != a.p_local) {
+            if ((tail || head) && ov >= 0 && ov < V)
+              a.out_held[(ln * P + op) * V + ov] = (head && !tail) ? k : -1;
+            const int ch = __ldg(a.chan_of + n * P + op);
+            if (ch >= 0 && ch < C) {          // each channel has one source
+              a.chan_seen[(long long)lane * C + ch] += 1;
+              if (measuring) a.chan_fwd[(long long)lane * C + ch] += 1;
+            }
+            to = (nei * P + rp) * V + ov;
+          } else {
+            sums.eject += 1u;
+            if (measuring) a.eject_flits[ln] += 1;
+            const int lat = (cyc - f[F_TIME]) + f[F_HOPS] + 1;  // +1: eject
+            if (tail && f[F_TIME] >= a.warmup) {
+              sums.lat_sum += (uint32_t)lat;
+              sums.lat_cnt += 1u;
+              sums.lat_max = max(sums.lat_max, lat);
+              atomicAdd(sm + slot * sw + G_HIST +
+                            clampi(floordiv(lat, a.lat_bin_width), 0, bins - 1),
+                        1);
+            }
+            // reorder tracking: this node's window of the packet's flow
+            const int src = f[F_SRC];
+            if (tail && src >= 0 && src < N) {
+              const int off = f[F_SEQ] - pre_exp;
+              const bool in_win = off >= 0 && off < 32;
+              const uint32_t bits2 =
+                  in_win ? (pre_bits | (1u << clampi(off, 0, 31))) : pre_bits;
+              const uint32_t lowmask = bits2 & ~(bits2 + 1u);  // low 1s
+              const int run = __popc(lowmask);
+              uint32_t bits3 = bits2;
+              if (bits2 & 1u) {
+                erow[src] = pre_exp + run;
+                bits3 = run >= 32 ? 0u : (bits2 >> min(run, 31));
+              }
+              brow[src] = bits3;
+              gr.occ[ln] += __popc(bits3) - __popc(pre_bits);
+            }
+          }
+        }
+        gr.push_to[gi] = to;
+        __stcg(fs_next + gi, size);
+      }
+      const unsigned granted = __ballot_sync(FULL, won);
+      __syncwarp();
+      if (act && k == 0 && measuring) {
+        a.node_fwd[ln] += __popc((granted >> base) & segmask);
+        sums.rmax = max(sums.rmax, gr.occ[ln] * a.PKT);
+      }
+    }
+    // the next cycle's keys of the block's lanes, a warp a lane
+    if (c + 1 < nc) {
+      for (int s = warp; s < nslots; s += nwarps)
+        advance_key(sm + s * sw + G_KEYS + 8,
+                    sm + s * sw + G_KEYS + 4 * ((c + 1) & 1));
+    }
+    grid.sync();
+
+    // ====== phase B: the receive-side pushes =========================== //
+    // (one winner per channel, so every target input takes at most one
+    // push a cycle; its slot comes from the post-pop start and size)
+    if (act) {
+      for (int r = 0; r < nu; ++r) {
+        const int u = u0 + r, lane = u / tpl;
+        const int n = (u - lane * tpl) * tn + sidx;
+        const long long lin = (long long)lane * NIN;
+        const long long gi = lin + (long long)n * PV + k;
+        const int to = gr.push_to[gi];
+        if (to < 0 || to >= NIN) continue;
+        const int st = a.fifo_start[gi];             // one past the popped
+        int f[NF];
+        load_flit(f, a.flits + (gi * B + (st + B - 1) % B) * NF);
+        const bool rph = f[F_PHASE] != 0 || f[F_INTER] < 0 || f[F_INTER] == n;
+        f[F_HOPS] += 1;
+        f[F_PHASE] = rph ? 1 : 0;
+        const long long gd = lin + to;
+        const int dst_start = __ldcg(a.fifo_start + gd);
+        const int dsz = __ldcg(fs_next + gd);
+        store_flit(a.flits + (gd * B + (dst_start + dsz) % B) * NF, f);
+        __stcg(fs_next + gd, dsz + 1);
+      }
+    }
+    grid.sync();
+  }
+
+  // ---------------- flush the chunk ----------------------------------- //
+  flush_sums(sums, sm + cur * sw + G_SUMS);
+  const int* fs_end = (nc & 1) ? gr.fs1 : gr.fs0;
+  if (act) {
+    for (int r = 0; r < nu; ++r) {
+      const int u = u0 + r, lane = u / tpl;
+      const int n = (u - lane * tpl) * tn + sidx;
+      const long long gi = (long long)lane * NIN + (long long)n * PV + k;
+      a.fifo_size[gi] = __ldcg(fs_end + gi);
+    }
+  }
+  __syncthreads();
+  for (int s = threadIdx.x; s < nslots; s += nthreads) {
+    const int lane = lane_lo + s;
+    const int* ss = sm + s * sw + G_SUMS;
+    auto add = [](int* p, int v) {
+      atomicAdd(reinterpret_cast<unsigned*>(p), (unsigned)v);
+    };
+    add(a.lat_sum + lane, ss[S_LAT_SUM]);
+    add(a.lat_cnt + lane, ss[S_LAT_CNT]);
+    add(a.injected + lane, ss[S_INJ]);
+    add(a.offered + lane, ss[S_OFF]);
+    add(a.dropped + lane, ss[S_DROP]);
+    add(a.eject_total + lane, ss[S_EJECT]);
+    atomicMax(a.lat_max + lane, ss[S_LAT_MAX]);
+    atomicMax(a.reorder_max + lane, ss[S_RMAX]);
+    const int first = lane * tpl;                 // the lane's first unit
+    if (first >= u0 && first < u0 + nu) {         // one block a lane
+      const int* lw = sm + s * sw;
+      add(a.meas_cnt + lane,
+          measured_cycles(lw[G_LANE], lw[G_LANE + 2], a.warmup, nc));
+      a.key[2 * lane] = lw[G_KEYS + 8];
+      a.key[2 * lane + 1] = lw[G_KEYS + 9];
+    }
+  }
+  for (int j = threadIdx.x; j < nslots * bins; j += nthreads) {
+    const int s = j / bins, b = j - s * bins;
+    const int v = sm[s * sw + G_HIST + b];
+    if (v) atomicAdd(a.lat_hist + (long long)(lane_lo + s) * bins + b, v);
+  }
+}
+
+template <bool EMPTY, int MAXT>
+int grid_launch(const SimArgs& a, const GridArgs& gr, cudaStream_t stream) {
+  auto kernel = simstep_grid_kernel<EMPTY, MAXT>;
+  const int units = a.L * a.ntiles;
+  const int rounds = (units + gr.grid - 1) / gr.grid;
+  const size_t smem = sizeof(int) *
+                      (size_t)grid_lane_slots(rounds, a.ntiles, a.L) *
+                      grid_slot_words(a.lat_bins);
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  void* params[] = {const_cast<SimArgs*>(&a), const_cast<GridArgs*>(&gr)};
+  err = cudaLaunchCooperativeKernel(
+      (const void*)kernel, dim3(gr.grid), dim3(grid_threads(a.tile_nodes, a.P * a.V)),
+      params, smem, stream);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+template <bool EMPTY>
+int grid_launch_sized(const SimArgs& a, const GridArgs& gr,
+                      cudaStream_t stream) {
+  const int threads = grid_threads(a.tile_nodes, a.P * a.V);
+  if (threads <= 128) return grid_launch<EMPTY, 128>(a, gr, stream);
+  if (threads <= 256) return grid_launch<EMPTY, 256>(a, gr, stream);
+  if (threads <= 512) return grid_launch<EMPTY, 512>(a, gr, stream);
+  return grid_launch<EMPTY, 1024>(a, gr, stream);
+}
+
+int checked_grid_launch(const SimArgs* args, const GridArgs* gargs,
+                        void* stream, bool empty) {
+  const SimArgs a = *args;
+  const GridArgs gr = *gargs;
+  const int pv = a.P * a.V;
+  if (pv < 2 || pv > MAX_PV || a.P > MAX_P || a.tile_nodes <= 0 ||
+      a.N % a.tile_nodes != 0 || a.ntiles != a.N / a.tile_nodes ||
+      a.tile_nodes > MAX_WARPS * (WARP / pv) || a.L <= 0 ||
+      a.num_cycles < 0 || a.lat_bins <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int units = a.L * a.ntiles;
+  if (gr.grid < 1 || gr.grid > units) return (int)cudaErrorInvalidValue;
+  const int rounds = (units + gr.grid - 1) / gr.grid;
+  if ((gr.grid - 1) * rounds >= units)     // every block holds a unit
+    return (int)cudaErrorInvalidValue;
+  if (a.num_cycles == 0) return 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  return empty ? grid_launch_sized<true>(a, gr, s)
+               : grid_launch_sized<false>(a, gr, s);
+}
+
+template <int MAXT>
+int grid_occupancy(int threads, int smem) {
+  int blocks = 0;
+  const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, simstep_grid_kernel<false, MAXT>, threads, (size_t)smem);
+  return err != cudaSuccess ? -(int)err : blocks;
+}
+
+}  // namespace
+
 // Advance every lane by num_cycles cycles: one block per (lane, tile),
 // the tiles of a lane one cluster.  Returns a cudaError_t (0 = launched).
 extern "C" int simstep_chunk_launch(const SimArgs* args, void* stream) {
@@ -905,3 +1548,45 @@ extern "C" int simstep_block_threads(int tile_nodes, int P, int V) {
 
 // sizeof(SimArgs), so the binding can check its record layout.
 extern "C" int simstep_args_size() { return (int)sizeof(SimArgs); }
+
+// Advance every lane by num_cycles cycles in one cooperative launch of
+// `gargs->grid` blocks over the card.  Returns a cudaError_t (0 = launched;
+// cudaErrorCooperativeLaunchTooLarge if the card cannot hold the grid).
+extern "C" int simstep_grid_launch(const SimArgs* args, const GridArgs* gargs,
+                                   void* stream) {
+  return checked_grid_launch(args, gargs, stream, false);
+}
+
+// The same launch with an empty body, its two grid barriers a cycle: the
+// grid kernel's latency floor, for measurement only.
+extern "C" int simstep_grid_floor_launch(const SimArgs* args,
+                                         const GridArgs* gargs, void* stream) {
+  return checked_grid_launch(args, gargs, stream, true);
+}
+
+// Blocks of `tile_nodes` nodes the grid kernel keeps on one SM with `smem`
+// bytes of dynamic shared memory each
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor; negative: a cudaError_t).
+extern "C" int simstep_grid_blocks_per_sm(int tile_nodes, int P, int V,
+                                          int smem) {
+  const int threads = grid_threads(tile_nodes, P * V);
+  if (threads <= 128) return grid_occupancy<128>(threads, smem);
+  if (threads <= 256) return grid_occupancy<256>(threads, smem);
+  if (threads <= 512) return grid_occupancy<512>(threads, smem);
+  return grid_occupancy<1024>(threads, smem);
+}
+
+// Shared-memory bytes and threads of a grid-kernel block, so the binding
+// can check its own layout arithmetic.
+extern "C" int simstep_grid_smem_bytes(int rounds, int tiles_a_lane, int L,
+                                       int lat_bins) {
+  return (int)sizeof(int) * grid_lane_slots(rounds, tiles_a_lane, L) *
+         grid_slot_words(lat_bins);
+}
+
+extern "C" int simstep_grid_threads(int tile_nodes, int P, int V) {
+  return grid_threads(tile_nodes, P * V);
+}
+
+// sizeof(GridArgs), so the binding can check its record layout.
+extern "C" int simstep_grid_args_size() { return (int)sizeof(GridArgs); }

@@ -1,15 +1,13 @@
-"""Launch binding of ``csrc/simstep.cu`` and ``csrc/simstep_pair.cu``
-(ctypes, plain C ABI).
+"""Launch binding of ``csrc/simstep.cu`` (ctypes, plain C ABI).
 
-The chunk kernel takes one :class:`SimArgs` record: every table and
+Both card kernels take one :class:`SimArgs` record: every table and
 state pointer of a simulation cell, the lanes' PRNG key words and the
 sizes.  The record is built once per cell (:func:`sim_args`); a chunk
-sets ``num_cycles`` and makes one ctypes call.  The kernel pair, for
-cells the chunk kernel cannot lay out, takes a :class:`PairArgs` record
-with the cycle's draws, the scratch and the cycle index in place of the
-key and ``num_cycles``; a cycle sets those and makes two ctypes calls.
-The field orders must match ``struct SimArgs`` and ``struct PairArgs``
-in the sources.
+sets ``num_cycles`` and makes one ctypes call.  The grid kernel takes a
+second record, :class:`GridArgs`: its global-memory scratch (the two
+credit buffers, the push targets, the reorder counts) and the number of
+blocks of its cooperative launch.  The field orders must match
+``struct SimArgs`` and ``struct GridArgs`` in the source.
 """
 
 from __future__ import annotations
@@ -36,22 +34,8 @@ INT_FIELDS = (
     "tile_nodes", "ntiles", "num_cycles", "warmup", "lat_bins",
     "lat_bin_width",
 )
-PAIR_PTR_FIELDS = (
-    "port", "choice", "neighbor", "recv_port", "cdf", "p_gen", "chan_of",
-    "chan_bw", "u", "ud", "flits", "fifo_start", "fifo_size", "fs_pre",
-    "lock_op", "lock_ov", "out_held", "rr", "qpkts", "q_start", "q_size",
-    "prog", "next_seq", "rate", "cycle0", "inject_until", "measure_until",
-    "mov", "parts", "exp_seq", "rbits", "node_fwd", "eject_flits",
-    "chan_fwd", "chan_seen", "lat_sum", "lat_cnt", "lat_max", "lat_hist",
-    "reorder_max", "injected", "offered", "dropped", "eject_total",
-    "meas_cnt",
-)
-PAIR_INT_FIELDS = (
-    "L", "N", "P", "V", "NIN", "C", "O", "B", "Q", "PKT", "p_local", "algo",
-    "tile_nodes", "ntiles", "cycle", "warmup", "lat_bins", "lat_bin_width",
-)
-# the pair's block: one thread per node of a tile
-PAIR_MAX_THREADS = 1024
+GRID_PTR_FIELDS = ("fs0", "fs1", "push_to", "occ")
+GRID_INT_FIELDS = ("grid",)
 # the chunk kernel's compile-time bounds: inputs per router (P·V), ports, and
 # the blocks of one lane's cluster (past 8, the non-portable size Hopper
 # allows)
@@ -95,22 +79,57 @@ def rounds(tile: int, pv: int) -> int:
     return -(-tile // (node_warps(tile, pv) * (WARP // pv)))
 
 
+# The grid kernel: per lane slot of a block, the keys, the sums, four lane
+# constants and the latency histogram (``grid_slot_words`` in the source);
+# a 64-register budget a thread (its launch bounds), so an SM holds 32 of
+# its warps; and at most 32 resident blocks an SM (sm_90).
+_GRID_SLOT_FIXED = 10 + 16 + 4
+GRID_REG_WARPS = 32
+SM_BLOCKS = 32
+
+
+def grid_threads(tile: int, pv: int) -> int:
+    """Threads of a grid-kernel block: one segment of ``pv`` lanes per
+    node of its unit of ``tile`` nodes, ``32 // pv`` nodes a warp."""
+    return WARP * -(-tile // (WARP // pv))
+
+
+def grid_lane_slots(rounds: int, tiles_a_lane: int, lanes: int) -> int:
+    """Lanes a block's ``rounds`` consecutive units can span."""
+    return min((rounds - 1) // tiles_a_lane + 2, lanes)
+
+
+def grid_smem_bytes(rounds: int, tiles_a_lane: int, lanes: int,
+                    lat_bins: int) -> int:
+    """Shared-memory bytes of a grid-kernel block."""
+    return 4 * grid_lane_slots(rounds, tiles_a_lane, lanes) * (
+        _GRID_SLOT_FIXED + lat_bins)
+
+
+def grid_blocks_per_sm(tile: int, pv: int) -> int:
+    """Grid-kernel blocks an SM holds at the kernel's 64-register budget
+    (what cudaOccupancyMaxActiveBlocksPerMultiprocessor gives when the
+    compiler uses all 64; fewer registers can only raise it)."""
+    return min(GRID_REG_WARPS // (grid_threads(tile, pv) // WARP),
+               SM_BLOCKS)
+
+
 class SimArgs(ctypes.Structure):
     _fields_ = ([(f, ctypes.c_void_p) for f in PTR_FIELDS]
                 + [(f, ctypes.c_int) for f in INT_FIELDS])
 
 
-class PairArgs(ctypes.Structure):
-    _fields_ = ([(f, ctypes.c_void_p) for f in PAIR_PTR_FIELDS]
-                + [(f, ctypes.c_int) for f in PAIR_INT_FIELDS])
+class GridArgs(ctypes.Structure):
+    _fields_ = ([(f, ctypes.c_void_p) for f in GRID_PTR_FIELDS]
+                + [(f, ctypes.c_int) for f in GRID_INT_FIELDS])
 
 
 def sim_args(pointers: dict, sizes: dict, record=SimArgs):
-    """A launch record (:class:`SimArgs` or :class:`PairArgs`) from
+    """A launch record (:class:`SimArgs` or :class:`GridArgs`) from
     tensors (by field name; a missing one is null) and ints."""
     args = record()
-    ptrs = PTR_FIELDS if record is SimArgs else PAIR_PTR_FIELDS
-    ints = INT_FIELDS if record is SimArgs else PAIR_INT_FIELDS
+    ptrs = PTR_FIELDS if record is SimArgs else GRID_PTR_FIELDS
+    ints = INT_FIELDS if record is SimArgs else GRID_INT_FIELDS
     for f in ptrs:
         x = pointers.get(f)
         setattr(args, f, x.data_ptr() if x is not None else None)
@@ -119,81 +138,84 @@ def sim_args(pointers: dict, sizes: dict, record=SimArgs):
     return args
 
 
-def _fn(lib: str, name: str, record):
-    fn = getattr(library(lib), name)
-    fn.argtypes = [ctypes.POINTER(record), ctypes.c_void_p]
+def _fn(name: str, *records):
+    fn = getattr(library("simstep"), name)
+    fn.argtypes = [*(ctypes.POINTER(r) for r in records), ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-class Launcher:
-    """The chunk launch function, resolved once per cell."""
+def _check(what: str, c_value, binding_value) -> None:
+    if c_value != binding_value:
+        raise RuntimeError(f"simstep {what} mismatch: C {c_value}, binding "
+                           f"{binding_value}")
 
-    def __init__(self, device: torch.device, args: SimArgs):
+
+class Launcher:
+    """The launch functions of one cell's card kernel (``"chunk"`` or
+    ``"grid"``), resolved once per cell; the C side's layout arithmetic
+    is checked against the binding's."""
+
+    def __init__(self, device: torch.device, args: SimArgs, kernel: str,
+                 gargs: GridArgs | None = None):
         lib = library("simstep")
-        size = lib.simstep_args_size()
-        if size != ctypes.sizeof(SimArgs):
-            raise RuntimeError(f"SimArgs layout mismatch: C {size} bytes, "
-                               f"ctypes {ctypes.sizeof(SimArgs)}")
-        want = smem_bytes(args.tile_nodes, args.P, args.V, args.lat_bins)
-        got = lib.simstep_smem_bytes(args.tile_nodes, args.P, args.V,
-                                     args.lat_bins)
-        threads = lib.simstep_block_threads(args.tile_nodes, args.P, args.V)
-        if (got, threads) != (want, block_threads(args.tile_nodes,
-                                                  args.P * args.V)):
-            raise RuntimeError(f"simstep block layout mismatch: C {got} "
-                               f"bytes / {threads} threads, binding {want}")
-        self.chunk_fn = _fn("simstep", "simstep_chunk_launch", SimArgs)
-        self.floor_fn = _fn("simstep", "simstep_floor_launch", SimArgs)
-        self.device = device
+        _check("SimArgs bytes", lib.simstep_args_size(),
+               ctypes.sizeof(SimArgs))
+        self.kernel, self.gargs, self.device = kernel, gargs, device
+        pv = args.P * args.V
+        if kernel == "chunk":
+            _check("chunk block (smem bytes, threads)",
+                   (lib.simstep_smem_bytes(args.tile_nodes, args.P, args.V,
+                                           args.lat_bins),
+                    lib.simstep_block_threads(args.tile_nodes, args.P,
+                                              args.V)),
+                   (smem_bytes(args.tile_nodes, args.P, args.V,
+                               args.lat_bins),
+                    block_threads(args.tile_nodes, pv)))
+            self.launch_fn = _fn("simstep_chunk_launch", SimArgs)
+            self.floor_fn = _fn("simstep_floor_launch", SimArgs)
+            self.extra = ()
+            return
+        _check("GridArgs bytes", lib.simstep_grid_args_size(),
+               ctypes.sizeof(GridArgs))
+        n_rounds = -(-args.L * args.ntiles // gargs.grid)
+        _check("grid block (smem bytes, threads)",
+               (lib.simstep_grid_smem_bytes(n_rounds, args.ntiles, args.L,
+                                            args.lat_bins),
+                lib.simstep_grid_threads(args.tile_nodes, args.P, args.V)),
+               (grid_smem_bytes(n_rounds, args.ntiles, args.L,
+                                args.lat_bins),
+                grid_threads(args.tile_nodes, pv)))
+        self.launch_fn = _fn("simstep_grid_launch", SimArgs, GridArgs)
+        self.floor_fn = _fn("simstep_grid_floor_launch", SimArgs, GridArgs)
+        self.extra = (ctypes.byref(gargs),)
 
     def _stream(self) -> int:
         return torch.cuda.current_stream(self.device).cuda_stream
 
-    def chunk(self, args: SimArgs) -> None:
-        """Advance every lane by ``args.num_cycles`` cycles."""
-        err = self.chunk_fn(ctypes.byref(args), self._stream())
-        LAUNCHES["simstep_chunk"] += 1
+    def launch(self, args: SimArgs) -> None:
+        """Advance every lane by ``args.num_cycles`` cycles: one launch of
+        ``simstep_chunk`` or ``simstep_grid``."""
+        err = self.launch_fn(ctypes.byref(args), *self.extra, self._stream())
+        LAUNCHES[f"simstep_{self.kernel}"] += 1
         if err:
-            raise RuntimeError(f"simstep_chunk launch failed: cudaError {err}")
+            raise RuntimeError(f"simstep_{self.kernel} launch failed: "
+                               f"cudaError {err}")
 
     def floor(self, args: SimArgs) -> None:
-        """The chunk kernel's launch shape and per-cycle barriers with an
-        empty body: its latency floor, for measurement (not counted, and
-        the state is untouched)."""
-        err = self.floor_fn(ctypes.byref(args), self._stream())
+        """The kernel's launch shape and per-cycle barriers with an empty
+        body: its latency floor, for measurement (not counted, and the
+        state is untouched)."""
+        err = self.floor_fn(ctypes.byref(args), *self.extra, self._stream())
         if err:
-            raise RuntimeError(f"simstep_floor launch failed: cudaError {err}")
+            raise RuntimeError(f"simstep_{self.kernel} floor launch failed: "
+                               f"cudaError {err}")
 
 
-class PairLauncher:
-    """The kernel pair's two launch functions, resolved once per cell."""
-
-    def __init__(self, device: torch.device):
-        size = library("simstep_pair").simstep_pair_args_size()
-        if size != ctypes.sizeof(PairArgs):
-            raise RuntimeError(f"PairArgs layout mismatch: C {size} bytes, "
-                               f"ctypes {ctypes.sizeof(PairArgs)}")
-        self.tile_fn = _fn("simstep_pair", "simstep_tile_launch", PairArgs)
-        self.finish_fn = _fn("simstep_pair", "simstep_finish_launch",
-                             PairArgs)
-        self.device = device
-
-    def _stream(self) -> int:
-        return torch.cuda.current_stream(self.device).cuda_stream
-
-    def tile(self, args: PairArgs) -> None:
-        """Snapshot ``fifo_size`` into ``fs_pre``, then run stages 1–6
-        over every (lane, tile) block."""
-        err = self.tile_fn(ctypes.byref(args), self._stream())
-        LAUNCHES["simstep_tile"] += 1
-        if err:
-            raise RuntimeError(f"simstep_tile launch failed: cudaError {err}")
-
-    def finish(self, args: PairArgs) -> None:
-        """Receive pushes and statistics, one thread per (lane, node)."""
-        err = self.finish_fn(ctypes.byref(args), self._stream())
-        LAUNCHES["simstep_finish"] += 1
-        if err:
-            raise RuntimeError(
-                f"simstep_finish launch failed: cudaError {err}")
+def grid_occupancy(tile: int, p: int, v: int, smem: int) -> int:
+    """Grid-kernel blocks of ``tile`` nodes one SM of the current card
+    holds with ``smem`` bytes of shared memory each (the occupancy API)."""
+    got = library("simstep").simstep_grid_blocks_per_sm(tile, p, v, smem)
+    if got <= 0:
+        raise RuntimeError(f"simstep_grid occupancy query failed: {got}")
+    return got

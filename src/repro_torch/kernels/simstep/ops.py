@@ -4,25 +4,24 @@
 :class:`FlitStep`, whose ``run(num_cycles, keys)`` advances every lane
 by a chunk of cycles in place and returns the advanced PRNG keys.
 
-For state on the card it launches a CUDA kernel, chosen by the cell's
-shape (:func:`card_kernel`):
+For state on the card it makes one launch a chunk of a CUDA kernel
+(``csrc/simstep.cu``) that runs the key chain, the draws and every
+cycle there, chosen by the cell's shape (:func:`card_kernel`):
 
-* ``chunk`` (``csrc/simstep.cu``): one launch a chunk; the key chain,
-  the draws and every cycle run on the card.  A lane is one block or
-  one cluster of up to 16 blocks, each block holding its nodes'
-  per-input state in shared memory.
-* ``pair`` (``csrc/simstep_pair.cu``), for the cells no such layout
-  fits (17x17, 64x64, 96x96; :func:`card_kernel` lists the square
-  meshes): the chunk's draws made up front (:func:`.ref.draw_chunk`),
-  then ``simstep_tile`` and ``simstep_finish`` each cycle.
+* ``chunk``: a lane is one block or one cluster of up to 16 blocks,
+  each block holding its nodes' per-input state in shared memory.
+* ``grid``, for the cells no such layout fits (17x17, 64x64, 96x96;
+  :func:`card_kernel` lists the square meshes): one cooperative launch
+  over the whole card, the per-input state in global memory, two
+  grid-wide barriers a cycle (:func:`grid_layout`).
 
 For state on the CPU it runs the plain version (:mod:`.ref`): the
 chunk's draws, then per cycle ``tile_fn`` tile by tile and
 ``finish_fn``.  Neither stands in for the other.
 
 :func:`resolve_path` picks the node tile.  The reference sized it to the
-TPU's 10 MiB VMEM budget; on the card a tile is the nodes of one CUDA
-block (:func:`card_tile`).
+TPU's 10 MiB VMEM budget; on the card a tile is the nodes one CUDA
+block carries (:func:`card_tile`).
 """
 
 from __future__ import annotations
@@ -31,10 +30,10 @@ import numpy as np
 import torch
 
 from ...noc.simconfig import NF, NQ, SimConfig, check_supported
-from .kernel import (INT_FIELDS, MAX_CLUSTER, MAX_P, MAX_PV, MIN_PV,
-                     PAIR_INT_FIELDS, PAIR_MAX_THREADS, WARP, Launcher,
-                     PairArgs, PairLauncher, block_threads, rounds, sim_args,
-                     smem_bytes)
+from .kernel import (INT_FIELDS, MAX_CLUSTER, MAX_P, MAX_PV, MAX_WARPS,
+                     MIN_PV, WARP, GridArgs, Launcher, block_threads,
+                     grid_blocks_per_sm, grid_occupancy, grid_smem_bytes,
+                     rounds, sim_args, smem_bytes)
 from .ref import MOV_W, N_PART, draw_chunk, make_cycle_parts
 
 # an H100 SM (sm_90): dynamic shared memory one block may use, and the
@@ -88,38 +87,59 @@ def card_kernel(n: int, p: int, v: int, lat_bins: int,
                 cluster_max: int = MAX_CLUSTER) -> str:
     """The card's flit-step kernel for a shape: ``"chunk"`` where some
     tile lays a lane out as one cluster (:func:`chunk_tiles`), else
-    ``"pair"``.  At P·V = 10 a block holds at most 213 nodes and a lane
+    ``"grid"``.  At P·V = 10 a block holds at most 213 nodes and a lane
     16 blocks, so a lane fits where ``n`` has a divisor from ``n / 16``
     to 213: every square mesh up to 16x16, and 18x18 to 48x48 bar 19,
     23, 29, 31, 34, 37, 38, 41, 43, 46 and 47 a side.  Those, 17x17,
     and every side from 49 to 96 bar 52 and 56 (64x64 and 96x96 among
-    them) take the pair."""
+    them) take the grid kernel."""
     if not MIN_PV <= p * v <= MAX_PV or p > MAX_P:
         raise ValueError(f"P·V = {p * v} (P = {p}) is outside the kernels' "
                          f"{MIN_PV}–{MAX_PV} inputs ({MAX_P} ports) per "
                          f"router")
-    return "chunk" if chunk_tiles(n, p, v, lat_bins, cluster_max) else "pair"
+    return "chunk" if chunk_tiles(n, p, v, lat_bins, cluster_max) else "grid"
 
 
-def _pair_tile(n: int, lanes: int, tile: int, sms: int) -> int:
-    """The pair's tile: one thread a node, so a divisor of ``n`` of at
-    most 1 024.  Auto: among those that fill a warp (or are ``n``), the
-    largest whose ``lanes × n / tile`` blocks still cover every SM, else
-    the smallest, which spreads the cell over the most SMs."""
+def grid_max_tile(pv: int) -> int:
+    """The most nodes a grid-kernel block carries a round: 32 warps of
+    ``32 // pv`` nodes."""
+    return MAX_WARPS * (WARP // pv)
+
+
+def grid_layout(n: int, pv: int, lanes: int, tile: int, *, sms: int,
+                per_sm: int | None = None) -> tuple[int, int]:
+    """``(blocks, rounds)`` of the grid kernel's launch.  A unit is
+    ``tile`` consecutive nodes of one lane; the ``lanes × n / tile``
+    units are dealt out in runs of ``rounds`` consecutive units, one run
+    a block, over at most ``sms × per_sm`` blocks, all resident at once
+    (a cooperative launch).  ``per_sm`` is the card's occupancy for the
+    block (:func:`.kernel.grid_occupancy`); by default the kernel's
+    64-register budget (:func:`.kernel.grid_blocks_per_sm`)."""
+    if per_sm is None:
+        per_sm = grid_blocks_per_sm(tile, pv)
+    units = lanes * (n // tile)
+    rounds_ = -(-units // min(sms * per_sm, units))
+    return -(-units // rounds_), rounds_
+
+
+def _grid_tile(n: int, pv: int, lanes: int, tile: int, sms: int) -> int:
+    """The grid kernel's tile: a divisor of ``n`` of at most
+    :func:`grid_max_tile` nodes.  Auto: the fewest rounds
+    (:func:`grid_layout`), then the largest tile (fewer blocks, so a
+    cheaper grid barrier)."""
+    most = grid_max_tile(pv)
     if tile > 0:
         if n % tile:
             raise ValueError(f"sim_tile_nodes={tile} must be a positive "
                              f"divisor of the node count ({n})")
-        if tile > PAIR_MAX_THREADS:
-            raise ValueError(f"sim_tile_nodes={tile} exceeds the "
-                             f"{PAIR_MAX_THREADS} threads of one CUDA block")
+        if tile > most:
+            raise ValueError(f"sim_tile_nodes={tile} exceeds the {most} "
+                             f"nodes a grid-kernel block carries a round "
+                             f"({MAX_WARPS} warps of {WARP // pv})")
         return tile
-    fit = [d for d in _divisors(n) if d <= PAIR_MAX_THREADS]
-    full = [d for d in fit if d >= WARP or d == n]
-    if not full:
-        return max(fit)
-    spread = [d for d in full if lanes * (n // d) >= sms]
-    return max(spread) if spread else min(full)
+    fit = [d for d in _divisors(n) if d <= most]
+    return min(fit, key=lambda d: (
+        grid_layout(n, pv, lanes, d, sms=sms)[1], -d))
 
 
 def card_tile(n: int, p: int, v: int, lat_bins: int, lanes: int,
@@ -132,7 +152,7 @@ def card_tile(n: int, p: int, v: int, lat_bins: int, lanes: int,
     must divide ``n``, leave at most ``cluster_max`` blocks and fit its
     per-input state in a block's shared memory.  A pinned ``tile > 0``
     that breaks any of these raises ``ValueError``; it is never swapped
-    for another tile or the pair.
+    for another tile or kernel.
 
     Auto (0): the whole network as one block where its warps hold every
     node in one round (a ``__syncthreads`` barrier costs ~0.02 µs, a
@@ -144,11 +164,11 @@ def card_tile(n: int, p: int, v: int, lat_bins: int, lanes: int,
     faster (NVIDIA H100, PERF.md).  At P·V = 10 and 4 lanes: one block
     up to 96 nodes, 16 blocks at 16x16 and at 32x32.
 
-    The pair: see :func:`_pair_tile` (64 nodes a block at 64x64, the
-    whole network at 17x17).
+    The grid kernel: see :func:`_grid_tile` (64 nodes a block at 64x64,
+    17 at 17x17, 96 at 96x96).
     """
-    if card_kernel(n, p, v, lat_bins, cluster_max) == "pair":
-        return _pair_tile(n, lanes, tile, sms)
+    if card_kernel(n, p, v, lat_bins, cluster_max) == "grid":
+        return _grid_tile(n, p * v, lanes, tile, sms)
 
     def why_not(d: int) -> str | None:
         if n % d:
@@ -245,35 +265,46 @@ class FlitStep:
             dt = torch.float32 if name == "rate" else torch.int32
             ptrs[name] = self._checked(f"state[{name!r}]", x, dt,
                                        shapes[name])
+        self.key = torch.zeros((self.lanes, 2), dtype=torch.int32,
+                               device=self.device)
+        ptrs["key"] = self.key
         sizes = dict(
             L=self.lanes, N=meta["N"], P=meta["P"], V=meta["V"],
             NIN=meta["NIN"], C=meta["C"], O=meta["O"], B=cfg.buf_per_vc,
             Q=cfg.src_queue_pkts, PKT=cfg.packet_len,
             p_local=meta["P_LOCAL"], algo=int(cfg.algo),
-            tile_nodes=self.tile_nodes, ntiles=self.ntiles,
+            tile_nodes=self.tile_nodes, ntiles=self.ntiles, num_cycles=0,
             warmup=cfg.warmup, lat_bins=cfg.lat_bins,
             lat_bin_width=cfg.lat_bin_width)
-        if self.kernel == "pair":
-            i32, n, p = torch.int32, meta["N"], meta["P"]
-            ptrs.update(
-                fs_pre=torch.empty_like(st["fifo_size"]),
-                mov=torch.zeros((self.lanes, n, p, MOV_W), dtype=i32,
-                                device=self.device),
-                parts=torch.zeros((self.lanes, self.ntiles, N_PART),
-                                  dtype=i32, device=self.device))
-            self.scratch = ptrs       # keeps the scratch alive
-            sizes.update(cycle=0)
-            assert set(sizes) == set(PAIR_INT_FIELDS)
-            self.args = sim_args(ptrs, sizes, PairArgs)
-            self.launcher = PairLauncher(self.device)
-            return
-        self.key = torch.zeros((self.lanes, 2), dtype=torch.int32,
-                               device=self.device)
-        ptrs["key"] = self.key
-        sizes.update(num_cycles=0)
         assert set(sizes) == set(INT_FIELDS)
         self.args = sim_args(ptrs, sizes)
-        self.launcher = Launcher(self.device, self.args)
+        gargs = None
+        if self.kernel == "grid":
+            gargs = self._grid_args()
+        self.launcher = Launcher(self.device, self.args, self.kernel, gargs)
+
+    def _grid_args(self) -> GridArgs:
+        """The grid kernel's launch size (the card's occupancy for its
+        block) and scratch: the two credit buffers, the push targets and
+        the reorder counts, kept alive on the step."""
+        n, p, v = self.meta["N"], self.meta["P"], self.meta["V"]
+        nin, lanes, tile = self.meta["NIN"], self.lanes, self.tile_nodes
+        sms = torch.cuda.get_device_properties(
+            self.device).multi_processor_count
+        # occupancy at the shared memory of the budget's layout, whose
+        # rounds (and so lane slots) are at least the final layout's
+        _, rounds_ = grid_layout(n, p * v, lanes, tile, sms=sms)
+        per_sm = grid_occupancy(tile, p, v, grid_smem_bytes(
+            rounds_, self.ntiles, lanes, self.cfg.lat_bins))
+        self.grid, self.rounds = grid_layout(n, p * v, lanes, tile, sms=sms,
+                                             per_sm=per_sm)
+        i32 = torch.int32
+        fs = torch.empty((2, lanes, nin), dtype=i32, device=self.device)
+        self.scratch = dict(
+            fs0=fs[0], fs1=fs[1],
+            push_to=torch.empty((lanes, nin), dtype=i32, device=self.device),
+            occ=torch.empty((lanes, n), dtype=i32, device=self.device))
+        return sim_args(self.scratch, dict(grid=self.grid), GridArgs)
 
     def _checked(self, name: str, x: torch.Tensor, dtype,
                  shape: tuple) -> torch.Tensor:
@@ -293,35 +324,22 @@ class FlitStep:
         """Advance every lane by ``num_cycles`` cycles in place, starting
         from the (L, 2) uint32 PRNG ``keys``; returns the advanced keys.
 
-        With the chunk kernel: one ``simstep_chunk`` launch, the keys in
-        and out through an 8·L-byte tensor.  With the pair and on the
-        CPU: the chunk's draws, then cycle by cycle ``simstep_tile`` and
-        ``simstep_finish`` (or their plain parts)."""
+        On the card: one launch of the cell's kernel, the keys in and out
+        through an 8·L-byte tensor.  On the CPU: the chunk's draws, then
+        cycle by cycle the plain parts."""
         keys = np.asarray(keys, np.uint32).reshape(self.lanes, 2)
-        if self.kernel == "chunk":
+        if self.kernel != "plain":
             if num_cycles <= 0:
                 return keys.copy()
             self.key.copy_(torch.from_numpy(keys.view(np.int32)))
             self.args.num_cycles = int(num_cycles)
-            self.launcher.chunk(self.args)
+            self.launcher.launch(self.args)
             return self.key.cpu().numpy().view(np.uint32).copy()
         new_keys, u, ud = draw_chunk(keys, num_cycles, self.meta["N"],
                                      self.device)
-        cycle = self.pair_cycle if self.kernel == "pair" else self._plain_cycle
         for c in range(num_cycles):
-            cycle(u[c], ud[c], c)
+            self._plain_cycle(u[c], ud[c], c)
         return new_keys
-
-    def pair_cycle(self, u: torch.Tensor, ud: torch.Tensor,
-                   cycle: int) -> None:
-        """One cycle of the kernel pair: ``simstep_tile`` snapshots
-        ``fifo_size`` and runs stages 1–6 on ``u``/``ud`` (contiguous
-        (L, N) float32 on the card), then ``simstep_finish``."""
-        self.args.u = u.data_ptr()
-        self.args.ud = ud.data_ptr()
-        self.args.cycle = int(cycle)
-        self.launcher.tile(self.args)
-        self.launcher.finish(self.args)
 
     def _plain_cycle(self, u: torch.Tensor, ud: torch.Tensor,
                      cycle: int) -> None:
@@ -341,12 +359,11 @@ class FlitStep:
                         parts.sum(1, dtype=torch.int32), cycle)
 
     def floor(self, num_cycles: int) -> None:
-        """The chunk kernel's launch shape and per-cycle barriers with an
+        """The card kernel's launch shape and per-cycle barriers with an
         empty body (its latency floor; the state is untouched).  Card
         only: a measurement, not a step."""
-        if self.kernel != "chunk":
-            raise ValueError("the latency floor is a card measurement of "
-                             "the chunk kernel")
+        if self.kernel == "plain":
+            raise ValueError("the latency floor is a card measurement")
         self.args.num_cycles = int(num_cycles)
         self.launcher.floor(self.args)
 

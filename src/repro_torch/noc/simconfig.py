@@ -65,8 +65,9 @@ class SimConfig:
     # the nodes of one CUDA block; with the chunk kernel a lane's blocks
     # form one cluster.  Must divide the node count; on the card it must
     # also fit the layout of the kernel the shape takes (chunk: at most 16
-    # blocks a lane within a block's shared memory; pair: at most 1024
-    # nodes a block).  0 = auto:
+    # blocks a lane within a block's shared memory; grid: at most the 32
+    # warps' worth of nodes a block carries a round, 96 at P·V = 10).
+    # 0 = auto:
     # repro_torch.kernels.simstep.ops.resolve_path picks the tile from
     # the card's limits.  Every tile size gives bit-identical states.
     sim_tile_nodes: int = 0

@@ -120,7 +120,8 @@ def _simstep_cell(topo_fn, algo, seed_points):
     """(tables on the CPU, meta, cfg, a plain mid-flight host state)."""
     topo = {"mesh4x4": lambda: mesh2d(4, 4),
             "edge5x5": lambda: mesh2d_edge_io(5, 5),
-            "mesh16x16": lambda: mesh2d(16, 16)}[topo_fn]()
+            "mesh16x16": lambda: mesh2d(16, 16),
+            "mesh17x17": lambda: mesh2d(17, 17)}[topo_fn]()
     tm = traffic.uniform(topo)
     table = (build_plans_batched(topo, [tm], device="cpu")[0].table
              if algo == Algo.BIDOR else None)
@@ -173,6 +174,21 @@ def test_simstep_chunk_is_deterministic(cuda, topo_fn, tile):
     """Two runs of 300 cycles from the same state give the same bits (a
     race between a cycle's phases or the blocks of a cluster would show
     here as a difference)."""
+    _deterministic(topo_fn, tile, "simstep_chunk", cuda)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tile", [17, 1])
+def test_simstep_grid_is_deterministic(cuda, tile):
+    """The grid kernel at 17x17 (17 and 289 units a lane): two runs of 300
+    cycles from the same state give the same bits (a race between the
+    blocks of the grid would show here)."""
+    _deterministic("mesh17x17", tile, "simstep_grid", cuda)
+
+
+def _deterministic(topo_fn, tile, kernel, cuda):
+    """Two 300-cycle runs of 4 lanes from one plain mid-flight state, one
+    ``kernel`` launch each, must agree on every state key."""
     tables, meta, cfg, host = _simstep_cell(
         topo_fn, Algo.XY, [(1.2, 0), (0.9, 1), (0.6, 2), (0.3, 3)])
     tcard = _on(tables, cuda)
@@ -180,7 +196,9 @@ def test_simstep_chunk_is_deterministic(cuda, topo_fn, tile):
     runs = []
     for _ in range(2):
         card = convert.state_from_numpy(host, cuda)
+        before = kernels.LAUNCHES[kernel]
         sim.run_cycles(tcard, meta, cfg, card, 300)
+        assert kernels.LAUNCHES[kernel] == before + 1
         runs.append(convert.state_to_numpy(card))
     bad = [k for k in runs[0] if not np.array_equal(runs[0][k], runs[1][k])]
     assert not bad, bad
@@ -198,36 +216,39 @@ def _plain_run(tables, meta, cfg, state, cycles, device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("side,algo", [(17, Algo.XY), (17, Algo.BIDOR),
-                                       (64, Algo.XY)])
-def test_simstep_pair_vs_plain(cuda, side, algo):
-    """Meshes no cluster of the chunk kernel holds take the kernel pair
+@pytest.mark.parametrize("side,algo,lanes", [
+    (17, Algo.XY, 2), (17, Algo.BIDOR, 2), (64, Algo.XY, 2),
+    (96, Algo.XY, 4)])
+def test_simstep_grid_vs_plain(cuda, side, algo, lanes):
+    """Meshes no cluster of the chunk kernel holds take the grid kernel
     (17x17: 289 nodes fit neither one block's shared memory nor 16
-    blocks; 64x64).  From a mid-flight state, chunks of 1 and 40 cycles
-    at the auto tile and at another, against the plain twin on the card:
-    every state key bit for bit, the PRNG key included, and one
-    ``simstep_tile`` and one ``simstep_finish`` launch a cycle."""
+    blocks; 64x64; 96x96, whose 4 lanes take each block through 3 node
+    rounds).  From a mid-flight state, chunks of 1 and 40 cycles at the
+    auto tile and at another, against the plain twin on the card: every
+    state key bit for bit, the PRNG key included, and one
+    ``simstep_grid`` launch a chunk."""
     topo = mesh2d(side, side)
     tm = traffic.uniform(topo)
     table = (build_plans_batched(topo, [tm], device=cuda)[0].table
              if algo == Algo.BIDOR else None)
     cfg = SimConfig(algo=algo, cycles=4000, warmup=50)
     tables, meta = sim.build_tables(topo, tm, table, 2, device=cuda)
-    mid = sim.make_states(meta, cfg, [(1.0, 0), (0.4, 1)], device=cuda)
+    points = [(1.0, 0), (0.4, 1), (0.7, 2), (1.2, 3)][:lanes]
+    mid = sim.make_states(meta, cfg, points, device=cuda)
     _plain_run(tables, meta, cfg, mid, 80, cuda)
     host = convert.state_to_numpy(mid)
     for cycles in (1, 40):
         plain = convert.state_from_numpy(host, cuda)
         _plain_run(tables, meta, cfg, plain, cycles, cuda)
         want = convert.state_to_numpy(plain)
-        for tile in (0, 17 if side == 17 else 1024):
+        for tile in (0, {17: 1, 64: 32, 96: 48}[side]):
             card = convert.state_from_numpy(host, cuda)
             before = dict(kernels.LAUNCHES)
             sim.run_cycles(tables, meta, cfg.replace(sim_tile_nodes=tile),
                            card, cycles)
             torch.cuda.synchronize()
             grew = {k: kernels.LAUNCHES[k] - before[k] for k in before}
-            assert grew["simstep_tile"] == grew["simstep_finish"] == cycles
+            assert grew["simstep_grid"] == 1
             assert grew["simstep_chunk"] == 0
             got = convert.state_to_numpy(card)
             assert set(got) == set(want)

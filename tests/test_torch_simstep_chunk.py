@@ -4,9 +4,10 @@ twin, held on the CPU: the per-node draws (``node_uniform``) against
 against the full-row scan over a run from a reference mid-flight state;
 ``FlitStep.run`` against the per-cycle loop; the card's tile layout
 (``card_tile``), the kernel it picks by shape (``card_kernel``: the
-chunk kernel, or the pair where no cluster holds a lane) and its
-refusals; the launch records against the C structs.  The kernel itself is held against the twin on the card by
-``tests/test_torch_gpu.py``."""
+chunk kernel, or the grid kernel where no cluster holds a lane), the
+grid kernel's launch size (``grid_layout``) and the refusals; the
+launch records against the C structs.  The kernels themselves are held
+against the twin on the card by ``tests/test_torch_gpu.py``."""
 
 import os
 import re
@@ -26,9 +27,9 @@ jax = pytest.importorskip("jax")
 from repro_torch import convert, prng  # noqa: E402
 from repro_torch.kernels.simstep import (card_kernel,  # noqa: E402
                                          card_tile, chunk_tiles, draw_chunk,
-                                         make_cycle_fn, make_cycle_parts,
-                                         make_step, node_uniform,
-                                         reorder_occupancy,
+                                         grid_layout, make_cycle_fn,
+                                         make_cycle_parts, make_step,
+                                         node_uniform, reorder_occupancy,
                                          reorder_occupancy_update)
 from repro_torch.kernels.simstep import kernel as skernel  # noqa: E402
 from repro_torch.noc import sim as tsim  # noqa: E402
@@ -154,8 +155,8 @@ def test_card_tile_layouts():
     (1024, 1024, 16, "bytes of shared memory"),
     (256, 256, 16, "bytes of shared memory"),
     (25, 3, 8, "divisor"),
-    (289, 3, 16, "divisor"),                 # 17x17: the pair's rules
-    (4096, 2048, 16, "1024 threads"),        # 64x64: the pair's rules
+    (289, 3, 16, "divisor"),                 # 17x17: the grid kernel's
+    (4096, 128, 16, "96 nodes a grid-kernel block"),   # rules, 64x64
 ])
 def test_card_tile_refuses_a_pinned_tile_it_cannot_lay_out(
         n, tile, cluster_max, match):
@@ -175,32 +176,45 @@ def test_card_tile_refuses_routers_past_the_kernel():
 
 
 @pytest.mark.parametrize("side,kernel", [
-    (4, "chunk"), (5, "chunk"), (16, "chunk"), (17, "pair"), (18, "chunk"),
-    (19, "pair"), (32, "chunk"), (34, "pair"), (48, "chunk"), (64, "pair"),
-    (96, "pair")])
+    (4, "chunk"), (5, "chunk"), (16, "chunk"), (17, "grid"), (18, "chunk"),
+    (19, "grid"), (32, "chunk"), (34, "grid"), (48, "chunk"), (64, "grid"),
+    (96, "grid")])
 def test_card_kernel_by_shape(side, kernel):
     """The chunk kernel where some tile lays a lane out as one cluster of
-    at most 16 blocks within a block's shared memory, else the pair: a
+    at most 16 blocks within a block's shared memory, else the grid
+    kernel: a
     17x17 lane (289 nodes) fits neither one block nor 17 blocks of 17, a
     64x64 one (4 096) needs blocks of 256 nodes."""
     n = side * side
     assert card_kernel(n, 5, 2, 96) == kernel
     assert bool(chunk_tiles(n, 5, 2, 96)) == (kernel == "chunk")
     assert card_kernel(n, 5, 2, 96, cluster_max=8) == (
-        "chunk" if side in (4, 5, 16, 18, 32) else "pair")
+        "chunk" if side in (4, 5, 16, 18, 32) else "grid")
 
 
-def test_pair_tile_layouts():
-    """The pair's tile (one thread a node): the largest divisor of at
-    most 1 024 nodes that fills a warp and still gives every SM a block,
-    else the smallest that fills a warp; a pin that divides N and fits a
-    block is kept."""
-    assert card_tile(4096, 5, 2, 96, 4, sms=132) == 64
-    assert card_tile(4096, 5, 2, 96, 1, sms=132) == 32
-    assert card_tile(289, 5, 2, 96, 4, sms=132) == 289
-    assert card_tile(9216, 5, 2, 96, 4, sms=132) == 256
-    assert card_tile(4096, 5, 2, 96, 4, 1024, sms=132) == 1024
-    assert card_tile(289, 5, 2, 96, 4, 17, sms=132) == 17
+@pytest.mark.parametrize("side,lanes,tile,blocks,rounds", [
+    (17, 1, 17, 17, 1), (17, 4, 17, 68, 1), (17, 64, 17, 544, 2),
+    (64, 1, 64, 64, 1), (64, 4, 64, 128, 2), (64, 64, 16, 656, 25),
+    (96, 1, 96, 96, 1), (96, 4, 96, 128, 3), (96, 64, 96, 131, 47)])
+def test_grid_layout(side, lanes, tile, blocks, rounds):
+    """The grid kernel on 132 SMs at P·V = 10, at its 64-register budget
+    (an SM holds 32 of its warps, so blocks of ``⌈tile / 3⌉`` warps fit
+    ``32 // warps`` an SM): the auto tile takes the fewest rounds, then
+    the largest tile; the ``lanes × n / tile`` units go out in runs of
+    ``rounds``, one a block, and no block is left without a unit.  A pin
+    that divides N and fits a block is kept."""
+    n = side * side
+    assert card_kernel(n, 5, 2, 96) == "grid"
+    assert card_tile(n, 5, 2, 96, lanes, sms=132) == tile
+    assert grid_layout(n, 10, lanes, tile, sms=132) == (blocks, rounds)
+    units = lanes * n // tile
+    assert (blocks - 1) * rounds < units <= blocks * rounds
+    assert blocks <= 132 * skernel.grid_blocks_per_sm(tile, 10)
+    assert skernel.grid_threads(tile, 10) == 32 * -(-tile // 3)
+    assert card_tile(n, 5, 2, 96, lanes, 1, sms=132) == 1
+    # a card whose occupancy beats the budget takes no more rounds
+    more = 2 * skernel.grid_blocks_per_sm(tile, 10)
+    assert grid_layout(n, 10, lanes, tile, sms=132, per_sm=more)[1] <= rounds
 
 
 def _c_fields(source: str, struct: str):
@@ -241,13 +255,20 @@ def test_launch_record_matches_the_c_struct():
     assert 4 * words == skernel.smem_bytes(tile, p, v, bins)
 
 
-def test_pair_record_matches_the_c_struct():
-    """The pair's ctypes record lists ``struct PairArgs``'s fields in its
-    order, pointers first."""
-    ptrs, ints, _ = _c_fields("simstep_pair.cu", "PairArgs")
-    assert ptrs == skernel.PAIR_PTR_FIELDS
-    assert ints == skernel.PAIR_INT_FIELDS
-    assert {f for f, _ in skernel.PairArgs._fields_} == set(ptrs + ints)
+def test_grid_record_matches_the_c_struct():
+    """The grid kernel's ctypes record lists ``struct GridArgs``'s fields
+    in its order, pointers first, and a block's shared memory per lane
+    slot is the source's (keys, sums, four lane words, the histogram)."""
+    ptrs, ints, src = _c_fields("simstep.cu", "GridArgs")
+    assert ptrs == skernel.GRID_PTR_FIELDS
+    assert ints == skernel.GRID_INT_FIELDS
+    assert {f for f, _ in skernel.GridArgs._fields_} == set(ptrs + ints)
+    fixed = re.search(r"G_HIST = N_KEYS \+ N_SUMS \+ (\d+);", src)
+    assert fixed and 10 + 16 + int(fixed.group(1)) == skernel._GRID_SLOT_FIXED
+    assert re.search(r"return G_HIST \+ bins;", src)
+    # runs of 3 units at 17 units a lane span at most 2 of the 4 lanes
+    assert skernel.grid_smem_bytes(3, 17, 4, 96) == 4 * 2 * (30 + 96)
+    assert skernel.grid_smem_bytes(40, 17, 64, 96) == 4 * 4 * (30 + 96)
 
 
 def test_the_cpu_path_never_builds_the_record():
