@@ -50,11 +50,15 @@ Main path of slice 2 (launch counts from 0 again):
               path each shape takes (split-KV, tensor cores, CUDA cores)
               and its split count, µs per launch beside the twin,
               ``scaled_dot_product_attention`` and the bound;
-11. scan    — ``selective_scan`` against its plain twin (y and h_last
-              within 1e-5 of the twin's largest value) at Jamba's prefill
-              (B 4, S 2 048, Di 16 384, Ds 16; h0 zero and given) and
-              decode (S 1) shapes and a ragged one (S 33, Di 100, Ds 4);
-              µs per launch beside the twin and the bound;
+11. scan    — ``selective_scan`` against its plain twin (h_last bit for
+              bit, y within 1e-5 of the twin's largest value) at Jamba's
+              prefill (B 4, S 2 048, Di 16 384, Ds 16; h0 zero and given)
+              and decode (S 1) shapes and two ragged ones (S 33, Di 100,
+              Ds 4; S 37, Di 70, Ds 13); µs per launch beside the twin
+              and the bound's four terms (expf's instructions read from
+              the library's machine code, and the step loop's a state),
+              the decode step after a read and after a write flush of
+              the L2;
 Main path of slice 3 (launch counts from 0 again):
 12. serve   — whisper-base at full width (bf16, random weights from numpy
               seed 0 at the serve golden's scales, so the greedy tokens
@@ -102,6 +106,14 @@ compared by one harness on one card.
 times the flit step alone through ``run_cycles`` (µs per simulated cycle
 of a 1 000-cycle chunk at each mesh above, 4 lanes) and the paper cell's
 wall, N rounds, with no other phase; ``--src`` as above.
+
+    python3 chip_smoke.py --scan-wall [--src DIR] [--rounds N]
+
+times the selective scan alone at Jamba's prefill and decode shapes
+(event-timed; the decode after a read flush of the L2), Jamba's warm
+prefill (host clock) and, from the profiler's device time of one
+``generate`` less one prefill, its decode step and the scan's share of
+it, N rounds, with no other phase; ``--src`` as above.
 """
 
 from __future__ import annotations
@@ -1320,20 +1332,27 @@ JAMBA = "jamba-1.5-large-398b"
 JAMBA_CUT = {"n_layers": 8, "moe_experts": 0, "moe_topk": 0}
 JAMBA_B, JAMBA_PROMPT, JAMBA_NEW = 4, 2048, 24
 JAMBA_MAX_LEN = JAMBA_PROMPT + JAMBA_NEW + 8
-# special-function-unit results per second (expf's ex2): 16 a cycle per
-# SM, 132 SMs at 1.98 GHz
+# H100 SXM rates per second at 1.98 GHz, 132 SMs: special-function-unit
+# results (expf's MUFU.EX2, 16 a clock an SM); float32 instructions
+# outside the tensor cores, one a lane (128 lanes a clock an SM: the scan
+# is built with --fmad=false, so a product and a sum are two); and warp
+# instructions of any kind, one a scheduler a clock (4 an SM)
 SFU_OPS_PER_S = 132 * 16 * 1.98e9
+F32_OPS_PER_S = 132 * 128 * 1.98e9
+WARP_ISSUE_PER_S = 132 * 4 * 1.98e9
 # (label, B, S, Di, Ds, with h0): the prefill and decode shapes of the
-# served model, and a ragged one (Di not a block multiple, S not a chunk
-# multiple, a small state)
+# served model, and ragged ones (Di not a block multiple, S not a chunk
+# multiple, states that do not fill their lanes)
 SCAN_SHAPES = (
     ("prefill", 4, 2048, 16384, 16, False),
     ("prefill, h0", 4, 2048, 16384, 16, True),
     ("decode", 4, 1, 16384, 16, True),
     ("ragged", 2, 33, 100, 4, True),
+    ("ragged, Ds 13", 2, 37, 70, 13, True),
 )
-# kernel and twin round every step alike (--fmad=false); only y's sum
-# over the state runs in another order: |err| <= 1e-5 x max |twin|
+# kernel and twin round every state's update alike (--fmad=false), so
+# h_last is bit for bit; y's sum over the state runs in another order:
+# |err| <= 1e-5 x max |twin|
 SCAN_TOL = 1e-5
 
 
@@ -1354,66 +1373,137 @@ def _scan_case(torch, cuda, shape, seed):
     return delta, a, bm, cm, x, (n(b, di, ds) if with_h0 else None)
 
 
-def _scan_bound(shape):
-    """Least time on this run's inputs: delta, x, A, B, C and h0 read once,
-    y and h_last written once; per (b, t, channel, state) one exp on the
-    special-function units and 6 FLOP (Δ·A, the update's two products
-    and sum, y's product and sum) plus Δ·x per (b, t, channel) on the
-    float32 pipes, which issue beside the SFU: the slower of the two."""
+def _scan_sass():
+    """From the machine code of the scan's library (``cuobjdump -sass``):
+    the instructions of one precise expf by opcode, its probe kernel that
+    computes ``expf`` less the one that copies, without the moves that put
+    its constants in registers (``MOV``, ``HFMA2.MMA``), which a loop
+    makes once; and the instructions a state of the kernel's step loop
+    at Ds 16 (the backward branch around its ``MUFU.EX2``s, one a
+    state)."""
+    import re
+    from collections import Counter
+
+    from repro_torch.kernels import build
+
+    build.build(["selective_scan"])
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(build.library_path(
+        "selective_scan"))], capture_output=True, text=True, check=True,
+        timeout=300).stdout
+    ops, code, name = {}, {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            ops[name], code[name] = Counter(), []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)"
+                     r"([^;]*)", line)
+        if m and name is not None:
+            code[name].append((int(m.group(1), 16), m.group(2), m.group(3)))
+            if m.group(2) not in ("NOP", "MOV", "HFMA2.MMA"):
+                ops[name][m.group(2)] += 1
+    expf = ops["scan_probe_expf"] - ops["scan_probe_copy"]
+    loop = next(c for n, c in code.items()
+                if "selective_scan_stagedILi16E" in n)
+    per_state = None
+    for at, op, rest in loop:
+        back = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
+        if back and int(back.group(1), 16) < at:
+            body = [o for a, o, _ in loop if int(back.group(1), 16) <= a <= at]
+            if "MUFU.EX2" in body:
+                per_state = len(body) / body.count("MUFU.EX2")
+                break
+    return expf, per_state
+
+
+def _scan_bound(shape, expf):
+    """Least time on this run's inputs, the largest of four terms:
+    delta, x, A, B, C and h0 read once, y and h_last written once, over
+    HBM's rate; one exp a state (b, t, channel, n) on the special-function
+    units; float32 instructions, one a lane a clock: 5 a state (Δ·A, the
+    update's two products and their sum, unfused as the twin rounds them;
+    y's term, one fused multiply-add) and expf's own (``expf`` from
+    ``_scan_sass``), and Δ·x once a channel and step; and all of these,
+    expf's integer ones and its MUFU included, as warp instructions at one
+    a scheduler a clock."""
     _, b, s, di, ds, with_h0 = shape
     nbytes = 4 * (3 * b * s * di + di * ds + 2 * b * s * ds
                   + (2 if with_h0 else 1) * b * di * ds)
     exps = b * s * di * ds
-    flops = 6 * exps + b * s * di
-    bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-             "operations": max(exps / SFU_OPS_PER_S,
-                               flops / F32_FLOPS) * 1e3}
-    by = max(bound, key=bound.get)
-    return bound[by], by, exps, flops, nbytes
+    dx = b * s * di
+    f32_per_exp = sum(n for op, n in expf.items()
+                      if op.split(".")[0] in ("FFMA", "FADD", "FMUL",
+                                              "FSETP", "FSEL", "FMNMX"))
+    all_per_exp = sum(expf.values())
+    f32 = (5 + f32_per_exp) * exps + dx
+    warp = ((5 + all_per_exp) * exps + dx) / 32
+    terms = {"sfu": exps / SFU_OPS_PER_S * 1e3,
+             "f32": f32 / F32_OPS_PER_S * 1e3,
+             "issue": warp / WARP_ISSUE_PER_S * 1e3,
+             "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+    top = max(terms, key=terms.get)
+    return terms[top], ("bytes" if top == "bytes" else "operations"), terms
 
 
 def check_scan(torch, np, cuda):
-    """selective_scan against its plain twin at every listed shape, y and
-    h_last; event-timed beside the twin and the bound.  Returns the
-    kernel row (timings at the prefill shape with h0, as the served
-    model calls it)."""
+    """selective_scan against its plain twin at every listed shape, h_last
+    bit for bit and y; event-timed beside the twin and the bound, a decode
+    step after an L2 flush by a read and by a write.  Returns the kernel
+    row: timings at the prefill shape with h0, as the served model calls
+    it, and the decode step's time (read flush) and bound besides."""
     from repro_torch.kernels.mamba_scan import (selective_scan,
                                                 selective_scan_ref)
 
-    worst, row = 0.0, None
+    expf, per_state = _scan_sass()
+    log(f"scan: one precise expf in the built library (cuobjdump -sass): "
+        f"{json.dumps(dict(expf))}; the step loop at Ds 16: {per_state!r} "
+        f"instructions a state")
+    worst, row, decode = 0.0, None, None
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=cuda)
+    rflush = torch.ones(32 << 20, dtype=torch.float32, device=cuda)
     for shape in SCAN_SHAPES:
         label = shape[0]
         delta, a, bm, cm, x, h0 = _scan_case(torch, cuda, shape, len(label))
         y, h = selective_scan(delta, a, bm, cm, x, h0=h0)
         wy, wh = selective_scan_ref(delta, a, bm, cm, x, h0)
         torch.cuda.synchronize()
-        errs = []
-        for name, got, want in (("y", y, wy), ("h_last", h, wh)):
-            err = float((got - want).abs().max())
-            lim = SCAN_TOL * float(want.abs().max())
-            errs.append(f"{name} max_abs_err={err!r} (limit {lim:.3e}, "
-                        f"{int((got != want).sum())} of {want.numel()} "
-                        f"differ)")
-            worst = max(worst, err)
-            if not err <= lim:
-                raise SystemExit(f"selective_scan disagrees with plain at "
-                                 f"{label}: {name} {err!r} > {lim!r}")
+        err = float((y - wy).abs().max())
+        lim = SCAN_TOL * float(wy.abs().max())
+        worst = max(worst, err, float((h - wh).abs().max()))
         log(f"scan: {label} B={shape[1]} S={shape[2]} Di={shape[3]} "
-            f"Ds={shape[4]} h0={'given' if shape[5] else 'zero'}: "
-            + ", ".join(errs) + " ok")
-        if label == "ragged":
+            f"Ds={shape[4]} h0={'given' if shape[5] else 'zero'}: y "
+            f"max_abs_err={err!r} (limit {lim:.3e}, {int((y != wy).sum())} "
+            f"of {wy.numel()} differ), h_last "
+            f"{int((h != wh).sum())} of {wh.numel()} differ")
+        if not err <= lim:
+            raise SystemExit(f"selective_scan disagrees with plain at "
+                             f"{label}: y {err!r} > {lim!r}")
+        if not torch.equal(h, wh):
+            raise SystemExit(f"selective_scan disagrees with plain at "
+                             f"{label}: h_last not bit for bit")
+        if label.startswith("ragged"):
             continue
-        fns = [lambda r: selective_scan(delta, a, bm, cm, x, h0=h0)]
-        if shape[2] == 1:   # a decode step finds h0 cold: flush the L2
-            fns.insert(0, lambda r: flush.zero_())
-        ms = time_launches(torch, fns, 20 if shape[2] > 1 else 200)[-1]
+        bound, by, terms = _scan_bound(shape, expf)
+        run = [lambda r: selective_scan(delta, a, bm, cm, x, h0=h0)]
+        if shape[2] > 1:
+            ms = time_launches(torch, run, 20)[0]
+            extra = ""
+        else:   # a decode step finds h0 cold: flush the L2 first
+            read = [lambda r: rflush.sum()]
+            ms = time_launches(torch, read + run, 100)[-1]
+            wms = time_launches(torch, [lambda r: flush.zero_()] + run,
+                                100)[-1]
+            extra = (f" after a 128 MB read flush (after a 64 MB write "
+                     f"flush {wms * 1e3:.2f}us)")
+            decode = (ms, bound)
         plain_ms = time_wall(torch, lambda: selective_scan_ref(
             delta, a, bm, cm, x, h0), 2 if shape[2] > 1 else 20)
-        bound, by, exps, flops, nbytes = _scan_bound(shape)
-        log(f"scan: {label}: {ms * 1e3:.2f}us per launch, bound "
-            f"{bound * 1e3:.2f}us ({by}: {exps:.3e} exp, {flops:.3e} FLOP, "
-            f"{nbytes} bytes), {bound / ms:.3f} of it; plain {plain_ms:.3f}ms")
+        log(f"scan: {label}: {ms * 1e3:.2f}us per launch{extra}; bound "
+            f"{bound * 1e3:.2f}us ({by}; terms in us: "
+            + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in terms.items())
+            + f"), {bound / ms:.3f} of it; plain {plain_ms:.3f}ms")
         if label == "prefill, h0":
             row = dict(name="selective_scan", route="cuda",
                        source="src/repro_torch/kernels/csrc/"
@@ -1423,6 +1513,7 @@ def check_scan(torch, np, cuda):
                        library_ms=None)
         del delta, x, y, wy
     row["max_abs_err"] = worst
+    row["decode_ms"], row["decode_bound_ms"] = decode
     return row
 
 
@@ -1514,6 +1605,10 @@ def _share(prof, part):
     return sum(ms for k, (_, ms) in prof.items() if part in k)
 
 
+def _count(prof, part):
+    return sum(n for k, (n, _) in prof.items() if part in k)
+
+
 def _ms(d, key) -> str:
     """``d[key]`` in ms, or "not measured" where the profile held no
     device time."""
@@ -1582,8 +1677,12 @@ def run_jamba_checks(torch, np, cuda, main):
         for label, part in (("selective_scan", "selective_scan"),
                             ("flash_attention", "flash_fwd")):
             pre, gen = _share(prof_pre, part), _share(prof_gen, part)
-            log(f"jamba: {label}: prefill {pre:.3f}ms = {pre / dev_pre:.4f} "
-                f"of its device time; decode steps {gen - pre:.3f}ms = "
+            k_pre = _count(prof_pre, part)
+            k_dec = _count(prof_gen, part) - k_pre
+            log(f"jamba: {label}: prefill {k_pre} kernels {pre:.3f}ms = "
+                f"{pre / dev_pre:.4f} of its device time; decode steps "
+                f"{k_dec} kernels {gen - pre:.3f}ms "
+                f"({(gen - pre) / max(k_dec, 1) * 1e3:.2f}us a kernel) = "
                 f"{(gen - pre) / dev_dec:.4f} of theirs")
         log(f"jamba: profiled: prefill device busy {dev_pre:.2f}ms "
             f"({dev_pre / pre_ms:.3f} of its wall); decode steps "
@@ -1735,7 +1834,10 @@ def main() -> int:
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     log(f"total: {time.perf_counter() - t_all:.1f}s")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    # and the scan's decode step (161 of its 168 launches on slice 4)
+    extra = ("decode_ms", "decode_bound_ms")
+    print(json.dumps({"kernels": [
+        {k: r[k] for k in keys + extra if k in r} for r in rows]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1859,6 +1961,79 @@ def cycle_wall(rounds: int) -> int:
     return 0
 
 
+def scan_wall(rounds: int) -> int:
+    """``--scan-wall``: the selective scan alone at the served prefill and
+    decode shapes (event-timed µs per launch; the decode after a 128 MB
+    read of the L2), Jamba's warm prefill and ``generate`` (slice 4's main
+    path, host clock), and from the profiler's device time of one
+    ``generate`` less one prefill its decode step and the scan's µs a
+    launch in it, N rounds, with no other phase."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 2
+    import repro_torch
+    from repro_torch.kernels.mamba_scan import selective_scan
+    from repro_torch.models import hybrid
+    from repro_torch.serve import make_prefill
+
+    cuda = torch.device("cuda")
+    log(f"card: {card_line()}")
+    log(f"scan-wall: the port from {os.path.dirname(repro_torch.__file__)}")
+    rflush = torch.ones(32 << 20, dtype=torch.float32, device=cuda)
+    cases = {}
+    for shape in SCAN_SHAPES:
+        if shape[0] in ("prefill, h0", "decode"):
+            args = _scan_case(torch, cuda, shape, len(shape[0]))
+            cases[shape[0]] = (lambda r, g=args: selective_scan(*g[:5],
+                                                                h0=g[5]))
+    cfg, engine, prompts, _ = _jamba(torch, np, cuda, "bfloat16")
+    _generate(torch, engine, prompts)     # first run: builds, warms
+    prefill = make_prefill(cfg)
+    toks = torch.as_tensor(prompts, device=cuda)
+
+    def prefill_once():
+        cache = hybrid.init_cache(cfg, JAMBA_B, JAMBA_MAX_LEN, device=cuda)
+        prefill(engine.params, toks, cache)
+
+    cols = {k: [] for k in ("prefill_us", "decode_us", "jamba_prefill_ms",
+                            "jamba_generate_ms", "jamba_step_device_ms",
+                            "jamba_step_scan_us")}
+    for i in range(rounds):
+        got = {"prefill_us": time_launches(
+                   torch, [cases["prefill, h0"]], 20)[0] * 1e3,
+               "decode_us": time_launches(
+                   torch, [lambda r: rflush.sum(), cases["decode"]],
+                   100)[-1] * 1e3,
+               "jamba_generate_ms": _generate(torch, engine, prompts)[2]}
+        with torch.inference_mode():
+            got["jamba_prefill_ms"] = time_wall(torch, prefill_once, 1)
+            pre = _profile(torch, prefill_once)
+            gen = _profile(torch, lambda: engine.generate(prompts,
+                                                          JAMBA_NEW))
+        if pre is None or gen is None:   # no device time in the trace
+            got["jamba_step_device_ms"] = got["jamba_step_scan_us"] = \
+                float("nan")
+        else:
+            busy = (sum(ms for _, ms in gen.values())
+                    - sum(ms for _, ms in pre.values()))
+            scan_ms = (_share(gen, "selective_scan")
+                       - _share(pre, "selective_scan"))
+            scans = (_count(gen, "selective_scan")
+                     - _count(pre, "selective_scan"))
+            got["jamba_step_device_ms"] = busy / (JAMBA_NEW - 1)
+            got["jamba_step_scan_us"] = scan_ms / scans * 1e3
+        for k in cols:
+            cols[k].append(got[k])
+        log(f"scan-wall: round {i}: {json.dumps(got)}")
+    med = {k: float(np.median(v)) for k, v in cols.items()}
+    log(f"scan-wall: median of {rounds}: {json.dumps(med)}; least: "
+        f"{json.dumps({k: min(v) for k, v in cols.items()})}")
+    return 0
+
+
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--serve-wall", action="store_true",
@@ -1866,10 +2041,13 @@ if __name__ == "__main__":
     ap.add_argument("--cycle-wall", action="store_true",
                     help="time the flit step's chunks and the paper cell "
                     "alone")
-    ap.add_argument("--src", help="with --serve-wall or --cycle-wall: "
-                    "import the port from this directory")
+    ap.add_argument("--scan-wall", action="store_true",
+                    help="time the selective scan and Jamba's prefill and "
+                    "decode step alone")
+    ap.add_argument("--src", help="with a --*-wall option: import the port "
+                    "from this directory")
     ap.add_argument("--rounds", type=int, default=5,
-                    help="with --serve-wall or --cycle-wall: timed rounds")
+                    help="with a --*-wall option: timed rounds")
     args = ap.parse_args()
     if args.src:
         sys.path.insert(0, os.path.abspath(args.src))
@@ -1877,4 +2055,6 @@ if __name__ == "__main__":
         sys.exit(serve_wall(args.rounds))
     if args.cycle_wall:
         sys.exit(cycle_wall(args.rounds))
+    if args.scan_wall:
+        sys.exit(scan_wall(args.rounds))
     sys.exit(main())

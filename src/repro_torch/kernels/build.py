@@ -59,7 +59,8 @@ def nvcc() -> str:
     return found
 
 
-def _target(name: str) -> Path:
+def library_path(name: str) -> Path:
+    """Where the library ``name`` of the current source and flags lies."""
     src = (CSRC / SOURCES[name]).read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return build_dir() / f"lib{name}-{digest[:16]}.so"
@@ -76,7 +77,7 @@ def build(names=None) -> dict[str, float]:
     procs = {}
     t0 = time.perf_counter()
     for name in names:
-        out = _target(name)
+        out = library_path(name)
         if out.is_file():
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -103,14 +104,14 @@ def library(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
         build([name])
-        lib = ctypes.CDLL(str(_target(name)))
+        lib = ctypes.CDLL(str(library_path(name)))
         _LIBS[name] = lib
     return lib
 
 
 def ptxas_report(name: str) -> str:
     """The ptxas lines (registers, shared memory, spills) of a build."""
-    log = _target(name).with_suffix(".log")
+    log = library_path(name).with_suffix(".log")
     if not log.is_file():
         return ""
     return "\n".join(line for line in log.read_text().splitlines()

@@ -528,12 +528,20 @@ def test_serve_golden_on_the_card(cuda):
 # --------------------------------------------------------------------- #
 # name: (B, S, Di, Ds, h0)
 SCAN_CASES = {
-    "prefill_like": (2, 300, 512, 16, False),       # several 64-step chunks
+    "prefill_like": (2, 300, 512, 16, False),       # several staged chunks
     "prefill_h0": (2, 300, 512, 16, True),
     "decode": (4, 1, 1024, 16, True),
+    "decode_b1_from_zero": (1, 1, 300, 16, False),
     "ragged_ds4": (2, 33, 100, 4, True),            # Di not a block multiple
     "ds8": (1, 96, 256, 8, False),
     "ds1_one_channel": (3, 5, 1, 1, True),
+    # states that do not fill their float4s (spare states in the chunked
+    # kernel's last one); Di 1; S not a multiple of the 16-step chunk
+    "ds5": (2, 37, 96, 5, True),
+    "ds7": (1, 50, 130, 7, False),
+    "ds13": (2, 40, 70, 13, True),
+    "di1_ds16": (2, 21, 1, 16, True),
+    "s_not_a_chunk_multiple": (2, 45, 256, 16, True),
 }
 
 
@@ -551,24 +559,50 @@ def _scan_inputs(b, s, di, ds, h0, seed=0):
 @pytest.mark.gpu
 @pytest.mark.parametrize("case", sorted(SCAN_CASES))
 def test_selective_scan_kernel_vs_plain(cuda, case):
-    """y and h_last within 1e-5 of the twin's largest value: every step
-    rounds alike (--fmad=false), y's sum over the state runs in another
-    order."""
+    """Against the twin on the card: h_last bit for bit (every state
+    rounds alike, --fmad=false), y within 1e-5 of the twin's largest value
+    (its sum over the state runs in another order).  Against the twin on
+    the CPU, which ``test_torch_scan.py`` holds to the JAX reference: y
+    and h_last within 1e-5 of its largest value."""
     from repro_torch.kernels.mamba_scan import (selective_scan,
                                                 selective_scan_ref)
 
-    args = _scan_inputs(*SCAN_CASES[case])
+    host = _scan_inputs(*SCAN_CASES[case])
+    args = [None if t is None else t.to(cuda) for t in host]
     want_y, want_h = selective_scan_ref(*args[:5], args[5])
+    cpu_y, cpu_h = selective_scan_ref(*host[:5], host[5])
     before = kernels.LAUNCHES["selective_scan"]
-    y, h = selective_scan(*[None if t is None else t.to(cuda)
-                            for t in args[:5]],
-                          h0=None if args[5] is None else args[5].to(cuda))
+    y, h = selective_scan(*args[:5], h0=args[5])
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["selective_scan"] == before + 1
     for got, want in ((y, want_y), (h, want_h)):
         assert got.shape == want.shape and got.dtype == torch.float32
+    assert torch.equal(h, want_h)
+    lim = 1e-5 * float(want_y.abs().max())
+    assert float((y - want_y).abs().max()) <= lim
+    for got, want in ((y, cpu_y), (h, cpu_h)):
         lim = 1e-5 * float(want.abs().max())
         assert float((got.cpu() - want).abs().max()) <= lim
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ds", [16, 13, 4])
+def test_selective_scan_kernel_takes_unaligned_views(cuda, ds):
+    """Contiguous views that start 4 bytes into their storage take the
+    4-byte copies and loads, with the same bits as aligned copies."""
+    from repro_torch.kernels.mamba_scan import selective_scan
+
+    args = [t.to(cuda) for t in _scan_inputs(2, 19, 36, ds, True, seed=4)]
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, device=cuda)
+        flat[1:] = t.reshape(-1)
+        return flat[1:].view(t.shape)
+
+    want = selective_scan(*args[:5], h0=args[5])
+    got = selective_scan(*[shifted(t) for t in args[:5]],
+                         h0=shifted(args[5]))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 @pytest.mark.gpu
