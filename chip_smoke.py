@@ -12,12 +12,15 @@ before printing any result.
 2. build    — every CUDA source under ``src/repro_torch/kernels/csrc``
               (one nvcc each, in parallel) into ``build/repro_torch/``;
 3. kernels  — each kernel against its plain version on the card:
-              ``possibility_v`` at N = 1024 (integer T bit for bit, real
-              T to rtol 1e-12); ``possibility_weights`` on torus(16,16)
-              (uniform and random T, offsets 1 and 2) and a 256-channel
-              slice of mesh2d(32,32), within one float32 ulp, and over
-              all of mesh2d(32,32) against ``possibility_v``'s
-              ``V.sum(1)`` and ``V[c, n_c]``; the ``simstep_chunk``
+              ``possibility_v`` at every size the main paths launch it
+              (N = 16, 25, 256, 1024; integer T bit for bit, real T to
+              rtol 1e-12); ``possibility_weights`` on the Fig. 1 5x5
+              plans and torus(16,16) (offsets 1 and 2) and mesh2d(32,32),
+              within one float32 ulp of the twin and of
+              ``possibility_v``'s ``V.sum(1)`` and ``V[c, n_c]``; both
+              timed beside a bound of 3 warp instructions a triple, their
+              8 x 4 loops' count printed beside it (``cuobjdump -sass``);
+              the ``simstep_chunk``
               kernel on the 5x5 edge-I/O, 16x16 and 32x32 meshes and the
               ``simstep_grid`` kernel on 17x17, 64x64 and 96x96 (no
               cluster holds their lanes), XY and BiDOR (XY alone at 64x64
@@ -86,7 +89,8 @@ Main path of slice 4 (launch counts from 0 again):
               floor, its byte bound, the cycle wall through
               ``run_cycles``; a 100-cycle chunk beside the plain twin at
               32x32 and 64x64;
-              launches of each kernel on each main path,
+              launches of each kernel on each main path (the
+              possibility pair's also by (N, C)),
               event-timed time per launch, the plain version's time and
               the bound, as one JSON line; then the card line and the
               result.
@@ -114,6 +118,13 @@ times the selective scan alone at Jamba's prefill and decode shapes
 prefill (host clock) and, from the profiler's device time of one
 ``generate`` less one prefill, its decode step and the scan's share of
 it, N rounds, with no other phase; ``--src`` as above.
+
+    python3 chip_smoke.py --poss-wall [--src DIR] [--rounds N]
+
+times the possibility pair alone at every size the main paths launch it
+(``possibility_v`` at N = 16, 25, 256, 1 024; ``possibility_weights`` on
+the Fig. 1 5x5 channel sets, torus(16,16) and mesh2d(32,32)), event-timed,
+N rounds, with no other phase; ``--src`` as above.
 """
 
 from __future__ import annotations
@@ -130,14 +141,8 @@ from types import SimpleNamespace
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
 
-# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth; 67e12 float32
-# FLOP/s outside the tensor cores is 132 SMs x 128 lanes x 2 (an FMA counts
-# twice) x 1.98 GHz, and the Hopper SM has 64 int32 lanes, so int32
-# instructions (adds, compares) issue at a quarter of that figure; 34e12
-# fp64 FLOP/s counts an FMA twice, so fp64 adds issue at half of it.
+# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth
 HBM_BYTES_PER_S = 3.35e12
-INT32_OPS_PER_S = 67e12 / 4
-F64_ADDS_PER_S = 34e12 / 2
 # dense tensor-core bf16 FLOP/s, and float32 FLOP/s outside the tensor
 # cores (an fp32 attention has no tensor-core path at fp32 precision)
 BF16_FLOPS = 989e12
@@ -220,58 +225,172 @@ def time_wall(torch, fn, reps: int) -> float:
 # --------------------------------------------------------------------- #
 # phases
 # --------------------------------------------------------------------- #
-def check_possibility(torch, np, cuda):
-    """possibility_v at N = C = 1024 (the planner's offset-0 pass)."""
-    from repro_torch.core import mesh2d
+# the possibility pair: per SM and clock on an H100 (132 SMs, 1.98 GHz),
+# 64 lanes each on the ALU pipe (integer compares), on the FMA pipe's
+# integer side (IMAD) and on the fp64 pipe (34e12 fp64 FLOP/s counts an
+# FMA twice)
+PIPE_OPS_PER_S = 132 * 64 * 1.98e9
+POSS_SOURCE = "src/repro_torch/kernels/csrc/possibility.cu"
+# the arithmetic a triple needs, by the pipe it issues on, whatever ptxas
+# emits for it: one int32 add (IMAD.IADD), one compare (ISETP) and one
+# predicated fp64 add, which issues whether or not its predicate holds
+POSS_TRIPLE = {"fma": 1, "alu": 1, "fp64": 1}
+# the kinds of a triple's instructions ``_poss_sass`` counts in the
+# built loops; a select (ptxas's form of the predicated add) is the
+# compiler's cost and no part of the bound
+POSS_KINDS = ("add", "compare", "select", "sum")
+
+
+def _poss_op(op: str):
+    if op == "IMAD.IADD" or op.startswith("IADD3"):
+        return "add"
+    if op.startswith("ISETP"):
+        return "compare"
+    if op in ("FSEL", "SEL"):
+        return "select"
+    if op in ("DFMA", "DADD"):
+        return "sum"
+    return None
+
+
+def _sass(lib: str) -> dict:
+    """The machine code of a built library (``cuobjdump -sass``): for each
+    function, its (address, opcode, operands) in order."""
+    import re
+
+    from repro_torch.kernels import build
+
+    build.build([lib])
+    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(build.library_path(lib))],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    code, name = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            code[name] = []
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)"
+                     r"([^;]*)", line)
+        if m and name is not None:
+            code[name].append((int(m.group(1), 16), m.group(2), m.group(3)))
+    return code
+
+
+def _poss_sass():
+    """From the machine code of the possibility library (``cuobjdump
+    -sass``), for the 8 x 4 tile's V and W kernels (N = 1024): of the
+    innermost loops, the one with the most fp64 sums (the rows of a full
+    stage), its instructions a triple in all, and a triple's add,
+    compare, select and sum (each opcode's count over the sums', whole:
+    the loop's own compare is not a triple's).  A diagnostic printed
+    beside the bound, which counts :data:`POSS_TRIPLE` instead."""
+    import re
+
+    code = _sass("possibility")
+    out = {}
+    for kind, tag in (("v", "possibility_kernelILi8ELi4EdLb0E"),
+                      ("w", "possibility_kernelILi8ELi4EfLb1E")):
+        fn = next(c for n, c in code.items() if tag in n)
+        loops = []                        # (first, last) address
+        for at, op, rest in fn:
+            back = re.search(r"0x([0-9a-f]+)", rest) if op == "BRA" else None
+            if back and int(back.group(1), 16) < at:
+                loops.append((int(back.group(1), 16), at))
+        best = []
+        for lo, hi in loops:
+            if any(lo <= a and b < hi for a, b in loops if (a, b) != (lo, hi)):
+                continue                  # holds another loop
+            body = [o for a, o, _ in fn if lo <= a <= hi]
+            if (sum(_poss_op(o) == "sum" for o in body)
+                    > sum(_poss_op(o) == "sum" for o in best)):
+                best = body
+        sums = sum(_poss_op(o) == "sum" for o in best)
+        per = {k: sum(_poss_op(o) == k for o in best) // sums
+               for k in POSS_KINDS}
+        out[kind] = dict(per, loop=len(best) / sums)
+    return out
+
+
+def _poss_bound(triples: int, nbytes: int):
+    """Least time on this run's inputs, the largest of five terms: a
+    triple's arithmetic (:data:`POSS_TRIPLE`, 3 warp instructions) at
+    one warp instruction a scheduler a clock; each pipe's share at its 64
+    lanes an SM a clock; the inputs read and the outputs written once
+    over HBM's rate."""
+    need = sum(POSS_TRIPLE.values())
+    terms = {"issue": need * triples / 32 / WARP_ISSUE_PER_S * 1e3}
+    for pipe, ops in POSS_TRIPLE.items():
+        terms[pipe] = ops * triples / PIPE_OPS_PER_S * 1e3
+    terms["bytes"] = nbytes / HBM_BYTES_PER_S * 1e3
+    top = max(terms, key=terms.get)
+    return terms[top], ("bytes" if top == "bytes" else "operations"), terms
+
+
+def _terms(terms) -> str:
+    return ", ".join(f"{k} {v * 1e3:.2f}" for k, v in terms.items())
+
+
+def check_possibility(torch, np, cuda, sass):
+    """possibility_v as the planner calls it (du = dn = dist, offset 0)
+    at every size the main paths launch it, each with the thread tile its
+    layout picks (4x4, both 5x5 meshes, torus16x16: 2 x 2; mesh32x32:
+    8 x 4): integer T bit for bit, real T to rtol 1e-12; µs per launch at
+    N = C = 1024 beside the plain twin and the bound."""
+    from repro_torch import core
     from repro_torch.kernels.possibility import (possibility_v,
                                                  possibility_v_plain)
+    from repro_torch.kernels.possibility import kernel as K
 
-    topo = mesh2d(32, 32)
-    n = topo.num_nodes
-    dist = torch.as_tensor(topo.distances, device=cuda)
     rng = np.random.default_rng(0)
-    out = {}
-    for kind in ("integer", "real"):
-        t = (rng.integers(0, 8, (n, n)).astype(np.float64)
-             if kind == "integer" else rng.random((n, n)))
-        t = torch.as_tensor(t, device=cuda)
-        want = possibility_v_plain(dist, dist, t, dist, offset=0)
-        got = possibility_v(dist, dist, t, dist, offset=0)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        if kind == "integer":
-            ok = torch.equal(got, want)
-        else:
-            ok = bool(torch.allclose(got, want, rtol=1e-12, atol=0.0))
-        log(f"kernels: possibility_v N={n} {kind} T: max_abs_err={err!r} "
-            f"{'bitwise' if kind == 'integer' else 'rtol 1e-12'} "
-            f"{'ok' if ok else 'MISMATCH'}")
-        if not ok:
-            raise SystemExit(f"possibility_v disagrees with plain ({kind} T)")
-        out[kind] = err
+    worst = 0.0
+    for topo in (core.mesh2d(4, 4), core.mesh2d(5, 5),
+                 core.mesh2d_edge_io(5, 5), core.torus(16, 16),
+                 core.mesh2d(32, 32)):
+        n = topo.num_nodes
+        lay = K.possibility_layout(
+            n, n, False, torch.cuda.get_device_properties(
+                cuda).multi_processor_count)
+        tile = "x".join(map(str, K.THREAD_TILES[lay.cfg]))
+        dist = torch.as_tensor(topo.distances, device=cuda)
+        for kind in ("integer", "real"):
+            t = (rng.integers(0, 8, (n, n)).astype(np.float64)
+                 if kind == "integer" else rng.random((n, n)))
+            t = torch.as_tensor(t, device=cuda)
+            want = possibility_v_plain(dist, dist, t, dist, offset=0)
+            got = possibility_v(dist, dist, t, dist, offset=0)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            if kind == "integer":
+                ok = torch.equal(got, want)
+            else:
+                ok = bool(torch.allclose(got, want, rtol=1e-12, atol=0.0))
+                worst = max(worst, err)
+            log(f"kernels: possibility_v {topo.name} N={n} tile {tile} "
+                f"grid {lay.grid} {kind} T: max_abs_err={err!r} "
+                f"{'bitwise' if kind == 'integer' else 'rtol 1e-12'} "
+                f"{'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                raise SystemExit(f"possibility_v disagrees with plain on "
+                                 f"{topo.name} ({kind} T)")
     ms = time_launches(
         torch, [lambda r: possibility_v(dist, dist, t, dist, offset=0)],
         100)[0]
     plain_ms = time_wall(
         torch, lambda: possibility_v_plain(dist, dist, t, dist, offset=0), 3)
     nbytes = n * n * (4 + 4 + 4 + 8 + 8)    # du, dn, dist, T in; V out
-    # per (s, c, d) an int32 add and compare; an fp64 add only where the
-    # predicate holds (c on a minimal s -> d path), counted on this data.
-    # The two pipes issue side by side, so the slower one bounds.
-    hits = sum(int(((dist[:, c:c + 16, None] + dist[None, c:c + 16, :])
-                    == dist[:, None, :]).sum()) for c in range(0, n, 16))
-    op_ms = max(2 * n ** 3 / INT32_OPS_PER_S, hits / F64_ADDS_PER_S) * 1e3
-    bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3, "operations": op_ms}
-    bound_by = max(bound, key=bound.get)
-    log(f"kernels: possibility_v bound: {2 * n ** 3} int32 ops, {hits} "
-        f"fp64 adds, {nbytes} bytes -> {bound[bound_by] * 1e3:.2f}us "
-        f"({bound_by})")
-    return dict(name="possibility_v", route="cuda",
-                source="src/repro_torch/kernels/csrc/possibility_v.cu",
+    bound, by, terms = _poss_bound(n ** 3, nbytes)
+    log(f"kernels: possibility_v N={n}: {ms * 1e3:.2f}us per launch; bound "
+        f"{bound * 1e3:.2f}us ({by}; terms in us: {_terms(terms)}), "
+        f"{bound / ms:.3f} of it; the loop issues {sass['v']['loop']:.3f} "
+        f"instructions a triple against the bound's "
+        f"{sum(POSS_TRIPLE.values())}; plain {plain_ms:.3f}ms")
+    return dict(name="possibility_v", route="cuda", source=POSS_SOURCE,
                 replaces="src/repro/kernels/possibility/kernel.py:112",
-                max_abs_err=out["real"], ms=ms, plain_ms=plain_ms,
-                bound_ms=bound[bound_by], bound_by=bound_by,
-                library_ms=None)
+                max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                bound_ms=bound, bound_by=by, library_ms=None)
 
 
 def _ulps(np, got, want) -> int:
@@ -282,11 +401,13 @@ def _ulps(np, got, want) -> int:
                       initial=0))
 
 
-def check_possibility_weights(torch, np, cuda):
-    """possibility_weights against its plain twin (on the Fig. 1 5x5
-    plans, whose 25 nodes fill no tile, and on torus(16,16)) and against
-    possibility_v; event-timed at torus(16,16) and mesh2d(32,32), where
-    the nrank phase runs it.  Returns (kernel row, {label: ms})."""
+def check_possibility_weights(torch, np, cuda, sass):
+    """possibility_weights against its plain twin and against
+    possibility_v (W = V.sum(1), W_drn = V[c, n_c], since dn[c, n_c] = 0)
+    within one float32 ulp, on the Fig. 1 5x5 plans (25 nodes fill no
+    tile), torus(16,16) and mesh2d(32,32), offsets 1 and 2 (mesh2d(32,32):
+    1); event-timed on each topology the nrank phase plans.  Returns
+    (kernel row, {label: ms})."""
     from repro_torch import core
     from repro_torch.core import mesh2d, torus
     from repro_torch.kernels.possibility import (
@@ -295,88 +416,65 @@ def check_possibility_weights(torch, np, cuda):
 
     rng = np.random.default_rng(1)
     worst_err, worst_ulp = 0.0, 0
-    cases = [(f"{name} (5x5)", getattr(core, topo_fn)(5, 5), pattern)
+    cases = [(f"{name} (5x5)", getattr(core, topo_fn)(5, 5), pattern, (1, 2))
              for name, topo_fn, pattern in FIG1]
-    t16 = torus(16, 16)
-    cases += [("torus16x16 uniform", t16, "uniform"),
-              ("torus16x16 random", t16, "random")]
-    for label, topo, kind in cases:
-        n = topo.num_nodes
+    t16, m32 = torus(16, 16), mesh2d(32, 32)
+    cases += [("torus16x16 uniform", t16, "uniform", (1, 2)),
+              ("torus16x16 random", t16, "random", (1, 2)),
+              ("mesh32x32 random", m32, "random", (1,))]
+    for label, topo, kind, offsets in cases:
+        n, c = topo.num_nodes, topo.num_channels
         t = (rng.random((n, n)) if kind == "random"
              else core.traffic.PATTERNS[kind](topo))
-        for offset in (1, 2):
-            args = prepare_weights(topo.distances, t, topo.channels, cuda)
+        args = prepare_weights(topo.distances, t, topo.channels, cuda)
+        du, dn, _, _, t32, dist = args
+        ns = torch.as_tensor(topo.channels[:, 1], device=cuda)
+        for offset in offsets:
             got = possibility_weights_op(*args, offset=offset)
             want = possibility_weights_plain(*args, offset=offset)
+            v = possibility_v(du, dn, t32.double(), dist, offset=offset)
+            via_v = (v.sum(1).float(),
+                     v[torch.arange(c, device=cuda), ns].float())
             torch.cuda.synchronize()
             ulp = max(_ulps(np, g.cpu().numpy(), w.cpu().numpy())
                       for g, w in zip(got, want))
+            ulp_v = max(_ulps(np, g.cpu().numpy(), w.cpu().numpy())
+                        for g, w in zip(got, via_v))
             err = max(float((g - w).abs().max()) for g, w in zip(got, want))
             worst_err, worst_ulp = max(worst_err, err), max(worst_ulp, ulp)
-            log(f"kernels: possibility_weights {label} T "
-                f"offset={offset}: max_abs_err={err!r} ulps={ulp} "
-                f"{'ok' if ulp <= 1 else 'MISMATCH'}")
-            if ulp > 1:
-                raise SystemExit(f"possibility_weights disagrees with plain "
-                                 f"on {label}, offset {offset}")
-    m32 = mesh2d(32, 32)
-    n, c = m32.num_nodes, m32.num_channels
-    t = rng.random((n, n))
-    args = prepare_weights(m32.distances, t, m32.channels, cuda)
-    got = possibility_weights_op(*args)
-    # a 256-channel slice of the plain pass (columns of du/dsn/tn, rows
-    # of dn): the kernel's channels are independent of each other
-    lo, hi = 1024, 1280
-    du, dn, dsn, tn, t32, dist = args
-    want = possibility_weights_plain(
-        du[:, lo:hi].contiguous(), dn[lo:hi].contiguous(),
-        dsn[:, lo:hi].contiguous(), tn[:, lo:hi].contiguous(), t32, dist)
-    torch.cuda.synchronize()
-    ulp = max(_ulps(np, g[lo:hi].cpu().numpy(), w.cpu().numpy())
-              for g, w in zip(got, want))
-    err = max(float((g[lo:hi] - w).abs().max()) for g, w in zip(got, want))
-    worst_err, worst_ulp = max(worst_err, err), max(worst_ulp, ulp)
-    log(f"kernels: possibility_weights mesh32x32 channels {lo}:{hi} vs "
-        f"plain: max_abs_err={err!r} ulps={ulp} "
-        f"{'ok' if ulp <= 1 else 'MISMATCH'}")
-    if ulp > 1:
-        raise SystemExit("possibility_weights disagrees with plain (32x32)")
-    # the other kernel: W = V.sum(1), W_drn = V[c, n_c] (dn[c, n_c] = 0)
-    v = possibility_v(du, dn, t32.double(), dist, offset=1)
-    ns = torch.as_tensor(m32.channels[:, 1], device=cuda)
-    via_v = (v.sum(1).float(), v[torch.arange(c, device=cuda), ns].float())
-    torch.cuda.synchronize()
-    ulp_v = max(_ulps(np, g.cpu().numpy(), w.cpu().numpy())
-                for g, w in zip(got, via_v))
-    log(f"kernels: possibility_weights mesh32x32 vs possibility_v "
-        f"V.sum(1), V[c,n_c]: ulps={ulp_v} "
-        f"{'ok' if ulp_v <= 1 else 'MISMATCH'}")
-    if ulp_v > 1:
-        raise SystemExit("possibility_weights disagrees with possibility_v")
-
+            ok = ulp <= 1 and ulp_v <= 1
+            log(f"kernels: possibility_weights {label} T offset={offset} "
+                f"(N={n}, C={c}): max_abs_err={err!r} ulps={ulp}, against "
+                f"V.sum(1) and V[c,n_c] ulps={ulp_v} "
+                f"{'ok' if ok else 'MISMATCH'}")
+            if not ok:
+                raise SystemExit(f"possibility_weights disagrees on {label}, "
+                                 f"offset {offset}")
     kernel_ms = {}
-    for label, topo in (("torus16x16", t16), ("mesh32x32", m32)):
+    for label, topo in (("5x5 mesh", mesh2d(5, 5)),
+                        ("5x5 edge-I/O", core.mesh2d_edge_io(5, 5)),
+                        ("torus16x16", t16), ("mesh32x32", m32)):
         a = prepare_weights(topo.distances, rng.random((topo.num_nodes,) * 2),
                             topo.channels, cuda)
         kernel_ms[label] = time_launches(
-            torch, [lambda r: possibility_weights_op(*a)], 20)[0]
+            torch, [lambda r: possibility_weights_op(*a)],
+            20 if topo.num_nodes > 256 else 200)[0]
+    n, c = m32.num_nodes, m32.num_channels
     plain_ms = time_wall(torch, lambda: possibility_weights_plain(*args), 1)
-    ops = 2 * c * n * n
     nbytes = 4 * (4 * n * c + 2 * n * n + 2 * c)
-    bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-             "operations": ops / INT32_OPS_PER_S * 1e3}
-    bound_by = max(bound, key=bound.get)
-    log(f"kernels: possibility_weights mesh32x32 (N={n}, C={c}) "
-        f"{kernel_ms['mesh32x32'] * 1e3:.2f}us per launch, torus16x16 "
-        f"{kernel_ms['torus16x16'] * 1e3:.2f}us; bound {ops} int32 ops, "
-        f"{nbytes} bytes -> {bound[bound_by] * 1e3:.2f}us ({bound_by}); "
-        f"plain {plain_ms:.3f}ms")
-    row = dict(name="possibility_weights", route="cuda",
-               source="src/repro_torch/kernels/csrc/possibility_weights.cu",
+    bound, by, terms = _poss_bound(c * n * n, nbytes)
+    log("kernels: possibility_weights us per launch: "
+        + ", ".join(f"{k} {v * 1e3:.2f}" for k, v in kernel_ms.items())
+        + f"; mesh32x32 (N={n}, C={c}) bound {bound * 1e3:.2f}us ({by}; "
+        f"terms in us: {_terms(terms)}), {bound / kernel_ms['mesh32x32']:.3f}"
+        f" of it; the loop issues {sass['w']['loop']:.3f} instructions a "
+        f"triple against the bound's {sum(POSS_TRIPLE.values())}; plain "
+        f"{plain_ms:.3f}ms")
+    row = dict(name="possibility_weights", route="cuda", source=POSS_SOURCE,
                replaces="src/repro/kernels/possibility/kernel.py:61",
                max_abs_err=worst_err, ms=kernel_ms["mesh32x32"],
-               plain_ms=plain_ms, bound_ms=bound[bound_by],
-               bound_by=bound_by, library_ms=None)
+               plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+               library_ms=None)
     return row, kernel_ms
 
 
@@ -1384,26 +1482,10 @@ def _scan_sass():
     import re
     from collections import Counter
 
-    from repro_torch.kernels import build
-
-    build.build(["selective_scan"])
-    tool = os.path.join(os.path.dirname(build.nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", str(build.library_path(
-        "selective_scan"))], capture_output=True, text=True, check=True,
-        timeout=300).stdout
-    ops, code, name = {}, {}, None
-    for line in sass.splitlines():
-        m = re.match(r"\s*Function : (\S+)", line)
-        if m:
-            name = m.group(1)
-            ops[name], code[name] = Counter(), []
-            continue
-        m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)"
-                     r"([^;]*)", line)
-        if m and name is not None:
-            code[name].append((int(m.group(1), 16), m.group(2), m.group(3)))
-            if m.group(2) not in ("NOP", "MOV", "HFMA2.MMA"):
-                ops[name][m.group(2)] += 1
+    code = _sass("selective_scan")
+    ops = {name: Counter(op for _, op, _ in fn
+                         if op not in ("NOP", "MOV", "HFMA2.MMA"))
+           for name, fn in code.items()}
     expf = ops["scan_probe_expf"] - ops["scan_probe_copy"]
     loop = next(c for n, c in code.items()
                 if "selective_scan_stagedILi16E" in n)
@@ -1755,11 +1837,15 @@ def main() -> int:
         f"into {build.build_dir()}")
     for name in build.SOURCES:
         for line in build.ptxas_report(name).splitlines():
-            if "registers" in line or "spill" in line:
+            spills = "spill" in line and " 0 bytes spill stores" not in line
+            if "registers" in line or spills:
                 log(f"build: {name}: {line.strip()}")
 
-    poss = check_possibility(torch, np, cuda)
-    weights, weights_ms = check_possibility_weights(torch, np, cuda)
+    sass = _poss_sass()
+    log(f"kernels: possibility's 8 x 4 loops (cuobjdump -sass), a triple's "
+        f"instructions by kind and in all: {json.dumps(sass)}")
+    poss = check_possibility(torch, np, cuda, sass)
+    weights, weights_ms = check_possibility_weights(torch, np, cuda, sass)
     simstep_err = check_simstep(torch, np, cuda)
     flash = check_flash(torch, np, cuda)
     scan = check_scan(torch, np, cuda)
@@ -1790,12 +1876,21 @@ def main() -> int:
     # path, the path counts each kernel
     flash_paths = ("split", "combine", "tc")
     launches = {k: 0 for k in kernels.LAUNCHES}
+    sizes = {"possibility_v": {}, "possibility_weights": {}}
     for label, (needed, drive) in paths.items():
         kernels.reset_launches()
         flash_kernel.reset_path_launches()
         drive()
         counts = dict(kernels.LAUNCHES)
         log(f"main path {label} launches: {json.dumps(counts)}")
+        by_size = {}
+        for (name, n, c), k in sorted(kernels.LAUNCH_SIZES.items()):
+            by_size[f"{name} N={n} C={c}"] = k
+            at = sizes[name].setdefault(f"N={n} C={c}", [])
+            at.append(f"{k} ({label.split(' (')[0]})")
+        if by_size:
+            log(f"main path {label} possibility launches by size: "
+                f"{json.dumps(by_size)}")
         missing = [k for k in needed if counts[k] <= 0]
         if "flash_attention" in needed:
             per_path = dict(flash_kernel.PATH_LAUNCHES)
@@ -1830,12 +1925,16 @@ def main() -> int:
     rows = [poss, weights, *simstep_rows, flash, scan]
     for row in rows:
         row["launches"] = launches[row["name"]]
+        if row["name"] in sizes:
+            row["launches_by_size"] = {k: " + ".join(v) for k, v in
+                                       sizes[row["name"]].items()}
     keys = ("name", "route", "source", "replaces", "launches",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     log(f"total: {time.perf_counter() - t_all:.1f}s")
-    # and the scan's decode step (161 of its 168 launches on slice 4)
-    extra = ("decode_ms", "decode_bound_ms")
+    # and the possibility pair's launches by size, the scan's decode step
+    # (161 of its 168 launches on slice 4)
+    extra = ("launches_by_size", "decode_ms", "decode_bound_ms")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in rows]}))
     print(card_line())
@@ -2034,6 +2133,62 @@ def scan_wall(rounds: int) -> int:
     return 0
 
 
+def poss_wall(rounds: int) -> int:
+    """``--poss-wall``: the possibility pair alone, event-timed µs per
+    launch through the public ops at every size the main paths launch
+    them: ``possibility_v`` as the planner calls it (du = dn = dist,
+    offset 0) at N = 16, 25, 256 and 1 024, ``possibility_weights_op`` on
+    the channel sets of the Fig. 1 5x5 meshes, torus(16,16) and
+    mesh2d(32,32) (offset 1), N rounds, with no other phase."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 2
+    import repro_torch
+    from repro_torch.core import mesh2d, mesh2d_edge_io, torus
+    from repro_torch.kernels.possibility import (possibility_v,
+                                                 possibility_weights_op,
+                                                 prepare_weights)
+
+    cuda = torch.device("cuda")
+    log(f"card: {card_line()}")
+    log(f"poss-wall: the port from {os.path.dirname(repro_torch.__file__)}")
+    rng = np.random.default_rng(0)
+    cases = {}
+    for topo in (mesh2d(4, 4), mesh2d_edge_io(5, 5), torus(16, 16),
+                 mesh2d(32, 32)):
+        n = topo.num_nodes
+        dist = torch.as_tensor(topo.distances, device=cuda)
+        t = torch.as_tensor(rng.random((n, n)), device=cuda)
+        cases[f"v N={n}"] = (
+            lambda r, d=dist, t=t: possibility_v(d, d, t, d, offset=0), n)
+    for label, topo in (("5x5 mesh", mesh2d(5, 5)),
+                        ("5x5 edge-I/O", mesh2d_edge_io(5, 5)),
+                        ("torus16x16", torus(16, 16)),
+                        ("mesh32x32", mesh2d(32, 32))):
+        n = topo.num_nodes
+        a = prepare_weights(topo.distances, rng.random((n, n)),
+                            topo.channels, cuda)
+        cases[f"weights {label} N={n} C={topo.num_channels}"] = (
+            lambda r, a=a: possibility_weights_op(*a), n)
+    for fn, _ in cases.values():          # first calls: build, warm
+        fn(0)
+    torch.cuda.synchronize()
+    cols = {k: [] for k in cases}
+    for i in range(rounds):
+        for k, (fn, n) in cases.items():
+            reps = 20 if n > 256 else 100 if n > 25 else 200
+            cols[k].append(time_launches(torch, [fn], reps)[0] * 1e3)
+        log(f"poss-wall: round {i}: us per launch "
+            f"{json.dumps({k: v[-1] for k, v in cols.items()})}")
+    med = {k: float(np.median(v)) for k, v in cols.items()}
+    log(f"poss-wall: median of {rounds}: {json.dumps(med)}; least: "
+        f"{json.dumps({k: min(v) for k, v in cols.items()})}")
+    return 0
+
+
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--serve-wall", action="store_true",
@@ -2044,6 +2199,9 @@ if __name__ == "__main__":
     ap.add_argument("--scan-wall", action="store_true",
                     help="time the selective scan and Jamba's prefill and "
                     "decode step alone")
+    ap.add_argument("--poss-wall", action="store_true",
+                    help="time the possibility pair alone at the main "
+                    "paths' sizes")
     ap.add_argument("--src", help="with a --*-wall option: import the port "
                     "from this directory")
     ap.add_argument("--rounds", type=int, default=5,
@@ -2057,4 +2215,6 @@ if __name__ == "__main__":
         sys.exit(cycle_wall(args.rounds))
     if args.scan_wall:
         sys.exit(scan_wall(args.rounds))
+    if args.poss_wall:
+        sys.exit(poss_wall(args.rounds))
     sys.exit(main())

@@ -27,8 +27,7 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = {"possibility_v": "possibility_v.cu",
-           "possibility_weights": "possibility_weights.cu",
+SOURCES = {"possibility": "possibility.cu",
            "simstep": "simstep.cu",
            "flash_attention": "flash_attention.cu",
            "flash_attention_split": "flash_attention_split.cu",
@@ -110,9 +109,18 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def ptxas_report(name: str) -> str:
-    """The ptxas lines (registers, shared memory, spills) of a build."""
+    """The ptxas lines (registers, shared memory, spills) of a build; a
+    function's stack and spill line, which ptxas prints without its
+    prefix, is given the name of the function it follows."""
     log = library_path(name).with_suffix(".log")
     if not log.is_file():
         return ""
-    return "\n".join(line for line in log.read_text().splitlines()
-                     if "ptxas" in line)
+    out, func = [], ""
+    for line in log.read_text().splitlines():
+        if "Function properties for" in line:
+            func = line.split("Function properties for", 1)[1].strip()
+        if "ptxas" in line:
+            out.append(line)
+        elif "spill" in line:
+            out.append(f"ptxas spills  : {func}: {line.strip()}")
+    return "\n".join(out)

@@ -22,6 +22,7 @@ from repro_torch.kernels.possibility import (possibility_v,
                                              possibility_weights_op,
                                              possibility_weights_plain,
                                              prepare_weights)
+from repro_torch.kernels.possibility import kernel as poss_kernel
 from repro_torch.kernels.simstep import draw_chunk, make_cycle_fn
 from repro_torch.noc import sim
 from repro_torch.noc.simconfig import Algo, SimConfig
@@ -35,40 +36,91 @@ def cuda():
     return torch.device("cuda")
 
 
-def _poss_inputs(topo, integer, seed):
+def _poss_inputs(topo, integer, seed, nodes=False, dist=None):
+    """du, dn, T (fp64), dist: du/dn gathered on the channels, or with
+    ``nodes`` du = dn = dist (C = N, the planner's offset-0 pass)."""
     rng = np.random.default_rng(seed)
     n = topo.num_nodes
     t = (rng.integers(0, 7, (n, n)).astype(np.float64) if integer
          else rng.random((n, n)))
-    dist = torch.as_tensor(topo.distances)
+    dist = torch.as_tensor(topo.distances if dist is None else dist)
+    if nodes:
+        return dist, dist, torch.as_tensor(t), dist
     us = torch.as_tensor(topo.channels[:, 0])
     ns = torch.as_tensor(topo.channels[:, 1])
     return (dist[:, us].contiguous(), dist[ns, :].contiguous(),
             torch.as_tensor(t), dist)
 
 
+POSS_TOPOS = {
+    # N and C not multiples of any tile (C != N but for "nodes")
+    "mesh8x8": lambda: mesh2d(8, 8),       # N = 64, C = 224
+    "mesh12x11": lambda: mesh2d(12, 11),   # N = 132, C = 482
+    "torus9x10": lambda: torus(9, 10),     # N = 90, C = 360
+    "mesh12x11_nodes": lambda: mesh2d(12, 11),
+}
+CFGS = [None] + list(range(len(poss_kernel.THREAD_TILES)))
+
+
+def _pinned_v(du, dn, t, dist, offset, cfg):
+    """possibility_v launched with thread tile ``cfg``, whatever the
+    layout would choose at this size."""
+    n, c = du.shape
+    return poss_kernel._launch_v(du, dn, t, dist, offset,
+                                 poss_kernel._layout(n, c, cfg))
+
+
+def _pinned_weights(du, dn, dsn, tn, t, dist, offset, cfg):
+    n, c = du.shape
+    return poss_kernel._launch_weights(du, dn, dsn, tn, t, dist, offset,
+                                       poss_kernel._layout(n, c, cfg))
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("integer", [True, False], ids=["intT", "realT"])
 @pytest.mark.parametrize("offset", [0, 1, 2])
-def test_possibility_kernel_vs_plain(cuda, offset, integer):
-    args = _poss_inputs(mesh2d(8, 8), integer, seed=offset)
+@pytest.mark.parametrize("topo_fn", sorted(POSS_TOPOS))
+def test_possibility_kernel_vs_plain(cuda, topo_fn, offset, integer):
+    """The layout's own tile and every other: integer T bit for bit, real
+    T to rtol 1e-12 (fp64 sums over ascending s, the twin's einsum in
+    another order)."""
+    args = _poss_inputs(POSS_TOPOS[topo_fn](), integer, seed=offset,
+                        nodes=topo_fn.endswith("nodes"))
     want = possibility_v_plain(*args, offset=offset).numpy()
+    on = [a.to(cuda) for a in args]
     before = kernels.LAUNCHES["possibility_v"]
-    got = possibility_v(*[a.to(cuda) for a in args], offset=offset)
+    got = possibility_v(*on, offset=offset)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["possibility_v"] == before + 1
-    if integer:
-        assert np.array_equal(got.cpu().numpy(), want)
-    else:
-        np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-12)
+    for cfg in CFGS:
+        if cfg is not None:
+            got = _pinned_v(*on, offset, cfg)
+        if integer:
+            assert np.array_equal(got.cpu().numpy(), want), cfg
+        else:
+            np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-12,
+                                       err_msg=f"cfg {cfg}")
 
 
 WEIGHT_TOPOS = {
-    # C and N not multiples of the kernel's 16-channel and 32-wide tiles
+    # C and N not multiples of the kernel's tiles
     "mesh6x5": lambda: mesh2d(6, 5),       # N = 30, C = 98
     "torus5x7": lambda: torus(5, 7),       # N = 35, C = 140
     "mesh8x8": lambda: mesh2d(8, 8),       # N = 64, C = 224
+    "mesh12x11": lambda: mesh2d(12, 11),   # N = 132, C = 482
+    "torus9x10": lambda: torus(9, 10),     # N = 90, C = 360
+    # N = 256: eight destination tiles, summed by the second launch
+    "torus16x16": lambda: torus(16, 16),   # N = 256, C = 1024
 }
+
+
+def _check_weights(got, want, integer, c, what=""):
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == (c,)
+        if integer:
+            assert np.array_equal(g.cpu().numpy(), w.numpy()), what
+        else:
+            np.testing.assert_array_max_ulp(g.cpu().numpy(), w.numpy(), 1)
 
 
 @pytest.mark.gpu
@@ -78,24 +130,70 @@ WEIGHT_TOPOS = {
 def test_possibility_weights_kernel_vs_plain(cuda, topo_fn, offset,
                                              integer):
     """fp64 sums in another order, one rounding to float32: integer T bit
-    for bit, real T within one float32 ulp."""
+    for bit, real T within one float32 ulp; the layout's own tile and
+    every other."""
     topo = WEIGHT_TOPOS[topo_fn]()
     rng = np.random.default_rng(offset)
-    n = topo.num_nodes
+    n, c = topo.num_nodes, topo.num_channels
     t = (rng.integers(0, 7, (n, n)).astype(np.float64) if integer
          else rng.random((n, n)))
     args = prepare_weights(topo.distances, t, topo.channels, "cpu")
     want = possibility_weights_plain(*args, offset=offset)
+    on = [a.to(cuda) for a in args]
     before = kernels.LAUNCHES["possibility_weights"]
-    got = possibility_weights_op(*[a.to(cuda) for a in args], offset=offset)
+    got = possibility_weights_op(*on, offset=offset)
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["possibility_weights"] == before + 1
-    for g, w in zip(got, want):
-        assert g.dtype == torch.float32 and g.shape == (topo.num_channels,)
-        if integer:
-            assert np.array_equal(g.cpu().numpy(), w.numpy())
-        else:
-            np.testing.assert_array_max_ulp(g.cpu().numpy(), w.numpy(), 1)
+    if topo_fn == "torus16x16":
+        assert poss_kernel.possibility_layout(n, c, True).splits > 1
+    _check_weights(got, want, integer, c)
+    for cfg in CFGS[1:]:
+        _check_weights(_pinned_weights(*on, offset, cfg), want, integer, c,
+                       f"cfg {cfg}")
+
+
+@pytest.mark.gpu
+def test_possibility_kernels_take_the_unreachable_sentinel(cuda):
+    """Distances of unreachable pairs are int32 max // 4: du + offset +
+    dn stays within int32 and matches as the twins' sums do."""
+    topo = mesh2d(6, 5)
+    dist = topo.distances.astype(np.int32).copy()
+    cut = [3, 17]                      # nodes no other node reaches
+    far = np.iinfo(np.int32).max // 4
+    for v in cut:
+        dist[:, v] = far
+        dist[v, :] = far
+        dist[v, v] = 0
+    for offset in (0, 1, 2):
+        args = _poss_inputs(topo, True, offset, dist=dist)
+        want = possibility_v_plain(*args, offset=offset).numpy()
+        for cfg in CFGS:
+            got = (possibility_v(*[a.to(cuda) for a in args], offset=offset)
+                   if cfg is None else _pinned_v(
+                       *[a.to(cuda) for a in args], offset, cfg))
+            assert np.array_equal(got.cpu().numpy(), want), (offset, cfg)
+        t = np.random.default_rng(offset).integers(0, 7, (30, 30))
+        wargs = prepare_weights(dist, t, topo.channels, "cpu")
+        wwant = possibility_weights_plain(*wargs, offset=offset)
+        for cfg in CFGS[1:]:
+            _check_weights(_pinned_weights(
+                *[a.to(cuda) for a in wargs], offset, cfg), wwant, True,
+                topo.num_channels, f"offset {offset}, cfg {cfg}")
+
+
+@pytest.mark.gpu
+def test_possibility_two_launches_give_the_same_bits(cuda):
+    """Fixed sum orders and no atomics: the same real T twice gives the
+    same bits, V and (with eight destination tiles) W and W_drn."""
+    topo = torus(16, 16)
+    t = np.random.default_rng(5).random((256, 256))
+    v_args = [a.to(cuda) for a in _poss_inputs(topo, False, 5, nodes=True)]
+    assert torch.equal(possibility_v(*v_args, offset=0),
+                       possibility_v(*v_args, offset=0))
+    w_args = prepare_weights(topo.distances, t, topo.channels, cuda)
+    for a, b in zip(possibility_weights_op(*w_args),
+                    possibility_weights_op(*w_args)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.gpu
