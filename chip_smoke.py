@@ -23,8 +23,9 @@ before printing any result.
               the ``simstep_chunk``
               kernel on the 5x5 edge-I/O, 16x16 and 32x32 meshes and the
               ``simstep_grid`` kernel on 17x17, 64x64 and 96x96 (no
-              cluster holds their lanes), XY and BiDOR (XY alone at 64x64
-              and 96x96), at the auto tile and the largest other one the
+              cluster holds their lanes), every routing algorithm at 5x5,
+              16x16 and 17x17, XY and BiDOR at 32x32, XY alone at 64x64
+              and 96x96, at the auto tile and the largest other one the
               card lays out, chunks of 1 and 50 cycles from a plain
               mid-flight state, every state key bit for bit, the PRNG key
               included, and one launch a chunk;
@@ -43,7 +44,8 @@ Main path of slice 2 (launch counts from 0 again):
 8. fig1     — those plans through ``run_campaign(bidor_tables=...)`` at
               ``benchmarks/fig1_load.py``'s full length;
 9. ctrl     — ``tests/goldens/ctrl_4x4.json`` through the control plane,
-              then ``benchmarks/dynamics.py`` at full size (BiDOR);
+              then ``benchmarks/dynamics.py`` at full size (BiDOR and
+              odd-even);
 10. flash   — ``flash_attention`` against its plain twin at whisper-base's
               shapes (B 4, H = KV = 8, D 64: the encoder, cross-attention
               and cached self-attention at Sq 16 and 1) and at a GQA
@@ -81,14 +83,24 @@ Main path of slice 4 (launch counts from 0 again):
               timings and the device profile, the run in fp32 (tokens
               identical), and ``tests/goldens/serve_jamba_smoke.json`` on
               the card;
-14. summary — attention end to end (whisper's ``generate`` busy time
+Main path of slice 10 (launch counts from 0 again):
+14. algos   — ``tests/goldens/algos_5x5.json`` (written by the JAX
+              reference): every routing algorithm through ``run_campaign``
+              and the Fig. 9 ones through ``run_trace_sweep``;
+15. fig8    — ``benchmarks/fig8_synthetic.py`` at full length: each
+              (pattern, algorithm)'s saturation throughput, BiDOR/XY;
+16. table1  — ``benchmarks/table1_lcv.py`` at full length: the LCVs;
+17. fig9    — ``benchmarks/fig9_realistic.py`` at full length: latency,
+              LCV and reorder per algorithm, the paper's summary line;
+18. summary — attention end to end (whisper's ``generate`` busy time
               and a Jamba decode step's, with the ``flash_fwd*`` kernels'
               share); the flit step at 4x4, 5x5, 16x16 and 32x32 (the
               chunk kernel) and 17x17 and 64x64 (the grid kernel): µs
               per simulated cycle of a 1 000-cycle chunk, its empty-body
               floor, its byte bound, the cycle wall through
               ``run_cycles``; a 100-cycle chunk beside the plain twin at
-              32x32 and 64x64;
+              32x32 and 64x64; each other routing algorithm's µs a cycle
+              at 5x5 and 32x32;
               launches of each kernel on each main path (the
               possibility pair's also by (N, C)),
               event-timed time per launch, the plain version's time and
@@ -571,8 +583,9 @@ def run_fig1(torch, np, cuda, plans):
 
 def run_ctrl(torch, np, cuda):
     """ctrl_4x4.json on the card, then benchmarks/dynamics.py at full
-    size (edge-I/O 5x5, BiDOR; each scenario one run_controlled call over
-    seeds 0-2, as a campaign scenario cell makes it)."""
+    size (edge-I/O 5x5, BiDOR and odd-even; each (scenario, algorithm)
+    one run_controlled call over seeds 0-2, as a campaign scenario cell
+    makes it)."""
     from repro_torch.core import build_plan_fast, mesh2d, mesh2d_edge_io
     from repro_torch.core import traffic
     from repro_torch.noc import (Algo, CampaignSpec, LinkFail, ReplanConfig,
@@ -630,35 +643,39 @@ def run_ctrl(torch, np, cuda):
         "drift": (TrafficDrift(cycle=cycles // 2,
                                traffic=traffic.transpose(topo)),)}
     rc = ReplanConfig(epoch=epoch, drift_threshold=0.15)
-    cfg = SimConfig(algo=Algo.BIDOR, cycles=cycles, warmup=cycles // 8)
+    cfg = SimConfig(cycles=cycles, warmup=cycles // 8)
     plan = build_plan_fast(topo, t, device=cuda)
     peaks = {}
     for scen_name, evs in events.items():
         for policy in ("oracle", "stale", "online"):
             scen = Scenario(f"{scen_name}_{policy}", events=evs,
                             policy=policy, replan=rc)
-            t0 = time.perf_counter()
-            out = run_controlled(topo, t, cfg, scen, rates=[0.35],
-                                 seeds=[0, 1, 2], bidor_table=plan.table,
-                                 nrank0=plan.nrank, device=cuda)
-            wall = time.perf_counter() - t0
-            rs = [out.result_with_peak(i) for i in range(len(out.points))]
-            for r in rs:
-                if r.injected_flits != r.ejected_flits + r.in_flight_flits:
-                    raise SystemExit(f"dynamics {scen.name}: flits not "
-                                     f"conserved: {r}")
-            peak = float(np.mean([r.link_load_max for r in rs]))
-            peaks[scen.name] = peak
-            log(f"ctrl: dynamics {scen.name:16s} peak_maxlinkload="
-                f"{peak:.4f} thr={np.mean([r.throughput for r in rs]):.4f} "
-                f"lat={np.mean([r.avg_latency for r in rs]):.1f} "
-                f"replans={len(out.replans)} replan_ms="
-                f"{json.dumps([round(x, 1) for x in out.replan_ms])} "
-                f"wall={wall:.2f}s")
-    st, on = peaks["linkfail_stale"], peaks["linkfail_online"]
-    log(f"ctrl: dynamics SUMMARY linkfail: peak max link load "
+            for algo in (Algo.BIDOR, Algo.ODDEVEN):
+                bidor = algo == Algo.BIDOR
+                t0 = time.perf_counter()
+                out = run_controlled(
+                    topo, t, cfg.replace(algo=algo), scen, rates=[0.35],
+                    seeds=[0, 1, 2], bidor_table=plan.table if bidor else None,
+                    nrank0=plan.nrank if bidor else None, device=cuda)
+                wall = time.perf_counter() - t0
+                rs = [out.result_with_peak(i)
+                      for i in range(len(out.points))]
+                for r in rs:     # a re-plan may reorder BiDOR's flows
+                    _check_result(r, np, in_order=False)
+                peak = float(np.mean([r.link_load_max for r in rs]))
+                peaks[scen.name, algo] = peak
+                log(f"ctrl: dynamics {scen.name:16s} {algo.name:8s} "
+                    f"peak_maxlinkload={peak:.4f} "
+                    f"thr={np.mean([r.throughput for r in rs]):.4f} "
+                    f"lat={np.mean([r.avg_latency for r in rs]):.1f} "
+                    f"replans={len(out.replans)} replan_ms="
+                    f"{json.dumps([round(x, 1) for x in out.replan_ms])} "
+                    f"wall={wall:.2f}s")
+    st, on = (peaks[f"linkfail_{p}", Algo.BIDOR] for p in ("stale", "online"))
+    log(f"ctrl: dynamics SUMMARY linkfail: BiDOR peak max link load "
         f"stale={st:.4f} -> online={on:.4f} ({(1 - on / st) * 100:+.1f}%), "
-        f"oracle={peaks['linkfail_oracle']:.4f}")
+        f"oracle={peaks['linkfail_oracle', Algo.BIDOR]:.4f}; odd-even "
+        f"{peaks['linkfail_online', Algo.ODDEVEN]:.4f}")
     if not on < st:
         raise SystemExit("dynamics: online replanning does not beat the "
                          "stale plan under the link failure")
@@ -706,9 +723,10 @@ def _plain_chunk(tables, meta, cfg, state, cycles, cuda):
     from repro_torch.kernels.simstep import draw_chunk, ref
 
     cycle_fn = ref.make_cycle_fn(meta, cfg)
-    keys, u, ud = draw_chunk(state["key"], cycles, meta["N"], cuda)
+    keys, rand = draw_chunk(state["key"], cycles, meta["N"], cuda, cfg.algo,
+                            meta["NDIM"])
     for c in range(cycles):
-        cycle_fn(tables, state, u[c], ud[c], c)
+        cycle_fn(tables, state, {k: x[c] for k, x in rand.items()}, c)
     state["key"] = keys
     state["cycle0"] += cycles
 
@@ -717,23 +735,24 @@ def check_simstep(torch, np, cuda):
     """The flit-step kernels against the plain twin, from plain mid-flight
     states, every state key bit for bit, the PRNG key included: chunks
     of 1 and 50 cycles at two tiles (the auto one and the largest other
-    the card lays out), XY and BiDOR, one launch a chunk.  The chunk
-    kernel on the 5x5 edge-I/O, 16x16 and 32x32 meshes; the grid kernel
-    on 17x17, 64x64 and 96x96, which no cluster of the chunk kernel holds
-    (XY alone at 64x64 and 96x96, whose BiDOR plans no path builds;
-    96x96 after a shorter warm-in).  Returns the largest difference by
-    kernel."""
+    the card lays out), one launch a chunk.  The chunk kernel on the 5x5
+    edge-I/O (one block a lane), 16x16 (a cluster) and 32x32 meshes; the
+    grid kernel on 17x17, 64x64 and 96x96, which no cluster of the chunk
+    kernel holds.  Every routing algorithm at 5x5, 16x16 and 17x17; XY
+    and BiDOR at 32x32; XY alone at 64x64 and 96x96, whose BiDOR plans no
+    path builds (96x96 after a shorter warm-in).  Returns the largest
+    difference by kernel."""
     from repro_torch import kernels
     from repro_torch.core import mesh2d, mesh2d_edge_io
     from repro_torch.kernels.simstep import card_kernel
     from repro_torch.noc import sim
     from repro_torch.noc.simconfig import Algo
 
-    both, xy = (Algo.XY, Algo.BIDOR), (Algo.XY,)
+    every, both, xy = tuple(Algo), (Algo.XY, Algo.BIDOR), (Algo.XY,)
     worst = {"chunk": 0, "grid": 0}
-    for topo, algos, warm in ((mesh2d_edge_io(5, 5), both, 200),
-                              (mesh2d(16, 16), both, 200),
-                              (mesh2d(17, 17), both, 200),
+    for topo, algos, warm in ((mesh2d_edge_io(5, 5), every, 200),
+                              (mesh2d(16, 16), every, 200),
+                              (mesh2d(17, 17), every, 200),
                               (mesh2d(32, 32), both, 200),
                               (mesh2d(64, 64), xy, 200),
                               (mesh2d(96, 96), xy, 60)):
@@ -816,15 +835,209 @@ def check_golden(torch, np, cuda):
 
 def _check_results(res, np):
     for p in res.points:
-        r = p.result
-        vals = [r.throughput, r.avg_latency, r.p99_latency, r.lcv,
-                r.link_load_max]
-        if not all(np.isfinite(v) for v in vals):
-            raise SystemExit(f"non-finite result {r}")
-        if r.injected_flits != r.ejected_flits + r.in_flight_flits:
-            raise SystemExit(f"flits not conserved: {r}")
-        if r.reorder_value != 0:        # XY and BiDOR deliver in order
-            raise SystemExit(f"out-of-order delivery: {r}")
+        _check_result(p.result, np)
+
+
+def _check_result(r, np, in_order=True):
+    """Finite statistics and conserved flits; with ``in_order``, XY, YX
+    and BiDOR (one path a flow while the plan stands) deliver in
+    order."""
+    from repro_torch.noc import Algo
+
+    vals = [r.throughput, r.avg_latency, r.p99_latency, r.lcv,
+            r.link_load_max]
+    if not all(np.isfinite(v) for v in vals):
+        raise SystemExit(f"non-finite result {r}")
+    if r.injected_flits != r.ejected_flits + r.in_flight_flits:
+        raise SystemExit(f"flits not conserved: {r}")
+    if (in_order and r.algo in (Algo.XY, Algo.YX, Algo.BIDOR)
+            and r.reorder_value != 0):
+        raise SystemExit(f"out-of-order delivery: {r}")
+
+
+# --------------------------------------------------------------------- #
+# slice 10: the paper's other routing algorithms, trace replay
+# --------------------------------------------------------------------- #
+def _golden_mismatches(np, want: dict, got: dict) -> list[str]:
+    """``tests/test_torch_algos.py``'s comparison: integers exact, floats
+    within rtol 1e-5 (atol 1e-6), per-segment LCVs within 1e-6."""
+    bad = []
+    for key, w in want.items():
+        g = got.get(key)
+        if g is None:
+            bad.append(f"{key}: missing")
+            continue
+        for f in ("injected", "ejected", "in_flight", "reorder",
+                  "meas_cycles", "max_latency"):
+            if f in w and g[f] != w[f]:
+                bad.append(f"{key}.{f}: {g[f]} != {w[f]}")
+        for f in ("throughput", "avg_latency", "p50_latency", "p99_latency",
+                  "link_load_max", "lcv"):
+            if not np.isclose(round(g[f], 6), w[f], rtol=1e-5, atol=1e-6):
+                bad.append(f"{key}.{f}: {g[f]} != {w[f]}")
+        if "lcvs" in w and not (
+                len(g["lcvs"]) == len(w["lcvs"])
+                and np.allclose(g["lcvs"], w["lcvs"], rtol=0, atol=1e-6)):
+            bad.append(f"{key}.lcvs: {g['lcvs']} != {w['lcvs']}")
+    return bad
+
+
+def _record(r) -> dict:
+    return dict(injected=r.injected_flits, ejected=r.ejected_flits,
+                in_flight=r.in_flight_flits, reorder=r.reorder_value,
+                meas_cycles=r.meas_cycles, throughput=r.throughput,
+                avg_latency=r.avg_latency, p50_latency=r.p50_latency,
+                p99_latency=r.p99_latency, link_load_max=r.link_load_max,
+                lcv=r.lcv, max_latency=float(r.max_latency))
+
+
+FIG9_ALGOS = ("XY", "O1TURN", "VALIANT", "ROMM", "ODDEVEN", "BIDOR")
+
+
+def check_algos_golden(torch, np, cuda):
+    """``tests/goldens/algos_5x5.json`` (written by the JAX reference) on
+    the card: every routing algorithm through ``run_campaign`` on the
+    5x5 edge-I/O mesh (uniform and overturn, rates 0.2 and 0.55, 1 500
+    cycles), and a 2-epoch x 800-cycle Clos leaf trace through
+    ``run_trace_sweep`` per Fig. 9 algorithm, seeds 0 and 1."""
+    from repro_torch.core import build_plan, mesh2d_edge_io
+    from repro_torch.noc import (Algo, CampaignSpec, SimConfig,
+                                 clos_leaf_trace, run_campaign,
+                                 run_trace_sweep)
+
+    with open(os.path.join(HERE, "tests", "goldens", "algos_5x5.json")) as f:
+        golden = json.load(f)["points"]
+    topo = mesh2d_edge_io(5, 5)
+    t0 = time.perf_counter()
+    res = run_campaign(CampaignSpec(
+        topo=topo, algos=tuple(Algo), patterns=("uniform", "overturn"),
+        rates=(0.2, 0.55), seeds=(0,),
+        base=SimConfig(cycles=1500, warmup=500)), device=cuda)
+    got = {f"{p.pattern}/{p.algo.name}/r{p.rate}/s{p.seed}": _record(p.result)
+           for p in res.points}
+    segments, agg = clos_leaf_trace(topo, num_epochs=2, base_rate=0.3)
+    plan = build_plan(topo, agg, use_kernel=True, device=cuda)
+    for name in FIG9_ALGOS:
+        algo = Algo[name]
+        runs = run_trace_sweep(
+            topo, segments, SimConfig(algo=algo, cycles=800, warmup=200,
+                                      lat_bins=128, lat_bin_width=32),
+            bidor_table=plan.table, seeds=[0, 1], device=cuda)
+        for seed, (r, lcvs) in zip((0, 1), runs):
+            got[f"trace/{name}/s{seed}"] = dict(_record(r), lcvs=lcvs)
+    bad = _golden_mismatches(np, golden, got)
+    extra = sorted(set(got) - set(golden))
+    log(f"algos: {len(got)} points vs algos_5x5.json: "
+        f"{'ok' if not bad and not extra else 'MISMATCH'} "
+        f"({time.perf_counter() - t0:.2f}s)")
+    if bad or extra:
+        raise SystemExit("algos golden mismatch:\n  "
+                         + "\n  ".join(bad + extra))
+
+
+def run_fig8(torch, np, cuda):
+    """benchmarks/fig8_synthetic.py at full length (BENCH_QUICK=0): the
+    5x5 edge-I/O mesh, four patterns, six algorithms, nine rates, 14 000
+    cycles (warmup 4 666, chunks of 3 500); each cell's saturation
+    throughput and the BiDOR/XY ratio."""
+    from repro_torch.core import mesh2d_edge_io
+    from repro_torch.noc import Algo, CampaignSpec, SimConfig, run_campaign
+
+    patterns = ("uniform", "shuffle", "permutation", "overturn")
+    algos = tuple(Algo[a] for a in FIG9_ALGOS)
+    cycles = 14000
+    spec = CampaignSpec(
+        topo=mesh2d_edge_io(5, 5), algos=algos, patterns=patterns,
+        rates=(0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.85, 1.0),
+        base=SimConfig(cycles=cycles, warmup=cycles // 3),
+        chunk=cycles // 4)
+    res = run_campaign(spec, device=cuda)
+    _check_results(res, np)
+    out = {}
+    for pattern in patterns:
+        for algo in algos:
+            sat = res.saturation_throughput(algo, pattern)
+            reorder = max(p.result.reorder_value
+                          for p in res.select(algo=algo, pattern=pattern))
+            out[pattern, algo.name] = sat
+            log(f"fig8: {pattern:12s} {algo.name:8s} sat={sat:.4f} "
+                f"reorder@max={reorder} wall="
+                f"{res.wall_clock_s[algo.name, pattern]:.3f}s")
+    for pattern in patterns:
+        xy, bd = out[pattern, "XY"], out[pattern, "BIDOR"]
+        log(f"fig8: SUMMARY {pattern:12s}: BiDOR/XY saturation throughput "
+            f"= {bd / xy:.3f} ({(bd / xy - 1) * 100:+.1f}%)")
+    log(f"fig8: {spec.num_points} points, plan_ms="
+        f"{res.plan_wall_clock_s * 1e3:.1f}, total="
+        f"{res.total_wall_clock_s:.2f}s")
+    return out
+
+
+def run_table1(torch, np, cuda):
+    """benchmarks/table1_lcv.py at full length (16 000 cycles): the LCV of
+    each algorithm in the three scenarios, BiDOR on ``build_plan``'s
+    table."""
+    from repro_torch.core import build_plan, mesh2d, mesh2d_edge_io, traffic
+    from repro_torch.noc import Algo, CampaignSpec, SimConfig, run_campaign
+
+    cycles = 16000
+    algos = tuple(Algo[a] for a in FIG9_ALGOS)
+    for name, topo, pattern, rate in (
+            ("2DMesh+UN", mesh2d(5, 5), "uniform", 0.45),
+            ("EdgeIO+UN", mesh2d_edge_io(5, 5), "uniform", 0.4),
+            ("EdgeIO+OV", mesh2d_edge_io(5, 5), "overturn", 0.3)):
+        t = traffic.PATTERNS[pattern](topo)
+        plan = build_plan(topo, t, use_kernel=True, device=cuda)
+        res = run_campaign(CampaignSpec(
+            topo=topo, algos=algos, patterns=((pattern, t),), rates=(rate,),
+            base=SimConfig(cycles=cycles, warmup=cycles // 3)),
+            bidor_tables={pattern: plan.table.choice}, device=cuda)
+        _check_results(res, np)
+        row = " ".join(f"{a.name}={res.select(algo=a)[0].result.lcv:.3f}"
+                       for a in algos)
+        log(f"table1: {name} {row} (wall {res.total_wall_clock_s:.2f}s)")
+
+
+def run_fig9(torch, np, cuda):
+    """benchmarks/fig9_realistic.py at full length: a 10-epoch Clos leaf
+    trace on the 5x5 edge-I/O mesh, 10 000 cycles a segment, seeds 0-2
+    as lanes, BiDOR's plan built from the aggregate; per algorithm the
+    mean, max and p99 latency, the LCV over epochs and the reorder value,
+    and the paper's summary line."""
+    from repro_torch.core import build_plan, mesh2d_edge_io
+    from repro_torch.noc import Algo, SimConfig, clos_leaf_trace, \
+        run_trace_sweep
+
+    topo = mesh2d_edge_io(5, 5)
+    segments, agg = clos_leaf_trace(topo, num_epochs=10, base_rate=0.3)
+    plan = build_plan(topo, agg, use_kernel=True, device=cuda)
+    cycles = 10000
+    base = {}
+    for name in FIG9_ALGOS:
+        cfg = SimConfig(algo=Algo[name], cycles=cycles, warmup=cycles // 4,
+                        lat_bins=128, lat_bin_width=32)
+        t0 = time.perf_counter()
+        runs = run_trace_sweep(topo, segments, cfg, bidor_table=plan.table,
+                               seeds=[0, 1, 2], device=cuda)
+        wall = time.perf_counter() - t0
+        for r, lcvs in runs:
+            _check_result(r, np)
+            if len(lcvs) != len(segments):
+                raise SystemExit(f"fig9 {name}: {len(lcvs)} segment LCVs")
+        lat = float(np.mean([r.avg_latency for r, _ in runs]))
+        maxlat = float(np.max([r.max_latency for r, _ in runs]))
+        p99 = float(np.mean([r.p99_latency for r, _ in runs]))
+        lcvs = [v for _, ls in runs for v in ls]
+        reorder = max(r.reorder_value for r, _ in runs)
+        base[name] = (lat, maxlat)
+        log(f"fig9: {name:8s} lat={lat:7.1f} max={maxlat:6.0f} "
+            f"p99={p99:7.1f} lcv={np.mean(lcvs):.3f}+-{np.std(lcvs):.3f} "
+            f"reorder={reorder} (seeds=3) wall={wall:.2f}s")
+    (xy_lat, xy_max), (bd_lat, bd_max) = base["XY"], base["BIDOR"]
+    log(f"fig9: SUMMARY: mean latency {xy_lat:.1f} -> {bd_lat:.1f} "
+        f"({(1 - bd_lat / xy_lat) * 100:.1f}% lower), max {xy_max:.0f} -> "
+        f"{bd_max:.0f} ({(1 - bd_max / max(xy_max, 1)) * 100:.1f}% lower)")
+    return base
 
 
 def paper_spec():
@@ -928,7 +1141,12 @@ def simstep_bytes(np, meta, cfg, before, after, lanes):
 
     injected, ejects = delta("injected"), delta("eject_total")
     pushes, packets = delta("chan_seen"), delta("next_seq")
-    delivered = delta("exp_seq")            # in-order: one per tail
+    # one tail ejection either advances its flow's expected sequence
+    # number or sets a bit of its reorder window
+    def popc(x):
+        return int(np.unpackbits(np.ascontiguousarray(x).view(np.uint8)).sum())
+
+    delivered = delta("exp_seq") + popc(after["rbits"]) - popc(before["rbits"])
     hot = lanes * (5 * nin + n * p + 5 * n + 2 * c + cfg.lat_bins + 16)
     words = (2 * hot + 3 * n * p + c + n
              + NF * (injected + pushes) + NF * (pushes + ejects)
@@ -953,18 +1171,20 @@ def cycle_wall_us(torch, cuda, topo, chunk=1000):
     return (time.perf_counter() - t0) * 1e6 / chunk
 
 
-def time_simstep(torch, np, cuda, topo, label, row=False):
+def time_simstep(torch, np, cuda, topo, label, row=False, algo=None):
     """The card kernel a cell's shape takes (``simstep_chunk`` or
-    ``simstep_grid``) at its shapes (XY, 4 lanes, in its measurement
-    window): event-timed µs per simulated cycle of a 1 000-cycle chunk,
-    the empty-body floor of the same launch, the byte bound, and the
-    cycle wall through ``run_cycles``.  With ``row``, also a 100-cycle
-    chunk beside the plain twin: the kernel-summary row."""
+    ``simstep_grid``) at its shapes (``algo``, XY by default, 4 lanes, in
+    its measurement window): event-timed µs per simulated cycle of a
+    1 000-cycle chunk, the empty-body floor of the same launch, the byte
+    bound, and (XY) the cycle wall through ``run_cycles``.  With ``row``,
+    also a 100-cycle chunk beside the plain twin: the kernel-summary
+    row."""
     from repro_torch.kernels.simstep import make_step
     from repro_torch.noc import sim
     from repro_torch.noc.simconfig import Algo
 
-    tables, meta, cfg, points = _cell(torch, cuda, topo, Algo.XY, 4)
+    algo = Algo.XY if algo is None else algo
+    tables, meta, cfg, points = _cell(torch, cuda, topo, algo, 4)
     lanes = len(points)
     st = sim.make_states(meta, cfg, points, device=cuda)
     sim.run_cycles(tables, meta, cfg, st, 300)      # into measurement
@@ -997,12 +1217,17 @@ def time_simstep(torch, np, cuda, topo, label, row=False):
     kern_ms = time_launches(torch, [launch(chunk)], reps)[0]
     floor_ms = time_launches(torch, [floor(chunk)], reps)[0]
     st["key"] = step.key.cpu().numpy().view(np.uint32).copy()
-    wall_us = cycle_wall_us(torch, cuda, topo, chunk)
+    wall_us = (cycle_wall_us(torch, cuda, topo, chunk) if algo == Algo.XY
+               else float("nan"))
     us = lambda ms: ms * 1e3 / chunk            # noqa: E731
-    log(f"timing {label}: {name} {us(kern_ms):.3f}us per simulated "
-        f"cycle (1000-cycle chunk, {layout}, lanes={lanes}); empty-body "
-        f"floor {us(floor_ms):.3f}us; byte bound {us(bound_ms):.4f}us "
-        f"({nbytes} bytes a chunk); cycle wall through run_cycles "
+    events = {k: int(after[k].astype(np.int64).sum()
+                     - before[k].astype(np.int64).sum())
+              for k in ("injected", "chan_seen", "eject_total")}
+    log(f"timing {label} {algo.name}: {name} {us(kern_ms):.3f}us per "
+        f"simulated cycle (1000-cycle chunk, {layout}, lanes={lanes}); "
+        f"empty-body floor {us(floor_ms):.3f}us; byte bound "
+        f"{us(bound_ms):.4f}us ({nbytes} bytes a chunk); events a chunk "
+        f"{json.dumps(events)}; cycle wall through run_cycles "
         f"{wall_us:.3f}us")
     out = dict(label=label, us=us(kern_ms), floor_us=us(floor_ms),
                bound_us=us(bound_ms), wall_us=wall_us,
@@ -1826,6 +2051,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.core import mesh2d, mesh2d_edge_io
+    from repro_torch.noc import Algo
 
     cuda = torch.device("cuda")
     t_all = time.perf_counter()
@@ -1869,7 +2095,13 @@ def main() -> int:
             lambda: run_serve_main(torch, np, cuda, serve)),
         "slice 4 (jamba hybrid serving)": (
             ("selective_scan", "flash_attention"),
-            lambda: run_jamba_main(torch, np, cuda, jamba))}
+            lambda: run_jamba_main(torch, np, cuda, jamba)),
+        "slice 10 (routing algorithms, traces)": (
+            ("possibility_v", "simstep_chunk"),
+            lambda: (check_algos_golden(torch, np, cuda),
+                     run_fig8(torch, np, cuda),
+                     run_table1(torch, np, cuda),
+                     run_fig9(torch, np, cuda)))}
     # both serving paths run attention's split kernel and its combine
     # (decode, cross-attention) and the tensor-core kernel (encoder,
     # prefill); flash_attention counts one launch per call whatever its
@@ -1922,6 +2154,12 @@ def main() -> int:
             kernel = row["name"].removeprefix("simstep_")
             row["max_abs_err"] = float(simstep_err[kernel])
             simstep_rows.append(row)
+    # what each routing algorithm costs the chunk kernel a cycle
+    for topo, label in ((mesh2d_edge_io(5, 5), "5x5"),
+                        (mesh2d(32, 32), "32x32")):
+        for algo in ("YX", "O1TURN", "VALIANT", "ROMM", "ODDEVEN", "BIDOR"):
+            time_simstep(torch, np, cuda, topo, label,
+                         algo=Algo[algo])
     rows = [poss, weights, *simstep_rows, flash, scan]
     for row in rows:
         row["launches"] = launches[row["name"]]

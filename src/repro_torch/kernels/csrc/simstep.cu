@@ -75,6 +75,18 @@
 //   lays them out (prng.py: node n < h = ceil(N/2) takes word 0 of block
 //   n, the rest word 1 of block n - h; at odd N block h - 1 hashes
 //   (h - 1, 0)).
+// * Every routing algorithm of the reference (a.algo), each kernel
+//   instantiated once for XY, YX, BiDOR and odd-even and once for the
+//   three that draw from km, so the in-order ones run the code (and the
+//   registers) they had before the others came: XY, YX and BiDOR route by
+//   the dimension-order tables; O1TURN (a
+//   random order), VALIANT and ROMM (two phases through an intermediate
+//   node, random anywhere or in the minimal rectangle) take their draws
+//   from the cycle's metadata key km, split once a cycle on the key warp
+//   and hashed node by node, on segment lanes 2 and up, only where a
+//   packet is generated; odd-even routes adaptively by the free slots of
+//   its neighbours' receive FIFOs in the credit snapshot (one read a
+//   lane, summed by shuffles).
 // * The reorder occupancy in O(1).  A per-node count of set reorder bits
 //   is filled once a chunk from the node's rbits row and updated on each
 //   tail ejection by popc(new word) - popc(old word); an ejection
@@ -90,6 +102,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -104,13 +118,25 @@ constexpr int MAX_P = 16;
 constexpr int MAX_CLUSTER = 16;
 constexpr int WARP = 32;
 constexpr int MAX_WARPS = 32;
-constexpr int ALGO_BIDOR = 6;
+// repro_torch.noc.simconfig.Algo
+constexpr int ALGO_XY = 0, ALGO_YX = 1, ALGO_O1TURN = 2, ALGO_VALIANT = 3,
+              ALGO_ROMM = 4, ALGO_ODDEVEN = 5, ALGO_BIDOR = 6;
+constexpr int MAX_NDIM = 4;
+// The kernels' instances (template FAM): one for each of XY, YX, BiDOR
+// and odd-even, whose algorithm is then a constant, and one for O1TURN,
+// VALIANT and ROMM (a.algo at run time), the algorithms that draw from km.
+constexpr int FAM_XY = 0, FAM_YX = 1, FAM_BIDOR = 2, FAM_DRAWN = 3,
+              FAM_ODDEVEN = 4;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 // per-block sums in shared memory
 constexpr int S_LAT_SUM = 0, S_LAT_CNT = 1, S_LAT_MAX = 2, S_RMAX = 3,
               S_INJ = 4, S_OFF = 5, S_DROP = 6, S_EJECT = 7, S_MEAS = 8;
 constexpr int N_SUMS = 16;
-constexpr int N_KEYS = 10;  // two cycles of (kg0, kg1, kd0, kd1), the chain
+// two cycles of (kg0, kg1, kd0, kd1, x0, x1, x2, x3), the chain: x is the
+// algorithm's key from km (O1TURN k1, ROMM k3; VALIANT the two halves of
+// split(k2)), see advance_key
+constexpr int N_KEYS = 18;
+constexpr int KEY_STRIDE = 8, KEY_CHAIN = 16;
 
 }  // namespace
 
@@ -125,6 +151,8 @@ struct SimArgs {
   const float* p_gen;     // (N,)
   const int* chan_of;     // (N, P), C where no channel
   const float* chan_bw;   // (C,)
+  const int* coords;      // (N, NDIM)
+  const int* strides;     // (NDIM,)
   // the PRNG key of each lane, uint32 words; advanced in place
   int* key;               // (L, 2)
   // lane-batched state
@@ -161,7 +189,7 @@ struct SimArgs {
   int* eject_total;       // (L,)
   int* meas_cnt;          // (L,)
   // sizes
-  int L, N, P, V, NIN, C, O, B, Q, PKT, p_local, algo;
+  int L, N, P, V, NIN, C, O, B, Q, PKT, p_local, algo, NDIM;
   int tile_nodes, ntiles, num_cycles, warmup, lat_bins, lat_bin_width;
 };
 
@@ -258,26 +286,81 @@ __device__ __forceinline__ void threefry(uint32_t k0, uint32_t k1,
 }
 #undef TF_MIX
 
-// jax.random.uniform(k, (N,))[n] (prng.uniform): node n < h = ceil(N/2)
-// takes word 0 of count block n, node n >= h word 1 of block n - h; the
-// counts of block b are (b, b + h), except (h - 1, 0) at odd N, where
-// the iota is padded with one zero.
+// jax.random.bits(k, (M,))[e] (prng.bits_at): entry e < h = ceil(M/2)
+// takes word 0 of count block e, entry e >= h word 1 of block e - h; the
+// counts of block b are (b, b + h), except (h - 1, 0) at odd M, where the
+// iota is padded with one zero.
+__device__ __forceinline__ uint32_t node_bits(uint32_t k0, uint32_t k1,
+                                              int e, int M) {
+  const int h = (M + 1) >> 1;
+  const int b = e < h ? e : e - h;
+  uint32_t x0 = (uint32_t)b;
+  uint32_t x1 = ((M & 1) && b == h - 1) ? 0u : (uint32_t)(b + h);
+  threefry(k0, k1, x0, x1);
+  return e < h ? x0 : x1;
+}
+
+// float32 in [0, 1) from 32 random bits (jax.random.uniform).
+__device__ __forceinline__ float unit_float(uint32_t bits) {
+  return __fsub_rn(__uint_as_float((bits >> 9) | 0x3F800000u), 1.0f);
+}
+
+// jax.random.uniform(k, (N,))[n] (prng.uniform).
 __device__ __forceinline__ float node_uniform(uint32_t k0, uint32_t k1,
                                               int n, int N) {
-  const int h = (N + 1) >> 1;
-  const int b = n < h ? n : n - h;
-  uint32_t x0 = (uint32_t)b;
-  uint32_t x1 = ((N & 1) && b == h - 1) ? 0u : (uint32_t)(b + h);
-  threefry(k0, k1, x0, x1);
-  const uint32_t bits = n < h ? x0 : x1;
-  return __fsub_rn(__uint_as_float((bits >> 9) | 0x3F800000u), 1.0f);
+  return unit_float(node_bits(k0, k1, n, N));
+}
+
+__host__ __device__ inline int algo_family(int algo) {
+  return algo == ALGO_XY ? FAM_XY
+         : algo == ALGO_YX ? FAM_YX
+         : algo == ALGO_BIDOR ? FAM_BIDOR
+         : algo == ALGO_ODDEVEN ? FAM_ODDEVEN
+         : FAM_DRAWN;
+}
+
+// The algorithm an instance routes: a constant but in the drawn family.
+template <int FAM>
+__device__ __forceinline__ int routed_algo(const SimArgs& a) {
+  return FAM == FAM_XY ? ALGO_XY
+         : FAM == FAM_YX ? ALGO_YX
+         : FAM == FAM_BIDOR ? ALGO_BIDOR
+         : FAM == FAM_ODDEVEN ? ALGO_ODDEVEN
+         : a.algo;
+}
+
+// Call f(std::integral_constant<int, FAM>) for the instance that routes
+// `algo`.
+template <typename F>
+int by_family(int algo, F f) {
+  switch (algo_family(algo)) {
+    case FAM_YX: return f(std::integral_constant<int, FAM_YX>{});
+    case FAM_BIDOR: return f(std::integral_constant<int, FAM_BIDOR>{});
+    case FAM_DRAWN: return f(std::integral_constant<int, FAM_DRAWN>{});
+    case FAM_ODDEVEN: return f(std::integral_constant<int, FAM_ODDEVEN>{});
+    default: return f(std::integral_constant<int, FAM_XY>{});
+  }
+}
+
+// The lanes of a router's segment, besides lanes 0 and 1 (u and ud), that
+// hash a generated packet's draws (kernel.draw_lanes).
+__host__ __device__ inline int algo_draw_lanes(int algo, int ndim) {
+  return algo == ALGO_O1TURN ? 1
+         : algo == ALGO_VALIANT ? 2
+         : algo == ALGO_ROMM ? ndim : 0;
 }
 
 // One cycle of the key chain on lanes 0-4 of a warp (all 32 lanes call
 // it): split(key, 5) hashes blocks j = 0..4 with counts (j, 5 + j) into
-// (a_j, b_j); key' = (a0, a1), kg = (a2, a3), kd = (a4, b0).  Writes
-// (kg, kd) to `out` and key' to `chain`.
-__device__ __forceinline__ void advance_key(int* chain, int* out) {
+// (a_j, b_j); key' = (a0, a1), kg = (a2, a3), kd = (a4, b0), km = (b1, b2).
+// O1TURN, VALIANT and ROMM then split km in three, blocks j = 0..2 with
+// counts (j, 3 + j) into (c_j, d_j): k1 = (c0, c1), k2 = (c2, d0),
+// k3 = (d1, d2); VALIANT splits k2 in two, blocks j = 0, 1 with counts
+// (j, 2 + j) into (e_j, f_j): its high and low words' keys (e0, e1) and
+// (f0, f1).  Writes (kg, kd, x) to `out` (x: k1, k3, or the two VALIANT
+// keys) and key' to `chain`.
+template <int FAM>
+__device__ __forceinline__ void advance_key(int* chain, int* out, int algo) {
   const int lane = threadIdx.x & (WARP - 1);
   const uint32_t k0 = (uint32_t)chain[0], k1 = (uint32_t)chain[1];
   uint32_t a = (uint32_t)lane, b = (uint32_t)(lane + 5);
@@ -285,11 +368,179 @@ __device__ __forceinline__ void advance_key(int* chain, int* out) {
   const uint32_t a0 = __shfl_sync(FULL, a, 0), b0 = __shfl_sync(FULL, b, 0);
   const uint32_t a1 = __shfl_sync(FULL, a, 1), a2 = __shfl_sync(FULL, a, 2);
   const uint32_t a3 = __shfl_sync(FULL, a, 3), a4 = __shfl_sync(FULL, a, 4);
+  uint32_t x[4] = {0u, 0u, 0u, 0u};
+  if (FAM == FAM_DRAWN) {
+    const uint32_t m0 = __shfl_sync(FULL, b, 1), m1 = __shfl_sync(FULL, b, 2);
+    uint32_t c = (uint32_t)lane, d = (uint32_t)(lane + 3);
+    if (lane < 3) threefry(m0, m1, c, d);
+    if (algo == ALGO_O1TURN) {
+      x[0] = __shfl_sync(FULL, c, 0); x[1] = __shfl_sync(FULL, c, 1);
+    } else if (algo == ALGO_ROMM) {
+      x[0] = __shfl_sync(FULL, d, 1); x[1] = __shfl_sync(FULL, d, 2);
+    } else {
+      const uint32_t v0 = __shfl_sync(FULL, c, 2), v1 = __shfl_sync(FULL, d, 0);
+      uint32_t e = (uint32_t)lane, f = (uint32_t)(lane + 2);
+      if (lane < 2) threefry(v0, v1, e, f);
+      x[0] = __shfl_sync(FULL, e, 0); x[1] = __shfl_sync(FULL, e, 1);
+      x[2] = __shfl_sync(FULL, f, 0); x[3] = __shfl_sync(FULL, f, 1);
+    }
+  }
   __syncwarp();
   if (lane == 0) {
     out[0] = (int)a2; out[1] = (int)a3; out[2] = (int)a4; out[3] = (int)b0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) out[4 + j] = (int)x[j];
     chain[0] = (int)a0; chain[1] = (int)a1;
   }
+}
+
+// A generated packet's (order, inter), as the reference's gen_metadata
+// makes them (BiDOR's order, a table read, is left to the caller).  Every
+// lane of the warp calls it; `gen` and `dst` are uniform over a router's
+// segment (lanes base .. base + PV - 1, this lane its k-th), and the draws
+// are hashed only where a packet is generated, on segment lanes 2, 3, ...:
+// O1TURN bernoulli(k1, 0.5) on lane 2; VALIANT randint(k2, 0, N)'s high
+// and low words on lanes 2 and 3; ROMM uniform(k3, (N, NDIM))'s entries
+// NDIM * n + d on lanes 2 + d, each lane its dimension's term of the
+// intermediate node, summed over the segment.  `x` is the cycle's
+// algorithm key words (advance_key).
+template <int FAM>
+__device__ __forceinline__ void packet_meta(const SimArgs& a, const int* x,
+                                            bool gen, int n, int dst, int k,
+                                            int base, int& order,
+                                            int& inter) {
+  order = 0;
+  inter = -1;
+  const int algo = routed_algo<FAM>(a);
+  if (FAM != FAM_DRAWN) {
+    if (algo == ALGO_YX) order = a.O - 1;
+  } else if (algo == ALGO_O1TURN) {
+    uint32_t w = 0u;
+    if (gen && k == 2) w = node_bits((uint32_t)x[0], (uint32_t)x[1], n, a.N);
+    w = __shfl_sync(FULL, w, (base + 2) & (WARP - 1));
+    order = unit_float(w) < 0.5f ? a.O - 1 : 0;
+  } else if (algo == ALGO_VALIANT) {
+    uint32_t w = 0u;
+    if (gen && (k == 2 || k == 3))
+      w = node_bits((uint32_t)x[k == 2 ? 0 : 2], (uint32_t)x[k == 2 ? 1 : 3],
+                    n, a.N);
+    const uint32_t hi = __shfl_sync(FULL, w, (base + 2) & (WARP - 1));
+    const uint32_t lo = __shfl_sync(FULL, w, (base + 3) & (WARP - 1));
+    // _randint with span N: ((hi % N) * (2^32 % N) + lo % N) % N, the
+    // multiplier as (2^16 % N)^2 % N, all in uint32
+    const uint32_t span = (uint32_t)a.N;
+    uint32_t mult = 65536u % span;
+    mult = (mult * mult) % span;
+    inter = (int)(((hi % span) * mult + lo % span) % span);
+  } else if (algo == ALGO_ROMM) {
+    const int nd = a.NDIM, d = k - 2;
+    int term = 0;
+    if (gen && d >= 0 && d < nd) {
+      const float ur = unit_float(node_bits((uint32_t)x[0], (uint32_t)x[1],
+                                            n * nd + d, a.N * nd));
+      const int cs = __ldg(a.coords + n * nd + d);
+      const int cd = __ldg(a.coords + dst * nd + d);
+      const int lo = min(cs, cd), hi = max(cs, cd);
+      // a float32 product, truncated toward zero
+      const int ic = clampi(lo + (int)__fmul_rn(ur, (float)(hi - lo + 1)),
+                            lo, hi);
+      term = ic * __ldg(a.strides + d);
+    }
+    inter = 0;
+    for (int j = 0; j < nd; ++j)
+      inter += __shfl_sync(FULL, term, (base + 2 + j) & (WARP - 1));
+  }
+}
+
+// Odd-even's route (Chiu's ROUTE, minimal adaptive; ports 0 = +x, 1 = -x,
+// 2 = +y, 3 = -y) and its VC, as the reference's oddeven_route and VC
+// choice make them.  Every lane of the warp calls it.  `fv` is this lane's
+// (port k / V, VC k % V) receiver's free slots in the pre-cycle snapshot;
+// `held` returns whether the node's (port, VC) output is held.  For a lane
+// with `route` set returns the port (the one whose receive FIFOs hold more
+// free slots where both the x and the y step are allowed, x on a tie) and
+// the VC at it (the most free slots among the VCs not held, a held one
+// scored -1, the first maximum).
+template <typename Held>
+__device__ __forceinline__ void oddeven(const SimArgs& a, bool route, int n,
+                                        int src, int target, int fv, int base,
+                                        Held held, int& op, int& ov) {
+  const int V = a.V;
+  int tot[4];
+#pragma unroll
+  for (int po = 0; po < 4; ++po) {
+    tot[po] = 0;
+    for (int v = 0; v < V; ++v)
+      tot[po] += __shfl_sync(FULL, fv, (base + po * V + v) & (WARP - 1));
+  }
+  int port = 0;
+  if (route) {
+    const int cx = __ldg(a.coords + 2 * n), cy = __ldg(a.coords + 2 * n + 1);
+    const int sx = __ldg(a.coords + 2 * src);
+    const int tx = __ldg(a.coords + 2 * target);
+    const int dx = tx - cx, dy = __ldg(a.coords + 2 * target + 1) - cy;
+    const int y_port = dy > 0 ? 2 : 3, x_port = dx > 0 ? 0 : 1;
+    const bool east_ok = dx > 0 && (dy == 0 || pmod(tx, 2) == 1 || dx != 1);
+    const bool y_ok_east =
+        dx > 0 && dy != 0 && (pmod(cx, 2) == 1 || cx == sx);
+    const bool west_ok = dx < 0;
+    const bool y_ok_west = dx < 0 && dy != 0 && pmod(cx, 2) == 0;
+    const bool y_ok_straight = dx == 0 && dy != 0;
+    const bool x_ok = east_ok || west_ok;
+    const bool y_ok = y_ok_east || y_ok_west || y_ok_straight;
+    const bool prefer_y =
+        y_ok && (!x_ok || tot[y_port] > tot[x_port]);
+    port = prefer_y ? y_port : x_port;
+  }
+  int best = 0, best_f = 0;
+  for (int v = 0; v < V; ++v) {
+    int f = __shfl_sync(FULL, fv, (base + port * V + v) & (WARP - 1));
+    if (route && held(port, v)) f = -1;
+    if (v == 0 || f > best_f) { best = v; best_f = f; }
+  }
+  op = port;
+  ov = best;
+}
+
+// The VC a packet's flits enter at its source's local port, for every
+// algorithm but odd-even: XY and YX spread flows by (n + dst) % V, O1TURN
+// and BiDOR take order % V, VALIANT and ROMM the routing phase % V.
+__device__ __forceinline__ int vc_in_of(int algo, int n, const int* h, int V) {
+  if (algo == ALGO_XY || algo == ALGO_YX) return pmod(n + h[Q_DST], V);
+  if (algo == ALGO_VALIANT || algo == ALGO_ROMM)
+    return pmod((h[Q_INTER] < 0 || h[Q_INTER] == n) ? 1 : 0, V);
+  return pmod(h[Q_ORDER], V);
+}
+
+// The dimension order of a table-routed head flit, returned, and its VC:
+// XY and YX take order 0 and O - 1 and keep the input's VC (k % V);
+// O1TURN and BiDOR the packet's order (clamped, as the reference's gather
+// clamps it) and order % V; VALIANT and ROMM order 0 and their routing
+// phase % V.
+__device__ __forceinline__ int table_route(const SimArgs& a, int algo,
+                                           int order, bool rph, int k,
+                                           int& ov) {
+  if (algo == ALGO_XY || algo == ALGO_YX) {
+    ov = k % a.V;
+    return algo == ALGO_XY ? 0 : a.O - 1;
+  }
+  if (algo == ALGO_VALIANT || algo == ALGO_ROMM) {
+    ov = pmod(rph ? 1 : 0, a.V);
+    return 0;
+  }
+  ov = pmod(order, a.V);
+  return clampi(order, 0, a.O - 1);
+}
+
+// The receiver index behind (port, VC) of node n, as the reference indexes
+// its pre-cycle sizes: a port without a neighbour (-1) gives a negative
+// index, wrapped by NIN, then clamped.
+__device__ __forceinline__ int recv_index(const SimArgs& a, int n, int k) {
+  const int po = k / a.V, v = k - po * a.V;
+  int idx = (__ldg(a.neighbor + n * a.P + po) * a.P +
+             __ldg(a.recv_port + n * a.P + po)) * a.V + v;
+  if (idx < 0) idx += a.NIN;
+  return clampi(idx, 0, a.NIN - 1);
 }
 
 template <bool CLUSTERED>
@@ -306,7 +557,7 @@ __device__ __forceinline__ int* rank_ptr(int* p, int rank, int me) {
 }
 
 // MAXT bounds the block size, so a small block gets more registers.
-template <bool CLUSTERED, bool EMPTY, int MAXT>
+template <bool CLUSTERED, bool EMPTY, int MAXT, int FAM>
 __global__ void __launch_bounds__(MAXT, 1)
 simstep_chunk_kernel(const SimArgs a) {
   extern __shared__ int sm[];
@@ -403,21 +654,20 @@ simstep_chunk_kernel(const SimArgs a) {
     occ = __reduce_add_sync(FULL, occ);
     if (wl == 0) s_occ[t] = occ;
   }
-  int* chain = s_keys + 8;
+  int* chain = s_keys + KEY_CHAIN;
   if (warp == 0) {
     if (wl == 0) {
       chain[0] = a.key[2 * lane];
       chain[1] = a.key[2 * lane + 1];
     }
     __syncwarp();
-    advance_key(chain, s_keys);              // cycle 0's (kg, kd)
+    advance_key<FAM>(chain, s_keys, a.algo);  // cycle 0's keys
   }
 
   const int cyc0 = a.cycle0[lane];
   const int inj_until = a.inject_until[lane];
   const int meas_until = a.measure_until[lane];
   const float per_flit = __fdiv_rn(a.rate[lane], (float)a.PKT);
-  const bool bidor = a.algo == ALGO_BIDOR;
   // per-thread sums over the chunk (uint32: they wrap as int32 sums do)
   uint32_t r_inj = 0, r_off = 0, r_drop = 0, r_eject = 0, r_lat_sum = 0,
            r_lat_cnt = 0, r_meas = 0;
@@ -431,7 +681,7 @@ simstep_chunk_kernel(const SimArgs a) {
     const bool measuring = cyc >= a.warmup && cyc < meas_until;
     int* fs_cur = sm + ((c & 1) ? lay.fs1 : lay.fs0);
     int* fs_next = sm + ((c & 1) ? lay.fs0 : lay.fs1);
-    const int* kk = s_keys + 4 * (c & 1);
+    const int* kk = s_keys + KEY_STRIDE * (c & 1);
     const uint32_t kg0 = (uint32_t)kk[0], kg1 = (uint32_t)kk[1];
     const uint32_t kd0 = (uint32_t)kk[2], kd1 = (uint32_t)kk[3];
     const float cf = (float)cyc;
@@ -439,9 +689,9 @@ simstep_chunk_kernel(const SimArgs a) {
 
     // ====== phase A: per node, generation to pops and ejections ======== //
     if (key_warp) {
-      // the next cycle's (kg, kd), visible after the barrier
+      // the next cycle's keys, visible after the barrier
       if (c + 1 < a.num_cycles)
-        advance_key(chain, s_keys + 4 * ((c + 1) & 1));
+        advance_key<FAM>(chain, s_keys + KEY_STRIDE * ((c + 1) & 1), a.algo);
     } else {
       for (int r = 0; r < rounds; ++r) {
         const int t = (r * nwarps + warp) * spw + g;   // node in the tile
@@ -501,23 +751,25 @@ simstep_chunk_kernel(const SimArgs a) {
             hi = nhi;
           }
         }
+        const int dst = clampi(lo, 0, N - 1);
+        int order, inter;
+        packet_meta<FAM>(a, kk + 4, gen, n, dst, k, base, order, inter);
         // ---- 1b. source-queue push, 2. flit injection (segment lane 0) //
         int inj_k = -1;                   // the segment lane injected into
         if (act && k == 0) {
           int pr = s_prog[t];
-          const int dst = clampi(lo, 0, N - 1);
           const bool space = qs < Q;
           if (gen && space) {
-            const int order =
-                bidor ? __ldg(a.choice + (long long)n * N + dst) : 0;
+            if (FAM == FAM_BIDOR)
+              order = __ldg(a.choice + (long long)n * N + dst);
             int* nseq = a.next_seq + ln * N + dst;
             const int seq = *nseq;
             *nseq = seq + 1;
             int* rec = qrow + pmod(qst + qs, Q) * NQ;
-            rec[Q_DST] = dst; rec[Q_INTER] = -1; rec[Q_ORDER] = order;
+            rec[Q_DST] = dst; rec[Q_INTER] = inter; rec[Q_ORDER] = order;
             rec[Q_TIME] = cyc; rec[Q_SEQ] = seq;
             if (qs == 0) {                // the new packet is the head
-              h[Q_DST] = dst; h[Q_INTER] = -1; h[Q_ORDER] = order;
+              h[Q_DST] = dst; h[Q_INTER] = inter; h[Q_ORDER] = order;
               h[Q_TIME] = cyc; h[Q_SEQ] = seq;
             }
             qs += 1;
@@ -528,8 +780,14 @@ simstep_chunk_kernel(const SimArgs a) {
           }
           bool done = false;
           if (qs > 0) {
-            const int vc_in =
-                bidor ? pmod(h[Q_ORDER], V) : pmod(n + h[Q_DST], V);
+            int vc_in = 0;
+            if (FAM == FAM_ODDEVEN) {       // the local VC with most space
+              const int* ls = s_size + t * PV + a.p_local * V;
+              for (int j = 1; j < V; ++j)
+                if (ls[j] < ls[vc_in]) vc_in = j;
+            } else {
+              vc_in = vc_in_of(routed_algo<FAM>(a), n, h, V);
+            }
             const int lk = a.p_local * V + vc_in;       // segment lane
             const int lf = t * PV + lk;                 // tile-local
             const int lf_size = s_size[lf];             // before the pops
@@ -568,16 +826,30 @@ simstep_chunk_kernel(const SimArgs a) {
           f[x] = (act && size > 0) ? s_head[i * NF + x] : 0;
 
         // ---- 3-4. routing and eligibility, one lane per input ------ //
-        bool elig = false, rph = false;
+        bool elig = false;
         int op = -1, ov = 0;
         const bool head = f[F_HEAD] != 0, tail = f[F_TAIL] != 0;
+        const bool rph = f[F_PHASE] != 0 || f[F_INTER] < 0 || f[F_INTER] == n;
+        const int target = clampi(rph ? f[F_DST] : f[F_INTER], 0, N - 1);
         int* erow = a.exp_seq + ln * N;
         uint32_t* brow = reinterpret_cast<uint32_t*>(a.rbits + ln * N);
         int pre_exp = 0;
         uint32_t pre_bits = 0;
+        int oe_op = 0, oe_ov = 0;
+        if (FAM == FAM_ODDEVEN) {
+          int fv = 0;                      // this lane's receiver's credits
+          if (act) {
+            const int ridx = recv_index(a, n, k), rank = ridx / ti;
+            fv = B - rank_ptr<CLUSTERED>(fs_cur, rank, me)[ridx - rank * ti];
+          }
+          oddeven(a, act && size > 0, n, clampi(f[F_SRC], 0, N - 1), target,
+                  fv, base,
+                  [&](int po, int v) {
+                    return s_oh[(t * P + po) * V + v] >= 0;
+                  },
+                  oe_op, oe_ov);
+        }
         if (act && size > 0) {
-          rph = f[F_PHASE] != 0 || f[F_INTER] < 0 || f[F_INTER] == n;
-          const int target = clampi(rph ? f[F_DST] : f[F_INTER], 0, N - 1);
           const int lop = s_lop[i];
           const bool locked = lop >= 0;
           if (locked) {
@@ -586,10 +858,13 @@ simstep_chunk_kernel(const SimArgs a) {
           } else if (target == n) {
             op = a.p_local;
             ov = 0;
+          } else if (FAM == FAM_ODDEVEN) {
+            op = oe_op;
+            ov = oe_ov;
           } else {
-            const int eff = bidor ? clampi(f[F_ORDER], 0, a.O - 1) : 0;
+            const int eff =
+                table_route(a, routed_algo<FAM>(a), f[F_ORDER], rph, k, ov);
             op = __ldg(a.port + ((long long)eff * N + n) * N + target);
-            ov = bidor ? pmod(f[F_ORDER], V) : k % V;
           }
           const bool is_eject = op == a.p_local;
           const int cop = clampi(op, 0, P - 1);
@@ -708,7 +983,7 @@ simstep_chunk_kernel(const SimArgs a) {
       }
       // no spare warp: warp 0 carries the key chain after its nodes
       if (nwarps == MAX_WARPS && warp == 0 && c + 1 < a.num_cycles)
-        advance_key(chain, s_keys + 4 * ((c + 1) & 1));
+        advance_key<FAM>(chain, s_keys + KEY_STRIDE * ((c + 1) & 1), a.algo);
     }
     lane_sync<CLUSTERED>();
 
@@ -828,12 +1103,12 @@ simstep_chunk_kernel(const SimArgs a) {
   }
 }
 
-template <bool CLUSTERED, bool EMPTY, int MAXT>
+template <bool CLUSTERED, bool EMPTY, int MAXT, int FAM>
 int launch(const SimArgs& a, cudaStream_t stream) {
   const int pv = a.P * a.V;
   const size_t smem =
       sizeof(int) * (size_t)layout(a.tile_nodes, a.P, a.V, a.lat_bins).words;
-  auto kernel = simstep_chunk_kernel<CLUSTERED, EMPTY, MAXT>;
+  auto kernel = simstep_chunk_kernel<CLUSTERED, EMPTY, MAXT, FAM>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -861,12 +1136,31 @@ int launch(const SimArgs& a, cudaStream_t stream) {
 
 // The register budget follows the block: 128 a thread up to 512 threads,
 // 80 up to 768, else 64.
-template <bool CLUSTERED, bool EMPTY>
+template <bool CLUSTERED, bool EMPTY, int FAM>
 int launch_sized(const SimArgs& a, cudaStream_t stream) {
   const int threads = block_threads(a.tile_nodes, a.P * a.V);
-  if (threads <= 512) return launch<CLUSTERED, EMPTY, 512>(a, stream);
-  if (threads <= 768) return launch<CLUSTERED, EMPTY, 768>(a, stream);
-  return launch<CLUSTERED, EMPTY, 1024>(a, stream);
+  if (threads <= 512) return launch<CLUSTERED, EMPTY, 512, FAM>(a, stream);
+  if (threads <= 768) return launch<CLUSTERED, EMPTY, 768, FAM>(a, stream);
+  return launch<CLUSTERED, EMPTY, 1024, FAM>(a, stream);
+}
+
+// The empty body (the floor) takes the XY instance: it routes nothing.
+template <bool CLUSTERED, bool EMPTY>
+int launch_family(const SimArgs& a, cudaStream_t stream) {
+  if (EMPTY) return launch_sized<CLUSTERED, true, FAM_XY>(a, stream);
+  return by_family(a.algo, [&](auto fam) {
+    return launch_sized<CLUSTERED, false, decltype(fam)::value>(a, stream);
+  });
+}
+
+// What the routing algorithms need of a router: its draw lanes within a
+// segment, odd-even's four ports of a 2-D mesh, ROMM's coordinates.
+__host__ __device__ inline bool algo_fits(const SimArgs& a) {
+  if (a.algo < ALGO_XY || a.algo > ALGO_BIDOR) return false;
+  if (a.P * a.V < 2 + algo_draw_lanes(a.algo, a.NDIM)) return false;
+  if (a.algo == ALGO_ODDEVEN && (a.NDIM != 2 || a.P < 4)) return false;
+  if (a.algo == ALGO_ROMM && (a.NDIM < 1 || a.NDIM > MAX_NDIM)) return false;
+  return true;
 }
 
 int checked_launch(const SimArgs* args, void* stream, bool empty) {
@@ -874,15 +1168,16 @@ int checked_launch(const SimArgs* args, void* stream, bool empty) {
   const int pv = a.P * a.V;
   if (pv < 2 || pv > MAX_PV || a.P > MAX_P || a.tile_nodes <= 0 ||
       a.N % a.tile_nodes != 0 || a.ntiles != a.N / a.tile_nodes ||
-      a.ntiles > MAX_CLUSTER || a.num_cycles < 0 || a.lat_bins <= 0)
+      a.ntiles > MAX_CLUSTER || a.num_cycles < 0 || a.lat_bins <= 0 ||
+      !algo_fits(a))
     return (int)cudaErrorInvalidValue;
   if (a.num_cycles == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (a.ntiles > 1)
-    return empty ? launch_sized<true, true>(a, s)
-                 : launch_sized<true, false>(a, s);
-  return empty ? launch_sized<false, true>(a, s)
-               : launch_sized<false, false>(a, s);
+    return empty ? launch_family<true, true>(a, s)
+                 : launch_family<true, false>(a, s);
+  return empty ? launch_family<false, true>(a, s)
+               : launch_family<false, false>(a, s);
 }
 
 }  // namespace
@@ -1033,7 +1328,7 @@ __device__ __forceinline__ int measured_cycles(int cyc0, int until,
 
 // MAXT bounds the block; with 1024 / MAXT blocks an SM the budget is 64
 // registers a thread, so 32 warps of the kernel fit on one SM.
-template <bool EMPTY, int MAXT>
+template <bool EMPTY, int MAXT, int FAM>
 __global__ void __launch_bounds__(MAXT, 1024 / MAXT)
 simstep_grid_kernel(const SimArgs a, const GridArgs gr) {
   extern __shared__ int sm[];
@@ -1067,7 +1362,6 @@ simstep_grid_kernel(const SimArgs a, const GridArgs gr) {
   const int base = g * PV;                             // segment's lane 0
   const int seg0 = base & (WARP - 1);
   const unsigned segmask = PV == 32 ? FULL : ((1u << PV) - 1u);
-  const bool bidor = a.algo == ALGO_BIDOR;
 
   // ---------------- the block's lanes: constants, sums, keys ----------- //
   for (int j = threadIdx.x; j < nslots * sw; j += nthreads) sm[j] = 0;
@@ -1083,11 +1377,11 @@ simstep_grid_kernel(const SimArgs a, const GridArgs gr) {
   for (int s = warp; s < nslots; s += nwarps) {
     int* kw = sm + s * sw + G_KEYS;
     if (wl == 0) {
-      kw[8] = a.key[2 * (lane_lo + s)];
-      kw[9] = a.key[2 * (lane_lo + s) + 1];
+      kw[KEY_CHAIN] = a.key[2 * (lane_lo + s)];
+      kw[KEY_CHAIN + 1] = a.key[2 * (lane_lo + s) + 1];
     }
     __syncwarp();
-    advance_key(kw + 8, kw);                           // cycle 0's (kg, kd)
+    advance_key<FAM>(kw + KEY_CHAIN, kw, a.algo);      // cycle 0's keys
   }
   __syncthreads();
   // the credit snapshot of cycle 0: the FIFO sizes as they stand
@@ -1132,7 +1426,7 @@ simstep_grid_kernel(const SimArgs a, const GridArgs gr) {
       const int inj_until = lw[G_LANE + 1];
       const bool measuring = cyc >= a.warmup && cyc < lw[G_LANE + 2];
       const float per_flit = __int_as_float(lw[G_LANE + 3]);
-      const int* kk = lw + G_KEYS + 4 * (c & 1);
+      const int* kk = lw + G_KEYS + KEY_STRIDE * (c & 1);
       const uint32_t kg0 = (uint32_t)kk[0], kg1 = (uint32_t)kk[1];
       const uint32_t kd0 = (uint32_t)kk[2], kd1 = (uint32_t)kk[3];
       const float cf = (float)cyc;
@@ -1192,21 +1486,34 @@ simstep_grid_kernel(const SimArgs a, const GridArgs gr) {
           hi = nhi;
         }
       }
+      const int dst = clampi(lo, 0, N - 1);
+      int order, inter;
+      packet_meta<FAM>(a, kk + 4, gen, n, dst, k, base, order, inter);
+      // odd-even's local VC sizes, from the lanes that hold them
+      int local_vc = 0;
+      if (FAM == FAM_ODDEVEN) {
+        int best = 0;
+        for (int j = 0; j < V; ++j) {
+          const int sz = __shfl_sync(
+              FULL, size, (base + a.p_local * V + j) & (WARP - 1));
+          if (j == 0 || sz < best) { best = sz; local_vc = j; }
+        }
+      }
       // ---- 1b. source-queue push (segment lane 0) ------------------- //
       int lk = -1;                      // the input the head packet enters
       if (act && k == 0) {
-        const int dst = clampi(lo, 0, N - 1);
         const bool space = qs < Q;
         if (gen && space) {
-          const int order = bidor ? __ldg(a.choice + (long long)n * N + dst) : 0;
+          if (FAM == FAM_BIDOR)
+            order = __ldg(a.choice + (long long)n * N + dst);
           int* nseq = a.next_seq + ln * N + dst;
           const int seq = *nseq;
           *nseq = seq + 1;
           int* rec = qrow + pmod(qst + qs, Q) * NQ;
-          rec[Q_DST] = dst; rec[Q_INTER] = -1; rec[Q_ORDER] = order;
+          rec[Q_DST] = dst; rec[Q_INTER] = inter; rec[Q_ORDER] = order;
           rec[Q_TIME] = cyc; rec[Q_SEQ] = seq;
           if (qs == 0) {
-            h[Q_DST] = dst; h[Q_INTER] = -1; h[Q_ORDER] = order;
+            h[Q_DST] = dst; h[Q_INTER] = inter; h[Q_ORDER] = order;
             h[Q_TIME] = cyc; h[Q_SEQ] = seq;
           }
           qs += 1;
@@ -1216,8 +1523,9 @@ simstep_grid_kernel(const SimArgs a, const GridArgs gr) {
           sums.drop += (gen && !space) ? 1u : 0u;
         }
         if (qs > 0)
-          lk = a.p_local * V +
-               (bidor ? pmod(h[Q_ORDER], V) : pmod(n + h[Q_DST], V));
+          lk = a.p_local * V + (FAM == FAM_ODDEVEN
+                                    ? local_vc
+                                    : vc_in_of(routed_algo<FAM>(a), n, h, V));
       }
       // ---- 2. flit injection: the input's size and start from its lane //
       lk = __shfl_sync(FULL, lk, seg0);
@@ -1260,16 +1568,27 @@ simstep_grid_kernel(const SimArgs a, const GridArgs gr) {
       if (took) size += 1;
 
       // ---- 3-4. routing and eligibility, one lane per input -------- //
-      bool elig = false, rph = false;
+      bool elig = false;
       int op = -1, ov = 0, nei = 0, rp = 0;
       const bool head = f[F_HEAD] != 0, tail = f[F_TAIL] != 0;
+      const bool rph = f[F_PHASE] != 0 || f[F_INTER] < 0 || f[F_INTER] == n;
+      const int target = clampi(rph ? f[F_DST] : f[F_INTER], 0, N - 1);
       int* erow = a.exp_seq + ln * N;
       uint32_t* brow = reinterpret_cast<uint32_t*>(a.rbits) + ln * N;
       int pre_exp = 0;
       uint32_t pre_bits = 0;
+      int oe_op = 0, oe_ov = 0;
+      if (FAM == FAM_ODDEVEN) {
+        // this lane's receiver's credits, in the pre-cycle snapshot
+        const int fv = act ? B - __ldcg(fs_cur + lin + recv_index(a, n, k)) : 0;
+        oddeven(a, act && size > 0, n, clampi(f[F_SRC], 0, N - 1), target, fv,
+                base,
+                [&](int po, int v) {
+                  return a.out_held[(ln * P + po) * V + v] >= 0;
+                },
+                oe_op, oe_ov);
+      }
       if (act && size > 0) {
-        rph = f[F_PHASE] != 0 || f[F_INTER] < 0 || f[F_INTER] == n;
-        const int target = clampi(rph ? f[F_DST] : f[F_INTER], 0, N - 1);
         const bool locked = lop >= 0;
         if (locked) {
           op = lop;
@@ -1277,10 +1596,13 @@ simstep_grid_kernel(const SimArgs a, const GridArgs gr) {
         } else if (target == n) {
           op = a.p_local;
           ov = 0;
+        } else if (FAM == FAM_ODDEVEN) {
+          op = oe_op;
+          ov = oe_ov;
         } else {
-          const int eff = bidor ? clampi(f[F_ORDER], 0, a.O - 1) : 0;
+          const int eff =
+              table_route(a, routed_algo<FAM>(a), f[F_ORDER], rph, k, ov);
           op = __ldg(a.port + ((long long)eff * N + n) * N + target);
-          ov = bidor ? pmod(f[F_ORDER], V) : k % V;
         }
         const bool is_eject = op == a.p_local;
         const int cop = clampi(op, 0, P - 1);
@@ -1389,8 +1711,9 @@ simstep_grid_kernel(const SimArgs a, const GridArgs gr) {
     // the next cycle's keys of the block's lanes, a warp a lane
     if (c + 1 < nc) {
       for (int s = warp; s < nslots; s += nwarps)
-        advance_key(sm + s * sw + G_KEYS + 8,
-                    sm + s * sw + G_KEYS + 4 * ((c + 1) & 1));
+        advance_key<FAM>(sm + s * sw + G_KEYS + KEY_CHAIN,
+                    sm + s * sw + G_KEYS + KEY_STRIDE * ((c + 1) & 1),
+                    a.algo);
     }
     grid.sync();
 
@@ -1452,8 +1775,8 @@ simstep_grid_kernel(const SimArgs a, const GridArgs gr) {
       const int* lw = sm + s * sw;
       add(a.meas_cnt + lane,
           measured_cycles(lw[G_LANE], lw[G_LANE + 2], a.warmup, nc));
-      a.key[2 * lane] = lw[G_KEYS + 8];
-      a.key[2 * lane + 1] = lw[G_KEYS + 9];
+      a.key[2 * lane] = lw[G_KEYS + KEY_CHAIN];
+      a.key[2 * lane + 1] = lw[G_KEYS + KEY_CHAIN + 1];
     }
   }
   for (int j = threadIdx.x; j < nslots * bins; j += nthreads) {
@@ -1463,9 +1786,9 @@ simstep_grid_kernel(const SimArgs a, const GridArgs gr) {
   }
 }
 
-template <bool EMPTY, int MAXT>
+template <bool EMPTY, int MAXT, int FAM>
 int grid_launch(const SimArgs& a, const GridArgs& gr, cudaStream_t stream) {
-  auto kernel = simstep_grid_kernel<EMPTY, MAXT>;
+  auto kernel = simstep_grid_kernel<EMPTY, MAXT, FAM>;
   const int units = a.L * a.ntiles;
   const int rounds = (units + gr.grid - 1) / gr.grid;
   const size_t smem = sizeof(int) *
@@ -1482,14 +1805,14 @@ int grid_launch(const SimArgs& a, const GridArgs& gr, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <bool EMPTY>
+template <bool EMPTY, int FAM>
 int grid_launch_sized(const SimArgs& a, const GridArgs& gr,
                       cudaStream_t stream) {
   const int threads = grid_threads(a.tile_nodes, a.P * a.V);
-  if (threads <= 128) return grid_launch<EMPTY, 128>(a, gr, stream);
-  if (threads <= 256) return grid_launch<EMPTY, 256>(a, gr, stream);
-  if (threads <= 512) return grid_launch<EMPTY, 512>(a, gr, stream);
-  return grid_launch<EMPTY, 1024>(a, gr, stream);
+  if (threads <= 128) return grid_launch<EMPTY, 128, FAM>(a, gr, stream);
+  if (threads <= 256) return grid_launch<EMPTY, 256, FAM>(a, gr, stream);
+  if (threads <= 512) return grid_launch<EMPTY, 512, FAM>(a, gr, stream);
+  return grid_launch<EMPTY, 1024, FAM>(a, gr, stream);
 }
 
 int checked_grid_launch(const SimArgs* args, const GridArgs* gargs,
@@ -1500,7 +1823,7 @@ int checked_grid_launch(const SimArgs* args, const GridArgs* gargs,
   if (pv < 2 || pv > MAX_PV || a.P > MAX_P || a.tile_nodes <= 0 ||
       a.N % a.tile_nodes != 0 || a.ntiles != a.N / a.tile_nodes ||
       a.tile_nodes > MAX_WARPS * (WARP / pv) || a.L <= 0 ||
-      a.num_cycles < 0 || a.lat_bins <= 0)
+      a.num_cycles < 0 || a.lat_bins <= 0 || !algo_fits(a))
     return (int)cudaErrorInvalidValue;
   const int units = a.L * a.ntiles;
   if (gr.grid < 1 || gr.grid > units) return (int)cudaErrorInvalidValue;
@@ -1509,16 +1832,26 @@ int checked_grid_launch(const SimArgs* args, const GridArgs* gargs,
     return (int)cudaErrorInvalidValue;
   if (a.num_cycles == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
-  return empty ? grid_launch_sized<true>(a, gr, s)
-               : grid_launch_sized<false>(a, gr, s);
+  if (empty) return grid_launch_sized<true, FAM_XY>(a, gr, s);
+  return by_family(a.algo, [&](auto fam) {
+    return grid_launch_sized<false, decltype(fam)::value>(a, gr, s);
+  });
 }
 
-template <int MAXT>
+template <int MAXT, int FAM>
 int grid_occupancy(int threads, int smem) {
   int blocks = 0;
   const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &blocks, simstep_grid_kernel<false, MAXT>, threads, (size_t)smem);
+      &blocks, simstep_grid_kernel<false, MAXT, FAM>, threads, (size_t)smem);
   return err != cudaSuccess ? -(int)err : blocks;
+}
+
+template <int FAM>
+int grid_occupancy_sized(int threads, int smem) {
+  if (threads <= 128) return grid_occupancy<128, FAM>(threads, smem);
+  if (threads <= 256) return grid_occupancy<256, FAM>(threads, smem);
+  if (threads <= 512) return grid_occupancy<512, FAM>(threads, smem);
+  return grid_occupancy<1024, FAM>(threads, smem);
 }
 
 }  // namespace
@@ -1564,16 +1897,15 @@ extern "C" int simstep_grid_floor_launch(const SimArgs* args,
   return checked_grid_launch(args, gargs, stream, true);
 }
 
-// Blocks of `tile_nodes` nodes the grid kernel keeps on one SM with `smem`
-// bytes of dynamic shared memory each
+// Blocks of `tile_nodes` nodes the grid kernel for `algo` keeps on one SM
+// with `smem` bytes of dynamic shared memory each
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor; negative: a cudaError_t).
 extern "C" int simstep_grid_blocks_per_sm(int tile_nodes, int P, int V,
-                                          int smem) {
+                                          int smem, int algo) {
   const int threads = grid_threads(tile_nodes, P * V);
-  if (threads <= 128) return grid_occupancy<128>(threads, smem);
-  if (threads <= 256) return grid_occupancy<256>(threads, smem);
-  if (threads <= 512) return grid_occupancy<512>(threads, smem);
-  return grid_occupancy<1024>(threads, smem);
+  return by_family(algo, [&](auto fam) {
+    return grid_occupancy_sized<decltype(fam)::value>(threads, smem);
+  });
 }
 
 // Shared-memory bytes and threads of a grid-kernel block, so the binding

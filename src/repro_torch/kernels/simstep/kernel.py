@@ -22,7 +22,7 @@ from ..build import library
 
 PTR_FIELDS = (
     "port", "choice", "neighbor", "recv_port", "cdf", "p_gen", "chan_of",
-    "chan_bw", "key", "flits", "fifo_start", "fifo_size", "lock_op",
+    "chan_bw", "coords", "strides", "key", "flits", "fifo_start", "fifo_size", "lock_op",
     "lock_ov", "out_held", "rr", "qpkts", "q_start", "q_size", "prog",
     "next_seq", "rate", "cycle0", "inject_until", "measure_until",
     "exp_seq", "rbits", "node_fwd", "eject_flits", "chan_fwd", "chan_seen",
@@ -31,7 +31,7 @@ PTR_FIELDS = (
 )
 INT_FIELDS = (
     "L", "N", "P", "V", "NIN", "C", "O", "B", "Q", "PKT", "p_local", "algo",
-    "tile_nodes", "ntiles", "num_cycles", "warmup", "lat_bins",
+    "NDIM", "tile_nodes", "ntiles", "num_cycles", "warmup", "lat_bins",
     "lat_bin_width",
 )
 GRID_PTR_FIELDS = ("fs0", "fs1", "push_to", "occ")
@@ -45,9 +45,21 @@ MAX_P = 16
 MAX_CLUSTER = 16
 WARP = 32
 MAX_WARPS = 32
+# ROMM's coordinates on the card (its per-node draws, one lane each)
+MAX_NDIM = 4
 # int32 words of a block's shared memory besides its per-node arrays
-# (``struct Layout`` in the source): the per-block sums and the keys
-_FIXED_WORDS = 16 + 10
+# (``struct Layout`` in the source): the per-block sums and the keys (two
+# cycles of eight words and the chain's two)
+N_KEYS = 18
+_FIXED_WORDS = 16 + N_KEYS
+
+
+def draw_lanes(algo: int, ndim: int) -> int:
+    """Lanes of a router's segment that hash a pushed packet's draws
+    besides ``u`` and ``ud`` (``algo_draw_lanes`` in the source): one
+    for O1TURN, two for VALIANT (the high and low words), ``ndim`` for
+    ROMM."""
+    return {2: 1, 3: 2, 4: ndim}.get(int(algo), 0)
 
 
 def smem_bytes(tile: int, p: int, v: int, lat_bins: int) -> int:
@@ -83,7 +95,7 @@ def rounds(tile: int, pv: int) -> int:
 # constants and the latency histogram (``grid_slot_words`` in the source);
 # a 64-register budget a thread (its launch bounds), so an SM holds 32 of
 # its warps; and at most 32 resident blocks an SM (sm_90).
-_GRID_SLOT_FIXED = 10 + 16 + 4
+_GRID_SLOT_FIXED = N_KEYS + 16 + 4
 GRID_REG_WARPS = 32
 SM_BLOCKS = 32
 
@@ -212,10 +224,12 @@ class Launcher:
                                f"cudaError {err}")
 
 
-def grid_occupancy(tile: int, p: int, v: int, smem: int) -> int:
+def grid_occupancy(tile: int, p: int, v: int, smem: int, algo: int) -> int:
     """Grid-kernel blocks of ``tile`` nodes one SM of the current card
-    holds with ``smem`` bytes of shared memory each (the occupancy API)."""
-    got = library("simstep").simstep_grid_blocks_per_sm(tile, p, v, smem)
+    holds with ``smem`` bytes of shared memory each, for the kernel's
+    instance that routes ``algo`` (the occupancy API)."""
+    got = library("simstep").simstep_grid_blocks_per_sm(tile, p, v, smem,
+                                                        int(algo))
     if got <= 0:
         raise RuntimeError(f"simstep_grid occupancy query failed: {got}")
     return got

@@ -29,9 +29,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ...noc.simconfig import NF, NQ, SimConfig, check_supported
+from ...noc.simconfig import (NF, NQ, Algo, SimConfig, check_supported,
+                              check_topology)
 from .kernel import (INT_FIELDS, MAX_CLUSTER, MAX_P, MAX_PV, MAX_WARPS,
-                     MIN_PV, WARP, GridArgs, Launcher, block_threads,
+                     MAX_NDIM, MIN_PV, WARP, GridArgs, Launcher,
+                     block_threads, draw_lanes,
                      grid_blocks_per_sm, grid_occupancy, grid_smem_bytes,
                      rounds, sim_args, smem_bytes)
 from .ref import MOV_W, N_PART, draw_chunk, make_cycle_parts
@@ -45,7 +47,8 @@ SM_THREADS = 2048
 TABLE_DTYPES = dict(port=torch.int32, choice=torch.int32,
                     neighbor=torch.int32, recv_port=torch.int32,
                     cdf=torch.float32, p_gen=torch.float32,
-                    chan_of=torch.int32, chan_bw=torch.float32)
+                    chan_of=torch.int32, chan_bw=torch.float32,
+                    coords=torch.int32, strides=torch.int32)
 
 
 def _shapes(meta: dict, cfg: SimConfig, lanes: int) -> dict:
@@ -58,7 +61,8 @@ def _shapes(meta: dict, cfg: SimConfig, lanes: int) -> dict:
     return dict(
         lane, port=(meta["O"], n, n), choice=(n, n), neighbor=(n, p),
         recv_port=(n, p), cdf=(n, n), p_gen=(n,), chan_of=(n, p),
-        chan_bw=(c,), flits=(lanes, nin, cfg.buf_per_vc, NF),
+        chan_bw=(c,), coords=(n, meta["NDIM"]), strides=(meta["NDIM"],),
+        flits=(lanes, nin, cfg.buf_per_vc, NF),
         fifo_start=(lanes, nin), fifo_size=(lanes, nin),
         lock_op=(lanes, nin), lock_ov=(lanes, nin),
         out_held=(lanes, n, p, v), rr=(lanes, n, p),
@@ -235,6 +239,7 @@ class FlitStep:
 
     def __init__(self, meta: dict, cfg: SimConfig, tables, state: dict):
         check_supported(cfg)
+        check_topology(cfg, meta["NDIM"])
         self.meta, self.cfg = meta, cfg
         self.tables, self.state = tables, state
         self.device = state["fifo_size"].device
@@ -254,6 +259,15 @@ class FlitStep:
     # ------------------------------------------------------------- #
     def _bind_cuda(self) -> None:
         meta, cfg, t, st = self.meta, self.cfg, self.tables, self.state
+        ndim, pv = meta["NDIM"], meta["P"] * meta["V"]
+        if Algo(cfg.algo) == Algo.ROMM and ndim > MAX_NDIM:
+            raise ValueError(f"ROMM on the card takes at most {MAX_NDIM} "
+                             f"dimensions; the topology has {ndim}")
+        if pv < 2 + draw_lanes(int(cfg.algo), ndim):
+            raise ValueError(
+                f"{Algo(cfg.algo).name} hashes its draws on "
+                f"{2 + draw_lanes(int(cfg.algo), ndim)} lanes of a router; "
+                f"P·V = {pv}")
         shapes = _shapes(meta, cfg, self.lanes)
         ptrs = {}
         for name, dt in TABLE_DTYPES.items():
@@ -272,7 +286,7 @@ class FlitStep:
             L=self.lanes, N=meta["N"], P=meta["P"], V=meta["V"],
             NIN=meta["NIN"], C=meta["C"], O=meta["O"], B=cfg.buf_per_vc,
             Q=cfg.src_queue_pkts, PKT=cfg.packet_len,
-            p_local=meta["P_LOCAL"], algo=int(cfg.algo),
+            p_local=meta["P_LOCAL"], algo=int(cfg.algo), NDIM=ndim,
             tile_nodes=self.tile_nodes, ntiles=self.ntiles, num_cycles=0,
             warmup=cfg.warmup, lat_bins=cfg.lat_bins,
             lat_bin_width=cfg.lat_bin_width)
@@ -295,7 +309,7 @@ class FlitStep:
         # rounds (and so lane slots) are at least the final layout's
         _, rounds_ = grid_layout(n, p * v, lanes, tile, sms=sms)
         per_sm = grid_occupancy(tile, p, v, grid_smem_bytes(
-            rounds_, self.ntiles, lanes, self.cfg.lat_bins))
+            rounds_, self.ntiles, lanes, self.cfg.lat_bins), self.cfg.algo)
         self.grid, self.rounds = grid_layout(n, p * v, lanes, tile, sms=sms,
                                              per_sm=per_sm)
         i32 = torch.int32
@@ -335,14 +349,14 @@ class FlitStep:
             self.args.num_cycles = int(num_cycles)
             self.launcher.launch(self.args)
             return self.key.cpu().numpy().view(np.uint32).copy()
-        new_keys, u, ud = draw_chunk(keys, num_cycles, self.meta["N"],
-                                     self.device)
+        new_keys, rand = draw_chunk(keys, num_cycles, self.meta["N"],
+                                    self.device, self.cfg.algo,
+                                    self.meta["NDIM"])
         for c in range(num_cycles):
-            self._plain_cycle(u[c], ud[c], c)
+            self._plain_cycle({k: x[c] for k, x in rand.items()}, c)
         return new_keys
 
-    def _plain_cycle(self, u: torch.Tensor, ud: torch.Tensor,
-                     cycle: int) -> None:
+    def _plain_cycle(self, rand: dict, cycle: int) -> None:
         """One cycle of the plain twin, tile by tile: stages 1–6 read
         credits from a snapshot of ``fifo_size`` taken before the tiles
         run, then the receive pushes and statistics."""
@@ -354,7 +368,7 @@ class FlitStep:
         tn = self.tile_nodes
         for i in range(self.ntiles):
             mov[:, i * tn:(i + 1) * tn], parts[:, i] = self._tile_fn(
-                self.tables, st, u, ud, fs_pre, cycle, i * tn, tn)
+                self.tables, st, rand, fs_pre, cycle, i * tn, tn)
         self._finish_fn(self.tables, st, mov,
                         parts.sum(1, dtype=torch.int32), cycle)
 

@@ -25,8 +25,11 @@ match it bit for bit.  Gathers clamp their indices as XLA's do.
 arithmetic runs in int64 masked to 32 bits, since torch on the CPU has
 no uint32 add or shift.
 
-Only XY and BiDOR are ported in this slice (ROADMAP queue 1, item 7
-holds the other algorithms, the watchdog and telemetry).
+Every routing algorithm of the reference runs here: XY and YX, O1TURN,
+the two-phase VALIANT and ROMM (a packet routes to its intermediate
+node, then on to its destination, the phase bit flipping on the way),
+odd-even adaptive routing and BiDOR.  The watchdog and telemetry are
+not ported (ROADMAP queue 1, item 7d).
 """
 
 from __future__ import annotations
@@ -35,10 +38,10 @@ import numpy as np
 import torch
 
 from ... import prng
-from ...noc.simconfig import (PORTED_ALGOS, Algo, SimConfig, NF, F_SRC,
-                              F_DST, F_INTER, F_SEQ, F_TIME, F_HOPS, F_ORDER,
-                              F_HEAD, F_TAIL, F_PHASE, Q_DST, Q_INTER,
-                              Q_ORDER, Q_TIME, Q_SEQ, check_supported)
+from ...noc.simconfig import (Algo, SimConfig, NF, F_SRC, F_DST, F_INTER,
+                              F_SEQ, F_TIME, F_HOPS, F_ORDER, F_HEAD, F_TAIL,
+                              F_PHASE, Q_DST, Q_INTER, Q_ORDER, Q_TIME, Q_SEQ,
+                              check_supported, check_topology)
 
 _BIG = 1 << 30
 MASK32 = 0xFFFFFFFF
@@ -52,57 +55,102 @@ N_PART = 5
 (PART_GEN, PART_PUSH, PART_SHED, PART_INJ, PART_STALL) = range(N_PART)
 
 
+def _dev_keys(k: np.ndarray, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(k, np.uint32).astype(np.int64),
+                           device=device)
+
+
+def algo_draws(algo: Algo, km: np.ndarray, n: int, ndim: int,
+               device) -> dict:
+    """The draws an algorithm takes from the metadata key ``km``
+    ((..., 2) uint32), hashed on ``device``: ``k1, k2, k3 = split(km, 3)``,
+    then O1TURN ``ob = bernoulli(k1, 0.5, (n,))`` (bool), VALIANT
+    ``ri = randint(k2, (n,), 0, n)`` (int32), ROMM
+    ``ur = uniform(k3, (n, ndim))`` (float32); nothing for XY, YX,
+    ODDEVEN and BIDOR.  Each has the leading axes of ``km``."""
+    algo = Algo(algo)
+    if algo not in (Algo.O1TURN, Algo.VALIANT, Algo.ROMM):
+        return {}
+    k = prng.split(km, 3)
+    if algo == Algo.O1TURN:
+        u = prng.uniform_torch(_dev_keys(k[..., 0, :], device), n)
+        return {"ob": u < 0.5}
+    if algo == Algo.VALIANT:
+        s = prng.split(k[..., 1, :], 2)
+        hi = prng.random_bits_torch(_dev_keys(s[..., 0, :], device), n)
+        lo = prng.random_bits_torch(_dev_keys(s[..., 1, :], device), n)
+        return {"ri": prng.randint_from_bits(hi, lo, 0, n).to(torch.int32)}
+    u = prng.uniform_torch(_dev_keys(k[..., 2, :], device), n * ndim)
+    return {"ur": u.view(u.shape[:-1] + (n, ndim))}
+
+
 def split_rand(key, algo: Algo, n: int, ndim: int, device="cpu"):
     """Advance the PRNG key by exactly one cycle, as the reference does.
 
     ``key`` is a (2,) or (L, 2) uint32 array.  One 5-way split, then the
-    3-way split of the metadata key ``km`` (whose subkeys feed the
-    O1TURN/VALIANT/ROMM draws, ported with those algorithms), then the
-    ``u`` and ``ud`` uniforms.  Returns ``(new_key, {"u", "ud"})`` with
-    the draws as float32 tensors on ``device``.  The chunk runner uses
-    :func:`draw_chunk`, which yields the same bits for many cycles at
-    once."""
-    del ndim  # the ROMM draw's width; ROMM is not ported yet
-    if Algo(algo) not in PORTED_ALGOS:
-        raise NotImplementedError(f"{Algo(algo).name} draws are not ported")
+    ``u`` and ``ud`` uniforms of the generation and destination keys and
+    the algorithm's draws from the metadata key ``km``
+    (:func:`algo_draws`).  Returns ``(new_key, rand)``, the draws as
+    tensors on ``device``.  The chunk runner uses :func:`draw_chunk`,
+    which yields the same bits for many cycles at once."""
     ks = prng.split(key, 5)
     new_key, kg, kd, km = ks[..., 0, :], ks[..., 1, :], ks[..., 2, :], \
         ks[..., 3, :]
-    prng.split(km, 3)
-    u = torch.as_tensor(prng.uniform(kg, n), device=device)
-    ud = torch.as_tensor(prng.uniform(kd, n), device=device)
-    return new_key, {"u": u, "ud": ud}
+    rand = {"u": torch.as_tensor(prng.uniform(kg, n), device=device),
+            "ud": torch.as_tensor(prng.uniform(kd, n), device=device)}
+    rand.update(algo_draws(algo, km, n, ndim, device))
+    return new_key, rand
 
 
-def draw_chunk(keys: np.ndarray, cycles: int, n: int, device):
-    """The ``u`` and ``ud`` draws of ``cycles`` consecutive cycles for
-    every lane: ``(new_keys (L, 2), u (cycles, L, n), ud (cycles, L, n))``.
-    The key chain advances on the host (:func:`repro_torch.prng.chain_keys`);
-    the uniforms are hashed on ``device`` in one bulk call."""
-    new_keys, kg, kd = prng.chain_keys(keys, cycles)
+def draw_chunk(keys: np.ndarray, cycles: int, n: int, device,
+               algo: Algo = Algo.XY, ndim: int = 2):
+    """The draws of ``cycles`` consecutive cycles for every lane:
+    ``(new_keys (L, 2), rand)``, ``rand`` holding ``u`` and ``ud``
+    (cycles, L, n) and the algorithm's draws (:func:`algo_draws`) with
+    the same leading axes.  The key chain advances on the host
+    (:func:`repro_torch.prng.chain_keys`); the draws are hashed on
+    ``device`` in bulk."""
+    new_keys, kg, kd, km = prng.chain_keys(keys, cycles)
     both = torch.as_tensor(np.stack([kg, kd], 0).astype(np.int64),
                            device=device)
     draws = prng.uniform_torch(both, n)          # (2, cycles, L, n)
-    return new_keys, draws[0], draws[1]
+    rand = {"u": draws[0], "ud": draws[1]}
+    rand.update(algo_draws(algo, km, n, ndim, device))
+    return new_keys, rand
 
 
 def node_uniform(kg, n, num_nodes: int) -> np.ndarray:
     """``uniform(kg, num_nodes)[n]`` computed for node ``n`` alone, as
-    the chunk kernel does on the card: one threefry2x32 block per node.
+    the card's kernels do: one threefry2x32 block per node
+    (:func:`repro_torch.prng.bits_at`).  ``kg`` is a (..., 2) uint32 key
+    and ``n`` an int array that broadcasts against its leading axes;
+    returns float32."""
+    return prng._bits_to_unit(prng.bits_at(kg, n, num_nodes))
 
-    ``jax.random.uniform`` hashes ``iota(N)`` in two halves (h = ⌈N/2⌉):
-    block ``b`` takes counts ``(b, b + h)``, except ``(h − 1, 0)`` at odd
-    N, where the iota is padded with one zero.  Node ``n < h`` takes
-    word 0 of block ``n``, node ``n ≥ h`` word 1 of block ``n − h``.
-    ``kg`` is a (..., 2) uint32 key and ``n`` an int array that
-    broadcasts against its leading axes; returns float32."""
-    kg = np.asarray(kg, np.uint32).astype(np.int64)
+
+def node_draws(algo: Algo, km, n, num_nodes: int, ndim: int) -> dict:
+    """:func:`algo_draws` for node ``n`` alone, as the card's kernels
+    hash them where a packet is pushed: O1TURN one block of ``k1``;
+    VALIANT one block of each of the two keys ``split(k2)`` (the split
+    made once a cycle); ROMM the ``ndim`` entries ``ndim·n + d`` of the
+    flat ``(N, ndim)`` count, one block each.  Arguments broadcast as in
+    :func:`node_uniform`; returns numpy arrays."""
+    algo = Algo(algo)
     n = np.asarray(n, np.int64)
-    h = (num_nodes + 1) // 2
-    b = np.where(n < h, n, n - h)
-    x1 = np.where((num_nodes % 2 == 1) & (b == h - 1), 0, b + h)
-    y0, y1 = prng.threefry2x32(kg[..., 0], kg[..., 1], b, x1)
-    return prng._bits_to_unit(np.where(n < h, y0, y1))
+    k = prng.split(km, 3)
+    if algo == Algo.O1TURN:
+        return {"ob": node_uniform(k[..., 0, None, :], n, num_nodes) < 0.5}
+    if algo == Algo.VALIANT:
+        s = prng.split(k[..., 1, :], 2)
+        hi = prng.bits_at(s[..., 0, None, :], n, num_nodes)
+        lo = prng.bits_at(s[..., 1, None, :], n, num_nodes)
+        return {"ri": prng.randint_from_bits(hi, lo, 0, num_nodes)
+                .astype(np.int32)}
+    if algo == Algo.ROMM:
+        e = n[..., None] * ndim + np.arange(ndim)
+        bits = prng.bits_at(k[..., 2, None, None, :], e, num_nodes * ndim)
+        return {"ur": prng._bits_to_unit(bits)}
+    return {}
 
 
 def reorder_occupancy(rbits: torch.Tensor) -> torch.Tensor:
@@ -131,6 +179,22 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
     return ((x * 0x01010101) & MASK32) >> 24
 
 
+def receiver_free(t, fs_pre: torch.Tensor, nodes: torch.Tensor, v: int,
+                  b: int) -> torch.Tensor:
+    """Odd-even's credits: for each of ``nodes``, the free slots of the
+    ``v`` receive FIFOs behind each of its ports in the pre-cycle
+    snapshot ``fs_pre`` (L, NIN): (L, len(nodes), P, V).  A port without
+    a neighbour (−1) reads index (−P + rp)·V + k, which the reference's
+    indexing wraps by NIN, then clamps; the turn rules keep its value
+    from deciding a route."""
+    nin, p = fs_pre.shape[1], t.neighbor.shape[1]
+    base = (t.neighbor[nodes] * p + t.recv_port[nodes]) * v     # (n, P)
+    idx = base[..., None] + torch.arange(v, device=base.device)
+    idx = torch.where(idx < 0, idx + nin, idx).clamp(0, nin - 1)
+    li = torch.arange(fs_pre.shape[0], device=fs_pre.device)
+    return b - fs_pre[li[:, None, None, None], idx[None]]
+
+
 def _to_i32_bits(x: torch.Tensor) -> torch.Tensor:
     """int64 in [0, 2**32) → int32 with the same bit pattern."""
     return torch.where(x >= (1 << 31), x - (1 << 32), x).to(torch.int32)
@@ -139,9 +203,10 @@ def _to_i32_bits(x: torch.Tensor) -> torch.Tensor:
 def make_cycle_parts(meta: dict, cfg: SimConfig):
     """``(tile_fn, finish_fn)`` over lane-batched torch state.
 
-    ``tile_fn(t, state, u, ud, fs_pre, cycle, node0, tn) -> (mov, parts)``
+    ``tile_fn(t, state, rand, fs_pre, cycle, node0, tn) -> (mov, parts)``
         runs stages 1–6 for nodes ``[node0, node0 + tn)`` and their
-        inputs, in place; ``u``/``ud`` are (L, N) draws, ``fs_pre`` the
+        inputs, in place; ``rand`` is one cycle's draws (``u``, ``ud``
+        (L, N) and the algorithm's, :func:`algo_draws`), ``fs_pre`` the
         (L, NIN) pre-cycle ``fifo_size`` snapshot, ``cycle`` the
         in-chunk cycle index.  ``mov`` is (L, tn, P, MOV_W) int32,
         ``parts`` (L, N_PART) int32.
@@ -150,15 +215,66 @@ def make_cycle_parts(meta: dict, cfg: SimConfig):
         place; ``mov`` is (L, N, P, MOV_W), ``parts`` summed over tiles.
     """
     check_supported(cfg)
+    check_topology(cfg, meta["NDIM"])
     algo = Algo(cfg.algo)
     n, p, v, nin = meta["N"], meta["P"], meta["V"], meta["NIN"]
     p_local = meta["P_LOCAL"]
     num_orders = meta["O"]
     b, q, l = cfg.buf_per_vc, cfg.src_queue_pkts, cfg.packet_len
     pv = p * v
+    two_phase = algo in (Algo.VALIANT, Algo.ROMM)
     i32 = torch.int32
 
-    def tile_fn(t, st, u, ud, fs_pre, cycle, node0, tn):
+    def gen_metadata(t, rand, na, ns_, dst):
+        """Per-algorithm (order, inter) of the packets generated at nodes
+        ``na`` (absolute ids) toward ``dst`` (L, tn)."""
+        if algo == Algo.YX:
+            order = torch.full_like(dst, num_orders - 1, dtype=i32)
+        elif algo == Algo.O1TURN:
+            order = torch.where(rand["ob"][:, ns_], num_orders - 1,
+                                0).to(i32)
+        elif algo == Algo.BIDOR:
+            order = t.choice[na[None, :], dst]
+        else:
+            order = torch.zeros_like(dst, dtype=i32)
+        if algo == Algo.VALIANT:
+            inter = rand["ri"][:, ns_]
+        elif algo == Algo.ROMM:
+            cs, cd = t.coords[na][None], t.coords[dst]       # (.., ndim)
+            lo, hi = torch.minimum(cs, cd), torch.maximum(cs, cd)
+            # a float32 product, truncated toward zero
+            ic = lo + (rand["ur"][:, ns_] * (hi - lo + 1).to(
+                torch.float32)).to(i32)
+            ic = torch.minimum(torch.maximum(ic, lo), hi)
+            inter = (ic * t.strides).sum(-1).to(i32)
+        else:
+            inter = torch.full_like(dst, -1, dtype=i32)
+        return order, inter
+
+    def oddeven_route(t, cur, src, target, free_port):
+        """Chiu's minimal adaptive odd-even ROUTE and credit-based
+        selection, ports 0 = +x, 1 = −x, 2 = +y, 3 = −y; (L, NIN_T)."""
+        cx = t.coords[cur, 0]
+        sx = t.coords[src, 0]
+        tx = t.coords[target, 0]
+        dx = tx - cx
+        dy = t.coords[target, 1] - t.coords[cur, 1]
+        y_port = torch.where(dy > 0, 2, 3)
+        east_ok = (dx > 0) & ((dy == 0) | (tx % 2 == 1) | (dx != 1))
+        y_ok_east = (dx > 0) & (dy != 0) & ((cx % 2 == 1) | (cx == sx))
+        west_ok = dx < 0
+        y_ok_west = (dx < 0) & (dy != 0) & (cx % 2 == 0)
+        y_ok_straight = (dx == 0) & (dy != 0)
+        x_port = torch.where(dx > 0, 0, 1)
+        x_ok = east_ok | west_ok
+        y_ok = y_ok_east | y_ok_west | y_ok_straight
+        fx = free_port.gather(-1, x_port[..., None])[..., 0]
+        fy = free_port.gather(-1, y_port[..., None])[..., 0]
+        prefer_y = y_ok & (~x_ok | (fy > fx))
+        return torch.where(prefer_y, y_port, x_port)
+
+    def tile_fn(t, st, rand, fs_pre, cycle, node0, tn):
+        u, ud = rand["u"], rand["ud"]
         dev = u.device
         lanes = u.shape[0]
         li = torch.arange(lanes, device=dev)[:, None]        # (L, 1)
@@ -176,11 +292,7 @@ def make_cycle_parts(meta: dict, cfg: SimConfig):
                & (cyc < st["inject_until"])[:, None])
         raw_dst = (t.cdf[ns_][None] <= udd[:, :, None]).sum(-1)
         dst = torch.clamp(raw_dst, 0, n - 1)                 # (L, tn) int64
-        if algo == Algo.BIDOR:
-            order = t.choice[na[None, :], dst]
-        else:
-            order = torch.zeros_like(dst, dtype=i32)
-        inter = torch.full_like(dst, -1, dtype=i32)
+        order, inter = gen_metadata(t, rand, na, ns_, dst)
         q_size = st["q_size"][:, ns_].clone()
         q_start = st["q_start"][:, ns_].clone()
         space = q_size < q
@@ -205,10 +317,18 @@ def make_cycle_parts(meta: dict, cfg: SimConfig):
         fl_head = prog == 0
         fl_tail = prog == l - 1
         phase0 = (h_inter < 0) | (h_inter == na)
-        if algo == Algo.XY:
+        if algo in (Algo.XY, Algo.YX):
             vc_in = (na + h_dst) % v
-        else:
+        elif algo in (Algo.O1TURN, Algo.BIDOR):
             vc_in = h_order % v
+        elif two_phase:
+            vc_in = phase0.to(i32) % v
+        else:   # odd-even: the local VC with the most space, first minimum
+            local = (na * p + p_local) * v
+            sizes = st["fifo_size"][li[..., None],
+                                    local[:, None] + torch.arange(
+                                        v, device=dev)]
+            vc_in = sizes.argmin(-1)
         lf_idx = (na * p + p_local) * v + vc_in              # absolute
         lf_size = st["fifo_size"][li, lf_idx]
         can = (q_size > 0) & (lf_size < b)
@@ -243,13 +363,32 @@ def make_cycle_parts(meta: dict, cfg: SimConfig):
         lock_ov = st["lock_ov"][:, is_].clone()
         locked = lock_op >= 0
         g_order = g_all[..., F_ORDER]
-        if algo == Algo.XY:
-            eff_order = torch.zeros_like(g_order)
-            ov_route = t.v_of[is_].expand(lanes, nin_t)
+        nli = torch.arange(nin_t, device=dev) // pv
+        if algo == Algo.ODDEVEN:
+            # (L, NIN_T, P, V): the credits behind each port of its node
+            free_pv = receiver_free(t, fs_pre, na, v, b)[:, nli]
+            op_route = oddeven_route(
+                t, n_of, torch.clamp(g_all[..., F_SRC], 0, n - 1), target,
+                free_pv.sum(-1))
+            # the freer VC at the chosen port, a held one scored −1
+            held = st["out_held"][li, n_of, op_route] >= 0   # (L, NIN_T, V)
+            f = free_pv.gather(2, op_route[..., None, None].expand(
+                lanes, nin_t, 1, v))[:, :, 0]
+            ov_route = torch.where(held, -1, f).argmax(-1)
         else:
-            eff_order = torch.clamp(g_order, 0, num_orders - 1)
-            ov_route = g_order % v
-        op_route = t.port[eff_order, n_of, target]
+            if algo in (Algo.XY, Algo.VALIANT, Algo.ROMM):
+                eff_order = torch.zeros_like(g_order)
+            elif algo == Algo.YX:
+                eff_order = torch.full_like(g_order, num_orders - 1)
+            else:
+                eff_order = torch.clamp(g_order, 0, num_orders - 1)
+            op_route = t.port[eff_order, n_of, target]
+            if algo in (Algo.XY, Algo.YX):
+                ov_route = t.v_of[is_].expand(lanes, nin_t)
+            elif two_phase:
+                ov_route = route_phase.to(i32) % v
+            else:
+                ov_route = g_order % v
         op = torch.where(at_dest, p_local, op_route)
         ov = torch.where(at_dest, 0, ov_route)
         op = torch.where(locked, lock_op, op)
@@ -292,7 +431,6 @@ def make_cycle_parts(meta: dict, cfg: SimConfig):
 
         # ---------------- 6. move granted flits (tile part) ------------- #
         granted = grants >= 0
-        nli = torch.arange(nin_t, device=dev) // pv
         popped = elig & (grants[li, nli, clip_op] == in_local)
         win_flat = torch.where(granted, nl[:, None] * pv + grants, 0)
         g_ext = torch.cat([g_all, op[..., None].to(i32),
@@ -423,14 +561,14 @@ def make_cycle_parts(meta: dict, cfg: SimConfig):
 
 
 def make_cycle_fn(meta: dict, cfg: SimConfig):
-    """``cycle_fn(t, state, u, ud, cycle)``: one whole cycle in place, the
+    """``cycle_fn(t, state, rand, cycle)``: one whole cycle in place, the
     whole network as one tile — the plain composition the tiled paths
     are held against."""
     tile_fn, finish_fn = make_cycle_parts(meta, cfg)
 
-    def cycle_fn(t, state, u, ud, cycle):
+    def cycle_fn(t, state, rand, cycle):
         fs_pre = state["fifo_size"].clone()
-        mov, parts = tile_fn(t, state, u, ud, fs_pre, cycle, 0, meta["N"])
+        mov, parts = tile_fn(t, state, rand, fs_pre, cycle, 0, meta["N"])
         finish_fn(t, state, mov, parts, cycle)
 
     return cycle_fn

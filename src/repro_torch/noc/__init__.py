@@ -2,7 +2,8 @@
 the quasi-static control plane."""
 
 from .simconfig import Algo, SimConfig, SimResult
-from .sim import run_sim, run_sweep
+from .sim import run_sim, run_sweep, run_trace, run_trace_sweep
+from .workload import clos_leaf_trace
 from .campaign import (CampaignExecutor, CampaignPoint, CampaignResult,
                        CampaignSpec, CellKey, CellOutcome, campaign_cells,
                        run_campaign)
@@ -11,6 +12,7 @@ from .ctrl import (ControlledResult, DriftDetector, LinkFail, LinkRecover,
                    TrafficEstimator, run_controlled)
 
 __all__ = ["Algo", "SimConfig", "SimResult", "run_sim", "run_sweep",
+           "run_trace", "run_trace_sweep", "clos_leaf_trace",
            "CampaignSpec", "CampaignPoint", "CampaignResult",
            "run_campaign", "CampaignExecutor", "CellKey", "CellOutcome",
            "campaign_cells", "LinkFail", "LinkRecover", "TrafficDrift",

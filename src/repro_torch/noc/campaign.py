@@ -16,7 +16,7 @@ BiDOR plans come from one batched planner call
 (:func:`repro_torch.core.plan_fast.build_plans_batched`), each gated by
 the deadlock certifier, unless ``run_campaign(bidor_tables=...)``
 supplies a pattern's choice table.  Not ported yet: ``topos`` (ROADMAP
-queue 1, item 7), ``workloads`` (ML traffic, item 10) and the plan
+queue 1, item 7c), ``workloads`` (ML traffic, item 10) and the plan
 cache (item 9); each raises ``NotImplementedError``.
 """
 
@@ -38,7 +38,8 @@ from .ctrl import run_controlled
 from .sim import (build_tables, lane, make_states, postprocess,
                   queue_occupancy, run_cycles, source_queue_meta,
                   state_to_host)
-from .simconfig import Algo, SimConfig, SimResult, check_supported
+from .simconfig import (Algo, SimConfig, SimResult, check_supported,
+                        check_topology)
 
 __all__ = ["CampaignSpec", "CampaignPoint", "CampaignResult",
            "run_campaign", "CellKey", "CellOutcome", "campaign_cells",
@@ -51,7 +52,7 @@ class CampaignSpec:
 
     Attributes:
       topo: the network under test.
-      algos: routing algorithms to sweep (XY and BIDOR in this slice).
+      algos: routing algorithms to sweep.
       patterns: traffic patterns — names from
         ``repro_torch.core.traffic.PATTERNS`` or ``(name, matrix)`` pairs.
       rates: injection rates (flits/cycle/I/O-port).
@@ -115,9 +116,10 @@ def check_spec(spec: CampaignSpec) -> None:
             "ML workloads are not ported yet (ROADMAP queue 1, item 10)")
     if spec.topos:
         raise NotImplementedError(
-            "the topology axis is not ported yet (ROADMAP queue 1, item 7)")
+            "the topology axis is not ported yet (ROADMAP queue 1, item 7c)")
     for algo in spec.algos:
         check_supported(spec.base.replace(algo=algo))
+        check_topology(spec.base.replace(algo=algo), spec.topo.ndim)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -204,6 +206,18 @@ class CampaignResult:
                 f"cell ({algo.name}, {pattern!r}, {scenario!r}) is missing "
                 f"{int((~filled).sum())} of the {filled.size} points")
         return g
+
+    def mean_over_seeds(self, field: str, algo: Algo, pattern: str,
+                        scenario: str | None = None) -> np.ndarray:
+        """(num_rates,) seed average of a SimResult field for one cell."""
+        return self.grid(field, algo, pattern, scenario=scenario).mean(axis=1)
+
+    def saturation_throughput(self, algo: Algo, pattern: str,
+                              scenario: str | None = None) -> float:
+        """Max seed-averaged accepted throughput across the rate sweep
+        (paper Fig. 8)."""
+        return float(self.mean_over_seeds("throughput", algo, pattern,
+                                          scenario=scenario).max())
 
     CSV_HEADER = ["topo", "scenario", "pattern", "workload", "algo",
                   "rate", "seed", "throughput", "offered", "avg_lat",

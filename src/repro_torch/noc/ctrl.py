@@ -326,7 +326,7 @@ class ControlledResult:
     # certificate + table swap)
     replan_ms: list = dataclasses.field(default_factory=list)
     # in-sim probe rings and the stall-watchdog summary: None while
-    # telemetry and the watchdog are not ported (ROADMAP queue 1, item 7)
+    # telemetry and the watchdog are not ported (ROADMAP queue 1, item 7d)
     telemetry: object = None
     watchdog: object = None
 

@@ -39,8 +39,11 @@ from .simconfig import Algo, SimConfig, SimResult, NF, NQ, check_supported
 
 __all__ = ["Tables", "build_tables", "retarget_tables", "fresh_state",
            "make_states", "point_key", "run_cycles", "run_sweep", "run_sim",
-           "postprocess", "hist_percentile", "queue_occupancy",
-           "source_queue_meta"]
+           "run_trace_sweep", "run_trace", "postprocess", "hist_percentile",
+           "queue_occupancy", "source_queue_meta"]
+
+# an open-ended injection and measurement window (the reference's _BIG)
+_BIG = 1 << 30
 
 
 class Tables(NamedTuple):
@@ -52,6 +55,8 @@ class Tables(NamedTuple):
     recv_port: torch.Tensor  # (N, P) int32: input port at the neighbor
     cdf: torch.Tensor       # (N, N) float32 destination CDF per source
     p_gen: torch.Tensor     # (N,) float32 packet-generation probability @rate 1
+    coords: torch.Tensor    # (N, ndim) int32
+    strides: torch.Tensor   # (ndim,) int32: coord → node-id strides
     n_of: torch.Tensor      # (NIN,) node of each input
     v_of: torch.Tensor      # (NIN,) vc of each input
     chan_src_n: torch.Tensor  # (C,) source node of each channel
@@ -99,7 +104,9 @@ def build_tables(topo: Topology, traffic: np.ndarray,
     arrays = dict(
         port=port, choice=np.asarray(table.choice, np.int32),
         neighbor=topo.neighbor_table.astype(np.int32), recv_port=recv_port,
-        cdf=cdf, p_gen=p_gen, n_of=idx // (p * v), v_of=idx % v,
+        cdf=cdf, p_gen=p_gen, coords=topo.coords.astype(np.int32),
+        strides=topo.coord_strides.astype(np.int32),
+        n_of=idx // (p * v), v_of=idx % v,
         chan_src_n=topo.channels[:, 0].astype(np.int32),
         chan_src_p=topo.channel_port.astype(np.int32),
         chan_of=chan_of,
@@ -335,3 +342,67 @@ def run_sim(topo: Topology, traffic: np.ndarray, cfg: SimConfig,
     """Run one simulation and post-process its statistics."""
     return run_sweep(topo, traffic, cfg, [cfg.injection_rate], bidor_table,
                      device=device)[0]
+
+
+def run_trace_sweep(topo: Topology,
+                    segments: list[tuple[np.ndarray, float]],
+                    cfg: SimConfig,
+                    bidor_table: BiDORTable | None = None,
+                    seeds: list[int] | None = None, *,
+                    device=None) -> list[tuple[SimResult, list[float]]]:
+    """Trace-driven simulation: piecewise-constant traffic epochs, the
+    seeds as lanes of one batch (paper §4.3, Fig. 9).
+
+    Each segment is ``(traffic_matrix, injection_rate)`` and runs
+    ``cfg.cycles`` cycles; the network state carries across segments,
+    and only the generation tables are swapped between them
+    (:func:`retarget_tables`).  BiDOR's routing table stays fixed.  Lane
+    ``i``'s key is ``fold_in(PRNGKey(seeds[i]), 0)``, and injection and
+    measurement are open-ended, as in the reference.
+
+    Returns, per seed, (SimResult over all measured cycles, the LCV of
+    each segment's per-node forwarding counts).
+    """
+    check_supported(cfg)
+    table = None
+    if cfg.algo == Algo.BIDOR:
+        if bidor_table is None:
+            raise ValueError("BIDOR needs a BiDORTable")
+        table = bidor_table
+    seeds = list(seeds or [cfg.seed])
+    state = tables = meta = None
+    lcvs: list[list[float]] = [[] for _ in seeds]
+    prev_fwd = None
+    for si, (tm, rate) in enumerate(segments):
+        if tables is None:
+            tables, meta = build_tables(topo, tm, table, cfg.num_vcs, device)
+        else:
+            tables = retarget_tables(tables, topo, traffic=tm)
+        if state is None:
+            state = fresh_state(meta, cfg, len(seeds), device)
+            state["key"] = np.stack([prng.fold_in(prng.key(s), si)
+                                     for s in seeds])
+            state["inject_until"].fill_(_BIG)
+            state["measure_until"].fill_(_BIG)
+            prev_fwd = np.zeros((len(seeds), meta["N"]), np.int64)
+        state["rate"].fill_(float(np.float32(rate)))
+        run_cycles(tables, meta, cfg, state, cfg.cycles)
+        fwd = state["node_fwd"].cpu().numpy().astype(np.int64)
+        seg, prev_fwd = fwd - prev_fwd, fwd
+        for bi in range(len(seeds)):
+            active = seg[bi][seg[bi] > 0]
+            if active.size:
+                lcvs[bi].append(float(active.std() / active.mean()))
+    host = state_to_host(state)
+    mean_rate = float(np.mean([r for _, r in segments]))
+    return [(postprocess(lane(host, bi), cfg, topo, rate=mean_rate,
+                         seed=seeds[bi]), lcvs[bi])
+            for bi in range(len(seeds))]
+
+
+def run_trace(topo: Topology, segments: list[tuple[np.ndarray, float]],
+              cfg: SimConfig, bidor_table: BiDORTable | None = None, *,
+              device=None) -> tuple[SimResult, list[float]]:
+    """Single-seed :func:`run_trace_sweep`: ``(SimResult, lcvs)``."""
+    return run_trace_sweep(topo, segments, cfg, bidor_table,
+                           device=device)[0]

@@ -72,7 +72,7 @@ class SimConfig:
     # the card's limits.  Every tile size gives bit-identical states.
     sim_tile_nodes: int = 0
     # In-sim telemetry probes and the stall watchdog are not ported yet
-    # (ROADMAP queue 1, item 7): the port's runners raise
+    # (ROADMAP queue 1, item 7d): the port's runners raise
     # NotImplementedError when either is switched on.
     telemetry: bool = False
     tel_epoch: int = 0
@@ -133,18 +133,18 @@ class SimResult:
                 f"lcv={self.lcv:.3f} reorder={self.reorder_value}{sat}")
 
 
-# What this slice of the port runs; the rest of the reference's options
-# raise until their ROADMAP item ports them.
-PORTED_ALGOS = (Algo.XY, Algo.BIDOR)
-
-
 def check_supported(cfg: SimConfig) -> None:
-    """Raise for the configurations this slice does not port."""
-    if Algo(cfg.algo) not in PORTED_ALGOS:
-        raise NotImplementedError(
-            f"{Algo(cfg.algo).name} routing is not ported yet (ROADMAP "
-            f"queue 1, item 7); this slice runs XY and BIDOR")
+    """Raise for the configurations the port does not run yet: every
+    routing algorithm runs, telemetry and the stall watchdog do not."""
     if cfg.telemetry or cfg.watchdog:
         raise NotImplementedError(
             "telemetry and the stall watchdog are not ported yet "
-            "(ROADMAP queue 1, item 7)")
+            "(ROADMAP queue 1, item 7d)")
+
+
+def check_topology(cfg: SimConfig, ndim: int) -> None:
+    """The reference's refusal of a routing algorithm on a topology:
+    odd-even is a 2-D turn model."""
+    if Algo(cfg.algo) == Algo.ODDEVEN and ndim != 2:
+        raise ValueError("odd-even routing is a 2D turn model; "
+                         f"topology has ndim={ndim}")

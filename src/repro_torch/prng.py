@@ -12,7 +12,12 @@ under which the reference fixtures were made):
   ``(num, 2)`` (``_threefry_split_original``);
 * ``random_bits``    — ``threefry_2x32(key, iota(n))``, with the odd-length
   count padded by one zero (``_threefry_random_bits_original``);
-* ``uniform``        — float32 ``(bits >> 9 | 0x3F800000) − 1``.
+* ``uniform``        — float32 ``(bits >> 9 | 0x3F800000) − 1``, over the
+  flat count of its shape;
+* ``bernoulli``      — ``uniform(key, shape) < p`` in float32;
+* ``randint``        — 32-bit ``_randint``: two ``random_bits`` draws from
+  ``split(key)``, combined as ``(hi mod span) · (2^32 mod span) + lo mod
+  span``, all mod ``span`` in uint32.
 
 ``threefry_2x32(key, count)`` hashes the count array in two halves: block
 ``j`` takes ``(count[j], count[h + j])`` with ``h = ceil(len / 2)`` and its
@@ -31,7 +36,8 @@ import numpy as np
 import torch
 
 __all__ = ["threefry2x32", "key", "fold_in", "split", "random_bits",
-           "uniform", "uniform_torch", "chain_keys"]
+           "bits_at", "uniform", "random_bits_torch", "uniform_torch",
+           "bernoulli", "randint", "randint_from_bits", "chain_keys"]
 
 MASK = 0xFFFFFFFF
 _ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -94,12 +100,35 @@ def _count_halves(n: int, like):
     return x0, x1
 
 
-def random_bits(k, n: int) -> np.ndarray:
-    """``jax.random.bits(k, (n,))`` (uint32) for (..., 2) keys."""
-    k = _u64(k)
+def _bits(k, n: int):
+    """``random_bits`` over (..., 2) int64 key words, numpy or torch:
+    the (..., n) int64 words."""
     x0, x1 = _count_halves(n, k)
     y0, y1 = threefry2x32(k[..., 0:1], k[..., 1:2], x0, x1)
-    return np.concatenate([y0, y1], -1)[..., :n].astype(np.uint32)
+    cat = torch.cat if isinstance(k, torch.Tensor) else np.concatenate
+    return cat([y0, y1], -1)[..., :n]
+
+
+def random_bits(k, n: int) -> np.ndarray:
+    """``jax.random.bits(k, (n,))`` (uint32) for (..., 2) keys."""
+    return _bits(_u64(k), n).astype(np.uint32)
+
+
+def bits_at(k, e, m: int):
+    """``random_bits(k, m)[e]`` computed for entries ``e`` alone, one
+    threefry2x32 block each, as the card's kernels hash them: with
+    ``h = ceil(m / 2)``, block ``b`` hashes counts ``(b, b + h)``, except
+    ``(h − 1, 0)`` at odd ``m`` (the iota padded with one zero); entry
+    ``e < h`` is word 0 of block ``e``, entry ``e ≥ h`` word 1 of block
+    ``e − h``.  ``k`` is a (..., 2) uint32 key and ``e`` an int array
+    that broadcasts against its leading axes; returns int64 words."""
+    k = _u64(k)
+    e = np.asarray(e, np.int64)
+    h = (m + 1) // 2
+    b = np.where(e < h, e, e - h)
+    x1 = np.where((m % 2 == 1) & (b == h - 1), 0, b + h)
+    y0, y1 = threefry2x32(k[..., 0], k[..., 1], b, x1)
+    return np.where(e < h, y0, y1)
 
 
 def _bits_to_unit(bits):
@@ -111,17 +140,60 @@ def _bits_to_unit(bits):
     return f - np.float32(1.0)
 
 
-def uniform(k, n: int) -> np.ndarray:
-    """``jax.random.uniform(k, (n,))`` (float32) for (..., 2) keys."""
-    return _bits_to_unit(random_bits(k, n))
+def _flat(shape) -> tuple[tuple, int]:
+    shape = (shape,) if isinstance(shape, int) else tuple(shape)
+    return shape, int(np.prod(shape, dtype=np.int64))
+
+
+def uniform(k, shape) -> np.ndarray:
+    """``jax.random.uniform(k, shape)`` (float32) for (..., 2) keys: the
+    flat count of ``shape`` hashed as one vector, then reshaped."""
+    shape, m = _flat(shape)
+    u = _bits_to_unit(random_bits(k, m))
+    return u.reshape(u.shape[:-1] + shape)
+
+
+def random_bits_torch(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """Bulk :func:`random_bits` on a device: ``keys`` is a (..., 2) int64
+    tensor of uint32 words; returns the (..., n) int64 words there."""
+    return _bits(keys, n)
 
 
 def uniform_torch(keys: torch.Tensor, n: int) -> torch.Tensor:
     """Bulk :func:`uniform` on a device: ``keys`` is a (..., 2) int64
     tensor of uint32 words; returns (..., n) float32 on its device."""
-    x0, x1 = _count_halves(n, keys)
-    y0, y1 = threefry2x32(keys[..., 0:1], keys[..., 1:2], x0, x1)
-    return _bits_to_unit(torch.cat([y0, y1], -1)[..., :n])
+    return _bits_to_unit(_bits(keys, n))
+
+
+def bernoulli(k, shape, p: float = 0.5) -> np.ndarray:
+    """``jax.random.bernoulli(k, p, shape)`` for a Python float ``p``:
+    ``uniform(k, shape) < p`` in float32."""
+    return uniform(k, shape) < np.float32(p)
+
+
+def randint_from_bits(hi, lo, minval: int, maxval: int):
+    """The 32-bit ``_randint`` arithmetic on its two words (int64 arrays
+    or tensors holding uint32): ``span = maxval − minval`` (1 where
+    ``maxval ≤ minval``), ``mult = (2^16 mod span)^2 mod span``, and
+    ``minval + ((hi mod span) · mult + lo mod span) mod span``, every
+    step wrapped to 32 bits; returns int64."""
+    span = (maxval - minval) & MASK if maxval > minval else 1
+    mult = (65536 % span) ** 2 % span
+    off = (((hi % span) * mult) & MASK) + lo % span
+    return minval + (off & MASK) % span
+
+
+def randint(k, shape, minval: int, maxval: int) -> np.ndarray:
+    """``jax.random.randint(k, shape, minval, maxval)`` (int32) for
+    (..., 2) keys: ``split(k)`` gives the keys of the high and the low
+    word of each entry."""
+    shape, m = _flat(shape)
+    ks = split(k, 2)
+    hi = _bits(_u64(ks[..., 0, :]), m)
+    lo = _bits(_u64(ks[..., 1, :]), m)
+    out = randint_from_bits(hi, lo, int(minval), int(maxval))
+    out = ((out + (1 << 31)) & MASK) - (1 << 31)         # int32 wrap
+    return out.astype(np.int32).reshape(out.shape[:-1] + shape)
 
 
 def chain_keys(keys: np.ndarray, cycles: int):
@@ -132,29 +204,30 @@ def chain_keys(keys: np.ndarray, cycles: int):
     giving words ``(a_j, b_j)``, and its rows are ``key' = (a0, a1)``,
     ``kg = (a2, a3)``, ``kd = (a4, b0)``, ``km = (b1, b2)``,
     ``kv = (b3, b4)``.  Only blocks 0 and 1 carry the chain, so they run
-    sequentially on Python ints; blocks 2–4 (the generation and
-    destination keys) then run vectorised over every (cycle, lane).
+    sequentially on Python ints; blocks 2–4 (the generation, destination
+    and metadata keys) then run vectorised over every (cycle, lane).
 
-    Returns ``(new_keys (L, 2), kg (cycles, L, 2), kd (cycles, L, 2))``,
-    all uint32.
+    Returns ``(new_keys (L, 2), kg, kd, km)``, the last three
+    (cycles, L, 2), all uint32.
     """
     keys = np.asarray(keys, np.uint32).reshape(-1, 2)
     lanes = keys.shape[0]
-    chain, b0 = [], []
+    chain, b01 = [], []
     cur = [(int(k0), int(k1)) for k0, k1 in keys]
     for _ in range(cycles):
         chain.append(cur)
         nxt = []
         for k0, k1 in cur:
-            a0, w = threefry2x32(k0, k1, 0, 5)
-            a1, _ = threefry2x32(k0, k1, 1, 6)
-            b0.append(w)
+            a0, w0 = threefry2x32(k0, k1, 0, 5)
+            a1, w1 = threefry2x32(k0, k1, 1, 6)
+            b01.append((w0, w1))
             nxt.append((a0, a1))
         cur = nxt
     chain = np.array(chain, np.int64).reshape(cycles, lanes, 2)
-    b0 = np.array(b0, np.int64).reshape(cycles, lanes)
+    b01 = np.array(b01, np.int64).reshape(cycles, lanes, 2)
     j = np.array([2, 3, 4], np.int64)
-    a, _ = threefry2x32(chain[..., 0:1], chain[..., 1:2], j, j + 5)
+    a, b = threefry2x32(chain[..., 0:1], chain[..., 1:2], j, j + 5)
     kg = np.stack([a[..., 0], a[..., 1]], -1).astype(np.uint32)
-    kd = np.stack([a[..., 2], b0], -1).astype(np.uint32)
-    return np.array(cur, np.uint32).reshape(lanes, 2), kg, kd
+    kd = np.stack([a[..., 2], b01[..., 0]], -1).astype(np.uint32)
+    km = np.stack([b01[..., 1], b[..., 0]], -1).astype(np.uint32)
+    return np.array(cur, np.uint32).reshape(lanes, 2), kg, kd, km

@@ -91,7 +91,7 @@ def test_result_accessors(result):
     assert "16 points" in result.summary()
 
 
-@pytest.mark.parametrize("algo", [Algo.XY, Algo.BIDOR])
+@pytest.mark.parametrize("algo", list(Algo))
 def test_run_sweep_matches_reference(algo):
     """``run_sweep`` (one lane per (rate, seed)) against the reference's,
     SimResult field for field."""
@@ -176,17 +176,26 @@ def test_saturation_early_exit():
     assert r.injected_flits == r.ejected_flits + r.in_flight_flits
 
 
-@pytest.mark.parametrize("what", ["algo", "telemetry", "watchdog",
-                                  "scenarios", "workloads", "topos",
-                                  "plan_cache"])
+def test_oddeven_refuses_a_topology_that_is_not_2d():
+    """Odd-even is a 2-D turn model: a campaign on a 3-D torus refuses
+    it with the reference's ``ValueError`` before any plan or cycle."""
+    from repro_torch.core import torus
+
+    spec = CampaignSpec(topo=torus(3, 3, 3), algos=(Algo.XY, Algo.ODDEVEN),
+                        patterns=("uniform",), rates=(0.1,),
+                        base=SimConfig(cycles=200, warmup=50))
+    with pytest.raises(ValueError, match="2D turn model"):
+        run_campaign(spec, device="cpu")
+
+
+@pytest.mark.parametrize("what", ["telemetry", "watchdog", "scenarios",
+                                  "workloads", "topos", "plan_cache"])
 def test_unported_options_raise(what):
     topo = mesh2d(4, 4)
     kw = dict(topo=topo, algos=(Algo.XY,), patterns=("uniform",),
               rates=(0.1,), base=SimConfig(cycles=200, warmup=50))
     run_kw = {}
-    if what == "algo":
-        kw["algos"] = (Algo.VALIANT,)
-    elif what in ("telemetry", "watchdog"):
+    if what in ("telemetry", "watchdog"):
         kw["base"] = kw["base"].replace(**{what: True})
     elif what == "scenarios":
         # ported: a scenario cell runs through the control plane

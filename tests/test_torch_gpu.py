@@ -236,7 +236,7 @@ def _on(tables, device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("algo", [Algo.XY, Algo.BIDOR])
+@pytest.mark.parametrize("algo", list(Algo))
 @pytest.mark.parametrize("topo_fn", ["mesh4x4", "edge5x5"])
 def test_simstep_kernels_vs_plain(cuda, topo_fn, algo):
     """From a plain mid-flight state, chunks of 1, 40 and 997 cycles of
@@ -284,11 +284,23 @@ def test_simstep_grid_is_deterministic(cuda, tile):
     _deterministic("mesh17x17", tile, "simstep_grid", cuda)
 
 
-def _deterministic(topo_fn, tile, kernel, cuda):
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo", [Algo.VALIANT, Algo.ODDEVEN])
+@pytest.mark.parametrize("topo_fn,tile,kernel", [
+    ("mesh16x16", 64, "simstep_chunk"), ("mesh17x17", 17, "simstep_grid")])
+def test_simstep_routing_algorithms_are_deterministic(cuda, topo_fn, tile,
+                                                      kernel, algo):
+    """Two-phase and adaptive routing across a cluster and the grid:
+    odd-even reads its neighbours' credits in other blocks, VALIANT
+    sends packets across the network; two runs agree."""
+    _deterministic(topo_fn, tile, kernel, cuda, algo)
+
+
+def _deterministic(topo_fn, tile, kernel, cuda, algo=Algo.XY):
     """Two 300-cycle runs of 4 lanes from one plain mid-flight state, one
     ``kernel`` launch each, must agree on every state key."""
     tables, meta, cfg, host = _simstep_cell(
-        topo_fn, Algo.XY, [(1.2, 0), (0.9, 1), (0.6, 2), (0.3, 3)])
+        topo_fn, algo, [(1.2, 0), (0.9, 1), (0.6, 2), (0.3, 3)])
     tcard = _on(tables, cuda)
     cfg = cfg.replace(sim_tile_nodes=tile)
     runs = []
@@ -305,18 +317,18 @@ def _deterministic(topo_fn, tile, kernel, cuda):
 
 def _plain_run(tables, meta, cfg, state, cycles, device):
     """``run_cycles`` as the plain twin computes it, on ``device``."""
-    keys, u, ud = draw_chunk(state["key"], cycles, meta["N"], device)
+    keys, rand = draw_chunk(state["key"], cycles, meta["N"], device,
+                            cfg.algo, meta["NDIM"])
     cycle_fn = make_cycle_fn(meta, cfg)
     for c in range(cycles):
-        cycle_fn(tables, state, u[c], ud[c], c)
+        cycle_fn(tables, state, {k: x[c] for k, x in rand.items()}, c)
     state["key"] = keys
     state["cycle0"] += cycles
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("side,algo,lanes", [
-    (17, Algo.XY, 2), (17, Algo.BIDOR, 2), (64, Algo.XY, 2),
-    (96, Algo.XY, 4)])
+    *((17, a, 2) for a in Algo), (64, Algo.XY, 2), (96, Algo.XY, 4)])
 def test_simstep_grid_vs_plain(cuda, side, algo, lanes):
     """Meshes no cluster of the chunk kernel holds take the grid kernel
     (17x17: 289 nodes fit neither one block's shared memory nor 16

@@ -62,7 +62,7 @@ def test_point_key(rate, seed):
     assert np.array_equal(want, port_sim.point_key(seed, rate))
 
 
-@pytest.mark.parametrize("algo", [Algo.XY, Algo.BIDOR])
+@pytest.mark.parametrize("algo", list(Algo))
 def test_split_rand_50_cycles(algo):
     """The per-cycle key advance and draws over 50 cycles, two lanes."""
     from repro.kernels.simstep import ref as jref
@@ -79,10 +79,12 @@ def test_split_rand_50_cycles(algo):
         k_ref = [o[0] for o in outs]
         k_port, rand = port_ref.split_rand(k_port, algo, n, 2)
         assert np.array_equal(np.stack([_np(k) for k in k_ref]), k_port)
-        for name in ("u", "ud"):
+        assert set(rand) == set(outs[0][1])
+        for name in rand:
             want = np.stack([_np(o[1][name]) for o in outs])
-            assert np.array_equal(want.view(np.uint32),
-                                  rand[name].numpy().view(np.uint32))
+            got = rand[name].numpy()
+            assert want.dtype == got.dtype and np.array_equal(want, got), \
+                name
 
 
 def test_chunk_draws_match_split_rand():
@@ -90,10 +92,12 @@ def test_chunk_draws_match_split_rand():
     keys and draws as ``split_rand`` applied cycle by cycle."""
     keys = np.stack([port_sim.point_key(s, r)
                      for r, s in [(0.2, 0), (0.4, 3), (0.7, 5)]])
-    new_keys, u, ud = port_ref.draw_chunk(keys, 40, 25, "cpu")
-    k = keys
-    for c in range(40):
-        k, rand = port_ref.split_rand(k, Algo.XY, 25, 2)
-        assert torch.equal(rand["u"], u[c]) and torch.equal(rand["ud"],
-                                                            ud[c])
-    assert np.array_equal(k, new_keys)
+    for algo in (Algo.XY, Algo.O1TURN, Algo.VALIANT, Algo.ROMM):
+        new_keys, chunk = port_ref.draw_chunk(keys, 40, 25, "cpu", algo, 2)
+        k = keys
+        for c in range(40):
+            k, rand = port_ref.split_rand(k, algo, 25, 2)
+            assert set(rand) == set(chunk)
+            assert all(torch.equal(rand[name], chunk[name][c])
+                       for name in rand), (algo, c)
+        assert np.array_equal(k, new_keys)

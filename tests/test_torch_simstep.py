@@ -27,7 +27,7 @@ from repro_torch.kernels.simstep import ops  # noqa: E402
 from repro_torch.noc import sim as tsim  # noqa: E402
 from repro_torch.noc.simconfig import Algo, SimConfig  # noqa: E402
 
-ALGOS = [Algo.XY, Algo.BIDOR]
+ALGOS = list(Algo)
 
 
 @functools.lru_cache(maxsize=None)
@@ -120,11 +120,3 @@ def test_resolve_path():
                             "cpu") == 4
     with pytest.raises(ValueError, match="divisor"):
         ops.resolve_path(meta, tcfg.replace(sim_tile_nodes=3), 4, "cpu")
-
-
-@pytest.mark.parametrize("algo", [Algo.YX, Algo.O1TURN, Algo.ODDEVEN])
-def test_unported_algorithms_raise(algo):
-    _, meta, _, tt, tcfg = _cell(Algo.XY)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsim.fresh_state(meta, tcfg.replace(algo=algo), 1, device="cpu")
-

@@ -60,16 +60,16 @@ def test_node_uniform_broadcasts_over_lanes_and_cycles():
     for every (cycle, lane, node) equals ``draw_chunk``'s."""
     keys = np.stack([tsim.point_key(s, r) for r, s in [(0.2, 0), (0.9, 4)]])
     n = 25
-    _, kg, kd = prng.chain_keys(keys, 30)
-    _, u, ud = draw_chunk(keys, 30, n, "cpu")
+    _, kg, kd, _ = prng.chain_keys(keys, 30)
+    _, rand = draw_chunk(keys, 30, n, "cpu")
     nodes = np.arange(n)
-    for keyset, want in ((kg, u), (kd, ud)):
+    for keyset, want in ((kg, rand["u"]), (kd, rand["ud"])):
         got = node_uniform(keyset[..., None, :], nodes, n)
         assert np.array_equal(got.view(np.uint32),
                               want.numpy().view(np.uint32))
 
 
-@pytest.mark.parametrize("algo", [Algo.XY, Algo.BIDOR])
+@pytest.mark.parametrize("algo", list(Algo))
 def test_reorder_count_incremental_equals_full_scan(algo):
     """150 cycles of the plain twin from a reference mid-flight state
     whose reorder windows are filled with random bits (in-order routing
@@ -83,15 +83,15 @@ def test_reorder_count_incremental_equals_full_scan(algo):
     st = convert.state_from_numpy(mid, device="cpu")
     n, p_local = meta["N"], meta["P_LOCAL"]
     tile_fn, finish_fn = make_cycle_parts(meta, tcfg)
-    _, u, ud = draw_chunk(mid["key"], 150, n, "cpu")
+    _, rand = draw_chunk(mid["key"], 150, n, "cpu", algo, meta["NDIM"])
     lanes = st["fifo_size"].shape[0]
     li = torch.arange(lanes)[:, None]
     nodes = torch.arange(n)
     occ = reorder_occupancy(st["rbits"])
     moved = 0
     for c in range(150):
-        mov, parts = tile_fn(tt, st, u[c], ud[c], st["fifo_size"].clone(),
-                             c, 0, n)
+        mov, parts = tile_fn(tt, st, {k: x[c] for k, x in rand.items()},
+                             st["fifo_size"].clone(), c, 0, n)
         wl = mov[:, :, p_local]
         tail = (wl[..., NF + 3] != 0) & (wl[..., F_TAIL] != 0)
         src = torch.where(tail, wl[..., F_SRC], 0).long()
@@ -104,7 +104,7 @@ def test_reorder_count_incremental_equals_full_scan(algo):
     assert moved > 50            # the windows really moved
 
 
-@pytest.mark.parametrize("algo", [Algo.XY, Algo.BIDOR])
+@pytest.mark.parametrize("algo", list(Algo))
 def test_flitstep_run_equals_per_cycle_loop(algo):
     """``FlitStep.run`` on the CPU (at the whole network and at tiles of
     4) equals the chunk's draws followed by the plain cycle, cycle by
@@ -112,10 +112,11 @@ def test_flitstep_run_equals_per_cycle_loop(algo):
     _, meta, _, tt, tcfg = _cell(algo)
     mid = _midflight(algo, 0.9, 3, False)
     want = convert.state_from_numpy(mid, device="cpu")
-    keys, u, ud = draw_chunk(mid["key"], 60, meta["N"], "cpu")
+    keys, rand = draw_chunk(mid["key"], 60, meta["N"], "cpu", algo,
+                            meta["NDIM"])
     cycle_fn = make_cycle_fn(meta, tcfg)
     for c in range(60):
-        cycle_fn(tt, want, u[c], ud[c], c)
+        cycle_fn(tt, want, {k: x[c] for k, x in rand.items()}, c)
     for tile in (0, 4):
         got = convert.state_from_numpy(mid, device="cpu")
         step = make_step(meta, tcfg.replace(sim_tile_nodes=tile), tt, got)
@@ -249,9 +250,10 @@ def test_launch_record_matches_the_c_struct():
     words = (per["ti"] * tile * p * v + per["hm"] * tile * p * v * NF
              + per["po"] * tile * p
              + per["pm"] * tile * p * NF + per["tn"] * tile
-             + per["bins"] * bins + 16 * per["N_SUMS"] + 10 * per["N_KEYS"])
-    assert re.search(r"N_SUMS = 16;", src) and re.search(r"N_KEYS = 10;",
+             + per["bins"] * bins + 16 * per["N_SUMS"] + 18 * per["N_KEYS"])
+    assert re.search(r"N_SUMS = 16;", src) and re.search(r"N_KEYS = 18;",
                                                          src)
+    assert skernel.N_KEYS == 18
     assert 4 * words == skernel.smem_bytes(tile, p, v, bins)
 
 
@@ -264,11 +266,11 @@ def test_grid_record_matches_the_c_struct():
     assert ints == skernel.GRID_INT_FIELDS
     assert {f for f, _ in skernel.GridArgs._fields_} == set(ptrs + ints)
     fixed = re.search(r"G_HIST = N_KEYS \+ N_SUMS \+ (\d+);", src)
-    assert fixed and 10 + 16 + int(fixed.group(1)) == skernel._GRID_SLOT_FIXED
+    assert fixed and 18 + 16 + int(fixed.group(1)) == skernel._GRID_SLOT_FIXED
     assert re.search(r"return G_HIST \+ bins;", src)
     # runs of 3 units at 17 units a lane span at most 2 of the 4 lanes
-    assert skernel.grid_smem_bytes(3, 17, 4, 96) == 4 * 2 * (30 + 96)
-    assert skernel.grid_smem_bytes(40, 17, 64, 96) == 4 * 4 * (30 + 96)
+    assert skernel.grid_smem_bytes(3, 17, 4, 96) == 4 * 2 * (38 + 96)
+    assert skernel.grid_smem_bytes(40, 17, 64, 96) == 4 * 4 * (38 + 96)
 
 
 def test_the_cpu_path_never_builds_the_record():
