@@ -120,8 +120,10 @@ compared by one harness on one card.
     python3 chip_smoke.py --cycle-wall [--src DIR] [--rounds N]
 
 times the flit step alone through ``run_cycles`` (µs per simulated cycle
-of a 1 000-cycle chunk at each mesh above, 4 lanes) and the paper cell's
-wall, N rounds, with no other phase; ``--src`` as above.
+of a 1 000-cycle chunk at each mesh above, 4 lanes), the paper cell's
+wall and the scale cells' walls (32x32 XY and BiDOR, 64x64 XY; tables
+included, plans not), N rounds, with no other phase; ``--src`` as
+above.
 
     python3 chip_smoke.py --scan-wall [--src DIR] [--rounds N]
 
@@ -681,15 +683,35 @@ def run_ctrl(torch, np, cuda):
                          "stale plan under the link failure")
 
 
-def _cell(torch, cuda, topo, algo, lanes):
+def _deployed(cuda, topo, algo):
+    """(traffic, table) of a uniform-traffic cell as the campaign deploys
+    it: BiDOR on its plan with the topology's dead channels masked and
+    the pairs it cannot route shed; no table for the others."""
+    import numpy as np
     from repro_torch.core import build_plans_batched, traffic
-    from repro_torch.noc import sim
-    from repro_torch.noc.simconfig import Algo, SimConfig
+    from repro_torch.noc.simconfig import Algo
 
     tm = traffic.uniform(topo)
-    table = (build_plans_batched(topo, [tm], device=cuda)[0].table
-             if algo == Algo.BIDOR else None)
-    cfg = SimConfig(algo=algo, cycles=100_000, warmup=100)
+    if algo != Algo.BIDOR:
+        return tm, None
+    down = topo.down_channels
+    table = build_plans_batched(topo, [tm], device=cuda,
+                                down_channels=down if down.size else None
+                                )[0].table
+    if table.unroutable is not None and table.unroutable.any():
+        tm = np.where(table.unroutable, 0.0, tm)
+    return tm, table
+
+
+def _cell(torch, cuda, topo, algo, lanes, **cfg_kw):
+    """(tables, meta, cfg, points) of a uniform-traffic cell on the card
+    (:func:`_deployed`); ``cfg_kw`` (the watchdog, the telemetry) on top
+    of the defaults."""
+    from repro_torch.noc import sim
+    from repro_torch.noc.simconfig import SimConfig
+
+    tm, table = _deployed(cuda, topo, algo)
+    cfg = SimConfig(algo=algo, cycles=100_000, warmup=100, **cfg_kw)
     tables, meta = sim.build_tables(topo, tm, table, 2, device=cuda)
     points = [(0.9, 0), (0.6, 1), (0.3, 2), (1.2, 3)][:lanes]
     return tables, meta, cfg, points
@@ -731,33 +753,26 @@ def _plain_chunk(tables, meta, cfg, state, cycles, cuda):
     state["cycle0"] += cycles
 
 
-def check_simstep(torch, np, cuda):
-    """The flit-step kernels against the plain twin, from plain mid-flight
-    states, every state key bit for bit, the PRNG key included: chunks
-    of 1 and 50 cycles at two tiles (the auto one and the largest other
-    the card lays out), one launch a chunk.  The chunk kernel on the 5x5
-    edge-I/O (one block a lane), 16x16 (a cluster) and 32x32 meshes; the
-    grid kernel on 17x17, 64x64 and 96x96, which no cluster of the chunk
-    kernel holds.  Every routing algorithm at 5x5, 16x16 and 17x17; XY
-    and BiDOR at 32x32; XY alone at 64x64 and 96x96, whose BiDOR plans no
-    path builds (96x96 after a shorter warm-in).  Returns the largest
-    difference by kernel."""
+def _hold_cells(torch, np, cuda, cases, worst, tag="", keep=False,
+                **cfg_kw):
+    """The flit-step kernels against the plain twin on ``cases`` ((topology,
+    algorithms, warm-in cycles)), from plain mid-flight states, every
+    state key bit for bit, the PRNG key included: chunks of 1 and 50
+    cycles at two tiles (the auto one and the largest other the card lays
+    out), one launch a chunk.  ``cfg_kw`` goes to every cell's config;
+    ``worst`` gathers the largest difference by kernel.  With ``keep``,
+    returns per (topology name, algorithm, chunk cycles) the mid-flight
+    state, the card's state at the auto tile, and the cell's tables, meta
+    and config."""
     from repro_torch import kernels
-    from repro_torch.core import mesh2d, mesh2d_edge_io
     from repro_torch.kernels.simstep import card_kernel
     from repro_torch.noc import sim
-    from repro_torch.noc.simconfig import Algo
 
-    every, both, xy = tuple(Algo), (Algo.XY, Algo.BIDOR), (Algo.XY,)
-    worst = {"chunk": 0, "grid": 0}
-    for topo, algos, warm in ((mesh2d_edge_io(5, 5), every, 200),
-                              (mesh2d(16, 16), every, 200),
-                              (mesh2d(17, 17), every, 200),
-                              (mesh2d(32, 32), both, 200),
-                              (mesh2d(64, 64), xy, 200),
-                              (mesh2d(96, 96), xy, 60)):
+    out = {}
+    for topo, algos, warm in cases:
         for algo in algos:
-            tables, meta, cfg, points = _cell(torch, cuda, topo, algo, 4)
+            tables, meta, cfg, points = _cell(torch, cuda, topo, algo, 4,
+                                              **cfg_kw)
             kernel = card_kernel(meta["N"], meta["P"], meta["V"],
                                  cfg.lat_bins)
             mid = sim.make_states(meta, cfg, points, device=cuda)
@@ -787,8 +802,9 @@ def check_simstep(torch, np, cuda):
                     verdict = (f"MISMATCH {bad}" if bad
                                else "bitwise ok, key included")
                     unit = "blocks" if kernel == "chunk" else "units"
-                    log(f"kernels: simstep {kernel} {topo.name} {algo.name} "
-                        f"tile={tile} ({meta['N'] // tile} {unit} a lane) "
+                    log(f"kernels: simstep {kernel}{tag} {topo.name} "
+                        f"{algo.name} P={meta['P']} tile={tile} "
+                        f"({meta['N'] // tile} {unit} a lane) "
                         f"cycles={cycles}: {verdict}; launches "
                         f"{json.dumps(grew)}")
                     if bad:
@@ -797,6 +813,31 @@ def check_simstep(torch, np, cuda):
                     if grew != want:
                         raise SystemExit(f"simstep {kernel}: launches {grew}, "
                                          f"expected {want}")
+                    if keep and tile == auto:
+                        out[topo.name, algo, cycles] = (mid, card, tables,
+                                                        meta, cfg)
+    return out
+
+
+def check_simstep(torch, np, cuda):
+    """The flit-step kernels against the plain twin (:func:`_hold_cells`).
+    The chunk kernel on the 5x5 edge-I/O (one block a lane), 16x16 (a
+    cluster) and 32x32 meshes; the grid kernel on 17x17, 64x64 and
+    96x96, which no cluster of the chunk kernel holds.  Every routing
+    algorithm at 5x5, 16x16 and 17x17; XY and BiDOR at 32x32; XY alone at
+    64x64 and 96x96, whose BiDOR plans no path builds (96x96 after a
+    shorter warm-in).  Returns the largest difference by kernel."""
+    from repro_torch.core import mesh2d, mesh2d_edge_io
+    from repro_torch.noc.simconfig import Algo
+
+    every, both, xy = tuple(Algo), (Algo.XY, Algo.BIDOR), (Algo.XY,)
+    worst = {"chunk": 0, "grid": 0}
+    _hold_cells(torch, np, cuda, ((mesh2d_edge_io(5, 5), every, 200),
+                                  (mesh2d(16, 16), every, 200),
+                                  (mesh2d(17, 17), every, 200),
+                                  (mesh2d(32, 32), both, 200),
+                                  (mesh2d(64, 64), xy, 200),
+                                  (mesh2d(96, 96), xy, 60)), worst)
     return worst
 
 
@@ -1040,6 +1081,296 @@ def run_fig9(torch, np, cuda):
     return base
 
 
+# --------------------------------------------------------------------- #
+# slice 11: the topology zoo, the stall watchdog, the telemetry probes
+# --------------------------------------------------------------------- #
+def _zoo_cases(grid: bool):
+    """The zoo's shapes for the kernel checks, each with every routing
+    algorithm it admits (odd-even only on 2-D): 7-port routers (the 3-D
+    torus, multipod with its pod axis at half bandwidth), 9-port ones
+    (the express mesh), the fault-region mesh's dead routers, the
+    concentrated mesh; ``grid``: a 5- and a 9-port 17x17, whose 17
+    blocks a lane no cluster holds."""
+    from repro_torch.core import (cmesh, express_mesh, fault_region_mesh,
+                                  multipod, torus)
+    from repro_torch.noc.simconfig import Algo
+
+    if grid:
+        topos = (torus(17, 17), express_mesh(17, 17))
+    else:
+        topos = (torus(4, 4, 4), cmesh(4, 4, concentration=4),
+                 express_mesh(8, 8), fault_region_mesh(6, 6, (2, 2, 3, 3)),
+                 multipod(2, 4, 4))
+    return tuple((t, tuple(a for a in Algo
+                           if a != Algo.ODDEVEN or t.ndim == 2), 100)
+                 for t in topos)
+
+
+def check_simstep_zoo(torch, np, cuda, worst):
+    """Both flit-step kernels against the plain twin on the zoo
+    (:func:`_zoo_cases`): the chunk kernel on the 64-node 3-D torus,
+    concentrated, express and fault-region meshes and multipod(2,4,4),
+    the grid kernel on torus(17,17) and express_mesh(17,17)."""
+    _hold_cells(torch, np, cuda, _zoo_cases(False) + _zoo_cases(True),
+                worst)
+
+
+# the instrumented instance's feature sets: the telemetry alone (a ring
+# that wraps in a 50-cycle chunk), the watchdog at its defaults, and both
+# with a hair-trigger watchdog, so stalls escape and runaways throttle
+INSTR_FEATURES = {
+    "tel": dict(telemetry=True, tel_epoch=16, tel_slots=4),
+    "wd": dict(watchdog=True),
+    "both": dict(watchdog=True, wd_stall_cycles=8, wd_hop_limit=12,
+                 wd_throttle_cycles=16, telemetry=True, tel_epoch=16,
+                 tel_slots=4)}
+
+
+def check_instrumented(torch, np, cuda, worst):
+    """The instrumented instance (the watchdog and the telemetry) against
+    the plain twin, as :func:`_hold_cells` holds the others, on the 5x5
+    edge-I/O mesh (the chunk kernel) and 17x17 (the grid kernel): every
+    ``tel_*`` and ``wd_*`` key bit for bit with the rest.  Then the
+    chunk again on the card with both features off: the core keys must
+    equal the instrumented run's wherever the watchdog never tripped
+    (the telemetry alone changes nothing), and the hair-trigger watchdog
+    must trip somewhere, so its escape and throttle ran on the card."""
+    from repro_torch.core import mesh2d, mesh2d_edge_io
+    from repro_torch.noc import sim
+    from repro_torch.noc.simconfig import Algo
+
+    some = (Algo.XY, Algo.VALIANT, Algo.ODDEVEN, Algo.BIDOR)
+    plan = ((mesh2d_edge_io(5, 5), {"both": tuple(Algo),
+                                    "tel": (Algo.XY, Algo.ODDEVEN),
+                                    "wd": (Algo.XY, Algo.ODDEVEN)}),
+            (mesh2d(17, 17), {"both": some, "tel": (Algo.XY,),
+                              "wd": (Algo.XY,)}))
+    tripped = 0
+    for topo, sets in plan:
+        for name, algos in sets.items():
+            kept = _hold_cells(torch, np, cuda, ((topo, algos, 100),), worst,
+                               tag=f" [{name}]", keep=True,
+                               **INSTR_FEATURES[name])
+            for (tname, algo, cycles), (mid, card, tables, meta,
+                                        cfg) in kept.items():
+                off = {k: (v.clone() if isinstance(v, torch.Tensor)
+                           else v.copy()) for k, v in mid.items()
+                       if not k.startswith(("tel_", "wd_"))}
+                sim.run_cycles(tables, meta,
+                               cfg.replace(watchdog=False, telemetry=False),
+                               off, cycles)
+                same = all(np.array_equal(off[k], card[k]) if k == "key"
+                           else torch.equal(off[k], card[k]) for k in off)
+                trips = (card["wd_trips"].sum(0).tolist()
+                         if "wd_trips" in card else [0, 0])
+                tripped += sum(trips)
+                tel = (int(card["tel_cycles"].sum()) if "tel_cycles" in card
+                       else 0)
+                log(f"kernels: simstep instrumented [{name}] {tname} "
+                    f"{algo.name} cycles={cycles}: core keys "
+                    f"{'equal' if same else 'differ from'} the features-off "
+                    f"run; watchdog trips (deadlock, livelock) {trips}; "
+                    f"telemetry cycles {tel}")
+                if sum(trips) == 0 and not same:
+                    raise SystemExit(f"instrumented {tname} {algo.name}: "
+                                     f"the core moved with a quiet watchdog")
+    if not tripped:
+        raise SystemExit("instrumented: the hair-trigger watchdog never "
+                         "tripped on the card")
+
+
+def _cyclic_ring_table(np, topo):
+    """All traffic clockwise around the 2x2 ring 0 → 1 → 3 → 2 → 0: a true
+    cyclic channel dependency that wedges every VC (the reference's
+    ``tests/test_watchdog.py`` fixture)."""
+    from repro_torch.core.bidor import BiDORTable
+
+    n = topo.num_nodes
+    ring = [0, 1, 3, 2]
+    nxt = {ring[i]: ring[(i + 1) % 4] for i in range(4)}
+    neigh = np.asarray(topo.neighbor_table)
+    pt = np.zeros((1, n, n), np.int8)
+    for cur in range(n):
+        for dst in range(n):
+            pt[0, cur, dst] = (topo.port_local if cur == dst else
+                               [k for k in range(neigh.shape[1])
+                                if neigh[cur, k] == nxt[cur]][0])
+    return BiDORTable(choice=np.zeros((n, n), np.int8), orders=((0, 1),),
+                      costs=np.zeros((1, n, n), np.float32), port_tables=pt)
+
+
+def _zoo_topo(spec: dict):
+    from repro_torch import core
+
+    return getattr(core, spec["fn"])(*spec["args"])
+
+
+def _zoo_run(torch, np, cuda, topo, algo, sim_kw, rates, seeds, **extra):
+    """``run_sweep`` of one zoo cell as :func:`_deployed` makes it."""
+    from repro_torch.noc import SimConfig, run_sweep
+
+    tm, table = _deployed(cuda, topo, algo)
+    return run_sweep(topo, tm, SimConfig(algo=algo, **sim_kw), list(rates),
+                     table, list(seeds), device=cuda, **extra)
+
+
+def check_zoo_golden(torch, np, cuda):
+    """``tests/goldens/zoo.json`` (written by the JAX reference) on the
+    card: every zoo topology under every algorithm it admits, the wedged
+    ring's three runs (:func:`_cyclic_ring_table`; the watchdog must
+    recover the ring), and a fault-region cell with both the watchdog
+    and the telemetry on, its rings and trips exact."""
+    from repro_torch.core import mesh2d, traffic
+    from repro_torch.noc import Algo, SimConfig, run_sim
+
+    with open(os.path.join(HERE, "tests", "goldens", "zoo.json")) as f:
+        golden = json.load(f)
+    t0 = time.perf_counter()
+    got, bad = {}, []
+    for name, spec in golden["topologies"].items():
+        topo = _zoo_topo(spec)
+        if topo.name != name:
+            raise SystemExit(f"zoo golden: {spec} builds {topo.name}")
+        for algo in Algo:
+            if algo == Algo.ODDEVEN and topo.ndim != 2:
+                continue
+            res = _zoo_run(torch, np, cuda, topo, algo, golden["sim"],
+                           golden["rates"], golden["seeds"])
+            for (r, s), out in zip([(r, s) for r in golden["rates"]
+                                    for s in golden["seeds"]], res):
+                got[f"{name}/{algo.name}/r{r}/s{s}"] = _record(out)
+    bad += _golden_mismatches(np, golden["points"], got)
+    bad += [f"{k}: not in the golden" for k in set(got) - set(
+        golden["points"])]
+    wedged = golden["wedged"]
+    topo = mesh2d(2, 2)
+    runs = {}
+    for label, run in wedged["runs"].items():
+        cfg = SimConfig(algo=Algo[wedged["algo"]], **wedged["sim"],
+                        **run["sim"])
+        r, wd = run_sim(topo, traffic.uniform(topo), cfg,
+                        _cyclic_ring_table(np, topo), return_watchdog=True,
+                        device=cuda)
+        runs[label] = (r, wd)
+        log(f"wedged: {label:8s} ejected={r.ejected_flits} "
+            f"injected={r.injected_flits} in_flight={r.in_flight_flits} "
+            f"watchdog={wd and wd.trace_args()}")
+        bad += _golden_mismatches(np, {label: run["record"]},
+                                  {label: _record(r)})
+        if (wd and wd.trace_args()) != run["report"]:
+            bad.append(f"wedged {label}: report {wd} != {run['report']}")
+    # the recovery itself: the watchdog trips, drains more than 4x the
+    # wedged baseline's ejections, and the hop limit throttles runaways
+    (r0, _), (r1, w1), (_, w2) = (runs["baseline"], runs["watchdog"],
+                                  runs["livelock"])
+    if not (w1.deadlock_trips > 0
+            and r1.ejected_flits > 4 * max(r0.ejected_flits, 1)
+            and w2.livelock_trips > 0):
+        raise SystemExit("wedged ring: the watchdog did not recover it")
+    log(f"wedged: the watchdog drains "
+        f"{r1.ejected_flits / max(r0.ejected_flits, 1):.1f}x the wedged "
+        f"baseline's ejections")
+    cell = golden["telemetry"]
+    topo = _zoo_topo(golden["topologies"][cell["topo"]])
+    res, tel, wd = _zoo_run(torch, np, cuda, topo, Algo[cell["algo"]],
+                            cell["sim"], cell["rates"], cell["seeds"],
+                            return_telemetry=True, return_watchdog=True)
+    bad += _golden_mismatches(np, cell["records"], {
+        f"r{r}/s{s}": _record(out) for (r, s), out in zip(
+            [(r, s) for r in cell["rates"] for s in cell["seeds"]], res)})
+    for k, want in cell["rings"].items():
+        if getattr(tel, k).tolist() != want:
+            bad.append(f"telemetry ring {k} differs")
+    if wd.trace_args() != cell["report"]:
+        bad.append(f"telemetry cell: report {wd} != {cell['report']}")
+    log(f"zoo: {len(got)} points, 3 wedged runs and a telemetry cell vs "
+        f"zoo.json: {'ok' if not bad else 'MISMATCH'} "
+        f"({time.perf_counter() - t0:.2f}s)")
+    if bad:
+        raise SystemExit("zoo golden mismatch:\n  " + "\n  ".join(bad))
+
+
+def run_topo_sweep(torch, np, cuda):
+    """``python -m repro_torch.bench.topo_sweep`` at full length
+    (``BENCH_QUICK=0``: 12 000 cycles) through ``CampaignSpec.topos``,
+    with the reference's two assertions; then the QUICK sweep against the
+    committed ``artifacts/bench/topo_sweep.csv``, row for row."""
+    from repro_torch.bench import topo_sweep
+    from repro_torch.noc import run_campaign
+
+    for quick in (False, True):
+        res = run_campaign(topo_sweep.sweep_spec(quick), device=cuda)
+        _check_results(res, np)
+        tag = "quick" if quick else "full"
+        for key, dt in res.wall_clock_s.items():
+            log(f"topo_sweep[{tag}]: cell {'/'.join(key)} wall={dt:.3f}s")
+        for p in res.points:
+            log(f"topo_sweep[{tag}]: {p.topo:26s} {p.pattern:8s} "
+                f"{p.result.summary()}")
+        for line in topo_sweep.check(res):
+            log(f"topo_sweep[{tag}]: {line}")
+        log(f"topo_sweep[{tag}]: {res.spec.num_points} points, plan_ms="
+            f"{res.plan_wall_clock_s * 1e3:.1f} stages_ms="
+            f"{json.dumps(res.plan_stage_ms)} total="
+            f"{res.total_wall_clock_s:.2f}s")
+        if quick:
+            bad = topo_sweep.compare_csv(res)
+            log(f"topo_sweep[quick]: {len(res.points)} rows vs the committed "
+                f"topo_sweep.csv: {'ok' if not bad else 'MISMATCH'}")
+            if bad:
+                raise SystemExit("topo sweep CSV mismatch:\n  "
+                                 + "\n  ".join(bad))
+
+
+def run_multipod(torch, np, cuda):
+    """The production mesh of the reference's multipod topology, two pods
+    of 16x16 with the pod axis at half bandwidth (512 routers of 7
+    ports), XY against BiDOR under uniform traffic: results, cell walls,
+    and the plan's milliseconds by stage."""
+    from repro_torch.core import multipod
+    from repro_torch.noc import Algo, CampaignSpec, SimConfig, run_campaign
+
+    spec = CampaignSpec(
+        topo=multipod(2, 16, 16), algos=(Algo.XY, Algo.BIDOR),
+        patterns=("uniform",), rates=(0.1, 0.3), seeds=(0,),
+        base=SimConfig(cycles=3000, warmup=1000), chunk=1000)
+    res = run_campaign(spec, device=cuda)
+    _check_results(res, np)
+    for p in res.points:
+        log(f"multipod: {p.result.summary()} link_max="
+            f"{p.result.link_load_max:.4f}")
+    for key, dt in res.wall_clock_s.items():
+        log(f"multipod: cell {'/'.join(key)} wall={dt:.4f}s ms_per_cycle="
+            f"{dt * 1e3 / spec.base.cycles:.4f}")
+    log(f"multipod: plan_ms={res.plan_wall_clock_s * 1e3:.1f} stages_ms="
+        f"{json.dumps(res.plan_stage_ms)}")
+
+
+def run_instrumented_cell(torch, np, cuda):
+    """A 17x17 torus cell with the watchdog and the telemetry on through
+    ``run_sweep`` (the grid kernel's instrumented instance): every cycle
+    in one slot, the delivered count of the rings equal to the tail
+    ejections' histogram, the watchdog quiet on a certified DOR table."""
+    from repro_torch.core import torus, traffic
+    from repro_torch.noc import Algo, SimConfig, run_sweep
+
+    topo = torus(17, 17)
+    cfg = SimConfig(algo=Algo.XY, cycles=2000, warmup=500, telemetry=True,
+                    tel_slots=8, watchdog=True)
+    res, tel, wd = run_sweep(topo, traffic.uniform(topo), cfg, [0.1, 0.3],
+                             return_telemetry=True, return_watchdog=True,
+                             device=cuda)
+    for r in res:
+        _check_result(r, np)
+    ok = (tel.cycles.sum(1) == cfg.cycles).all() and not wd.tripped
+    log(f"instrumented cell: {topo.name} XY, telemetry {tel.num_slots} slots "
+        f"of {tel.epoch_len} cycles, peak link load by slot "
+        f"{np.round(tel.peak_link_load()[0], 4).tolist()}, watchdog "
+        f"{wd.trace_args()}: {'ok' if ok else 'MISMATCH'}")
+    if not ok:
+        raise SystemExit("instrumented cell: rings or watchdog off")
+
+
 def paper_spec():
     """The paper's 5x5 edge-I/O cells at fig8's full length."""
     from repro_torch.core import mesh2d_edge_io
@@ -1067,16 +1398,33 @@ def run_paper(torch, np, cuda):
         f"total={res.total_wall_clock_s:.2f}s")
 
 
+def scale_specs():
+    """The scale cells: 32x32 uniform, XY and BiDOR (4 lanes, 3 000
+    cycles), and 64x64 uniform, XY (4 lanes, 600 cycles)."""
+    from repro_torch.core import mesh2d
+    from repro_torch.noc import Algo, CampaignSpec, SimConfig
+
+    big = CampaignSpec(
+        topo=mesh2d(32, 32), algos=(Algo.XY, Algo.BIDOR),
+        patterns=("uniform",), rates=(0.1, 0.3), seeds=(0, 1),
+        base=SimConfig(cycles=3000, warmup=1000), chunk=1000)
+    huge = CampaignSpec(
+        topo=mesh2d(64, 64), algos=(Algo.XY,), patterns=("uniform",),
+        rates=(0.1, 0.3), seeds=(0, 1),
+        base=SimConfig(cycles=600, warmup=200), chunk=200)
+    return big, huge
+
+
 def run_scale(torch, np, cuda):
     """32x32 uniform, XY and BiDOR, on the chunk kernel's 16-block
     clusters, in two rounds: a cell's wall holds its tables (for XY the
     DOR routes, built on the host and timed here alone), states and
     results besides the cycles, and the first round also the first use
     of each shape.  Then 64x64 uniform, XY, on the grid kernel."""
-    from repro_torch.core import mesh2d, traffic
+    from repro_torch.core import traffic
     from repro_torch.kernels.simstep import card_kernel
     from repro_torch.kernels.simstep.ops import resolve_path
-    from repro_torch.noc import Algo, CampaignSpec, SimConfig, run_campaign
+    from repro_torch.noc import run_campaign
     from repro_torch.noc import sim
 
     def layout(spec):
@@ -1088,20 +1436,14 @@ def run_scale(torch, np, cuda):
                              spec.base.lat_bins)
         return kernel, resolve_path(meta, spec.base, lanes, cuda)
 
-    big = CampaignSpec(
-        topo=mesh2d(32, 32), algos=(Algo.XY, Algo.BIDOR),
-        patterns=("uniform",), rates=(0.1, 0.3), seeds=(0, 1),
-        base=SimConfig(cycles=3000, warmup=1000), chunk=1000)
-    huge = CampaignSpec(
-        topo=mesh2d(64, 64), algos=(Algo.XY,), patterns=("uniform",),
-        rates=(0.1, 0.3), seeds=(0, 1),
-        base=SimConfig(cycles=600, warmup=200), chunk=200)
+    big, huge = scale_specs()
     torch.cuda.reset_peak_memory_stats()
     for spec, rounds in ((big, 2), (huge, 1)):
         kernel, tile = layout(spec)
         t0 = time.perf_counter()
         sim.build_tables(spec.topo, traffic.uniform(spec.topo), None,
-                         spec.base.num_vcs, device=cuda)
+                         spec.base.num_vcs, device=cuda,
+                         escape=spec.base.watchdog)
         log(f"scale: {spec.topo.name} XY cell's tables (DOR routes built "
             f"on the host) {time.perf_counter() - t0:.4f}s, inside its wall")
         for i in range(rounds):
@@ -1154,14 +1496,16 @@ def simstep_bytes(np, meta, cfg, before, after, lanes):
     return 4 * words
 
 
-def cycle_wall_us(torch, cuda, topo, chunk=1000):
+def cycle_wall_us(torch, cuda, topo, chunk=1000, **cfg_kw):
     """µs per simulated cycle of one ``chunk``-cycle ``run_cycles`` call
     as the campaigns make it (XY, 4 lanes, after a 300-cycle warm-in;
-    host clock around a synchronised call)."""
+    host clock around a synchronised call); ``cfg_kw`` as :func:`_cell`
+    takes it."""
     from repro_torch.noc import sim
     from repro_torch.noc.simconfig import Algo
 
-    tables, meta, cfg, points = _cell(torch, cuda, topo, Algo.XY, 4)
+    tables, meta, cfg, points = _cell(torch, cuda, topo, Algo.XY, 4,
+                                      **cfg_kw)
     st = sim.make_states(meta, cfg, points, device=cuda)
     sim.run_cycles(tables, meta, cfg, st, 300)
     torch.cuda.synchronize()
@@ -1171,20 +1515,22 @@ def cycle_wall_us(torch, cuda, topo, chunk=1000):
     return (time.perf_counter() - t0) * 1e6 / chunk
 
 
-def time_simstep(torch, np, cuda, topo, label, row=False, algo=None):
+def time_simstep(torch, np, cuda, topo, label, row=False, algo=None,
+                 **cfg_kw):
     """The card kernel a cell's shape takes (``simstep_chunk`` or
     ``simstep_grid``) at its shapes (``algo``, XY by default, 4 lanes, in
     its measurement window): event-timed µs per simulated cycle of a
     1 000-cycle chunk, the empty-body floor of the same launch, the byte
-    bound, and (XY) the cycle wall through ``run_cycles``.  With ``row``,
-    also a 100-cycle chunk beside the plain twin: the kernel-summary
-    row."""
+    bound, and (XY) the cycle wall through ``run_cycles``; ``cfg_kw``
+    (the watchdog, the telemetry) as :func:`_cell` takes it.  With
+    ``row``, also a 100-cycle chunk beside the plain twin: the
+    kernel-summary row."""
     from repro_torch.kernels.simstep import make_step
     from repro_torch.noc import sim
     from repro_torch.noc.simconfig import Algo
 
     algo = Algo.XY if algo is None else algo
-    tables, meta, cfg, points = _cell(torch, cuda, topo, algo, 4)
+    tables, meta, cfg, points = _cell(torch, cuda, topo, algo, 4, **cfg_kw)
     lanes = len(points)
     st = sim.make_states(meta, cfg, points, device=cuda)
     sim.run_cycles(tables, meta, cfg, st, 300)      # into measurement
@@ -1217,8 +1563,8 @@ def time_simstep(torch, np, cuda, topo, label, row=False, algo=None):
     kern_ms = time_launches(torch, [launch(chunk)], reps)[0]
     floor_ms = time_launches(torch, [floor(chunk)], reps)[0]
     st["key"] = step.key.cpu().numpy().view(np.uint32).copy()
-    wall_us = (cycle_wall_us(torch, cuda, topo, chunk) if algo == Algo.XY
-               else float("nan"))
+    wall_us = (cycle_wall_us(torch, cuda, topo, chunk, **cfg_kw)
+               if algo == Algo.XY else float("nan"))
     us = lambda ms: ms * 1e3 / chunk            # noqa: E731
     events = {k: int(after[k].astype(np.int64).sum()
                      - before[k].astype(np.int64).sum())
@@ -2073,6 +2419,8 @@ def main() -> int:
     poss = check_possibility(torch, np, cuda, sass)
     weights, weights_ms = check_possibility_weights(torch, np, cuda, sass)
     simstep_err = check_simstep(torch, np, cuda)
+    check_simstep_zoo(torch, np, cuda, simstep_err)
+    check_instrumented(torch, np, cuda, simstep_err)
     flash = check_flash(torch, np, cuda)
     scan = check_scan(torch, np, cuda)
 
@@ -2101,7 +2449,13 @@ def main() -> int:
             lambda: (check_algos_golden(torch, np, cuda),
                      run_fig8(torch, np, cuda),
                      run_table1(torch, np, cuda),
-                     run_fig9(torch, np, cuda)))}
+                     run_fig9(torch, np, cuda))),
+        "slice 11 (topology zoo, watchdog, telemetry)": (
+            ("possibility_v", "simstep_chunk", "simstep_grid"),
+            lambda: (check_zoo_golden(torch, np, cuda),
+                     run_topo_sweep(torch, np, cuda),
+                     run_multipod(torch, np, cuda),
+                     run_instrumented_cell(torch, np, cuda)))}
     # both serving paths run attention's split kernel and its combine
     # (decode, cross-attention) and the tensor-core kernel (encoder,
     # prefill); flash_attention counts one launch per call whatever its
@@ -2160,6 +2514,19 @@ def main() -> int:
         for algo in ("YX", "O1TURN", "VALIANT", "ROMM", "ODDEVEN", "BIDOR"):
             time_simstep(torch, np, cuda, topo, label,
                          algo=Algo[algo])
+    # the zoo's router shapes, and the instrumented instance
+    from repro_torch.core import express_mesh, multipod, torus
+
+    for topo, label in ((torus(4, 4, 4), "torus4x4x4"),
+                        (express_mesh(8, 8), "express8x8"),
+                        (multipod(2, 16, 16), "multipod2x16x16"),
+                        (torus(17, 17), "torus17x17"),
+                        (express_mesh(17, 17), "express17x17")):
+        time_simstep(torch, np, cuda, topo, label)
+    for topo, label in ((mesh2d_edge_io(5, 5), "5x5"),
+                        (mesh2d(32, 32), "32x32")):
+        time_simstep(torch, np, cuda, topo, f"{label} instrumented",
+                     watchdog=True, telemetry=True)
     rows = [poss, weights, *simstep_rows, flash, scan]
     for row in rows:
         row["launches"] = launches[row["name"]]
@@ -2263,8 +2630,9 @@ def cycle_wall(rounds: int) -> int:
     """``--cycle-wall``: the flit step alone through its entry point, as
     the campaigns drive it: µs per simulated cycle of a 1 000-cycle
     ``run_cycles`` chunk (XY, 4 lanes, after a 300-cycle warm-in) at
-    every mesh the script runs, and the paper cell's wall per
-    (pattern, algorithm), with no other phase."""
+    every mesh the script runs, the paper cell's wall per (pattern,
+    algorithm) and the scale cells' (:func:`scale_specs`), with no other
+    phase."""
     import numpy as np
     import torch
 
@@ -2283,6 +2651,7 @@ def cycle_wall(rounds: int) -> int:
               ("32x32", mesh2d(32, 32)), ("64x64", mesh2d(64, 64)))
     cols = {label: [] for label, _ in shapes}
     paper = paper_spec()
+    scale = {}
     for i in range(rounds):
         for label, topo in shapes:
             cols[label].append(cycle_wall_us(torch, cuda, topo))
@@ -2292,9 +2661,20 @@ def cycle_wall(rounds: int) -> int:
         log(f"cycle-wall: round {i}: us per cycle "
             f"{json.dumps({k: round(v[-1], 3) for k, v in cols.items()})}; "
             f"paper cell walls (s) {json.dumps(walls)}")
+        # the scale cells' walls: tables, states and results besides the
+        # cycles (the plan is outside them)
+        for spec in scale_specs():
+            res = run_campaign(spec, device=cuda)
+            for k, v in res.wall_clock_s.items():
+                scale.setdefault(f"{spec.topo.name}/{'/'.join(k)}",
+                                 []).append(v)
+        log(f"cycle-wall: round {i}: scale cell walls (s) "
+            f"{json.dumps({k: v[-1] for k, v in scale.items()})}")
     med = {k: float(np.median(v)) for k, v in cols.items()}
     log(f"cycle-wall: median of {rounds} (us per simulated cycle): "
         f"{json.dumps(med)}")
+    log(f"cycle-wall: median of {rounds} (scale cell walls, s): "
+        f"{json.dumps({k: float(np.median(v)) for k, v in scale.items()})}")
     return 0
 
 

@@ -91,6 +91,17 @@
 //   is filled once a chunk from the node's rbits row and updated on each
 //   tail ejection by popc(new word) - popc(old word); an ejection
 //   candidate fetches its flow's reorder words before the allocation.
+// * The stall watchdog and the telemetry rings (noc/watchdog.py,
+//   obs/probe.py) in one more instance of each kernel, FAM_INSTR, with
+//   the algorithm a run-time switch, so the five instances above compile
+//   as they did without them.  Stall ages and throttles live in global
+//   memory, each read and written by its owner; a runaway flit's source
+//   is throttled in phase B, after every owner's decrement of the cycle,
+//   as the reference's finish_fn overrides its tile_fn.  Trips and the
+//   rings are integer atomics in global memory (sums, so their order
+//   changes no bit), and the network's source-queue total of a cycle,
+//   which the occupancy ring bins, is summed by atomics into one of two
+//   per-lane words by cycle parity and read in phase B.
 //
 // Float steps round exactly as the reference's: generation compares
 // u < p_gen * (rate / packet_len) with the division first, and the
@@ -127,6 +138,9 @@ constexpr int MAX_NDIM = 4;
 // VALIANT and ROMM (a.algo at run time), the algorithms that draw from km.
 constexpr int FAM_XY = 0, FAM_YX = 1, FAM_BIDOR = 2, FAM_DRAWN = 3,
               FAM_ODDEVEN = 4;
+// ... and one with the watchdog and the telemetry, every algorithm at run
+// time (a.algo).
+constexpr int FAM_INSTR = 5;
 constexpr unsigned FULL = 0xFFFFFFFFu;
 // per-block sums in shared memory
 constexpr int S_LAT_SUM = 0, S_LAT_CNT = 1, S_LAT_MAX = 2, S_RMAX = 3,
@@ -188,9 +202,25 @@ struct SimArgs {
   int* dropped;           // (L,)
   int* eject_total;       // (L,)
   int* meas_cnt;          // (L,)
+  // the watchdog's escape table, read with the watchdog on
+  const int* esc_port;    // (N, N)
+  // the telemetry rings (S = tel_slots) and a scratch, with telemetry on
+  int* tel_chan;          // (L, S, C)
+  int* tel_counts;        // (L, S, 4)
+  int* tel_cycles;        // (L, S)
+  int* tel_lat;           // (L, S, lat_bins)
+  int* tel_qocc;          // (L, S, tel_occ_bins)
+  int* tel_qsum;          // (L, 2) a cycle's source-queue total, by parity
+  // the watchdog, with the watchdog on
+  int* wd_stall;          // (L, NIN)
+  int* wd_throttle;       // (L, N)
+  int* wd_trips;          // (L, 2)
   // sizes
   int L, N, P, V, NIN, C, O, B, Q, PKT, p_local, algo, NDIM;
   int tile_nodes, ntiles, num_cycles, warmup, lat_bins, lat_bin_width;
+  // the watchdog (0 = off) and the telemetry (tel_epoch 0 = off)
+  int watchdog, wd_stall_cycles, wd_hop_limit, wd_throttle_cycles;
+  int tel_epoch, tel_slots, tel_occ_bins;
 };
 
 namespace {
@@ -319,7 +349,8 @@ __host__ __device__ inline int algo_family(int algo) {
          : FAM_DRAWN;
 }
 
-// The algorithm an instance routes: a constant but in the drawn family.
+// The algorithm an instance routes: a constant but in the drawn family and
+// the instrumented instance.
 template <int FAM>
 __device__ __forceinline__ int routed_algo(const SimArgs& a) {
   return FAM == FAM_XY ? ALGO_XY
@@ -327,6 +358,22 @@ __device__ __forceinline__ int routed_algo(const SimArgs& a) {
          : FAM == FAM_BIDOR ? ALGO_BIDOR
          : FAM == FAM_ODDEVEN ? ALGO_ODDEVEN
          : a.algo;
+}
+
+// Whether an instance routes the way of algorithm ALGO, whose own instance
+// is OWN: it is that instance, or the instrumented one running ALGO.
+template <int FAM, int OWN, int ALGO>
+__device__ __forceinline__ bool routes_as(const SimArgs& a) {
+  return FAM == OWN || (FAM == FAM_INSTR && a.algo == ALGO);
+}
+
+__host__ __device__ inline bool draws_km(int algo) {
+  return algo == ALGO_O1TURN || algo == ALGO_VALIANT || algo == ALGO_ROMM;
+}
+
+// Whether a launch takes the instrumented instance.
+__host__ __device__ inline bool instrumented(const SimArgs& a) {
+  return a.watchdog != 0 || a.tel_epoch > 0;
 }
 
 // Call f(std::integral_constant<int, FAM>) for the instance that routes
@@ -340,6 +387,13 @@ int by_family(int algo, F f) {
     case FAM_ODDEVEN: return f(std::integral_constant<int, FAM_ODDEVEN>{});
     default: return f(std::integral_constant<int, FAM_XY>{});
   }
+}
+
+// ... and for the instrumented instance where `instr` is set.
+template <typename F>
+int by_instance(int algo, bool instr, F f) {
+  if (instr) return f(std::integral_constant<int, FAM_INSTR>{});
+  return by_family(algo, f);
 }
 
 // The lanes of a router's segment, besides lanes 0 and 1 (u and ud), that
@@ -369,7 +423,7 @@ __device__ __forceinline__ void advance_key(int* chain, int* out, int algo) {
   const uint32_t a1 = __shfl_sync(FULL, a, 1), a2 = __shfl_sync(FULL, a, 2);
   const uint32_t a3 = __shfl_sync(FULL, a, 3), a4 = __shfl_sync(FULL, a, 4);
   uint32_t x[4] = {0u, 0u, 0u, 0u};
-  if (FAM == FAM_DRAWN) {
+  if (FAM == FAM_DRAWN || (FAM == FAM_INSTR && draws_km(algo))) {
     const uint32_t m0 = __shfl_sync(FULL, b, 1), m1 = __shfl_sync(FULL, b, 2);
     uint32_t c = (uint32_t)lane, d = (uint32_t)(lane + 3);
     if (lane < 3) threefry(m0, m1, c, d);
@@ -394,27 +448,21 @@ __device__ __forceinline__ void advance_key(int* chain, int* out, int algo) {
   }
 }
 
-// A generated packet's (order, inter), as the reference's gen_metadata
-// makes them (BiDOR's order, a table read, is left to the caller).  Every
-// lane of the warp calls it; `gen` and `dst` are uniform over a router's
-// segment (lanes base .. base + PV - 1, this lane its k-th), and the draws
-// are hashed only where a packet is generated, on segment lanes 2, 3, ...:
-// O1TURN bernoulli(k1, 0.5) on lane 2; VALIANT randint(k2, 0, N)'s high
-// and low words on lanes 2 and 3; ROMM uniform(k3, (N, NDIM))'s entries
+// A generated packet's (order, inter) under an algorithm that draws from
+// km, as the reference's gen_metadata makes them.  Every lane of the warp
+// calls it; `gen` and `dst` are uniform over a router's segment (lanes
+// base .. base + PV - 1, this lane its k-th), and the draws are hashed
+// only where a packet is generated, on segment lanes 2, 3, ...: O1TURN
+// bernoulli(k1, 0.5) on lane 2; VALIANT randint(k2, 0, N)'s high and low
+// words on lanes 2 and 3; ROMM uniform(k3, (N, NDIM))'s entries
 // NDIM * n + d on lanes 2 + d, each lane its dimension's term of the
 // intermediate node, summed over the segment.  `x` is the cycle's
 // algorithm key words (advance_key).
-template <int FAM>
-__device__ __forceinline__ void packet_meta(const SimArgs& a, const int* x,
-                                            bool gen, int n, int dst, int k,
-                                            int base, int& order,
-                                            int& inter) {
-  order = 0;
-  inter = -1;
-  const int algo = routed_algo<FAM>(a);
-  if (FAM != FAM_DRAWN) {
-    if (algo == ALGO_YX) order = a.O - 1;
-  } else if (algo == ALGO_O1TURN) {
+__device__ __forceinline__ void drawn_meta(const SimArgs& a, int algo,
+                                           const int* x, bool gen, int n,
+                                           int dst, int k, int base,
+                                           int& order, int& inter) {
+  if (algo == ALGO_O1TURN) {
     uint32_t w = 0u;
     if (gen && k == 2) w = node_bits((uint32_t)x[0], (uint32_t)x[1], n, a.N);
     w = __shfl_sync(FULL, w, (base + 2) & (WARP - 1));
@@ -449,6 +497,28 @@ __device__ __forceinline__ void packet_meta(const SimArgs& a, const int* x,
     inter = 0;
     for (int j = 0; j < nd; ++j)
       inter += __shfl_sync(FULL, term, (base + 2 + j) & (WARP - 1));
+  }
+}
+
+// A generated packet's (order, inter), as the reference's gen_metadata
+// makes them (BiDOR's order, a table read, is left to the caller); the
+// algorithms that draw take them from drawn_meta.  Every lane of the warp
+// calls it.
+template <int FAM>
+__device__ __forceinline__ void packet_meta(const SimArgs& a, const int* x,
+                                            bool gen, int n, int dst, int k,
+                                            int base, int& order,
+                                            int& inter) {
+  order = 0;
+  inter = -1;
+  const int algo = routed_algo<FAM>(a);
+  if (FAM == FAM_INSTR) {
+    if (algo == ALGO_YX) order = a.O - 1;
+    else drawn_meta(a, algo, x, gen, n, dst, k, base, order, inter);
+  } else if (FAM != FAM_DRAWN) {
+    if (algo == ALGO_YX) order = a.O - 1;
+  } else {
+    drawn_meta(a, algo, x, gen, n, dst, k, base, order, inter);
   }
 }
 
@@ -543,6 +613,70 @@ __device__ __forceinline__ int recv_index(const SimArgs& a, int n, int k) {
   return clampi(idx, 0, a.NIN - 1);
 }
 
+// ---- the watchdog and the telemetry (the instrumented instance) ---- //
+
+// The generation throttle of node `ln` (lane * N + node): the segment's
+// lane 0 reads it and writes it back decremented, and the segment takes
+// the read (every lane of the warp calls it).  A node generates only while
+// its throttle is 0.  Other blocks write throttles (phase B), so they are
+// read and written at L2.
+__device__ __forceinline__ bool unthrottled(const SimArgs& a, bool lead,
+                                            long long ln, int base) {
+  int thr = 0;
+  if (lead) {
+    thr = __ldcg(a.wd_throttle + ln);
+    __stcg(a.wd_throttle + ln, max(thr - 1, 0));
+  }
+  return __shfl_sync(FULL, thr, base & (WARP - 1)) <= 0;
+}
+
+// Phase B: a flit moving on past the hop limit (`f` as its receiver holds
+// it, the hop counted) throttles its source, over the owner's decrement.
+__device__ __forceinline__ void throttle_runaway(const SimArgs& a,
+                                                 const int* f, long long lnn) {
+  const int src = f[F_SRC];
+  if (f[F_HOPS] > a.wd_hop_limit && src >= 0 && src < a.N)
+    __stcg(a.wd_throttle + lnn + src, a.wd_throttle_cycles);
+}
+
+// A generated packet in telemetry slot `row` (lane * S + slot): offered,
+// then accepted or shed.
+__device__ __forceinline__ void tel_generated(const SimArgs& a, long long row,
+                                              bool space) {
+  int* c = a.tel_counts + row * 4;
+  atomicAdd(c, 1);
+  atomicAdd(c + (space ? 1 : 2), 1);
+}
+
+// A tail ejection of latency `lat` in telemetry slot `row`.
+__device__ __forceinline__ void tel_delivered(const SimArgs& a, long long row,
+                                              int lat) {
+  atomicAdd(a.tel_counts + row * 4 + 3, 1);
+  atomicAdd(a.tel_lat + row * a.lat_bins +
+                min(floordiv(lat, a.lat_bin_width), a.lat_bins - 1),
+            1);
+}
+
+// Once a lane and cycle c, in phase B: the cycle into slot `row`, and the
+// network's source-queue total (summed into the parity word in phase A)
+// into its occupancy bin; the other parity word is cleared for cycle c + 1.
+__device__ __forceinline__ void tel_cycle(const SimArgs& a, int lane,
+                                          long long row, int c) {
+  int* qs = a.tel_qsum + 2 * lane;
+  const long long tot = atomicAdd(qs + (c & 1), 0);
+  const int nb = a.tel_occ_bins;
+  const long long ob = tot * nb / ((long long)a.N * a.Q);
+  atomicAdd(a.tel_qocc + row * nb + (ob < nb - 1 ? ob : nb - 1), 1);
+  atomicAdd(a.tel_cycles + row, 1);
+  atomicExch(qs + ((c + 1) & 1), 0);
+}
+
+// The telemetry slot row (lane * S + (cyc / epoch) % S) of a cycle.
+__device__ __forceinline__ long long tel_row(const SimArgs& a, int lane,
+                                             int cyc) {
+  return (long long)lane * a.tel_slots + (cyc / a.tel_epoch) % a.tel_slots;
+}
+
 template <bool CLUSTERED>
 __device__ __forceinline__ void lane_sync() {
   if (CLUSTERED) cg::this_cluster().sync();
@@ -579,6 +713,11 @@ simstep_chunk_kernel(const SimArgs a) {
   const bool seg_lane = g < spw;
   const unsigned segmask = PV == 32 ? FULL : ((1u << PV) - 1u);
   const int rounds = (tn + nwarps * spw - 1) / (nwarps * spw);
+  // constants in every instance but the instrumented one
+  const bool oe = routes_as<FAM, FAM_ODDEVEN, ALGO_ODDEVEN>(a);
+  const bool bd = routes_as<FAM, FAM_BIDOR, ALGO_BIDOR>(a);
+  const bool WD = FAM == FAM_INSTR && a.watchdog != 0;
+  const bool TEL = FAM == FAM_INSTR && a.tel_epoch > 0;
 
   if (EMPTY) {
     if (CLUSTERED) cg::this_cluster().sync();
@@ -655,6 +794,10 @@ simstep_chunk_kernel(const SimArgs a) {
     if (wl == 0) s_occ[t] = occ;
   }
   int* chain = s_keys + KEY_CHAIN;
+  if (TEL && me == 0 && threadIdx.x == 0) {   // the queue-total words
+    __stcg(a.tel_qsum + 2 * lane, 0);
+    __stcg(a.tel_qsum + 2 * lane + 1, 0);
+  }
   if (warp == 0) {
     if (wl == 0) {
       chain[0] = a.key[2 * lane];
@@ -686,6 +829,7 @@ simstep_chunk_kernel(const SimArgs a) {
     const uint32_t kd0 = (uint32_t)kk[2], kd1 = (uint32_t)kk[3];
     const float cf = (float)cyc;
     const float cf1 = __fadd_rn(cf, 1.0f);
+    const long long trow = TEL ? tel_row(a, lane, cyc) : 0;
 
     // ====== phase A: per node, generation to pops and ejections ======== //
     if (key_warp) {
@@ -728,9 +872,9 @@ simstep_chunk_kernel(const SimArgs a) {
           draw = node_uniform(k ? kd0 : kg0, k ? kd1 : kg1, n, N);
         const float u = __shfl_sync(FULL, draw, base & (WARP - 1));
         const float ud = __shfl_sync(FULL, draw, (base + 1) & (WARP - 1));
-        const bool gen = act &&
-                         (u < __fmul_rn(__ldg(a.p_gen + n), per_flit)) &&
-                         (cyc < inj_until);
+        bool gen = act && (u < __fmul_rn(__ldg(a.p_gen + n), per_flit)) &&
+                   (cyc < inj_until);
+        if (WD) gen = unthrottled(a, act && k == 0, ln, base) && gen;
         // the count of CDF entries <= ud (the row is non-decreasing): a
         // (PV + 1)-ary search, one probe a lane of the segment
         int lo = 0, hi = N;
@@ -760,8 +904,7 @@ simstep_chunk_kernel(const SimArgs a) {
           int pr = s_prog[t];
           const bool space = qs < Q;
           if (gen && space) {
-            if (FAM == FAM_BIDOR)
-              order = __ldg(a.choice + (long long)n * N + dst);
+            if (bd) order = __ldg(a.choice + (long long)n * N + dst);
             int* nseq = a.next_seq + ln * N + dst;
             const int seq = *nseq;
             *nseq = seq + 1;
@@ -778,10 +921,11 @@ simstep_chunk_kernel(const SimArgs a) {
             r_off += gen ? 1u : 0u;
             r_drop += (gen && !space) ? 1u : 0u;
           }
+          if (TEL && gen) tel_generated(a, trow, space);
           bool done = false;
           if (qs > 0) {
             int vc_in = 0;
-            if (FAM == FAM_ODDEVEN) {       // the local VC with most space
+            if (oe) {                       // the local VC with most space
               const int* ls = s_size + t * PV + a.p_local * V;
               for (int j = 1; j < V; ++j)
                 if (ls[j] < ls[vc_in]) vc_in = j;
@@ -816,6 +960,8 @@ simstep_chunk_kernel(const SimArgs a) {
           s_prog[t] = pr;
           s_qstart[t] = done ? (qst + 1) % Q : qst;
           s_qsize[t] = qs - (done ? 1 : 0);
+          if (TEL && qs - (done ? 1 : 0) > 0)
+            atomicAdd(a.tel_qsum + 2 * lane + (c & 1), qs - (done ? 1 : 0));
         }
         inj_k = __shfl_sync(FULL, inj_k, base & (WARP - 1));
         __syncwarp();
@@ -836,7 +982,7 @@ simstep_chunk_kernel(const SimArgs a) {
         int pre_exp = 0;
         uint32_t pre_bits = 0;
         int oe_op = 0, oe_ov = 0;
-        if (FAM == FAM_ODDEVEN) {
+        if (oe) {
           int fv = 0;                      // this lane's receiver's credits
           if (act) {
             const int ridx = recv_index(a, n, k), rank = ridx / ti;
@@ -849,6 +995,8 @@ simstep_chunk_kernel(const SimArgs a) {
                   },
                   oe_op, oe_ov);
         }
+        int stall = 0;                    // the watchdog's stall age
+        if (WD && act) stall = a.wd_stall[lin + in0 + i];
         if (act && size > 0) {
           const int lop = s_lop[i];
           const bool locked = lop >= 0;
@@ -858,13 +1006,18 @@ simstep_chunk_kernel(const SimArgs a) {
           } else if (target == n) {
             op = a.p_local;
             ov = 0;
-          } else if (FAM == FAM_ODDEVEN) {
+          } else if (oe) {
             op = oe_op;
             ov = oe_ov;
           } else {
             const int eff =
                 table_route(a, routed_algo<FAM>(a), f[F_ORDER], rph, k, ov);
             op = __ldg(a.port + ((long long)eff * N + n) * N + target);
+          }
+          if (WD && stall >= a.wd_stall_cycles && head && !locked &&
+              target != n) {              // escape: one hop, the last VC
+            op = __ldg(a.esc_port + (long long)n * N + target);
+            ov = V - 1;
           }
           const bool is_eject = op == a.p_local;
           const int cop = clampi(op, 0, P - 1);
@@ -918,6 +1071,7 @@ simstep_chunk_kernel(const SimArgs a) {
         if (act) {
           int push_op = -1;
           bool reload = false;
+          const bool valid = size > 0;
           if (won) {
             s_rr[t * P + op] = (k + 1) % PV;
             s_start[i] = (st + 1) % B;
@@ -938,10 +1092,17 @@ simstep_chunk_kernel(const SimArgs a) {
               if (measuring) s_cfwd[t * P + op] += 1;
               push_op = op;
               s_pov[i] = ov;
+              if (WD && f[F_HOPS] == a.wd_hop_limit)  // now one past it
+                atomicAdd(a.wd_trips + 2 * lane + 1, 1);
+              if (TEL) {
+                const int ch = __ldg(a.chan_of + n * P + op);
+                if (ch >= 0 && ch < C) atomicAdd(a.tel_chan + trow * C + ch, 1);
+              }
             } else {
               r_eject += 1u;
               if (measuring) s_ejf[t] += 1;
               const int lat = (cyc - f[F_TIME]) + f[F_HOPS] + 1;  // +1: eject
+              if (TEL && tail) tel_delivered(a, trow, lat);
               if (tail && f[F_TIME] >= a.warmup) {
                 r_lat_sum += (uint32_t)lat;
                 r_lat_cnt += 1u;
@@ -973,6 +1134,11 @@ simstep_chunk_kernel(const SimArgs a) {
           s_pop[i] = push_op;
           s_rl[i] = reload ? 1 : 0;
           fs_next[i] = size;
+          if (WD) {
+            const int ns = (valid && !won) ? stall + 1 : 0;
+            a.wd_stall[lin + in0 + i] = ns;
+            if (ns == a.wd_stall_cycles) atomicAdd(a.wd_trips + 2 * lane, 1);
+          }
         }
         const unsigned granted = __ballot_sync(FULL, won);
         __syncwarp();
@@ -1004,6 +1170,7 @@ simstep_chunk_kernel(const SimArgs a) {
         }
         const int op = s_pop[i];
         if (op < 0) continue;
+        if (WD) throttle_runaway(a, s_mov + (t * P + op) * NF, lnn);
         const int n = node0 + t;
         const int di = (__ldg(a.neighbor + n * P + op) * P +
                         __ldg(a.recv_port + n * P + op)) * V + s_pov[i];
@@ -1026,7 +1193,10 @@ simstep_chunk_kernel(const SimArgs a) {
         rank_ptr<CLUSTERED>(sm + fsn_off, rank, me)[li] = dsz + 1;
       }
     }
-    if (threadIdx.x == 0 && me == 0) r_meas += measuring ? 1u : 0u;
+    if (threadIdx.x == 0 && me == 0) {
+      r_meas += measuring ? 1u : 0u;
+      if (TEL) tel_cycle(a, lane, trow, c);
+    }
     lane_sync<CLUSTERED>();
   }
 
@@ -1148,18 +1318,28 @@ int launch_sized(const SimArgs& a, cudaStream_t stream) {
 template <bool CLUSTERED, bool EMPTY>
 int launch_family(const SimArgs& a, cudaStream_t stream) {
   if (EMPTY) return launch_sized<CLUSTERED, true, FAM_XY>(a, stream);
-  return by_family(a.algo, [&](auto fam) {
+  return by_instance(a.algo, instrumented(a), [&](auto fam) {
     return launch_sized<CLUSTERED, false, decltype(fam)::value>(a, stream);
   });
 }
 
 // What the routing algorithms need of a router: its draw lanes within a
-// segment, odd-even's four ports of a 2-D mesh, ROMM's coordinates.
+// segment, odd-even's four ports of a 2-D mesh, ROMM's coordinates; and
+// what the watchdog and the telemetry need: their arrays and sizes.
 __host__ __device__ inline bool algo_fits(const SimArgs& a) {
   if (a.algo < ALGO_XY || a.algo > ALGO_BIDOR) return false;
   if (a.P * a.V < 2 + algo_draw_lanes(a.algo, a.NDIM)) return false;
   if (a.algo == ALGO_ODDEVEN && (a.NDIM != 2 || a.P < 4)) return false;
   if (a.algo == ALGO_ROMM && (a.NDIM < 1 || a.NDIM > MAX_NDIM)) return false;
+  if (a.watchdog && (!a.esc_port || !a.wd_stall || !a.wd_throttle ||
+                     !a.wd_trips || a.wd_stall_cycles < 0))
+    return false;
+  if (a.tel_epoch < 0 ||
+      (a.tel_epoch > 0 &&
+       (!a.tel_chan || !a.tel_counts || !a.tel_cycles || !a.tel_lat ||
+        !a.tel_qocc || !a.tel_qsum || a.tel_slots <= 0 ||
+        a.tel_occ_bins <= 0)))
+    return false;
   return true;
 }
 
@@ -1362,6 +1542,11 @@ simstep_grid_kernel(const SimArgs a, const GridArgs gr) {
   const int base = g * PV;                             // segment's lane 0
   const int seg0 = base & (WARP - 1);
   const unsigned segmask = PV == 32 ? FULL : ((1u << PV) - 1u);
+  // constants in every instance but the instrumented one
+  const bool oe = routes_as<FAM, FAM_ODDEVEN, ALGO_ODDEVEN>(a);
+  const bool bd = routes_as<FAM, FAM_BIDOR, ALGO_BIDOR>(a);
+  const bool WD = FAM == FAM_INSTR && a.watchdog != 0;
+  const bool TEL = FAM == FAM_INSTR && a.tel_epoch > 0;
 
   // ---------------- the block's lanes: constants, sums, keys ----------- //
   for (int j = threadIdx.x; j < nslots * sw; j += nthreads) sm[j] = 0;
@@ -1382,6 +1567,15 @@ simstep_grid_kernel(const SimArgs a, const GridArgs gr) {
     }
     __syncwarp();
     advance_key<FAM>(kw + KEY_CHAIN, kw, a.algo);      // cycle 0's keys
+  }
+  // the queue-total words of the lanes whose first unit is the block's
+  if (TEL && threadIdx.x == 0) {
+    for (int r = 0; r < nu; ++r) {
+      if ((u0 + r) % tpl) continue;
+      const int lane = (u0 + r) / tpl;
+      __stcg(a.tel_qsum + 2 * lane, 0);
+      __stcg(a.tel_qsum + 2 * lane + 1, 0);
+    }
   }
   __syncthreads();
   // the credit snapshot of cycle 0: the FIFO sizes as they stand
@@ -1435,6 +1629,7 @@ simstep_grid_kernel(const SimArgs a, const GridArgs gr) {
       const long long lin = (long long)lane * NIN;
       const long long ln = (long long)lane * N + n;
       const long long gi = lin + (long long)n * PV + k;
+      const long long trow = TEL ? tel_row(a, lane, cyc) : 0;
 
       // ---- 0. the input's state and head flit, the queue head -------- //
       int st = 0, size = 0, lop = -1;
@@ -1468,8 +1663,9 @@ simstep_grid_kernel(const SimArgs a, const GridArgs gr) {
         draw = node_uniform(k ? kd0 : kg0, k ? kd1 : kg1, n, N);
       const float uu = __shfl_sync(FULL, draw, seg0);
       const float ud = __shfl_sync(FULL, draw, (base + 1) & (WARP - 1));
-      const bool gen = act && (uu < __fmul_rn(__ldg(a.p_gen + n), per_flit)) &&
-                       (cyc < inj_until);
+      bool gen = act && (uu < __fmul_rn(__ldg(a.p_gen + n), per_flit)) &&
+                 (cyc < inj_until);
+      if (WD) gen = unthrottled(a, act && k == 0, ln, base) && gen;
       int lo = 0, hi = N;
       const float* row = a.cdf + (long long)n * N;
       while (__any_sync(FULL, gen && lo < hi)) {
@@ -1491,7 +1687,7 @@ simstep_grid_kernel(const SimArgs a, const GridArgs gr) {
       packet_meta<FAM>(a, kk + 4, gen, n, dst, k, base, order, inter);
       // odd-even's local VC sizes, from the lanes that hold them
       int local_vc = 0;
-      if (FAM == FAM_ODDEVEN) {
+      if (oe) {
         int best = 0;
         for (int j = 0; j < V; ++j) {
           const int sz = __shfl_sync(
@@ -1504,8 +1700,7 @@ simstep_grid_kernel(const SimArgs a, const GridArgs gr) {
       if (act && k == 0) {
         const bool space = qs < Q;
         if (gen && space) {
-          if (FAM == FAM_BIDOR)
-            order = __ldg(a.choice + (long long)n * N + dst);
+          if (bd) order = __ldg(a.choice + (long long)n * N + dst);
           int* nseq = a.next_seq + ln * N + dst;
           const int seq = *nseq;
           *nseq = seq + 1;
@@ -1522,10 +1717,10 @@ simstep_grid_kernel(const SimArgs a, const GridArgs gr) {
           sums.off += gen ? 1u : 0u;
           sums.drop += (gen && !space) ? 1u : 0u;
         }
+        if (TEL && gen) tel_generated(a, trow, space);
         if (qs > 0)
-          lk = a.p_local * V + (FAM == FAM_ODDEVEN
-                                    ? local_vc
-                                    : vc_in_of(routed_algo<FAM>(a), n, h, V));
+          lk = a.p_local * V +
+               (oe ? local_vc : vc_in_of(routed_algo<FAM>(a), n, h, V));
       }
       // ---- 2. flit injection: the input's size and start from its lane //
       lk = __shfl_sync(FULL, lk, seg0);
@@ -1555,6 +1750,8 @@ simstep_grid_kernel(const SimArgs a, const GridArgs gr) {
         a.prog[ln] = pr;
         a.q_start[ln] = done ? (qst + 1) % Q : qst;
         a.q_size[ln] = qs - (done ? 1 : 0);
+        if (TEL && qs - (done ? 1 : 0) > 0)
+          atomicAdd(a.tel_qsum + 2 * lane + (c & 1), qs - (done ? 1 : 0));
       }
       inj_k = __shfl_sync(FULL, inj_k, seg0);
       const bool took = act && k == inj_k;
@@ -1578,7 +1775,7 @@ simstep_grid_kernel(const SimArgs a, const GridArgs gr) {
       int pre_exp = 0;
       uint32_t pre_bits = 0;
       int oe_op = 0, oe_ov = 0;
-      if (FAM == FAM_ODDEVEN) {
+      if (oe) {
         // this lane's receiver's credits, in the pre-cycle snapshot
         const int fv = act ? B - __ldcg(fs_cur + lin + recv_index(a, n, k)) : 0;
         oddeven(a, act && size > 0, n, clampi(f[F_SRC], 0, N - 1), target, fv,
@@ -1588,6 +1785,8 @@ simstep_grid_kernel(const SimArgs a, const GridArgs gr) {
                 },
                 oe_op, oe_ov);
       }
+      int stall = 0;                      // the watchdog's stall age
+      if (WD && act) stall = a.wd_stall[gi];
       if (act && size > 0) {
         const bool locked = lop >= 0;
         if (locked) {
@@ -1596,13 +1795,18 @@ simstep_grid_kernel(const SimArgs a, const GridArgs gr) {
         } else if (target == n) {
           op = a.p_local;
           ov = 0;
-        } else if (FAM == FAM_ODDEVEN) {
+        } else if (oe) {
           op = oe_op;
           ov = oe_ov;
         } else {
           const int eff =
               table_route(a, routed_algo<FAM>(a), f[F_ORDER], rph, k, ov);
           op = __ldg(a.port + ((long long)eff * N + n) * N + target);
+        }
+        if (WD && stall >= a.wd_stall_cycles && head && !locked &&
+            target != n) {                // escape: one hop, the last VC
+          op = __ldg(a.esc_port + (long long)n * N + target);
+          ov = V - 1;
         }
         const bool is_eject = op == a.p_local;
         const int cop = clampi(op, 0, P - 1);
@@ -1652,6 +1856,7 @@ simstep_grid_kernel(const SimArgs a, const GridArgs gr) {
       // ---- 6. pops, locks, out_held; 7. ejections ---------------- //
       if (act) {
         int to = -1;
+        const bool valid = size > 0;
         if (won) {
           a.rr[ln * P + op] = (k + 1) % PV;
           a.fifo_start[gi] = (st + 1) % B;
@@ -1665,12 +1870,16 @@ simstep_grid_kernel(const SimArgs a, const GridArgs gr) {
             if (ch >= 0 && ch < C) {          // each channel has one source
               a.chan_seen[(long long)lane * C + ch] += 1;
               if (measuring) a.chan_fwd[(long long)lane * C + ch] += 1;
+              if (TEL) atomicAdd(a.tel_chan + trow * C + ch, 1);
             }
+            if (WD && f[F_HOPS] == a.wd_hop_limit)  // now one past it
+              atomicAdd(a.wd_trips + 2 * lane + 1, 1);
             to = (nei * P + rp) * V + ov;
           } else {
             sums.eject += 1u;
             if (measuring) a.eject_flits[ln] += 1;
             const int lat = (cyc - f[F_TIME]) + f[F_HOPS] + 1;  // +1: eject
+            if (TEL && tail) tel_delivered(a, trow, lat);
             if (tail && f[F_TIME] >= a.warmup) {
               sums.lat_sum += (uint32_t)lat;
               sums.lat_cnt += 1u;
@@ -1700,6 +1909,11 @@ simstep_grid_kernel(const SimArgs a, const GridArgs gr) {
         }
         gr.push_to[gi] = to;
         __stcg(fs_next + gi, size);
+        if (WD) {
+          const int ns = (valid && !won) ? stall + 1 : 0;
+          a.wd_stall[gi] = ns;
+          if (ns == a.wd_stall_cycles) atomicAdd(a.wd_trips + 2 * lane, 1);
+        }
       }
       const unsigned granted = __ballot_sync(FULL, won);
       __syncwarp();
@@ -1720,6 +1934,14 @@ simstep_grid_kernel(const SimArgs a, const GridArgs gr) {
     // ====== phase B: the receive-side pushes =========================== //
     // (one winner per channel, so every target input takes at most one
     // push a cycle; its slot comes from the post-pop start and size)
+    if (TEL && threadIdx.x == 0) {     // the lanes whose first unit it holds
+      for (int r = 0; r < nu; ++r) {
+        if ((u0 + r) % tpl) continue;
+        const int lane = (u0 + r) / tpl;
+        const int cyc = sm[(lane - lane_lo) * sw + G_LANE] + c;
+        tel_cycle(a, lane, tel_row(a, lane, cyc), c);
+      }
+    }
     if (act) {
       for (int r = 0; r < nu; ++r) {
         const int u = u0 + r, lane = u / tpl;
@@ -1734,6 +1956,7 @@ simstep_grid_kernel(const SimArgs a, const GridArgs gr) {
         const bool rph = f[F_PHASE] != 0 || f[F_INTER] < 0 || f[F_INTER] == n;
         f[F_HOPS] += 1;
         f[F_PHASE] = rph ? 1 : 0;
+        if (WD) throttle_runaway(a, f, (long long)lane * N);
         const long long gd = lin + to;
         const int dst_start = __ldcg(a.fifo_start + gd);
         const int dsz = __ldcg(fs_next + gd);
@@ -1833,7 +2056,7 @@ int checked_grid_launch(const SimArgs* args, const GridArgs* gargs,
   if (a.num_cycles == 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
   if (empty) return grid_launch_sized<true, FAM_XY>(a, gr, s);
-  return by_family(a.algo, [&](auto fam) {
+  return by_instance(a.algo, instrumented(a), [&](auto fam) {
     return grid_launch_sized<false, decltype(fam)::value>(a, gr, s);
   });
 }
@@ -1897,13 +2120,14 @@ extern "C" int simstep_grid_floor_launch(const SimArgs* args,
   return checked_grid_launch(args, gargs, stream, true);
 }
 
-// Blocks of `tile_nodes` nodes the grid kernel for `algo` keeps on one SM
-// with `smem` bytes of dynamic shared memory each
+// Blocks of `tile_nodes` nodes the grid kernel for `algo` (its
+// instrumented instance where `instr` is set) keeps on one SM with `smem`
+// bytes of dynamic shared memory each
 // (cudaOccupancyMaxActiveBlocksPerMultiprocessor; negative: a cudaError_t).
 extern "C" int simstep_grid_blocks_per_sm(int tile_nodes, int P, int V,
-                                          int smem, int algo) {
+                                          int smem, int algo, int instr) {
   const int threads = grid_threads(tile_nodes, P * V);
-  return by_family(algo, [&](auto fam) {
+  return by_instance(algo, instr != 0, [&](auto fam) {
     return grid_occupancy_sized<decltype(fam)::value>(threads, smem);
   });
 }

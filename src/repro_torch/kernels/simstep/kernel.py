@@ -1,8 +1,9 @@
 """Launch binding of ``csrc/simstep.cu`` (ctypes, plain C ABI).
 
 Both card kernels take one :class:`SimArgs` record: every table and
-state pointer of a simulation cell, the lanes' PRNG key words and the
-sizes.  The record is built once per cell (:func:`sim_args`); a chunk
+state pointer of a simulation cell (the telemetry rings and the
+watchdog's arrays null where the config leaves them off), the lanes'
+PRNG key words, the telemetry's queue-total scratch and the sizes.  The record is built once per cell (:func:`sim_args`); a chunk
 sets ``num_cycles`` and makes one ctypes call.  The grid kernel takes a
 second record, :class:`GridArgs`: its global-memory scratch (the two
 credit buffers, the push targets, the reorder counts) and the number of
@@ -27,12 +28,15 @@ PTR_FIELDS = (
     "next_seq", "rate", "cycle0", "inject_until", "measure_until",
     "exp_seq", "rbits", "node_fwd", "eject_flits", "chan_fwd", "chan_seen",
     "lat_sum", "lat_cnt", "lat_max", "lat_hist", "reorder_max", "injected",
-    "offered", "dropped", "eject_total", "meas_cnt",
+    "offered", "dropped", "eject_total", "meas_cnt", "esc_port",
+    "tel_chan", "tel_counts", "tel_cycles", "tel_lat", "tel_qocc",
+    "tel_qsum", "wd_stall", "wd_throttle", "wd_trips",
 )
 INT_FIELDS = (
     "L", "N", "P", "V", "NIN", "C", "O", "B", "Q", "PKT", "p_local", "algo",
     "NDIM", "tile_nodes", "ntiles", "num_cycles", "warmup", "lat_bins",
-    "lat_bin_width",
+    "lat_bin_width", "watchdog", "wd_stall_cycles", "wd_hop_limit",
+    "wd_throttle_cycles", "tel_epoch", "tel_slots", "tel_occ_bins",
 )
 GRID_PTR_FIELDS = ("fs0", "fs1", "push_to", "occ")
 GRID_INT_FIELDS = ("grid",)
@@ -224,12 +228,15 @@ class Launcher:
                                f"cudaError {err}")
 
 
-def grid_occupancy(tile: int, p: int, v: int, smem: int, algo: int) -> int:
+def grid_occupancy(tile: int, p: int, v: int, smem: int, algo: int,
+                   instrumented: bool) -> int:
     """Grid-kernel blocks of ``tile`` nodes one SM of the current card
     holds with ``smem`` bytes of shared memory each, for the kernel's
-    instance that routes ``algo`` (the occupancy API)."""
-    got = library("simstep").simstep_grid_blocks_per_sm(tile, p, v, smem,
-                                                        int(algo))
+    instance that routes ``algo`` (the instrumented one, with the
+    watchdog and the telemetry, where ``instrumented``; the occupancy
+    API)."""
+    got = library("simstep").simstep_grid_blocks_per_sm(
+        tile, p, v, smem, int(algo), int(bool(instrumented)))
     if got <= 0:
         raise RuntimeError(f"simstep_grid occupancy query failed: {got}")
     return got

@@ -15,6 +15,9 @@ cycle there, chosen by the cell's shape (:func:`card_kernel`):
   over the whole card, the per-input state in global memory, two
   grid-wide barriers a cycle (:func:`grid_layout`).
 
+With the watchdog or the telemetry on, either kernel runs its
+instrumented instance, which routes every algorithm.
+
 For state on the CPU it runs the plain version (:mod:`.ref`): the
 chunk's draws, then per cycle ``tile_fn`` tile by tile and
 ``finish_fn``.  Neither stands in for the other.
@@ -29,13 +32,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ...noc.simconfig import (NF, NQ, Algo, SimConfig, check_supported,
-                              check_topology)
+from ...noc.simconfig import NF, NQ, Algo, SimConfig, check_topology
 from .kernel import (INT_FIELDS, MAX_CLUSTER, MAX_P, MAX_PV, MAX_WARPS,
                      MAX_NDIM, MIN_PV, WARP, GridArgs, Launcher,
                      block_threads, draw_lanes,
                      grid_blocks_per_sm, grid_occupancy, grid_smem_bytes,
                      rounds, sim_args, smem_bytes)
+from ...obs.probe import resolved_epoch
 from .ref import MOV_W, N_PART, draw_chunk, make_cycle_parts
 
 # an H100 SM (sm_90): dynamic shared memory one block may use, and the
@@ -48,12 +51,14 @@ TABLE_DTYPES = dict(port=torch.int32, choice=torch.int32,
                     neighbor=torch.int32, recv_port=torch.int32,
                     cdf=torch.float32, p_gen=torch.float32,
                     chan_of=torch.int32, chan_bw=torch.float32,
-                    coords=torch.int32, strides=torch.int32)
+                    coords=torch.int32, strides=torch.int32,
+                    esc_port=torch.int32)
 
 
 def _shapes(meta: dict, cfg: SimConfig, lanes: int) -> dict:
     """The shape of every table and state tensor the kernel indexes."""
     n, p, v, nin, c = meta["N"], meta["P"], meta["V"], meta["NIN"], meta["C"]
+    s = cfg.tel_slots
     lane = {k: (lanes,) for k in (
         "rate", "cycle0", "inject_until", "measure_until", "lat_sum",
         "lat_cnt", "lat_max", "reorder_max", "injected", "offered",
@@ -62,6 +67,7 @@ def _shapes(meta: dict, cfg: SimConfig, lanes: int) -> dict:
         lane, port=(meta["O"], n, n), choice=(n, n), neighbor=(n, p),
         recv_port=(n, p), cdf=(n, n), p_gen=(n,), chan_of=(n, p),
         chan_bw=(c,), coords=(n, meta["NDIM"]), strides=(meta["NDIM"],),
+        esc_port=(n, n),
         flits=(lanes, nin, cfg.buf_per_vc, NF),
         fifo_start=(lanes, nin), fifo_size=(lanes, nin),
         lock_op=(lanes, nin), lock_ov=(lanes, nin),
@@ -70,7 +76,11 @@ def _shapes(meta: dict, cfg: SimConfig, lanes: int) -> dict:
         q_size=(lanes, n), prog=(lanes, n), next_seq=(lanes, n, n),
         exp_seq=(lanes, n, n), rbits=(lanes, n, n), node_fwd=(lanes, n),
         eject_flits=(lanes, n), chan_fwd=(lanes, c), chan_seen=(lanes, c),
-        lat_hist=(lanes, cfg.lat_bins))
+        lat_hist=(lanes, cfg.lat_bins),
+        tel_chan=(lanes, s, c), tel_counts=(lanes, s, 4),
+        tel_cycles=(lanes, s), tel_lat=(lanes, s, cfg.lat_bins),
+        tel_qocc=(lanes, s, cfg.tel_occ_bins), wd_stall=(lanes, nin),
+        wd_throttle=(lanes, n), wd_trips=(lanes, 2))
 
 
 def _divisors(n: int) -> list[int]:
@@ -238,8 +248,10 @@ class FlitStep:
     step)."""
 
     def __init__(self, meta: dict, cfg: SimConfig, tables, state: dict):
-        check_supported(cfg)
         check_topology(cfg, meta["NDIM"])
+        if cfg.watchdog and tables.esc_port.numel() == 0:
+            raise ValueError("the watchdog needs the escape table: "
+                             "build_tables(..., escape=True)")
         self.meta, self.cfg = meta, cfg
         self.tables, self.state = tables, state
         self.device = state["fifo_size"].device
@@ -271,6 +283,8 @@ class FlitStep:
         shapes = _shapes(meta, cfg, self.lanes)
         ptrs = {}
         for name, dt in TABLE_DTYPES.items():
+            if name == "esc_port" and not cfg.watchdog:
+                continue   # null: the watchdog's table, left out
             ptrs[name] = self._checked(name, getattr(t, name), dt,
                                        shapes[name])
         for name, x in st.items():
@@ -279,9 +293,19 @@ class FlitStep:
             dt = torch.float32 if name == "rate" else torch.int32
             ptrs[name] = self._checked(f"state[{name!r}]", x, dt,
                                        shapes[name])
+        for name, on in (("tel_chan", cfg.telemetry),
+                         ("wd_stall", cfg.watchdog)):
+            if (name in st) != bool(on):
+                raise ValueError(f"state[{name!r}] does not match the "
+                                 f"config's telemetry and watchdog")
         self.key = torch.zeros((self.lanes, 2), dtype=torch.int32,
                                device=self.device)
         ptrs["key"] = self.key
+        if cfg.telemetry:
+            # the lanes' source-queue totals by cycle parity (scratch)
+            self.tel_qsum = torch.zeros((self.lanes, 2), dtype=torch.int32,
+                                        device=self.device)
+            ptrs["tel_qsum"] = self.tel_qsum
         sizes = dict(
             L=self.lanes, N=meta["N"], P=meta["P"], V=meta["V"],
             NIN=meta["NIN"], C=meta["C"], O=meta["O"], B=cfg.buf_per_vc,
@@ -289,7 +313,12 @@ class FlitStep:
             p_local=meta["P_LOCAL"], algo=int(cfg.algo), NDIM=ndim,
             tile_nodes=self.tile_nodes, ntiles=self.ntiles, num_cycles=0,
             warmup=cfg.warmup, lat_bins=cfg.lat_bins,
-            lat_bin_width=cfg.lat_bin_width)
+            lat_bin_width=cfg.lat_bin_width, watchdog=int(cfg.watchdog),
+            wd_stall_cycles=cfg.wd_stall_cycles,
+            wd_hop_limit=cfg.wd_hop_limit,
+            wd_throttle_cycles=cfg.wd_throttle_cycles,
+            tel_epoch=resolved_epoch(cfg), tel_slots=cfg.tel_slots,
+            tel_occ_bins=cfg.tel_occ_bins)
         assert set(sizes) == set(INT_FIELDS)
         self.args = sim_args(ptrs, sizes)
         gargs = None
@@ -309,7 +338,8 @@ class FlitStep:
         # rounds (and so lane slots) are at least the final layout's
         _, rounds_ = grid_layout(n, p * v, lanes, tile, sms=sms)
         per_sm = grid_occupancy(tile, p, v, grid_smem_bytes(
-            rounds_, self.ntiles, lanes, self.cfg.lat_bins), self.cfg.algo)
+            rounds_, self.ntiles, lanes, self.cfg.lat_bins), self.cfg.algo,
+            self.cfg.watchdog or self.cfg.telemetry)
         self.grid, self.rounds = grid_layout(n, p * v, lanes, tile, sms=sms,
                                              per_sm=per_sm)
         i32 = torch.int32

@@ -28,8 +28,12 @@ no uint32 add or shift.
 Every routing algorithm of the reference runs here: XY and YX, O1TURN,
 the two-phase VALIANT and ROMM (a packet routes to its intermediate
 node, then on to its destination, the phase bit flipping on the way),
-odd-even adaptive routing and BiDOR.  The watchdog and telemetry are
-not ported (ROADMAP queue 1, item 7d).
+odd-even adaptive routing and BiDOR.  So do the stall watchdog
+(:mod:`repro_torch.noc.watchdog`: the generation throttle and stall ages
+in ``tile_fn``, the escape hop, the trips and the livelock throttle's
+set in ``finish_fn``) and the telemetry rings
+(:mod:`repro_torch.obs.probe`, in ``finish_fn``), each only where the
+config switches it on.
 """
 
 from __future__ import annotations
@@ -38,10 +42,11 @@ import numpy as np
 import torch
 
 from ... import prng
+from ...obs.probe import resolved_epoch
 from ...noc.simconfig import (Algo, SimConfig, NF, F_SRC, F_DST, F_INTER,
                               F_SEQ, F_TIME, F_HOPS, F_ORDER, F_HEAD, F_TAIL,
                               F_PHASE, Q_DST, Q_INTER, Q_ORDER, Q_TIME, Q_SEQ,
-                              check_supported, check_topology)
+                              check_topology)
 
 _BIG = 1 << 30
 MASK32 = 0xFFFFFFFF
@@ -50,7 +55,7 @@ MASK32 = 0xFFFFFFFF
 # granted winner, its routing decision (op, ov, route_phase) and the grant
 MOV_W = NF + 4
 # the tile's integer partial sums, in the reference's layout (the stall
-# trips slot stays 0 until the watchdog is ported)
+# trips stay 0 with the watchdog off)
 N_PART = 5
 (PART_GEN, PART_PUSH, PART_SHED, PART_INJ, PART_STALL) = range(N_PART)
 
@@ -214,7 +219,6 @@ def make_cycle_parts(meta: dict, cfg: SimConfig):
         the receive pushes and statistics over the whole network, in
         place; ``mov`` is (L, N, P, MOV_W), ``parts`` summed over tiles.
     """
-    check_supported(cfg)
     check_topology(cfg, meta["NDIM"])
     algo = Algo(cfg.algo)
     n, p, v, nin = meta["N"], meta["P"], meta["V"], meta["NIN"]
@@ -223,6 +227,8 @@ def make_cycle_parts(meta: dict, cfg: SimConfig):
     b, q, l = cfg.buf_per_vc, cfg.src_queue_pkts, cfg.packet_len
     pv = p * v
     two_phase = algo in (Algo.VALIANT, Algo.ROMM)
+    watchdog = bool(cfg.watchdog)
+    tel_epoch = resolved_epoch(cfg)          # 0: telemetry off
     i32 = torch.int32
 
     def gen_metadata(t, rand, na, ns_, dst):
@@ -290,6 +296,12 @@ def make_cycle_parts(meta: dict, cfg: SimConfig):
         rate_l = st["rate"] / torch.full_like(st["rate"], float(l))
         gen = ((uu < t.p_gen[ns_][None, :] * rate_l[:, None])
                & (cyc < st["inject_until"])[:, None])
+        if watchdog:
+            # the livelock throttle masks generation only (the draws are
+            # made as before); its set, from moving flits, is finish_fn's
+            thr = st["wd_throttle"][:, ns_]
+            gen = gen & (thr <= 0)
+            st["wd_throttle"][:, ns_] = torch.clamp(thr - 1, min=0)
         raw_dst = (t.cdf[ns_][None] <= udd[:, :, None]).sum(-1)
         dst = torch.clamp(raw_dst, 0, n - 1)                 # (L, tn) int64
         order, inter = gen_metadata(t, rand, na, ns_, dst)
@@ -393,6 +405,15 @@ def make_cycle_parts(meta: dict, cfg: SimConfig):
         ov = torch.where(at_dest, 0, ov_route)
         op = torch.where(locked, lock_op, op)
         ov = torch.where(locked, lock_ov, ov)
+        stall = None
+        if watchdog:
+            # a head stalled past the threshold escapes by one hop of the
+            # escape table, on the highest VC
+            stall = st["wd_stall"][:, is_].clone()
+            esc = ((stall >= cfg.wd_stall_cycles) & valid
+                   & (g_all[..., F_HEAD] != 0) & ~locked & ~at_dest)
+            op = torch.where(esc, t.esc_port[n_of, target], op)
+            ov = torch.where(esc, v - 1, ov)
 
         # ---------------- 4. eligibility -------------------------------- #
         is_eject = op == p_local
@@ -461,10 +482,15 @@ def make_cycle_parts(meta: dict, cfg: SimConfig):
         st["out_held"][:, ns_] = torch.where(vmask, hold_val[..., None],
                                              st["out_held"][:, ns_])
 
+        trips = torch.zeros(lanes, dtype=torch.int64, device=dev)
+        if watchdog:
+            new_stall = torch.where(valid & ~popped, stall + 1, 0).to(i32)
+            trips = (new_stall == cfg.wd_stall_cycles).sum(1)
+            st["wd_stall"][:, is_] = new_stall
+
         mov = torch.cat([w_ext, granted[..., None].to(i32)], -1)
-        zero = torch.zeros(lanes, dtype=torch.int64, device=dev)
         parts = torch.stack([gen.sum(1), push.sum(1), (gen & ~space).sum(1),
-                             can.sum(1), zero], 1).to(i32)
+                             can.sum(1), trips], 1).to(i32)
         return mov, parts
 
     def finish_fn(t, st, mov, parts, cycle):
@@ -506,6 +532,16 @@ def make_cycle_parts(meta: dict, cfg: SimConfig):
         st["flits"].index_put_((li_e, idx, slot), delta, accumulate=True)
         st["fifo_size"].index_put_((li_e, idx), okf.to(i32),
                                    accumulate=True)
+        if watchdog:
+            # the livelock throttle's set overrides tile_fn's decrement
+            st["wd_trips"][:, 0] += parts[:, PART_STALL]
+            hops_now = push_rec[..., F_HOPS]
+            lv = net & (hops_now > cfg.wd_hop_limit)
+            lv_src = w_all[..., F_SRC]
+            lv_l = li[..., None].expand_as(lv_src)[lv]
+            st["wd_throttle"][lv_l, lv_src[lv].long()] = cfg.wd_throttle_cycles
+            st["wd_trips"][:, 1] += (
+                net & (hops_now == cfg.wd_hop_limit + 1)).sum((1, 2)).to(i32)
 
         # ---------------- 7. statistics --------------------------------- #
         st["node_fwd"] += torch.where(measuring[:, None],
@@ -524,10 +560,10 @@ def make_cycle_parts(meta: dict, cfg: SimConfig):
         st["lat_sum"] += lat0.sum(1).to(i32)     # wraps as int32 sums do
         st["lat_cnt"] += lat_ok.sum(1).to(i32)
         st["lat_max"].copy_(torch.maximum(st["lat_max"], lat0.amax(1)))
-        hbin = torch.clamp(torch.div(lat, cfg.lat_bin_width,
+        lbin = torch.clamp(torch.div(lat, cfg.lat_bin_width,
                                      rounding_mode="floor"),
                            max=cfg.lat_bins - 1)
-        hbin = torch.clamp(torch.where(lat_ok, hbin, 0), 0,
+        hbin = torch.clamp(torch.where(lat_ok, lbin, 0), 0,
                            cfg.lat_bins - 1).long()
         st["lat_hist"].index_put_((li.expand_as(hbin), hbin),
                                   lat_ok.to(i32), accumulate=True)
@@ -556,6 +592,25 @@ def make_cycle_parts(meta: dict, cfg: SimConfig):
         st["reorder_max"].copy_(torch.maximum(
             st["reorder_max"],
             torch.where(measuring, occ.amax(1), 0).to(i32)))
+
+        # ---------------- 8. telemetry probes --------------------------- #
+        if tel_epoch:
+            slot = ((cyc // tel_epoch) % cfg.tel_slots).long()    # (L,)
+            li1 = li[:, 0]
+            st["tel_cycles"][li1, slot] += 1
+            st["tel_chan"][li1, slot] += on_chan.to(i32)
+            st["tel_counts"][li1, slot] += torch.stack(
+                [parts[:, PART_GEN], parts[:, PART_PUSH],
+                 parts[:, PART_SHED], tail_ej.sum(1).to(i32)], 1)
+            nb = cfg.tel_occ_bins
+            obin = torch.clamp(
+                st["q_size"].sum(1) * nb // (n * cfg.src_queue_pkts),
+                max=nb - 1)
+            st["tel_qocc"][li1, slot, obin] += 1
+            lat_l = li.expand_as(lbin)[tail_ej]
+            st["tel_lat"].index_put_(
+                (lat_l, slot[lat_l], lbin[tail_ej].long()),
+                torch.ones_like(lat_l, dtype=i32), accumulate=True)
 
     return tile_fn, finish_fn
 

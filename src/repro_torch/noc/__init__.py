@@ -3,6 +3,7 @@ the quasi-static control plane."""
 
 from .simconfig import Algo, SimConfig, SimResult
 from .sim import run_sim, run_sweep, run_trace, run_trace_sweep
+from .watchdog import WD_KEYS, WatchdogReport
 from .workload import clos_leaf_trace
 from .campaign import (CampaignExecutor, CampaignPoint, CampaignResult,
                        CampaignSpec, CellKey, CellOutcome, campaign_cells,
@@ -17,4 +18,5 @@ __all__ = ["Algo", "SimConfig", "SimResult", "run_sim", "run_sweep",
            "run_campaign", "CampaignExecutor", "CellKey", "CellOutcome",
            "campaign_cells", "LinkFail", "LinkRecover", "TrafficDrift",
            "Scenario", "TrafficEstimator", "DriftDetector", "ReplanConfig",
-           "Replan", "ControlledResult", "run_controlled"]
+           "Replan", "ControlledResult", "run_controlled", "WD_KEYS",
+           "WatchdogReport"]

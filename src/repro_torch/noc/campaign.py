@@ -1,23 +1,23 @@
 """Batched simulation-campaign engine.
 
-A :class:`CampaignSpec` names a grid of (traffic pattern × algorithm ×
-scenario × rate × seed) on one topology.  Every (rate, seed) point of a
-cell — one (pattern, algorithm, scenario) — is one lane of a single
-lane-batched state.  A static cell advances in ``chunk``-cycle slices
-with the reference's warmup → measure → drain phasing and its saturation
-early exit: after each post-warmup slice the host reads source-queue
-occupancy, and once every lane is saturated the remaining cycles are
-skipped (per-lane ``meas_cnt`` keeps the statistics normalised).  A
-scenario cell runs the control plane's event-driven loop
+A :class:`CampaignSpec` names a grid of (topology × traffic pattern ×
+algorithm × scenario × rate × seed).  Every (rate, seed) point of a
+cell — one (topology, pattern, algorithm, scenario) — is one lane of a
+single lane-batched state.  A static cell advances in ``chunk``-cycle
+slices with the reference's warmup → measure → drain phasing and its
+saturation early exit: after each post-warmup slice the host reads
+source-queue occupancy, and once every lane is saturated the remaining
+cycles are skipped (per-lane ``meas_cnt`` keeps the statistics
+normalised).  A scenario cell runs the control plane's event-driven loop
 (:func:`repro_torch.noc.ctrl.run_controlled`), and its
 ``link_load_max`` is the time-resolved peak.
 
-BiDOR plans come from one batched planner call
-(:func:`repro_torch.core.plan_fast.build_plans_batched`), each gated by
-the deadlock certifier, unless ``run_campaign(bidor_tables=...)``
-supplies a pattern's choice table.  Not ported yet: ``topos`` (ROADMAP
-queue 1, item 7c), ``workloads`` (ML traffic, item 10) and the plan
-cache (item 9); each raises ``NotImplementedError``.
+BiDOR plans come from one batched planner call a topology
+(:func:`repro_torch.core.plan_fast.build_plans_batched`, with the
+topology's dead channels masked), each gated by the deadlock certifier,
+unless ``run_campaign(bidor_tables=...)`` supplies a pattern's choice
+table.  Not ported yet: ``workloads`` (ML traffic, ROADMAP queue 1, item
+10) and the plan cache (item 9); each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -37,9 +37,9 @@ from ..obs.log import EventLog
 from .ctrl import run_controlled
 from .sim import (build_tables, lane, make_states, postprocess,
                   queue_occupancy, run_cycles, source_queue_meta,
-                  state_to_host)
-from .simconfig import (Algo, SimConfig, SimResult, check_supported,
-                        check_topology)
+                  state_to_host, static_bw_slots)
+from ..obs.probe import Telemetry
+from .simconfig import Algo, SimConfig, SimResult, check_topology
 
 __all__ = ["CampaignSpec", "CampaignPoint", "CampaignResult",
            "run_campaign", "CellKey", "CellOutcome", "campaign_cells",
@@ -52,6 +52,10 @@ class CampaignSpec:
 
     Attributes:
       topo: the network under test.
+      topos: optional topology axis: when non-empty the whole grid runs
+        once per listed topology (``topo`` is then ignored and may be
+        None); string patterns are resolved and BiDOR plans built (with
+        the topology's dead channels masked) per topology.
       algos: routing algorithms to sweep.
       patterns: traffic patterns — names from
         ``repro_torch.core.traffic.PATTERNS`` or ``(name, matrix)`` pairs.
@@ -67,10 +71,10 @@ class CampaignSpec:
         :class:`repro_torch.noc.ctrl.Scenario` entries; each (pattern,
         algo, scenario) cell runs through the control plane.  Empty ()
         keeps the static grid.
-      workloads, topos: not ported yet; must stay empty.
+      workloads: not ported yet; must stay empty.
     """
 
-    topo: Topology
+    topo: Topology | None
     algos: tuple[Algo, ...]
     patterns: tuple
     rates: tuple[float, ...]
@@ -79,22 +83,31 @@ class CampaignSpec:
     chunk: int = 0
     sat_occupancy: float = 0.9
     scenarios: tuple = ()
-    topos: tuple = ()
+    topos: tuple[Topology, ...] = ()
     workloads: tuple = ()
 
     def __post_init__(self):
         if not (self.algos and (self.patterns or self.workloads)
                 and self.rates and self.seeds):
             raise ValueError("campaign grid must be non-empty on all axes")
+        if self.topo is None and not self.topos:
+            raise ValueError("provide topo or a non-empty topos axis")
+
+    @property
+    def topo_axis(self) -> tuple[Topology, ...]:
+        return self.topos or (self.topo,)
 
     @property
     def num_points(self) -> int:
         return (len(self.algos) * len(self.patterns) * len(self.rates)
-                * len(self.seeds) * max(len(self.scenarios), 1))
+                * len(self.seeds) * max(len(self.scenarios), 1)
+                * len(self.topo_axis))
 
-    def pattern_items(self) -> list[tuple[str, np.ndarray]]:
-        """The pattern axis as (name, traffic matrix) pairs."""
-        topo = self.topo
+    def pattern_items(self, topo: Topology | None = None,
+                      ) -> list[tuple[str, np.ndarray]]:
+        """The pattern axis on ``topo`` (default ``self.topo``) as (name,
+        traffic matrix) pairs."""
+        topo = self.topo if topo is None else topo
         items = []
         for p in self.patterns:
             if isinstance(p, str):
@@ -114,12 +127,9 @@ def check_spec(spec: CampaignSpec) -> None:
     if spec.workloads:
         raise NotImplementedError(
             "ML workloads are not ported yet (ROADMAP queue 1, item 10)")
-    if spec.topos:
-        raise NotImplementedError(
-            "the topology axis is not ported yet (ROADMAP queue 1, item 7c)")
     for algo in spec.algos:
-        check_supported(spec.base.replace(algo=algo))
-        check_topology(spec.base.replace(algo=algo), spec.topo.ndim)
+        for topo in spec.topo_axis:
+            check_topology(spec.base.replace(algo=algo), topo.ndim)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,12 +150,14 @@ class CampaignPoint:
 class CampaignResult:
     """Structured campaign output.
 
-    ``points`` is ordered (pattern, algo, scenario, rate, seed)
-    nested-loop major.  ``wall_clock_s`` maps each cell's ``(algo name,
-    pattern)`` — ``(algo name, pattern, scenario)`` with a scenario axis
-    — to the wall-clock of its batched run (plan building excluded; it
-    is ``plan_wall_clock_s``, split by stage in ``plan_stage_ms`` as
-    :func:`repro_torch.core.plan_fast.build_plans_batched` reports it).
+    ``points`` is ordered (topo, pattern, algo, scenario, rate, seed)
+    nested-loop major.  ``wall_clock_s`` maps one key a cell to the
+    wall-clock of its batched run (plan building excluded; it is
+    ``plan_wall_clock_s``, split by stage in ``plan_stage_ms`` as
+    :func:`repro_torch.core.plan_fast.build_plans_batched` reports it,
+    summed over topologies).  The key is ``(algo name, pattern)``, then
+    ``+ (scenario,)`` with a scenario axis, and with a topology axis of
+    more than one topology the topology's name comes first.
     """
 
     spec: CampaignSpec
@@ -157,67 +169,84 @@ class CampaignResult:
 
     def select(self, algo: Algo | None = None, pattern: str | None = None,
                rate: float | None = None, seed: int | None = None,
-               scenario: str | None = None) -> list[CampaignPoint]:
+               scenario: str | None = None,
+               topo: str | None = None) -> list[CampaignPoint]:
         return [p for p in self.points
                 if (algo is None or p.algo == algo)
                 and (pattern is None or p.pattern == pattern)
                 and (rate is None or p.rate == rate)
                 and (seed is None or p.seed == seed)
-                and (scenario is None or p.scenario == scenario)]
+                and (scenario is None or p.scenario == scenario)
+                and (topo is None or p.topo == topo)]
 
     @property
     def scenario_names(self) -> tuple[str, ...]:
         return tuple(s.name for s in self.spec.scenarios) or ("static",)
 
-    def _resolve_scenario(self, value: str | None) -> str:
-        """Default the scenario axis only when it has one value: pooling
-        points across scenarios would overlay them into one grid."""
-        options = self.scenario_names
+    @property
+    def topo_names(self) -> tuple[str, ...]:
+        return tuple(t.name for t in self.spec.topo_axis)
+
+    def _resolve_axis(self, name: str, value: str | None,
+                      options: tuple[str, ...]) -> str:
+        """Default a cell axis only when it has one value: pooling points
+        across scenarios or topologies would overlay them into one
+        grid."""
         if value is not None:
             if value not in options:
-                raise KeyError(f"unknown scenario {value!r}; campaign has "
+                raise KeyError(f"unknown {name} {value!r}; campaign has "
                                f"{list(options)}")
             return value
         if len(options) == 1:
             return options[0]
         raise ValueError(
-            f"ambiguous scenario axis: this campaign has {list(options)}; "
-            f"pass scenario=... to the accessor")
+            f"ambiguous {name} axis: this campaign has {list(options)}; "
+            f"pass {name}=... to the accessor")
 
     def grid(self, field: str, algo: Algo, pattern: str,
-             scenario: str | None = None) -> np.ndarray:
+             scenario: str | None = None,
+             topo: str | None = None) -> np.ndarray:
         """(num_rates, num_seeds) array of a SimResult field for ONE cell
-        (``scenario`` is required when the campaign has several)."""
-        scenario = self._resolve_scenario(scenario)
+        (``scenario`` and ``topo`` are required where the campaign has
+        several)."""
+        scenario = self._resolve_axis("scenario", scenario,
+                                      self.scenario_names)
+        topo = self._resolve_axis("topo", topo, self.topo_names)
         rates, seeds = list(self.spec.rates), list(self.spec.seeds)
         g = np.zeros((len(rates), len(seeds)))
         filled = np.zeros((len(rates), len(seeds)), bool)
-        for p in self.select(algo=algo, pattern=pattern, scenario=scenario):
+        for p in self.select(algo=algo, pattern=pattern, scenario=scenario,
+                             topo=topo):
             ij = rates.index(p.rate), seeds.index(p.seed)
             if filled[ij]:
                 raise ValueError(
                     f"duplicate point for (rate={p.rate}, seed={p.seed}) "
-                    f"in cell ({algo.name}, {pattern!r}, {scenario!r}); "
-                    f"use explicit (name, matrix) labels")
+                    f"in cell ({algo.name}, {pattern!r}, {scenario!r}, "
+                    f"{topo!r}); use explicit (name, matrix) labels")
             filled[ij] = True
             g[ij] = getattr(p.result, field)
         if not filled.all():
             raise ValueError(
-                f"cell ({algo.name}, {pattern!r}, {scenario!r}) is missing "
-                f"{int((~filled).sum())} of the {filled.size} points")
+                f"cell ({algo.name}, {pattern!r}, {scenario!r}, {topo!r}) "
+                f"is missing {int((~filled).sum())} of the {filled.size} "
+                f"points")
         return g
 
     def mean_over_seeds(self, field: str, algo: Algo, pattern: str,
-                        scenario: str | None = None) -> np.ndarray:
+                        scenario: str | None = None,
+                        topo: str | None = None) -> np.ndarray:
         """(num_rates,) seed average of a SimResult field for one cell."""
-        return self.grid(field, algo, pattern, scenario=scenario).mean(axis=1)
+        return self.grid(field, algo, pattern, scenario=scenario,
+                         topo=topo).mean(axis=1)
 
     def saturation_throughput(self, algo: Algo, pattern: str,
-                              scenario: str | None = None) -> float:
+                              scenario: str | None = None,
+                              topo: str | None = None) -> float:
         """Max seed-averaged accepted throughput across the rate sweep
         (paper Fig. 8)."""
         return float(self.mean_over_seeds("throughput", algo, pattern,
-                                          scenario=scenario).max())
+                                          scenario=scenario,
+                                          topo=topo).max())
 
     CSV_HEADER = ["topo", "scenario", "pattern", "workload", "algo",
                   "rate", "seed", "throughput", "offered", "avg_lat",
@@ -227,13 +256,22 @@ class CampaignResult:
     def to_rows(self) -> list[list]:
         return csv_rows(self.points)
 
+    def _wall_key_labels(self, key: tuple[str, ...]) -> list[str]:
+        """The parts of one ``wall_clock_s`` key, each named by its axis."""
+        labels = ["topo"] if len(self.spec.topo_axis) > 1 else []
+        labels += ["algo", "pattern"]
+        if self.spec.scenarios:
+            labels.append("scenario")
+        if len(labels) != len(key):     # a foreign key: its parts bare
+            return [str(part) for part in key]
+        return [f"{lab}={part}" for lab, part in zip(labels, key)]
+
     def summary(self) -> str:
         lines = [f"campaign: {self.spec.num_points} points in "
                  f"{self.total_wall_clock_s:.1f}s wall-clock"]
-        labels = ("algo", "pattern", "scenario")
         for key, dt in self.wall_clock_s.items():
-            cell = " ".join(f"{f'{lab}={part}':22s}"
-                            for lab, part in zip(labels, key))
+            cell = " ".join(f"{part:22s}"
+                            for part in self._wall_key_labels(key))
             lines.append(f"  cell {cell} {dt:6.2f}s")
         return "\n".join(lines)
 
@@ -284,21 +322,26 @@ def _run_cell(spec: CampaignSpec, cfg: SimConfig, tables, meta,
 @dataclasses.dataclass(frozen=True)
 class CellKey:
     """Coordinates of one campaign cell in the spec's enumeration order
-    (pattern item → algo → scenario); ``scen_i`` is -1 for the static
-    (no-scenario) cell."""
+    (topology → pattern item → algo → scenario); ``scen_i`` is -1 for
+    the static (no-scenario) cell."""
 
     index: int
+    topo_i: int
+    topo: str
     item_i: int
     pattern: str
     algo: Algo
     scen_i: int = -1
     scenario: str = "static"
 
-    @property
-    def wall_key(self) -> tuple[str, ...]:
+    def wall_key(self, spec: CampaignSpec) -> tuple[str, ...]:
         """The cell's ``CampaignResult.wall_clock_s`` key."""
         key = (self.algo.name, self.pattern)
-        return key + (self.scenario,) if self.scen_i >= 0 else key
+        if self.scen_i >= 0:
+            key += (self.scenario,)
+        if len(spec.topo_axis) > 1:
+            key = (self.topo,) + key
+        return key
 
 
 @dataclasses.dataclass
@@ -308,22 +351,30 @@ class CellOutcome:
     key: CellKey
     results: list[SimResult]    # one per (rate, seed) lane, rate-major
     wall_s: float
+    # the lanes' probe rings when cfg.telemetry is on, normalised by the
+    # topology's bandwidths (static cells) or the per-slot fault timeline
+    # (scenario cells); None otherwise
+    telemetry: Telemetry | None = None
 
 
 def campaign_cells(spec: CampaignSpec) -> list[CellKey]:
-    """The spec's cells in canonical execution order."""
+    """The spec's cells in canonical execution order: topology → pattern
+    item → algo → scenario."""
     names = [p if isinstance(p, str) else str(p[0]) for p in spec.patterns]
     scens = list(enumerate(spec.scenarios)) or [(-1, None)]
-    cells = [(i, name, algo, k, scen) for i, name in enumerate(names)
+    cells = [(ti, topo.name, i, name, algo, k, scen)
+             for ti, topo in enumerate(spec.topo_axis)
+             for i, name in enumerate(names)
              for algo in spec.algos for k, scen in scens]
-    return [CellKey(index=idx, item_i=i, pattern=name, algo=algo, scen_i=k,
+    return [CellKey(index=idx, topo_i=ti, topo=tname, item_i=i,
+                    pattern=name, algo=algo, scen_i=k,
                     scenario="static" if scen is None else scen.name)
-            for idx, (i, name, algo, k, scen) in enumerate(cells)]
+            for idx, (ti, tname, i, name, algo, k, scen) in enumerate(cells)]
 
 
 @dataclasses.dataclass
 class _ItemPrep:
-    """Per-pattern execution inputs."""
+    """Per-(topology, pattern item) execution inputs."""
 
     tm: np.ndarray
     table: object | None       # BiDORTable (None when BiDOR absent)
@@ -334,8 +385,8 @@ class _ItemPrep:
 class CampaignExecutor:
     """Executes campaign cells one at a time, in any order.
 
-    Plans are built on first use: one batched planner call covers every
-    pattern that needs one.  ``bidor_tables`` (pattern name → (N, N)
+    Plans are built on a topology's first use: one batched planner call
+    covers every pattern of that topology that needs one.  ``bidor_tables`` (pattern name → (N, N)
     choice table) overrides a pattern's plan; scenario cells still build
     the plan, whose N-Rank fixed point seeds their replans."""
 
@@ -350,15 +401,16 @@ class CampaignExecutor:
         self.device = resolve_device(device)
         self.points = [(float(r), int(s))
                        for r in spec.rates for s in spec.seeds]
-        self._prepped: list[_ItemPrep] | None = None
+        self._prepped: dict[int, list[_ItemPrep]] = {}
         self.plan_s = 0.0           # wall-clock spent building plans
         self.plan_stage_ms: dict[str, float] = {}
 
-    def _prep(self) -> list[_ItemPrep]:
-        if self._prepped is not None:
-            return self._prepped
-        spec, topo = self.spec, self.spec.topo
-        items = spec.pattern_items()
+    def _prep_topo(self, topo_i: int) -> list[_ItemPrep]:
+        if topo_i in self._prepped:
+            return self._prepped[topo_i]
+        spec = self.spec
+        topo = spec.topo_axis[topo_i]
+        items = spec.pattern_items(topo)
         given = self.bidor_tables
         plans: dict[int, object] = {}
         if Algo.BIDOR in spec.algos:
@@ -375,7 +427,7 @@ class CampaignExecutor:
                     device=self.device, stage_ms=self.plan_stage_ms)
                 self.plan_s += time.perf_counter() - t0
                 plans = dict(zip(need, built))
-        self._prepped = []
+        prepped = []
         for i, (name, tm) in enumerate(items):
             table = nrank = None
             if Algo.BIDOR in spec.algos:
@@ -391,14 +443,16 @@ class CampaignExecutor:
             if (table is not None and table.unroutable is not None
                     and table.unroutable.any()):
                 bidor_tm = np.where(table.unroutable, 0.0, tm)
-            self._prepped.append(_ItemPrep(tm=tm, table=table, nrank=nrank,
-                                           bidor_tm=bidor_tm))
-        return self._prepped
+            prepped.append(_ItemPrep(tm=tm, table=table, nrank=nrank,
+                                     bidor_tm=bidor_tm))
+        self._prepped[topo_i] = prepped
+        return prepped
 
     def run_cell(self, key: CellKey) -> CellOutcome:
         """Execute one cell: all its (rate, seed) lanes, one batch."""
-        spec, topo = self.spec, self.spec.topo
-        prep = self._prep()[key.item_i]
+        spec = self.spec
+        topo = spec.topo_axis[key.topo_i]
+        prep = self._prep_topo(key.topo_i)[key.item_i]
         cfg = spec.base.replace(algo=key.algo)
         t0 = time.perf_counter()
         bidor = key.algo == Algo.BIDOR
@@ -406,12 +460,15 @@ class CampaignExecutor:
         if key.scen_i < 0:
             tables, meta = build_tables(
                 topo, cell_tm, prep.table if bidor else None, cfg.num_vcs,
-                self.device)
+                self.device, escape=cfg.watchdog)
             host, sat = _run_cell(spec, cfg, tables, meta, self.points,
                                   self.device)
             results = [postprocess(lane(host, i), cfg, topo, rate=rate,
                                    seed=seed, saturated=bool(sat[i]))
                        for i, (rate, seed) in enumerate(self.points)]
+            telemetry = Telemetry.from_state(host, cfg)
+            if telemetry is not None:
+                telemetry = telemetry.with_bw(static_bw_slots(topo, cfg))
         else:
             ctrl = run_controlled(
                 topo, cell_tm, cfg, spec.scenarios[key.scen_i],
@@ -423,19 +480,22 @@ class CampaignExecutor:
                 device=self.device)
             results = [ctrl.result_with_peak(i)
                        for i in range(len(self.points))]
+            telemetry = ctrl.telemetry
         dt = time.perf_counter() - t0
         self.log.event("cell_done",
-                       f"campaign cell {key.pattern:12s} {key.algo.name:8s} "
-                       f"{key.scenario:12s} {len(self.points)} pts in "
-                       f"{dt:.2f}s", wall_s=round(dt, 3))
-        return CellOutcome(key=key, results=results, wall_s=dt)
+                       f"campaign cell {key.topo:16s} {key.pattern:12s} "
+                       f"{key.algo.name:8s} {key.scenario:12s} "
+                       f"{len(self.points)} pts in {dt:.2f}s",
+                       wall_s=round(dt, 3))
+        return CellOutcome(key=key, results=results, wall_s=dt,
+                           telemetry=telemetry)
 
     def cell_points(self, outcome: CellOutcome) -> list[CampaignPoint]:
         """The cell's CampaignPoints, in canonical lane order."""
         k = outcome.key
         return [CampaignPoint(algo=k.algo, pattern=k.pattern, rate=rate,
                               seed=seed, result=res, scenario=k.scenario,
-                              topo=self.spec.topo.name)
+                              topo=k.topo)
                 for (rate, seed), res in zip(self.points, outcome.results)]
 
 
@@ -462,7 +522,7 @@ def run_campaign(spec: CampaignSpec, *,
     wall: dict[tuple, float] = {}
     for key in campaign_cells(spec):
         outcome = executor.run_cell(key)
-        wall[key.wall_key] = outcome.wall_s
+        wall[key.wall_key(spec)] = outcome.wall_s
         out_points.extend(executor.cell_points(outcome))
     return CampaignResult(spec=spec, points=out_points, wall_clock_s=wall,
                           total_wall_clock_s=time.perf_counter() - t_start,

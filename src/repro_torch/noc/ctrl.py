@@ -49,10 +49,12 @@ from ..core.plan_fast import build_plan_fast
 from ..core.topology import Topology
 from ..device import resolve_device
 from ..obs.log import EventLog
+from ..obs.probe import Telemetry, resolved_epoch
 from .sim import (build_tables, lane, make_states, postprocess,
                   queue_occupancy, retarget_tables, run_cycles,
                   source_queue_meta, state_to_host)
-from .simconfig import Algo, SimConfig, SimResult, check_supported
+from .watchdog import WatchdogReport
+from .simconfig import Algo, SimConfig, SimResult
 
 __all__ = [
     "LinkFail", "LinkRecover", "TrafficDrift", "Scenario",
@@ -325,10 +327,11 @@ class ControlledResult:
     # host milliseconds of each replan, in order (planner + refinement +
     # certificate + table swap)
     replan_ms: list = dataclasses.field(default_factory=list)
-    # in-sim probe rings and the stall-watchdog summary: None while
-    # telemetry and the watchdog are not ported (ROADMAP queue 1, item 7d)
-    telemetry: object = None
-    watchdog: object = None
+    # in-sim probe rings (cfg.telemetry on), normalised against the
+    # bandwidth in effect in each telemetry slot (faults followed)
+    telemetry: Telemetry | None = None
+    # stall-watchdog summary over all lanes (cfg.watchdog on)
+    watchdog: WatchdogReport | None = None
 
     def result_with_peak(self, i: int) -> SimResult:
         """Lane i's SimResult with the time-resolved link peak in
@@ -362,6 +365,27 @@ def _apply_events(events, bw, topo, base_bw):
         else:
             raise TypeError(f"unknown event {ev!r}")
     return bw, traffic, rate_scale, kinds
+
+
+def _bw_slots(bw_hist, epoch: int, slots: int, total: int) -> np.ndarray:
+    """(slots, C) channel bandwidth for the telemetry's load
+    normalisation.  ``bw_hist`` is [(cycle, bw), ...], the bandwidth in
+    effect from each cycle on.  A slot takes the bandwidth at the end of
+    its last accumulation window (when the ring wraps, the later window
+    wins, as its counts dominate the slot)."""
+    out = np.zeros((slots, bw_hist[0][1].shape[0]))
+    for j in range(slots):
+        last = min(j * epoch + epoch, total) - 1   # the slot's last cycle
+        t = j * epoch + epoch * slots
+        while t < total:                            # the ring wraps
+            last = min(t + epoch, total) - 1
+            t += epoch * slots
+        bw = bw_hist[0][1]
+        for cyc, b in bw_hist:
+            if cyc <= last:
+                bw = b
+        out[j] = bw
+    return out
 
 
 def _counters(state: dict) -> tuple[np.ndarray, ...]:
@@ -403,7 +427,6 @@ def run_controlled(topo: Topology, traffic: np.ndarray, cfg: SimConfig,
             "epoch-boundary checkpoints (the campaign service) are not "
             "ported yet (ROADMAP queue 1, item 9)")
     _no_tracer(tracer)
-    check_supported(cfg)
     dev = resolve_device(device)
     log = EventLog(verbose=verbose)
     scenario = scenario or Scenario("static")
@@ -420,13 +443,14 @@ def run_controlled(topo: Topology, traffic: np.ndarray, cfg: SimConfig,
         table, nr_prev = plan0.table, plan0.nrank
     tables, meta = build_tables(
         topo, traffic, table if cfg.algo == Algo.BIDOR else None,
-        cfg.num_vcs, dev)
+        cfg.num_vcs, dev, escape=cfg.watchdog)
     state = make_states(meta, cfg, points, dev)
     q_meta = source_queue_meta(tables, cfg)   # refresh on gen retargets
 
     # environment state
     base_bw = np.asarray(topo.channel_bw, np.float64)
     bw = base_bw.copy()
+    bw_hist = [(0, bw.copy())]   # (cycle, bw): the telemetry's normaliser
     cur_traffic = np.asarray(traffic, np.float64)
     fault_pending = False
     cur_unroutable = None    # active admission-control mask (shed pairs)
@@ -492,6 +516,8 @@ def run_controlled(topo: Topology, traffic: np.ndarray, cfg: SimConfig,
         if due:
             bw, new_traffic, rate_scale, event_kinds = _apply_events(
                 due, bw, topo, base_bw)
+            if "fault" in event_kinds:
+                bw_hist.append((t1, bw.copy()))
             gen_traffic = new_traffic
             if new_traffic is not None and cur_unroutable is not None:
                 # an active shed outlives a traffic epoch: the dead link
@@ -580,7 +606,12 @@ def run_controlled(topo: Topology, traffic: np.ndarray, cfg: SimConfig,
     results = [postprocess(lane(host, i), cfg, topo, rate=rate, seed=seed,
                            saturated=bool(sat[i]))
                for i, (rate, seed) in enumerate(points)]
+    telemetry = Telemetry.from_state(host, cfg)
+    if telemetry is not None:
+        telemetry = telemetry.with_bw(_bw_slots(
+            bw_hist, resolved_epoch(cfg), cfg.tel_slots, total))
     return ControlledResult(
         scenario=scenario.name, policy=policy, points=points,
         results=results, replans=replans, link_peak=link_peak,
-        epoch_bounds=epoch_bounds, replan_ms=replan_ms)
+        epoch_bounds=epoch_bounds, replan_ms=replan_ms,
+        telemetry=telemetry, watchdog=WatchdogReport.from_state(host, cfg))

@@ -32,15 +32,18 @@ import numpy as np
 import torch
 
 from ..core.bidor import BiDORTable, dor_table
+from ..core.routes import dimension_orders, next_port_table
 from ..core.topology import Topology
 from ..device import resolve_device
+from ..obs.probe import Telemetry, telemetry_state
 from .. import prng
-from .simconfig import Algo, SimConfig, SimResult, NF, NQ, check_supported
+from .simconfig import Algo, SimConfig, SimResult, NF, NQ
+from .watchdog import WatchdogReport, watchdog_state
 
 __all__ = ["Tables", "build_tables", "retarget_tables", "fresh_state",
            "make_states", "point_key", "run_cycles", "run_sweep", "run_sim",
            "run_trace_sweep", "run_trace", "postprocess", "hist_percentile",
-           "queue_occupancy", "source_queue_meta"]
+           "queue_occupancy", "source_queue_meta", "static_bw_slots"]
 
 # an open-ended injection and measurement window (the reference's _BIG)
 _BIG = 1 << 30
@@ -63,6 +66,10 @@ class Tables(NamedTuple):
     chan_src_p: torch.Tensor  # (C,) output port of each channel at its source
     chan_of: torch.Tensor   # (N, P) int32: channel at (node, out-port); C if none
     chan_bw: torch.Tensor   # (C,) float32 relative bandwidth (0 = link down)
+    # (N, N) int32: the watchdog's escape out-port (cur, target), the first
+    # dimension order's routes, built from the topology alone, so it is
+    # acyclic whatever plan was deployed; (0, 0) when built without it
+    esc_port: torch.Tensor
 
 
 def _gen_tables(topo: Topology, traffic) -> tuple[np.ndarray, np.ndarray]:
@@ -80,10 +87,13 @@ def _gen_tables(topo: Topology, traffic) -> tuple[np.ndarray, np.ndarray]:
 
 def build_tables(topo: Topology, traffic: np.ndarray,
                  table: BiDORTable | None, num_vcs: int,
-                 device=None) -> tuple[Tables, dict]:
+                 device=None, *, escape: bool = True) -> tuple[Tables, dict]:
     """Tables of one simulation cell, on ``device``.  ``table`` is the
     BiDOR plan's routing artifact; ``None`` routes over the trivial DOR
-    artifact (:func:`repro_torch.core.bidor.dor_table`)."""
+    artifact (:func:`repro_torch.core.bidor.dor_table`).  ``escape=False``
+    leaves out the watchdog's escape table (an empty ``esc_port``): a cell
+    with the watchdog off then pays neither its host DOR routes nor its
+    N×N copy to the device."""
     dev = resolve_device(device)
     if table is None:
         table = dor_table(topo)
@@ -110,7 +120,9 @@ def build_tables(topo: Topology, traffic: np.ndarray,
         chan_src_n=topo.channels[:, 0].astype(np.int32),
         chan_src_p=topo.channel_port.astype(np.int32),
         chan_of=chan_of,
-        chan_bw=np.asarray(topo.channel_bw, np.float32))
+        chan_bw=np.asarray(topo.channel_bw, np.float32),
+        esc_port=(next_port_table(topo, dimension_orders(topo.ndim)[0])
+                  if escape else np.zeros((0, 0))).astype(np.int32))
     tables = Tables(**{k: torch.as_tensor(np.ascontiguousarray(a),
                                           device=dev)
                        for k, a in arrays.items()})
@@ -177,8 +189,9 @@ def queue_occupancy(tables: Tables, cfg: SimConfig, q_size,
 def fresh_state(meta: dict, cfg: SimConfig, num_lanes: int,
                 device=None) -> dict:
     """Lane-batched initial state: a dict of (L, ...) tensors plus the
-    (L, 2) uint32 host ``key`` array (``PRNGKey(cfg.seed)`` per lane)."""
-    check_supported(cfg)
+    (L, 2) uint32 host ``key`` array (``PRNGKey(cfg.seed)`` per lane).
+    The telemetry rings and the watchdog's arrays are there only when
+    ``cfg`` switches them on."""
     dev = resolve_device(device)
     n, nin, L = meta["N"], meta["NIN"], num_lanes
     b, q = cfg.buf_per_vc, cfg.src_queue_pkts
@@ -191,6 +204,8 @@ def fresh_state(meta: dict, cfg: SimConfig, num_lanes: int,
         return torch.full((L,) + shape, val, dtype=i32, device=dev)
 
     return dict(
+        **telemetry_state(meta, cfg, L, dev),
+        **watchdog_state(meta, cfg, L, dev),
         flits=z(nin, b, NF),
         fifo_start=z(nin), fifo_size=z(nin),
         lock_op=full(-1, nin), lock_ov=full(-1, nin),
@@ -316,32 +331,66 @@ def lane(host: dict, i: int) -> dict:
     return {k: v[i] for k, v in host.items()}
 
 
+def static_bw_slots(topo: Topology, cfg: SimConfig) -> np.ndarray:
+    """(tel_slots, C) bandwidth a telemetry slot of a run without fault
+    events: the topology's channel bandwidths in every slot."""
+    return np.broadcast_to(
+        np.asarray(topo.channel_bw, np.float64),
+        (int(cfg.tel_slots), topo.num_channels)).copy()
+
+
 def run_sweep(topo: Topology, traffic: np.ndarray, cfg: SimConfig,
               rates: list[float], bidor_table: BiDORTable | None = None,
               seeds: list[int] | None = None, *,
-              device=None) -> list[SimResult]:
+              return_telemetry: bool = False, return_watchdog: bool = False,
+              device=None):
     """All (rate, seed) points as lanes of one batch, rate-major:
-    ``[(r, s) for r in rates for s in seeds]``."""
-    check_supported(cfg)
+    ``[(r, s) for r in rates for s in seeds]``.
+
+    ``return_telemetry=True`` returns ``(results, telemetry)``: the
+    lane-major :class:`repro_torch.obs.probe.Telemetry` (None when
+    ``cfg.telemetry`` is off).  ``return_watchdog=True`` appends the
+    all-lane :class:`repro_torch.noc.watchdog.WatchdogReport` (None when
+    ``cfg.watchdog`` is off) as the last element."""
     table = None
     if cfg.algo == Algo.BIDOR:
         if bidor_table is None:
             raise ValueError("BIDOR needs a BiDORTable")
         table = bidor_table
-    tables, meta = build_tables(topo, traffic, table, cfg.num_vcs, device)
+    tables, meta = build_tables(topo, traffic, table, cfg.num_vcs, device,
+                                escape=cfg.watchdog)
     points = [(r, s) for r in rates for s in (seeds or [cfg.seed])]
     state = make_states(meta, cfg, points, device)
     host = state_to_host(run_cycles(tables, meta, cfg, state, cfg.cycles))
-    return [postprocess(lane(host, i), cfg, topo, rate=r, seed=s)
-            for i, (r, s) in enumerate(points)]
+    results = [postprocess(lane(host, i), cfg, topo, rate=r, seed=s)
+               for i, (r, s) in enumerate(points)]
+    extras: list = []
+    if return_telemetry:
+        tel = Telemetry.from_state(host, cfg)
+        if tel is not None:
+            tel = tel.with_bw(static_bw_slots(topo, cfg))
+        extras.append(tel)
+    if return_watchdog:
+        extras.append(WatchdogReport.from_state(host, cfg))
+    return (results, *extras) if extras else results
 
 
 def run_sim(topo: Topology, traffic: np.ndarray, cfg: SimConfig,
             bidor_table: BiDORTable | None = None, *,
-            device=None) -> SimResult:
-    """Run one simulation and post-process its statistics."""
-    return run_sweep(topo, traffic, cfg, [cfg.injection_rate], bidor_table,
-                     device=device)[0]
+            return_telemetry: bool = False, return_watchdog: bool = False,
+            device=None):
+    """Run one simulation and post-process its statistics.  With
+    ``return_telemetry`` and ``return_watchdog``, the
+    :class:`~repro_torch.obs.probe.Telemetry` and the
+    :class:`~repro_torch.noc.watchdog.WatchdogReport` (or None) follow
+    the result, in that order."""
+    out = run_sweep(topo, traffic, cfg, [cfg.injection_rate], bidor_table,
+                    return_telemetry=return_telemetry,
+                    return_watchdog=return_watchdog, device=device)
+    if return_telemetry or return_watchdog:
+        results, *extras = out
+        return (results[0], *extras)
+    return out[0]
 
 
 def run_trace_sweep(topo: Topology,
@@ -363,7 +412,6 @@ def run_trace_sweep(topo: Topology,
     Returns, per seed, (SimResult over all measured cycles, the LCV of
     each segment's per-node forwarding counts).
     """
-    check_supported(cfg)
     table = None
     if cfg.algo == Algo.BIDOR:
         if bidor_table is None:
@@ -375,7 +423,8 @@ def run_trace_sweep(topo: Topology,
     prev_fwd = None
     for si, (tm, rate) in enumerate(segments):
         if tables is None:
-            tables, meta = build_tables(topo, tm, table, cfg.num_vcs, device)
+            tables, meta = build_tables(topo, tm, table, cfg.num_vcs, device,
+                                        escape=cfg.watchdog)
         else:
             tables = retarget_tables(tables, topo, traffic=tm)
         if state is None:

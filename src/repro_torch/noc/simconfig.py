@@ -71,13 +71,12 @@ class SimConfig:
     # repro_torch.kernels.simstep.ops.resolve_path picks the tile from
     # the card's limits.  Every tile size gives bit-identical states.
     sim_tile_nodes: int = 0
-    # In-sim telemetry probes and the stall watchdog are not ported yet
-    # (ROADMAP queue 1, item 7d): the port's runners raise
-    # NotImplementedError when either is switched on.
+    # In-sim telemetry probes (repro_torch.obs.probe)
     telemetry: bool = False
     tel_epoch: int = 0
     tel_slots: int = 64
     tel_occ_bins: int = 16
+    # Stall watchdog (repro_torch.noc.watchdog)
     watchdog: bool = False
     wd_stall_cycles: int = 64
     wd_hop_limit: int = 64
@@ -131,15 +130,6 @@ class SimResult:
                 f"thr={self.throughput:.4f} lat={self.avg_latency:.1f} "
                 f"p99={self.p99_latency:.0f} maxlat={self.max_latency:.0f} "
                 f"lcv={self.lcv:.3f} reorder={self.reorder_value}{sat}")
-
-
-def check_supported(cfg: SimConfig) -> None:
-    """Raise for the configurations the port does not run yet: every
-    routing algorithm runs, telemetry and the stall watchdog do not."""
-    if cfg.telemetry or cfg.watchdog:
-        raise NotImplementedError(
-            "telemetry and the stall watchdog are not ported yet "
-            "(ROADMAP queue 1, item 7d)")
 
 
 def check_topology(cfg: SimConfig, ndim: int) -> None:

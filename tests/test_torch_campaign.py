@@ -2,6 +2,8 @@
 4x4 golden campaign, compared as ``tests/test_goldens.py`` compares it:
 integer fields exact, float fields within rtol 1e-5."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -191,13 +193,35 @@ def test_oddeven_refuses_a_topology_that_is_not_2d():
 @pytest.mark.parametrize("what", ["telemetry", "watchdog", "scenarios",
                                   "workloads", "topos", "plan_cache"])
 def test_unported_options_raise(what):
+    """What the port does not run yet raises ``NotImplementedError``
+    naming its ROADMAP item (the ML workloads and the plan cache); the
+    options ported since (scenarios, telemetry, the watchdog, the
+    topology axis) run."""
     topo = mesh2d(4, 4)
     kw = dict(topo=topo, algos=(Algo.XY,), patterns=("uniform",),
               rates=(0.1,), base=SimConfig(cycles=200, warmup=50))
     run_kw = {}
     if what in ("telemetry", "watchdog"):
+        # ported: the probes and the watchdog ride as extra state keys
         kw["base"] = kw["base"].replace(**{what: True})
-    elif what == "scenarios":
+        res = run_campaign(CampaignSpec(**kw), device="cpu")
+        r = res.points[0].result
+        assert r.injected_flits == r.ejected_flits + r.in_flight_flits
+        plain = run_campaign(CampaignSpec(**dict(
+            kw, base=kw["base"].replace(**{what: False}))), device="cpu")
+        want = dataclasses.asdict(plain.points[0].result)
+        got = dataclasses.asdict(r)          # a quiet cell: unchanged
+        assert all(np.array_equal(got[k], want[k]) for k in want)
+        return
+    if what == "topos":
+        # ported: the grid runs once per topology of the axis
+        kw.update(topo=None, topos=(topo, mesh2d(3, 3)))
+        res = run_campaign(CampaignSpec(**kw), device="cpu")
+        assert [p.topo for p in res.points] == ["mesh2d_4x4", "mesh2d_3x3"]
+        assert set(res.wall_clock_s) == {("mesh2d_4x4", "XY", "uniform"),
+                                         ("mesh2d_3x3", "XY", "uniform")}
+        return
+    if what == "scenarios":
         # ported: a scenario cell runs through the control plane
         kw["scenarios"] = (Scenario("quiet",
                                     replan=ReplanConfig(epoch=100)),)
@@ -207,10 +231,8 @@ def test_unported_options_raise(what):
         r = res.points[0].result
         assert r.injected_flits == r.ejected_flits + r.in_flight_flits
         return
-    elif what == "workloads":
+    if what == "workloads":
         kw["workloads"] = (("w", traffic.uniform(topo)),)
-    elif what == "topos":
-        kw["topos"] = (topo, mesh2d(3, 3))
     else:
         run_kw["plan_cache"] = object()
     with pytest.raises(NotImplementedError, match="ROADMAP"):

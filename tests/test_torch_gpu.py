@@ -366,6 +366,109 @@ def test_simstep_grid_vs_plain(cuda, side, algo, lanes):
             assert not bad, f"tile={tile} cycles={cycles}: {bad}"
 
 
+ZOO_SHAPES = {
+    "torus4x4x4": ("torus", (4, 4, 4)),          # 7-port routers, 3-D
+    "express8x8": ("express_mesh", (8, 8)),      # 9-port routers
+    "fault6x6": ("fault_region_mesh", (6, 6, (2, 2, 3, 3))),
+    "multipod2x4x4": ("multipod", (2, 4, 4)),    # a half-bandwidth axis
+    "express17x17": ("express_mesh", (17, 17)),  # 9 ports, the grid kernel
+}
+INSTR = dict(watchdog=True, wd_stall_cycles=8, wd_hop_limit=12,
+             wd_throttle_cycles=16, telemetry=True, tel_epoch=16, tel_slots=4)
+
+
+def _zoo_cell(name, algo, cuda, **kw):
+    """(tables, meta, cfg, plain mid-flight state) of a zoo cell on the
+    card: uniform traffic, BiDOR on its plan with dead channels masked
+    and its unroutable pairs shed."""
+    from repro_torch import core
+
+    fn, args = ZOO_SHAPES[name]
+    topo = getattr(core, fn)(*args)
+    tm = traffic.uniform(topo)
+    table = None
+    if algo == Algo.BIDOR:
+        down = topo.down_channels
+        table = build_plans_batched(
+            topo, [tm], down_channels=down if down.size else None,
+            device=cuda)[0].table
+        if table.unroutable is not None and table.unroutable.any():
+            tm = np.where(table.unroutable, 0.0, tm)
+    cfg = SimConfig(algo=algo, cycles=4000, warmup=50, **kw)
+    tables, meta = sim.build_tables(topo, tm, table, 2, device=cuda)
+    mid = sim.make_states(meta, cfg, [(1.0, 0), (0.4, 1), (0.7, 2)],
+                          device=cuda)
+    _plain_run(tables, meta, cfg, mid, 60, cuda)
+    return tables, meta, cfg, convert.state_to_numpy(mid)
+
+
+def _hold_card(tables, meta, cfg, host, cuda, cycles, tiles):
+    """Chunks of ``cycles`` on the card at each of ``tiles`` against the
+    plain twin on the card: every state key bit for bit, one launch."""
+    plain = convert.state_from_numpy(host, cuda)
+    _plain_run(tables, meta, cfg, plain, cycles, cuda)
+    want = convert.state_to_numpy(plain)
+    for tile in tiles:
+        card = convert.state_from_numpy(host, cuda)
+        before = dict(kernels.LAUNCHES)
+        sim.run_cycles(tables, meta, cfg.replace(sim_tile_nodes=tile), card,
+                       cycles)
+        torch.cuda.synchronize()
+        assert sum(kernels.LAUNCHES[k] - before[k] for k in before) == 1
+        got = convert.state_to_numpy(card)
+        bad = [k for k in want if not np.array_equal(want[k], got[k])]
+        assert not bad, f"tile={tile} cycles={cycles}: {bad}"
+    return want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo", [Algo.XY, Algo.ROMM, Algo.BIDOR,
+                                  Algo.VALIANT])
+@pytest.mark.parametrize("name", sorted(ZOO_SHAPES))
+def test_simstep_zoo_vs_plain(cuda, name, algo):
+    """The zoo's router shapes (7 and 9 ports, NDIM 3, dead routers,
+    fractional bandwidth on a static run) on the kernel each takes, from
+    a plain mid-flight state: chunks of 1 and 40 cycles at the auto tile
+    and at another, against the plain twin, bit for bit."""
+    tables, meta, cfg, host = _zoo_cell(name, algo, cuda)
+    other = {"express17x17": 1}.get(name, meta["N"] // 2)
+    for cycles in (1, 40):
+        _hold_card(tables, meta, cfg, host, cuda, cycles, (0, other))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("algo", [Algo.XY, Algo.ODDEVEN, Algo.O1TURN,
+                                  Algo.BIDOR])
+@pytest.mark.parametrize("name", ["fault6x6", "express17x17"])
+def test_simstep_instrumented_vs_plain(cuda, name, algo):
+    """The instrumented instance (a watchdog that trips, the telemetry
+    rings) on the chunk and the grid kernel against the plain twin, the
+    ``tel_*`` and ``wd_*`` keys bit for bit with the rest."""
+    tables, meta, cfg, host = _zoo_cell(name, algo, cuda, **INSTR)
+    other = {"express17x17": 1}.get(name, meta["N"] // 2)
+    want = _hold_card(tables, meta, cfg, host, cuda, 40, (0, other))
+    assert want["tel_cycles"].sum() == 3 * (60 + 40)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,tile", [("fault6x6", 12),
+                                       ("express17x17", 17)])
+def test_simstep_instrumented_is_deterministic(cuda, name, tile):
+    """Two 300-cycle runs of the instrumented instance from one state give
+    the same bits: the rings' and trips' atomics, the throttle written
+    across blocks, race nowhere."""
+    tables, meta, cfg, host = _zoo_cell(name, Algo.XY, cuda, **INSTR)
+    cfg = cfg.replace(sim_tile_nodes=tile)
+    runs = []
+    for _ in range(2):
+        card = convert.state_from_numpy(host, cuda)
+        sim.run_cycles(tables, meta, cfg, card, 300)
+        runs.append(convert.state_to_numpy(card))
+    bad = [k for k in runs[0] if not np.array_equal(runs[0][k], runs[1][k])]
+    assert not bad, bad
+    assert runs[0]["wd_trips"].sum() > 0
+
+
 @pytest.mark.gpu
 def test_ctrl_golden_on_the_card(cuda):
     """``tests/goldens/ctrl_4x4.json`` through the control plane on the
