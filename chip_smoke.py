@@ -92,7 +92,22 @@ Main path of slice 10 (launch counts from 0 again):
 16. table1  — ``benchmarks/table1_lcv.py`` at full length: the LCVs;
 17. fig9    — ``benchmarks/fig9_realistic.py`` at full length: latency,
               LCV and reorder per algorithm, the paper's summary line;
-18. summary — attention end to end (whisper's ``generate`` busy time
+Main path of slice 12 (launch counts from 0 again):
+18. service — the campaign service on the card (``CampaignJob``,
+              ``device=cuda``): the paper's cells killed and resumed after
+              every cell, then a fresh job on the warm plan cache (both
+              ``results.csv`` byte for byte equal to ``run_paper``'s rows;
+              the warm job plans nothing and launches no possibility
+              kernel); the reference's chaos stage at 8 000 cycles, killed
+              after every cell and inside a scenario cell (resumed from
+              its epoch-boundary snapshot), against a fresh job, then a
+              truncated cell quarantined; the obs stage at 4 000 cycles,
+              traced and rendered (the trace's control-plane chain,
+              online's peak load under stale's); a 32x32 BiDOR cell cold
+              and warm (plan ms); the three stages at ``BENCH_QUICK``
+              lengths against ``tests/goldens/service_4x4.json``; any
+              retried or failed cell fails the phase;
+19. summary — attention end to end (whisper's ``generate`` busy time
               and a Jamba decode step's, with the ``flash_fwd*`` kernels'
               share); the flit step at 4x4, 5x5, 16x16 and 32x32 (the
               chunk kernel) and 17x17 and 64x64 (the grid kernel): µs
@@ -1396,6 +1411,7 @@ def run_paper(torch, np, cuda):
     log(f"paper: plan_ms={res.plan_wall_clock_s * 1e3:.1f} "
         f"stages_ms={json.dumps(res.plan_stage_ms)} "
         f"total={res.total_wall_clock_s:.2f}s")
+    return res
 
 
 def scale_specs():
@@ -2386,6 +2402,315 @@ def run_jamba_checks(torch, np, cuda, main):
     return e2e
 
 
+# --------------------------------------------------------------------- #
+# slice 12: the campaign service, the plan cache, chaos, trace and report
+# --------------------------------------------------------------------- #
+SERVICE_GOLDEN = os.path.join(HERE, "tests", "goldens", "service_4x4.json")
+
+
+def service_specs(core, noc, quick: bool) -> dict:
+    """The reference's three service stages (``benchmarks/run.py``:
+    ``bench_campaign_service``, ``bench_chaos``, ``bench_obs_report``) as
+    ``CampaignSpec``s of the package ``core``/``noc`` (the port's, or the
+    reference's where the golden is written), at ``BENCH_QUICK`` lengths
+    (1 200, 2 600, 900 cycles) or at full length (6 000, 8 000, 4 000)."""
+    topo = core.mesh2d(4, 4)
+    link = ((5, 6), (6, 5))
+    c = 1200 if quick else 6000
+    service = noc.CampaignSpec(
+        topo=topo, algos=(noc.Algo.XY, noc.Algo.BIDOR),
+        patterns=("uniform", "transpose"), rates=(0.1, 0.3), seeds=(0,),
+        base=noc.SimConfig(cycles=c, warmup=c // 3, drain=c // 10),
+        scenarios=(noc.Scenario("calm"),
+                   noc.Scenario("linkfail",
+                                events=(noc.LinkFail(cycle=c // 2,
+                                                     links=link),),
+                                policy="oracle",
+                                replan=noc.ReplanConfig(epoch=c // 4))))
+    c = 2600 if quick else 8000
+    cc = noc.ChaosConfig(start=c // 4, horizon=c, flap_storms=1,
+                         flap_links=2, flap_bursts=2, flap_period=c // 12,
+                         region_failures=1, drift_events=1)
+    rc = noc.ReplanConfig(epoch=c // 6, max_shed=0.5)
+    chaos = noc.CampaignSpec(
+        topo=topo, algos=(noc.Algo.BIDOR,), patterns=("uniform",),
+        rates=(0.3,), seeds=(0,),
+        base=noc.SimConfig(cycles=c, warmup=c // 4, drain=c // 10,
+                           watchdog=True),
+        scenarios=(noc.Scenario("calm"),
+                   *noc.chaos_scenarios(topo, [0, 1], replan=rc, base=cc)))
+    c = 900 if quick else 4000
+    epoch = c // 6
+    fail = noc.LinkFail(cycle=2 * epoch, links=link)
+    obs = noc.CampaignSpec(
+        topo=topo, algos=(noc.Algo.BIDOR,), patterns=("transpose",),
+        rates=(0.3,), seeds=(0,),
+        base=noc.SimConfig(cycles=c, warmup=epoch, drain=epoch,
+                           injection_rate=0.3, telemetry=True,
+                           tel_slots=18),
+        scenarios=tuple(noc.Scenario(p, events=(fail,), policy=p,
+                                     replan=noc.ReplanConfig(epoch=epoch))
+                        for p in ("stale", "online")))
+    return {"campaign_service": service, "chaos": chaos, "obs_report": obs}
+
+
+def _read(path: str) -> bytes:
+    with open(path, "rb") as f:
+        return f.read()
+
+
+def _service_run(job, max_cells=None) -> bool:
+    """``job.run(max_cells)``, failing on any retried or failed cell: the
+    service's retries must never hide a fault on the card."""
+    from repro_torch.obs.report import load_metrics
+
+    done = job.run(max_cells)
+    metrics = load_metrics(job.metrics_path)
+    bad = [m for m in metrics if m["event"] in ("cell_retry", "cell_error")]
+    if bad:
+        raise SystemExit(f"service: job {job.job_id}: {bad[:3]}")
+    if not done and metrics[-1]["event"] != "job_pause":
+        raise SystemExit(f"service: job {job.job_id} ended incomplete: "
+                         f"{metrics[-1]}")
+    return done
+
+
+def _service_job(cuda, spec, root, job_id, max_cells=None, **kw):
+    """A job run to completion, a new ``CampaignJob`` (a new process's
+    view of the directory) every ``max_cells`` executed cells; returns
+    (job, runs)."""
+    from repro_torch.noc import CampaignJob
+
+    runs = 0
+    while True:
+        job = CampaignJob(spec, root=root, job_id=job_id, device=cuda, **kw)
+        runs += 1
+        if _service_run(job, max_cells):
+            return job, runs
+        if runs > 32:
+            raise SystemExit(f"service: job {job_id} does not converge")
+
+
+def _same_csv(label, *jobs) -> bytes:
+    want = _read(jobs[0].csv_path)
+    for job in jobs[1:]:
+        if _read(job.csv_path) != want:
+            raise SystemExit(f"service: {label}: {job.job_id}'s results.csv "
+                             f"differs from {jobs[0].job_id}'s")
+    return want
+
+
+def _quarantine(spec, cuda, root, job, kw):
+    """Truncate the second cell's npz and rerun the job: exactly one
+    ``cell_quarantined``, the same CSV bytes."""
+    from repro_torch.obs.report import load_metrics
+
+    want = _read(job.csv_path)
+    victim = job.cells[1]
+    path = job._cell_path(victim)
+    blob = _read(path)
+    with open(path, "wb") as f:
+        f.write(blob[: len(blob) // 2])
+    again, _ = _service_job(cuda, spec, root, job.job_id, **kw)
+    quar = [m["cell"] for m in load_metrics(again.metrics_path)
+            if m["event"] == "cell_quarantined"]
+    if quar != [victim.slug] or _read(again.csv_path) != want:
+        raise SystemExit(f"service: quarantine of {victim.slug}: {quar}")
+    return victim.slug
+
+
+class _Stop(Exception):
+    """The deliberate interruption of a cell by :class:`_StopAfter`."""
+
+
+def _stop_after(ckpt_cls, path, k):
+    """A cell checkpointer whose ``save`` raises :class:`_Stop` after its
+    k-th snapshot is on disk: a process killed inside a scenario cell."""
+
+    class StopAfter(ckpt_cls):
+        def __init__(self):
+            super().__init__(path)
+            self.left = k
+
+        def save(self, arrays, meta):
+            super().save(arrays, meta)
+            self.left -= 1
+            if self.left == 0:
+                raise _Stop
+
+    return StopAfter()
+
+
+def run_service(torch, np, cuda, paper):
+    """Slice 12's main path on the card, through the campaign service
+    (``run_campaign_service`` / ``CampaignJob``, ``device=cuda``):
+
+    1. the paper's cells (``paper_spec``) interrupted after every cell
+       until done, then a fresh job on the warm plan cache: both CSVs
+       equal, byte for byte, and equal to ``run_paper``'s own rows; the
+       warm job builds no plan and launches no possibility kernel;
+    2. the reference's chaos stage at full length (8 000 cycles, the
+       watchdog on): interrupted after every cell, and inside a scenario
+       cell and resumed from its snapshot, against a fresh job; then one
+       cell's npz truncated: one quarantine, the same CSV;
+    3. the reference's obs stage at full length (4 000 cycles, telemetry
+       on, traced): the trace's schema and its control-plane chain, the
+       report rendered, online's peak link load under stale's after the
+       replan;
+    4. one 32x32 BiDOR uniform cell, cold, then warm: the plan ms;
+    5. the three stages at ``BENCH_QUICK`` lengths against
+       ``tests/goldens/service_4x4.json`` (the reference's rows and chaos
+       schedules), row for row.
+    """
+    import dataclasses
+    import shutil
+
+    from repro_torch import core, kernels, noc
+    from repro_torch.core import build_plan, traffic
+    from repro_torch.noc import CellCheckpoint
+    from repro_torch.noc.campaign import CampaignResult, csv_rows
+    from repro_torch.noc.service import _event_desc
+    from repro_torch.obs.report import render_job
+    from repro_torch.obs.trace import read_trace, validate_events
+
+    t_phase = time.perf_counter()
+    root = os.path.join(HERE, "artifacts", "campaigns_torch", "smoke")
+    shutil.rmtree(root, ignore_errors=True)
+
+    # ---- 1. the paper's cells: kill and resume, then a warm job ---- #
+    spec = paper_spec()
+    job, runs = _service_job(cuda, spec, root, "paper", max_cells=1)
+    before = dict(kernels.LAUNCHES)
+    warm, _ = _service_job(cuda, spec, root, "paper-warm")
+    poss = {k: kernels.LAUNCHES[k] - before[k]
+            for k in ("possibility_v", "possibility_weights")}
+    got = _same_csv("paper", job, warm)
+    want = "".join(",".join(str(v) for v in row) + "\n"
+                   for row in [CampaignResult.CSV_HEADER]
+                   + csv_rows(paper["res"].points)).encode()
+    stats = warm.plan_cache.stats.as_dict()
+    log(f"service: paper {len(job.cells)} cells in {runs} runs, "
+        f"results.csv {len(got)} bytes, equal to run_paper's rows: "
+        f"{got == want}; warm job plan cache {json.dumps(stats)}, "
+        f"possibility launches {json.dumps(poss)}")
+    if got != want:
+        raise SystemExit("service: the paper job's CSV differs from "
+                         "run_paper's rows")
+    if stats["device_builds"] or not stats["hits"] or any(poss.values()):
+        raise SystemExit("service: the warm paper job planned again")
+
+    # ---- 2. chaos at full length ---- #
+    specs = service_specs(core, noc, quick=False)
+    spec = specs["chaos"]
+    plan = build_plan(spec.topo, traffic.uniform(spec.topo),
+                      use_kernel=True, device=cuda)
+    kw = dict(bidor_tables={"uniform": plan.table.choice})
+    t0 = time.perf_counter()
+    job, runs = _service_job(cuda, spec, root, "chaos", max_cells=1, **kw)
+    mid = noc.CampaignJob(spec, root=root, job_id="chaos-mid", device=cuda,
+                          **kw)
+    key = mid.cells[1]                       # chaos-s0, a scenario cell
+    ck = _stop_after(CellCheckpoint, mid._ckpt_path(key), 3)
+    try:
+        mid.executor.run_cell(key, checkpoint=ck)
+    except _Stop:
+        pass
+    else:
+        raise SystemExit("service: the chaos cell was not interrupted")
+    snap = CellCheckpoint(mid._ckpt_path(key)).load()
+    if snap is None or snap[1]["bound_i"] != 3:
+        raise SystemExit("service: no snapshot to resume the chaos cell")
+    _service_run(mid)
+    fresh, _ = _service_job(cuda, spec, root, "chaos-fresh", **kw)
+    got = _same_csv("chaos", fresh, job, mid)
+    victim = _quarantine(spec, cuda, root, job, kw)
+    res = job.result()
+    for p in res.points:
+        _check_result(p.result, np, in_order=False)
+        log(f"service: chaos {p.scenario:9s} {p.result.summary()}")
+    log(f"service: chaos {len(job.cells)} cells in {runs} runs, resumed "
+        f"inside {key.slug} at boundary 3, the fresh job's {len(got)} "
+        f"bytes of CSV equal; {victim} quarantined and recomputed; "
+        f"{time.perf_counter() - t0:.1f}s")
+
+    # ---- 3. obs at full length, traced ---- #
+    spec = specs["obs_report"]
+    job, _ = _service_job(cuda, spec, root, "obs", trace=True)
+    job.close()
+    events = read_trace(job.trace_path)
+    problems = validate_events(events)
+    names = {e["name"] for e in events}
+    replans = [e for e in events if e["name"] == "replan"]
+    summary = render_job(job.dir, os.path.join(root, "obs-report"))
+    tels = {k.scenario: job.cell_telemetry(k) for k in job.cells}
+    epoch = spec.scenarios[0].replan.epoch
+    starts = tels["stale"].slot_starts()
+    post = [s for s in tels["stale"].active_slots()
+            if starts[s] >= 3 * epoch]
+    peak = {s: float(t.peak_link_load()[0][post].mean())
+            for s, t in tels.items()}
+    log(f"service: obs {len(events)} trace events, problems {problems[:3]}, "
+        f"replans {len(replans)} (dur_us "
+        f"{[round(e['dur'], 1) for e in replans]}), report "
+        f"{json.dumps({k: summary[k] for k in ('trace_events', 'replans', 'traj_rows')})}"
+        f"; post-replan peak link load (probes alone) stale "
+        f"{peak['stale']:.4f} online {peak['online']:.4f} over "
+        f"{len(post)} slots")
+    if problems or not {"epoch", "LinkFail", "replan", "hot_swap"} <= names:
+        raise SystemExit(f"service: obs trace: {problems[:3]} "
+                         f"{sorted(names)}")
+    if not replans or not all(e["dur"] > 0 for e in replans):
+        raise SystemExit("service: obs replan spans without a duration")
+    if not post or not peak["online"] < peak["stale"]:
+        raise SystemExit(f"service: online's peak is not under stale's: "
+                         f"{peak}")
+
+    # ---- 4. a 32x32 BiDOR cell, cold, then warm ---- #
+    spec = dataclasses.replace(scale_specs()[0], algos=(noc.Algo.BIDOR,))
+    for tag in ("cold", "warm"):
+        job, _ = _service_job(cuda, spec, os.path.join(root, "big"),
+                              f"big-{tag}")
+        ex, res = job.executor, job.result()
+        _check_results(res, np)
+        log(f"service: 32x32 BIDOR {tag}: plan_ms={ex.plan_s * 1e3:.1f} "
+            f"stages_ms={json.dumps(ex.plan_stage_ms)} plan cache "
+            f"{json.dumps(job.plan_cache.stats.as_dict())} cell wall "
+            f"{sum(res.wall_clock_s.values()):.3f}s ({card_line()})")
+
+    # ---- 5. the QUICK stages against the reference's golden ---- #
+    with open(SERVICE_GOLDEN) as f:
+        golden = json.load(f)["specs"]
+    for name, spec in service_specs(core, noc, quick=True).items():
+        want = golden[name]
+        kw = {}
+        if name == "chaos":
+            plan = build_plan(spec.topo, traffic.uniform(spec.topo),
+                              use_kernel=True, device=cuda)
+            if plan.table.choice.tolist() != want["choice"]:
+                raise SystemExit("service: chaos plan differs from the "
+                                 "reference's")
+            kw["bidor_tables"] = {"uniform": plan.table.choice}
+            sched = [[_event_desc(e) for e in s.events]
+                     for s in spec.scenarios]
+            if sched != want["schedules"]:
+                raise SystemExit("service: chaos schedules differ from "
+                                 "the reference's")
+        if noc.spec_fingerprint(spec) != want["fingerprint"]:
+            raise SystemExit(f"service: {name}'s spec is not the golden's")
+        job, _ = _service_job(cuda, spec, os.path.join(root, "quick"), name,
+                              **kw)
+        rows = _read(job.csv_path).decode().splitlines()
+        ok = rows == want["rows"]
+        log(f"service: {name} QUICK {len(rows) - 1} rows against "
+            f"service_4x4.json: {'ok' if ok else 'MISMATCH'}")
+        if not ok:
+            bad = [f"{a} != {b}" for a, b in zip(rows, want["rows"])
+                   if a != b]
+            raise SystemExit(f"service: {name} rows differ:\n  "
+                             + "\n  ".join(bad[:8]))
+    log(f"service: phase {time.perf_counter() - t_phase:.1f}s")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2426,12 +2751,12 @@ def main() -> int:
 
     # each main path runs with the counts from 0 and must launch every
     # kernel it goes through
-    serve, jamba = {}, {}
+    serve, jamba, paper = {}, {}, {}
     paths = {
         "slice 1 (plan, flit step, campaign)": (
             ("possibility_v", "simstep_chunk", "simstep_grid"),
             lambda: (check_golden(torch, np, cuda),
-                     run_paper(torch, np, cuda),
+                     paper.update(res=run_paper(torch, np, cuda)),
                      run_scale(torch, np, cuda))),
         "slice 2 (N-Rank oracle, fig1, control plane)": (
             ("possibility_weights", "possibility_v", "simstep_chunk"),
@@ -2455,7 +2780,10 @@ def main() -> int:
             lambda: (check_zoo_golden(torch, np, cuda),
                      run_topo_sweep(torch, np, cuda),
                      run_multipod(torch, np, cuda),
-                     run_instrumented_cell(torch, np, cuda)))}
+                     run_instrumented_cell(torch, np, cuda))),
+        "slice 12 (campaign service)": (
+            ("possibility_v", "possibility_weights", "simstep_chunk"),
+            lambda: run_service(torch, np, cuda, paper))}
     # both serving paths run attention's split kernel and its combine
     # (decode, cross-attention) and the tensor-core kernel (encoder,
     # prefill); flash_attention counts one launch per call whatever its

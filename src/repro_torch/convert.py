@@ -12,8 +12,9 @@ reference — and give the port's tensors, or back:
   advances the key chain on the host).
 
 The control plane's records come across too: :func:`nrank_result` (a
-warm start for ``replan(prev=...)``) and :func:`scenario` (events,
-policy and re-planner knobs).  Both read the reference objects by their
+warm start for ``replan(prev=...)``), :func:`scenario` (events,
+policy and re-planner knobs) and :func:`ctrl_snapshot` (an epoch-boundary
+snapshot of a controlled run, which the port then resumes).  Both read the reference objects by their
 field names only.  So do a model's parameters:
 :func:`encdec_params_from_numpy` and :func:`hybrid_params_from_numpy`
 take the reference's whisper and Jamba parameter trees (nested dicts of
@@ -23,6 +24,7 @@ numpy arrays, layers stacked on leading axes).
 from __future__ import annotations
 
 import dataclasses
+import json
 
 import numpy as np
 import torch
@@ -33,10 +35,10 @@ from .device import resolve_device
 from .models import encdec, hybrid
 from .models.common import ModelConfig
 from .noc import ctrl
-from .noc.sim import Tables, state_to_host
+from .noc.sim import Tables, state_from_host, state_to_host
 
 __all__ = ["tables_from_numpy", "state_from_numpy", "state_to_numpy",
-           "plan_from_numpy", "nrank_result", "scenario",
+           "plan_from_numpy", "nrank_result", "scenario", "ctrl_snapshot",
            "encdec_params_from_numpy", "hybrid_params_from_numpy"]
 
 
@@ -53,19 +55,7 @@ def tables_from_numpy(tables, device=None) -> Tables:
 
 def state_from_numpy(state: dict, device=None) -> dict:
     """Port state from a lane-stacked reference state (numpy arrays)."""
-    dev = resolve_device(device)
-    out = {}
-    for k, a in state.items():
-        a = np.asarray(a)
-        if k == "key":
-            out[k] = a.astype(np.uint32).reshape(-1, 2).copy()
-        elif k == "rbits":
-            out[k] = torch.as_tensor(
-                np.ascontiguousarray(a.astype(np.uint32)).view(np.int32),
-                device=dev)
-        else:
-            out[k] = torch.as_tensor(np.array(a, order="C"), device=dev)
-    return out
+    return state_from_host(state, device)
 
 
 def state_to_numpy(state: dict) -> dict:
@@ -123,6 +113,27 @@ def scenario(ref) -> ctrl.Scenario:
     return ctrl.Scenario(name=ref.name,
                          events=tuple(_event(e) for e in ref.events),
                          policy=ref.policy, replan=rc)
+
+
+def ctrl_snapshot(arrays: dict, meta: dict) -> tuple[dict, dict]:
+    """The port's epoch-boundary snapshot from one the reference's
+    ``run_controlled(checkpoint=...)`` saved: ``(arrays, meta)`` for the
+    port's ``run_controlled`` to resume.  The layouts agree key for key
+    (the simulator state as ``s_<key>``, ``rbits`` and the (L, 2) PRNG
+    keys as uint32); the port's meta also carries the replans' host
+    milliseconds, which the reference did not time and which come across
+    as NaN."""
+    out = {}
+    for k, a in arrays.items():
+        a = np.asarray(a)
+        if k == "s_key":
+            a = a.astype(np.uint32).reshape(-1, 2)
+        elif k == "s_rbits":
+            a = a.astype(np.uint32)
+        out[k] = np.array(a)
+    meta = json.loads(json.dumps(meta))
+    meta.setdefault("replan_ms", [float("nan")] * len(meta["replans"]))
+    return out, meta
 
 
 def _params_from_numpy(model: torch.nn.Module, tree: dict) -> None:

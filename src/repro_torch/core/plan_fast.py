@@ -19,8 +19,14 @@ The planner runs in fp64 on every device: the H100 has native fp64, and
 the reference's CPU plans and the committed fixtures are fp64, so the
 choice tables come out identical to the reference's.  Hard-failed
 channels are masked (``live``) with degraded hop distances passed as
-data, exactly as in the reference.  The content-addressed plan cache is
-not ported yet (ROADMAP queue 1, item 9).
+data, exactly as in the reference.
+
+``cache`` (a :class:`repro_torch.core.plan_cache.PlanCache`) serves and
+stores cold builds by content key (:func:`plan_cache_key`); a lane that
+hits is never planned, and when every lane hits the planner does not run
+at all.  ``tracer`` (a :class:`repro_torch.obs.trace.TraceWriter`)
+records each build as a span and the cache's hits and misses as
+instants.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import torch
 
 from ..device import resolve_device
 from ..kernels.possibility import possibility_v
+from ..obs.trace import NULL_TRACER
 from .bidor import TIE_TOL, BiDORTable
 from .certify import CertificationError, apply_repair, certify_table
 from .nrank import ITER_TH, W_TH, NRankResult, initial_weights
@@ -42,7 +49,7 @@ from .routes import dimension_orders, next_hop_table, next_port_table
 from .topology import Topology
 
 __all__ = ["build_plan_fast", "build_plans_batched", "plan_statics",
-           "gate_plan", "joint_possibility_fast"]
+           "gate_plan", "joint_possibility_fast", "plan_cache_key"]
 
 F64 = torch.float64
 _TINY = 1e-300
@@ -330,8 +337,8 @@ def _assemble_plan(topo: Topology, traffic: np.ndarray, statics: PlanStatics,
                      table=table)
 
 
-def gate_plan(topo: Topology, plan: QStarPlan, *, label: str = "",
-              ) -> QStarPlan:
+def gate_plan(topo: Topology, plan: QStarPlan, *, tracer=None,
+              label: str = "") -> QStarPlan:
     """Mandatory deadlock-freedom gate on every plan-producing path.
 
     Certifies the plan's table (:mod:`repro_torch.core.certify`),
@@ -341,7 +348,7 @@ def gate_plan(topo: Topology, plan: QStarPlan, *, label: str = "",
     Clean plans pass through bit-unchanged.
     """
     cert = certify_table(topo, plan.table, traffic=plan.traffic,
-                         w_nr=plan.nrank.w_nr, label=label)
+                         w_nr=plan.nrank.w_nr, tracer=tracer, label=label)
     if not cert.ok:
         raise CertificationError(
             f"plan for {topo.name} failed deadlock certification "
@@ -353,33 +360,49 @@ def gate_plan(topo: Topology, plan: QStarPlan, *, label: str = "",
     return dataclasses.replace(plan, cert=cert)
 
 
-def build_plans_batched(topo: Topology, traffics, *, w0s=None,
-                        k_orders: bool = False,
-                        w_th: float = W_TH, iter_th: int = ITER_TH,
-                        down_channels=None, device=None,
-                        stage_ms: dict | None = None) -> list[QStarPlan]:
-    """Plans for many traffic matrices on one topology in one batched
-    device computation; each plan is certified by :func:`gate_plan`.
+def plan_cache_key(topo: Topology, traffic, *, down_channels=None,
+                   k_orders: bool = False, w_th: float = W_TH,
+                   iter_th: int = ITER_TH) -> str:
+    """The content key a cold :func:`build_plan_fast` or
+    :func:`build_plans_batched` lane with these arguments uses against a
+    plan cache."""
+    from .plan_cache import plan_key
 
-    ``down_channels`` (one fault pattern shared by the batch) masks the
-    failed channels out of every plan, as in the reference.  ``device``
-    defaults to the card (``cuda``); pass ``"cpu"`` for the plain path.
-    A ``stage_ms`` dict gets the milliseconds of each stage added in:
-    ``host_tables`` (hop distances by BFS, DOR tables, channel pairs),
-    ``device`` (the batched computation and its copy back, with
-    ``possibility_v``, the kernel's own time, inside it) and ``certify``
-    (the deadlock certificate of every plan).
-    """
-    dev = resolve_device(device)
+    return plan_key(topo, traffic, down_channels=down_channels,
+                    k_orders=k_orders, w_th=w_th, iter_th=iter_th)
+
+
+def _cache_lookup(cache, topo, traffic, down_channels, k_orders, w_th,
+                  iter_th, w0):
+    """(key, hit) in the plan cache; (None, None) for a build that is not
+    cached (warm-started, or no cache)."""
+    if cache is None or w0 is not None:
+        return None, None
+    key = plan_cache_key(topo, traffic, down_channels=down_channels,
+                         k_orders=k_orders, w_th=w_th, iter_th=iter_th)
+    return key, cache.get(key, topo)
+
+
+def _admit_cached(cache, key: str, hit: QStarPlan, topo: Topology, *,
+                  tracer=None, label: str = "") -> QStarPlan:
+    """Admission of a cached plan: a stored clean certificate satisfies
+    the deadlock gate; anything else is certified again."""
+    cert = cache.get_cert(key)
+    if cert is not None and cert.verdict == "clean":
+        return dataclasses.replace(hit, cert=cert)
+    return gate_plan(topo, hit, tracer=tracer, label=label)
+
+
+def _build(topo: Topology, tms, w0s, *, k_orders, w_th, iter_th,
+           down_channels, dev, stage_ms, tracer, label) -> list[QStarPlan]:
+    """The batched planner proper: one device computation over every
+    matrix, then each plan through :func:`gate_plan`."""
     clock = _StageClock(stage_ms, dev)
     with clock.host("host_tables"):
         statics = plan_statics(topo, binary_only=not k_orders)
         down, dist, live, down_pair = _fault_arrays(topo, statics,
                                                     down_channels)
     with clock.host("device"):
-        tms = [np.asarray(t, np.float64) for t in traffics]
-        if w0s is None:
-            w0s = [None] * len(tms)
         t_b = torch.as_tensor(np.stack(tms), device=dev)
         w0_b = torch.as_tensor(np.stack(
             [initial_weights(t) if w0 is None else np.asarray(w0, np.float64)
@@ -398,7 +421,78 @@ def build_plans_batched(topo: Topology, traffics, *, w0s=None,
             lane = {k: v[i] for k, v in out.items()}
             plan = _assemble_plan(topo, tm, statics, lane,
                                   have_down=bool(down.size))
-            plans.append(gate_plan(topo, plan, label="build_plans_batched"))
+            plans.append(gate_plan(topo, plan, tracer=tracer, label=label))
+    return plans
+
+
+def build_plans_batched(topo: Topology, traffics, *, w0s=None,
+                        k_orders: bool = False,
+                        w_th: float = W_TH, iter_th: int = ITER_TH,
+                        down_channels=None, device=None,
+                        stage_ms: dict | None = None,
+                        cache=None, tracer=None) -> list[QStarPlan]:
+    """Plans for many traffic matrices on one topology in one batched
+    device computation; each plan is certified by :func:`gate_plan`.
+
+    ``down_channels`` (one fault pattern shared by the batch) masks the
+    failed channels out of every plan, as in the reference.  ``device``
+    defaults to the card (``cuda``); pass ``"cpu"`` for the plain path.
+    A ``stage_ms`` dict gets the milliseconds of each stage added in:
+    ``host_tables`` (hop distances by BFS, DOR tables, channel pairs),
+    ``device`` (the batched computation and its copy back, with
+    ``possibility_v``, the kernel's own time, inside it) and ``certify``
+    (the deadlock certificate of every plan).
+
+    ``cache`` serves and stores the cold lanes by content key; the misses
+    are planned in one batched call, and when every lane hits the planner
+    does not run.  ``tracer`` records the build as a span and each
+    lane's hit or miss as an instant.
+    """
+    dev = resolve_device(device)
+    tracer = tracer if tracer is not None else NULL_TRACER
+    tms = [np.asarray(t, np.float64) for t in traffics]
+    if w0s is None:
+        w0s = [None] * len(tms)
+    if cache is not None:
+        plans: dict[int, QStarPlan] = {}
+        keys: dict[int, str] = {}
+        for i, (tm, w0) in enumerate(zip(tms, w0s)):
+            key, hit = _cache_lookup(cache, topo, tm, down_channels,
+                                     k_orders, w_th, iter_th, w0)
+            if hit is not None:
+                plans[i] = _admit_cached(cache, key, hit, topo, tracer=tracer,
+                                         label=f"cache_hit:{i}")
+                tracer.instant("plan_cache_hit", cat="plan",
+                               args={"lane": i, "nodes": topo.num_nodes})
+            elif key is not None:
+                keys[i] = key
+                tracer.instant("plan_cache_miss", cat="plan",
+                               args={"lane": i, "nodes": topo.num_nodes})
+        need = [i for i in range(len(tms)) if i not in plans]
+        if need:
+            built = build_plans_batched(
+                topo, [tms[i] for i in need], w0s=[w0s[i] for i in need],
+                k_orders=k_orders, w_th=w_th, iter_th=iter_th,
+                down_channels=down_channels, device=dev, stage_ms=stage_ms,
+                tracer=tracer)
+            for i, plan in zip(need, built):
+                plans[i] = plan
+                if i in keys:
+                    cache.put(keys[i], plan, k_orders=k_orders,
+                              cert=plan.cert)
+            cache.stats.device_builds += 1
+        return [plans[i] for i in range(len(tms))]
+    t_span = tracer.now_us()
+    plans = _build(topo, tms, w0s, k_orders=k_orders, w_th=w_th,
+                   iter_th=iter_th, down_channels=down_channels, dev=dev,
+                   stage_ms=stage_ms, tracer=tracer,
+                   label="build_plans_batched")
+    if tracer.enabled:
+        tracer.complete("build_plans_batched", t_span,
+                        tracer.now_us() - t_span, cat="plan",
+                        args={"nodes": topo.num_nodes, "lanes": len(tms),
+                              "faults": int(_down_ids(topo,
+                                                      down_channels).size)})
     return plans
 
 
@@ -406,13 +500,41 @@ def build_plan_fast(topo: Topology, traffic: np.ndarray, *,
                     k_orders: bool = False,
                     w_th: float = W_TH, iter_th: int = ITER_TH,
                     w0: np.ndarray | None = None,
-                    down_channels=None, device=None) -> QStarPlan:
-    """One plan: :func:`build_plans_batched` over a single matrix, with
-    the optional warm-start carry ``w0``."""
-    return build_plans_batched(topo, [traffic], w0s=[w0],
-                               k_orders=k_orders, w_th=w_th,
-                               iter_th=iter_th, down_channels=down_channels,
-                               device=device)[0]
+                    down_channels=None, device=None,
+                    cache=None, tracer=None) -> QStarPlan:
+    """One plan: the batched planner over a single matrix, with the
+    optional warm-start carry ``w0``.  ``cache`` serves and stores a cold
+    build (a warm one is never cached); ``tracer`` records the build as
+    a span, its host stages and the rest split in its args, and a cache
+    hit as an instant."""
+    dev = resolve_device(device)
+    tracer = tracer if tracer is not None else NULL_TRACER
+    key, hit = _cache_lookup(cache, topo, traffic, down_channels, k_orders,
+                             w_th, iter_th, w0)
+    if hit is not None:
+        tracer.instant("plan_cache_hit", cat="plan",
+                       args={"nodes": topo.num_nodes})
+        return _admit_cached(cache, key, hit, topo, tracer=tracer,
+                             label="cache_hit")
+    t_all = tracer.now_us()
+    stage = {} if tracer.enabled else None
+    plan = _build(topo, [np.asarray(traffic, np.float64)], [w0],
+                  k_orders=k_orders, w_th=w_th, iter_th=iter_th,
+                  down_channels=down_channels, dev=dev, stage_ms=stage,
+                  tracer=tracer, label="build_plan_fast")[0]
+    if cache is not None:
+        cache.stats.device_builds += 1
+    if tracer.enabled:
+        statics_ms = stage.get("host_tables", 0.0)
+        tracer.complete(
+            "build_plan_fast", t_all, tracer.now_us() - t_all, cat="plan",
+            args={"nodes": topo.num_nodes, "warm": w0 is not None,
+                  "faults": int(_down_ids(topo, down_channels).size),
+                  "statics_ms": round(statics_ms, 3),
+                  "device_ms": round(sum(stage.values()) - statics_ms, 3)})
+    if key is not None:
+        cache.put(key, plan, k_orders=k_orders, cert=plan.cert)
+    return plan
 
 
 def joint_possibility_fast(topo: Topology, traffic: np.ndarray, *,

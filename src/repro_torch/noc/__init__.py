@@ -1,5 +1,5 @@
-"""Flit-level NoC simulation on torch: simulator, campaign engine and
-the quasi-static control plane."""
+"""Flit-level NoC simulation on torch: simulator, campaign engine, the
+quasi-static control plane, the campaign service and chaos schedules."""
 
 from .simconfig import Algo, SimConfig, SimResult
 from .sim import run_sim, run_sweep, run_trace, run_trace_sweep
@@ -11,6 +11,10 @@ from .campaign import (CampaignExecutor, CampaignPoint, CampaignResult,
 from .ctrl import (ControlledResult, DriftDetector, LinkFail, LinkRecover,
                    Replan, ReplanConfig, Scenario, TrafficDrift,
                    TrafficEstimator, run_controlled)
+from .service import (CampaignJob, CellCheckpoint, JobStatus,
+                      run_campaign_service, spec_fingerprint)
+from .chaos import (ChaosConfig, chaos_scenarios, chaos_schedule,
+                    hotspot_traffic, region_links)
 
 __all__ = ["Algo", "SimConfig", "SimResult", "run_sim", "run_sweep",
            "run_trace", "run_trace_sweep", "clos_leaf_trace",
@@ -19,4 +23,7 @@ __all__ = ["Algo", "SimConfig", "SimResult", "run_sim", "run_sweep",
            "campaign_cells", "LinkFail", "LinkRecover", "TrafficDrift",
            "Scenario", "TrafficEstimator", "DriftDetector", "ReplanConfig",
            "Replan", "ControlledResult", "run_controlled", "WD_KEYS",
-           "WatchdogReport"]
+           "WatchdogReport", "CampaignJob", "CellCheckpoint", "JobStatus",
+           "run_campaign_service", "spec_fingerprint", "ChaosConfig",
+           "chaos_schedule", "chaos_scenarios", "hotspot_traffic",
+           "region_links"]

@@ -16,13 +16,18 @@ BiDOR plans come from one batched planner call a topology
 (:func:`repro_torch.core.plan_fast.build_plans_batched`, with the
 topology's dead channels masked), each gated by the deadlock certifier,
 unless ``run_campaign(bidor_tables=...)`` supplies a pattern's choice
-table.  Not ported yet: ``workloads`` (ML traffic, ROADMAP queue 1, item
-10) and the plan cache (item 9); each raises ``NotImplementedError``.
+table; with a plan cache (:class:`repro_torch.core.plan_cache.PlanCache`)
+the cached plans are served first and only the misses are planned.
+Cells run one at a time in any order (:class:`CampaignExecutor`), which
+is what the campaign service (:mod:`repro_torch.noc.service`) checkpoints
+and resumes.  Not ported yet: ``workloads`` (ML traffic, ROADMAP queue 1,
+item 10), which raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import re
 import time
 from typing import Sequence
 
@@ -34,6 +39,7 @@ from ..core.plan_fast import build_plans_batched
 from ..core.topology import Topology
 from ..device import resolve_device
 from ..obs.log import EventLog
+from ..obs.trace import NULL_TRACER
 from .ctrl import run_controlled
 from .sim import (build_tables, lane, make_states, postprocess,
                   queue_occupancy, run_cycles, source_queue_meta,
@@ -333,6 +339,18 @@ class CellKey:
     algo: Algo
     scen_i: int = -1
     scenario: str = "static"
+    # the workload axis's name when the cell's item is a workload; ""
+    # until that axis is ported
+    workload: str = ""
+
+    @property
+    def slug(self) -> str:
+        """Filesystem-safe unique cell name (the checkpoint file's stem)."""
+        parts = (self.topo, f"i{self.item_i}", self.pattern,
+                 self.algo.name, self.scenario)
+        clean = "_".join(re.sub(r"[^A-Za-z0-9.+-]+", "-", p)
+                         for p in parts)
+        return f"cell{self.index:04d}_{clean}"
 
     def wall_key(self, spec: CampaignSpec) -> tuple[str, ...]:
         """The cell's ``CampaignResult.wall_clock_s`` key."""
@@ -386,17 +404,25 @@ class CampaignExecutor:
     """Executes campaign cells one at a time, in any order.
 
     Plans are built on a topology's first use: one batched planner call
-    covers every pattern of that topology that needs one.  ``bidor_tables`` (pattern name → (N, N)
-    choice table) overrides a pattern's plan; scenario cells still build
-    the plan, whose N-Rank fixed point seeds their replans."""
+    covers every pattern of that topology that needs one, so resuming a
+    job at cell k does not plan topologies whose cells are all done.
+    ``bidor_tables`` (pattern name → (N, N) choice table) overrides a
+    pattern's plan; scenario cells still build the plan, whose N-Rank
+    fixed point seeds their replans.  ``plan_cache`` serves plans by
+    content key; when every pattern of a topology hits, the planner does
+    not run for it.  ``tracer`` records each cell as a span, the cache's
+    hits as instants and the scenario cells' control plane."""
 
     def __init__(self, spec: CampaignSpec, *,
                  bidor_tables: dict[str, np.ndarray] | None = None,
-                 verbose: bool = False, device=None):
+                 plan_cache=None, verbose: bool = False, tracer=None,
+                 device=None):
         check_spec(spec)
         self.spec = spec
         self.bidor_tables = bidor_tables or {}
+        self.plan_cache = plan_cache
         self.verbose = verbose
+        self.tracer = tracer if tracer is not None else NULL_TRACER
         self.log = EventLog(verbose=verbose)
         self.device = resolve_device(device)
         self.points = [(float(r), int(s))
@@ -404,6 +430,17 @@ class CampaignExecutor:
         self._prepped: dict[int, list[_ItemPrep]] = {}
         self.plan_s = 0.0           # wall-clock spent building plans
         self.plan_stage_ms: dict[str, float] = {}
+
+    def _build_plans(self, topo: Topology, items, need: list[int]) -> dict:
+        """Plans for the needed pattern items: one batched planner call,
+        through the plan cache when one is set (hits served, the misses
+        planned together)."""
+        down = topo.down_channels
+        return dict(zip(need, build_plans_batched(
+            topo, [items[i][1] for i in need],
+            down_channels=down if down.size else None, device=self.device,
+            stage_ms=self.plan_stage_ms, cache=self.plan_cache,
+            tracer=self.tracer)))
 
     def _prep_topo(self, topo_i: int) -> list[_ItemPrep]:
         if topo_i in self._prepped:
@@ -420,13 +457,8 @@ class CampaignExecutor:
                     if name not in given or spec.scenarios]
             if need:
                 t0 = time.perf_counter()
-                down = topo.down_channels
-                built = build_plans_batched(
-                    topo, [items[i][1] for i in need],
-                    down_channels=down if down.size else None,
-                    device=self.device, stage_ms=self.plan_stage_ms)
+                plans = self._build_plans(topo, items, need)
                 self.plan_s += time.perf_counter() - t0
-                plans = dict(zip(need, built))
         prepped = []
         for i, (name, tm) in enumerate(items):
             table = nrank = None
@@ -448,13 +480,19 @@ class CampaignExecutor:
         self._prepped[topo_i] = prepped
         return prepped
 
-    def run_cell(self, key: CellKey) -> CellOutcome:
-        """Execute one cell: all its (rate, seed) lanes, one batch."""
+    def run_cell(self, key: CellKey, *, checkpoint=None) -> CellOutcome:
+        """Execute one cell: all its (rate, seed) lanes, one batch.
+
+        ``checkpoint``: an optional epoch-boundary checkpointer handed to
+        the control plane for a scenario cell
+        (:func:`repro_torch.noc.ctrl.run_controlled`); a static cell runs
+        in one chunked call and is kept only once complete."""
         spec = self.spec
         topo = spec.topo_axis[key.topo_i]
         prep = self._prep_topo(key.topo_i)[key.item_i]
         cfg = spec.base.replace(algo=key.algo)
         t0 = time.perf_counter()
+        tc0 = self.tracer.now_us() if self.tracer.enabled else 0.0
         bidor = key.algo == Algo.BIDOR
         cell_tm = prep.bidor_tm if bidor else prep.tm
         if key.scen_i < 0:
@@ -476,17 +514,25 @@ class CampaignExecutor:
                 seeds=[int(s) for s in spec.seeds],
                 bidor_table=prep.table if bidor else None,
                 nrank0=prep.nrank if bidor else None,
-                sat_occupancy=spec.sat_occupancy, verbose=self.verbose,
+                sat_occupancy=spec.sat_occupancy, checkpoint=checkpoint,
+                verbose=self.verbose, tracer=self.tracer,
                 device=self.device)
             results = [ctrl.result_with_peak(i)
                        for i in range(len(self.points))]
             telemetry = ctrl.telemetry
         dt = time.perf_counter() - t0
+        if self.tracer.enabled:
+            self.tracer.complete(
+                "cell", tc0, self.tracer.now_us() - tc0, cat="campaign",
+                args={"slug": key.slug, "topo": key.topo,
+                      "pattern": key.pattern, "algo": key.algo.name,
+                      "scenario": key.scenario,
+                      "lanes": len(self.points)})
         self.log.event("cell_done",
                        f"campaign cell {key.topo:16s} {key.pattern:12s} "
                        f"{key.algo.name:8s} {key.scenario:12s} "
                        f"{len(self.points)} pts in {dt:.2f}s",
-                       wall_s=round(dt, 3))
+                       cell=key.slug, wall_s=round(dt, 3))
         return CellOutcome(key=key, results=results, wall_s=dt,
                            telemetry=telemetry)
 
@@ -495,14 +541,14 @@ class CampaignExecutor:
         k = outcome.key
         return [CampaignPoint(algo=k.algo, pattern=k.pattern, rate=rate,
                               seed=seed, result=res, scenario=k.scenario,
-                              topo=k.topo)
+                              topo=k.topo, workload=k.workload)
                 for (rate, seed), res in zip(self.points, outcome.results)]
 
 
 def run_campaign(spec: CampaignSpec, *,
                  bidor_tables: dict[str, np.ndarray] | None = None,
                  plan_cache=None, verbose: bool = False,
-                 device=None) -> CampaignResult:
+                 tracer=None, device=None) -> CampaignResult:
     """Execute the full campaign grid on ``device`` (default: the card).
 
     BiDOR plans are built per pattern from that pattern's own matrix;
@@ -511,13 +557,18 @@ def run_campaign(spec: CampaignSpec, *,
     ``spec.scenarios`` every (pattern, algo, scenario) cell runs the
     control plane's event-driven loop, and ``SimResult.link_load_max``
     reports the time-resolved peak (max over control epochs of the max
-    bandwidth-normalized link load)."""
-    if plan_cache is not None:
-        raise NotImplementedError(
-            "the plan cache is not ported yet (ROADMAP queue 1, item 9)")
+    bandwidth-normalized link load).  ``plan_cache`` serves and stores
+    those plans by content key
+    (:class:`repro_torch.core.plan_cache.PlanCache`); ``tracer`` records
+    the cells, the plan builds and the control plane.
+
+    This is the blocking, in-memory entry over the cell machinery;
+    :mod:`repro_torch.noc.service` runs the same cells as a checkpointed
+    job."""
     t_start = time.perf_counter()
     executor = CampaignExecutor(spec, bidor_tables=bidor_tables,
-                                verbose=verbose, device=device)
+                                plan_cache=plan_cache, verbose=verbose,
+                                tracer=tracer, device=device)
     out_points: list[CampaignPoint] = []
     wall: dict[tuple, float] = {}
     for key in campaign_cells(spec):

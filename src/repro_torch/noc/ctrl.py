@@ -28,10 +28,12 @@ from its own estimates when a fault is signalled or drift is detected.
 Each control epoch is one :func:`repro_torch.noc.sim.run_cycles` chunk.
 The host key chain in ``state["key"]`` carries across chunks, so the
 epoch grid cannot change a random draw: an empty schedule reproduces
-:func:`repro_torch.noc.sim.run_sweep` bit for bit.  Not ported yet: the
-epoch-boundary checkpoint (``checkpoint=``) and the trace writer
-(``tracer=``), ROADMAP queue 1, item 9, and the lane split across cards
-(``multi_device=True``), item 5; each raises ``NotImplementedError``.
+:func:`repro_torch.noc.sim.run_sweep` bit for bit.  A run can snapshot
+itself at every epoch boundary (``checkpoint=``) and resume from the
+snapshot bit for bit, and it can record its control-plane events to a
+trace writer (``tracer=``).  Not ported yet: the lane split across cards
+(``multi_device=True``), ROADMAP queue 1, item 5, which raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -50,9 +52,10 @@ from ..core.topology import Topology
 from ..device import resolve_device
 from ..obs.log import EventLog
 from ..obs.probe import Telemetry, resolved_epoch
+from ..obs.trace import NULL_TRACER
 from .sim import (build_tables, lane, make_states, postprocess,
                   queue_occupancy, retarget_tables, run_cycles,
-                  source_queue_meta, state_to_host)
+                  source_queue_meta, state_from_host, state_to_host)
 from .watchdog import WatchdogReport
 from .simconfig import Algo, SimConfig, SimResult
 
@@ -239,12 +242,6 @@ class Replan:
     drift_distance: float = 0.0
 
 
-def _no_tracer(tracer) -> None:
-    if tracer is not None:
-        raise NotImplementedError(
-            "trace writers are not ported yet (ROADMAP queue 1, item 9)")
-
-
 def replan(topo: Topology, traffic: np.ndarray, channel_bw: np.ndarray,
            prev: NRankResult | None = None, *,
            warm: bool = True, greedy_sweeps: int = 2,
@@ -265,12 +262,13 @@ def replan(topo: Topology, traffic: np.ndarray, channel_bw: np.ndarray,
         channels masked) instead of the stage-by-stage host oracle
         (:func:`repro_torch.core.nrank.nrank_channel` on the degraded
         graph, then BiDOR).  Both give the same choice tables.
+      tracer: optional trace writer; the plan build and the
+        certificates are recorded as spans.
       device: where the planner runs (default: the card).
 
     Returns (table, nrank_result).  ``table.unroutable`` flags pairs no
     dimension order can serve; shed their generation upstream.
     """
-    _no_tracer(tracer)
     bw = np.asarray(channel_bw, np.float64)
     down = np.nonzero(bw <= 0)[0]
     plan_topo = dataclasses.replace(topo, channel_bw=bw)
@@ -280,7 +278,7 @@ def replan(topo: Topology, traffic: np.ndarray, channel_bw: np.ndarray,
     if use_fast:
         plan = build_plan_fast(plan_topo, traffic, w0=w0,
                                down_channels=down if down.size else None,
-                               device=device)
+                               device=device, tracer=tracer)
         table, nr = plan.table, plan.nrank
     else:
         # N-Rank sees the degraded connectivity (hard-failed channels
@@ -297,7 +295,7 @@ def replan(topo: Topology, traffic: np.ndarray, channel_bw: np.ndarray,
     # host-oracle path) re-shape the choice table after the planner's own
     # gate, so certify what actually ships
     cert = certify_table(plan_topo, table, traffic=traffic, w_nr=nr.w_nr,
-                         label="replan")
+                         tracer=tracer, label="replan")
     if not cert.ok:
         raise CertificationError(
             f"replan for {topo.name} failed deadlock certification "
@@ -394,6 +392,48 @@ def _counters(state: dict) -> tuple[np.ndarray, ...]:
                  for k in ("next_seq", "chan_seen", "chan_fwd", "meas_cnt"))
 
 
+_NR_FIELDS = ("w_nr", "w0", "w_final", "p", "p_drn", "w_possibility")
+
+
+def _ctrl_snapshot(state, *, bound_i, sat, link_peak, bw, cur_traffic,
+                   cur_gen, cur_unroutable, fault_pending, estimator,
+                   detector, replans, replan_ms, table, nr_prev, bw_hist):
+    """Serialisable (arrays, meta) state of a controlled run at the top
+    of boundary iteration ``bound_i``: everything up to
+    ``bounds[bound_i - 1]`` (events, replans, counters) applied, the next
+    epoch not yet run.  The layout is the reference's (the simulator
+    state as ``s_<key>``, ``rbits`` as uint32, the PRNG keys as a (L, 2)
+    uint32 array), plus the replans' host milliseconds in the meta;
+    :func:`run_controlled` restores it bit for bit."""
+    arrays = {f"s_{k}": v for k, v in state_to_host(state).items()}
+    arrays.update(sat=sat.copy(), link_peak=link_peak.copy(), bw=bw.copy(),
+                  cur_traffic=np.asarray(cur_traffic, np.float64),
+                  cur_gen=np.asarray(cur_gen, np.float64))
+    if cur_unroutable is not None:
+        arrays["cur_unroutable"] = np.asarray(cur_unroutable, bool)
+    if estimator._m is not None:
+        arrays["est_m"] = estimator._m
+    if detector._ref is not None:
+        arrays["det_ref"] = detector._ref
+    if table is not None:
+        arrays["tab_choice"] = np.asarray(table.choice, np.int8)
+    if bw_hist:
+        arrays["bwh"] = np.stack([b for _, b in bw_hist])
+    if nr_prev is not None:
+        for f in _NR_FIELDS:
+            arrays[f"nr_{f}"] = np.asarray(getattr(nr_prev, f), np.float64)
+    meta = dict(bound_i=int(bound_i),
+                bwh_cycles=[int(c) for c, _ in (bw_hist or [])],
+                fault_pending=bool(fault_pending),
+                last_distance=float(detector.last_distance),
+                has_nr=nr_prev is not None,
+                nr_iterations=(int(nr_prev.iterations)
+                               if nr_prev is not None else 0),
+                replans=[dataclasses.asdict(r) for r in replans],
+                replan_ms=[float(x) for x in replan_ms])
+    return arrays, meta
+
+
 def run_controlled(topo: Topology, traffic: np.ndarray, cfg: SimConfig,
                    scenario: Scenario | None = None, *,
                    rates: list[float] | None = None,
@@ -417,16 +457,30 @@ def run_controlled(topo: Topology, traffic: np.ndarray, cfg: SimConfig,
     environment applies due events, the controller reads the device
     counters, and — policy permitting — re-plans and hot-swaps tables.
     ``device`` defaults to the card; ``"cpu"`` runs the plain path.
+
+    ``checkpoint``: an optional epoch-boundary checkpointer (duck-typed:
+    ``save(arrays, meta)`` keeps a flat dict of numpy arrays and a
+    JSON-able dict; ``load()`` gives back the latest pair or None).  At
+    the top of every boundary after the first the whole run state is
+    saved (the simulator state, the environment, the estimator and the
+    detector, the warm-start fixed point, the replans); on entry a
+    stored snapshot is restored and the epochs it covers are skipped.
+    The boundary grid is deterministic, so a resumed run ends bit for
+    bit as the uninterrupted one.  A snapshot the reference took comes
+    across through :func:`repro_torch.convert.ctrl_snapshot`.
+
+    ``tracer``: an optional trace writer; the loop records each epoch as
+    a span, the drift distance as a counter, detections, environment
+    events and hot swaps as instants and each replan as a span.  An
+    epoch span waits for the card (``torch.cuda.synchronize``) before it
+    closes, so it times the device's work; without a tracer nothing
+    waits.  Tracing never changes a result.
     """
     if multi_device:
         raise NotImplementedError(
             "the lane split across cards is not ported yet (ROADMAP "
             "queue 1, item 5)")
-    if checkpoint is not None:
-        raise NotImplementedError(
-            "epoch-boundary checkpoints (the campaign service) are not "
-            "ported yet (ROADMAP queue 1, item 9)")
-    _no_tracer(tracer)
+    tracer = tracer if tracer is not None else NULL_TRACER
     dev = resolve_device(device)
     log = EventLog(verbose=verbose)
     scenario = scenario or Scenario("static")
@@ -452,6 +506,7 @@ def run_controlled(topo: Topology, traffic: np.ndarray, cfg: SimConfig,
     bw = base_bw.copy()
     bw_hist = [(0, bw.copy())]   # (cycle, bw): the telemetry's normaliser
     cur_traffic = np.asarray(traffic, np.float64)
+    cur_gen = cur_traffic    # what the simulator generates from now
     fault_pending = False
     cur_unroutable = None    # active admission-control mask (shed pairs)
 
@@ -478,11 +533,87 @@ def run_controlled(topo: Topology, traffic: np.ndarray, cfg: SimConfig,
     sat_th = rc.sat_occupancy if sat_occupancy is None else sat_occupancy
     sat = np.zeros(nlanes, bool)
 
-    t0 = 0
-    for t1 in bounds:
+    # ---- resume from an epoch-boundary snapshot, if one exists ---- #
+    resume_i = 0
+    snap = checkpoint.load() if checkpoint is not None else None
+    if snap is not None:
+        arrays, cmeta = snap
+        resume_i = int(cmeta["bound_i"])
+        state = state_from_host({k[2:]: v for k, v in arrays.items()
+                                 if k.startswith("s_")}, dev)
+        sat = np.asarray(arrays["sat"], bool).copy()
+        link_peak = np.asarray(arrays["link_peak"], np.float64).copy()
+        bw = np.asarray(arrays["bw"], np.float64)
+        if "bwh" in arrays and cmeta.get("bwh_cycles"):
+            bwh = np.asarray(arrays["bwh"], np.float64)
+            bw_hist = [(int(c), bwh[k].copy())
+                       for k, c in enumerate(cmeta["bwh_cycles"])]
+        else:   # a snapshot without the history: current bw stands in
+            bw_hist = [(0, bw.copy())]
+        cur_traffic = np.asarray(arrays["cur_traffic"], np.float64)
+        cur_gen = np.asarray(arrays["cur_gen"], np.float64)
+        cur_unroutable = (np.asarray(arrays["cur_unroutable"], bool)
+                          if "cur_unroutable" in arrays else None)
+        fault_pending = bool(cmeta["fault_pending"])
+        estimator._m = (np.asarray(arrays["est_m"], np.float64)
+                        if "est_m" in arrays else None)
+        detector._ref = (np.asarray(arrays["det_ref"], np.float64)
+                         if "det_ref" in arrays else None)
+        detector.last_distance = float(cmeta["last_distance"])
+        replans = [Replan(**r) for r in cmeta["replans"]]
+        replan_ms = [float(x) for x in cmeta["replan_ms"]]
+        if cmeta["has_nr"]:
+            nr_prev = NRankResult(
+                iterations=int(cmeta["nr_iterations"]),
+                **{f: np.asarray(arrays[f"nr_{f}"], np.float64)
+                   for f in _NR_FIELDS})
+        # re-point the tables at the snapshot's environment (retargeting
+        # is deterministic in its inputs, so fields the run never
+        # changed rebuild to the same values)
+        choice = arrays.get("tab_choice")
+        if choice is not None and table is not None:
+            # keep the live table in step, so that a later snapshot
+            # records the replanned choice, not the seed plan's
+            table = dataclasses.replace(table,
+                                        choice=np.asarray(choice, np.int8))
+        tables = retarget_tables(
+            tables, topo, traffic=cur_gen,
+            choice=(choice if cfg.algo == Algo.BIDOR
+                    and choice is not None else None),
+            channel_bw=bw)
+        q_meta = source_queue_meta(tables, cfg)
+        prev_seq = np.asarray(arrays["s_next_seq"], np.int64)
+        prev_seen = np.asarray(arrays["s_chan_seen"], np.int64)
+        prev_fwd = np.asarray(arrays["s_chan_fwd"], np.int64)
+        prev_meas = np.asarray(arrays["s_meas_cnt"], np.int64)
+        t_prev = 0
+        for j in range(resume_i):
+            epoch_bounds.append((t_prev, bounds[j]))
+            t_prev = bounds[j]
+
+    t0 = bounds[resume_i - 1] if resume_i else 0
+    for bound_i in range(resume_i, len(bounds)):
+        t1 = bounds[bound_i]
+        if checkpoint is not None and bound_i > resume_i:
+            checkpoint.save(*_ctrl_snapshot(
+                state, bound_i=bound_i, sat=sat, link_peak=link_peak,
+                bw=bw, cur_traffic=cur_traffic, cur_gen=cur_gen,
+                cur_unroutable=cur_unroutable,
+                fault_pending=fault_pending, estimator=estimator,
+                detector=detector, replans=replans, replan_ms=replan_ms,
+                table=table, nr_prev=nr_prev, bw_hist=bw_hist))
         # tables swap only here, between chunks: a chunk's draws and its
         # cycles all see the tables it was handed
+        te0 = tracer.now_us() if tracer.enabled else 0.0
         run_cycles(tables, meta, cfg, state, t1 - t0)
+        if tracer.enabled:
+            if dev.type == "cuda":
+                # wait, so the span times the card's work, not the launch
+                torch.cuda.synchronize(dev)
+            tracer.complete(
+                "epoch", te0, tracer.now_us() - te0, cat="sim",
+                args={"t0": t0, "t1": t1, "scenario": scenario.name,
+                      "policy": policy})
         epoch_bounds.append((t0, t1))
         t0 = t1
 
@@ -507,6 +638,13 @@ def run_controlled(topo: Topology, traffic: np.ndarray, cfg: SimConfig,
 
         estimator.update(d_seq.sum(axis=0))
         drifted = detector.update(d_seen.sum(axis=0))
+        if tracer.enabled:
+            tracer.counter("drift_tv", {"tv": detector.last_distance},
+                           cat="ctrl")
+            if drifted:
+                tracer.instant(
+                    "drift_detected", cat="ctrl",
+                    args={"cycle": t1, "tv": detector.last_distance})
 
         if t1 >= total:
             break
@@ -516,6 +654,12 @@ def run_controlled(topo: Topology, traffic: np.ndarray, cfg: SimConfig,
         if due:
             bw, new_traffic, rate_scale, event_kinds = _apply_events(
                 due, bw, topo, base_bw)
+            if tracer.enabled:
+                for ev in due:
+                    a = {"cycle": t1}
+                    if isinstance(ev, LinkFail):
+                        a["bw_scale"] = ev.bw_scale
+                    tracer.instant(type(ev).__name__, cat="env", args=a)
             if "fault" in event_kinds:
                 bw_hist.append((t1, bw.copy()))
             gen_traffic = new_traffic
@@ -528,6 +672,7 @@ def run_controlled(topo: Topology, traffic: np.ndarray, cfg: SimConfig,
                 tables, topo, traffic=gen_traffic,
                 channel_bw=bw if "fault" in event_kinds else None)
             if gen_traffic is not None:
+                cur_gen = gen_traffic
                 q_meta = source_queue_meta(tables, cfg)
             if new_traffic is not None:
                 cur_traffic = new_traffic
@@ -558,9 +703,11 @@ def run_controlled(topo: Topology, traffic: np.ndarray, cfg: SimConfig,
             continue
         drift_dist = detector.last_distance
         tr0 = time.perf_counter()
+        ts0 = tracer.now_us() if tracer.enabled else 0.0
         table, nr_prev = replan(
             topo, m, bw, nr_prev,
-            warm=rc.warm, greedy_sweeps=rc.greedy_sweeps, device=dev)
+            warm=rc.warm, greedy_sweeps=rc.greedy_sweeps, tracer=tracer,
+            device=dev)
         # hot-swap guard: a replan that sheds most of the demanded pairs
         # would silently wedge the run behind a near-empty table — keep
         # the previous (still-certified) table and record the rejection
@@ -570,6 +717,12 @@ def run_controlled(topo: Topology, traffic: np.ndarray, cfg: SimConfig,
             shed_frac = (int((table.unroutable & demanded).sum()) / n_dem
                          if n_dem else 0.0)
             if shed_frac > rc.max_shed:
+                if tracer.enabled:
+                    tracer.instant(
+                        "hot_swap_rejected", cat="ctrl",
+                        args={"cycle": t1, "trigger": trigger,
+                              "shed_frac": round(shed_frac, 4),
+                              "max_shed": rc.max_shed})
                 log.event("replan_rejected",
                           f"ctrl[{scenario.name}/{policy}] hot-swap "
                           f"rejected @ {t1}: shed {shed_frac:.0%} > "
@@ -588,6 +741,7 @@ def run_controlled(topo: Topology, traffic: np.ndarray, cfg: SimConfig,
             gen = np.where(cur_unroutable, 0.0, cur_traffic)
         tables = retarget_tables(tables, topo, choice=table.choice,
                                  traffic=gen)
+        cur_gen = gen
         q_meta = source_queue_meta(tables, cfg)
         detector.reset()
         fault_pending = False
@@ -597,6 +751,15 @@ def run_controlled(topo: Topology, traffic: np.ndarray, cfg: SimConfig,
             unroutable_pairs=int(table.unroutable.sum())
             if table.unroutable is not None else 0,
             drift_distance=drift_dist))
+        if tracer.enabled:
+            tracer.complete(
+                "replan", ts0, tracer.now_us() - ts0, cat="ctrl",
+                args={"cycle": t1, "trigger": trigger,
+                      "warm": rc.warm and nr_prev is not None,
+                      "iterations": int(nr_prev.iterations),
+                      "unroutable": replans[-1].unroutable_pairs,
+                      "drift_tv": drift_dist})
+            tracer.instant("hot_swap", cat="ctrl", args={"cycle": t1})
         log.event("replan",
                   f"ctrl[{scenario.name}/{policy}] replan @ {t1} "
                   f"({trigger}), {nr_prev.iterations} iters",
@@ -610,8 +773,12 @@ def run_controlled(topo: Topology, traffic: np.ndarray, cfg: SimConfig,
     if telemetry is not None:
         telemetry = telemetry.with_bw(_bw_slots(
             bw_hist, resolved_epoch(cfg), cfg.tel_slots, total))
+    watchdog = WatchdogReport.from_state(host, cfg)
+    if watchdog is not None and watchdog.tripped and tracer.enabled:
+        tracer.instant("watchdog_tripped", cat="ctrl",
+                       args=watchdog.trace_args())
     return ControlledResult(
         scenario=scenario.name, policy=policy, points=points,
         results=results, replans=replans, link_peak=link_peak,
         epoch_bounds=epoch_bounds, replan_ms=replan_ms,
-        telemetry=telemetry, watchdog=WatchdogReport.from_state(host, cfg))
+        telemetry=telemetry, watchdog=watchdog)

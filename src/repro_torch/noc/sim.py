@@ -42,6 +42,7 @@ from .watchdog import WatchdogReport, watchdog_state
 
 __all__ = ["Tables", "build_tables", "retarget_tables", "fresh_state",
            "make_states", "point_key", "run_cycles", "run_sweep", "run_sim",
+           "state_to_host", "state_from_host",
            "run_trace_sweep", "run_trace", "postprocess", "hist_percentile",
            "queue_occupancy", "source_queue_meta", "static_bw_slots"]
 
@@ -270,6 +271,25 @@ def state_to_host(state: dict) -> dict:
             out[k] = a.view(np.uint32) if k == "rbits" else a
         else:
             out[k] = np.array(x)
+    return out
+
+
+def state_from_host(host: dict, device=None) -> dict:
+    """The inverse of :func:`state_to_host`: tensors on ``device`` from a
+    numpy state (``rbits`` uint32 back to the int32 that holds its bits;
+    ``key``, the (L, 2) uint32 PRNG keys, stays a numpy array)."""
+    dev = resolve_device(device)
+    out = {}
+    for k, a in host.items():
+        a = np.asarray(a)
+        if k == "key":
+            out[k] = np.array(a, np.uint32).reshape(-1, 2)
+        elif k == "rbits":
+            out[k] = torch.as_tensor(
+                np.array(a, np.uint32, order="C").view(np.int32),
+                device=dev)
+        else:
+            out[k] = torch.as_tensor(np.array(a, order="C"), device=dev)
     return out
 
 

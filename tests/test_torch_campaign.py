@@ -192,15 +192,14 @@ def test_oddeven_refuses_a_topology_that_is_not_2d():
 
 @pytest.mark.parametrize("what", ["telemetry", "watchdog", "scenarios",
                                   "workloads", "topos", "plan_cache"])
-def test_unported_options_raise(what):
+def test_unported_options_raise(what, tmp_path):
     """What the port does not run yet raises ``NotImplementedError``
-    naming its ROADMAP item (the ML workloads and the plan cache); the
-    options ported since (scenarios, telemetry, the watchdog, the
-    topology axis) run."""
+    naming its ROADMAP item (the ML workloads); the options ported since
+    (scenarios, telemetry, the watchdog, the topology axis, the plan
+    cache) run."""
     topo = mesh2d(4, 4)
     kw = dict(topo=topo, algos=(Algo.XY,), patterns=("uniform",),
               rates=(0.1,), base=SimConfig(cycles=200, warmup=50))
-    run_kw = {}
     if what in ("telemetry", "watchdog"):
         # ported: the probes and the watchdog ride as extra state keys
         kw["base"] = kw["base"].replace(**{what: True})
@@ -231,12 +230,26 @@ def test_unported_options_raise(what):
         r = res.points[0].result
         assert r.injected_flits == r.ejected_flits + r.in_flight_flits
         return
-    if what == "workloads":
-        kw["workloads"] = (("w", traffic.uniform(topo)),)
-    else:
-        run_kw["plan_cache"] = object()
+    if what == "plan_cache":
+        # ported: a second run serves its plan from the cache
+        from repro_torch.core.plan_cache import PlanCache
+
+        kw["algos"] = (Algo.BIDOR,)
+        cold = PlanCache(str(tmp_path))
+        first = run_campaign(CampaignSpec(**kw), device="cpu",
+                             plan_cache=cold)
+        assert cold.stats.stores == 1 and cold.stats.device_builds == 1
+        warm = PlanCache(str(tmp_path))
+        again = run_campaign(CampaignSpec(**kw), device="cpu",
+                             plan_cache=warm)
+        assert warm.stats.hits == 1 and warm.stats.device_builds == 0
+        want = dataclasses.asdict(first.points[0].result)
+        got = dataclasses.asdict(again.points[0].result)
+        assert all(np.array_equal(got[k], want[k]) for k in want)
+        return
+    kw["workloads"] = (("w", traffic.uniform(topo)),)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_campaign(CampaignSpec(**kw), device="cpu", **run_kw)
+        run_campaign(CampaignSpec(**kw), device="cpu")
 
 
 def test_entry_point_defaults_to_the_card():

@@ -858,3 +858,73 @@ def test_jamba_golden_on_the_card(cuda):
         == (cfg.n_layers - n_attn) * golden.NEW_TOKENS
     logits = [x.cpu() for x in logits]
     assert not golden.mismatches(want, logits[0], logits[1:], toks, 1e-5)
+
+
+@pytest.mark.gpu
+def test_service_job_on_the_card(cuda, tmp_path):
+    """The reference's campaign-service stage at its QUICK length through
+    the port's service on the card, interrupted after every cell: the
+    rows of ``tests/goldens/service_4x4.json``, every cell a flit-step
+    launch, no retry; then a controlled run resumed from a mid-run
+    snapshot on the card ends bit for bit as the uninterrupted run."""
+    import sys
+
+    from repro_torch import core as tcore, noc as tnoc
+    from repro_torch.noc import (CampaignJob, LinkFail, ReplanConfig,
+                                 Scenario, run_controlled)
+    from repro_torch.obs.report import load_metrics
+
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+    import chip_smoke
+
+    with open(os.path.join(os.path.dirname(__file__), "goldens",
+                           "service_4x4.json")) as f:
+        want = json.load(f)["specs"]["campaign_service"]
+    spec = chip_smoke.service_specs(tcore, tnoc, quick=True)[
+        "campaign_service"]
+    assert tnoc.spec_fingerprint(spec) == want["fingerprint"]
+    before = kernels.LAUNCHES["simstep_chunk"]
+    runs = 0
+    while True:
+        job = CampaignJob(spec, root=str(tmp_path), job_id="q", device=cuda)
+        runs += 1
+        done = job.run(max_cells=1)
+        assert not [m for m in load_metrics(job.metrics_path)
+                    if m["event"] in ("cell_retry", "cell_error")]
+        if done:
+            break
+    assert runs == len(job.cells)
+    assert kernels.LAUNCHES["simstep_chunk"] - before >= len(job.cells)
+    with open(job.csv_path) as f:
+        assert f.read().splitlines() == want["rows"]
+
+    class Rec:
+        def __init__(self, preload=None):
+            self.snaps, self.preload = [], preload
+
+        def save(self, arrays, meta):
+            self.snaps.append((arrays, meta))
+
+        def load(self):
+            return self.preload
+
+    topo = mesh2d(4, 4)
+    cfg = SimConfig(algo=Algo.BIDOR, cycles=1600, warmup=400,
+                    watchdog=True, telemetry=True)
+    scen = Scenario("f", events=(LinkFail(cycle=700, links=((5, 6), (6, 5))),
+                                 ), policy="online",
+                    replan=ReplanConfig(epoch=300))
+    kw = dict(rates=[0.2, 0.4], seeds=[0], device=cuda)
+    rec = Rec()
+    base = run_controlled(topo, traffic.uniform(topo), cfg, scen,
+                          checkpoint=rec, **kw)
+    got = run_controlled(topo, traffic.uniform(topo), cfg, scen,
+                         checkpoint=Rec(rec.snaps[2]), **kw)
+    assert base.replans and got.replans == base.replans
+    assert np.array_equal(got.link_peak, base.link_peak)
+    for a, b in zip(got.results, base.results):
+        assert a.ejected_flits == b.ejected_flits
+        assert a.avg_latency == b.avg_latency
+        assert np.array_equal(a.node_load, b.node_load)
+    assert np.array_equal(got.telemetry.chan, base.telemetry.chan)
+    assert got.watchdog == base.watchdog
