@@ -13,9 +13,10 @@ before printing any result.
               (one nvcc each, in parallel) into ``build/repro_torch/``;
 3. kernels  — each kernel against its plain version on the card:
               ``possibility_v`` at every size the main paths launch it
-              (N = 16, 25, 256, 1024; integer T bit for bit, real T to
+              (N = 8, 16, 25, 256, 1024; integer T bit for bit, real T to
               rtol 1e-12); ``possibility_weights`` on the Fig. 1 5x5
-              plans and torus(16,16) (offsets 1 and 2) and mesh2d(32,32),
+              plans, torus(2,4) and torus(16,16) (offsets 1 and 2) and
+              mesh2d(32,32),
               within one float32 ulp of the twin and of
               ``possibility_v``'s ``V.sum(1)`` and ``V[c, n_c]``; both
               timed beside a bound of 3 warp instructions a triple, their
@@ -51,7 +52,10 @@ Main path of slice 2 (launch counts from 0 again):
               and cached self-attention at Sq 16 and 1) and at a GQA
               (internlm2) and a D = 80 (stablelm) shape, bf16 and fp32;
               and at Jamba's (B 4, GQA 64/8, D 128: the prefill's 2 048
-              queries and a decode step against the 2 080-row cache); the
+              queries and a decode step against the 2 080-row cache); and
+              at the dense family's served shapes (internlm2 GQA 16/8 at
+              16- and 2 048-token prompts and their decode steps,
+              stablelm D 80 and codeqwen D 128, MHA 32); the
               path each shape takes (split-KV, tensor cores, CUDA cores)
               and its split count, µs per launch beside the twin,
               ``scaled_dot_product_attention`` and the bound;
@@ -107,7 +111,28 @@ Main path of slice 12 (launch counts from 0 again):
               and warm (plan ms); the three stages at ``BENCH_QUICK``
               lengths against ``tests/goldens/service_4x4.json``; any
               retried or failed cell fails the phase;
-19. summary — attention end to end (whisper's ``generate`` busy time
+Main paths of slice 13 (launch counts from 0 before each):
+19. mltraffic — the reference's ML-traffic stage: four workloads (qwen2-moe
+              decode; dbrx, internlm2, stablelm train + decode) derived
+              from the reference's recorded post-SPMD HLO
+              (``tests/goldens/mltraffic/``), each matrix on torus(2,4)
+              planned with ``build_plan(use_kernel=True)``, refined
+              (``greedy_refine``) and certified; against
+              ``tests/goldens/mltraffic.json``: ops, totals, matrices bit
+              for bit, max link loads, choice tables, certificates; flows
+              conserved per phase and kind; then one ``CampaignJob`` on
+              the card (XY, BiDOR; rates 0.1, 0.3) at 2 000 and at 200
+              cycles, rows against the golden's;
+20. dense   — internlm2-1.8b at its published widths, nothing cut, bf16,
+              the registry's weights drawn on the card:
+              ``ServeEngine.generate`` for 4 requests of 16 prompt and 24
+              new tokens (one ``flash_attention`` launch a layer and
+              call); then, off the counted path, the plain twins (logits
+              of every step), warm timings and the profile, the same at
+              4 × 2 048-token prompts, the fp32 run (tokens identical),
+              stablelm-3b and codeqwen1.5-7b one ``generate`` each, and
+              ``tests/goldens/serve_dense_smoke.json`` on the card;
+21. summary — attention end to end (whisper's ``generate`` busy time
               and a Jamba decode step's, with the ``flash_fwd*`` kernels'
               share); the flit step at 4x4, 5x5, 16x16 and 32x32 (the
               chunk kernel) and 17x17 and 64x64 (the grid kernel): µs
@@ -160,6 +185,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -365,9 +391,10 @@ def _terms(terms) -> str:
 def check_possibility(torch, np, cuda, sass):
     """possibility_v as the planner calls it (du = dn = dist, offset 0)
     at every size the main paths launch it, each with the thread tile its
-    layout picks (4x4, both 5x5 meshes, torus16x16: 2 x 2; mesh32x32:
-    8 x 4): integer T bit for bit, real T to rtol 1e-12; µs per launch at
-    N = C = 1024 beside the plain twin and the bound."""
+    layout picks (torus2x4 (the ML-traffic stage, N = 8), 4x4, both 5x5
+    meshes, torus16x16: 2 x 2; mesh32x32: 8 x 4): integer T bit for bit,
+    real T to rtol 1e-12; µs per launch at N = 8 and at N = C = 1024
+    beside the plain twin and the bound."""
     from repro_torch import core
     from repro_torch.kernels.possibility import (possibility_v,
                                                  possibility_v_plain)
@@ -375,7 +402,8 @@ def check_possibility(torch, np, cuda, sass):
 
     rng = np.random.default_rng(0)
     worst = 0.0
-    for topo in (core.mesh2d(4, 4), core.mesh2d(5, 5),
+    small = None
+    for topo in (core.torus(2, 4), core.mesh2d(4, 4), core.mesh2d(5, 5),
                  core.mesh2d_edge_io(5, 5), core.torus(16, 16),
                  core.mesh2d(32, 32)):
         n = topo.num_nodes
@@ -404,6 +432,17 @@ def check_possibility(torch, np, cuda, sass):
             if not ok:
                 raise SystemExit(f"possibility_v disagrees with plain on "
                                  f"{topo.name} ({kind} T)")
+        if small is None:
+            small = (n, dist, t)
+    n8, d8, t8 = small
+    ms8 = time_launches(
+        torch, [lambda r: possibility_v(d8, d8, t8, d8, offset=0)], 200)[0]
+    plain8 = time_wall(
+        torch, lambda: possibility_v_plain(d8, d8, t8, d8, offset=0), 3)
+    bound8, by8, _ = _poss_bound(n8 ** 3, n8 * n8 * 28)
+    log(f"kernels: possibility_v N={n8} (torus2x4): {ms8 * 1e3:.2f}us per "
+        f"launch; bound {bound8 * 1e3:.4f}us ({by8}); plain "
+        f"{plain8:.3f}ms")
     ms = time_launches(
         torch, [lambda r: possibility_v(dist, dist, t, dist, offset=0)],
         100)[0]
@@ -434,8 +473,9 @@ def check_possibility_weights(torch, np, cuda, sass):
     """possibility_weights against its plain twin and against
     possibility_v (W = V.sum(1), W_drn = V[c, n_c], since dn[c, n_c] = 0)
     within one float32 ulp, on the Fig. 1 5x5 plans (25 nodes fill no
-    tile), torus(16,16) and mesh2d(32,32), offsets 1 and 2 (mesh2d(32,32):
-    1); event-timed on each topology the nrank phase plans.  Returns
+    tile), torus(2,4) (the ML-traffic stage), torus(16,16) and
+    mesh2d(32,32), offsets 1 and 2 (mesh2d(32,32): 1); event-timed on
+    each topology the nrank phase and the ML-traffic stage plan.  Returns
     (kernel row, {label: ms})."""
     from repro_torch import core
     from repro_torch.core import mesh2d, torus
@@ -448,7 +488,8 @@ def check_possibility_weights(torch, np, cuda, sass):
     cases = [(f"{name} (5x5)", getattr(core, topo_fn)(5, 5), pattern, (1, 2))
              for name, topo_fn, pattern in FIG1]
     t16, m32 = torus(16, 16), mesh2d(32, 32)
-    cases += [("torus16x16 uniform", t16, "uniform", (1, 2)),
+    cases += [("torus2x4 random", torus(2, 4), "random", (1, 2)),
+              ("torus16x16 uniform", t16, "uniform", (1, 2)),
               ("torus16x16 random", t16, "random", (1, 2)),
               ("mesh32x32 random", m32, "random", (1,))]
     for label, topo, kind, offsets in cases:
@@ -480,7 +521,7 @@ def check_possibility_weights(torch, np, cuda, sass):
                 raise SystemExit(f"possibility_weights disagrees on {label}, "
                                  f"offset {offset}")
     kernel_ms = {}
-    for label, topo in (("5x5 mesh", mesh2d(5, 5)),
+    for label, topo in (("torus2x4", torus(2, 4)), ("5x5 mesh", mesh2d(5, 5)),
                         ("5x5 edge-I/O", core.mesh2d_edge_io(5, 5)),
                         ("torus16x16", t16), ("mesh32x32", m32)):
         a = prepare_weights(topo.distances, rng.random((topo.num_nodes,) * 2),
@@ -1635,6 +1676,20 @@ FLASH_SHAPES = (
     # slice 4's attention layer against its 2 080-row cache (GQA 64/8)
     ("jamba prefill", 4, 2048, 2080, 64, 8, 128, False, 0),
     ("jamba decode", 4, 1, 2080, 64, 8, 128, False, 2070),
+    # slice 13's served shapes: internlm2 (GQA 16/8, D 128) at the
+    # example's batch and at 2 048-token prompts, stablelm (MHA 32, D 80)
+    # and codeqwen (MHA 32, D 128), each against its whole cache
+    ("internlm2 prefill", 4, 16, SERVE_MAX_LEN, 16, 8, 128, False, 0),
+    ("internlm2 decode", 4, 1, SERVE_MAX_LEN, 16, 8, 128, False,
+     SERVE_PROMPT + SERVE_NEW - 2),
+    ("internlm2 long prefill", 4, 2048, 2080, 16, 8, 128, False, 0),
+    ("internlm2 long decode", 4, 1, 2080, 16, 8, 128, False, 2070),
+    ("stablelm prefill", 4, 16, SERVE_MAX_LEN, 32, 32, 80, False, 0),
+    ("stablelm decode", 4, 1, SERVE_MAX_LEN, 32, 32, 80, False,
+     SERVE_PROMPT + SERVE_NEW - 2),
+    ("codeqwen prefill", 4, 16, SERVE_MAX_LEN, 32, 32, 128, False, 0),
+    ("codeqwen decode", 4, 1, SERVE_MAX_LEN, 32, 32, 128, False,
+     SERVE_PROMPT + SERVE_NEW - 2),
 )
 # fp32 at the reference's 2e-5; bf16 at one bf16 unit (2**-7), about four
 # times the worst error measured at these shapes, tighter than the
@@ -2205,12 +2260,13 @@ def _jamba(torch, np, cuda, dtype):
     return cfg, ServeEngine(cfg, model, JAMBA_MAX_LEN), prompts, init_s
 
 
-def _generate(torch, engine, prompts):
-    """generate with every call's logits, host-timed around synchronised
-    work."""
+def _generate(torch, engine, prompts, new=None):
+    """generate (``new`` tokens, default Jamba's) with every call's
+    logits, host-timed around synchronised work."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    toks, logits = engine.generate(prompts, JAMBA_NEW, return_logits=True)
+    toks, logits = engine.generate(prompts, new or JAMBA_NEW,
+                                   return_logits=True)
     torch.cuda.synchronize()
     return toks, logits, (time.perf_counter() - t0) * 1e3
 
@@ -2711,6 +2767,545 @@ def run_service(torch, np, cuda, paper):
     log(f"service: phase {time.perf_counter() - t_phase:.1f}s")
 
 
+# --------------------------------------------------------------------- #
+# slice 13: ML traffic from the reference's recorded HLO
+# --------------------------------------------------------------------- #
+MLTRAFFIC_GOLDEN = os.path.join(HERE, "tests", "goldens", "mltraffic.json")
+MLTRAFFIC_HLO = os.path.join(HERE, "tests", "goldens", "mltraffic")
+# the stage's campaign at full length (BENCH_QUICK=0), then at QUICK's
+MLTRAFFIC_CYCLES = (2000, 200)
+MLTRAFFIC_TOPO = (2, 4)
+MLTRAFFIC_INTS = ("injected", "ejected", "in_flight", "reorder",
+                  "meas_cycles", "max_latency", "saturated")
+MLTRAFFIC_FLOATS = ("throughput", "offered", "avg_latency", "p50_latency",
+                    "p90_latency", "p99_latency", "link_load_max", "lcv")
+
+
+def op_record(op) -> list:
+    """A collective op as JSON: [name, kind, size_bytes, wire_bytes,
+    groups, pairs, count]."""
+    return [op.name, op.kind, op.size_bytes, op.wire_bytes,
+            [list(g) for g in op.groups], [list(p) for p in op.pairs],
+            op.count]
+
+
+def point_record(p) -> dict:
+    """A campaign point as JSON: its coordinates and statistics."""
+    r = p.result
+    return {"workload": p.workload, "algo": p.algo.name, "rate": p.rate,
+            "seed": p.seed, "injected": int(r.injected_flits),
+            "ejected": int(r.ejected_flits),
+            "in_flight": int(r.in_flight_flits),
+            "reorder": int(r.reorder_value),
+            "meas_cycles": int(r.meas_cycles),
+            "max_latency": float(r.max_latency),
+            "saturated": bool(r.saturated),
+            "throughput": float(r.throughput),
+            "offered": float(r.offered),
+            "avg_latency": float(r.avg_latency),
+            "p50_latency": float(r.p50_latency),
+            "p90_latency": float(r.p90_latency),
+            "p99_latency": float(r.p99_latency),
+            "link_load_max": float(r.link_load_max), "lcv": float(r.lcv)}
+
+
+def mltraffic_plans(np, device, hlo_dir=MLTRAFFIC_HLO):
+    """The stage's body for each workload on the port: derived from the
+    recorded HLO, its matrix on torus(2,4), ``build_plan(use_kernel=True)``
+    (the possibility pair at N = 8), ``greedy_refine(sweeps=3)`` from the
+    better of the plan and XY, ``certify_table(traffic=)``.  Returns
+    (records in ``mltraffic.json``'s layout, workloads, the MoE
+    workloads' refined choice tables)."""
+    from repro_torch.analysis.hlo import collective_ops
+    from repro_torch.core import (bidor, build_plan, certify_table,
+                                  link_load_stats, torus)
+    from repro_torch.core.bidor import greedy_refine
+    from repro_torch.noc.mltraffic import (STAGE_GRID, derive_from_hlo,
+                                           read_hlo)
+
+    topo = torus(*MLTRAFFIC_TOPO)
+    xy = bidor(topo, np.zeros(topo.num_nodes))
+
+    def mx(tm, table):
+        return float(link_load_stats(topo, tm, table)["max"])
+
+    recs, wls, tables = [], [], {}
+    for spec, moe in STAGE_GRID:
+        texts = read_hlo(spec, hlo_dir)
+        wl = derive_from_hlo(spec, texts)
+        tm = wl.matrix_for(topo)
+        plan = build_plan(topo, tm, use_kernel=True, device=device)
+        use_plan = mx(tm, plan.table) <= mx(tm, xy)
+        ref = greedy_refine(topo, tm, plan.table if use_plan else xy,
+                            sweeps=3)
+        cert = certify_table(topo, ref, traffic=tm)
+        if moe:
+            tables[wl.name] = ref.choice
+        wls.append(wl)
+        recs.append({
+            "name": wl.name, "spec": dataclasses.asdict(spec),
+            "fingerprint": spec.fingerprint(), "moe": moe,
+            "op_counts": wl.meta["collective_op_counts"],
+            "ops": {ph: [op_record(op) for op in collective_ops(
+                texts[ph], spec.num_devices)] for ph in spec.phases},
+            "totals": wl.totals,
+            "matrix": np.asarray(tm).tolist(),
+            "max_load": {"xy": mx(tm, xy), "bidor": mx(tm, plan.table),
+                         "refined": mx(tm, ref)},
+            "start": "plan" if use_plan else "xy",
+            "plan_choice": np.asarray(plan.table.choice).tolist(),
+            "refined_choice": np.asarray(ref.choice).tolist(),
+            "cert": cert.verdict})
+    return recs, wls, tables
+
+
+def mltraffic_spec(noc, topo, workloads, cycles: int):
+    """The stage's campaign grid: XY and BiDOR, rates 0.1 and 0.3, seed
+    0, ``cycles`` long (warmup a quarter, drain a tenth)."""
+    return noc.CampaignSpec(
+        topo=topo, algos=(noc.Algo.XY, noc.Algo.BIDOR), patterns=(),
+        workloads=tuple(workloads), rates=(0.1, 0.3), seeds=(0,),
+        base=noc.SimConfig(cycles=cycles, warmup=cycles // 4,
+                           drain=cycles // 10))
+
+
+def mltraffic_plan_mismatches(np, want: dict, recs: list) -> list[str]:
+    """The port's records against ``mltraffic.json``: everything parsed
+    and derived exactly (the matrices bit for bit), the max link loads
+    within 1e-12, the choice tables equal."""
+    got = json.loads(json.dumps(recs))          # the golden's JSON types
+    bad = []
+    if [g["name"] for g in got] != [w["name"] for w in want["workloads"]]:
+        return [f"workloads {[g['name'] for g in got]}"]
+    for w, g, rec in zip(want["workloads"], got, recs):
+        for k in ("spec", "fingerprint", "moe", "op_counts", "ops",
+                  "totals", "start", "cert", "plan_choice",
+                  "refined_choice"):
+            if g[k] != w[k]:
+                bad.append(f"{w['name']}: {k} differs")
+        if not np.array_equal(np.asarray(rec["matrix"]),
+                              np.asarray(w["matrix"])):
+            bad.append(f"{w['name']}: matrix not bit for bit")
+        for k, v in w["max_load"].items():
+            if abs(g["max_load"][k] - v) > 1e-12:
+                bad.append(f"{w['name']}: max load {k} {g['max_load'][k]!r}"
+                           f" != {v!r}")
+    return bad
+
+
+def mltraffic_row_mismatches(want_rows: list, got_rows: list) -> list[str]:
+    """Campaign rows: the coordinates and integer counts exact, the float
+    statistics to 6 significant digits (relative 1e-6)."""
+    if len(got_rows) != len(want_rows):
+        return [f"{len(got_rows)} rows != {len(want_rows)}"]
+    bad = []
+    for w, g in zip(want_rows, got_rows):
+        key = f"{w['workload']}/{w['algo']}/{w['rate']}/{w['seed']}"
+        for k in ("workload", "algo", "rate", "seed") + MLTRAFFIC_INTS:
+            if g[k] != w[k]:
+                bad.append(f"{key}: {k} {g[k]!r} != {w[k]!r}")
+        for k in MLTRAFFIC_FLOATS:
+            if abs(g[k] - w[k]) > 1e-6 * max(abs(g[k]), abs(w[k])):
+                bad.append(f"{key}: {k} {g[k]!r} != {w[k]!r}")
+    return bad
+
+
+def check_conservation(np, wl) -> float:
+    """Per phase and per kind, the flow matrix sums to the HLO's fabric
+    bytes (relative 1e-12, the reference's own test); returns the worst
+    relative gap."""
+    worst = 0.0
+    for ph, kinds in wl.totals.items():
+        if set(kinds) != set(wl.flows[ph]):
+            raise SystemExit(f"mltraffic: {wl.name} {ph}: kinds "
+                             f"{sorted(wl.flows[ph])} != {sorted(kinds)}")
+        for kind, tot in kinds.items():
+            gap = abs(float(wl.flows[ph][kind].sum()) - tot) / max(tot, 1.0)
+            worst = max(worst, gap)
+            if gap > 1e-12:
+                raise SystemExit(f"mltraffic: {wl.name} {ph} {kind}: flows "
+                                 f"sum off the HLO total by {gap!r}")
+    return worst
+
+
+def run_mltraffic(torch, np, cuda):
+    """Slice 13's first main path: the reference's ML-traffic stage on the
+    card.  The four workloads derived from the recorded HLO against
+    ``tests/goldens/mltraffic.json`` (ops, totals, matrices, max loads,
+    choice tables, certificates), conservation per phase and kind, every
+    refined table ``clean`` and never above XY (strictly below where the
+    reference's is), then one ``CampaignJob`` on the card at 2 000 and at
+    200 cycles (MoE cells on the refined tables), rows against the
+    golden's; a retried or failed cell fails the phase."""
+    import shutil
+
+    from repro_torch import noc
+    from repro_torch.core import torus
+
+    t0 = time.perf_counter()
+    with open(MLTRAFFIC_GOLDEN) as f:
+        want = json.load(f)
+    recs, wls, tables = mltraffic_plans(np, cuda)
+    plan_s = time.perf_counter() - t0
+    bad = mltraffic_plan_mismatches(np, want, recs)
+    for rec, wl, w in zip(recs, wls, want["workloads"]):
+        gap = check_conservation(np, wl)
+        m = rec["max_load"]
+        log(f"mltraffic: {wl.name} ops={sum(rec['op_counts'].values())} "
+            f"xy={m['xy']!r} bidor={m['bidor']!r} refined={m['refined']!r} "
+            f"win={(m['xy'] - m['refined']) / m['xy']:+.4f} from "
+            f"{rec['start']}, cert={rec['cert']}, conservation gap {gap!r}")
+        if rec["cert"] != "clean" or m["refined"] > m["xy"] + 1e-12:
+            raise SystemExit(f"mltraffic: {wl.name}: refined table "
+                             f"{rec['cert']}, {m['refined']!r} against XY "
+                             f"{m['xy']!r}")
+        strict = w["max_load"]["refined"] < w["max_load"]["xy"] * (1 - 1e-6)
+        if rec["moe"] and strict and not (
+                m["refined"] < m["xy"] * (1 - 1e-6)):
+            raise SystemExit(f"mltraffic: {wl.name}: refined not under XY")
+    if bad:
+        raise SystemExit("mltraffic: against mltraffic.json:\n  "
+                         + "\n  ".join(bad[:12]))
+    log(f"mltraffic: 4 workloads parsed, derived and planned "
+        f"({plan_s:.2f}s): ops, totals, matrices, max loads, choice "
+        f"tables and certificates equal mltraffic.json")
+
+    root = os.path.join(HERE, "artifacts", "campaigns_torch", "mltraffic")
+    shutil.rmtree(root, ignore_errors=True)
+    topo = torus(*MLTRAFFIC_TOPO)
+    for cycles in MLTRAFFIC_CYCLES:
+        t1 = time.perf_counter()
+        spec = mltraffic_spec(noc, topo, wls, cycles)
+        job, _ = _service_job(cuda, spec, root, f"ml_traffic-{cycles}",
+                              bidor_tables=tables)
+        res = job.result()
+        rows = [point_record(p) for p in res.points]
+        bad = mltraffic_row_mismatches(want["campaign"][str(cycles)], rows)
+        for p in res.points:
+            _check_result(p.result, np)
+        lat = {f"{wl.name}/{a.name}": [
+            round(float(np.mean([p.result.p50_latency for p in pts])), 1),
+            round(float(np.mean([p.result.p99_latency for p in pts])), 1)]
+            for wl in wls for a in spec.algos
+            for pts in [res.select(workload=wl.name, algo=a)]}
+        log(f"mltraffic: campaign {cycles} cycles, {len(job.cells)} cells "
+            f"of 2 lanes in {time.perf_counter() - t1:.2f}s (cells "
+            f"{sum(res.wall_clock_s.values()):.3f}s, plans "
+            f"{job.executor.plan_s * 1e3:.1f}ms); {len(rows)} rows against "
+            f"mltraffic.json: {'ok' if not bad else 'MISMATCH'}; mean "
+            f"[p50, p99] {json.dumps(lat)}")
+        if bad:
+            raise SystemExit(f"mltraffic: {cycles}-cycle rows:\n  "
+                             + "\n  ".join(bad[:12]))
+    log(f"mltraffic: phase {time.perf_counter() - t0:.1f}s")
+
+
+# --------------------------------------------------------------------- #
+# slice 13: the dense LM family served at full width
+# --------------------------------------------------------------------- #
+# internlm2-1.8b at its published widths, nothing cut; the batch of the
+# reference's examples/serve_decode.py (4 requests, 16-token prompts, 24
+# new tokens, a cache of prompt + new + 8 rows)
+DENSE = "internlm2-1.8b"
+DENSE_OTHERS = ("stablelm-3b", "codeqwen1.5-7b")
+DENSE_B, DENSE_PROMPT, DENSE_NEW = 4, 16, 24
+DENSE_LONG = 2048
+
+
+def _dense(torch, np, cuda, arch, dtype, prompt_len=DENSE_PROMPT):
+    """``arch``'s published configuration in ``dtype``: the registry's
+    weights (seed 0, the reference's init scales, drawn on the card),
+    prompts from numpy seed 1, an engine with a cache of prompt + new + 8
+    rows."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import registry
+    from repro_torch.serve import ServeEngine
+
+    cfg = get_arch(arch).full.replace(dtype=dtype)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = registry.init(cfg, seed=0, device=cuda)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = np.random.default_rng(1).integers(
+        0, cfg.vocab, (DENSE_B, prompt_len)).astype(np.int32)
+    engine = ServeEngine(cfg, model, prompt_len + DENSE_NEW + 8)
+    return cfg, engine, prompts, init_s
+
+
+def _check_tokens(label, toks, vocab, want_shape):
+    if toks.shape != want_shape or not ((toks >= 0) & (toks < vocab)).all():
+        raise SystemExit(f"{label}: bad tokens {toks}")
+    distinct = min(len(set(row)) for row in toks.tolist())
+    if distinct < 2:
+        raise SystemExit(f"{label}: a request repeats one token, so the "
+                         f"checks against the twin would prove little: "
+                         f"{toks}")
+    return distinct
+
+
+def run_dense_main(torch, np, cuda, out):
+    """Slice 13's second main path: internlm2-1.8b bf16 at full width
+    through ``ServeEngine.generate``, one ``flash_attention`` launch per
+    layer and call (the prefill and each decode step)."""
+    from repro_torch import kernels
+    from repro_torch.models.common import param_count_tree
+
+    cfg, engine, prompts, init_s = _dense(torch, np, cuda, DENSE, "bfloat16")
+    n_params = param_count_tree(engine.params)
+    if n_params != cfg.param_count():
+        raise SystemExit(f"dense: {n_params} parameters, count_params "
+                         f"{cfg.param_count()}")
+    torch.cuda.reset_peak_memory_stats()
+    before = kernels.LAUNCHES["flash_attention"]
+    toks, logits, gen_ms = _generate(torch, engine, prompts, DENSE_NEW)
+    calls = cfg.n_layers * DENSE_NEW
+    got = kernels.LAUNCHES["flash_attention"] - before
+    if got != calls:
+        raise SystemExit(f"dense: {got} flash_attention launches, expected "
+                         f"{calls}")
+    if not all(bool(torch.isfinite(x).all()) for x in logits):
+        raise SystemExit("dense: non-finite logits")
+    distinct = _check_tokens("dense", toks, cfg.vocab, (DENSE_B, DENSE_NEW))
+    log(f"dense: {cfg.name} at published widths ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; {n_params} "
+        f"parameters, bf16, init {init_s:.2f}s) B={DENSE_B} "
+        f"prompt={DENSE_PROMPT} new={DENSE_NEW} (first run) generate "
+        f"{gen_ms:.1f}ms, {got} flash_attention launches, peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"fewest distinct tokens in a request {distinct}; tokens[0]="
+        f"{toks[0].tolist()}")
+    out.update(cfg=cfg, engine=engine, prompts=prompts, toks=toks,
+               logits=logits)
+
+
+def _step_errs(np, got, want):
+    """Each step's largest |got - want| (lists of logits tensors)."""
+    return np.array([float((g.float() - w.float()).abs().max())
+                     for g, w in zip(got, want)])
+
+
+def _dense_vs_twins(torch, np, label, engine, prompts, toks, logits, rule):
+    """The kernels' bf16 logits of every step (``logits``, greedy
+    ``toks``) against the plain twins' fed the same tokens, and both
+    against the fp32 logits of the same weights, which are upcast in
+    place: ``engine`` holds them after the call, and the fp32 engine is
+    returned.  At each step the kernels' error against fp32 may be at
+    most twice the twins' own: a wrong key range or softmax errs by the
+    logits' own size, while bf16 rounding through 24–32 layers already
+    puts the twins 1–2 % of the step's largest logit from fp32.  With
+    ``rule``, the kernels' logits must also lie within 2e-2 of each
+    step's largest logit from the twins'."""
+    from repro_torch.serve import ServeEngine
+
+    with torch.inference_mode(), plain_twins():
+        p_toks, _, p_ms = _generate(torch, engine, prompts, DENSE_NEW)
+        twin = engine.teacher_forced_logits(prompts, toks)
+    if not all(bool(torch.isfinite(x).all()) for x in logits):
+        raise SystemExit(f"dense {label}: non-finite logits")
+    vs_twin = _step_errs(np, logits, twin)
+    share = vs_twin / np.array([float(w.float().abs().max()) for w in twin])
+    e32 = ServeEngine(engine.cfg.replace(dtype="float32"),
+                      engine.params.float(), engine.max_len)
+    torch.cuda.empty_cache()
+    truth = e32.teacher_forced_logits(prompts, toks)
+    err_k, err_t = _step_errs(np, logits, truth), _step_errs(np, twin, truth)
+    ratio = err_k / np.maximum(err_t, 1e-30)
+    log(f"dense: {label} bf16 kernels vs plain twins on the card: logits "
+        f"of every step max_abs_err={float(vs_twin.max())!r} = {share.max():.4f} "
+        f"of the step's largest logit ({'held to 0.02' if rule else 'shown'}"
+        f"), greedy token agreement {float((toks == p_toks).mean()):.3f}, "
+        f"the twins' generate {p_ms:.1f}ms; against the fp32 logits of the "
+        f"same weights, worst step: kernels {float(err_k.max())!r}, twins "
+        f"{float(err_t.max())!r}, kernels/twins {ratio.max():.3f} (limit 2)")
+    if rule and (share > 2e-2).any():
+        raise SystemExit(f"dense {label}: bf16 logits {share.max():.4f} of "
+                         f"the step's largest logit from the twins'")
+    if (ratio > 2).any():
+        raise SystemExit(f"dense {label}: the kernels' bf16 error {err_k} "
+                         f"over twice the twins' {err_t}")
+    return e32
+
+
+def _fp32_vs_twins(torch, np, label, engine, prompts):
+    """fp32 ``generate`` through the kernels and through the plain twins:
+    the same tokens, every step's logits within rtol/atol 1e-4."""
+    t32, l32, ms32 = _generate(torch, engine, prompts, DENSE_NEW)
+    with torch.inference_mode(), plain_twins():
+        pt32, pl32, pms32 = _generate(torch, engine, prompts, DENSE_NEW)
+    if not (t32 == pt32).all():
+        raise SystemExit(f"dense {label} fp32: kernel tokens differ from "
+                         f"the plain twins'")
+    err32 = _check_logits(np, f"dense {label} fp32 kernel vs plain", l32,
+                          pl32, 1e-4, 1e-4, scaled=False)
+    log(f"dense: {label} fp32 (generate {ms32:.1f}ms, twins {pms32:.1f}ms) "
+        f"kernels vs plain twins: tokens identical, logits of every step "
+        f"max_abs_err={err32!r} (rtol/atol 1e-4)")
+
+
+def run_dense_long(torch, np, cuda, cfg):
+    """internlm2 at 4 x 2 048-token prompts, off the counted path: bf16
+    ``generate`` (the tensor-core prefill, split decode steps with their
+    combine), timed and held against the twins and fp32; then on the
+    same weights in fp32 the kernels (the CUDA-core prefill, fp32 split
+    steps) give the twins' tokens and logits within rtol/atol 1e-4."""
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.models import lm
+    from repro_torch.serve import make_prefill
+
+    _, eng, prompts, _ = _dense(torch, np, cuda, DENSE, "bfloat16",
+                                DENSE_LONG)
+    flash_kernel.reset_path_launches()
+    before = kernels.LAUNCHES["flash_attention"]
+    toks, logits, first_ms = _generate(torch, eng, prompts, DENSE_NEW)
+    paths = dict(flash_kernel.PATH_LAUNCHES)
+    n = kernels.LAUNCHES["flash_attention"] - before
+    _check_tokens("dense long", toks, cfg.vocab, (DENSE_B, DENSE_NEW))
+    if n != cfg.n_layers * DENSE_NEW or not (
+            paths["tc"] and paths["split"] and paths["combine"]):
+        raise SystemExit(f"dense long: {n} launches, paths {paths}")
+    toks_dev = torch.as_tensor(prompts, device=cuda)
+    with torch.inference_mode():
+        pre_ms = time_wall(torch, lambda: make_prefill(cfg)(
+            eng.params, toks_dev,
+            lm.init_cache(cfg, DENSE_B, eng.max_len, device=cuda)), 2)
+    gen_ms = min(_generate(torch, eng, prompts, DENSE_NEW)[2]
+                 for _ in range(2))
+    log(f"dense: {cfg.name} bf16 B={DENSE_B} prompt={DENSE_LONG} "
+        f"new={DENSE_NEW}: first generate {first_ms:.1f}ms, warm "
+        f"{gen_ms:.2f}ms = prefill {pre_ms:.2f}ms + {DENSE_NEW - 1} steps "
+        f"at {(gen_ms - pre_ms) / (DENSE_NEW - 1):.3f}ms; flash kernels by "
+        f"path {json.dumps(paths)}")
+    e32 = _dense_vs_twins(torch, np, f"{cfg.name} prompt {DENSE_LONG}", eng,
+                          prompts, toks, logits, rule=False)
+    del eng, logits
+    _fp32_vs_twins(torch, np, f"{cfg.name} prompt {DENSE_LONG}", e32,
+                   prompts)
+    del e32
+    torch.cuda.empty_cache()
+
+
+def run_dense_checks(torch, np, cuda, main):
+    """Off the counted path: warm timings and the device profile, the
+    plain twins and fp32 on the same weights, 4 x 2 048-token prompts,
+    the fp32 run, stablelm-3b and codeqwen1.5-7b, the smoke golden."""
+    from repro_torch import convert, kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.models import lm
+    from repro_torch.serve import ServeEngine, golden, make_prefill
+
+    cfg, engine, prompts = main["cfg"], main["engine"], main["prompts"]
+
+    # warm timings: generate, the prefill alone; the device profile
+    runs = [_generate(torch, engine, prompts, DENSE_NEW)[2]
+            for _ in range(3)]
+    gen_ms = min(runs)
+    prefill = make_prefill(cfg)
+    toks_dev = torch.as_tensor(prompts, device=cuda)
+
+    def prefill_once():
+        cache = lm.init_cache(cfg, DENSE_B, engine.max_len, device=cuda)
+        prefill(engine.params, toks_dev, cache)
+
+    with torch.inference_mode():
+        pre_ms = time_wall(torch, prefill_once, 3)
+        prof_pre = _profile(torch, prefill_once)
+        prof_gen = _profile(torch, lambda: engine.generate(prompts,
+                                                           DENSE_NEW))
+    step_ms = (gen_ms - pre_ms) / (DENSE_NEW - 1)
+    wbytes = cfg.param_count() * 2
+    log(f"dense: warm (best of 3): generate {gen_ms:.2f}ms = prefill "
+        f"{pre_ms:.2f}ms + {DENSE_NEW - 1} decode steps at {step_ms:.3f}ms; "
+        f"{DENSE_B * DENSE_NEW / gen_ms * 1e3:.1f} new tokens/s; weights "
+        f"{wbytes / 1e9:.3f} GB, read once a step at 3.35e12 B/s: "
+        f"{wbytes / HBM_BYTES_PER_S * 1e3:.3f}ms")
+    if prof_pre is None or prof_gen is None:
+        log("dense: profile: no device time in the trace (busy share and "
+            "kernel shares not measured)")
+    else:
+        dev_pre = sum(ms for _, ms in prof_pre.values())
+        dev_dec = sum(ms for _, ms in prof_gen.values()) - dev_pre
+        fl_pre = _share(prof_pre, "flash_fwd")
+        fl_dec = _share(prof_gen, "flash_fwd") - fl_pre
+        n_dec = (sum(c for c, _ in prof_gen.values())
+                 - sum(c for c, _ in prof_pre.values())) / (DENSE_NEW - 1)
+        log(f"dense: profiled: prefill device busy {dev_pre:.3f}ms "
+            f"({dev_pre / pre_ms:.3f} of its wall), flash_fwd* {fl_pre:.3f}"
+            f"ms; decode steps {dev_dec / (DENSE_NEW - 1):.3f}ms busy a "
+            f"step ({dev_dec / (gen_ms - pre_ms):.3f} of the wall), "
+            f"flash_fwd* {fl_dec / (DENSE_NEW - 1) * 1e3:.2f}us a step, "
+            f"{n_dec:.0f} kernels a step")
+        dec = {k: (c - prof_pre.get(k, (0, 0.0))[0],
+                   ms - prof_pre.get(k, (0, 0.0))[1])
+               for k, (c, ms) in prof_gen.items()}
+        top = sorted(dec.items(), key=lambda kv: -kv[1][1])[:6]
+        log("dense: top kernels of the decode steps: " + "; ".join(
+            f"{k[:56]} x{c} {ms:.2f}ms" for k, (c, ms) in top))
+
+    # the served run against the twins and fp32 (the weights upcast)
+    _dense_vs_twins(torch, np, cfg.name, engine, prompts, main["toks"],
+                    main.pop("logits"), rule=True)
+    main.clear()
+    del engine, prefill
+    torch.cuda.empty_cache()
+
+    # 4 x 2 048-token prompts: the tensor-core prefill at GQA 16/8, then
+    # split decode steps with their combine over 2 080 rows
+    run_dense_long(torch, np, cuda, cfg)
+
+    # fp32 drawn as such: the kernels' tokens are the twins' exactly
+    _, e32, p32, _ = _dense(torch, np, cuda, DENSE, "float32")
+    _fp32_vs_twins(torch, np, cfg.name, e32, p32)
+    del e32
+    torch.cuda.empty_cache()
+
+    # the family's other two configurations, one generate each
+    for arch in DENSE_OTHERS:
+        ocfg, eng, pr, init_s = _dense(torch, np, cuda, arch, "bfloat16")
+        torch.cuda.reset_peak_memory_stats()
+        before = kernels.LAUNCHES["flash_attention"]
+        toks, logits, ms = _generate(torch, eng, pr, DENSE_NEW)
+        n = kernels.LAUNCHES["flash_attention"] - before
+        distinct = _check_tokens(arch, toks, ocfg.vocab,
+                                 (DENSE_B, DENSE_NEW))
+        if n != ocfg.n_layers * DENSE_NEW:
+            raise SystemExit(f"{arch}: {n} flash_attention launches")
+        log(f"dense: {ocfg.name} at published widths "
+            f"({ocfg.param_count()} parameters, bf16, init {init_s:.2f}s, "
+            f"{ocfg.n_heads}/{ocfg.n_kv_heads} heads of {ocfg.head_dim}) "
+            f"B={DENSE_B} prompt={DENSE_PROMPT} new={DENSE_NEW}: generate "
+            f"{ms:.1f}ms (first run), {n} flash_attention launches, peak "
+            f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+            f" GiB; fewest distinct tokens {distinct}")
+        e32 = _dense_vs_twins(torch, np, ocfg.name, eng, pr, toks, logits,
+                              rule=False)
+        del eng, e32, logits
+        torch.cuda.empty_cache()
+
+    # the smoke golden on the card (fp32, kernel path)
+    with open(os.path.join(HERE, "tests", "goldens",
+                           golden.DENSE_GOLDEN_NAME)) as f:
+        want = json.load(f)
+    for arch in golden.DENSE_ARCHS:
+        gcfg = get_arch(arch).smoke
+        tree, gprompts = golden.dense_numpy_case(gcfg)
+        gmodel = convert.dense_params_from_numpy(tree, gcfg, cuda)
+        gtoks, glogits = ServeEngine(
+            gcfg, gmodel, golden.DENSE_PROMPT_LEN + golden.DENSE_NEW_TOKENS
+            + golden.CACHE_SLACK).generate(gprompts,
+                                           golden.DENSE_NEW_TOKENS,
+                                           return_logits=True)
+        bad = golden.mismatches(want[gcfg.name], glogits[0].cpu(),
+                                [x.cpu() for x in glogits[1:]], gtoks, 1e-5)
+        log(f"dense: {golden.DENSE_GOLDEN_NAME} {gcfg.name} on the card "
+            f"(fp32, kernel path): {'ok' if not bad else 'MISMATCH'}")
+        if bad:
+            raise SystemExit(f"dense golden mismatch ({gcfg.name}):\n  "
+                             + "\n  ".join(bad))
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2751,7 +3346,7 @@ def main() -> int:
 
     # each main path runs with the counts from 0 and must launch every
     # kernel it goes through
-    serve, jamba, paper = {}, {}, {}
+    serve, jamba, paper, dense = {}, {}, {}, {}
     paths = {
         "slice 1 (plan, flit step, campaign)": (
             ("possibility_v", "simstep_chunk", "simstep_grid"),
@@ -2783,12 +3378,20 @@ def main() -> int:
                      run_instrumented_cell(torch, np, cuda))),
         "slice 12 (campaign service)": (
             ("possibility_v", "possibility_weights", "simstep_chunk"),
-            lambda: run_service(torch, np, cuda, paper))}
-    # both serving paths run attention's split kernel and its combine
+            lambda: run_service(torch, np, cuda, paper)),
+        "slice 13a (ML traffic from recorded HLO)": (
+            ("possibility_v", "possibility_weights", "simstep_chunk"),
+            lambda: run_mltraffic(torch, np, cuda)),
+        "slice 13b (internlm2-1.8b serving)": (
+            ("flash_attention",),
+            lambda: run_dense_main(torch, np, cuda, dense))}
+    # whisper and Jamba run attention's split kernel and its combine
     # (decode, cross-attention) and the tensor-core kernel (encoder,
-    # prefill); flash_attention counts one launch per call whatever its
-    # path, the path counts each kernel
-    flash_paths = ("split", "combine", "tc")
+    # prefill); internlm2's 16-token prompts and its decode steps over a
+    # 48-row cache take the split kernel in one key range (no combine);
+    # flash_attention counts one launch per call whatever its path, the
+    # path counts each kernel
+    flash_paths = {"slice 13b (internlm2-1.8b serving)": ("split",)}
     launches = {k: 0 for k in kernels.LAUNCHES}
     sizes = {"possibility_v": {}, "possibility_weights": {}}
     for label, (needed, drive) in paths.items():
@@ -2810,8 +3413,8 @@ def main() -> int:
             per_path = dict(flash_kernel.PATH_LAUNCHES)
             log(f"main path {label} flash_attention kernels by path: "
                 f"{json.dumps(per_path)}")
-            missing += [f"flash_attention {p}" for p in flash_paths
-                        if per_path[p] <= 0]
+            missing += [f"flash_attention {p}" for p in flash_paths.get(
+                label, ("split", "combine", "tc")) if per_path[p] <= 0]
         if missing:
             raise SystemExit(f"kernels never launched on the main path "
                              f"{label}: {missing}")
@@ -2821,6 +3424,9 @@ def main() -> int:
     whisper_e2e = run_serve_checks(torch, np, cuda, serve)
     serve.clear()
     jamba_e2e = run_jamba_checks(torch, np, cuda, jamba)
+    jamba.clear()
+    torch.cuda.empty_cache()
+    run_dense_checks(torch, np, cuda, dense)
     log(f"flash: end to end: whisper generate device busy "
         f"{_ms(whisper_e2e, 'busy')}, flash_fwd* {_ms(whisper_e2e, 'flash')}"
         f"; jamba decode step device busy {_ms(jamba_e2e, 'busy')}, "

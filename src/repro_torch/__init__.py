@@ -7,7 +7,8 @@ the stage-by-stage N-Rank oracle behind ``build_plan`` and the
 quasi-static control plane (:mod:`repro_torch.noc.ctrl`).  Slice 10
 adds the paper's other routing algorithms (YX, O1TURN, VALIANT, ROMM,
 odd-even) and trace replay (``run_trace_sweep``, ``clos_leaf_trace``).
-The
+Slice 13 adds ML collective traffic from recorded post-SPMD HLO
+(:mod:`repro_torch.noc.mltraffic`) and the dense LM family.  The
 planner's possibility passes and the simulator's flit step are
 hand-written CUDA kernels (:mod:`repro_torch.kernels`).  The package
 imports torch, numpy and the standard library only.

@@ -1,4 +1,6 @@
-"""Architecture configurations of the port (whisper-base and jamba-1.5-large-398b so far)."""
+"""Architecture configurations of the port: whisper-base,
+jamba-1.5-large-398b and the dense family (codeqwen1.5-7b,
+internlm2-1.8b, stablelm-3b)."""
 
 from .base import (ARCH_MODULES, SHAPES, ArchSpec, ShapeSpec, get_arch,
                    list_archs)

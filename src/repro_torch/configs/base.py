@@ -5,8 +5,9 @@ Every architecture exposes:
   * ``smoke`` — a reduced same-family configuration for CPU tests
     (small widths, tiny vocab).
 
-whisper-base and jamba-1.5-large-398b are ported; the reference's other
-eight configurations wait for their model families (ROADMAP item 11).
+whisper-base, jamba-1.5-large-398b and the dense family (codeqwen1.5-7b,
+internlm2-1.8b, stablelm-3b) are ported; the reference's other five
+configurations wait for their model families (ROADMAP item 11).
 
 Shapes:
   train_4k     seq 4096,   global_batch 256   → train_step
@@ -50,7 +51,8 @@ class ArchSpec:
 
 
 _REGISTRY: dict[str, ArchSpec] = {}
-ARCH_MODULES = ["whisper_base", "jamba_1_5_large"]
+ARCH_MODULES = ["codeqwen1_5_7b", "internlm2_1_8b", "jamba_1_5_large",
+                "stablelm_3b", "whisper_base"]
 
 FULL_ATTN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
 SUBQUADRATIC_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")

@@ -16,9 +16,10 @@ warm start for ``replan(prev=...)``), :func:`scenario` (events,
 policy and re-planner knobs) and :func:`ctrl_snapshot` (an epoch-boundary
 snapshot of a controlled run, which the port then resumes).  Both read the reference objects by their
 field names only.  So do a model's parameters:
-:func:`encdec_params_from_numpy` and :func:`hybrid_params_from_numpy`
-take the reference's whisper and Jamba parameter trees (nested dicts of
-numpy arrays, layers stacked on leading axes).
+:func:`encdec_params_from_numpy`, :func:`hybrid_params_from_numpy` and
+:func:`dense_params_from_numpy` take the reference's whisper, Jamba and
+dense-LM parameter trees (nested dicts of numpy arrays, layers stacked on
+leading axes).
 """
 
 from __future__ import annotations
@@ -32,14 +33,15 @@ import torch
 from .core.bidor import BiDORTable
 from .core.nrank import NRankResult
 from .device import resolve_device
-from .models import encdec, hybrid
+from .models import encdec, hybrid, lm
 from .models.common import ModelConfig
 from .noc import ctrl
 from .noc.sim import Tables, state_from_host, state_to_host
 
 __all__ = ["tables_from_numpy", "state_from_numpy", "state_to_numpy",
            "plan_from_numpy", "nrank_result", "scenario", "ctrl_snapshot",
-           "encdec_params_from_numpy", "hybrid_params_from_numpy"]
+           "encdec_params_from_numpy", "hybrid_params_from_numpy",
+           "dense_params_from_numpy"]
 
 
 def tables_from_numpy(tables, device=None) -> Tables:
@@ -176,5 +178,14 @@ def hybrid_params_from_numpy(tree: dict, cfg: ModelConfig,
     ``mamba_ln``, ``ffn_ln`` and ``ffn_dense`` on axis 1 by layer."""
     model = hybrid.Hybrid(cfg, None, "meta").to_empty(
         device=resolve_device(device))
+    _params_from_numpy(model, tree)
+    return model
+
+
+def dense_params_from_numpy(tree: dict, cfg: ModelConfig,
+                            device=None) -> lm.LM:
+    """The port's dense-LM parameters from the reference's tree
+    (``blocks`` stacked on a leading layer axis)."""
+    model = lm.LM(cfg, None, "meta").to_empty(device=resolve_device(device))
     _params_from_numpy(model, tree)
     return model

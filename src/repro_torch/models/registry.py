@@ -1,18 +1,19 @@
 """Model registry: family dispatch and parameter counting.
 
-The ``encdec`` (whisper) and ``hybrid`` (Jamba, without its MoE FFN)
-families are ported; the dense, moe, vlm and ssm families raise until
-ROADMAP item 11 brings them.
+The ``dense`` (codeqwen1.5-7b, internlm2-1.8b, stablelm-3b), ``encdec``
+(whisper) and ``hybrid`` (Jamba, without its MoE FFN) families are
+ported; the moe, vlm and ssm families raise until ROADMAP item 11 brings
+them.
 """
 
 from __future__ import annotations
 
 from types import ModuleType
 
-from . import encdec, hybrid
+from . import encdec, hybrid, lm
 from .common import ModelConfig, param_count_tree
 
-_FAMILY_MODULE: dict[str, ModuleType] = {"encdec": encdec,
+_FAMILY_MODULE: dict[str, ModuleType] = {"dense": lm, "encdec": encdec,
                                           "hybrid": hybrid}
 
 

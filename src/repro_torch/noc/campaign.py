@@ -20,8 +20,8 @@ table; with a plan cache (:class:`repro_torch.core.plan_cache.PlanCache`)
 the cached plans are served first and only the misses are planned.
 Cells run one at a time in any order (:class:`CampaignExecutor`), which
 is what the campaign service (:mod:`repro_torch.noc.service`) checkpoints
-and resumes.  Not ported yet: ``workloads`` (ML traffic, ROADMAP queue 1,
-item 10), which raises ``NotImplementedError``.
+and resumes.  ML workloads (:mod:`repro_torch.noc.mltraffic`) join the
+pattern axis as extra items, tagged in the ``workload`` column.
 """
 
 from __future__ import annotations
@@ -77,7 +77,13 @@ class CampaignSpec:
         :class:`repro_torch.noc.ctrl.Scenario` entries; each (pattern,
         algo, scenario) cell runs through the control plane.  Empty ()
         keeps the static grid.
-      workloads: not ported yet; must stay empty.
+      workloads: ML-workload axis — :class:`repro_torch.noc.mltraffic.MLWorkload`
+        entries (anything with ``.name`` and ``.matrix_for(topo)``) or
+        ``(name, pair counts)`` pairs, normalised by
+        ``traffic.from_pair_counts``.  They join the pattern axis as extra
+        items after the patterns (the same plans, plan cache, certifier
+        gate and cell enumeration), with their name in the ``workload``
+        column.
     """
 
     topo: Topology | None
@@ -105,14 +111,17 @@ class CampaignSpec:
 
     @property
     def num_points(self) -> int:
-        return (len(self.algos) * len(self.patterns) * len(self.rates)
+        return (len(self.algos)
+                * (len(self.patterns) + len(self.workloads))
+                * len(self.rates)
                 * len(self.seeds) * max(len(self.scenarios), 1)
                 * len(self.topo_axis))
 
     def pattern_items(self, topo: Topology | None = None,
                       ) -> list[tuple[str, np.ndarray]]:
-        """The pattern axis on ``topo`` (default ``self.topo``) as (name,
-        traffic matrix) pairs."""
+        """The pattern axis, then the workload axis, on ``topo`` (default
+        ``self.topo``) as (name, traffic matrix) pairs (``campaign_cells``
+        indexes items in this order)."""
         topo = self.topo if topo is None else topo
         items = []
         for p in self.patterns:
@@ -125,14 +134,18 @@ class CampaignSpec:
             else:
                 name, tm = p
                 items.append((str(name), np.asarray(tm, np.float64)))
+        for w in self.workloads:
+            if hasattr(w, "matrix_for"):
+                items.append((str(w.name), w.matrix_for(topo)))
+            else:
+                name, counts = w
+                items.append((str(name), traffic_mod.from_pair_counts(
+                    topo, np.asarray(counts, np.float64))))
         return items
 
 
 def check_spec(spec: CampaignSpec) -> None:
-    """Raise for the parts of a spec the port does not run yet."""
-    if spec.workloads:
-        raise NotImplementedError(
-            "ML workloads are not ported yet (ROADMAP queue 1, item 10)")
+    """Raise for an algorithm the spec's topologies cannot run."""
     for algo in spec.algos:
         for topo in spec.topo_axis:
             check_topology(spec.base.replace(algo=algo), topo.ndim)
@@ -175,15 +188,16 @@ class CampaignResult:
 
     def select(self, algo: Algo | None = None, pattern: str | None = None,
                rate: float | None = None, seed: int | None = None,
-               scenario: str | None = None,
-               topo: str | None = None) -> list[CampaignPoint]:
+               scenario: str | None = None, topo: str | None = None,
+               workload: str | None = None) -> list[CampaignPoint]:
         return [p for p in self.points
                 if (algo is None or p.algo == algo)
                 and (pattern is None or p.pattern == pattern)
                 and (rate is None or p.rate == rate)
                 and (seed is None or p.seed == seed)
                 and (scenario is None or p.scenario == scenario)
-                and (topo is None or p.topo == topo)]
+                and (topo is None or p.topo == topo)
+                and (workload is None or p.workload == workload)]
 
     @property
     def scenario_names(self) -> tuple[str, ...]:
@@ -339,8 +353,8 @@ class CellKey:
     algo: Algo
     scen_i: int = -1
     scenario: str = "static"
-    # the workload axis's name when the cell's item is a workload; ""
-    # until that axis is ported
+    # the workload axis's name when the cell's item is a workload
+    # (item_i >= len(spec.patterns)); "" for a pattern's cell
     workload: str = ""
 
     @property
@@ -377,8 +391,11 @@ class CellOutcome:
 
 def campaign_cells(spec: CampaignSpec) -> list[CellKey]:
     """The spec's cells in canonical execution order: topology → pattern
-    item → algo → scenario."""
+    item (the patterns, then the workloads) → algo → scenario."""
     names = [p if isinstance(p, str) else str(p[0]) for p in spec.patterns]
+    names += [str(w.name) if hasattr(w, "matrix_for") else str(w[0])
+              for w in spec.workloads]
+    n_pat = len(spec.patterns)
     scens = list(enumerate(spec.scenarios)) or [(-1, None)]
     cells = [(ti, topo.name, i, name, algo, k, scen)
              for ti, topo in enumerate(spec.topo_axis)
@@ -386,7 +403,8 @@ def campaign_cells(spec: CampaignSpec) -> list[CellKey]:
              for algo in spec.algos for k, scen in scens]
     return [CellKey(index=idx, topo_i=ti, topo=tname, item_i=i,
                     pattern=name, algo=algo, scen_i=k,
-                    scenario="static" if scen is None else scen.name)
+                    scenario="static" if scen is None else scen.name,
+                    workload=name if i >= n_pat else "")
             for idx, (ti, tname, i, name, algo, k, scen) in enumerate(cells)]
 
 

@@ -5,11 +5,14 @@ The reference and the port draw parameters from different generators,
 so a case they can both run must come from neither: :func:`numpy_case`
 draws the reference's whisper parameter tree, the encoder frames and the
 prompts from one numpy seed, :func:`jamba_numpy_case` the Jamba tree
-(no experts) and the prompts.  ``tests/goldens/serve_whisper_smoke.json``
-and ``serve_jamba_smoke.json`` hold the reference's float32 logits
-(prefill and every decode step) and its greedy tokens for those cases;
-the port is held against them on the CPU and, where there is no JAX, on
-the card.
+(no experts) and the prompts, :func:`dense_numpy_case` a dense LM's tree
+and the prompts.  ``tests/goldens/serve_whisper_smoke.json``,
+``serve_jamba_smoke.json`` and ``serve_dense_smoke.json`` (one record
+for each of the three dense smoke configurations, at the batch of the
+reference's ``examples/serve_decode.py``) hold the reference's float32
+logits (prefill and every decode step) and its greedy tokens for those
+cases; the port is held against them on the CPU and, where there is no
+JAX, on the card.
 
 The whisper weights are drawn with a small embedding scale and a gain on
 the attention weights: with the reference's own init the tied embedding
@@ -18,7 +21,7 @@ token and token equality would prove little.  Jamba's head is untied;
 its weights keep the reference's fan-in scales, with the parameters the
 reference initialises to constants (norm scales, biases, the SSM's A,
 skip and step size) drawn around those constants, so that a transposed
-or misplaced one shows.
+or misplaced one shows.  The dense LMs' trees are drawn the same way.
 """
 
 from __future__ import annotations
@@ -45,6 +48,11 @@ ATTN_GAIN = 1.8
 JAMBA_GOLDEN_NAME = "serve_jamba_smoke.json"
 JAMBA_PROMPT_LEN = 20  # two of the attention twin's 16-row chunks, three
                        # of the reference's 8-step Mamba chunks; ragged
+DENSE_GOLDEN_NAME = "serve_dense_smoke.json"
+DENSE_ARCHS = ("codeqwen1.5-7b", "internlm2-1.8b", "stablelm-3b")
+# the reference's examples/serve_decode.py defaults: 4 requests, 16-token
+# prompts, 24 new tokens, a cache of prompt + new + 8 rows
+DENSE_BATCH, DENSE_PROMPT_LEN, DENSE_NEW_TOKENS = 4, 16, 24
 
 
 def config() -> ModelConfig:
@@ -161,6 +169,48 @@ def jamba_numpy_case(cfg: ModelConfig, seed: int = SEED, batch: int = BATCH,
     """(parameter tree, prompts (B, P) int32), both from ``seed``."""
     rng = np.random.default_rng(seed)
     tree = jamba_numpy_params(cfg, rng)
+    prompts = rng.integers(0, cfg.vocab, (batch, prompt_len)).astype(np.int32)
+    return tree, prompts
+
+
+def dense_numpy_params(cfg: ModelConfig, rng: np.random.Generator) -> dict:
+    """The reference's dense-LM parameter tree (layers stacked on axis 0),
+    float32, drawn from ``rng`` in a fixed order."""
+    d, f, h, kv, hd = (cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads,
+                       cfg.head_dim)
+    n = cfg.n_layers
+
+    def normal(shape, fan_in):
+        return _normal(rng, shape, fan_in ** -0.5)
+
+    def near_one(shape):
+        return (1.0 + 0.1 * rng.standard_normal(shape)).astype(np.float32)
+
+    blocks = {
+        "ln1": {"scale": near_one((n, d))},
+        "ln2": {"scale": near_one((n, d))},
+        "attn": {"wq": normal((n, d, h * hd), d),
+                 "wk": normal((n, d, kv * hd), d),
+                 "wv": normal((n, d, kv * hd), d),
+                 "wo": normal((n, h * hd, d), h * hd)},
+        "ffn": {"w_gate": normal((n, d, f), d),
+                "w_up": normal((n, d, f), d),
+                "w_down": normal((n, f, d), f)},
+    }
+    tree = {"embed": {"table": _normal(rng, (cfg.vocab, d), 1.0)},
+            "blocks": blocks,
+            "ln_f": {"scale": near_one((d,))}}
+    if not cfg.tie_embeddings:
+        tree["head"] = {"w": normal((cfg.vocab, d), cfg.vocab)}
+    return tree
+
+
+def dense_numpy_case(cfg: ModelConfig, seed: int = SEED,
+                     batch: int = DENSE_BATCH,
+                     prompt_len: int = DENSE_PROMPT_LEN):
+    """(parameter tree, prompts (B, P) int32), both from ``seed``."""
+    rng = np.random.default_rng(seed)
+    tree = dense_numpy_params(cfg, rng)
     prompts = rng.integers(0, cfg.vocab, (batch, prompt_len)).astype(np.int32)
     return tree, prompts
 

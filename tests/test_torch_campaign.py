@@ -193,10 +193,9 @@ def test_oddeven_refuses_a_topology_that_is_not_2d():
 @pytest.mark.parametrize("what", ["telemetry", "watchdog", "scenarios",
                                   "workloads", "topos", "plan_cache"])
 def test_unported_options_raise(what, tmp_path):
-    """What the port does not run yet raises ``NotImplementedError``
-    naming its ROADMAP item (the ML workloads); the options ported since
-    (scenarios, telemetry, the watchdog, the topology axis, the plan
-    cache) run."""
+    """The options ported since the first slice (scenarios, telemetry,
+    the watchdog, the topology axis, the plan cache, the ML workloads)
+    run; none raises ``NotImplementedError`` any more."""
     topo = mesh2d(4, 4)
     kw = dict(topo=topo, algos=(Algo.XY,), patterns=("uniform",),
               rates=(0.1,), base=SimConfig(cycles=200, warmup=50))
@@ -247,9 +246,14 @@ def test_unported_options_raise(what, tmp_path):
         got = dataclasses.asdict(again.points[0].result)
         assert all(np.array_equal(got[k], want[k]) for k in want)
         return
+    # ported: a workload joins the pattern axis after the patterns, its
+    # name in the workload column
     kw["workloads"] = (("w", traffic.uniform(topo)),)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_campaign(CampaignSpec(**kw), device="cpu")
+    res = run_campaign(CampaignSpec(**kw), device="cpu")
+    assert [(p.pattern, p.workload) for p in res.points] == [
+        ("uniform", ""), ("w", "w")]
+    a, b = (dataclasses.asdict(p.result) for p in res.points)
+    assert all(np.array_equal(a[k], b[k]) for k in a)   # the same matrix
 
 
 def test_entry_point_defaults_to_the_card():

@@ -246,9 +246,10 @@ def test_split_partials_with_an_empty_range_and_an_empty_row():
 
 # (B, Sq, Skv, H, KV, D) → (path in bf16, path in fp32): every shape of
 # chip_smoke.FLASH_SHAPES (whisper-base's encoder, cross- and cached
-# self-attention; internlm2 and stablelm; Jamba's prefill and decode),
-# which are the calls the two served models make, and the edges of the
-# split path (64 and 65 packed rows)
+# self-attention; internlm2 and stablelm; Jamba's prefill and decode; the
+# dense family's served prefill and decode, internlm2 also at 2 048-token
+# prompts), which are the calls the served models make, and the edges of
+# the split path (64 and 65 packed rows)
 SPLIT = {"cross": Path("split", 4, 384), "self": Path("split", 1, 64),
          "jamba": Path("split", 4, 576)}
 PATH_CASES = {
@@ -261,6 +262,17 @@ PATH_CASES = {
     "stablelm d80 causal": ((1, 1024, 1024, 32, 32, 80), "tc", "simt"),
     "jamba prefill": ((4, 2048, 2080, 64, 8, 128), "tc", "simt"),
     "jamba decode": ((4, 1, 2080, 64, 8, 128), SPLIT["jamba"], None),
+    "internlm2 served prefill": ((4, 16, 48, 16, 8, 128), SPLIT["self"],
+                                 None),
+    "internlm2 served decode": ((4, 1, 48, 16, 8, 128), SPLIT["self"], None),
+    "internlm2 long prefill": ((4, 2048, 2080, 16, 8, 128), "tc", "simt"),
+    "internlm2 long decode": ((4, 1, 2080, 16, 8, 128), SPLIT["jamba"],
+                              None),
+    "stablelm served prefill": ((4, 16, 48, 32, 32, 80), SPLIT["self"], None),
+    "stablelm served decode": ((4, 1, 48, 32, 32, 80), SPLIT["self"], None),
+    "codeqwen served prefill": ((4, 16, 48, 32, 32, 128), SPLIT["self"],
+                                None),
+    "codeqwen served decode": ((4, 1, 48, 32, 32, 128), SPLIT["self"], None),
     "64 packed rows": ((1, 8, 200, 64, 8, 128), Path("split", 4, 64), None),
     "65 packed rows": ((1, 13, 100, 5, 1, 64), "tc", "simt"),
 }

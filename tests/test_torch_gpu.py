@@ -928,3 +928,65 @@ def test_service_job_on_the_card(cuda, tmp_path):
         assert np.array_equal(a.node_load, b.node_load)
     assert np.array_equal(got.telemetry.chan, base.telemetry.chan)
     assert got.watchdog == base.watchdog
+
+
+def _chip_smoke():
+    import sys
+
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+    import chip_smoke
+
+    return chip_smoke
+
+
+@pytest.mark.gpu
+def test_mltraffic_stage_on_the_card(cuda):
+    """The ML-traffic stage on the card from the reference's recorded HLO
+    against ``tests/goldens/mltraffic.json``: ops, totals, matrices,
+    max link loads, the plan's and the refined choice tables (the
+    possibility pair at N = 8), certificates; the campaign's rows at 200
+    and 2 000 cycles."""
+    from repro_torch import noc
+
+    cs = _chip_smoke()
+    with open(cs.MLTRAFFIC_GOLDEN) as f:
+        want = json.load(f)
+    before = dict(kernels.LAUNCHES)
+    recs, wls, tables = cs.mltraffic_plans(np, cuda)
+    assert kernels.LAUNCHES["possibility_v"] > before["possibility_v"]
+    assert not cs.mltraffic_plan_mismatches(np, want, recs)
+    for cycles in (200, 2000):
+        res = noc.run_campaign(cs.mltraffic_spec(noc, torus(2, 4), wls,
+                                                 cycles),
+                               bidor_tables=tables, device=cuda)
+        rows = [cs.point_record(p) for p in res.points]
+        assert not cs.mltraffic_row_mismatches(want["campaign"][str(cycles)],
+                                               rows)
+
+
+@pytest.mark.gpu
+def test_dense_golden_on_the_card(cuda):
+    """``tests/goldens/serve_dense_smoke.json`` (the reference's fp32
+    logits and greedy tokens of the three dense smoke configurations)
+    through the port's serving path on the card, every attention call a
+    kernel launch."""
+    from repro_torch.configs import get_arch
+    from repro_torch.serve import ServeEngine, golden
+
+    with open(os.path.join(os.path.dirname(__file__), "goldens",
+                           golden.DENSE_GOLDEN_NAME)) as f:
+        want = json.load(f)
+    max_len = (golden.DENSE_PROMPT_LEN + golden.DENSE_NEW_TOKENS
+               + golden.CACHE_SLACK)
+    for arch in golden.DENSE_ARCHS:
+        cfg = get_arch(arch).smoke
+        tree, prompts = golden.dense_numpy_case(cfg)
+        model = convert.dense_params_from_numpy(tree, cfg, cuda)
+        before = kernels.LAUNCHES["flash_attention"]
+        toks, logits = ServeEngine(cfg, model, max_len).generate(
+            prompts, golden.DENSE_NEW_TOKENS, return_logits=True)
+        assert kernels.LAUNCHES["flash_attention"] - before \
+            == cfg.n_layers * golden.DENSE_NEW_TOKENS
+        logits = [x.cpu() for x in logits]
+        assert not golden.mismatches(want[cfg.name], logits[0], logits[1:],
+                                     toks, 1e-5), arch
