@@ -55,7 +55,10 @@ Main path of slice 2 (launch counts from 0 again):
               queries and a decode step against the 2 080-row cache); and
               at the dense family's served shapes (internlm2 GQA 16/8 at
               16- and 2 048-token prompts and their decode steps,
-              stablelm D 80 and codeqwen D 128, MHA 32); the
+              stablelm D 80 and codeqwen D 128, MHA 32), and at slice
+              14's (qwen2-moe MHA 16, dbrx GQA 48/8, minicpm3's MLA
+              with Dk 96 and Dv 64 on the split path, its combine, the
+              tensor-core and the CUDA-core kernels); the
               path each shape takes (split-KV, tensor cores, CUDA cores)
               and its split count, µs per launch beside the twin,
               ``scaled_dot_product_attention`` and the bound;
@@ -132,7 +135,29 @@ Main paths of slice 13 (launch counts from 0 before each):
               4 × 2 048-token prompts, the fp32 run (tokens identical),
               stablelm-3b and codeqwen1.5-7b one ``generate`` each, and
               ``tests/goldens/serve_dense_smoke.json`` on the card;
-21. summary — attention end to end (whisper's ``generate`` busy time
+Main paths of slice 14 (launch counts from 0 before each; run after the
+others' checks have freed their weights):
+21. moe     — qwen2-moe-a2.7b at its published widths and depth, nothing
+              cut (28.63 GB in bf16), the registry's weights drawn on the
+              card: ``ServeEngine.generate`` for 4 requests of 16 prompt
+              and 24 new tokens, 576 ``flash_attention`` launches, all
+              split, the dropped (token, slot) pairs a step; then, off
+              the counted path, warm timings and the profile, the plain
+              twins and the float32 model of the same weights
+              (``fp32_weights``: each bf16 weight upcast as an op reads
+              it), the routes that differ, fp32 through the kernels and
+              the twins (tokens and routes identical); dbrx-132b at 8 of
+              40 layers and Jamba with 8 of its 16 experts (one
+              super-block) the same way, one at a time; and
+              ``tests/goldens/serve_moe_smoke.json`` on the card (aux and
+              drops of every call included);
+22. mla     — minicpm3-4b whole (MLA: Dk 96, Dv 64): ``generate`` as
+              above, 1 488 ``flash_attention`` launches, all split; off
+              the count, warm timings, the twins and fp32, 4 × 2 048-token
+              prompts in bf16 (the tensor-core prefill, split steps) and
+              fp32 (the CUDA-core prefill), and
+              ``tests/goldens/serve_mla_smoke.json``;
+23. summary — attention end to end (whisper's ``generate`` busy time
               and a Jamba decode step's, with the ``flash_fwd*`` kernels'
               share); the flit step at 4x4, 5x5, 16x16 and 32x32 (the
               chunk kernel) and 17x17 and 64x64 (the grid kernel): µs
@@ -179,6 +204,12 @@ times the possibility pair alone at every size the main paths launch it
 (``possibility_v`` at N = 16, 25, 256, 1 024; ``possibility_weights`` on
 the Fig. 1 5x5 channel sets, torus(16,16) and mesh2d(32,32)), event-timed,
 N rounds, with no other phase; ``--src`` as above.
+
+    python3 chip_smoke.py --flash-wall [--src DIR] [--rounds N]
+
+times ``flash_attention`` alone, event-timed, at every shape above whose
+V has Q's head dim (bf16; fp32 where it splits and at the encoder), N
+rounds, with no other phase; ``--src`` as above.
 """
 
 from __future__ import annotations
@@ -1663,7 +1694,7 @@ def time_simstep(torch, np, cuda, topo, label, row=False, algo=None,
 # --------------------------------------------------------------------- #
 WHISPER_B, SERVE_PROMPT, SERVE_NEW = 4, 16, 24
 SERVE_MAX_LEN = SERVE_PROMPT + SERVE_NEW + 8
-# (label, B, Sq, Skv, H, KV, D, causal, cache index or None)
+# (label, B, Sq, Skv, H, KV, D, causal, cache index or None[, Dv if not D])
 FLASH_SHAPES = (
     ("encoder", 4, 1500, 1500, 8, 8, 64, False, None),
     ("cross prefill", 4, 16, 1500, 8, 8, 64, False, None),
@@ -1690,7 +1721,28 @@ FLASH_SHAPES = (
     ("codeqwen prefill", 4, 16, SERVE_MAX_LEN, 32, 32, 128, False, 0),
     ("codeqwen decode", 4, 1, SERVE_MAX_LEN, 32, 32, 128, False,
      SERVE_PROMPT + SERVE_NEW - 2),
+    # slice 14's: qwen2-moe (MHA 16, D 128) and dbrx (GQA 48/8: 96 packed
+    # rows at a 16-token prompt, so the tensor-core kernel) at the
+    # example's batch; minicpm3's MLA (MHA 40, Dk 96, Dv 64) at it and at
+    # 2 048-token prompts, and one request's long decode step, whose
+    # 40 blocks leave room for three key ranges and the combine
+    ("qwen2-moe decode", 4, 1, SERVE_MAX_LEN, 16, 16, 128, False,
+     SERVE_PROMPT + SERVE_NEW - 2),
+    ("dbrx prefill", 4, 16, SERVE_MAX_LEN, 48, 8, 128, False, 0),
+    ("dbrx decode", 4, 1, SERVE_MAX_LEN, 48, 8, 128, False,
+     SERVE_PROMPT + SERVE_NEW - 2),
+    ("minicpm3 prefill", 4, 16, SERVE_MAX_LEN, 40, 40, 96, False, 0, 64),
+    ("minicpm3 decode", 4, 1, SERVE_MAX_LEN, 40, 40, 96, False,
+     SERVE_PROMPT + SERVE_NEW - 2, 64),
+    ("minicpm3 long prefill", 4, 2048, 2080, 40, 40, 96, False, 0, 64),
+    ("minicpm3 long decode", 4, 1, 2080, 40, 40, 96, False, 2070, 64),
+    ("minicpm3 long decode B=1", 1, 1, 2080, 40, 40, 96, False, 2070, 64),
 )
+
+
+def _dv(shape) -> int:
+    """V's head dim of a FLASH_SHAPES row."""
+    return shape[9] if len(shape) > 9 else shape[6]
 # fp32 at the reference's 2e-5; bf16 at one bf16 unit (2**-7), about four
 # times the worst error measured at these shapes, tighter than the
 # reference's 2e-2, which is half a typical output at Skv 1 500
@@ -1698,10 +1750,11 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 8e-3}
 
 
 def _flash_case(torch, cuda, shape, dtype, seed):
-    _, b, sq, skv, h, kv, d, causal, index = shape
+    _, b, sq, skv, h, kv, d, causal, index = shape[:9]
+    dv = _dv(shape)
     gen = torch.Generator(device=cuda).manual_seed(seed)
     q, k, v = (torch.randn(s, generator=gen, device=cuda).to(dtype)
-               for s in ((b, sq, h, d), (b, skv, kv, d), (b, skv, kv, d)))
+               for s in ((b, sq, h, d), (b, skv, kv, d), (b, skv, kv, dv)))
     ml = None
     if index is not None:       # a cached step: query t sees index + t + 1
         ml = (torch.arange(sq, dtype=torch.int32, device=cuda)
@@ -1712,20 +1765,22 @@ def _flash_case(torch, cuda, shape, dtype, seed):
 def _flash_bound(shape, itemsize, flops_per_s):
     """Least time for the function on this run's data: each needed input
     byte read once and the output written once (keys past every row's
-    limit are not needed), and 4·D FLOP per (query, key) pair that
-    counts, at the card's peak for the type."""
-    _, b, sq, skv, h, kv, d, causal, index = shape
+    limit are not needed), and 2·(D + Dv) FLOP per (query, key) pair
+    that counts (Q·K and P·V), at the card's peak for the type."""
+    _, b, sq, skv, h, kv, d, causal, index = shape[:9]
+    dv = _dv(shape)
     limits = [min(skv, (index + t + 1) if index is not None else skv,
                   (t + skv - sq + 1) if causal else skv) for t in range(sq)]
     pairs = b * h * sum(limits)
     keys = max(limits)
-    nbytes = itemsize * (2 * b * sq * h * d + 2 * b * keys * kv * d)
+    nbytes = itemsize * (b * sq * h * (d + dv) + b * keys * kv * (d + dv))
     if index is not None:
         nbytes += 4 * b * sq
+    flops = 2 * (d + dv) * pairs
     bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-             "operations": 4 * d * pairs / flops_per_s * 1e3}
+             "operations": flops / flops_per_s * 1e3}
     by = max(bound, key=bound.get)
-    return bound[by], by, 4 * d * pairs, nbytes
+    return bound[by], by, flops, nbytes
 
 
 def _sdpa(torch, q, k, v, ml, causal):
@@ -1738,6 +1793,7 @@ def _sdpa(torch, q, k, v, ml, causal):
         keys = torch.arange(k.shape[1], device=q.device)
         mask = (keys[None, None] < ml[..., None])[:, None]
     gqa = q.shape[2] != k.shape[2]
+    # q·k is scaled by Dk^-0.5 on both sides, whatever V's head dim
     return lambda r: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask, is_causal=causal, enable_gqa=gqa)
 
@@ -1774,18 +1830,21 @@ def check_flash(torch, np, cuda):
             ok = bool(torch.allclose(got.float(), want.float(), rtol=tol,
                                      atol=tol))
             worst = max(worst, err)
+            dims = (f"D={d}" if _dv(shape) == d
+                    else f"Dk={d} Dv={_dv(shape)}")
             log(f"flash: {label} {dtype} B={shape[1]} Sq={shape[2]} "
-                f"Skv={shape[3]} H={shape[4]} KV={shape[5]} D={shape[6]} "
+                f"Skv={shape[3]} H={shape[4]} KV={shape[5]} {dims} "
                 f"causal={causal} mask={'2d' if ml is not None else 'none'} "
                 f"path {route}: max_abs_err={err!r} tol {tol} "
                 f"{'ok' if ok else 'MISMATCH'}")
             if not ok:
                 raise SystemExit(f"flash_attention disagrees with plain at "
                                  f"{label} {dtype}")
-            # fp32 is timed at the encoder and wherever it takes the split
-            # path, beside the CUDA-core kernel that would take it else
+            # fp32 is timed at the encoder, at MLA's head dims and
+            # wherever it takes the split path, beside the CUDA-core
+            # kernel that would take it else
             if (dtype == "float32" and label != "encoder"
-                    and path.kind != "split"):
+                    and path.kind != "split" and _dv(shape) == d):
                 continue
             # 40 rounds of three calls stay inside the card's launch queue,
             # so the host is ahead of the device and the events time the
@@ -3012,16 +3071,17 @@ DENSE_B, DENSE_PROMPT, DENSE_NEW = 4, 16, 24
 DENSE_LONG = 2048
 
 
-def _dense(torch, np, cuda, arch, dtype, prompt_len=DENSE_PROMPT):
-    """``arch``'s published configuration in ``dtype``: the registry's
-    weights (seed 0, the reference's init scales, drawn on the card),
-    prompts from numpy seed 1, an engine with a cache of prompt + new + 8
-    rows."""
+def _dense(torch, np, cuda, arch, dtype, prompt_len=DENSE_PROMPT,
+           cut=None):
+    """``arch``'s published configuration in ``dtype`` (with the fields
+    of ``cut`` replaced): the registry's weights (seed 0, the reference's
+    init scales, drawn on the card), prompts from numpy seed 1, an engine
+    with a cache of prompt + new + 8 rows."""
     from repro_torch.configs import get_arch
     from repro_torch.models import registry
     from repro_torch.serve import ServeEngine
 
-    cfg = get_arch(arch).full.replace(dtype=dtype)
+    cfg = get_arch(arch).full.replace(dtype=dtype, **(cut or {}))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     model = registry.init(cfg, seed=0, device=cuda)
@@ -3187,26 +3247,21 @@ def run_dense_long(torch, np, cuda, cfg):
     torch.cuda.empty_cache()
 
 
-def run_dense_checks(torch, np, cuda, main):
-    """Off the counted path: warm timings and the device profile, the
-    plain twins and fp32 on the same weights, 4 x 2 048-token prompts,
-    the fp32 run, stablelm-3b and codeqwen1.5-7b, the smoke golden."""
-    from repro_torch import convert, kernels
-    from repro_torch.configs import get_arch
-    from repro_torch.models import lm
-    from repro_torch.serve import ServeEngine, golden, make_prefill
+def _warm(torch, cuda, label, cfg, engine, prompts):
+    """Warm timings (best of 3), the prefill alone, and the device
+    profile of one prefill and one ``generate``: the step against reading
+    every weight once."""
+    from repro_torch.models import registry
+    from repro_torch.serve import make_prefill
 
-    cfg, engine, prompts = main["cfg"], main["engine"], main["prompts"]
-
-    # warm timings: generate, the prefill alone; the device profile
-    runs = [_generate(torch, engine, prompts, DENSE_NEW)[2]
-            for _ in range(3)]
-    gen_ms = min(runs)
+    gen_ms = min(_generate(torch, engine, prompts, DENSE_NEW)[2]
+                 for _ in range(3))
     prefill = make_prefill(cfg)
     toks_dev = torch.as_tensor(prompts, device=cuda)
 
     def prefill_once():
-        cache = lm.init_cache(cfg, DENSE_B, engine.max_len, device=cuda)
+        cache = registry.init_cache(cfg, DENSE_B, engine.max_len,
+                                    device=cuda)
         prefill(engine.params, toks_dev, cache)
 
     with torch.inference_mode():
@@ -3216,39 +3271,50 @@ def run_dense_checks(torch, np, cuda, main):
                                                            DENSE_NEW))
     step_ms = (gen_ms - pre_ms) / (DENSE_NEW - 1)
     wbytes = cfg.param_count() * 2
-    log(f"dense: warm (best of 3): generate {gen_ms:.2f}ms = prefill "
+    log(f"{label}: warm (best of 3): generate {gen_ms:.2f}ms = prefill "
         f"{pre_ms:.2f}ms + {DENSE_NEW - 1} decode steps at {step_ms:.3f}ms; "
         f"{DENSE_B * DENSE_NEW / gen_ms * 1e3:.1f} new tokens/s; weights "
         f"{wbytes / 1e9:.3f} GB, read once a step at 3.35e12 B/s: "
         f"{wbytes / HBM_BYTES_PER_S * 1e3:.3f}ms")
     if prof_pre is None or prof_gen is None:
-        log("dense: profile: no device time in the trace (busy share and "
-            "kernel shares not measured)")
-    else:
-        dev_pre = sum(ms for _, ms in prof_pre.values())
-        dev_dec = sum(ms for _, ms in prof_gen.values()) - dev_pre
-        fl_pre = _share(prof_pre, "flash_fwd")
-        fl_dec = _share(prof_gen, "flash_fwd") - fl_pre
-        n_dec = (sum(c for c, _ in prof_gen.values())
-                 - sum(c for c, _ in prof_pre.values())) / (DENSE_NEW - 1)
-        log(f"dense: profiled: prefill device busy {dev_pre:.3f}ms "
-            f"({dev_pre / pre_ms:.3f} of its wall), flash_fwd* {fl_pre:.3f}"
-            f"ms; decode steps {dev_dec / (DENSE_NEW - 1):.3f}ms busy a "
-            f"step ({dev_dec / (gen_ms - pre_ms):.3f} of the wall), "
-            f"flash_fwd* {fl_dec / (DENSE_NEW - 1) * 1e3:.2f}us a step, "
-            f"{n_dec:.0f} kernels a step")
-        dec = {k: (c - prof_pre.get(k, (0, 0.0))[0],
-                   ms - prof_pre.get(k, (0, 0.0))[1])
-               for k, (c, ms) in prof_gen.items()}
-        top = sorted(dec.items(), key=lambda kv: -kv[1][1])[:6]
-        log("dense: top kernels of the decode steps: " + "; ".join(
-            f"{k[:56]} x{c} {ms:.2f}ms" for k, (c, ms) in top))
+        log(f"{label}: profile: no device time in the trace (busy share "
+            f"and kernel shares not measured)")
+        return
+    dev_pre = sum(ms for _, ms in prof_pre.values())
+    dec = {k: (c - prof_pre.get(k, (0, 0.0))[0],
+               ms - prof_pre.get(k, (0, 0.0))[1])
+           for k, (c, ms) in prof_gen.items()}
+    dev_dec = sum(ms for _, ms in dec.values())
+    n_dec = sum(c for c, _ in dec.values()) / (DENSE_NEW - 1)
+    fl_dec = sum(ms for k, (_, ms) in dec.items() if "flash_fwd" in k)
+    log(f"{label}: profiled: prefill device busy {dev_pre:.3f}ms "
+        f"({dev_pre / pre_ms:.3f} of its wall), flash_fwd* "
+        f"{_share(prof_pre, 'flash_fwd'):.3f}ms; decode steps "
+        f"{dev_dec / (DENSE_NEW - 1):.3f}ms busy a step "
+        f"({dev_dec / (gen_ms - pre_ms):.3f} of the wall), flash_fwd* "
+        f"{fl_dec / (DENSE_NEW - 1) * 1e3:.2f}us a step, {n_dec:.0f} "
+        f"kernels a step")
+    top = sorted(dec.items(), key=lambda kv: -kv[1][1])[:6]
+    log(f"{label}: top kernels of the decode steps: " + "; ".join(
+        f"{k[:56]} x{c} {ms:.2f}ms" for k, (c, ms) in top))
+
+
+def run_dense_checks(torch, np, cuda, main):
+    """Off the counted path: warm timings and the device profile, the
+    plain twins and fp32 on the same weights, 4 x 2 048-token prompts,
+    the fp32 run, stablelm-3b and codeqwen1.5-7b, the smoke golden."""
+    from repro_torch import convert, kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.serve import ServeEngine, golden
+
+    cfg, engine, prompts = main["cfg"], main["engine"], main["prompts"]
+    _warm(torch, cuda, "dense", cfg, engine, prompts)
 
     # the served run against the twins and fp32 (the weights upcast)
     _dense_vs_twins(torch, np, cfg.name, engine, prompts, main["toks"],
                     main.pop("logits"), rule=True)
     main.clear()
-    del engine, prefill
+    del engine
     torch.cuda.empty_cache()
 
     # 4 x 2 048-token prompts: the tensor-core prefill at GQA 16/8, then
@@ -3304,6 +3370,339 @@ def run_dense_checks(torch, np, cuda, main):
         if bad:
             raise SystemExit(f"dense golden mismatch ({gcfg.name}):\n  "
                              + "\n  ".join(bad))
+
+
+# --------------------------------------------------------------------- #
+# slice 14: the MoE decoders and MLA
+# --------------------------------------------------------------------- #
+# qwen2-moe-a2.7b at its published widths, nothing cut (28.63 GB in
+# bf16); dbrx-132b and Jamba with experts cut to what one card holds in
+# bf16; minicpm3-4b (MLA) whole.  The batch of examples/serve_decode.py.
+MOE = "qwen2-moe-a2.7b"
+MOE_OTHERS = {"dbrx-132b": {"n_layers": 8},
+              "jamba-1.5-large-398b": {"n_layers": 8, "moe_experts": 8}}
+MLA = "minicpm3-4b"
+
+
+@contextlib.contextmanager
+def fp32_weights(torch):
+    """Within this scope every bf16 parameter a torch function reads is
+    handed to it as a float32 copy, made for that call and freed after:
+    the float32 model of the bf16 weights' own values without a float32
+    copy of the whole model (dbrx's 8 layers take 54.6 GB in bf16).  The
+    model's configuration must say float32, so its activations and
+    caches are float32 too."""
+    from torch.overrides import TorchFunctionMode
+
+    def up(a):
+        if isinstance(a, (list, tuple)) and not isinstance(a, torch.Size):
+            return type(a)(up(x) for x in a)
+        if isinstance(a, torch.nn.Parameter) and a.dtype == torch.bfloat16:
+            return a.float()
+        return a
+
+    class Upcast(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            return func(*up(args),
+                        **{k: up(v) for k, v in (kwargs or {}).items()})
+
+    with Upcast():
+        yield
+
+
+def _routes(stats):
+    """The (token, slot) routes of each MoE call, on the host."""
+    return [x["experts"].cpu() for x in stats]
+
+
+def _route_flips(a, b) -> int:
+    """(token, slot) routes that differ between two runs' stats."""
+    if len(a) != len(b):
+        raise SystemExit(f"moe: {len(a)} MoE calls against {len(b)}")
+    return sum(int((x != y).sum()) for x, y in zip(a, b))
+
+
+def _widths(cfg) -> str:
+    moe = (f", {cfg.moe_experts} experts top-{cfg.moe_topk}"
+           + (f" + {cfg.moe_shared} shared" if cfg.moe_shared else "")
+           + f" of d_ff {cfg.d_ff}, capacity factor {cfg.capacity_factor}"
+           if cfg.is_moe else "")
+    mla = (f", MLA q rank {cfg.q_lora_rank}, kv rank {cfg.kv_lora_rank}, "
+           f"Dk {cfg.qk_nope_dim}+{cfg.qk_rope_dim}, Dv {cfg.v_head_dim}"
+           if cfg.mla else "")
+    return (f"{cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads}/"
+            f"{cfg.n_kv_heads} heads{moe}{mla}, vocab {cfg.vocab}")
+
+
+def _serve_counted(torch, np, label, cfg, engine, prompts, init_s, cut):
+    """One bf16 ``generate`` through the kernels with the MoE stats: one
+    ``flash_attention`` launch a layer and call (Jamba: an attention
+    layer, and one ``selective_scan`` a Mamba layer and call).  Returns
+    (tokens, logits, stats, ms, the flash kernels by path)."""
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.models.common import param_count_tree
+    from repro_torch.models.layers.ffn import moe_stats
+
+    n_params = param_count_tree(engine.params)
+    if n_params != cfg.param_count():
+        raise SystemExit(f"{label}: {n_params} parameters, count_params "
+                         f"{cfg.param_count()}")
+    hyb = cfg.family == "hybrid"
+    n_attn = cfg.n_layers // cfg.attn_period if hyb else cfg.n_layers
+    want = {"flash_attention": n_attn * DENSE_NEW,
+            "selective_scan": (cfg.n_layers - n_attn) * DENSE_NEW}
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(kernels.LAUNCHES)
+    paths = dict(flash_kernel.PATH_LAUNCHES)
+    with moe_stats() as stats:
+        toks, logits, ms = _generate(torch, engine, prompts, DENSE_NEW)
+    got = {k: kernels.LAUNCHES[k] - before[k] for k in want}
+    by_path = {k: flash_kernel.PATH_LAUNCHES[k] - paths[k] for k in paths}
+    if got != want:
+        raise SystemExit(f"{label}: launches {got}, expected {want}")
+    if not all(bool(torch.isfinite(x).all()) for x in logits):
+        raise SystemExit(f"{label}: non-finite logits")
+    distinct = _check_tokens(label, toks, cfg.vocab, (DENSE_B, DENSE_NEW))
+    drops = ""
+    if cfg.is_moe:
+        from repro_torch.serve import golden
+
+        aux, dropped = golden.call_stats(cfg, stats)
+        drops = (f"; dropped (token, slot) pairs of {DENSE_B * cfg.moe_topk}"
+                 f" a layer and step: prefill {dropped[0]} (of "
+                 f"{DENSE_B * prompts.shape[1] * cfg.moe_topk} a layer), "
+                 f"steps {dropped[1:]}, aux prefill {aux[0]:.5f}")
+    log(f"{label}: {cfg.name} ({_widths(cfg)}; cut {cut or 'nothing'}; "
+        f"{n_params} parameters, {n_params * 2 / 1e9:.2f} GB bf16, init "
+        f"{init_s:.2f}s) B={DENSE_B} prompt={prompts.shape[1]} "
+        f"new={DENSE_NEW} (first run) generate {ms:.1f}ms, launches "
+        f"{json.dumps(got)}, flash kernels by path {json.dumps(by_path)}, "
+        f"peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; fewest "
+        f"distinct tokens {distinct}{drops}; tokens[0]={toks[0].tolist()}")
+    return toks, logits, stats, ms, by_path
+
+
+def _vs_twins(torch, np, label, engine, prompts, toks, logits, stats):
+    """The kernels' bf16 logits of every step (``logits``, greedy
+    ``toks``, MoE ``stats``) against the plain twins' fed the same
+    tokens, and both against the float32 model of the same weights
+    (:func:`fp32_weights`): at each step the kernels' error may be at
+    most twice the twins' (the dense family's rule).  A router near-tie
+    that the bf16 runs break apart sends a token through other experts
+    and moves that step's logits by far more than attention's rounding,
+    so the twins and the fp32 model replay the kernels' routes
+    (``moe_stats(replay=)``) for the rule, and the routes the twins take
+    on their own are counted and printed.  Then float32 through the
+    kernels and through the twins, each routing itself: the same tokens,
+    the same routes, every step's logits within rtol/atol 1e-4."""
+    from repro_torch.models.layers.ffn import moe_stats
+    from repro_torch.serve import ServeEngine
+
+    routes = [x["experts"] for x in stats]
+    flips = None
+    if engine.cfg.is_moe:
+        with torch.inference_mode(), plain_twins(), moe_stats() as t_stats:
+            own = engine.teacher_forced_logits(prompts, toks)
+        flips = _route_flips(_routes(stats), _routes(t_stats))
+        own_share = max(float((g.float() - w.float()).abs().max())
+                        / float(w.float().abs().max())
+                        for g, w in zip(logits, own))
+        del own
+    with torch.inference_mode(), plain_twins(), moe_stats(routes):
+        twin = engine.teacher_forced_logits(prompts, toks)
+    vs_twin = _step_errs(np, logits, twin)
+    share = vs_twin / np.array([float(w.float().abs().max()) for w in twin])
+    e32 = ServeEngine(engine.cfg.replace(dtype="float32"), engine.params,
+                      engine.max_len)
+    with fp32_weights(torch), moe_stats(routes):
+        truth = e32.teacher_forced_logits(prompts, toks)
+    err_k, err_t = _step_errs(np, logits, truth), _step_errs(np, twin, truth)
+    ratio = err_k / np.maximum(err_t, 1e-30)
+    own = ("" if flips is None else
+           f"; routing on their own the twins take {flips} of "
+           f"{sum(x.numel() for x in routes)} (token, slot) routes "
+           f"otherwise, and their logits sit {own_share:.4f} of a step's "
+           f"largest from the kernels'")
+    tag = "" if flips is None else " (the kernels' routes replayed)"
+    log(f"{label}: bf16 kernels vs plain twins on the card{tag}: "
+        f"logits of every step max_abs_err={float(vs_twin.max())!r} = "
+        f"{share.max():.4f} of the step's largest logit; against the fp32 "
+        f"logits of the same weights, worst step: kernels "
+        f"{float(err_k.max())!r}, twins {float(err_t.max())!r}, "
+        f"kernels/twins {ratio.max():.3f} (limit 2){own}")
+    del twin, truth
+    if (ratio > 2).any():
+        raise SystemExit(f"{label}: the kernels' bf16 error {err_k} over "
+                         f"twice the twins' {err_t}")
+    with fp32_weights(torch), moe_stats() as k32:
+        t32, l32, ms32 = _generate(torch, e32, prompts, DENSE_NEW)
+    with fp32_weights(torch), torch.inference_mode(), plain_twins(), \
+            moe_stats() as p32:
+        pt32, pl32, pms32 = _generate(torch, e32, prompts, DENSE_NEW)
+    flips32 = _route_flips(_routes(k32), _routes(p32))
+    same = bool((t32 == pt32).all())
+    err32 = (_check_logits(np, f"{label} fp32 kernel vs plain", l32, pl32,
+                           1e-4, 1e-4, scaled=False) if same else None)
+    log(f"{label}: fp32 on the bf16 weights' values (generate {ms32:.1f}ms,"
+        f" twins {pms32:.1f}ms) kernels vs plain twins: tokens identical="
+        f"{same}, routes that differ {flips32}, logits of every step "
+        f"max_abs_err={err32!r} (rtol/atol 1e-4)")
+    if not same or flips32:
+        raise SystemExit(f"{label} fp32: the kernels' tokens or routes "
+                         f"differ from the plain twins'")
+
+
+def run_moe_main(torch, np, cuda, out):
+    """Slice 14's first main path: qwen2-moe-a2.7b bf16 at its published
+    widths and depth through ``ServeEngine.generate``: 576
+    ``flash_attention`` launches (24 layers × 24 calls), every one on
+    the split path."""
+    cfg, engine, prompts, init_s = _dense(torch, np, cuda, MOE, "bfloat16")
+    toks, logits, stats, _, by_path = _serve_counted(
+        torch, np, "moe", cfg, engine, prompts, init_s, {})
+    if by_path["tc"] or by_path["simt"] or by_path["split"] != \
+            cfg.n_layers * DENSE_NEW:
+        raise SystemExit(f"moe: flash kernels by path {by_path}, all "
+                         f"{cfg.n_layers * DENSE_NEW} split expected")
+    out.update(cfg=cfg, engine=engine, prompts=prompts, toks=toks,
+               logits=logits, stats=stats)
+
+
+def _attention_dims(cfg) -> tuple[int, int]:
+    """The (Dk, Dv) a configuration's attention calls take."""
+    if cfg.mla:
+        return cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
+    return cfg.head_dim, cfg.head_dim
+
+
+def _golden_on_card(torch, np, cuda, name, archs):
+    """``name`` (the reference's fp32 records) through the port's serving
+    path on the card: logits, tokens, and with experts each call's aux
+    and drops.  A smoke configuration whose attention head dims are no
+    kernel's (minicpm3's smoke: Dk 16 + 8 = 24, not a multiple of 16)
+    runs its attention on the plain twin, and says so; the kernels at
+    MLA's published dims are held by ``check_flash`` and the mla phase."""
+    from repro_torch import convert
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention.ops import HEAD_DIMS
+    from repro_torch.models.layers.ffn import moe_stats
+    from repro_torch.serve import ServeEngine, golden
+
+    with open(os.path.join(HERE, "tests", "goldens", name)) as f:
+        want = json.load(f)
+    for arch in archs:
+        gcfg = get_arch(arch).smoke
+        tree, gprompts = golden.lm_numpy_case(gcfg)
+        conv = (convert.hybrid_params_from_numpy if gcfg.family == "hybrid"
+                else convert.dense_params_from_numpy)
+        dims = _attention_dims(gcfg)
+        on_kernels = dims in HEAD_DIMS
+        scope = contextlib.nullcontext() if on_kernels else plain_twins()
+        with scope, moe_stats() as stats:
+            gtoks, glogits = ServeEngine(
+                gcfg, conv(tree, gcfg, cuda), golden.DENSE_PROMPT_LEN
+                + golden.DENSE_NEW_TOKENS + golden.CACHE_SLACK).generate(
+                    gprompts, golden.DENSE_NEW_TOKENS, return_logits=True)
+        rec = want[gcfg.name]
+        bad = golden.mismatches(rec, glogits[0].cpu(),
+                                [x.cpu() for x in glogits[1:]], gtoks, 1e-5)
+        if gcfg.is_moe:
+            bad += golden.moe_mismatches(rec,
+                                         *golden.call_stats(gcfg, stats))
+        where = ("kernel path" if on_kernels else
+                 f"attention on the plain twin: (Dk, Dv) {dims} is no "
+                 f"kernel pair")
+        log(f"{name}: {gcfg.name} on the card (fp32, {where}): "
+            f"{'ok' if not bad else 'MISMATCH'}")
+        if bad:
+            raise SystemExit(f"golden mismatch ({gcfg.name}):\n  "
+                             + "\n  ".join(bad))
+
+
+def run_moe_checks(torch, np, cuda, main):
+    """Off the counted path: qwen2-moe's warm timings and profile, its
+    bf16 run against the twins and the fp32 model of its weights, fp32
+    kernels against fp32 twins; then dbrx (8 of 40 layers) and Jamba (one
+    super-block, 8 of 16 experts), one at a time, each the same way; the
+    smoke golden."""
+    from repro_torch.serve import golden
+
+    cfg, engine, prompts = main["cfg"], main["engine"], main["prompts"]
+    _warm(torch, cuda, "moe", cfg, engine, prompts)
+    _vs_twins(torch, np, "moe", engine, prompts, main["toks"],
+              main.pop("logits"), main.pop("stats"))
+    main.clear()
+    del engine
+    torch.cuda.empty_cache()
+    for arch, cut in MOE_OTHERS.items():
+        ocfg, eng, pr, init_s = _dense(torch, np, cuda, arch, "bfloat16",
+                                       cut=cut)
+        toks, logits, stats, _, _ = _serve_counted(
+            torch, np, f"moe {arch}", ocfg, eng, pr, init_s, cut)
+        _vs_twins(torch, np, f"moe {arch}", eng, pr, toks, logits, stats)
+        del eng, logits, stats
+        torch.cuda.empty_cache()
+    _golden_on_card(torch, np, cuda, golden.MOE_GOLDEN_NAME,
+                    golden.MOE_ARCHS)
+
+
+def run_mla_main(torch, np, cuda, out):
+    """Slice 14's second main path: minicpm3-4b bf16 at its published
+    widths and depth through ``ServeEngine.generate``: 1 488
+    ``flash_attention`` launches (62 layers × 24 calls) with Dk 96 and
+    Dv 64, every one on the split path."""
+    cfg, engine, prompts, init_s = _dense(torch, np, cuda, MLA, "bfloat16")
+    toks, logits, stats, _, by_path = _serve_counted(
+        torch, np, "mla", cfg, engine, prompts, init_s, {})
+    if by_path["tc"] or by_path["simt"] or by_path["split"] != \
+            cfg.n_layers * DENSE_NEW:
+        raise SystemExit(f"mla: flash kernels by path {by_path}, all "
+                         f"{cfg.n_layers * DENSE_NEW} split expected")
+    out.update(cfg=cfg, engine=engine, prompts=prompts, toks=toks,
+               logits=logits, stats=stats)
+
+
+def run_mla_checks(torch, np, cuda, main):
+    """Off the counted path: minicpm3's warm timings and profile, the
+    twins and the fp32 model; 4 × 2 048-token prompts in bf16 (the
+    tensor-core prefill, then split decode steps) and, on the same
+    weights, fp32 (the CUDA-core prefill and fp32 split steps), each
+    held against the twins, every path at Dk 96 / Dv 64; the smoke
+    golden."""
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.serve import golden
+
+    cfg, engine, prompts = main["cfg"], main["engine"], main["prompts"]
+    _warm(torch, cuda, "mla", cfg, engine, prompts)
+    _vs_twins(torch, np, "mla", engine, prompts, main["toks"],
+              main.pop("logits"), main.pop("stats"))
+    main.clear()
+    del engine
+    torch.cuda.empty_cache()
+    lcfg, eng, pr, _ = _dense(torch, np, cuda, MLA, "bfloat16", DENSE_LONG)
+    flash_kernel.reset_path_launches()
+    toks, logits, first_ms = _generate(torch, eng, pr, DENSE_NEW)
+    paths = dict(flash_kernel.PATH_LAUNCHES)
+    _check_tokens("mla long", toks, lcfg.vocab, (DENSE_B, DENSE_NEW))
+    if paths["tc"] != lcfg.n_layers or paths["split"] != \
+            lcfg.n_layers * (DENSE_NEW - 1):
+        raise SystemExit(f"mla long: flash kernels by path {paths}")
+    gen_ms = _generate(torch, eng, pr, DENSE_NEW)[2]
+    log(f"mla: {lcfg.name} bf16 B={DENSE_B} prompt={DENSE_LONG} "
+        f"new={DENSE_NEW}: first generate {first_ms:.1f}ms, warm "
+        f"{gen_ms:.2f}ms; flash kernels by path {json.dumps(paths)}")
+    flash_kernel.reset_path_launches()
+    _vs_twins(torch, np, f"mla prompt {DENSE_LONG}", eng, pr, toks, logits,
+              [])
+    if flash_kernel.PATH_LAUNCHES["simt"] < 2 * lcfg.n_layers:
+        raise SystemExit(f"mla long fp32: flash kernels by path "
+                         f"{flash_kernel.PATH_LAUNCHES}")
+    del eng, logits
+    torch.cuda.empty_cache()
+    _golden_on_card(torch, np, cuda, golden.MLA_GOLDEN_NAME,
+                    golden.MLA_ARCHS)
 
 
 def main() -> int:
@@ -3394,7 +3793,8 @@ def main() -> int:
     flash_paths = {"slice 13b (internlm2-1.8b serving)": ("split",)}
     launches = {k: 0 for k in kernels.LAUNCHES}
     sizes = {"possibility_v": {}, "possibility_weights": {}}
-    for label, (needed, drive) in paths.items():
+
+    def drive_path(label, needed, drive):
         kernels.reset_launches()
         flash_kernel.reset_path_launches()
         drive()
@@ -3421,12 +3821,30 @@ def main() -> int:
         for k, v in counts.items():
             launches[k] += v
 
+    for label, (needed, drive) in paths.items():
+        drive_path(label, needed, drive)
+
     whisper_e2e = run_serve_checks(torch, np, cuda, serve)
     serve.clear()
     jamba_e2e = run_jamba_checks(torch, np, cuda, jamba)
     jamba.clear()
     torch.cuda.empty_cache()
     run_dense_checks(torch, np, cuda, dense)
+    # slice 14's paths come after the others have freed their weights:
+    # qwen2-moe's 28.6 GB, then dbrx's 54.6 and Jamba's 51.8 in its checks
+    # (every one of its flash launches on the split path, in one range)
+    for label, drive, checks in (
+            ("slice 14a (qwen2-moe-a2.7b serving)", run_moe_main,
+             run_moe_checks),
+            ("slice 14b (minicpm3-4b serving, MLA)", run_mla_main,
+             run_mla_checks)):
+        flash_paths[label] = ("split",)
+        out = {}
+        drive_path(label, ("flash_attention",),
+                   lambda: drive(torch, np, cuda, out))
+        checks(torch, np, cuda, out)
+        del out
+        torch.cuda.empty_cache()
     log(f"flash: end to end: whisper generate device busy "
         f"{_ms(whisper_e2e, 'busy')}, flash_fwd* {_ms(whisper_e2e, 'flash')}"
         f"; jamba decode step device busy {_ms(jamba_e2e, 'busy')}, "
@@ -3741,6 +4159,56 @@ def poss_wall(rounds: int) -> int:
     return 0
 
 
+def flash_wall(rounds: int) -> int:
+    """``--flash-wall``: ``flash_attention`` alone, event-timed µs per
+    call at every shape of ``FLASH_SHAPES`` whose V has Q's head dim
+    (the shapes any tree's kernels take), bf16, and fp32 where it takes
+    the split path and at the encoder, N rounds, with no other phase."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 2
+    import repro_torch
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention.ops import choose_path
+
+    cuda = torch.device("cuda")
+    log(f"card: {card_line()}")
+    log(f"flash-wall: the port from {os.path.dirname(repro_torch.__file__)}")
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    cases = {}
+    for shape in FLASH_SHAPES:
+        if _dv(shape) != shape[6]:
+            continue
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            _, b, sq, skv, h, kv = shape[:6]
+            kind = choose_path(dt, b, sq, h, kv, skv, sms=sms).kind
+            if dtype == "float32" and kind != "split" and \
+                    shape[0] != "encoder":
+                continue
+            q, k, v, ml = _flash_case(torch, cuda, shape, dt,
+                                      seed=len(shape[0]))
+            cases[f"{shape[0]} {dtype}"] = (
+                lambda r, q=q, k=k, v=v, ml=ml, c=shape[7]: flash_attention(
+                    q, k, v, causal=c, mask_len=ml), sq * skv)
+    for fn, _ in cases.values():          # first calls: build, warm
+        fn(0)
+    torch.cuda.synchronize()
+    cols = {k: [] for k in cases}
+    for i in range(rounds):
+        for k, (fn, n) in cases.items():
+            reps = 20 if n > 1e6 else 40
+            cols[k].append(time_launches(torch, [fn], reps)[0] * 1e3)
+        log(f"flash-wall: round {i}: us per call "
+            f"{json.dumps({k: round(v[-1], 3) for k, v in cols.items()})}")
+    med = {k: round(float(np.median(v)), 3) for k, v in cols.items()}
+    log(f"flash-wall: median of {rounds}: {json.dumps(med)}")
+    return 0
+
+
 if __name__ == "__main__":
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--serve-wall", action="store_true",
@@ -3754,6 +4222,9 @@ if __name__ == "__main__":
     ap.add_argument("--poss-wall", action="store_true",
                     help="time the possibility pair alone at the main "
                     "paths' sizes")
+    ap.add_argument("--flash-wall", action="store_true",
+                    help="time flash_attention alone at the shapes whose V "
+                    "has Q's head dim")
     ap.add_argument("--src", help="with a --*-wall option: import the port "
                     "from this directory")
     ap.add_argument("--rounds", type=int, default=5,
@@ -3769,4 +4240,6 @@ if __name__ == "__main__":
         sys.exit(scan_wall(args.rounds))
     if args.poss_wall:
         sys.exit(poss_wall(args.rounds))
+    if args.flash_wall:
+        sys.exit(flash_wall(args.rounds))
     sys.exit(main())

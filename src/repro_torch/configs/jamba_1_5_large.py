@@ -2,9 +2,10 @@
 
 1 attention layer per 8 (attn_period=8), MoE every other layer (16 experts,
 top-2).  72 layers = 9 super-blocks.  Sub-quadratic (mamba-dominant)
-⇒ runs the long_500k shape.  The port serves it without experts
-(``moe_experts=0``: every FFN the dense SwiGLU) until the moe family is
-ported; ``models.hybrid`` refuses the configuration with them.
+⇒ runs the long_500k shape.  The port serves it with its experts
+(``models.hybrid``: the 4 MoE FFNs of a super-block); one H100 holds one
+super-block with 8 of the 16 experts in bf16 (51.8 GB), and with
+``moe_experts=0`` every FFN is the dense SwiGLU.
 """
 
 from ..models.common import ModelConfig

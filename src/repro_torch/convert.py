@@ -18,8 +18,8 @@ snapshot of a controlled run, which the port then resumes).  Both read the refer
 field names only.  So do a model's parameters:
 :func:`encdec_params_from_numpy`, :func:`hybrid_params_from_numpy` and
 :func:`dense_params_from_numpy` take the reference's whisper, Jamba and
-dense-LM parameter trees (nested dicts of numpy arrays, layers stacked on
-leading axes).
+decoder-LM parameter trees (nested dicts of numpy arrays, layers stacked
+on leading axes; a MoE layer's experts on the axis after them).
 """
 
 from __future__ import annotations
@@ -175,7 +175,8 @@ def hybrid_params_from_numpy(tree: dict, cfg: ModelConfig,
                              device=None) -> hybrid.Hybrid:
     """The port's Jamba parameters from the reference's tree: ``blocks``
     stacked on axis 0 by super-block, and inside it ``mamba``,
-    ``mamba_ln``, ``ffn_ln`` and ``ffn_dense`` on axis 1 by layer."""
+    ``mamba_ln``, ``ffn_ln``, ``ffn_dense`` and ``ffn_moe`` (with
+    experts) on axis 1 by layer, a MoE FFN's experts on axis 2."""
     model = hybrid.Hybrid(cfg, None, "meta").to_empty(
         device=resolve_device(device))
     _params_from_numpy(model, tree)
@@ -184,8 +185,9 @@ def hybrid_params_from_numpy(tree: dict, cfg: ModelConfig,
 
 def dense_params_from_numpy(tree: dict, cfg: ModelConfig,
                             device=None) -> lm.LM:
-    """The port's dense-LM parameters from the reference's tree
-    (``blocks`` stacked on a leading layer axis)."""
+    """The port's decoder-LM parameters (dense, MoE, MLA, or MoE and MLA
+    together) from the reference's tree (``blocks`` stacked on a leading
+    layer axis; a MoE FFN's experts on axis 1)."""
     model = lm.LM(cfg, None, "meta").to_empty(device=resolve_device(device))
     _params_from_numpy(model, tree)
     return model

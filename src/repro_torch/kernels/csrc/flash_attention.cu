@@ -2,7 +2,8 @@
 // full, GQA, with an optional per-row valid key length.
 //
 //   o[b, i, h, :] = sum_j softmax_j(q[b,i,h,:] . k[b,j,g,:] * scale) v[b,j,g,:]
-//   over keys j < lim(b, i), g = h / (H / KV), where
+//   over keys j < lim(b, i), g = h / (H / KV), q and k of head dim D, v
+//   and o of head dim DV <= D (MLA: D 96, DV 64), where
 //   lim(b, i) = min(Skv, len[b] or len[b, i], i + (Skv - Sq) + 1 if causal)
 //
 // Replaces the TPU kernel repro/kernels/flash_attention/kernel.py:
@@ -99,24 +100,28 @@ __device__ __forceinline__ float comp(const float4& x, int i) {
   return i == 0 ? x.x : i == 1 ? x.y : i == 2 ? x.z : x.w;
 }
 
-template <int DP, int BQ>
+template <int DP, int DVP, int BQ>
 constexpr size_t smem_bytes() {
   return sizeof(float) *
-             (size_t(BQ) * (16 * DP + 4) + 2 * size_t(kBKV) * (16 * DP + 4) +
-              size_t(BQ) * kPS) +
+             (size_t(BQ) * (16 * DP + 4) + size_t(kBKV) * (16 * DP + 4) +
+              size_t(kBKV) * (16 * DVP + 4) + size_t(BQ) * kPS) +
          sizeof(int) * BQ;
 }
 
-template <typename T, int DP, int BQ>
+// D = 16 DP (q, k), DV = 16 DVP (v, o)
+template <typename T, int DP, int DVP, int BQ>
 __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
+  static_assert(DVP <= DP, "V's head dim: up to Q's and K's");
   constexpr int D = 16 * DP;
+  constexpr int DV = 16 * DVP;
   constexpr int DS = D + 4;        // keeps float4 alignment, spreads banks
+  constexpr int DVS = DV + 4;
   constexpr int RQ = BQ / kTY;     // query rows per thread
   extern __shared__ float4 smem4[];
   float* qs = reinterpret_cast<float*>(smem4);   // [BQ][DS]
   float* ks = qs + BQ * DS;                       // [kBKV][DS]
-  float* vs = ks + kBKV * DS;                     // [kBKV][DS]
-  float* ps = vs + kBKV * DS;                     // [BQ][kPS]
+  float* vs = ks + kBKV * DS;                     // [kBKV][DVS]
+  float* ps = vs + kBKV * DVS;                    // [BQ][kPS]
   int* rowlim = reinterpret_cast<int*>(ps + BQ * kPS);  // [BQ]
 
   const int tid = threadIdx.x;
@@ -153,14 +158,14 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
   int kv_end = 0;
   for (int r = 0; r < BQ; ++r) kv_end = max(kv_end, rowlim[r]);
   int lim[RQ];
-  float m[RQ], l[RQ], acc[RQ][DP];
+  float m[RQ], l[RQ], acc[RQ][DVP];
 #pragma unroll
   for (int r = 0; r < RQ; ++r) {
     lim[r] = rowlim[ty * RQ + r];
     m[r] = -INFINITY;
     l[r] = 0.f;
 #pragma unroll
-    for (int c = 0; c < DP; ++c) acc[r][c] = 0.f;
+    for (int c = 0; c < DVP; ++c) acc[r][c] = 0.f;
   }
 
   for (int kv0 = 0; kv0 < kv_end; kv0 += kBKV) {
@@ -171,7 +176,15 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
       const int j = kv0 + r;
       const bool in = j < a.skv;
       ks[r * DS + d] = in ? to_f32(kg[j * a.k_ss + d]) : 0.f;
-      vs[r * DS + d] = in ? to_f32(vg[j * a.v_ss + d]) : 0.f;
+      if (DV == D) vs[r * DVS + d] = in ? to_f32(vg[j * a.v_ss + d]) : 0.f;
+    }
+    if (DV != D) {
+      for (int idx = tid; idx < kBKV * DV; idx += kThreads) {
+        const int r = idx / DV;
+        const int d = idx % DV;
+        const int j = kv0 + r;
+        vs[r * DVS + d] = j < a.skv ? to_f32(vg[j * a.v_ss + d]) : 0.f;
+      }
     }
     __syncthreads();
 
@@ -224,7 +237,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
       }
       l[r] = l[r] * corr + row_sum(sum);
 #pragma unroll
-      for (int c = 0; c < DP; ++c) acc[r][c] *= corr;
+      for (int c = 0; c < DVP; ++c) acc[r][c] *= corr;
       m[r] = m_new;
     }
     __syncthreads();
@@ -237,14 +250,15 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
         pp[r] = *reinterpret_cast<const float4*>(&ps[(ty * RQ + r) * kPS + j0]);
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
-        float vv[DP];
+        float vv[DVP];
 #pragma unroll
-        for (int c = 0; c < DP; ++c) vv[c] = vs[(j0 + jj) * DS + tx + kTX * c];
+        for (int c = 0; c < DVP; ++c)
+          vv[c] = vs[(j0 + jj) * DVS + tx + kTX * c];
 #pragma unroll
         for (int r = 0; r < RQ; ++r) {
           const float p = comp(pp[r], jj);
 #pragma unroll
-          for (int c = 0; c < DP; ++c) acc[r][c] = fmaf(p, vv[c], acc[r][c]);
+          for (int c = 0; c < DVP; ++c) acc[r][c] = fmaf(p, vv[c], acc[r][c]);
         }
       }
     }
@@ -257,61 +271,65 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
     const int i = q0 + ty * RQ + r;
     if (i >= a.sq) continue;
     const float den = fmaxf(l[r], 1e-30f);
-    T* orow = og + ((long long)(bi * a.sq + i) * a.h + hi) * D;
+    T* orow = og + ((long long)(bi * a.sq + i) * a.h + hi) * DV;
 #pragma unroll
-    for (int c = 0; c < DP; ++c)
+    for (int c = 0; c < DVP; ++c)
       orow[tx + kTX * c] = from_f32<T>(acc[r][c] / den);
   }
 }
 
-template <typename T, int DP, int BQ>
+template <typename T, int DP, int DVP, int BQ>
 int launch_t(const Args& a, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<DP, BQ>();
+  constexpr size_t smem = smem_bytes<DP, DVP, BQ>();
   static bool configured = false;  // one attribute call per instantiation
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, DP, BQ>,
+        flash_fwd_kernel<T, DP, DVP, BQ>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   const dim3 grid((a.sq + BQ - 1) / BQ, a.b * a.h);
-  flash_fwd_kernel<T, DP, BQ><<<grid, kThreads, smem, stream>>>(a);
+  flash_fwd_kernel<T, DP, DVP, BQ><<<grid, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
+// the (D, DV) pairs of flash_attention_split.cu
 template <typename T, int BQ>
-int launch_d(const Args& a, int d, cudaStream_t stream) {
+int launch_d(const Args& a, int d, int dv, cudaStream_t stream) {
+  if (d == 96 && dv == 64) return launch_t<T, 6, 4, BQ>(a, stream);
+  if (dv != d) return (int)cudaErrorInvalidValue;
   switch (d / 16) {
-    case 1: return launch_t<T, 1, BQ>(a, stream);
-    case 2: return launch_t<T, 2, BQ>(a, stream);
-    case 3: return launch_t<T, 3, BQ>(a, stream);
-    case 4: return launch_t<T, 4, BQ>(a, stream);
-    case 5: return launch_t<T, 5, BQ>(a, stream);
-    case 6: return launch_t<T, 6, BQ>(a, stream);
-    case 7: return launch_t<T, 7, BQ>(a, stream);
-    case 8: return launch_t<T, 8, BQ>(a, stream);
+    case 1: return launch_t<T, 1, 1, BQ>(a, stream);
+    case 2: return launch_t<T, 2, 2, BQ>(a, stream);
+    case 3: return launch_t<T, 3, 3, BQ>(a, stream);
+    case 4: return launch_t<T, 4, 4, BQ>(a, stream);
+    case 5: return launch_t<T, 5, 5, BQ>(a, stream);
+    case 6: return launch_t<T, 6, 6, BQ>(a, stream);
+    case 7: return launch_t<T, 7, 7, BQ>(a, stream);
+    case 8: return launch_t<T, 8, 8, BQ>(a, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
-int launch_q(const Args& a, int d, cudaStream_t stream) {
-  return a.sq <= 16 ? launch_d<T, 16>(a, d, stream)
-                    : launch_d<T, 64>(a, d, stream);
+int launch_q(const Args& a, int d, int dv, cudaStream_t stream) {
+  return a.sq <= 16 ? launch_d<T, 16>(a, d, dv, stream)
+                    : launch_d<T, 64>(a, d, dv, stream);
 }
 
 }  // namespace
 
-// q (B, Sq, H, D), k and v (B, Skv, KV, D) as strided views whose last
-// dimension is contiguous (strides in elements for batch, sequence, head);
-// o (B, Sq, H, D) contiguous; dtype 0 = float32, 1 = bfloat16, the same for
-// all four.  lens: null, or int32 (B,) (len_sq = 0) or (B, Sq) valid key
-// lengths.  D a multiple of 16 up to 128, H a multiple of KV.  Launches on
-// `stream` and returns cudaGetLastError().
+// q (B, Sq, H, D), k (B, Skv, KV, D) and v (B, Skv, KV, DV) as strided
+// views whose last dimension is contiguous (strides in elements for batch,
+// sequence, head); o (B, Sq, H, DV) contiguous; dtype 0 = float32, 1 =
+// bfloat16, the same for all four.  lens: null, or int32 (B,) (len_sq = 0)
+// or (B, Sq) valid key lengths.  (D, DV) one of the pairs of launch_d, H a
+// multiple of KV.  Launches on `stream` and returns cudaGetLastError().
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, const int* lens,
-    int dtype, int b, int h, int kvh, int sq, int skv, int d, long long q_sb,
+    int dtype, int b, int h, int kvh, int sq, int skv, int d, int dv,
+    long long q_sb,
     long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     long long len_sb, long long len_sq, int causal, float scale,
@@ -325,8 +343,8 @@ extern "C" int flash_attention_launch(
          v_sh, len_sb, len_sq, causal, scale * 1.4426950408889634f};
   cudaStream_t st = (cudaStream_t)stream;
   switch (dtype) {
-    case 0: return launch_q<float>(a, d, st);
-    case 1: return launch_q<__nv_bfloat16>(a, d, st);
+    case 0: return launch_q<float>(a, d, dv, st);
+    case 1: return launch_q<__nv_bfloat16>(a, d, dv, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -5,7 +5,8 @@
 // ranges for both.
 //
 //   o[b, i, h, :] = sum_j softmax_j(q[b,i,h,:] . k[b,j,g,:] * scale) v[b,j,g,:]
-//   over keys j < lim(b, i), g = h / (H / KV), where
+//   over keys j < lim(b, i), g = h / (H / KV), q and k of head dim D, v
+//   and o of head dim DV <= D (MLA: D 96, DV 64), where
 //   lim(b, i) = min(Skv, len[b] or len[b, i], i + (Skv - Sq) + 1 if causal)
 //
 // Replaces, for these shapes, the TPU kernel
@@ -30,7 +31,8 @@
 // * Loads.  Each 64-key tile of K and V comes into shared memory by
 //   16-byte cp.async copies, into a ring of two stages: the copy of tile
 //   i + 1 runs while tile i is computed.  Rows are padded by 16 bytes, so
-//   a warp reading key rows at once hits distinct bank groups.
+//   a warp reading key rows at once hits distinct bank groups.  K rows
+//   hold D values and V rows DV, each tile at its own pitch.
 // * Arithmetic, bf16 (flash_fwd_split_tc_kernel): mma.sync m16n8k16, bf16
 //   in, fp32 accumulate.  Warps (wm, wk): wm over 16-row tiles (WM = 4 /
 //   WK of them), wk over a quarter, half or all of each 64-key tile (WK =
@@ -78,7 +80,7 @@ struct Args {
   void* o;          // written when part_m is null (one range)
   float* part_m;    // [splits][B * KV][rows]
   float* part_l;    // [splits][B * KV][rows]
-  float* part_acc;  // [splits][B * KV][rows][D]
+  float* part_acc;  // [splits][B * KV][rows][DV]
   const int* lens;  // null: no length mask
   int b, h, kvh, sq, skv, g, rows, chunk;
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
@@ -163,30 +165,36 @@ constexpr int pow2_divisor(int n, int cap) {
   return (n % 2 == 0 && cap > 1) ? 2 * pow2_divisor(n / 2, cap / 2) : 1;
 }
 
-template <int D, int RP>
+template <int D, int DV, int RP>
 struct Layout {
+  static_assert(DV <= D && DV % 16 == 0, "V's head dim: a multiple of 16 "
+                                         "up to Q's and K's");
   static constexpr int kVec = 4;                     // floats a piece
-  static constexpr int kPieces = D / kVec;           // pieces a row
-  static constexpr int kPitch = 4 * D + 16;          // bytes a row
-  static constexpr int kTile = kBK * kPitch;         // bytes a K or V tile
+  static constexpr int kPieces = D / kVec;           // pieces a K row
+  static constexpr int kPiecesV = DV / kVec;         // pieces a V row
+  static constexpr int kPitch = 4 * D + 16;          // bytes a K row
+  static constexpr int kPitchV = 4 * DV + 16;        // bytes a V row
+  static constexpr int kTile = kBK * kPitch;         // bytes a K tile
+  static constexpr int kTileV = kBK * kPitchV;       // bytes a V tile
+  static constexpr int kStage = kTile + kTileV;      // bytes a ring stage
   static constexpr int kDQ = D + 4;                  // q row pitch (floats)
   static constexpr int kRH = (RP + 1) / 2;           // score rows a thread
-  static constexpr int kTPX = pow2_divisor(D / 2, 64);  // threads on pairs
-  static constexpr int kPPT = D / 2 / kTPX;          // pairs a thread
+  static constexpr int kTPX = pow2_divisor(DV / 2, 64);  // threads on pairs
+  static constexpr int kPPT = DV / 2 / kTPX;         // pairs a thread
   static constexpr int kTY = kThreads / kTPX;        // threads on rows
   static constexpr int kRPT = (RP + kTY - 1) / kTY;  // rows a thread
   static constexpr size_t kSmem =
-      size_t(4) * kTile +
+      size_t(2) * kStage +
       sizeof(float) * (size_t(RP) * kDQ + size_t(RP) * kSP + 3 * RP) +
       sizeof(int) * RP;
 };
 
-template <int D, int RP>
+template <int D, int DV, int RP>
 __global__ void __launch_bounds__(kThreads) flash_fwd_split_kernel(Args a) {
-  using L = Layout<D, RP>;
+  using L = Layout<D, DV, RP>;
   extern __shared__ uint4 smem16[];
   unsigned char* kv = reinterpret_cast<unsigned char*>(smem16);  // 2 x (K, V)
-  float* qs = reinterpret_cast<float*>(kv + 4 * L::kTile);       // [RP][kDQ]
+  float* qs = reinterpret_cast<float*>(kv + 2 * L::kStage);      // [RP][kDQ]
   float* ss = qs + RP * L::kDQ;                                  // [RP][kSP]
   float* m_s = ss + RP * kSP;
   float* l_s = m_s + RP;
@@ -237,7 +245,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_split_kernel(Args a) {
   // keys at or past `end` are zero-filled: their p is 0 and never meets
   // garbage
   auto load = [&](int tile, int stage) {
-    unsigned char* kst = kv + (2 * stage) * L::kTile;
+    unsigned char* kst = kv + stage * L::kStage;
     unsigned char* vst = kst + L::kTile;
     const int j0 = begin + tile * kBK;
     for (int c = tid; c < kBK * L::kPieces; c += kThreads) {
@@ -248,8 +256,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_split_kernel(Args a) {
       const long long jj = in ? j : 0;
       cp_async16(kst + row * L::kPitch + pc * 16,
                  kg + jj * a.k_ss + pc * L::kVec, in);
-      cp_async16(vst + row * L::kPitch + pc * 16,
-                 vg + jj * a.v_ss + pc * L::kVec, in);
+      if (DV == D || pc < L::kPiecesV)
+        cp_async16(vst + row * L::kPitchV + pc * 16,
+                   vg + jj * a.v_ss + pc * L::kVec, in);
     }
     cp_async_commit();
   };
@@ -284,7 +293,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_split_kernel(Args a) {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const unsigned char* kst = kv + (2 * (it & 1)) * L::kTile;
+    const unsigned char* kst = kv + (it & 1) * L::kStage;
     const unsigned char* vst = kst + L::kTile;
     const int j0 = begin + it * kBK;
 
@@ -369,7 +378,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_split_kernel(Args a) {
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
         const float* vrow =
-            reinterpret_cast<const float*>(vst + (jb + jj) * L::kPitch);
+            reinterpret_cast<const float*>(vst + (jb + jj) * L::kPitchV);
 #pragma unroll
         for (int c = 0; c < L::kPPT; ++c)
           vv[jj][c] = *reinterpret_cast<const float2*>(
@@ -405,7 +414,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_split_kernel(Args a) {
     if (r >= RP || r >= a.rows) continue;
     if (a.part_m != nullptr) {
       float* prow = a.part_acc +
-                    (split * nparts + (long long)pair * a.rows + r) * D;
+                    (split * nparts + (long long)pair * a.rows + r) * DV;
 #pragma unroll
       for (int c = 0; c < L::kPPT; ++c)
         *reinterpret_cast<float2*>(prow + 2 * (tx + L::kTPX * c)) =
@@ -415,7 +424,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_split_kernel(Args a) {
       const int t = r / a.g;
       const int hh = gi * a.g + r % a.g;
       float* orow = static_cast<float*>(a.o) +
-                    (((long long)bi * a.sq + t) * a.h + hh) * D;
+                    (((long long)bi * a.sq + t) * a.h + hh) * DV;
 #pragma unroll
       for (int c = 0; c < L::kPPT; ++c)
         *reinterpret_cast<float2*>(orow + 2 * (tx + L::kTPX * c)) =
@@ -424,29 +433,35 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_split_kernel(Args a) {
   }
 }
 
-template <int D, int WK>
+template <int D, int DV, int WK>
 struct SplitTile {
+  static_assert(DV <= D && DV % 16 == 0, "V's head dim: a multiple of 16 "
+                                         "up to Q's and K's");
   static constexpr int kWM = 4 / WK;        // warps over 16-row tiles
   static constexpr int kRB = 16 * kWM;      // packed rows a block holds
   static constexpr int kKW = kBK / WK;      // keys of a tile a warp takes
-  static constexpr int kPitch = 2 * D + 16;
+  static constexpr int kPitch = 2 * D + 16;   // bytes a Q or K row
+  static constexpr int kPitchV = 2 * DV + 16; // bytes a V row
   static constexpr int kPieces = D / 8;
-  static constexpr int kDO = D + 4;         // row pitch of the merge (floats)
-  static constexpr size_t kRing = size_t(4) * kBK * kPitch;
+  static constexpr int kPiecesV = DV / 8;
+  static constexpr int kStage = kBK * (kPitch + kPitchV);  // bytes a stage
+  static constexpr int kDO = DV + 4;        // row pitch of the merge (floats)
+  static constexpr size_t kRing = size_t(2) * kStage;
   static constexpr size_t kMerge = sizeof(float) * WK * kRB * (kDO + 2);
   static constexpr size_t kSmem =
       size_t(kRB) * kPitch + (kRing > kMerge ? kRing : kMerge);
 };
 
-template <int D, int WK>
+template <int D, int DV, int WK>
 __global__ void __launch_bounds__(128) flash_fwd_split_tc_kernel(Args a) {
-  using C = SplitTile<D, WK>;
+  using C = SplitTile<D, DV, WK>;
   constexpr int RB = C::kRB;
   constexpr int KW = C::kKW;
   constexpr int P = C::kPitch;
+  constexpr int PV = C::kPitchV;
   constexpr int KS = D / 16;
   constexpr int NB = KW / 8;     // 8-key column blocks of a warp's scores
-  constexpr int ND = D / 8;
+  constexpr int ND = DV / 8;
   extern __shared__ uint4 smem16[];
   __shared__ int lim_s[RB];
   unsigned char* qsm = reinterpret_cast<unsigned char*>(smem16);
@@ -494,7 +509,7 @@ __global__ void __launch_bounds__(128) flash_fwd_split_tc_kernel(Args a) {
 
   // keys at or past `end` are zero-filled and never read from memory
   auto load_kv = [&](int tile, int stage) {
-    unsigned char* kst = kvs + (2 * stage) * kBK * P;
+    unsigned char* kst = kvs + stage * C::kStage;
     unsigned char* vst = kst + kBK * P;
     const int j0 = begin + tile * kBK;
     for (int c = tid; c < kBK * C::kPieces; c += 128) {
@@ -504,7 +519,8 @@ __global__ void __launch_bounds__(128) flash_fwd_split_tc_kernel(Args a) {
       const bool in = j < end;
       const long long jj = in ? j : 0;
       cp_async16(kst + row * P + pc * 16, kg + jj * a.k_ss + pc * 8, in);
-      cp_async16(vst + row * P + pc * 16, vg + jj * a.v_ss + pc * 8, in);
+      if (DV == D || pc < C::kPiecesV)
+        cp_async16(vst + row * PV + pc * 16, vg + jj * a.v_ss + pc * 8, in);
     }
   };
 
@@ -548,7 +564,7 @@ __global__ void __launch_bounds__(128) flash_fwd_split_tc_kernel(Args a) {
         ldmatrix_x4(qf[ks], qsm + row * P + col * 2);
       }
     }
-    const unsigned char* kst = kvs + (2 * (it & 1)) * kBK * P;
+    const unsigned char* kst = kvs + (it & 1) * C::kStage;
     const unsigned char* vst = kst + kBK * P;
     const int k0 = wk * KW;                    // this warp's first tile row
     const int kv0 = begin + it * kBK + k0;     // and its key
@@ -618,7 +634,7 @@ __global__ void __launch_bounds__(128) flash_fwd_split_tc_kernel(Args a) {
         uint32_t vf[4];
         const int row = k0 + 16 * kv + lane % 8 + 8 * ((lane / 8) % 2);
         const int col = 8 * (2 * nd2 + lane / 16);
-        ldmatrix_x4_trans(vf, vst + row * P + col * 2);
+        ldmatrix_x4_trans(vf, vst + row * PV + col * 2);
         mma(oacc[2 * nd2], pa, vf[0], vf[1]);
         mma(oacc[2 * nd2 + 1], pa, vf[2], vf[3]);
       }
@@ -648,9 +664,9 @@ __global__ void __launch_bounds__(128) flash_fwd_split_tc_kernel(Args a) {
   }
   __syncthreads();
   const long long nparts = (long long)gridDim.y * a.rows;
-  for (int idx = tid; idx < RB * D; idx += 128) {
-    const int r = idx / D;
-    const int c = idx % D;
+  for (int idx = tid; idx < RB * DV; idx += 128) {
+    const int r = idx / DV;
+    const int c = idx % DV;
     if (r >= a.rows) break;
     float top = -INFINITY;
 #pragma unroll
@@ -665,7 +681,7 @@ __global__ void __launch_bounds__(128) flash_fwd_split_tc_kernel(Args a) {
     }
     if (a.part_m != nullptr) {
       const long long at = split * nparts + (long long)pair * a.rows + r;
-      a.part_acc[at * D + c] = acc;
+      a.part_acc[at * DV + c] = acc;
       if (c == 0) {
         a.part_m[at] = top;
         a.part_l[at] = den;
@@ -674,7 +690,7 @@ __global__ void __launch_bounds__(128) flash_fwd_split_tc_kernel(Args a) {
       const int t = r / a.g;
       const int hh = gi * a.g + r % a.g;
       static_cast<__nv_bfloat16*>(
-          a.o)[(((long long)bi * a.sq + t) * a.h + hh) * D + c] =
+          a.o)[(((long long)bi * a.sq + t) * a.h + hh) * DV + c] =
           __float2bfloat16_rn(acc / fmaxf(den, 1e-30f));
     }
   }
@@ -718,72 +734,80 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_combine_kernel(
   }
 }
 
-template <int D, int RP>
+template <int D, int DV, int RP>
 int launch_t(const Args& a, int splits, cudaStream_t stream) {
-  constexpr size_t smem = Layout<D, RP>::kSmem;
+  constexpr size_t smem = Layout<D, DV, RP>::kSmem;
   static bool configured = false;  // one attribute call per instantiation
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_split_kernel<D, RP>,
+        flash_fwd_split_kernel<D, DV, RP>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   const dim3 grid(splits, a.b * a.kvh);
-  flash_fwd_split_kernel<D, RP><<<grid, kThreads, smem, stream>>>(a);
+  flash_fwd_split_kernel<D, DV, RP><<<grid, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <int RP>
-int launch_d(const Args& a, int splits, int d, cudaStream_t stream) {
-  switch (d / 16) {
-    case 1: return launch_t<16, RP>(a, splits, stream);
-    case 2: return launch_t<32, RP>(a, splits, stream);
-    case 3: return launch_t<48, RP>(a, splits, stream);
-    case 4: return launch_t<64, RP>(a, splits, stream);
-    case 5: return launch_t<80, RP>(a, splits, stream);
-    case 6: return launch_t<96, RP>(a, splits, stream);
-    case 7: return launch_t<112, RP>(a, splits, stream);
-    case 8: return launch_t<128, RP>(a, splits, stream);
-    default: return (int)cudaErrorInvalidValue;
-  }
+template <int D, int DV>
+int launch_rows(const Args& a, int splits, cudaStream_t stream) {
+  if (a.rows <= 1) return launch_t<D, DV, 1>(a, splits, stream);
+  if (a.rows <= 8) return launch_t<D, DV, 8>(a, splits, stream);
+  if (a.rows <= 16) return launch_t<D, DV, 16>(a, splits, stream);
+  return launch_t<D, DV, 64>(a, splits, stream);
 }
 
-template <int D, int WK>
+template <int D, int DV, int WK>
 int launch_split_t(const Args& a, int splits, cudaStream_t stream) {
-  using C = SplitTile<D, WK>;
+  using C = SplitTile<D, DV, WK>;
   static bool configured = false;  // one attribute call per instantiation
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_split_tc_kernel<D, WK>,
+        flash_fwd_split_tc_kernel<D, DV, WK>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kSmem);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   const dim3 grid(splits, a.b * a.kvh);
-  flash_fwd_split_tc_kernel<D, WK><<<grid, 128, C::kSmem, stream>>>(a);
+  flash_fwd_split_tc_kernel<D, DV, WK><<<grid, 128, C::kSmem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, int DV>
 int launch_split_w(const Args& a, int splits, cudaStream_t stream) {
-  if (a.rows <= 16) return launch_split_t<D, 4>(a, splits, stream);
-  if (a.rows <= 32) return launch_split_t<D, 2>(a, splits, stream);
-  return launch_split_t<D, 1>(a, splits, stream);
+  if (a.rows <= 16) return launch_split_t<D, DV, 4>(a, splits, stream);
+  if (a.rows <= 32) return launch_split_t<D, DV, 2>(a, splits, stream);
+  return launch_split_t<D, DV, 1>(a, splits, stream);
 }
 
-int launch_split_tc(const Args& a, int splits, int d, cudaStream_t stream) {
-  switch (d / 16) {
-    case 1: return launch_split_w<16>(a, splits, stream);
-    case 2: return launch_split_w<32>(a, splits, stream);
-    case 3: return launch_split_w<48>(a, splits, stream);
-    case 4: return launch_split_w<64>(a, splits, stream);
-    case 5: return launch_split_w<80>(a, splits, stream);
-    case 6: return launch_split_w<96>(a, splits, stream);
-    case 7: return launch_split_w<112>(a, splits, stream);
-    case 8: return launch_split_w<128>(a, splits, stream);
-    default: return (int)cudaErrorInvalidValue;
+// one (D, DV) instance, bf16 on the tensor cores or fp32 on the CUDA cores
+template <int D, int DV>
+int launch_dtype(const Args& a, int dtype, int splits, cudaStream_t stream) {
+  return dtype == 1 ? launch_split_w<D, DV>(a, splits, stream)
+                    : launch_rows<D, DV>(a, splits, stream);
+}
+
+// the (D, DV) pairs built: DV = D at every multiple of 16 up to 128, and
+// MLA's (96, 64); kernels/flash_attention/ops.py::HEAD_DIMS lists the same
+int launch_pair(const Args& a, int dtype, int splits, int d, int dv,
+                cudaStream_t stream) {
+  if (dv == d) {
+    switch (d / 16) {
+      case 1: return launch_dtype<16, 16>(a, dtype, splits, stream);
+      case 2: return launch_dtype<32, 32>(a, dtype, splits, stream);
+      case 3: return launch_dtype<48, 48>(a, dtype, splits, stream);
+      case 4: return launch_dtype<64, 64>(a, dtype, splits, stream);
+      case 5: return launch_dtype<80, 80>(a, dtype, splits, stream);
+      case 6: return launch_dtype<96, 96>(a, dtype, splits, stream);
+      case 7: return launch_dtype<112, 112>(a, dtype, splits, stream);
+      case 8: return launch_dtype<128, 128>(a, dtype, splits, stream);
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
+  if (d == 96 && dv == 64)
+    return launch_dtype<96, 64>(a, dtype, splits, stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 int launch_combine(const Args& a, int dtype, int splits, int d,
@@ -805,13 +829,13 @@ int launch_combine(const Args& a, int dtype, int splits, int d,
 
 // The launch record of the attention kernels, read by this file's entry
 // and by flash_attention_tc_launch (flash_attention_tc.cu); field order
-// must match kernels/flash_attention/kernel.py.  q (B, Sq, H, D), k and v
-// (B, Skv, KV, D) are strided views whose last dimension is contiguous
-// and whose rows start on 16 bytes (strides in elements for batch,
-// sequence, head); o (B, Sq, H, D) is contiguous; all four float32
-// (dtype 0) or bfloat16 (dtype 1).  lens: null, or int32 (B,) (len_sq =
-// 0) or (B, Sq) valid key lengths.  D a multiple of 16 up to 128, H a
-// multiple of KV.
+// must match kernels/flash_attention/kernel.py.  q (B, Sq, H, D), k
+// (B, Skv, KV, D) and v (B, Skv, KV, DV) are strided views whose last
+// dimension is contiguous and whose rows start on 16 bytes (strides in
+// elements for batch, sequence, head); o (B, Sq, H, DV) is contiguous;
+// all four float32 (dtype 0) or bfloat16 (dtype 1).  lens: null, or int32
+// (B,) (len_sq = 0) or (B, Sq) valid key lengths.  (D, DV) one of the
+// built pairs (launch_pair), H a multiple of KV.
 struct FlashArgs {
   const void* q;
   const void* k;
@@ -821,14 +845,14 @@ struct FlashArgs {
   const int* lens;   // null: no length mask
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
   long long len_sb, len_sq;
-  int dtype, b, h, kvh, sq, skv, d;
+  int dtype, b, h, kvh, sq, skv, d, dv;
   int splits, chunk;  // key ranges of `chunk` keys (a multiple of 64)
   int causal;
   float scale;
 };
 
 // The split path: Sq * (H / KV) <= 64.  With splits > 1, `part` holds
-// splits * B * KV * Sq * (H / KV) * (D + 2) floats: the first kernel
+// splits * B * KV * Sq * (H / KV) * (DV + 2) floats: the first kernel
 // writes each range's m, l and acc there and the combine, launched here
 // too, writes o; with one split `part` is null and the first kernel
 // writes o.  Launches on `stream`, returns the first launch error.
@@ -836,7 +860,7 @@ extern "C" int flash_attention_split_launch(const void* record,
                                             void* stream) {
   FlashArgs f;
   std::memcpy(&f, record, sizeof f);
-  if (f.d <= 0 || f.d > 128 || f.d % 16 != 0 || f.kvh <= 0 ||
+  if (f.d <= 0 || f.d > 128 || f.d % 16 != 0 || f.dv <= 0 || f.kvh <= 0 ||
       f.h % f.kvh != 0 || f.splits <= 0 || f.chunk <= 0 ||
       f.chunk % kBK != 0 || (long long)f.b * f.kvh > 65535 ||
       (f.splits > 1) != (f.part != nullptr) || (f.dtype != 0 && f.dtype != 1))
@@ -854,20 +878,9 @@ extern "C" int flash_attention_split_launch(const void* record,
                f.k_sh, f.v_sb,   f.v_ss,   f.v_sh,   f.len_sb, f.len_sq,
                f.causal, f.scale * 1.4426950408889634f};
   const cudaStream_t st = (cudaStream_t)stream;
-  int err;
-  if (f.dtype == 1) {
-    err = launch_split_tc(a, f.splits, f.d, st);
-  } else if (rows <= 1) {
-    err = launch_d<1>(a, f.splits, f.d, st);
-  } else if (rows <= 8) {
-    err = launch_d<8>(a, f.splits, f.d, st);
-  } else if (rows <= 16) {
-    err = launch_d<16>(a, f.splits, f.d, st);
-  } else {
-    err = launch_d<64>(a, f.splits, f.d, st);
-  }
+  const int err = launch_pair(a, f.dtype, f.splits, f.d, f.dv, st);
   if (err != 0 || f.splits == 1) return err;
-  return launch_combine(a, f.dtype, f.splits, f.d, st);
+  return launch_combine(a, f.dtype, f.splits, f.dv, st);
 }
 
 // sizeof(FlashArgs), so the binding can check its record layout.

@@ -3,7 +3,8 @@
 // take the split path, flash_attention_split.cu).
 //
 //   o[b, i, h, :] = sum_j softmax_j(q[b,i,h,:] . k[b,j,g,:] * scale) v[b,j,g,:]
-//   over keys j < lim(b, i), g = h / (H / KV), where
+//   over keys j < lim(b, i), g = h / (H / KV), q and k of head dim D, v
+//   and o of head dim DV <= D (MLA: D 96, DV 64), where
 //   lim(b, i) = min(Skv, len[b] or len[b, i], i + (Skv - Sq) + 1 if causal)
 //
 // Replaces the TPU kernel repro/kernels/flash_attention/kernel.py:77
@@ -76,13 +77,18 @@ struct Args {
   float scale_log2;  // scale * log2(e)
 };
 
-template <int D, int W, int MT>
+template <int D, int DV, int W, int MT>
 struct Tile {
+  static_assert(DV <= D && DV % 16 == 0, "V's head dim: a multiple of 16 "
+                                         "up to Q's and K's");
   static constexpr int kThreads = 32 * W;       // W warps
   static constexpr int kBQ = W * 16 * MT;       // query rows a block
-  static constexpr int kPitch = 2 * D + 16;     // bytes a shared row
-  static constexpr int kPieces = D / 8;         // 16-byte pieces a row
-  static constexpr size_t kSmem = size_t(kBQ + 4 * kBK) * kPitch;
+  static constexpr int kPitch = 2 * D + 16;     // bytes a shared Q or K row
+  static constexpr int kPitchV = 2 * DV + 16;   // bytes a shared V row
+  static constexpr int kPieces = D / 8;         // 16-byte pieces a K row
+  static constexpr int kPiecesV = DV / 8;       // and a V row
+  static constexpr int kStage = kBK * (kPitch + kPitchV);  // bytes a stage
+  static constexpr size_t kSmem = size_t(kBQ) * kPitch + 2 * size_t(kStage);
 };
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -143,15 +149,16 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&x);
 }
 
-template <int D, int W, int MT>
+template <int D, int DV, int W, int MT>
 __global__ void __launch_bounds__(32 * W) flash_fwd_tc_kernel(Args a) {
-  using C = Tile<D, W, MT>;
+  using C = Tile<D, DV, W, MT>;
   constexpr int kThreads = C::kThreads;
   constexpr int BQ = C::kBQ;
   constexpr int P = C::kPitch;
+  constexpr int PV = C::kPitchV;
   constexpr int KS = D / 16;     // k-steps of Q K^T
   constexpr int NB = kBK / 8;    // 8-key column blocks of S
-  constexpr int ND = D / 8;      // 8-column blocks of O
+  constexpr int ND = DV / 8;     // 8-column blocks of O
   extern __shared__ uint4 smem16[];
   __shared__ int block_max[W];
   unsigned char* qsm = reinterpret_cast<unsigned char*>(smem16);
@@ -214,7 +221,7 @@ __global__ void __launch_bounds__(32 * W) flash_fwd_tc_kernel(Args a) {
 
   // keys at or past kv_end are zero-filled and never read from memory
   auto load_kv = [&](int tile, int stage) {
-    unsigned char* kst = kvs + (2 * stage) * kBK * P;
+    unsigned char* kst = kvs + stage * C::kStage;
     unsigned char* vst = kst + kBK * P;
     const int j0 = tile * kBK;
     for (int c = tid; c < kBK * C::kPieces; c += kThreads) {
@@ -224,7 +231,8 @@ __global__ void __launch_bounds__(32 * W) flash_fwd_tc_kernel(Args a) {
       const bool in = j < kv_end;
       const long long jj = in ? j : 0;
       cp_async16(kst + row * P + pc * 16, kg + jj * a.k_ss + pc * 8, in);
-      cp_async16(vst + row * P + pc * 16, vg + jj * a.v_ss + pc * 8, in);
+      if (DV == D || pc < C::kPiecesV)
+        cp_async16(vst + row * PV + pc * 16, vg + jj * a.v_ss + pc * 8, in);
     }
   };
 
@@ -261,7 +269,7 @@ __global__ void __launch_bounds__(32 * W) flash_fwd_tc_kernel(Args a) {
           ldmatrix_x4(qf[mt][ks], qsm + row * P + col * 2);
         }
     }
-    const unsigned char* kst = kvs + (2 * (it & 1)) * kBK * P;
+    const unsigned char* kst = kvs + (it & 1) * C::kStage;
     const unsigned char* vst = kst + kBK * P;
     const int kv0 = it * kBK;
 
@@ -357,7 +365,7 @@ __global__ void __launch_bounds__(32 * W) flash_fwd_tc_kernel(Args a) {
         uint32_t vf[4];
         const int row = 16 * kv + lane % 8 + 8 * ((lane / 8) % 2);
         const int col = 8 * (2 * nd2 + lane / 16);
-        ldmatrix_x4_trans(vf, vst + row * P + col * 2);
+        ldmatrix_x4_trans(vf, vst + row * PV + col * 2);
 #pragma unroll
         for (int mt = 0; mt < MT; ++mt) {
           mma(oacc[mt][2 * nd2], pa[mt], vf[0], vf[1]);
@@ -379,7 +387,7 @@ __global__ void __launch_bounds__(32 * W) flash_fwd_tc_kernel(Args a) {
       const int i = q0 + (warp * MT + mt) * 16 + lane / 4 + 8 * e;
       if (i >= a.sq) continue;
       __nv_bfloat16* orow =
-          a.o + (((long long)bi * a.sq + i) * a.h + hi) * D + 2 * (lane % 4);
+          a.o + (((long long)bi * a.sq + i) * a.h + hi) * DV + 2 * (lane % 4);
 #pragma unroll
       for (int nd = 0; nd < ND; ++nd)
         *reinterpret_cast<__nv_bfloat162*>(orow + 8 * nd) =
@@ -388,19 +396,20 @@ __global__ void __launch_bounds__(32 * W) flash_fwd_tc_kernel(Args a) {
     }
 }
 
-template <int D, int W, int MT>
+template <int D, int DV, int W, int MT>
 int launch_t(const Args& a, cudaStream_t stream) {
-  using C = Tile<D, W, MT>;
+  using C = Tile<D, DV, W, MT>;
   static bool configured = false;  // one attribute call per instantiation
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_fwd_tc_kernel<D, W, MT>,
+        flash_fwd_tc_kernel<D, DV, W, MT>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)C::kSmem);
     if (e != cudaSuccess) return (int)e;
     configured = true;
   }
   const dim3 grid((a.sq + C::kBQ - 1) / C::kBQ, a.b * a.h);
-  flash_fwd_tc_kernel<D, W, MT><<<grid, C::kThreads, C::kSmem, stream>>>(a);
+  flash_fwd_tc_kernel<D, DV, W, MT>
+      <<<grid, C::kThreads, C::kSmem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
@@ -417,13 +426,14 @@ struct FlashArgs {
   const int* lens;   // null: no length mask
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
   long long len_sb, len_sq;
-  int dtype, b, h, kvh, sq, skv, d;
+  int dtype, b, h, kvh, sq, skv, d, dv;
   int splits, chunk;  // unused here
   int causal;
   float scale;
 };
 
-// bfloat16 (dtype 1) only.  Launches on `stream` and returns
+// bfloat16 (dtype 1) only; (D, DV) one of the pairs built below, the
+// pairs of flash_attention_split.cu.  Launches on `stream` and returns
 // cudaGetLastError().
 extern "C" int flash_attention_tc_launch(const void* record, void* stream) {
   FlashArgs f;
@@ -440,15 +450,17 @@ extern "C" int flash_attention_tc_launch(const void* record, void* stream) {
                f.k_sb, f.k_ss, f.k_sh, f.v_sb, f.v_ss, f.v_sh, f.len_sb,
                f.len_sq, f.causal, f.scale * 1.4426950408889634f};
   const cudaStream_t st = (cudaStream_t)stream;
+  if (f.dv == 64 && f.d == 96) return launch_t<96, 64, 4, 1>(a, st);
+  if (f.dv != f.d) return (int)cudaErrorInvalidValue;
   switch (f.d / 16) {
-    case 1: return launch_t<16, 4, 2>(a, st);
-    case 2: return launch_t<32, 4, 2>(a, st);
-    case 3: return launch_t<48, 4, 2>(a, st);
-    case 4: return launch_t<64, 4, 2>(a, st);
-    case 5: return launch_t<80, 4, 1>(a, st);
-    case 6: return launch_t<96, 4, 1>(a, st);
-    case 7: return launch_t<112, 4, 1>(a, st);
-    case 8: return launch_t<128, 4, 1>(a, st);
+    case 1: return launch_t<16, 16, 4, 2>(a, st);
+    case 2: return launch_t<32, 32, 4, 2>(a, st);
+    case 3: return launch_t<48, 48, 4, 2>(a, st);
+    case 4: return launch_t<64, 64, 4, 2>(a, st);
+    case 5: return launch_t<80, 80, 4, 1>(a, st);
+    case 6: return launch_t<96, 96, 4, 1>(a, st);
+    case 7: return launch_t<112, 112, 4, 1>(a, st);
+    case 8: return launch_t<128, 128, 4, 1>(a, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

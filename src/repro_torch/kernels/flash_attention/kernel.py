@@ -24,9 +24,9 @@ from ..build import library
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # FlashArgs of csrc/flash_attention_split.cu and csrc/flash_attention_tc.cu:
-# q, k, v, o, part, lens; eleven strides; dtype, b, h, kvh, sq, skv, d,
+# q, k, v, o, part, lens; eleven strides; dtype, b, h, kvh, sq, skv, d, dv,
 # splits, chunk, causal; scale; native alignment, padded to 8 bytes
-_RECORD = struct.Struct("@6P11q10if0q")
+_RECORD = struct.Struct("@6P11q11if0q")
 
 # kernel launches by path: "split" (first kernel of the split path),
 # "combine" (its second kernel, when splits > 1), "tc", "simt"
@@ -64,7 +64,7 @@ def _tc():
 @functools.cache
 def _simt():
     fn = library("flash_attention").flash_attention_launch
-    fn.argtypes = [_P] * 5 + [_I] * 7 + [_L] * 11 + [_I, ctypes.c_float, _P]
+    fn.argtypes = [_P] * 5 + [_I] * 8 + [_L] * 11 + [_I, ctypes.c_float, _P]
     fn.restype = ctypes.c_int
     return fn
 
@@ -81,10 +81,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Launch ``path`` (:func:`..ops.choose_path`) on the current stream;
     inputs already checked (see
     :func:`repro_torch.kernels.flash_attention.ops.flash_attention`).
-    Returns a new contiguous (B, Sq, H, D) tensor in q's dtype."""
+    Returns a new contiguous (B, Sq, H, Dv) tensor in q's dtype."""
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
-    o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    dv = v.shape[3]
+    o = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
     if mask_len is None:
         lens, len_sb, len_sq = 0, 0, 0
     else:
@@ -101,7 +102,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if kind == "simt":
         err = _simt()(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       o.data_ptr(), lens or None, dtype, b, h, kvh, sq, skv,
-                      d, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
+                      d, dv, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
                       v_sh, len_sb, len_sq, int(causal), float(scale), stream)
         PATH_LAUNCHES["simt"] += 1
         _raise(err, "CUDA-core")
@@ -110,13 +111,14 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if kind == "split" and path.splits > 1:
         # m and l, then acc, of every (range, batch, KV head, packed row);
         # held until the launch is enqueued
-        scratch = torch.empty(path.splits * b * sq * h * (d + 2),
+        scratch = torch.empty(path.splits * b * sq * h * (dv + 2),
                               dtype=torch.float32, device=q.device)
         part = scratch.data_ptr()
     record = _RECORD.pack(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), part, lens,
         q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, len_sb, len_sq,
-        dtype, b, h, kvh, sq, skv, d, path.splits, path.chunk, int(causal),
+        dtype, b, h, kvh, sq, skv, d, dv, path.splits, path.chunk,
+        int(causal),
         scale)
     if kind == "split":
         err = _split()(record, stream)

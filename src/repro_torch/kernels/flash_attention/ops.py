@@ -27,6 +27,9 @@ from .kernel import flash_attention_cuda
 from .ref import flash_attention_ref
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+# the (Dk, Dv) pairs the kernels are built for: Dv = Dk at every multiple
+# of 16 up to 128, and MLA's (96, 64) (minicpm3: 64 + 32 rope dims, V 64)
+HEAD_DIMS = tuple((d, d) for d in range(16, 129, 16)) + ((96, 64),)
 SPLIT_MAX_ROWS = 64     # packed query rows a split block holds
 SPLIT_TILE = 64         # keys a split block loads at a time
 SPLIT_BLOCKS_PER_SM = 1  # one wave of split blocks (see choose_path)
@@ -86,13 +89,10 @@ def _check(q, k, v, mask_len):
 
 def _check_kernel(q, k, v, mask_len):
     """What every path of the kernels takes; raises on anything else."""
-    d = q.shape[3]
-    if v.shape[3] != d:
-        raise ValueError(f"the kernel takes V with the head dim of Q and K "
-                         f"({d}), got {v.shape[3]}")
-    if d % 16 or not 0 < d <= 128:
-        raise ValueError(f"the kernel takes a head dim that is a multiple "
-                         f"of 16 up to 128, got {d}")
+    dims = (q.shape[3], v.shape[3])
+    if dims not in HEAD_DIMS:
+        raise ValueError(f"the kernels are built for the (Dk, Dv) head dims "
+                         f"{list(HEAD_DIMS)}, got {dims}")
     if q.dtype not in KERNEL_DTYPES:
         raise TypeError(f"the kernel takes {KERNEL_DTYPES}, got {q.dtype}")
     # the split and tensor-core paths copy 16-byte pieces of each row
@@ -119,9 +119,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ≤ i + Skv − Sq); ``mask_len`` — int32 (B,) or (B, Sq) — masks keys
     ≥ the length.  ``q_chunk``/``kv_chunk`` are the plain twin's chunks
     (the kernels have their own tiles).  The CPU twin takes Dv ≠ Dk, as
-    the reference's oracle does.  On the card: Dv = Dk, a multiple of 16
-    up to 128, float32 or bfloat16, each input's last dimension
-    contiguous and its rows on 16 bytes."""
+    the reference's oracle does.  On the card: (Dk, Dv) one of
+    :data:`HEAD_DIMS`, float32 or bfloat16, each input's last dimension
+    contiguous and its rows on 16 bytes (K and V may have different
+    strides, as MLA's sliced V does).  The scale is Dk^-0.5."""
     _check(q, k, v, mask_len)
     dev = q.device
     if dev.type == "cpu":

@@ -91,6 +91,9 @@ class ModelConfig:
     def is_moe(self) -> bool:
         return self.moe_experts > 0
 
+    def layer_is_moe(self, idx: int) -> bool:
+        return self.is_moe and (idx % self.moe_period == self.moe_period - 1)
+
     def param_count(self) -> int:
         """Exact parameter count, from a model built on the meta device."""
         from .registry import count_params  # lazy, avoids a cycle

@@ -7,9 +7,10 @@ stacks each super-block's parameters on a leading axis and scans over
 them; here super-blocks are ``ModuleList`` entries and the scan is a
 Python loop.
 
-Every FFN is the dense SwiGLU: the MoE FFN (every ``moe_period``-th
-layer in the published config) waits for the moe family, and a config
-with experts is refused, never served without them.
+FFN j of a super-block is the top-k MoE where the global layer index is
+MoE (every ``moe_period``-th layer, Jamba: 2), else the dense SwiGLU;
+the parameters sit in ``ffn_moe`` and ``ffn_dense`` in that order, as
+the reference stacks them.  With ``moe_experts=0`` every FFN is dense.
 
 Decode state per super-block: one KV cache and ``attn_period − 1``
 (conv, ssm) Mamba states, in the reference's stacked layout — kv
@@ -28,28 +29,32 @@ from ..device import resolve_device
 from .common import ModelConfig
 from .layers.attention import GQA, gqa_apply
 from .layers.basic import Embedding, Head, RMSNorm, embed, rms_norm, unembed
-from .layers.ffn import SwiGLU, swiglu
+from .layers.ffn import MoE, SwiGLU, moe_apply, swiglu
 from .layers.recurrent import Mamba, _mamba_dims, mamba_apply, mamba_step
 from .layers.rope import rope_angles
 
 
-def _superblock_layout(cfg: ModelConfig) -> int:
-    """Layers per super-block: layer 0 is attention, the rest Mamba."""
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: the hybrid family's MoE FFN is not ported yet "
-            f"(ROADMAP item 11); serve it with moe_experts=0")
+def _superblock_layout(cfg: ModelConfig):
+    """(layers a super-block, its MoE FFNs' indices, its dense ones'):
+    layer 0 is attention, the rest Mamba; FFN j is MoE iff the global
+    layer index is, which needs attn_period % moe_period == 0."""
     ap = cfg.attn_period
     if ap <= 0 or cfg.n_layers % ap:
         raise ValueError(f"{cfg.name}: n_layers {cfg.n_layers} is not a "
                          f"multiple of attn_period {ap} > 0")
-    return ap
+    if cfg.is_moe and ap % cfg.moe_period:
+        raise ValueError(f"{cfg.name}: attn_period {ap} is not a multiple "
+                         f"of moe_period {cfg.moe_period}")
+    moe_js = [j for j in range(ap)
+              if cfg.is_moe and j % cfg.moe_period == cfg.moe_period - 1]
+    dense_js = [j for j in range(ap) if j not in moe_js]
+    return ap, moe_js, dense_js
 
 
 class SuperBlock(nn.Module):
     def __init__(self, cfg: ModelConfig, gen, device=None):
         super().__init__()
-        ap = _superblock_layout(cfg)
+        ap, moe_js, dense_js = _superblock_layout(cfg)
         d = cfg.d_model
         self.attn = GQA(cfg, gen, device)
         self.attn_ln = RMSNorm(d, device)
@@ -59,15 +64,20 @@ class SuperBlock(nn.Module):
                                       for _ in range(ap - 1))
         self.ffn_ln = nn.ModuleList(RMSNorm(d, device) for _ in range(ap))
         self.ffn_dense = nn.ModuleList(SwiGLU(cfg, gen, device=device)
-                                       for _ in range(ap))
+                                       for _ in dense_js)
+        self.ffn_moe = (nn.ModuleList(MoE(cfg, gen, device) for _ in moe_js)
+                        if moe_js else None)
 
 
 def _superblock_apply(cfg: ModelConfig, p: SuperBlock, x, *, angles,
                       cache=None, sb=0, cache_index=None):
-    """One super-block; with ``cache``, super-block ``sb``'s states are
-    read and written in place."""
+    """One super-block: (x, its summed MoE auxiliary loss); with
+    ``cache``, super-block ``sb``'s states are read and written in
+    place."""
     eps = cfg.norm_eps
-    for j in range(len(p.ffn_dense)):
+    ap, moe_js, dense_js = _superblock_layout(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for j in range(ap):
         if j == 0:
             h = rms_norm(p.attn_ln, x, eps)
             kv = (None if cache is None else
@@ -87,8 +97,13 @@ def _superblock_apply(cfg: ModelConfig, p: SuperBlock, x, *, angles,
                 st["ssm"].copy_(new["ssm"])
                 x = x + y
         h = rms_norm(p.ffn_ln[j], x, eps)
-        x = x + swiglu(p.ffn_dense[j], h)
-    return x
+        if j in moe_js:
+            y, a = moe_apply(cfg, p.ffn_moe[moe_js.index(j)], h)
+            aux = aux + a
+        else:
+            y = swiglu(p.ffn_dense[dense_js.index(j)], h)
+        x = x + y
+    return x, aux
 
 
 class Hybrid(nn.Module):
@@ -96,7 +111,7 @@ class Hybrid(nn.Module):
 
     def __init__(self, cfg: ModelConfig, gen, device=None):
         super().__init__()
-        nsb = cfg.n_layers // _superblock_layout(cfg)
+        nsb = cfg.n_layers // _superblock_layout(cfg)[0]
         dt = cfg.torch_dtype
         self.embed = Embedding(gen, cfg.vocab, cfg.d_model, dt, device)
         self.blocks = nn.ModuleList(SuperBlock(cfg, gen, device)
@@ -116,12 +131,15 @@ def init(cfg: ModelConfig, seed: int = 0, device=None) -> Hybrid:
 
 
 def _run(cfg, params: Hybrid, x, positions, cache=None, cache_index=None):
+    """(logits, the auxiliary loss summed over the super-blocks)."""
     angles = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for sb, p in enumerate(params.blocks):
-        x = _superblock_apply(cfg, p, x, angles=angles, cache=cache, sb=sb,
-                              cache_index=cache_index)
+        x, a = _superblock_apply(cfg, p, x, angles=angles, cache=cache,
+                                 sb=sb, cache_index=cache_index)
+        aux = aux + a
     x = rms_norm(params.ln_f, x, cfg.norm_eps)
-    return unembed(params.embed, params.head, x, cfg.tie_embeddings)
+    return unembed(params.embed, params.head, x, cfg.tie_embeddings), aux
 
 
 def _positions(b, s, start, device):
@@ -137,15 +155,14 @@ def forward(cfg: ModelConfig, params: Hybrid, tokens, positions=None,
     b, s = x.shape[:2]
     if positions is None:
         positions = _positions(b, s, 0, x.device)
-    logits = _run(cfg, params, x, positions)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return _run(cfg, params, x, positions)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device=None):
     dt = dtype or cfg.torch_dtype
     dev = resolve_device(device)
-    ap = _superblock_layout(cfg)
+    ap = _superblock_layout(cfg)[0]
     nsb = cfg.n_layers // ap
     di, _, ds, dc = _mamba_dims(cfg)
     kv = (nsb, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
@@ -165,7 +182,7 @@ def decode_step(cfg: ModelConfig, params: Hybrid, tokens, cache, index: int,
     b, s = x.shape[:2]
     if positions is None:
         positions = _positions(b, s, index, x.device)
-    return _run(cfg, params, x, positions, cache, index), cache
+    return _run(cfg, params, x, positions, cache, index)[0], cache
 
 
 def prefill(cfg: ModelConfig, params: Hybrid, tokens, cache,

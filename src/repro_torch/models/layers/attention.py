@@ -1,9 +1,10 @@
-"""Attention: the op dispatch, the GQA layer with its KV cache, and the
-encoder–decoder cross-attention layer.
+"""Attention: the op dispatch, the GQA layer with its KV cache, the
+encoder–decoder cross-attention layer, and MLA (multi-head latent
+attention, MiniCPM3 / DeepSeek-V2) with its compressed cache.
 
 The reference's ``hint_*`` sharding annotations have no meaning on one
 device and are dropped.  Its training-only custom VJP (the flash
-backward) and MLA wait for later slices (ROADMAP item 11).
+backward) waits for training (ROADMAP item 11.6).
 """
 
 from __future__ import annotations
@@ -13,7 +14,8 @@ from torch import nn
 
 from ...kernels.flash_attention import ops as flash_ops
 from ..common import ModelConfig, dense_init
-from .rope import apply_rope
+from .basic import RMSNorm, rms_norm
+from .rope import apply_rope, rope_angles
 
 
 def attention_op(cfg: ModelConfig, q, k, v, *, causal, mask_len=None):
@@ -89,3 +91,70 @@ def cross_kv(cfg: ModelConfig, p: GQA, enc_out):
     k = torch.matmul(enc_out, p.wk).reshape(b, se, kv, hd)
     v = torch.matmul(enc_out, p.wv).reshape(b, se, kv, hd)
     return {"k": k, "v": v}
+
+
+# ---------------------------------------------------------------------- #
+# MLA — multi-head latent attention (MiniCPM3 / DeepSeek-V2 style)
+# ---------------------------------------------------------------------- #
+class MLA(nn.Module):
+    def __init__(self, cfg: ModelConfig, gen, device=None):
+        super().__init__()
+        d, h = cfg.d_model, cfg.n_heads
+        qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+        dn, dr, dvh = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        dt = cfg.torch_dtype
+        self.q_down = dense_init(gen, (d, qr), dt, device=device)
+        self.q_norm = RMSNorm(qr, device)
+        self.q_up = dense_init(gen, (qr, h * (dn + dr)), dt, device=device)
+        self.kv_down = dense_init(gen, (d, kvr + dr), dt, device=device)
+        self.kv_norm = RMSNorm(kvr, device)
+        self.kv_up = dense_init(gen, (kvr, h * (dn + dvh)), dt,
+                                device=device)
+        self.wo = dense_init(gen, (h * dvh, d), dt, device=device)
+
+
+def mla_apply(cfg: ModelConfig, p: MLA, x, *, positions, causal=True,
+              cache=None, cache_index=None):
+    """x (B, S, d), positions (B, S) int.  RoPE turns only the
+    ``qk_rope_dim`` sub-dims of q and the one shared k_rope.  ``cache``:
+    optional dict(c_kv (B, T, kv_lora_rank), k_rope (B, T, qk_rope_dim)),
+    the compressed latents, written at ``cache_index`` in place; the
+    latents of the whole cache are then expanded per head (the
+    reference's expansion, not the absorbed product) and attention runs
+    with Dk = nope + rope dims, Dv = ``v_head_dim``, query t seeing keys
+    < cache_index + t + 1.  Returns (out, cache)."""
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    dn, dr, dvh = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    kvr = cfg.kv_lora_rank
+    q = rms_norm(p.q_norm, torch.matmul(x, p.q_down), cfg.norm_eps)
+    q = torch.matmul(q, p.q_up).reshape(b, s, h, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    ang = rope_angles(positions, dr, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, ang)
+
+    ckv = torch.matmul(x, p.kv_down)
+    c_kv = rms_norm(p.kv_norm, ckv[..., :kvr], cfg.norm_eps)
+    k_rope = apply_rope(ckv[:, :, None, kvr:], ang)[:, :, 0]
+
+    mask_len = None
+    if cache is not None:
+        cc, cr = cache["c_kv"], cache["k_rope"]
+        cc[:, cache_index:cache_index + s] = c_kv.to(cc.dtype)
+        cr[:, cache_index:cache_index + s] = k_rope.to(cr.dtype)
+        c_kv, k_rope = cc, cr
+        mask_len = (torch.arange(s, dtype=torch.int32, device=x.device)
+                    + (cache_index + 1))[None].expand(b, s)
+        causal = False
+
+    skv = c_kv.shape[1]
+    kvu = torch.matmul(c_kv.to(x.dtype), p.kv_up).reshape(b, skv, h,
+                                                          dn + dvh)
+    k = torch.cat([kvu[..., :dn],
+                   k_rope[:, :, None, :].to(x.dtype).expand(b, skv, h, dr)],
+                  dim=-1)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    out = attention_op(cfg, q_full, k, kvu[..., dn:], causal=causal,
+                       mask_len=mask_len)
+    out = torch.matmul(out.reshape(b, s, h * dvh), p.wo)
+    return out.to(x.dtype), cache

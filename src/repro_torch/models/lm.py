@@ -1,16 +1,19 @@
 """Decoder-only LM: the dense family (codeqwen1.5-7b, internlm2-1.8b,
-stablelm-3b).
+stablelm-3b), the MoE family (qwen2-moe-a2.7b, dbrx-132b: every layer's
+FFN the top-k MoE) and MLA (minicpm3-4b).
 
-The reference's ``models/lm.py`` also covers the MoE FFN, MLA and the
-vlm's M-RoPE; here a configuration with any of them raises (ROADMAP
-queue 1, items 11.2–11.4).  Blocks are ``ModuleList`` entries and the
-reference's ``lax.scan`` over stacked layers is a Python loop; its
-``hint_bsd`` sharding annotation has no meaning on one device.  Every
-attention call goes through ``attention_op``: on the card the
-hand-written flash kernel, on the CPU its plain twin.
+The reference's ``models/lm.py`` also covers the vlm's M-RoPE; here a
+configuration with it raises (ROADMAP queue 1, item 11.4).  Blocks are
+``ModuleList`` entries and the reference's ``lax.scan`` over stacked
+layers is a Python loop; its ``hint_bsd`` sharding annotation has no
+meaning on one device.  Every attention call goes through
+``attention_op``: on the card the hand-written flash kernel, on the CPU
+its plain twin.
 
-Decode state: the reference's stacked KV layout, k and v each
-(n_layers, B, T, KV, hd) in the config dtype, written in place.
+Decode state: the reference's stacked layouts, written in place: k and
+v each (n_layers, B, T, KV, hd) in the config dtype; with MLA the
+compressed latents c_kv (n_layers, B, T, kv_lora_rank) and k_rope
+(n_layers, B, T, qk_rope_dim).
 
 API (as the reference's):
   init(cfg, seed, device) -> params
@@ -28,24 +31,21 @@ from torch import nn
 
 from ..device import resolve_device
 from .common import ModelConfig
-from .layers.attention import GQA, gqa_apply
+from .layers.attention import GQA, MLA, gqa_apply, mla_apply
 from .layers.basic import Embedding, Head, RMSNorm, embed, rms_norm, unembed
-from .layers.ffn import SwiGLU, swiglu
+from .layers.ffn import MoE, SwiGLU, moe_apply, swiglu
 from .layers.rope import rope_angles
 
 
 def _check_config(cfg: ModelConfig) -> None:
-    """Raise for the parts of the reference's LM the port lacks."""
-    if cfg.is_moe:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE FFN is not ported yet (ROADMAP item 11.2)")
-    if cfg.mla:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA attention is not ported yet (ROADMAP item "
-            f"11.3)")
+    """Raise for the part of the reference's LM the port lacks."""
     if cfg.mrope_sections:
         raise NotImplementedError(
             f"{cfg.name}: M-RoPE is not ported yet (ROADMAP item 11.4)")
+
+
+def _uses_moe(cfg: ModelConfig) -> bool:
+    return cfg.is_moe and cfg.moe_period == 1
 
 
 class Block(nn.Module):
@@ -53,18 +53,27 @@ class Block(nn.Module):
         super().__init__()
         self.ln1 = RMSNorm(cfg.d_model, device)
         self.ln2 = RMSNorm(cfg.d_model, device)
-        self.attn = GQA(cfg, gen, device)
-        self.ffn = SwiGLU(cfg, gen, device=device)
+        self.attn = (MLA if cfg.mla else GQA)(cfg, gen, device)
+        self.ffn = (MoE(cfg, gen, device) if _uses_moe(cfg)
+                    else SwiGLU(cfg, gen, device=device))
 
 
-def _block_apply(cfg: ModelConfig, p: Block, x, *, angles, cache=None,
-                 cache_index=None):
+def _block_apply(cfg: ModelConfig, p: Block, x, *, angles, positions,
+                 cache=None, cache_index=None):
+    """One layer: (x, the MoE auxiliary loss or None)."""
     h = rms_norm(p.ln1, x, cfg.norm_eps)
-    attn, _ = gqa_apply(cfg, p.attn, h, angles=angles, cache=cache,
-                        cache_index=cache_index)
+    if cfg.mla:
+        attn, _ = mla_apply(cfg, p.attn, h, positions=positions,
+                            cache=cache, cache_index=cache_index)
+    else:
+        attn, _ = gqa_apply(cfg, p.attn, h, angles=angles, cache=cache,
+                            cache_index=cache_index)
     x = x + attn
     h = rms_norm(p.ln2, x, cfg.norm_eps)
-    return x + swiglu(p.ffn, h)
+    if _uses_moe(cfg):
+        y, aux = moe_apply(cfg, p.ffn, h)
+        return x + y, aux
+    return x + swiglu(p.ffn, h), None
 
 
 class LM(nn.Module):
@@ -98,26 +107,31 @@ def _positions(b, s, start, device):
 
 
 def _run(cfg, params: LM, x, positions, cache=None, cache_index=None):
-    angles = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    """(logits, the summed auxiliary loss, fp32)."""
+    # MLA turns its rope sub-dims itself, from the positions
+    angles = (None if cfg.mla else
+              rope_angles(positions, cfg.head_dim, cfg.rope_theta))
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(params.blocks):
-        kv = (None if cache is None else
-              {"k": cache["k"][i], "v": cache["v"][i]})
-        x = _block_apply(cfg, p, x, angles=angles, cache=kv,
-                         cache_index=cache_index)
+        layer = None if cache is None else {k: c[i] for k, c in cache.items()}
+        x, a = _block_apply(cfg, p, x, angles=angles, positions=positions,
+                            cache=layer, cache_index=cache_index)
+        if a is not None:
+            aux = aux + a
     x = rms_norm(params.ln_f, x, cfg.norm_eps)
-    return unembed(params.embed, params.head, x, cfg.tie_embeddings)
+    return unembed(params.embed, params.head, x, cfg.tie_embeddings), aux
 
 
 def forward(cfg: ModelConfig, params: LM, tokens, positions=None,
             embeds=None):
     """tokens (B, S) int, or ``embeds`` (B, S, d): logits (B, S, vocab)
-    in fp32 and the MoE auxiliary loss (0: no experts)."""
+    in fp32 and the MoE auxiliary loss summed over the layers (0: no
+    experts)."""
     x = embeds if embeds is not None else embed(params.embed, tokens)
     b, s = x.shape[:2]
     if positions is None:
         positions = _positions(b, s, 0, x.device)
-    logits = _run(cfg, params, x, positions)
-    return logits, torch.zeros((), dtype=torch.float32, device=x.device)
+    return _run(cfg, params, x, positions)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
@@ -125,7 +139,13 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
     _check_config(cfg)
     dt = dtype or cfg.torch_dtype
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    lead = (cfg.n_layers, batch, max_len)
+    if cfg.mla:
+        return {"c_kv": torch.zeros((*lead, cfg.kv_lora_rank), dtype=dt,
+                                    device=dev),
+                "k_rope": torch.zeros((*lead, cfg.qk_rope_dim), dtype=dt,
+                                      device=dev)}
+    shape = (*lead, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dt, device=dev),
             "v": torch.zeros(shape, dtype=dt, device=dev)}
 
@@ -138,7 +158,7 @@ def decode_step(cfg: ModelConfig, params: LM, tokens, cache, index: int,
     b, s = x.shape[:2]
     if positions is None:
         positions = _positions(b, s, index, x.device)
-    return _run(cfg, params, x, positions, cache, index), cache
+    return _run(cfg, params, x, positions, cache, index)[0], cache
 
 
 def prefill(cfg: ModelConfig, params: LM, tokens, cache, positions=None):

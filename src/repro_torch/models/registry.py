@@ -1,9 +1,10 @@
 """Model registry: family dispatch and parameter counting.
 
-The ``dense`` (codeqwen1.5-7b, internlm2-1.8b, stablelm-3b), ``encdec``
-(whisper) and ``hybrid`` (Jamba, without its MoE FFN) families are
-ported; the moe, vlm and ssm families raise until ROADMAP item 11 brings
-them.
+The ``dense`` (codeqwen1.5-7b, internlm2-1.8b, stablelm-3b; minicpm3-4b
+with MLA), ``moe`` (qwen2-moe-a2.7b, dbrx-132b), ``encdec`` (whisper)
+and ``hybrid`` (Jamba, its MoE FFNs included) families are ported; the
+vlm family raises until ROADMAP item 11.4 brings M-RoPE, the ssm family
+(xLSTM) until item 11.5.
 """
 
 from __future__ import annotations
@@ -13,15 +14,18 @@ from types import ModuleType
 from . import encdec, hybrid, lm
 from .common import ModelConfig, param_count_tree
 
-_FAMILY_MODULE: dict[str, ModuleType] = {"dense": lm, "encdec": encdec,
-                                          "hybrid": hybrid}
+_FAMILY_MODULE: dict[str, ModuleType] = {"dense": lm, "moe": lm,
+                                          "encdec": encdec, "hybrid": hybrid}
+_NOT_PORTED = {"vlm": "11.4 (M-RoPE)", "ssm": "11.5 (xLSTM)"}
 
 
 def model_module(cfg: ModelConfig) -> ModuleType:
     mod = _FAMILY_MODULE.get(cfg.family)
     if mod is None:
+        item = _NOT_PORTED.get(cfg.family, "11")
         raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported yet (ROADMAP item 11)")
+            f"the {cfg.family!r} family is not ported yet (ROADMAP item "
+            f"{item})")
     return mod
 
 
@@ -40,6 +44,14 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                                         device=device)
 
 
-def count_params(cfg: ModelConfig) -> int:
-    """Exact parameter count of a model built on the meta device."""
-    return param_count_tree(init(cfg, device="meta"))
+def count_params(cfg: ModelConfig, active_only: bool = False) -> int:
+    """Exact parameter count of a model built on the meta device;
+    ``active_only`` counts the top-k routed and the shared experts only
+    (the reference's MoE MODEL_FLOPS count: the padded dummy experts
+    stay counted, as there)."""
+    total = param_count_tree(init(cfg, device="meta"))
+    if not active_only or not cfg.is_moe:
+        return total
+    d, f, e, k = cfg.d_model, cfg.d_ff, cfg.moe_experts, cfg.moe_topk
+    n_moe_layers = sum(cfg.layer_is_moe(i) for i in range(cfg.n_layers))
+    return total - n_moe_layers * (e - k) * 3 * d * f

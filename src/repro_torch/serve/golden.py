@@ -1,18 +1,22 @@
-"""The serve goldens: a whisper and a Jamba smoke case drawn from numpy,
-and the record of what serving them gives.
+"""The serve goldens: smoke cases drawn from numpy, and the record of
+what serving them gives.
 
 The reference and the port draw parameters from different generators,
 so a case they can both run must come from neither: :func:`numpy_case`
 draws the reference's whisper parameter tree, the encoder frames and the
 prompts from one numpy seed, :func:`jamba_numpy_case` the Jamba tree
-(no experts) and the prompts, :func:`dense_numpy_case` a dense LM's tree
-and the prompts.  ``tests/goldens/serve_whisper_smoke.json``,
-``serve_jamba_smoke.json`` and ``serve_dense_smoke.json`` (one record
-for each of the three dense smoke configurations, at the batch of the
-reference's ``examples/serve_decode.py``) hold the reference's float32
-logits (prefill and every decode step) and its greedy tokens for those
-cases; the port is held against them on the CPU and, where there is no
-JAX, on the card.
+(with or without experts) and the prompts, :func:`dense_numpy_case` a
+decoder LM's tree (dense, MoE or MLA) and the prompts.
+``tests/goldens/serve_whisper_smoke.json``, ``serve_jamba_smoke.json``
+(no experts), ``serve_dense_smoke.json`` (one record for each of the
+three dense smoke configurations, at the batch of the reference's
+``examples/serve_decode.py``), ``serve_moe_smoke.json`` (qwen2-moe,
+dbrx and Jamba with its experts, at that batch, with each call's summed
+auxiliary loss and dropped (token, slot) pairs) and
+``serve_mla_smoke.json`` (minicpm3) hold the reference's float32 logits
+(prefill and every decode step) and its greedy tokens for those cases;
+the port is held against them on the CPU and, where there is no JAX, on
+the card.
 
 The whisper weights are drawn with a small embedding scale and a gain on
 the attention weights: with the reference's own init the tied embedding
@@ -53,6 +57,11 @@ DENSE_ARCHS = ("codeqwen1.5-7b", "internlm2-1.8b", "stablelm-3b")
 # the reference's examples/serve_decode.py defaults: 4 requests, 16-token
 # prompts, 24 new tokens, a cache of prompt + new + 8 rows
 DENSE_BATCH, DENSE_PROMPT_LEN, DENSE_NEW_TOKENS = 4, 16, 24
+MOE_GOLDEN_NAME = "serve_moe_smoke.json"
+MOE_ARCHS = ("qwen2-moe-a2.7b", "dbrx-132b", "jamba-1.5-large-398b")
+MLA_GOLDEN_NAME = "serve_mla_smoke.json"
+MLA_ARCHS = ("minicpm3-4b",)
+AUX_DECIMALS = 10
 
 
 def config() -> ModelConfig:
@@ -113,14 +122,35 @@ def jamba_config() -> ModelConfig:
                                                           moe_topk=0)
 
 
+def _moe_numpy_params(cfg: ModelConfig, rng: np.random.Generator,
+                      lead: tuple) -> dict:
+    """A MoE FFN's tree, stacked on ``lead`` (layers), experts next: the
+    router at fan-in scale, so routes vary from token to token."""
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.moe_experts
+    ep = max(cfg.moe_pad_to, e) if cfg.moe_pad_to else e
+    tree = {"router": _normal(rng, (*lead, d, e), d ** -0.5),
+            "w_gate": _normal(rng, (*lead, ep, d, f), d ** -0.5),
+            "w_up": _normal(rng, (*lead, ep, d, f), d ** -0.5),
+            "w_down": _normal(rng, (*lead, ep, f, d), f ** -0.5)}
+    if cfg.moe_shared > 0:
+        fs = cfg.moe_shared * f
+        tree["shared"] = {"w_gate": _normal(rng, (*lead, d, fs), d ** -0.5),
+                          "w_up": _normal(rng, (*lead, d, fs), d ** -0.5),
+                          "w_down": _normal(rng, (*lead, fs, d), fs ** -0.5)}
+    return tree
+
+
 def jamba_numpy_params(cfg: ModelConfig, rng: np.random.Generator) -> dict:
     """The reference's hybrid parameter tree (super-blocks stacked on
-    axis 0, a super-block's layers on axis 1), float32, every FFN dense,
-    drawn from ``rng`` in a fixed order."""
+    axis 0, a super-block's layers on axis 1), float32, drawn from
+    ``rng`` in a fixed order; with experts, the MoE FFNs (``ffn_moe``)
+    are drawn last of the super-blocks' parameters."""
     d, f, h, kv, hd = (cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads,
                        cfg.head_dim)
     ap = cfg.attn_period
     nsb, nm = cfg.n_layers // ap, ap - 1
+    n_moe = sum(cfg.is_moe and j % cfg.moe_period == cfg.moe_period - 1
+                for j in range(ap))
     di = cfg.mamba_expand * d
     dtr = max(1, -(-d // 16))
     ds, dc = cfg.mamba_d_state, cfg.mamba_d_conv
@@ -154,10 +184,12 @@ def jamba_numpy_params(cfg: ModelConfig, rng: np.random.Generator) -> dict:
         "mamba": mamba,
         "mamba_ln": {"scale": near((nsb, nm, d), 1.0)},
         "ffn_ln": {"scale": near((nsb, ap, d), 1.0)},
-        "ffn_dense": {"w_gate": normal((nsb, ap, d, f), d),
-                      "w_up": normal((nsb, ap, d, f), d),
-                      "w_down": normal((nsb, ap, f, d), f)},
+        "ffn_dense": {"w_gate": normal((nsb, ap - n_moe, d, f), d),
+                      "w_up": normal((nsb, ap - n_moe, d, f), d),
+                      "w_down": normal((nsb, ap - n_moe, f, d), f)},
     }
+    if n_moe:
+        blocks["ffn_moe"] = _moe_numpy_params(cfg, rng, (nsb, n_moe))
     return {"embed": {"table": _normal(rng, (cfg.vocab, d), 1.0)},
             "blocks": blocks,
             "ln_f": {"scale": near((d,), 1.0)},
@@ -174,8 +206,10 @@ def jamba_numpy_case(cfg: ModelConfig, seed: int = SEED, batch: int = BATCH,
 
 
 def dense_numpy_params(cfg: ModelConfig, rng: np.random.Generator) -> dict:
-    """The reference's dense-LM parameter tree (layers stacked on axis 0),
-    float32, drawn from ``rng`` in a fixed order."""
+    """The reference's decoder-LM parameter tree (layers stacked on axis
+    0; the dense, MoE and MLA configurations), float32, drawn from
+    ``rng`` in a fixed order: norms, attention (GQA or MLA), FFN (SwiGLU
+    or MoE), embedding, final norm, head."""
     d, f, h, kv, hd = (cfg.d_model, cfg.d_ff, cfg.n_heads, cfg.n_kv_heads,
                        cfg.head_dim)
     n = cfg.n_layers
@@ -186,23 +220,44 @@ def dense_numpy_params(cfg: ModelConfig, rng: np.random.Generator) -> dict:
     def near_one(shape):
         return (1.0 + 0.1 * rng.standard_normal(shape)).astype(np.float32)
 
-    blocks = {
-        "ln1": {"scale": near_one((n, d))},
-        "ln2": {"scale": near_one((n, d))},
-        "attn": {"wq": normal((n, d, h * hd), d),
-                 "wk": normal((n, d, kv * hd), d),
-                 "wv": normal((n, d, kv * hd), d),
-                 "wo": normal((n, h * hd, d), h * hd)},
-        "ffn": {"w_gate": normal((n, d, f), d),
-                "w_up": normal((n, d, f), d),
-                "w_down": normal((n, f, d), f)},
-    }
+    blocks = {"ln1": {"scale": near_one((n, d))},
+              "ln2": {"scale": near_one((n, d))}}
+    if cfg.mla:
+        qr, kvr = cfg.q_lora_rank, cfg.kv_lora_rank
+        dn, dr, dvh = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+        blocks["attn"] = {
+            "q_down": normal((n, d, qr), d),
+            "q_norm": {"scale": near_one((n, qr))},
+            "q_up": normal((n, qr, h * (dn + dr)), qr),
+            "kv_down": normal((n, d, kvr + dr), d),
+            "kv_norm": {"scale": near_one((n, kvr))},
+            "kv_up": normal((n, kvr, h * (dn + dvh)), kvr),
+            "wo": normal((n, h * dvh, d), h * dvh)}
+    else:
+        blocks["attn"] = {"wq": normal((n, d, h * hd), d),
+                          "wk": normal((n, d, kv * hd), d),
+                          "wv": normal((n, d, kv * hd), d),
+                          "wo": normal((n, h * hd, d), h * hd)}
+    if cfg.is_moe and cfg.moe_period == 1:
+        blocks["ffn"] = _moe_numpy_params(cfg, rng, (n,))
+    else:
+        blocks["ffn"] = {"w_gate": normal((n, d, f), d),
+                         "w_up": normal((n, d, f), d),
+                         "w_down": normal((n, f, d), f)}
     tree = {"embed": {"table": _normal(rng, (cfg.vocab, d), 1.0)},
             "blocks": blocks,
             "ln_f": {"scale": near_one((d,))}}
     if not cfg.tie_embeddings:
         tree["head"] = {"w": normal((cfg.vocab, d), cfg.vocab)}
     return tree
+
+
+def lm_numpy_case(cfg: ModelConfig, seed: int = SEED):
+    """The numpy case of a golden at the example's batch: Jamba's tree
+    for the hybrid family, else a decoder LM's."""
+    if cfg.family == "hybrid":
+        return jamba_numpy_case(cfg, seed, DENSE_BATCH, DENSE_PROMPT_LEN)
+    return dense_numpy_case(cfg, seed)
 
 
 def dense_numpy_case(cfg: ModelConfig, seed: int = SEED,
@@ -244,6 +299,46 @@ def record(cfg: ModelConfig, prefill_logits, step_logits, tokens) -> dict:
             "tokens": np.asarray(tokens, np.int64).tolist(),
             "prefill_logits": _rounded(prefill_logits),
             "step_logits": _rounded(steps)}
+
+
+def moe_record(cfg: ModelConfig, prefill_logits, step_logits, tokens,
+               aux, dropped) -> dict:
+    """:func:`record` with each call's auxiliary loss summed over the
+    layers (the prefill's first, rounded to ``AUX_DECIMALS``) and its
+    dropped (token, slot) pairs summed over the layers."""
+    rec = record(cfg, prefill_logits, step_logits, tokens)
+    rec["aux_decimals"] = AUX_DECIMALS
+    rec["aux"] = np.round(np.asarray(aux, np.float64), AUX_DECIMALS).tolist()
+    rec["dropped"] = [int(x) for x in dropped]
+    return rec
+
+
+def call_stats(cfg: ModelConfig, stats: list) -> tuple[list, list]:
+    """Each call's (aux, dropped pairs) summed over its MoE layers, from
+    the entries :func:`repro_torch.models.layers.ffn.moe_stats` gathered
+    over whole calls (prefill, decode steps)."""
+    n = sum(cfg.layer_is_moe(i) for i in range(cfg.n_layers))
+    if not n or len(stats) % n:
+        raise ValueError(f"{len(stats)} MoE entries do not make whole calls "
+                         f"of {n} layers")
+    calls = [stats[i:i + n] for i in range(0, len(stats), n)]
+    return ([sum(float(x["aux"]) for x in c) for c in calls],
+            [sum(int(x["dropped"]) for x in c) for c in calls])
+
+
+def moe_mismatches(golden: dict, aux, dropped, tol: float = 1e-6
+                   ) -> list[str]:
+    """Where a run's auxiliary losses (within ``tol``) and drops (exact)
+    depart from a :func:`moe_record`."""
+    out = []
+    got = [int(x) for x in dropped]
+    if got != golden["dropped"]:
+        out.append(f"dropped {got} != {golden['dropped']}")
+    aux = np.asarray(aux, np.float64)
+    want = np.asarray(golden["aux"])
+    if aux.shape != want.shape or (np.abs(aux - want) > tol).any():
+        out.append(f"aux {aux.tolist()} != {want.tolist()} (tol {tol})")
+    return out
 
 
 def dumps(rec: dict) -> str:

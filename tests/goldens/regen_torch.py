@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""Regenerate the port's goldens for ML traffic and the dense LM family
-from the JAX reference, on the CPU.
+"""Regenerate the port's goldens for ML traffic and the decoder LMs
+(dense, MoE, MLA) from the JAX reference, on the CPU.
 
-    PYTHONPATH=src python tests/goldens/regen_torch.py            # both
+    PYTHONPATH=src python tests/goldens/regen_torch.py            # all
     PYTHONPATH=src python tests/goldens/regen_torch.py mltraffic
-    PYTHONPATH=src python tests/goldens/regen_torch.py dense
+    PYTHONPATH=src python tests/goldens/regen_torch.py dense moe mla
 
 Self-contained (it inserts ``src`` itself) and deterministic: a second
 run writes the same bytes.
@@ -28,10 +28,16 @@ run writes the same bytes.
   ``repro_torch.serve.golden.dense_numpy_case``, at the batch of
   ``examples/serve_decode.py`` (4 requests, 16-token prompts, 24 new
   tokens).
+* ``serve_moe_smoke.json``: the same for qwen2-moe, dbrx and Jamba (with
+  its 4 experts) at their smoke configurations, with each call's
+  auxiliary loss and dropped (token, slot) pairs summed over the layers
+  (read from the reference's routes by :func:`reference_moe_stats`);
+  ``serve_mla_smoke.json``: minicpm3's smoke configuration.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gzip
 import json
@@ -53,6 +59,11 @@ import chip_smoke  # noqa: E402  (the records the card's check reads)
 HLO_DIR = os.path.join(HERE, "mltraffic")
 MLTRAFFIC_JSON = os.path.join(HERE, "mltraffic.json")
 DENSE_JSON = os.path.join(HERE, "serve_dense_smoke.json")
+MOE_JSON = os.path.join(HERE, "serve_moe_smoke.json")
+MLA_JSON = os.path.join(HERE, "serve_mla_smoke.json")
+# parameters the reference keeps in float32 whatever the model's dtype
+FP32_KEEP = ("ln1", "ln2", "ln_f", "q_norm", "kv_norm", "router", "attn_ln",
+             "mamba_ln", "ffn_ln", "dt_bias", "a_log", "d_skip")
 TOPO = chip_smoke.MLTRAFFIC_TOPO   # torus(2, 4): 8 nodes, 8 mesh ranks
 CYCLES = (200, 2000)               # BENCH_QUICK=1, and =0
 _META_TABLES = ("FileNames", "FunctionNames", "FileLocations",
@@ -244,17 +255,79 @@ def mltraffic_golden(hlo_dir: str = HLO_DIR,
 # --------------------------------------------------------------------- #
 # the dense smoke serve golden
 # --------------------------------------------------------------------- #
-def dense_reference_case(arch: str, dtype: str = "float32"):
-    """Serve ``dense_numpy_case`` on the reference: (config, tree,
-    prompts, logits of the prefill and every decode step, tokens).
+def reference_routes(cfg, p, x):
+    """(experts (T, k), keep (T, k)): the routes the reference's
+    ``moe_apply`` takes for ``x`` and which of them fit their expert's
+    capacity, from its router, ``lax.top_k``, capacity and queue
+    positions, recomputed as it computes them (it returns neither)."""
+    import jax
+    import jax.numpy as jnp
+
+    b, s, d = x.shape
+    e, k = cfg.moe_experts, cfg.moe_topk
+    e_buf = max(cfg.moe_pad_to, e) if cfg.moe_pad_to else e
+    t = b * s
+    logits = jnp.einsum("td,de->te", x.reshape(t, d).astype(jnp.float32),
+                        p["router"])
+    _, experts = jax.lax.top_k(jax.nn.softmax(logits, axis=-1), k)
+    capacity = int(max(1, -(-t * k // e)) * cfg.capacity_factor)
+    flat = experts.reshape(-1)
+    pos = jnp.cumsum(jax.nn.one_hot(flat, e_buf, dtype=jnp.int32), 0) - 1
+    pos = jnp.take_along_axis(pos, flat[:, None], 1)[:, 0]
+    return experts, (pos < capacity).reshape(t, k)
+
+
+@contextlib.contextmanager
+def reference_moe_stats():
+    """Within this scope every reference MoE layer (``models/lm.py`` and
+    ``models/hybrid.py``) reports its (dropped pairs, aux) to the yielded
+    list through a host callback, under ``jit`` and ``lax.scan`` too."""
+    import jax
+    import jax.numpy as jnp
+    from repro.models import hybrid, lm
+    from repro.models.layers import ffn
+
+    calls = []
+    orig = ffn.moe_apply
+
+    def traced(cfg, p, x):
+        y, aux = orig(cfg, p, x)
+        jax.debug.callback(
+            lambda n, a: calls.append((int(n), float(a))),
+            jnp.sum(~reference_routes(cfg, p, x)[1]), aux)
+        return y, aux
+
+    lm.moe_apply = hybrid.moe_apply = traced
+    try:
+        yield calls
+    finally:
+        lm.moe_apply = hybrid.moe_apply = orig
+
+
+def _call_stats(calls: list) -> tuple[float, int]:
+    """One call's (aux, dropped) summed over its layers, in a fixed order
+    (the callbacks may come in any)."""
+    import jax
+
+    jax.effects_barrier()
+    aux = sum(sorted(a for _, a in calls))
+    dropped = sum(n for n, _ in calls)
+    calls.clear()
+    return aux, dropped
+
+
+def serve_reference_case(arch: str, dtype: str = "float32"):
+    """Serve ``arch``'s smoke numpy case (``golden.lm_numpy_case``) on the
+    reference: (config, tree, prompts, logits of the prefill and every
+    decode step, tokens, each call's aux, each call's dropped pairs).
     Tokens come from its jitted ``ServeEngine``, logits from its
     ``prefill``/``decode_step``, jitted as the engine's, fed those
-    tokens."""
+    tokens; aux and drops are 0 without experts."""
     import jax
     import jax.numpy as jnp
     import numpy as np
     from repro.configs import get_arch as ref_get_arch
-    from repro.models import lm as ref_lm
+    from repro.models import registry as ref_registry
     from repro.serve import ServeEngine as RefEngine
     from repro_torch.configs import get_arch
     from repro_torch.serve import golden
@@ -262,36 +335,47 @@ def dense_reference_case(arch: str, dtype: str = "float32"):
 
     cfg = get_arch(arch).smoke.replace(dtype=dtype)
     ref_cfg = ref_get_arch(arch).smoke.replace(dtype=dtype)
-    tree, prompts = golden.dense_numpy_case(cfg)
-    keep = ("ln1", "ln2", "ln_f")     # norm scales stay float32
+    mod = ref_registry.model_module(ref_cfg)
+    tree, prompts = golden.lm_numpy_case(cfg)
     params = jax.tree_util.tree_map_with_path(
         lambda path, a: jnp.asarray(a, jnp.float32 if any(
-            getattr(k, "key", None) in keep for k in path)
+            getattr(k, "key", None) in FP32_KEEP for k in path)
             else jnp.dtype(dtype)), tree)
     n, p = golden.DENSE_NEW_TOKENS, golden.DENSE_PROMPT_LEN
     max_len = p + n + golden.CACHE_SLACK
-    prefill = jax.jit(lambda *a: ref_lm.prefill(ref_cfg, *a))
-    step = jax.jit(lambda *a: ref_lm.decode_step(ref_cfg, *a))
-    with reference():
+    with reference(), reference_moe_stats() as calls:
+        prefill = jax.jit(lambda *a: mod.prefill(ref_cfg, *a))
+        step = jax.jit(lambda *a: mod.decode_step(ref_cfg, *a))
         tokens = np.asarray(RefEngine(cfg=ref_cfg, params=params,
                                       max_len=max_len).generate(prompts, n))
-        cache = ref_lm.init_cache(ref_cfg, golden.DENSE_BATCH, max_len)
+        _call_stats(calls)
+        cache = mod.init_cache(ref_cfg, golden.DENSE_BATCH, max_len)
         logits, cache = prefill(params, jnp.asarray(prompts), cache)
         out = [np.asarray(logits, np.float32)]
+        stats = [_call_stats(calls)]
         for i in range(n - 1):
             logits, cache = step(params, jnp.asarray(tokens[:, i:i + 1]),
                                  cache, jnp.int32(p + i))
             out.append(np.asarray(logits, np.float32))
-    return cfg, tree, prompts, out, tokens
+            stats.append(_call_stats(calls))
+    aux, dropped = (list(x) for x in zip(*stats))
+    return cfg, tree, prompts, out, tokens, aux, dropped
 
 
-def dense_golden_text() -> str:
+def serve_golden_text(archs) -> str:
+    """The records of ``archs`` (a MoE one with its aux and drops), keyed
+    by configuration name: the text of a serve golden."""
     from repro_torch.serve import golden
 
     recs = {}
-    for arch in golden.DENSE_ARCHS:
-        cfg, _, _, logits, tokens = dense_reference_case(arch)
-        recs[cfg.name] = golden.record(cfg, logits[0], logits[1:], tokens)
+    for arch in archs:
+        cfg, _, _, logits, tokens, aux, dropped = serve_reference_case(arch)
+        if cfg.is_moe:
+            recs[cfg.name] = golden.moe_record(cfg, logits[0], logits[1:],
+                                               tokens, aux, dropped)
+        else:
+            recs[cfg.name] = golden.record(cfg, logits[0], logits[1:],
+                                           tokens)
     return json.dumps(recs, separators=(",", ":")) + "\n"
 
 
@@ -300,19 +384,25 @@ def main(argv: list[str]) -> int:
         name, phase, out = argv[1:4]
         write_gz(out, lower_one(name, phase))
         return 0
-    what = argv[:1] or ["mltraffic", "dense"]
+    every = ["mltraffic", "dense", "moe", "mla"]
+    what = argv or every
     if what == ["all"]:
-        what = ["mltraffic", "dense"]
+        what = every
     if "mltraffic" in what:
         record_hlo()
         with open(MLTRAFFIC_JSON, "w") as f:
             json.dump(mltraffic_golden(), f, separators=(",", ":"))
             f.write("\n")
         print(f"wrote {HLO_DIR}/ and {MLTRAFFIC_JSON}", file=sys.stderr)
-    if "dense" in what:
-        with open(DENSE_JSON, "w") as f:
-            f.write(dense_golden_text())
-        print(f"wrote {DENSE_JSON}", file=sys.stderr)
+    from repro_torch.serve import golden
+
+    for name, path, archs in (("dense", DENSE_JSON, golden.DENSE_ARCHS),
+                              ("moe", MOE_JSON, golden.MOE_ARCHS),
+                              ("mla", MLA_JSON, golden.MLA_ARCHS)):
+        if name in what:
+            with open(path, "w") as f:
+                f.write(serve_golden_text(archs))
+            print(f"wrote {path}", file=sys.stderr)
     return 0
 
 

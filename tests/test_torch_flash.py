@@ -179,7 +179,7 @@ def test_op_rejects_inconsistent_inputs(bad):
 
 def test_twin_takes_dv_other_than_dk():
     """MLA's shapes: the twin returns V's head dim, as the oracle does
-    (the kernels on the card refuse Dv != Dk)."""
+    (the kernels on the card take the pairs of ``ops.HEAD_DIMS``)."""
     rng = np.random.default_rng(4)
     q = rng.standard_normal((1, 4, 2, 96)).astype(np.float32)
     k = rng.standard_normal((1, 8, 2, 96)).astype(np.float32)
@@ -273,6 +273,21 @@ PATH_CASES = {
     "codeqwen served prefill": ((4, 16, 48, 32, 32, 128), SPLIT["self"],
                                 None),
     "codeqwen served decode": ((4, 1, 48, 32, 32, 128), SPLIT["self"], None),
+    # slice 14's: qwen2-moe (MHA 16, D 128), dbrx (GQA 48/8: 96 packed
+    # rows at a 16-token prompt), minicpm3 (MHA 40, Dk 96, Dv 64: B·KV
+    # 160 blocks fill the card, so its decode steps take one range)
+    "qwen2-moe served prefill": ((4, 16, 48, 16, 16, 128), SPLIT["self"],
+                                 None),
+    "qwen2-moe served decode": ((4, 1, 48, 16, 16, 128), SPLIT["self"],
+                                None),
+    "dbrx served prefill": ((4, 16, 48, 48, 8, 128), "tc", "simt"),
+    "dbrx served decode": ((4, 1, 48, 48, 8, 128), SPLIT["self"], None),
+    "minicpm3 served prefill": ((4, 16, 48, 40, 40, 96), SPLIT["self"],
+                                None),
+    "minicpm3 served decode": ((4, 1, 48, 40, 40, 96), SPLIT["self"], None),
+    "minicpm3 long prefill": ((4, 2048, 2080, 40, 40, 96), "tc", "simt"),
+    "minicpm3 long decode": ((4, 1, 2080, 40, 40, 96),
+                             Path("split", 1, 2112), None),
     "64 packed rows": ((1, 8, 200, 64, 8, 128), Path("split", 4, 64), None),
     "65 packed rows": ((1, 13, 100, 5, 1, 64), "tc", "simt"),
 }

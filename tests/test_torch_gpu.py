@@ -633,8 +633,9 @@ def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(
     g = torch.Generator().manual_seed(1)
     qk = [torch.randn(s, generator=g).to(cuda)
           for s in ((1, 4, 2, 96), (1, 8, 2, 96))]
-    with pytest.raises(ValueError):     # V's head dim must be Q's and K's
-        flash_attention(*qk, torch.randn((1, 8, 2, 64), generator=g).to(
+    # (96, 32): a (Dk, Dv) pair the kernels are not built for
+    with pytest.raises(ValueError, match=r"\(96, 64\)"):
+        flash_attention(*qk, torch.randn((1, 8, 2, 32), generator=g).to(
             cuda), causal=False)
     shifted = torch.empty(k.numel() + 1, device=cuda)[1:].view(k.shape)
     shifted.copy_(k)
@@ -693,6 +694,98 @@ def test_flash_attention_paths_vs_plain(cuda, case, dtype):
     tol = 2e-5 if dtype == "float32" else 8e-3
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().numpy(), rtol=tol, atol=tol)
+
+
+# MLA's head dims, Dk 96 and Dv 64 (minicpm3): name: (B, Sq, Skv, H, KV,
+# causal, mask) → the path it takes; the split path at one range and
+# several (with the combine), at 1, 8, 16 and 32 packed rows (the fp32
+# kernel's 1, 8, 16 and 64-row tiles, the bf16 kernel's 4, 4, 4 and 2
+# warps a 64-key tile), the tensor-core and CUDA-core prefill kernels
+DV_CASES = {
+    "mla_decode_one_range": ((4, 1, 48, 40, 40, False, "2d"), "split"),
+    "mla_long_decode_ranges": ((1, 1, 2080, 40, 40, False, "2d"), "split"),
+    "mla_prefill_rows16_ranges": ((2, 16, 100, 4, 4, False, "2d"),
+                                  "split"),
+    "mla_rows8_mask_1d": ((2, 2, 60, 8, 2, False, "1d"), "split"),
+    "mla_rows32_ranges": ((1, 4, 700, 16, 2, False, None), "split"),
+    "mla_wide_causal": ((2, 150, 150, 4, 4, True, None), "wide"),
+    "mla_wide_mask_2d": ((1, 100, 164, 8, 8, False, "2d"), "wide"),
+}
+
+
+def _dv_inputs(b, sq, skv, h, kv, mask, dtype, seed):
+    """Q and K of head dim 96, V of 64 sliced from a (…, 128) tensor as
+    MLA slices ``kv_up``'s output: its rows start 64 elements into each
+    head and its head stride is 128."""
+    q, k, _, ml = _flash_inputs(b, sq, skv, h, kv, 96, mask, dtype, seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    kvu = torch.randn((b, skv, kv, 128), generator=g).to(dtype)
+    return q, k, kvu, ml
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(DV_CASES))
+def test_flash_attention_dv_below_dk_vs_plain(cuda, case, dtype):
+    """Dk 96, Dv 64 on each path against the twin (2e-5 fp32, 8e-3
+    bf16), V a strided slice; one launch, the path's kernels, and the
+    combine exactly where there are several ranges."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.flash_attention.kernel import PATH_LAUNCHES
+    from repro_torch.kernels.flash_attention.ops import _sm_count, choose_path
+
+    (b, sq, skv, h, kv, causal, mask), kind = DV_CASES[case]
+    dt = getattr(torch, dtype)
+    path = choose_path(dt, b, sq, h, kv, skv, sms=_sm_count(cuda.index))
+    want_kind = kind if kind == "split" else (
+        "tc" if dtype == "bfloat16" else "simt")
+    assert path.kind == want_kind
+    assert (path.splits > 1) == ("ranges" in case)
+    q, k, kvu, ml = _dv_inputs(b, sq, skv, h, kv, mask, dt, seed=7)
+    v = kvu[..., 64:]
+    want = flash_attention_ref(q, k, v, causal=causal, bias_mask_len=ml)
+    before = kernels.LAUNCHES["flash_attention"]
+    paths = dict(PATH_LAUNCHES)
+    kvu_card = kvu.to(cuda)
+    got = flash_attention(q.to(cuda), k.to(cuda), kvu_card[..., 64:],
+                          causal=causal,
+                          mask_len=None if ml is None else ml.to(cuda))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention"] == before + 1
+    grew = {n: PATH_LAUNCHES[n] - paths[n] for n in paths}
+    assert grew[path.kind] == 1
+    assert grew["combine"] == (path.kind == "split" and path.splits > 1)
+    assert got.dtype == dt and got.shape == (b, sq, h, 64)
+    tol = 2e-5 if dtype == "float32" else 8e-3
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().numpy(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["split", "tc", "simt"])
+def test_flash_attention_every_built_head_dim_pair_launches(cuda, kind):
+    """Each (Dk, Dv) pair of ``ops.HEAD_DIMS`` on each path against
+    the twin (a pair the C side lacks would raise)."""
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ops import HEAD_DIMS, Path
+
+    dt = torch.float32 if kind == "simt" else torch.bfloat16
+    path = Path(kind, 1, 128) if kind == "split" else Path(kind, 1, 0)
+    sq = 2 if kind == "split" else 70
+    g = torch.Generator().manual_seed(9)
+    for dk, dv in HEAD_DIMS:
+        q, k, v = (torch.randn(s, generator=g).to(dt) for s in (
+            (1, sq, 4, dk), (1, 100, 2, dk), (1, 100, 2, dv)))
+        want = flash_attention_ref(q, k, v, causal=True)
+        got = flash_attention_cuda(q.to(cuda), k.to(cuda), v.to(cuda), True,
+                                   None, dk ** -0.5, path)
+        tol = 2e-5 if dt == torch.float32 else 8e-3
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().numpy(), rtol=tol, atol=tol,
+                                   err_msg=f"{kind} {(dk, dv)}")
 
 
 @pytest.mark.gpu
@@ -990,3 +1083,56 @@ def test_dense_golden_on_the_card(cuda):
         logits = [x.cpu() for x in logits]
         assert not golden.mismatches(want[cfg.name], logits[0], logits[1:],
                                      toks, 1e-5), arch
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["moe", "mla"])
+def test_moe_and_mla_goldens_on_the_card(cuda, name):
+    """``tests/goldens/serve_moe_smoke.json`` (qwen2-moe, dbrx and Jamba
+    with its experts: logits, greedy tokens, each call's aux and dropped
+    pairs), every attention call a kernel launch, and
+    ``serve_mla_smoke.json`` (minicpm3's smoke: the compressed cache and
+    the latents' expansion on the card; its attention, at Dk 24, which
+    no kernel takes, on the plain twin — the kernels at MLA's published
+    Dk 96 / Dv 64 are ``test_flash_attention_dv_below_dk_vs_plain``)
+    through the port's serving path on the card."""
+    import contextlib
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention.ops import HEAD_DIMS
+    from repro_torch.models.layers.ffn import moe_stats
+    from repro_torch.serve import ServeEngine, golden
+
+    cs = _chip_smoke()
+
+    gname, archs = {"moe": (golden.MOE_GOLDEN_NAME, golden.MOE_ARCHS),
+                    "mla": (golden.MLA_GOLDEN_NAME, golden.MLA_ARCHS)}[name]
+    with open(os.path.join(os.path.dirname(__file__), "goldens",
+                           gname)) as f:
+        want = json.load(f)
+    max_len = (golden.DENSE_PROMPT_LEN + golden.DENSE_NEW_TOKENS
+               + golden.CACHE_SLACK)
+    for arch in archs:
+        cfg = get_arch(arch).smoke
+        tree, prompts = golden.lm_numpy_case(cfg)
+        conv = (convert.hybrid_params_from_numpy if cfg.family == "hybrid"
+                else convert.dense_params_from_numpy)
+        model = conv(tree, cfg, cuda)
+        on_kernels = cs._attention_dims(cfg) in HEAD_DIMS
+        assert on_kernels == (name == "moe")
+        before = kernels.LAUNCHES["flash_attention"]
+        scope = contextlib.nullcontext() if on_kernels else cs.plain_twins()
+        with scope, moe_stats() as stats:
+            toks, logits = ServeEngine(cfg, model, max_len).generate(
+                prompts, golden.DENSE_NEW_TOKENS, return_logits=True)
+        n_attn = (cfg.n_layers // cfg.attn_period if cfg.family == "hybrid"
+                  else cfg.n_layers)
+        assert kernels.LAUNCHES["flash_attention"] - before \
+            == n_attn * golden.DENSE_NEW_TOKENS * on_kernels
+        rec = want[cfg.name]
+        logits = [x.cpu() for x in logits]
+        assert not golden.mismatches(rec, logits[0], logits[1:], toks,
+                                     1e-5), arch
+        if cfg.is_moe:
+            assert not golden.moe_mismatches(
+                rec, *golden.call_stats(cfg, stats)), arch

@@ -315,15 +315,34 @@ def test_bf16_serving_matches_reference():
 
 
 def test_moe_config_is_refused():
-    """The hybrid family's MoE FFN is not ported: a config with experts
-    raises, and nothing is built without them."""
+    """Jamba with its experts builds the reference's tree, name for name
+    and shape for shape (MoE FFNs under ``ffn_moe``, the dense ones under
+    ``ffn_dense``); only a layout the super-block cannot hold (an
+    attn_period that is not a multiple of moe_period) is refused."""
     cfg = get_arch(ARCH).smoke
     assert cfg.is_moe
-    for make in (lambda: registry.init(cfg, 0, "cpu"),
-                 lambda: registry.count_params(cfg),
-                 lambda: hybrid.init_cache(cfg, 1, 8, device="cpu")):
-        with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-            make()
+    ref_cfg = ref_get_arch(ARCH).smoke
+    want = jax.eval_shape(lambda: ref_hybrid.init(
+        ref_cfg, jax.random.PRNGKey(0)))
+    want = {jax.tree_util.keystr(path): leaf.shape for path, leaf in
+            jax.tree_util.tree_leaves_with_path(want)}
+    model = registry.init(cfg, 0, "cpu")
+    nsb = cfg.n_layers // cfg.attn_period
+    got = {}
+    for name, p in model.named_parameters():
+        keys = [k for k in name.split(".") if not k.isdigit()]
+        got.setdefault("".join(f"['{k}']" for k in keys), []).append(p.shape)
+    assert set(got) == set(want)
+    for key, shapes in got.items():
+        lead = want[key][:-len(shapes[0])]    # stacked axes of the tree
+        assert len(shapes) == int(np.prod(lead)) and len(lead) <= 2, key
+        assert all(s == want[key][len(lead):] for s in shapes), key
+        assert lead[:1] == ((nsb,) if key.startswith("['blocks']")
+                            else ()), key
+    assert len(model.blocks[0].ffn_moe) == 2
+    assert len(model.blocks[0].ffn_dense) == 2
+    with pytest.raises(ValueError, match="moe_period"):
+        registry.init(cfg.replace(moe_period=3), 0, "cpu")
 
 
 def test_param_count_of_served_config_matches_reference():

@@ -279,7 +279,7 @@ def test_param_count_matches_reference():
 
 
 def test_unported_families_raise():
-    cfg = get_arch("whisper-base").smoke.replace(family="moe")
+    cfg = get_arch("whisper-base").smoke.replace(family="vlm")
     with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
         registry.init(cfg, 0, "cpu")
 
