@@ -58,7 +58,12 @@ Main path of slice 2 (launch counts from 0 again):
               stablelm D 80 and codeqwen D 128, MHA 32), and at slice
               14's (qwen2-moe MHA 16, dbrx GQA 48/8, minicpm3's MLA
               with Dk 96 and Dv 64 on the split path, its combine, the
-              tensor-core and the CUDA-core kernels); the
+              tensor-core and the CUDA-core kernels), at slice 15's
+              (qwen2-vl GQA 12/2 at 16 prompt tokens, their decode step,
+              the image-style prompt's 72 positions and its decode
+              step), and at (Dk, Dv) pairs no kernel is built for,
+              (24, 16), (40, 40) and (72, 72), which the op pads to the
+              covering pair's kernels, on split, tc and simt; the
               path each shape takes (split-KV, tensor cores, CUDA cores)
               and its split count, µs per launch beside the twin,
               ``scaled_dot_product_attention`` and the bound;
@@ -156,8 +161,35 @@ others' checks have freed their weights):
               the count, warm timings, the twins and fp32, 4 × 2 048-token
               prompts in bf16 (the tensor-core prefill, split steps) and
               fp32 (the CUDA-core prefill), and
-              ``tests/goldens/serve_mla_smoke.json``;
-23. summary — attention end to end (whisper's ``generate`` busy time
+              ``tests/goldens/serve_mla_smoke.json`` through the kernels
+              (its smoke's (Dk, Dv) = (24, 16) padded to (32, 32));
+Main paths of slice 15 (launch counts from 0 before each; each phase's
+wall printed):
+23. vlm     — qwen2-vl-2b whole (M-RoPE sections (16, 24, 24), GQA 12/2
+              at head dim 128, 3.55 GB in bf16), the registry's weights
+              drawn on the card: ``generate`` as above on text (equal
+              t/h/w ids), 672 ``flash_attention`` launches (the prefill's
+              96 packed rows on the tensor-core kernel, the steps split);
+              off the count, warm timings and the profile, an image-style
+              prompt (4 text tokens, an 8 x 8 grid of stub-frontend patch
+              embeddings at patch-grid ids, 4 text tokens) and 8 decode
+              steps, it and the served run against the twins and the
+              fp32 model of the same weights (the kernels' error against
+              fp32 at most twice the twins'), fp32 through the kernels
+              (the prefill on the CUDA-core kernel) against the twins,
+              served and image-style, and
+              ``tests/goldens/serve_vlm_smoke.json``;
+24. ssm     — xlstm-1.3b whole (48 layers: 6 super-blocks of 1 sLSTM + 7
+              mLSTM, 7.26 GB in bf16, a 2.82 GB float32 state at batch
+              4): ``generate`` as above, which launches no kernel (the
+              reference has none for xLSTM); off the count, warm timings
+              and the profile against reading the weights and the state
+              once a step, the float32 model of the same weights (its
+              prefill and 24 decode steps against one ``forward`` over
+              the same 40 tokens, within 2e-3 of a position's largest
+              logit), the bf16 logits' error against it, and
+              ``tests/goldens/serve_ssm_smoke.json``;
+25. summary — attention end to end (whisper's ``generate`` busy time
               and a Jamba decode step's, with the ``flash_fwd*`` kernels'
               share); the flit step at 4x4, 5x5, 16x16 and 32x32 (the
               chunk kernel) and 17x17 and 64x64 (the grid kernel): µs
@@ -208,8 +240,8 @@ N rounds, with no other phase; ``--src`` as above.
     python3 chip_smoke.py --flash-wall [--src DIR] [--rounds N]
 
 times ``flash_attention`` alone, event-timed, at every shape above whose
-V has Q's head dim (bf16; fp32 where it splits and at the encoder), N
-rounds, with no other phase; ``--src`` as above.
+V has Q's head dim, a multiple of 16 (bf16; fp32 where it splits and at
+the encoder), N rounds, with no other phase; ``--src`` as above.
 """
 
 from __future__ import annotations
@@ -1737,6 +1769,29 @@ FLASH_SHAPES = (
     ("minicpm3 long prefill", 4, 2048, 2080, 40, 40, 96, False, 0, 64),
     ("minicpm3 long decode", 4, 1, 2080, 40, 40, 96, False, 2070, 64),
     ("minicpm3 long decode B=1", 1, 1, 2080, 40, 40, 96, False, 2070, 64),
+    # slice 15's: qwen2-vl (GQA 12/2, D 128) at the example's batch (16
+    # prompt tokens pack 96 rows: the tensor-core kernel) and the
+    # image-style prompt's 72 positions against an 88-row cache; then
+    # (Dk, Dv) pairs no kernel is built for, padded to the covering
+    # pair's kernels: minicpm3's smoke (24, 16), (40, 40) and (72, 72),
+    # each on the split path and on the prefill paths
+    ("qwen2-vl prefill", 4, 16, SERVE_MAX_LEN, 12, 2, 128, False, 0),
+    ("qwen2-vl decode", 4, 1, SERVE_MAX_LEN, 12, 2, 128, False,
+     SERVE_PROMPT + SERVE_NEW - 2),
+    ("qwen2-vl image prefill", 4, 72, 88, 12, 2, 128, False, 0),
+    ("qwen2-vl image decode", 4, 1, 88, 12, 2, 128, False, 79),
+    ("padded (24, 16) decode", 4, 1, SERVE_MAX_LEN, 8, 8, 24, False,
+     SERVE_PROMPT + SERVE_NEW - 2, 16),
+    ("padded (24, 16) causal", 2, 256, 256, 8, 8, 24, True,
+     None, 16),
+    ("padded (40, 40) decode", 4, 1, SERVE_MAX_LEN, 8, 8, 40, False,
+     SERVE_PROMPT + SERVE_NEW - 2),
+    ("padded (40, 40) causal", 2, 256, 256, 8, 8, 40, True,
+     None),
+    ("padded (72, 72) decode", 4, 1, SERVE_MAX_LEN, 8, 8, 72, False,
+     SERVE_PROMPT + SERVE_NEW - 2),
+    ("padded (72, 72) causal", 2, 256, 256, 8, 8, 72, True,
+     None),
 )
 
 
@@ -1807,7 +1862,8 @@ def check_flash(torch, np, cuda):
                                                      flash_attention_ref)
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_cuda)
-    from repro_torch.kernels.flash_attention.ops import Path, choose_path
+    from repro_torch.kernels.flash_attention.ops import (
+        HEAD_DIMS, Path, choose_path, pad_head_dims, padded_dims)
 
     worst = 0.0
     row = None
@@ -1830,8 +1886,11 @@ def check_flash(torch, np, cuda):
             ok = bool(torch.allclose(got.float(), want.float(), rtol=tol,
                                      atol=tol))
             worst = max(worst, err)
-            dims = (f"D={d}" if _dv(shape) == d
-                    else f"Dk={d} Dv={_dv(shape)}")
+            pair = padded_dims(d, _dv(shape))
+            dims = ((f"D={d}" if _dv(shape) == d
+                     else f"Dk={d} Dv={_dv(shape)}")
+                    + (f" padded to {pair}" if pair != (d, _dv(shape))
+                       else ""))
             log(f"flash: {label} {dtype} B={shape[1]} Sq={shape[2]} "
                 f"Skv={shape[3]} H={shape[4]} KV={shape[5]} {dims} "
                 f"causal={causal} mask={'2d' if ml is not None else 'none'} "
@@ -1844,7 +1903,8 @@ def check_flash(torch, np, cuda):
             # wherever it takes the split path, beside the CUDA-core
             # kernel that would take it else
             if (dtype == "float32" and label != "encoder"
-                    and path.kind != "split" and _dv(shape) == d):
+                    and path.kind != "split" and (d, _dv(shape)) in HEAD_DIMS
+                    and _dv(shape) == d):
                 continue
             # 40 rounds of three calls stay inside the card's launch queue,
             # so the host is ahead of the device and the events time the
@@ -1855,10 +1915,11 @@ def check_flash(torch, np, cuda):
             # the CUDA-core kernel that took every shape before the split
             # and tensor-core paths, timed beside them in the same call
             simt = Path("simt", 1, 0)
+            qp, kp, vp = pad_head_dims(q, k, v, pair)
             fns = [lambda r: flash_attention(q, k, v, causal=causal,
                                              mask_len=ml),
                    _sdpa(torch, q, k, v, ml, causal),
-                   lambda r: flash_attention_cuda(q, k, v, causal, ml,
+                   lambda r: flash_attention_cuda(qp, kp, vp, causal, ml,
                                                   shape[6] ** -0.5, simt)]
             for fn in fns:      # first calls: the library picks and plans
                 fn(0)           # its backend on the host
@@ -3247,10 +3308,12 @@ def run_dense_long(torch, np, cuda, cfg):
     torch.cuda.empty_cache()
 
 
-def _warm(torch, cuda, label, cfg, engine, prompts):
+def _warm(torch, cuda, label, cfg, engine, prompts, state_bytes=0,
+          prof_new=DENSE_NEW):
     """Warm timings (best of 3), the prefill alone, and the device
-    profile of one prefill and one ``generate``: the step against reading
-    every weight once."""
+    profile of one prefill and one ``generate`` of ``prof_new`` tokens:
+    the step against reading every weight once (and a recurrent state of
+    ``state_bytes``, read and written once)."""
     from repro_torch.models import registry
     from repro_torch.serve import make_prefill
 
@@ -3268,31 +3331,33 @@ def _warm(torch, cuda, label, cfg, engine, prompts):
         pre_ms = time_wall(torch, prefill_once, 3)
         prof_pre = _profile(torch, prefill_once)
         prof_gen = _profile(torch, lambda: engine.generate(prompts,
-                                                           DENSE_NEW))
+                                                           prof_new))
     step_ms = (gen_ms - pre_ms) / (DENSE_NEW - 1)
     wbytes = cfg.param_count() * 2
+    state = (f" + the state {state_bytes / 1e9:.3f} GB read and written"
+             if state_bytes else "")
     log(f"{label}: warm (best of 3): generate {gen_ms:.2f}ms = prefill "
         f"{pre_ms:.2f}ms + {DENSE_NEW - 1} decode steps at {step_ms:.3f}ms; "
         f"{DENSE_B * DENSE_NEW / gen_ms * 1e3:.1f} new tokens/s; weights "
-        f"{wbytes / 1e9:.3f} GB, read once a step at 3.35e12 B/s: "
-        f"{wbytes / HBM_BYTES_PER_S * 1e3:.3f}ms")
+        f"{wbytes / 1e9:.3f} GB{state}, once a step at 3.35e12 B/s: "
+        f"{(wbytes + 2 * state_bytes) / HBM_BYTES_PER_S * 1e3:.3f}ms")
     if prof_pre is None or prof_gen is None:
         log(f"{label}: profile: no device time in the trace (busy share "
             f"and kernel shares not measured)")
         return
+    steps = prof_new - 1
     dev_pre = sum(ms for _, ms in prof_pre.values())
     dec = {k: (c - prof_pre.get(k, (0, 0.0))[0],
                ms - prof_pre.get(k, (0, 0.0))[1])
            for k, (c, ms) in prof_gen.items()}
-    dev_dec = sum(ms for _, ms in dec.values())
-    n_dec = sum(c for c, _ in dec.values()) / (DENSE_NEW - 1)
+    busy = sum(ms for _, ms in dec.values()) / steps
+    n_dec = sum(c for c, _ in dec.values()) / steps
     fl_dec = sum(ms for k, (_, ms) in dec.items() if "flash_fwd" in k)
-    log(f"{label}: profiled: prefill device busy {dev_pre:.3f}ms "
-        f"({dev_pre / pre_ms:.3f} of its wall), flash_fwd* "
+    log(f"{label}: profiled ({steps} decode steps): prefill device busy "
+        f"{dev_pre:.3f}ms ({dev_pre / pre_ms:.3f} of its wall), flash_fwd* "
         f"{_share(prof_pre, 'flash_fwd'):.3f}ms; decode steps "
-        f"{dev_dec / (DENSE_NEW - 1):.3f}ms busy a step "
-        f"({dev_dec / (gen_ms - pre_ms):.3f} of the wall), flash_fwd* "
-        f"{fl_dec / (DENSE_NEW - 1) * 1e3:.2f}us a step, {n_dec:.0f} "
+        f"{busy:.3f}ms busy a step ({busy / step_ms:.3f} of the wall), "
+        f"flash_fwd* {fl_dec / steps * 1e3:.2f}us a step, {n_dec:.0f} "
         f"kernels a step")
     top = sorted(dec.items(), key=lambda kv: -kv[1][1])[:6]
     log(f"{label}: top kernels of the decode steps: " + "; ".join(
@@ -3430,8 +3495,17 @@ def _widths(cfg) -> str:
     mla = (f", MLA q rank {cfg.q_lora_rank}, kv rank {cfg.kv_lora_rank}, "
            f"Dk {cfg.qk_nope_dim}+{cfg.qk_rope_dim}, Dv {cfg.v_head_dim}"
            if cfg.mla else "")
+    if cfg.family == "ssm":
+        dp = int(cfg.xlstm_proj_factor * cfg.d_model)
+        return (f"{cfg.n_layers} layers in super-blocks of 1 sLSTM + "
+                f"{cfg.slstm_period - 1} mLSTM, d {cfg.d_model}, "
+                f"{cfg.n_heads} heads, mLSTM width {dp} (head dim "
+                f"{dp // cfg.n_heads}), vocab {cfg.vocab}")
+    rope = (f", M-RoPE sections {cfg.mrope_sections}"
+            if cfg.mrope_sections else "")
     return (f"{cfg.n_layers} layers, d {cfg.d_model}, {cfg.n_heads}/"
-            f"{cfg.n_kv_heads} heads{moe}{mla}, vocab {cfg.vocab}")
+            f"{cfg.n_kv_heads} heads of {cfg.head_dim}{moe}{mla}{rope}, "
+            f"d_ff {cfg.d_ff}, vocab {cfg.vocab}")
 
 
 def _serve_counted(torch, np, label, cfg, engine, prompts, init_s, cut):
@@ -3579,46 +3653,64 @@ def _attention_dims(cfg) -> tuple[int, int]:
 
 def _golden_on_card(torch, np, cuda, name, archs):
     """``name`` (the reference's fp32 records) through the port's serving
-    path on the card: logits, tokens, and with experts each call's aux
-    and drops.  A smoke configuration whose attention head dims are no
-    kernel's (minicpm3's smoke: Dk 16 + 8 = 24, not a multiple of 16)
-    runs its attention on the plain twin, and says so; the kernels at
-    MLA's published dims are held by ``check_flash`` and the mla phase."""
-    from repro_torch import convert
+    path on the card: logits, tokens, with experts each call's aux and
+    drops, and one ``flash_attention`` launch an attention layer and call
+    (none for xLSTM).  A smoke configuration whose attention head dims
+    are no built pair (minicpm3's smoke: Dk 16 + 8 = 24, Dv 16) runs its
+    padded pair's kernels; a record under ``image`` (qwen2-vl) is the
+    image-style prefill and its decode steps."""
+    from repro_torch import convert, kernels
     from repro_torch.configs import get_arch
-    from repro_torch.kernels.flash_attention.ops import HEAD_DIMS
+    from repro_torch.kernels.flash_attention.ops import padded_dims
     from repro_torch.models.layers.ffn import moe_stats
     from repro_torch.serve import ServeEngine, golden
 
+    conv = {"hybrid": convert.hybrid_params_from_numpy,
+            "ssm": convert.xlstm_params_from_numpy}
     with open(os.path.join(HERE, "tests", "goldens", name)) as f:
         want = json.load(f)
     for arch in archs:
         gcfg = get_arch(arch).smoke
         tree, gprompts = golden.lm_numpy_case(gcfg)
-        conv = (convert.hybrid_params_from_numpy if gcfg.family == "hybrid"
-                else convert.dense_params_from_numpy)
-        dims = _attention_dims(gcfg)
-        on_kernels = dims in HEAD_DIMS
-        scope = contextlib.nullcontext() if on_kernels else plain_twins()
-        with scope, moe_stats() as stats:
-            gtoks, glogits = ServeEngine(
-                gcfg, conv(tree, gcfg, cuda), golden.DENSE_PROMPT_LEN
-                + golden.DENSE_NEW_TOKENS + golden.CACHE_SLACK).generate(
-                    gprompts, golden.DENSE_NEW_TOKENS, return_logits=True)
-        rec = want[gcfg.name]
-        bad = golden.mismatches(rec, glogits[0].cpu(),
-                                [x.cpu() for x in glogits[1:]], gtoks, 1e-5)
-        if gcfg.is_moe:
-            bad += golden.moe_mismatches(rec,
-                                         *golden.call_stats(gcfg, stats))
-        where = ("kernel path" if on_kernels else
-                 f"attention on the plain twin: (Dk, Dv) {dims} is no "
-                 f"kernel pair")
-        log(f"{name}: {gcfg.name} on the card (fp32, {where}): "
-            f"{'ok' if not bad else 'MISMATCH'}")
-        if bad:
-            raise SystemExit(f"golden mismatch ({gcfg.name}):\n  "
-                             + "\n  ".join(bad))
+        model = conv.get(gcfg.family, convert.dense_params_from_numpy)(
+            tree, gcfg, cuda)
+        n_attn = {"hybrid": gcfg.n_layers // max(gcfg.attn_period, 1),
+                  "ssm": 0}.get(gcfg.family, gcfg.n_layers)
+        runs = [(gcfg.name, lambda: ServeEngine(
+            gcfg, model, golden.DENSE_PROMPT_LEN + golden.DENSE_NEW_TOKENS
+            + golden.CACHE_SLACK).generate(gprompts, golden.DENSE_NEW_TOKENS,
+                                           return_logits=True),
+                 n_attn * golden.DENSE_NEW_TOKENS)]
+        if "image" in want:
+            runs.append(("image", lambda: golden.image_generate(
+                gcfg, model, *golden.vlm_image_case(gcfg)),
+                n_attn * (1 + golden.IMAGE_STEPS)))
+        for key, run, calls in runs:
+            before = kernels.LAUNCHES["flash_attention"]
+            with moe_stats() as stats:
+                gtoks, glogits = run()
+            got = kernels.LAUNCHES["flash_attention"] - before
+            rec = want[key]
+            bad = golden.mismatches(rec, glogits[0].cpu(),
+                                    [x.cpu() for x in glogits[1:]], gtoks,
+                                    1e-5)
+            if gcfg.is_moe:
+                bad += golden.moe_mismatches(
+                    rec, *golden.call_stats(gcfg, stats))
+            if got != calls:
+                bad.append(f"{got} flash_attention launches, expected "
+                           f"{calls}")
+            dims = _attention_dims(gcfg)
+            where = (f"kernel path, {got} flash_attention launches"
+                     + (f" at (Dk, Dv) {dims} padded to "
+                        f"{padded_dims(*dims)}"
+                        if calls and padded_dims(*dims) != dims else "")
+                     if calls else "no kernel launched")
+            log(f"{name}: {key} on the card (fp32, {where}): "
+                f"{'ok' if not bad else 'MISMATCH'}")
+            if bad:
+                raise SystemExit(f"golden mismatch ({key}):\n  "
+                                 + "\n  ".join(bad))
 
 
 def run_moe_checks(torch, np, cuda, main):
@@ -3703,6 +3795,235 @@ def run_mla_checks(torch, np, cuda, main):
     torch.cuda.empty_cache()
     _golden_on_card(torch, np, cuda, golden.MLA_GOLDEN_NAME,
                     golden.MLA_ARCHS)
+
+
+# --------------------------------------------------------------------- #
+# slice 15: qwen2-vl-2b (M-RoPE) and xlstm-1.3b
+# --------------------------------------------------------------------- #
+# both whole at their published widths and depth, bf16, the registry's
+# weights drawn on the card; the batch of examples/serve_decode.py
+VLM = "qwen2-vl-2b"
+SSM = "xlstm-1.3b"
+
+
+def run_vlm_main(torch, np, cuda, out):
+    """Slice 15's first main path: qwen2-vl-2b bf16 at its published
+    widths and depth through ``ServeEngine.generate`` on text (equal
+    t/h/w ids, as the reference's engine passes none): 672
+    ``flash_attention`` launches (28 layers × 24 calls), the prefill's
+    16 × 6 packed rows on the tensor-core kernel, the steps split."""
+    t0 = time.perf_counter()
+    cfg, engine, prompts, init_s = _dense(torch, np, cuda, VLM, "bfloat16")
+    toks, logits, _, _, by_path = _serve_counted(
+        torch, np, "vlm", cfg, engine, prompts, init_s, {})
+    want = {"split": cfg.n_layers * (DENSE_NEW - 1), "combine": 0,
+            "tc": cfg.n_layers, "simt": 0}
+    if by_path != want:
+        raise SystemExit(f"vlm: flash kernels by path {by_path}, expected "
+                         f"{want}")
+    out.update(cfg=cfg, engine=engine, prompts=prompts, toks=toks,
+               logits=logits, t0=t0)
+
+
+def _image_run(torch, cfg, model, case, twins=False, forced=None):
+    """The image-style prompt (72 positions) and its decode steps through
+    ``golden.image_generate`` (fed ``forced``, if given): (tokens,
+    logits, ms, flash kernels by path)."""
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.serve import golden
+
+    paths = dict(flash_kernel.PATH_LAUNCHES)
+    scope = plain_twins() if twins else contextlib.nullcontext()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with scope:
+        toks, logits = golden.image_generate(cfg, model, *case,
+                                             forced=forced)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return toks, logits, ms, {k: flash_kernel.PATH_LAUNCHES[k] - paths[k]
+                              for k in paths}
+
+
+def run_vlm_checks(torch, np, cuda, main):
+    """Off the counted path: qwen2-vl's warm timings and profile; the
+    image-style prefill (stub-frontend patches at patch-grid M-RoPE ids,
+    on the tensor-core kernel) and 8 decode steps, and the served run,
+    each against the plain twins and the float32 model of the same
+    weights fed the kernels' tokens: at every call the kernels' error
+    against fp32 at most twice the twins' (the dense family's rule),
+    their distance from the twins printed as a share of the call's
+    largest logit; fp32 through the kernels (the prefill on the
+    CUDA-core kernel) against the twins, served and image-style, tokens
+    identical; ``serve_vlm_smoke.json``."""
+    from repro_torch import kernels
+    from repro_torch.serve import golden
+
+    cfg, engine, prompts = main["cfg"], main["engine"], main["prompts"]
+    _warm(torch, cuda, "vlm", cfg, engine, prompts, prof_new=4)
+    case = golden.vlm_image_case(cfg, seed=1, batch=DENSE_B)
+    before = kernels.LAUNCHES["flash_attention"]
+    itoks, ilogits, ims, paths = _image_run(torch, cfg, engine.params, case)
+    n = kernels.LAUNCHES["flash_attention"] - before
+    steps = golden.IMAGE_STEPS
+    if n != cfg.n_layers * (1 + steps) or paths["tc"] != cfg.n_layers or \
+            paths["split"] != cfg.n_layers * steps or paths["simt"]:
+        raise SystemExit(f"vlm image: {n} launches, kernels {paths}")
+    if not all(bool(torch.isfinite(x).all()) for x in ilogits):
+        raise SystemExit("vlm image: non-finite logits")
+    distinct = _check_tokens("vlm image", itoks, cfg.vocab,
+                             (DENSE_B, steps + 1))
+    warm_ms = _image_run(torch, cfg, engine.params, case)[2]
+    forced = itoks[:, :steps]
+    with torch.inference_mode():
+        _, twin, pms, _ = _image_run(torch, cfg, engine.params, case,
+                                     twins=True, forced=forced)
+        with fp32_weights(torch):
+            truth = _image_run(torch, cfg.replace(dtype="float32"),
+                               engine.params, case, forced=forced)[1]
+    share = _step_errs(np, ilogits, twin) / np.array(
+        [float(w.float().abs().max()) for w in twin])
+    err_k, err_t = _step_errs(np, ilogits, truth), _step_errs(np, twin, truth)
+    ratio = err_k / np.maximum(err_t, 1e-30)
+    log(f"vlm: image-style prompt (B={DENSE_B}: {golden.IMAGE_BEFORE} text "
+        f"tokens, a {golden.IMAGE_GRID[0]}x{golden.IMAGE_GRID[1]} patch grid"
+        f" at t={golden.IMAGE_BEFORE}, h/w from {golden.IMAGE_BEFORE}, "
+        f"{golden.IMAGE_AFTER} text tokens: {golden.IMAGE_LEN} positions) "
+        f"then {steps} decode steps: {ims:.1f}ms first run, {warm_ms:.1f}ms "
+        f"warm, {n} flash_attention launches {json.dumps(paths)}; fewest "
+        f"distinct tokens {distinct}; fed the kernels' tokens, the plain "
+        f"twins ({pms:.1f}ms) sit {share.max():.4f} of a call's largest "
+        f"logit from the kernels (shown); against the fp32 logits of the "
+        f"same weights, worst call: kernels {float(err_k.max())!r}, twins "
+        f"{float(err_t.max())!r}, kernels/twins {ratio.max():.3f} (limit 2)")
+    if (ratio > 2).any():
+        raise SystemExit(f"vlm image: the kernels' bf16 error {err_k} over "
+                         f"twice the twins' {err_t}")
+    del ilogits, twin, truth
+    e32 = _dense_vs_twins(torch, np, cfg.name, engine, prompts, main["toks"],
+                          main.pop("logits"), rule=False)
+    main.clear()
+    del engine
+    torch.cuda.empty_cache()
+    _fp32_vs_twins(torch, np, cfg.name, e32, prompts)
+    t32, l32, ms32, p32 = _image_run(torch, e32.cfg, e32.params, case)
+    with torch.inference_mode():
+        pt32, pl32, pms32, _ = _image_run(torch, e32.cfg, e32.params, case,
+                                          twins=True)
+    if not (t32 == pt32).all() or p32["simt"] != cfg.n_layers:
+        raise SystemExit(f"vlm image fp32: kernel tokens differ from the "
+                         f"twins' or the prefill missed simt ({p32})")
+    err32 = _check_logits(np, "vlm image fp32 kernel vs plain", l32, pl32,
+                          1e-4, 1e-4, scaled=False)
+    log(f"vlm: image-style fp32 (kernels {ms32:.1f}ms, prefill on simt, "
+        f"twins {pms32:.1f}ms): tokens identical, logits of every call "
+        f"max_abs_err={err32!r} (rtol/atol 1e-4)")
+    del e32, l32, pl32
+    torch.cuda.empty_cache()
+    _golden_on_card(torch, np, cuda, golden.VLM_GOLDEN_NAME,
+                    golden.VLM_ARCHS)
+
+
+def _state_bytes(cache) -> int:
+    return sum(a.numel() * a.element_size()
+               for part in cache.values() for a in part.values())
+
+
+def run_ssm_main(torch, np, cuda, out):
+    """Slice 15's second main path: xlstm-1.3b bf16 at its published
+    widths and depth through ``ServeEngine.generate``.  xLSTM has no
+    kernel of the reference's (its products are ``torch.matmul`` and
+    ``einsum``, as the reference's are jnp einsums), so the path launches
+    none: checked."""
+    from repro_torch import kernels
+    from repro_torch.models import registry
+    from repro_torch.models.common import param_count_tree
+
+    t0 = time.perf_counter()
+    cfg, engine, prompts, init_s = _dense(torch, np, cuda, SSM, "bfloat16")
+    n_params = param_count_tree(engine.params)
+    if n_params != cfg.param_count():
+        raise SystemExit(f"ssm: {n_params} parameters, count_params "
+                         f"{cfg.param_count()}")
+    state = _state_bytes(registry.init_cache(cfg, DENSE_B, 0, device=cuda))
+    torch.cuda.reset_peak_memory_stats()
+    before = dict(kernels.LAUNCHES)
+    toks, logits, ms = _generate(torch, engine, prompts, DENSE_NEW)
+    got = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    if any(got.values()):
+        raise SystemExit(f"ssm: kernel launches {got}, none expected")
+    if not all(bool(torch.isfinite(x).all()) for x in logits):
+        raise SystemExit("ssm: non-finite logits")
+    distinct = _check_tokens("ssm", toks, cfg.vocab, (DENSE_B, DENSE_NEW))
+    log(f"ssm: {cfg.name} ({_widths(cfg)}; cut nothing; {n_params} "
+        f"parameters, {n_params * 2 / 1e9:.2f} GB bf16, init {init_s:.2f}s) "
+        f"B={DENSE_B} prompt={DENSE_PROMPT} new={DENSE_NEW} (first run) "
+        f"generate {ms:.1f}ms; no kernel launch (the reference has no "
+        f"kernel for xLSTM): launches {json.dumps(got)}; recurrent state "
+        f"{state} bytes ({state / 1e9:.3f} GB, float32), peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; fewest "
+        f"distinct tokens {distinct}; tokens[0]={toks[0].tolist()}")
+    out.update(cfg=cfg, engine=engine, prompts=prompts, toks=toks,
+               logits=logits, state=state, t0=t0)
+
+
+def run_ssm_checks(torch, np, cuda, main):
+    """Off the counted path: xLSTM's warm timings and profile against
+    reading the weights and the state once a step; the float32 model of
+    the same weights (``fp32_weights``): its prefill over the 16-token
+    prompt and 24 decode steps against one ``forward`` over the same 40
+    tokens, within 2e-3 of each position's largest logit (the
+    reference's own tolerance, ``tests/test_models.py``), and the bf16
+    run's error against it; ``serve_ssm_smoke.json``."""
+    from repro_torch.models import xlstm_model
+    from repro_torch.serve import golden
+
+    cfg, engine, prompts = main["cfg"], main["engine"], main["prompts"]
+    _warm(torch, cuda, "ssm", cfg, engine, prompts, main["state"],
+          prof_new=4)
+    cfg32 = cfg.replace(dtype="float32")
+    seq = torch.as_tensor(np.concatenate([prompts, main["toks"]], 1),
+                          device=cuda)
+    p = DENSE_PROMPT
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.inference_mode(), fp32_weights(torch):
+        full, _ = xlstm_model.forward(cfg32, engine.params, seq)
+        cache = xlstm_model.init_cache(cfg32, DENSE_B, 0, device=cuda)
+        pre, cache = xlstm_model.prefill(cfg32, engine.params, seq[:, :p],
+                                         cache)
+        stepped = [pre]
+        for t in range(p, seq.shape[1]):
+            step, cache = xlstm_model.decode_step(
+                cfg32, engine.params, seq[:, t:t + 1], cache, t)
+            stepped.append(step)
+    torch.cuda.synchronize()
+    ms32 = (time.perf_counter() - t0) * 1e3
+    stepped = torch.cat(stepped, dim=1)
+    del cache
+    largest = full.abs().amax(dim=(0, 2))               # a position's
+    err = (stepped - full).abs().amax(dim=(0, 2))
+    share = float((err / largest).max())
+    bf16 = torch.cat([x.float() for x in main.pop("logits")], dim=1)
+    vs32 = (bf16 - stepped[:, :bf16.shape[1]]).abs().amax(dim=(0, 2))
+    b_share = float((vs32 / largest[:bf16.shape[1]]).max())
+    log(f"ssm: fp32 model of the bf16 weights ({ms32:.1f}ms): prefill "
+        f"({p}) + {seq.shape[1] - p} decode steps vs one forward over the "
+        f"same {seq.shape[1]} tokens: max_abs_err={float(err.max())!r} = "
+        f"{share:.3e} of a position's largest logit (limit 2e-3); the bf16 "
+        f"served logits against it: max_abs_err={float(vs32.max())!r} = "
+        f"{b_share:.4f} of a position's largest logit (shown); greedy "
+        f"agreement with fp32 over the 24 tokens "
+        f"{float((stepped[:, p - 1:-1].argmax(-1).cpu().numpy() == main['toks']).mean()):.3f}")
+    if not share <= 2e-3:
+        raise SystemExit(f"ssm fp32: prefill + decode {share} of the largest "
+                         f"logit from forward")
+    del full, stepped, bf16
+    main.clear()
+    del engine
+    torch.cuda.empty_cache()
+    _golden_on_card(torch, np, cuda, golden.SSM_GOLDEN_NAME,
+                    golden.SSM_ARCHS)
 
 
 def main() -> int:
@@ -3843,6 +4164,22 @@ def main() -> int:
         drive_path(label, ("flash_attention",),
                    lambda: drive(torch, np, cuda, out))
         checks(torch, np, cuda, out)
+        del out
+        torch.cuda.empty_cache()
+    # slice 15's: qwen2-vl-2b (3.55 GB), its prefill's 96 packed rows on
+    # the tensor-core kernel and its steps split; xlstm-1.3b (7.26 GB and
+    # a 2.82 GB state), which launches no kernel
+    flash_paths["slice 15a (qwen2-vl-2b serving, M-RoPE)"] = ("split", "tc")
+    for label, needed, drive, checks in (
+            ("slice 15a (qwen2-vl-2b serving, M-RoPE)", ("flash_attention",),
+             run_vlm_main, run_vlm_checks),
+            ("slice 15b (xlstm-1.3b serving)", (), run_ssm_main,
+             run_ssm_checks)):
+        out = {}
+        drive_path(label, needed, lambda: drive(torch, np, cuda, out))
+        t0 = out["t0"]
+        checks(torch, np, cuda, out)
+        log(f"{label.split(' (')[0]}: phase {time.perf_counter() - t0:.1f}s")
         del out
         torch.cuda.empty_cache()
     log(f"flash: end to end: whisper generate device busy "
@@ -4161,8 +4498,9 @@ def poss_wall(rounds: int) -> int:
 
 def flash_wall(rounds: int) -> int:
     """``--flash-wall``: ``flash_attention`` alone, event-timed µs per
-    call at every shape of ``FLASH_SHAPES`` whose V has Q's head dim
-    (the shapes any tree's kernels take), bf16, and fp32 where it takes
+    call at every shape of ``FLASH_SHAPES`` whose V has Q's head dim, a
+    multiple of 16 (the shapes any tree's kernels take unpadded), bf16,
+    and fp32 where it takes
     the split path and at the encoder, N rounds, with no other phase."""
     import numpy as np
     import torch
@@ -4180,7 +4518,7 @@ def flash_wall(rounds: int) -> int:
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     cases = {}
     for shape in FLASH_SHAPES:
-        if _dv(shape) != shape[6]:
+        if _dv(shape) != shape[6] or shape[6] % 16:
             continue
         for dtype in ("bfloat16", "float32"):
             dt = getattr(torch, dtype)

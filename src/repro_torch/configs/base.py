@@ -5,11 +5,10 @@ Every architecture exposes:
   * ``smoke`` — a reduced same-family configuration for CPU tests
     (small widths, tiny vocab).
 
-whisper-base, jamba-1.5-large-398b, the dense family (codeqwen1.5-7b,
-internlm2-1.8b, stablelm-3b), minicpm3-4b (MLA) and the MoE family
-(qwen2-moe-a2.7b, dbrx-132b) are ported; the reference's other two
-configurations wait for their model families (qwen2-vl-2b, ROADMAP item
-11.4; xlstm-1.3b, item 11.5).
+All ten of the reference's architectures are ported: whisper-base,
+jamba-1.5-large-398b, the dense family (codeqwen1.5-7b, internlm2-1.8b,
+stablelm-3b), minicpm3-4b (MLA), the MoE family (qwen2-moe-a2.7b,
+dbrx-132b), qwen2-vl-2b (vlm, M-RoPE) and xlstm-1.3b (ssm).
 
 Shapes:
   train_4k     seq 4096,   global_batch 256   → train_step
@@ -55,7 +54,7 @@ class ArchSpec:
 _REGISTRY: dict[str, ArchSpec] = {}
 ARCH_MODULES = ["codeqwen1_5_7b", "dbrx_132b", "internlm2_1_8b",
                 "jamba_1_5_large", "minicpm3_4b", "qwen2_moe_a2_7b",
-                "stablelm_3b", "whisper_base"]
+                "qwen2_vl_2b", "stablelm_3b", "whisper_base", "xlstm_1_3b"]
 
 FULL_ATTN_SHAPES = ("train_4k", "prefill_32k", "decode_32k")
 SUBQUADRATIC_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
@@ -75,8 +74,8 @@ def get_arch(arch_id: str) -> ArchSpec:
     if arch_id not in _REGISTRY:
         _load_all()
     if arch_id not in _REGISTRY:
-        raise KeyError(f"{arch_id!r} is not ported (have {list_archs()}; "
-                       f"the rest wait for ROADMAP items 11.4 and 11.5)")
+        raise KeyError(f"unknown architecture {arch_id!r} (have "
+                       f"{list_archs()})")
     return _REGISTRY[arch_id]
 
 

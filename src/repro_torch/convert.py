@@ -16,10 +16,11 @@ warm start for ``replan(prev=...)``), :func:`scenario` (events,
 policy and re-planner knobs) and :func:`ctrl_snapshot` (an epoch-boundary
 snapshot of a controlled run, which the port then resumes).  Both read the reference objects by their
 field names only.  So do a model's parameters:
-:func:`encdec_params_from_numpy`, :func:`hybrid_params_from_numpy` and
-:func:`dense_params_from_numpy` take the reference's whisper, Jamba and
-decoder-LM parameter trees (nested dicts of numpy arrays, layers stacked
-on leading axes; a MoE layer's experts on the axis after them).
+:func:`encdec_params_from_numpy`, :func:`hybrid_params_from_numpy`,
+:func:`dense_params_from_numpy` and :func:`xlstm_params_from_numpy` take
+the reference's whisper, Jamba, decoder-LM (qwen2-vl's too) and xLSTM
+parameter trees (nested dicts of numpy arrays, layers stacked on leading
+axes; a MoE layer's experts on the axis after them).
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ import torch
 from .core.bidor import BiDORTable
 from .core.nrank import NRankResult
 from .device import resolve_device
-from .models import encdec, hybrid, lm
+from .models import encdec, hybrid, lm, xlstm_model
 from .models.common import ModelConfig
 from .noc import ctrl
 from .noc.sim import Tables, state_from_host, state_to_host
@@ -41,7 +42,7 @@ from .noc.sim import Tables, state_from_host, state_to_host
 __all__ = ["tables_from_numpy", "state_from_numpy", "state_to_numpy",
            "plan_from_numpy", "nrank_result", "scenario", "ctrl_snapshot",
            "encdec_params_from_numpy", "hybrid_params_from_numpy",
-           "dense_params_from_numpy"]
+           "dense_params_from_numpy", "xlstm_params_from_numpy"]
 
 
 def tables_from_numpy(tables, device=None) -> Tables:
@@ -189,5 +190,16 @@ def dense_params_from_numpy(tree: dict, cfg: ModelConfig,
     together) from the reference's tree (``blocks`` stacked on a leading
     layer axis; a MoE FFN's experts on axis 1)."""
     model = lm.LM(cfg, None, "meta").to_empty(device=resolve_device(device))
+    _params_from_numpy(model, tree)
+    return model
+
+
+def xlstm_params_from_numpy(tree: dict, cfg: ModelConfig,
+                            device=None) -> xlstm_model.XLSTM:
+    """The port's xLSTM parameters from the reference's tree: ``blocks``
+    stacked on axis 0 by super-block, and inside it ``mlstm`` and
+    ``mlstm_ln`` on axis 1 by mLSTM layer."""
+    model = xlstm_model.XLSTM(cfg, None, "meta").to_empty(
+        device=resolve_device(device))
     _params_from_numpy(model, tree)
     return model

@@ -13,6 +13,14 @@ card, :func:`choose_path` picks one of three kernels by shape and dtype:
 * ``"tc"`` — bf16 prefill and encoder: the tensor-core kernel.
 * ``"simt"`` — fp32 prefill and encoder: the CUDA-core kernel (TF32
   would not meet fp32's 2e-5).
+
+Every path is built for the (Dk, Dv) pairs of :data:`HEAD_DIMS`.  Any
+other pair up to :data:`MAX_HEAD_DIM` runs on the built pair of least
+Dk′ + Dv′ that covers it (:func:`padded_dims`): q and k are zero-padded
+to Dk′ and v to Dv′ (:func:`pad_head_dims`), the kernel scales by the
+true Dk^-0.5, and the output is cut back to Dv.  Zero columns add
+nothing to q·k and give zero output columns, so the function is the
+unpadded one; only the unbuilt pairs pay the copy.
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import math
 from typing import NamedTuple
 
 import torch
+import torch.nn.functional as F
 
 from .kernel import flash_attention_cuda
 from .ref import flash_attention_ref
@@ -30,6 +39,7 @@ KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 # the (Dk, Dv) pairs the kernels are built for: Dv = Dk at every multiple
 # of 16 up to 128, and MLA's (96, 64) (minicpm3: 64 + 32 rope dims, V 64)
 HEAD_DIMS = tuple((d, d) for d in range(16, 129, 16)) + ((96, 64),)
+MAX_HEAD_DIM = 128      # the widest built tile, for Dk and Dv alike
 SPLIT_MAX_ROWS = 64     # packed query rows a split block holds
 SPLIT_TILE = 64         # keys a split block loads at a time
 SPLIT_BLOCKS_PER_SM = 1  # one wave of split blocks (see choose_path)
@@ -87,6 +97,33 @@ def _check(q, k, v, mask_len):
                          f"{tuple(mask_len.shape)}")
 
 
+@functools.lru_cache(maxsize=64)
+def padded_dims(dk: int, dv: int) -> tuple[int, int]:
+    """The built (Dk′, Dv′) a call at (Dk, Dv) launches: the pair itself
+    where it is built, else the built pair of least Dk′ + Dv′ with
+    Dk′ ≥ Dk and Dv′ ≥ Dv.  Raises past :data:`MAX_HEAD_DIM`."""
+    if (dk, dv) in HEAD_DIMS:
+        return dk, dv
+    fits = [p for p in HEAD_DIMS if p[0] >= dk and p[1] >= dv]
+    if not fits:
+        raise ValueError(f"the kernels take head dims up to {MAX_HEAD_DIM} "
+                         f"(the built (Dk, Dv) pairs {list(HEAD_DIMS)}), "
+                         f"got ({dk}, {dv})")
+    return min(fits, key=lambda p: (p[0] + p[1], p))
+
+
+def pad_head_dims(q, k, v, dims: tuple[int, int]):
+    """q and k zero-padded to Dk′ = ``dims[0]``, v to Dv′ = ``dims[1]``
+    along the last axis (new contiguous tensors; an input already at its
+    width is returned as it is)."""
+    dk, dv = dims
+
+    def pad(x, n):
+        return x if x.shape[3] == n else F.pad(x, (0, n - x.shape[3]))
+
+    return pad(q, dk), pad(k, dk), pad(v, dv)
+
+
 def _check_kernel(q, k, v, mask_len):
     """What every path of the kernels takes; raises on anything else."""
     dims = (q.shape[3], v.shape[3])
@@ -119,10 +156,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ≤ i + Skv − Sq); ``mask_len`` — int32 (B,) or (B, Sq) — masks keys
     ≥ the length.  ``q_chunk``/``kv_chunk`` are the plain twin's chunks
     (the kernels have their own tiles).  The CPU twin takes Dv ≠ Dk, as
-    the reference's oracle does.  On the card: (Dk, Dv) one of
-    :data:`HEAD_DIMS`, float32 or bfloat16, each input's last dimension
-    contiguous and its rows on 16 bytes (K and V may have different
-    strides, as MLA's sliced V does).  The scale is Dk^-0.5."""
+    the reference's oracle does.  On the card: Dk and Dv up to
+    :data:`MAX_HEAD_DIM` (a pair not in :data:`HEAD_DIMS` padded, see
+    :func:`padded_dims`), float32 or bfloat16, each input's last
+    dimension contiguous and its rows on 16 bytes (K and V may have
+    different strides, as MLA's sliced V does).  The scale is
+    Dk^-0.5."""
     _check(q, k, v, mask_len)
     dev = q.device
     if dev.type == "cpu":
@@ -130,11 +169,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                    kv_chunk=kv_chunk, bias_mask_len=mask_len)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    _check_kernel(q, k, v, mask_len)
     b, sq, h, d = q.shape
+    dv = v.shape[3]
+    dims = padded_dims(d, dv)
+    if dims != (d, dv):
+        q, k, v = pad_head_dims(q, k, v, dims)
+    _check_kernel(q, k, v, mask_len)
     skv, kvh = k.shape[1], k.shape[2]
     path = choose_path(q.dtype, b, sq, h, kvh, skv, sms=_sm_count(dev.index))
-    return flash_attention_cuda(q, k, v, causal, mask_len, d ** -0.5, path)
+    o = flash_attention_cuda(q, k, v, causal, mask_len, d ** -0.5, path)
+    return o if o.shape[3] == dv else o[..., :dv].contiguous()
 
 
 @functools.cache

@@ -1,6 +1,8 @@
-"""Rotary position embeddings (standard RoPE).
+"""Rotary position embeddings: standard RoPE and Qwen2-VL's M-RoPE.
 
-Qwen2-VL's M-RoPE waits for the vlm family (ROADMAP item 11).
+M-RoPE (arXiv:2409.12191) splits the head dim's rotary pairs into
+sections driven by (temporal, height, width) position ids; text tokens
+carry equal t/h/w ids, so on pure text it is RoPE.
 """
 
 from __future__ import annotations
@@ -18,6 +20,24 @@ def rope_angles(positions: torch.Tensor, head_dim: int,
     """positions: (..., S) int → angles (..., S, head_dim/2), float32."""
     return (positions[..., None].to(torch.float32)
             * _freqs(head_dim, theta, positions.device))
+
+
+def mrope_angles(positions_thw: torch.Tensor, head_dim: int, theta: float,
+                 sections: tuple[int, ...]) -> torch.Tensor:
+    """positions_thw: (3, B, S) int → angles (B, S, head_dim/2), float32.
+    ``sections`` gives the rotary pairs each of t, h and w drives, in
+    that order (they sum to head_dim/2): section i takes its frequencies
+    from id row i."""
+    if sum(sections) != head_dim // 2:
+        raise ValueError(f"M-RoPE sections {sections} do not sum to "
+                         f"head_dim/2 = {head_dim // 2}")
+    ang = (positions_thw[..., None].to(torch.float32)
+           * _freqs(head_dim, theta, positions_thw.device))  # (3, B, S, hd/2)
+    bounds = [0]
+    for sec in sections:
+        bounds.append(bounds[-1] + sec)
+    return torch.cat([ang[i, ..., lo:hi] for i, (lo, hi) in
+                      enumerate(zip(bounds, bounds[1:]))], dim=-1)
 
 
 def apply_rope(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:

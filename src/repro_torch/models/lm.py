@@ -1,9 +1,12 @@
 """Decoder-only LM: the dense family (codeqwen1.5-7b, internlm2-1.8b,
 stablelm-3b), the MoE family (qwen2-moe-a2.7b, dbrx-132b: every layer's
-FFN the top-k MoE) and MLA (minicpm3-4b).
+FFN the top-k MoE), MLA (minicpm3-4b) and the vlm (qwen2-vl-2b).
 
-The reference's ``models/lm.py`` also covers the vlm's M-RoPE; here a
-configuration with it raises (ROADMAP queue 1, item 11.4).  Blocks are
+The vlm differs only in its positions: (3, B, S) t/h/w ids drive
+M-RoPE where ``cfg.mrope_sections`` is set, and a stub modality
+frontend hands in merged patch and token embeddings (``embeds=``).
+Without ids the positions count from the call's cache index, equal on
+all three rows, as the reference's.  Blocks are
 ``ModuleList`` entries and the reference's ``lax.scan`` over stacked
 layers is a Python loop; its ``hint_bsd`` sharding annotation has no
 meaning on one device.  Every attention call goes through
@@ -19,7 +22,8 @@ API (as the reference's):
   init(cfg, seed, device) -> params
   forward(cfg, params, tokens, positions=None, embeds=None) -> (logits, aux)
   init_cache(cfg, batch, max_len) -> cache
-  prefill(cfg, params, tokens, cache, positions=None) -> (logits, cache)
+  prefill(cfg, params, tokens, cache, positions=None, embeds=None)
+      -> (logits, cache)
   decode_step(cfg, params, tokens, cache, index, positions=None)
       -> (logits, cache)
 """
@@ -34,14 +38,7 @@ from .common import ModelConfig
 from .layers.attention import GQA, MLA, gqa_apply, mla_apply
 from .layers.basic import Embedding, Head, RMSNorm, embed, rms_norm, unembed
 from .layers.ffn import MoE, SwiGLU, moe_apply, swiglu
-from .layers.rope import rope_angles
-
-
-def _check_config(cfg: ModelConfig) -> None:
-    """Raise for the part of the reference's LM the port lacks."""
-    if cfg.mrope_sections:
-        raise NotImplementedError(
-            f"{cfg.name}: M-RoPE is not ported yet (ROADMAP item 11.4)")
+from .layers.rope import mrope_angles, rope_angles
 
 
 def _uses_moe(cfg: ModelConfig) -> bool:
@@ -81,7 +78,6 @@ class LM(nn.Module):
 
     def __init__(self, cfg: ModelConfig, gen, device=None):
         super().__init__()
-        _check_config(cfg)
         dt = cfg.torch_dtype
         self.embed = Embedding(gen, cfg.vocab, cfg.d_model, dt, device)
         self.blocks = nn.ModuleList(Block(cfg, gen, device)
@@ -101,16 +97,33 @@ def init(cfg: ModelConfig, seed: int = 0, device=None) -> LM:
     return LM(cfg, gen, dev)
 
 
-def _positions(b, s, start, device):
-    return (torch.arange(s, dtype=torch.int32, device=device)
-            + start)[None].expand(b, s)
+def _default_positions(cfg: ModelConfig, b, s, start, device):
+    """(B, S) int32 from ``start``; (3, B, S), the rows equal, with
+    M-RoPE."""
+    pos = (torch.arange(s, dtype=torch.int32, device=device)
+           + start)[None].expand(b, s)
+    return pos[None].expand(3, b, s) if cfg.mrope_sections else pos
+
+
+def _angles_for(cfg: ModelConfig, positions):
+    """positions: (B, S) int, or (3, B, S) t/h/w ids for M-RoPE (a
+    configuration without it reads row 0)."""
+    if cfg.mla:
+        return None  # MLA turns its rope sub-dims itself
+    if cfg.mrope_sections:
+        if positions.ndim != 3:
+            raise ValueError(f"{cfg.name}: M-RoPE needs (3, B, S) position "
+                             f"ids, got {tuple(positions.shape)}")
+        return mrope_angles(positions, cfg.head_dim, cfg.rope_theta,
+                            cfg.mrope_sections)
+    if positions.ndim == 3:
+        positions = positions[0]
+    return rope_angles(positions, cfg.head_dim, cfg.rope_theta)
 
 
 def _run(cfg, params: LM, x, positions, cache=None, cache_index=None):
     """(logits, the summed auxiliary loss, fp32)."""
-    # MLA turns its rope sub-dims itself, from the positions
-    angles = (None if cfg.mla else
-              rope_angles(positions, cfg.head_dim, cfg.rope_theta))
+    angles = _angles_for(cfg, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(params.blocks):
         layer = None if cache is None else {k: c[i] for k, c in cache.items()}
@@ -130,13 +143,12 @@ def forward(cfg: ModelConfig, params: LM, tokens, positions=None,
     x = embeds if embeds is not None else embed(params.embed, tokens)
     b, s = x.shape[:2]
     if positions is None:
-        positions = _positions(b, s, 0, x.device)
+        positions = _default_positions(cfg, b, s, 0, x.device)
     return _run(cfg, params, x, positions)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
                device=None):
-    _check_config(cfg)
     dt = dtype or cfg.torch_dtype
     dev = resolve_device(device)
     lead = (cfg.n_layers, batch, max_len)
@@ -150,16 +162,26 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
             "v": torch.zeros(shape, dtype=dt, device=dev)}
 
 
+def _apply_with_cache(cfg, params: LM, tokens, cache, index, positions,
+                      embeds):
+    x = embeds if embeds is not None else embed(params.embed, tokens)
+    b, s = x.shape[:2]
+    if positions is None:
+        positions = _default_positions(cfg, b, s, index, x.device)
+    return _run(cfg, params, x, positions, cache, index)[0], cache
+
+
 def decode_step(cfg: ModelConfig, params: LM, tokens, cache, index: int,
                 positions=None):
     """Tokens (B, S) appended at ``index``: logits (B, S, vocab) in fp32,
     and the cache (updated in place)."""
-    x = embed(params.embed, tokens)
-    b, s = x.shape[:2]
-    if positions is None:
-        positions = _positions(b, s, index, x.device)
-    return _run(cfg, params, x, positions, cache, index)[0], cache
+    return _apply_with_cache(cfg, params, tokens, cache, index, positions,
+                             None)
 
 
-def prefill(cfg: ModelConfig, params: LM, tokens, cache, positions=None):
-    return decode_step(cfg, params, tokens, cache, 0, positions)
+def prefill(cfg: ModelConfig, params: LM, tokens, cache, positions=None,
+            embeds=None):
+    """The prompt from index 0: ``tokens`` (B, S), or ``embeds`` (B, S, d)
+    from a stub frontend (``tokens`` then unread)."""
+    return _apply_with_cache(cfg, params, tokens, cache, 0, positions,
+                             embeds)

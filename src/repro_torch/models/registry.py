@@ -1,31 +1,29 @@
 """Model registry: family dispatch and parameter counting.
 
-The ``dense`` (codeqwen1.5-7b, internlm2-1.8b, stablelm-3b; minicpm3-4b
-with MLA), ``moe`` (qwen2-moe-a2.7b, dbrx-132b), ``encdec`` (whisper)
-and ``hybrid`` (Jamba, its MoE FFNs included) families are ported; the
-vlm family raises until ROADMAP item 11.4 brings M-RoPE, the ssm family
-(xLSTM) until item 11.5.
+Every family of the reference: ``dense`` (codeqwen1.5-7b,
+internlm2-1.8b, stablelm-3b; minicpm3-4b with MLA), ``moe``
+(qwen2-moe-a2.7b, dbrx-132b) and ``vlm`` (qwen2-vl-2b, M-RoPE) on the
+decoder LM, ``encdec`` (whisper), ``hybrid`` (Jamba, its MoE FFNs
+included) and ``ssm`` (xLSTM).
 """
 
 from __future__ import annotations
 
 from types import ModuleType
 
-from . import encdec, hybrid, lm
+from . import encdec, hybrid, lm, xlstm_model
 from .common import ModelConfig, param_count_tree
 
-_FAMILY_MODULE: dict[str, ModuleType] = {"dense": lm, "moe": lm,
-                                          "encdec": encdec, "hybrid": hybrid}
-_NOT_PORTED = {"vlm": "11.4 (M-RoPE)", "ssm": "11.5 (xLSTM)"}
+_FAMILY_MODULE: dict[str, ModuleType] = {
+    "dense": lm, "moe": lm, "vlm": lm, "encdec": encdec, "hybrid": hybrid,
+    "ssm": xlstm_model}
 
 
 def model_module(cfg: ModelConfig) -> ModuleType:
     mod = _FAMILY_MODULE.get(cfg.family)
     if mod is None:
-        item = _NOT_PORTED.get(cfg.family, "11")
-        raise NotImplementedError(
-            f"the {cfg.family!r} family is not ported yet (ROADMAP item "
-            f"{item})")
+        raise ValueError(f"unknown model family {cfg.family!r} (have "
+                         f"{sorted(_FAMILY_MODULE)})")
     return mod
 
 

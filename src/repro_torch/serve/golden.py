@@ -13,7 +13,11 @@ three dense smoke configurations, at the batch of the reference's
 ``examples/serve_decode.py``), ``serve_moe_smoke.json`` (qwen2-moe,
 dbrx and Jamba with its experts, at that batch, with each call's summed
 auxiliary loss and dropped (token, slot) pairs) and
-``serve_mla_smoke.json`` (minicpm3) hold the reference's float32 logits
+``serve_mla_smoke.json`` (minicpm3), ``serve_vlm_smoke.json`` (qwen2-vl:
+the served record, and an image-style prefill of stub-frontend
+embeddings at patch-grid M-RoPE ids, :func:`vlm_image_case`, with its
+decode steps) and ``serve_ssm_smoke.json`` (xLSTM,
+:func:`xlstm_numpy_case`) hold the reference's float32 logits
 (prefill and every decode step) and its greedy tokens for those cases;
 the port is held against them on the CPU and, where there is no JAX, on
 the card.
@@ -25,7 +29,9 @@ token and token equality would prove little.  Jamba's head is untied;
 its weights keep the reference's fan-in scales, with the parameters the
 reference initialises to constants (norm scales, biases, the SSM's A,
 skip and step size) drawn around those constants, so that a transposed
-or misplaced one shows.  The dense LMs' trees are drawn the same way.
+or misplaced one shows.  The dense LMs' trees are drawn the same way,
+and so is xLSTM's: its gate biases (the forget gates' 3.0) and norm
+scales drawn around the reference's constants.
 """
 
 from __future__ import annotations
@@ -61,6 +67,15 @@ MOE_GOLDEN_NAME = "serve_moe_smoke.json"
 MOE_ARCHS = ("qwen2-moe-a2.7b", "dbrx-132b", "jamba-1.5-large-398b")
 MLA_GOLDEN_NAME = "serve_mla_smoke.json"
 MLA_ARCHS = ("minicpm3-4b",)
+VLM_GOLDEN_NAME = "serve_vlm_smoke.json"
+VLM_ARCHS = ("qwen2-vl-2b",)
+SSM_GOLDEN_NAME = "serve_ssm_smoke.json"
+SSM_ARCHS = ("xlstm-1.3b",)
+# the image-style prompt: 4 text tokens, an 8 x 8 patch grid, 4 text
+# tokens (72 positions), then IMAGE_STEPS decode steps
+IMAGE_BEFORE, IMAGE_GRID, IMAGE_AFTER = 4, (8, 8), 4
+IMAGE_STEPS = 8
+IMAGE_LEN = IMAGE_BEFORE + IMAGE_GRID[0] * IMAGE_GRID[1] + IMAGE_AFTER
 AUX_DECIMALS = 10
 
 
@@ -254,10 +269,153 @@ def dense_numpy_params(cfg: ModelConfig, rng: np.random.Generator) -> dict:
 
 def lm_numpy_case(cfg: ModelConfig, seed: int = SEED):
     """The numpy case of a golden at the example's batch: Jamba's tree
-    for the hybrid family, else a decoder LM's."""
+    for the hybrid family, xLSTM's for the ssm family, else a decoder
+    LM's (the vlm's too)."""
     if cfg.family == "hybrid":
         return jamba_numpy_case(cfg, seed, DENSE_BATCH, DENSE_PROMPT_LEN)
+    if cfg.family == "ssm":
+        return xlstm_numpy_case(cfg, seed)
     return dense_numpy_case(cfg, seed)
+
+
+def image_positions(batch: int) -> np.ndarray:
+    """(3, B, IMAGE_LEN) int32 t/h/w ids of the image-style prompt: the
+    leading text at equal ids 0, 1, ...; the patch grid at t fixed at the
+    offset after the text, h = offset + row, w = offset + column; the
+    trailing text from one past the grid's largest id, equal again."""
+    gh, gw = IMAGE_GRID
+    off = IMAGE_BEFORE
+    text0 = np.arange(off)
+    rows, cols = np.divmod(np.arange(gh * gw), gw)
+    start = off + max(gh, gw)
+    text1 = start + np.arange(IMAGE_AFTER)
+    thw = np.stack([
+        np.concatenate([text0, np.full(gh * gw, off), text1]),
+        np.concatenate([text0, off + rows, text1]),
+        np.concatenate([text0, off + cols, text1])]).astype(np.int32)
+    return np.ascontiguousarray(
+        np.broadcast_to(thw[:, None], (3, batch, IMAGE_LEN)))
+
+
+def vlm_image_case(cfg: ModelConfig, seed: int = SEED, batch: int = BATCH):
+    """(text tokens (B, IMAGE_BEFORE + IMAGE_AFTER) int32, patch
+    embeddings (B, grid cells, d) float32 at the embedding table's scale,
+    positions (3, B, IMAGE_LEN) int32): the stub frontend's inputs, from
+    ``seed``.  :func:`image_embeds` merges them with the text's rows."""
+    rng = np.random.default_rng(seed + 1)
+    text = rng.integers(0, cfg.vocab, (batch, IMAGE_BEFORE + IMAGE_AFTER)
+                        ).astype(np.int32)
+    cells = IMAGE_GRID[0] * IMAGE_GRID[1]
+    patches = _normal(rng, (batch, cells, cfg.d_model), 1.0)
+    return text, patches, image_positions(batch)
+
+
+def image_embeds(text_emb, patches):
+    """The prompt's (B, IMAGE_LEN, d) embeddings: the text rows' before
+    and after the patches (numpy arrays or torch tensors alike)."""
+    parts = (text_emb[:, :IMAGE_BEFORE], patches, text_emb[:, IMAGE_BEFORE:])
+    if isinstance(text_emb, np.ndarray):
+        return np.concatenate(parts, axis=1)
+    import torch
+
+    return torch.cat(parts, dim=1)
+
+
+def image_generate(cfg: ModelConfig, model, text, patches, positions,
+                   steps: int = IMAGE_STEPS, forced=None):
+    """The image-style case on the port, on the model's device: the
+    prefill of :func:`image_embeds` (the model's own text rows) at
+    ``positions``, then ``steps`` greedy decode steps at the default
+    positions, into a cache of IMAGE_LEN + steps + CACHE_SLACK rows; with
+    ``forced`` (B, ≥ steps) each step is fed ``forced[:, i]`` instead of
+    the last greedy token, so two runs can be compared call by call.
+    Returns (tokens (B, steps + 1) int32 numpy, the fp32 logits of every
+    call)."""
+    import torch
+
+    from ..models import lm
+
+    table = model.embed.table
+    dev = table.device
+    with torch.inference_mode():
+        emb = image_embeds(table[torch.as_tensor(text, device=dev)],
+                           torch.as_tensor(patches, device=dev).to(
+                               table.dtype))
+        cache = lm.init_cache(cfg, emb.shape[0],
+                              IMAGE_LEN + steps + CACHE_SLACK, device=dev)
+        logits, cache = lm.prefill(cfg, model, None, cache,
+                                   positions=torch.as_tensor(positions,
+                                                             device=dev),
+                                   embeds=emb)
+        out = [logits]
+        toks = [torch.argmax(logits[:, -1:], dim=-1).to(torch.int32)]
+        if forced is not None:
+            forced = torch.as_tensor(np.asarray(forced, np.int32),
+                                     device=dev)
+        for i in range(steps):
+            fed = toks[-1] if forced is None else forced[:, i:i + 1]
+            logits, cache = lm.decode_step(cfg, model, fed, cache,
+                                           IMAGE_LEN + i)
+            out.append(logits)
+            toks.append(torch.argmax(logits[:, -1:], dim=-1).to(
+                torch.int32))
+    return torch.cat(toks, dim=1).cpu().numpy(), out
+
+
+def xlstm_numpy_params(cfg: ModelConfig, rng: np.random.Generator) -> dict:
+    """The reference's xLSTM parameter tree (super-blocks stacked on axis
+    0, a super-block's mLSTM layers on axis 1), float32, drawn from
+    ``rng`` in a fixed order."""
+    d, h = cfg.d_model, cfg.n_heads
+    sp = cfg.slstm_period if cfg.slstm_period > 0 else cfg.n_layers
+    nsb, nm = cfg.n_layers // sp, sp - 1
+    dp = int(cfg.xlstm_proj_factor * d)
+    dh, f = d // h, int(d * 4 / 3)
+
+    def normal(shape, fan_in):
+        return _normal(rng, shape, fan_in ** -0.5)
+
+    def near(shape, centre, spread=0.1):
+        return (centre + spread * rng.standard_normal(shape)
+                ).astype(np.float32)
+
+    gates = np.concatenate([np.zeros(2 * d), np.full(d, 3.0), np.zeros(d)])
+    blocks = {
+        "slstm": {"w": normal((nsb, d, 4 * d), d),
+                  "r": normal((nsb, h, dh, 4 * dh), dh),
+                  "b": near((nsb, 4 * d), gates),
+                  "out": normal((nsb, d, d), d)},
+        "slstm_ln": {"scale": near((nsb, d), 1.0)},
+        "slstm_ffn": {"w_gate": normal((nsb, d, f), d),
+                      "w_up": normal((nsb, d, f), d),
+                      "w_down": normal((nsb, f, d), f)},
+        "slstm_ffn_ln": {"scale": near((nsb, d), 1.0)},
+        "mlstm": {"up": normal((nsb, nm, d, 2 * dp), d),
+                  "wq": normal((nsb, nm, dp, dp), dp),
+                  "wk": normal((nsb, nm, dp, dp), dp),
+                  "wv": normal((nsb, nm, dp, dp), dp),
+                  "wi": normal((nsb, nm, dp, h), dp),
+                  "bi": near((nsb, nm, h), 0.0),
+                  "wf": normal((nsb, nm, dp, h), dp),
+                  "bf": near((nsb, nm, h), 3.0),
+                  "norm": {"scale": near((nsb, nm, dp), 1.0)},
+                  "down": normal((nsb, nm, dp, d), dp)},
+        "mlstm_ln": {"scale": near((nsb, nm, d), 1.0)},
+    }
+    return {"embed": {"table": _normal(rng, (cfg.vocab, d), 1.0)},
+            "blocks": blocks,
+            "ln_f": {"scale": near((d,), 1.0)},
+            "head": {"w": normal((cfg.vocab, d), cfg.vocab)}}
+
+
+def xlstm_numpy_case(cfg: ModelConfig, seed: int = SEED,
+                     batch: int = DENSE_BATCH,
+                     prompt_len: int = DENSE_PROMPT_LEN):
+    """(parameter tree, prompts (B, P) int32), both from ``seed``."""
+    rng = np.random.default_rng(seed)
+    tree = xlstm_numpy_params(cfg, rng)
+    prompts = rng.integers(0, cfg.vocab, (batch, prompt_len)).astype(np.int32)
+    return tree, prompts
 
 
 def dense_numpy_case(cfg: ModelConfig, seed: int = SEED,

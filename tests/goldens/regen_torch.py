@@ -5,6 +5,7 @@
     PYTHONPATH=src python tests/goldens/regen_torch.py            # all
     PYTHONPATH=src python tests/goldens/regen_torch.py mltraffic
     PYTHONPATH=src python tests/goldens/regen_torch.py dense moe mla
+    PYTHONPATH=src python tests/goldens/regen_torch.py vlm ssm
 
 Self-contained (it inserts ``src`` itself) and deterministic: a second
 run writes the same bytes.
@@ -33,6 +34,15 @@ run writes the same bytes.
   auxiliary loss and dropped (token, slot) pairs summed over the layers
   (read from the reference's routes by :func:`reference_moe_stats`);
   ``serve_mla_smoke.json``: minicpm3's smoke configuration.
+* ``serve_vlm_smoke.json``: qwen2-vl's smoke configuration served as
+  the dense ones (equal t/h/w ids, as the reference's engine passes no
+  positions), and under ``IMAGE_KEY`` an image-style prefill
+  (``golden.vlm_image_case``: 4 text tokens, an 8 x 8 patch grid of
+  stub-frontend embeddings at patch-grid M-RoPE ids, 4 text tokens) at
+  the golden's batch of 2, then ``golden.IMAGE_STEPS`` greedy decode
+  steps at the reference's default positions.
+* ``serve_ssm_smoke.json``: xLSTM's smoke configuration
+  (``golden.xlstm_numpy_case``) at the example's batch.
 """
 
 from __future__ import annotations
@@ -61,9 +71,14 @@ MLTRAFFIC_JSON = os.path.join(HERE, "mltraffic.json")
 DENSE_JSON = os.path.join(HERE, "serve_dense_smoke.json")
 MOE_JSON = os.path.join(HERE, "serve_moe_smoke.json")
 MLA_JSON = os.path.join(HERE, "serve_mla_smoke.json")
+VLM_JSON = os.path.join(HERE, "serve_vlm_smoke.json")
+SSM_JSON = os.path.join(HERE, "serve_ssm_smoke.json")
+IMAGE_KEY = "image"
 # parameters the reference keeps in float32 whatever the model's dtype
 FP32_KEEP = ("ln1", "ln2", "ln_f", "q_norm", "kv_norm", "router", "attn_ln",
-             "mamba_ln", "ffn_ln", "dt_bias", "a_log", "d_skip")
+             "mamba_ln", "ffn_ln", "dt_bias", "a_log", "d_skip", "slstm_ln",
+             "slstm_ffn_ln", "mlstm_ln", "norm", "wi", "bi", "wf", "bf", "r",
+             "b")
 TOPO = chip_smoke.MLTRAFFIC_TOPO   # torus(2, 4): 8 nodes, 8 mesh ranks
 CYCLES = (200, 2000)               # BENCH_QUICK=1, and =0
 _META_TABLES = ("FileNames", "FunctionNames", "FileLocations",
@@ -337,10 +352,7 @@ def serve_reference_case(arch: str, dtype: str = "float32"):
     ref_cfg = ref_get_arch(arch).smoke.replace(dtype=dtype)
     mod = ref_registry.model_module(ref_cfg)
     tree, prompts = golden.lm_numpy_case(cfg)
-    params = jax.tree_util.tree_map_with_path(
-        lambda path, a: jnp.asarray(a, jnp.float32 if any(
-            getattr(k, "key", None) in FP32_KEEP for k in path)
-            else jnp.dtype(dtype)), tree)
+    params = reference_params(tree, dtype)
     n, p = golden.DENSE_NEW_TOKENS, golden.DENSE_PROMPT_LEN
     max_len = p + n + golden.CACHE_SLACK
     with reference(), reference_moe_stats() as calls:
@@ -379,12 +391,80 @@ def serve_golden_text(archs) -> str:
     return json.dumps(recs, separators=(",", ":")) + "\n"
 
 
+def reference_params(tree, dtype: str):
+    """The numpy tree as the reference holds it in ``dtype`` (the
+    parameters of ``FP32_KEEP`` float32)."""
+    import jax
+    import jax.numpy as jnp
+
+    return jax.tree_util.tree_map_with_path(
+        lambda path, a: jnp.asarray(a, jnp.float32 if any(
+            getattr(k, "key", None) in FP32_KEEP for k in path)
+            else jnp.dtype(dtype)), tree)
+
+
+def vlm_image_reference_case(dtype: str = "float32"):
+    """qwen2-vl's smoke numpy tree with the image-style prompt on the
+    reference: (config, tree, text, patches, positions, logits of the
+    prefill and each decode step, greedy tokens).  The prefill takes the
+    merged embeddings and the (3, B, 72) ids; each step the last greedy
+    token at the reference's default positions."""
+    import jax
+    import jax.numpy as jnp
+    import numpy as np
+    from repro.configs import get_arch as ref_get_arch
+    from repro.models import lm as ref_lm
+    from repro_torch.configs import get_arch
+    from repro_torch.serve import golden
+    from test_torch_oracle import reference
+
+    cfg = get_arch("qwen2-vl-2b").smoke.replace(dtype=dtype)
+    ref_cfg = ref_get_arch("qwen2-vl-2b").smoke.replace(dtype=dtype)
+    tree, _ = golden.dense_numpy_case(cfg)
+    text, patches, pos = golden.vlm_image_case(cfg)
+    params = reference_params(tree, dtype)
+    n, p = golden.IMAGE_STEPS, golden.IMAGE_LEN
+    with reference():
+        emb = golden.image_embeds(np.asarray(params["embed"]["table"][
+            jnp.asarray(text)]), patches.astype(jnp.dtype(dtype)))
+        prefill = jax.jit(lambda *a, **k: ref_lm.prefill(ref_cfg, *a, **k))
+        step = jax.jit(lambda *a: ref_lm.decode_step(ref_cfg, *a))
+        cache = ref_lm.init_cache(ref_cfg, golden.BATCH,
+                                  p + n + golden.CACHE_SLACK)
+        logits, cache = prefill(params, None, cache,
+                                positions=jnp.asarray(pos),
+                                embeds=jnp.asarray(emb))
+        out = [np.asarray(logits, np.float32)]
+        toks = [np.argmax(out[0][:, -1:], -1).astype(np.int32)]
+        for i in range(n):
+            logits, cache = step(params, jnp.asarray(toks[-1]), cache,
+                                 jnp.int32(p + i))
+            out.append(np.asarray(logits, np.float32))
+            toks.append(np.argmax(out[-1][:, -1:], -1).astype(np.int32))
+    return cfg, tree, text, patches, pos, out, np.concatenate(toks, 1)
+
+
+def vlm_golden_text() -> str:
+    """``serve_vlm_smoke.json``: the served record and, under
+    ``IMAGE_KEY``, the image-style prefill's."""
+    from repro_torch.serve import golden
+
+    recs = json.loads(serve_golden_text(golden.VLM_ARCHS))
+    cfg, _, _, _, _, logits, tokens = vlm_image_reference_case()
+    rec = golden.record(cfg, logits[0], logits[1:], tokens)
+    rec["image"] = {"text_before": golden.IMAGE_BEFORE,
+                    "grid": list(golden.IMAGE_GRID),
+                    "text_after": golden.IMAGE_AFTER}
+    recs[IMAGE_KEY] = rec
+    return json.dumps(recs, separators=(",", ":")) + "\n"
+
+
 def main(argv: list[str]) -> int:
     if argv[:1] == ["--lower"]:
         name, phase, out = argv[1:4]
         write_gz(out, lower_one(name, phase))
         return 0
-    every = ["mltraffic", "dense", "moe", "mla"]
+    every = ["mltraffic", "dense", "moe", "mla", "vlm", "ssm"]
     what = argv or every
     if what == ["all"]:
         what = every
@@ -398,11 +478,16 @@ def main(argv: list[str]) -> int:
 
     for name, path, archs in (("dense", DENSE_JSON, golden.DENSE_ARCHS),
                               ("moe", MOE_JSON, golden.MOE_ARCHS),
-                              ("mla", MLA_JSON, golden.MLA_ARCHS)):
+                              ("mla", MLA_JSON, golden.MLA_ARCHS),
+                              ("ssm", SSM_JSON, golden.SSM_ARCHS)):
         if name in what:
             with open(path, "w") as f:
                 f.write(serve_golden_text(archs))
             print(f"wrote {path}", file=sys.stderr)
+    if "vlm" in what:
+        with open(VLM_JSON, "w") as f:
+            f.write(vlm_golden_text())
+        print(f"wrote {VLM_JSON}", file=sys.stderr)
     return 0
 
 

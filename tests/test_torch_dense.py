@@ -174,26 +174,27 @@ def test_bf16_serving_matches_reference():
         _close(g, w, BF16)
 
 
-@pytest.mark.parametrize("what", ["mrope", "vlm", "ssm"])
-def test_parts_not_ported_raise(what):
-    """What the port still lacks raises naming its ROADMAP item, and
-    nothing is built without it: M-RoPE in the decoder LM, the vlm
-    family (M-RoPE) and the ssm family (xLSTM)."""
-    base = get_arch("internlm2-1.8b").smoke
-    cfg, item = {
-        "mrope": (base.replace(mrope_sections=(2, 3, 3)), "11.4"),
-        "vlm": (base.replace(family="vlm"), "11.4"),
-        "ssm": (base.replace(family="ssm"), "11.5"),
-    }[what]
-    makers = [lambda: registry.init(cfg, 0, "cpu"),
-              lambda: registry.count_params(cfg),
-              lambda: registry.init_cache(cfg, 1, 8, device="cpu")]
-    if what == "mrope":
-        makers.append(lambda: lm.init_cache(cfg, 1, 8, device="cpu"))
-    for make in makers:
-        with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP item {item}"):
-            make()
+@pytest.mark.parametrize("arch", sorted(
+    ["codeqwen1.5-7b", "dbrx-132b", "internlm2-1.8b", "jamba-1.5-large-398b",
+     "minicpm3-4b", "qwen2-moe-a2.7b", "qwen2-vl-2b", "stablelm-3b",
+     "whisper-base", "xlstm-1.3b"]))
+def test_every_reference_arch_builds_through_the_registry(arch):
+    """Each of the reference's ten architectures builds through the
+    port's registry on the meta device (nothing allocated), with the
+    reference's parameter count; its family's module serves it."""
+    from repro.configs import list_archs as ref_list_archs
+    from repro_torch.configs import list_archs
+
+    assert ref_list_archs() == list_archs()
+    assert arch in list_archs()
+    cfg = get_arch(arch).full
+    model = registry.init(cfg, device="meta")
+    assert all(p.device.type == "meta" for p in model.parameters())
+    assert registry.count_params(cfg) == ref_registry.count_params(
+        ref_get_arch(arch).full)
+    mod = registry.model_module(cfg)
+    for name in ("init", "forward", "init_cache", "prefill", "decode_step"):
+        assert callable(getattr(mod, name))
 
 
 def test_registry_init_draws_on_the_device_from_the_seed():

@@ -193,6 +193,51 @@ def test_twin_takes_dv_other_than_dk():
                                atol=2e-5)
 
 
+# (Dk, Dv) → the built pair the card launches: itself where built, else
+# the built pair of least Dk′ + Dv′ covering it
+PADDED = {(24, 16): (32, 32), (40, 40): (48, 48), (72, 72): (80, 80),
+          (8, 8): (16, 16), (96, 32): (96, 64), (64, 96): (96, 96),
+          (128, 120): (128, 128), (96, 64): (96, 64), (80, 80): (80, 80)}
+
+
+@pytest.mark.parametrize("dims", sorted(PADDED))
+def test_padded_head_dims_compute_the_unpadded_function(dims):
+    """The card's padding in plain torch: q and k zero-padded to Dk′, v
+    to Dv′, through the twin at the true Dk^-0.5 and cut back to Dv,
+    equal the unpadded twin (2e-5 in float32; rows masked and causal);
+    the pair chosen is ``PADDED``'s."""
+    from repro_torch.kernels.flash_attention.ops import (HEAD_DIMS,
+                                                         pad_head_dims,
+                                                         padded_dims)
+
+    dk, dv = dims
+    assert padded_dims(dk, dv) == PADDED[dims] and PADDED[dims] in HEAD_DIMS
+    rng = np.random.default_rng(dk * 1000 + dv)
+    q = torch.as_tensor(rng.standard_normal((2, 5, 4, dk)), dtype=torch.float32)
+    k = torch.as_tensor(rng.standard_normal((2, 9, 2, dk)), dtype=torch.float32)
+    v = torch.as_tensor(rng.standard_normal((2, 9, 2, dv)), dtype=torch.float32)
+    ml = torch.tensor([[5, 6, 7, 8, 9], [3, 4, 5, 6, 7]], dtype=torch.int32)
+    for causal, mask in ((True, None), (False, ml)):
+        want = flash_attention_ref(q, k, v, causal=causal, bias_mask_len=mask)
+        qp, kp, vp = pad_head_dims(q, k, v, PADDED[dims])
+        assert (qp.shape[3], kp.shape[3], vp.shape[3]) == (
+            PADDED[dims][0], PADDED[dims][0], PADDED[dims][1])
+        assert torch.equal(qp[..., :dk], q) and not qp[..., dk:].any()
+        got = flash_attention_ref(qp, kp, vp, causal=causal,
+                                  bias_mask_len=mask, scale=dk ** -0.5)
+        assert not got[..., dv:].any()
+        np.testing.assert_allclose(got[..., :dv].numpy(), want.numpy(),
+                                   rtol=2e-5, atol=2e-5)
+
+
+def test_head_dims_past_the_widest_tile_raise():
+    from repro_torch.kernels.flash_attention.ops import padded_dims
+
+    for dims in ((136, 136), (128, 160), (256, 64)):
+        with pytest.raises(ValueError, match="up to 128"):
+            padded_dims(*dims)
+
+
 @pytest.mark.parametrize("splits", [1, 3, 16])
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_split_partials_compose_to_the_twin_and_oracle(case, splits):
@@ -288,6 +333,17 @@ PATH_CASES = {
     "minicpm3 long prefill": ((4, 2048, 2080, 40, 40, 96), "tc", "simt"),
     "minicpm3 long decode": ((4, 1, 2080, 40, 40, 96),
                              Path("split", 1, 2112), None),
+    # slice 15's: qwen2-vl (GQA 12/2, D 128: a 16-token prompt packs 96
+    # rows, so the tensor-core kernel; the image-style prompt's 72
+    # positions too) and its decode steps; the padded pairs chip_smoke
+    # times launch at their built pair's path, which the shape decides
+    "qwen2-vl served prefill": ((4, 16, 48, 12, 2, 128), "tc", "simt"),
+    "qwen2-vl served decode": ((4, 1, 48, 12, 2, 128), SPLIT["self"], None),
+    "qwen2-vl image prefill": ((4, 72, 88, 12, 2, 128), "tc", "simt"),
+    "qwen2-vl image decode": ((4, 1, 88, 12, 2, 128), Path("split", 2, 64),
+                              None),
+    "padded decode": ((4, 1, 48, 8, 8, 40), SPLIT["self"], None),
+    "padded causal": ((2, 256, 256, 8, 8, 40), "tc", "simt"),
     "64 packed rows": ((1, 8, 200, 64, 8, 128), Path("split", 4, 64), None),
     "65 packed rows": ((1, 13, 100, 5, 1, 64), "tc", "simt"),
 }

@@ -619,10 +619,23 @@ def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(
         cuda):
     from repro_torch.kernels.flash_attention import flash_attention
 
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+
     q, k, v, ml = (x.to(cuda) for x in _flash_inputs(
         1, 4, 8, 2, 2, 16, "1d", torch.float32))
-    with pytest.raises(ValueError):     # head dim not a multiple of 16
-        flash_attention(q[..., :8], k[..., :8], v[..., :8], causal=True)
+    # a head dim that is no multiple of 16 is padded to a built pair and
+    # runs the kernel: the twin's result, at Dv
+    before = kernels.LAUNCHES["flash_attention"]
+    got = flash_attention(q[..., :8], k[..., :8], v[..., :8], causal=True)
+    assert kernels.LAUNCHES["flash_attention"] == before + 1
+    want = flash_attention_ref(*(x[..., :8].cpu() for x in (q, k, v)),
+                               causal=True)
+    assert got.shape == (1, 4, 2, 8)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=2e-5,
+                               atol=2e-5)
+    with pytest.raises(ValueError, match="up to 128"):  # past the widest
+        wide = torch.zeros((1, 4, 2, 136), device=cuda)
+        flash_attention(wide, wide, wide, causal=True)
     with pytest.raises(TypeError):      # float16 is not a kernel type
         flash_attention(q.half(), k.half(), v.half(), causal=True)
     with pytest.raises(TypeError):      # lengths must be int32
@@ -630,13 +643,6 @@ def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(
     with pytest.raises(ValueError):     # last dimension must be contiguous
         flash_attention(q.transpose(1, 3).contiguous().transpose(1, 3), k,
                         v, causal=True)
-    g = torch.Generator().manual_seed(1)
-    qk = [torch.randn(s, generator=g).to(cuda)
-          for s in ((1, 4, 2, 96), (1, 8, 2, 96))]
-    # (96, 32): a (Dk, Dv) pair the kernels are not built for
-    with pytest.raises(ValueError, match=r"\(96, 64\)"):
-        flash_attention(*qk, torch.randn((1, 8, 2, 32), generator=g).to(
-            cuda), causal=False)
     shifted = torch.empty(k.numel() + 1, device=cuda)[1:].view(k.shape)
     shifted.copy_(k)
     with pytest.raises(ValueError):     # rows must start on 16 bytes
@@ -786,6 +792,54 @@ def test_flash_attention_every_built_head_dim_pair_launches(cuda, kind):
         np.testing.assert_allclose(got.float().cpu().numpy(),
                                    want.float().numpy(), rtol=tol, atol=tol,
                                    err_msg=f"{kind} {(dk, dv)}")
+
+
+# (Dk, Dv) pairs no kernel is built for: minicpm3's smoke (24, 16) and
+# two more, padded by the op to (32, 32), (48, 48), (80, 80); name: (B,
+# Sq, Skv, H, KV, causal, mask) → the path
+PADDED_CASES = {
+    "split_decode_2d": ((4, 1, 48, 4, 4, False, "2d"), "split"),
+    "split_ranges": ((1, 2, 700, 8, 2, False, None), "split"),
+    "wide_causal": ((2, 100, 100, 4, 4, True, None), "wide"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dims", [(24, 16), (40, 40), (72, 72)],
+                         ids=["24_16", "40_40", "72_72"])
+@pytest.mark.parametrize("case", sorted(PADDED_CASES))
+def test_flash_attention_padded_head_dims_vs_plain(cuda, case, dims, dtype):
+    """A pair no kernel is built for runs its covering pair's kernel on
+    split, tc and simt: one launch, the twin's result at the true Dk's
+    scale and V's own head dim (2e-5 fp32, 8e-3 bf16)."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.flash_attention.kernel import PATH_LAUNCHES
+    from repro_torch.kernels.flash_attention.ops import _sm_count, choose_path
+
+    (b, sq, skv, h, kv, causal, mask), kind = PADDED_CASES[case]
+    dk, dv = dims
+    dt = getattr(torch, dtype)
+    path = choose_path(dt, b, sq, h, kv, skv, sms=_sm_count(cuda.index))
+    assert path.kind == (kind if kind == "split" else
+                         "tc" if dtype == "bfloat16" else "simt")
+    q, k, _, ml = _flash_inputs(b, sq, skv, h, kv, dk, mask, dt, seed=11)
+    g = torch.Generator().manual_seed(12)
+    v = torch.randn((b, skv, kv, dv), generator=g).to(dt)
+    want = flash_attention_ref(q, k, v, causal=causal, bias_mask_len=ml)
+    before = kernels.LAUNCHES["flash_attention"]
+    paths = dict(PATH_LAUNCHES)
+    got = flash_attention(q.to(cuda), k.to(cuda), v.to(cuda), causal=causal,
+                          mask_len=None if ml is None else ml.to(cuda))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention"] == before + 1
+    assert PATH_LAUNCHES[path.kind] - paths[path.kind] == 1
+    assert got.dtype == dt and got.shape == (b, sq, h, dv)
+    assert got.is_contiguous()
+    tol = 2e-5 if dtype == "float32" else 8e-3
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().numpy(), rtol=tol, atol=tol)
 
 
 @pytest.mark.gpu
@@ -1090,20 +1144,14 @@ def test_dense_golden_on_the_card(cuda):
 def test_moe_and_mla_goldens_on_the_card(cuda, name):
     """``tests/goldens/serve_moe_smoke.json`` (qwen2-moe, dbrx and Jamba
     with its experts: logits, greedy tokens, each call's aux and dropped
-    pairs), every attention call a kernel launch, and
-    ``serve_mla_smoke.json`` (minicpm3's smoke: the compressed cache and
-    the latents' expansion on the card; its attention, at Dk 24, which
-    no kernel takes, on the plain twin — the kernels at MLA's published
-    Dk 96 / Dv 64 are ``test_flash_attention_dv_below_dk_vs_plain``)
-    through the port's serving path on the card."""
-    import contextlib
-
+    pairs) and ``serve_mla_smoke.json`` (minicpm3's smoke: the compressed
+    cache and the latents' expansion on the card, its attention at
+    (Dk, Dv) = (24, 16) padded to the (32, 32) kernels) through the
+    port's serving path on the card, every attention call a kernel
+    launch."""
     from repro_torch.configs import get_arch
-    from repro_torch.kernels.flash_attention.ops import HEAD_DIMS
     from repro_torch.models.layers.ffn import moe_stats
     from repro_torch.serve import ServeEngine, golden
-
-    cs = _chip_smoke()
 
     gname, archs = {"moe": (golden.MOE_GOLDEN_NAME, golden.MOE_ARCHS),
                     "mla": (golden.MLA_GOLDEN_NAME, golden.MLA_ARCHS)}[name]
@@ -1118,17 +1166,14 @@ def test_moe_and_mla_goldens_on_the_card(cuda, name):
         conv = (convert.hybrid_params_from_numpy if cfg.family == "hybrid"
                 else convert.dense_params_from_numpy)
         model = conv(tree, cfg, cuda)
-        on_kernels = cs._attention_dims(cfg) in HEAD_DIMS
-        assert on_kernels == (name == "moe")
         before = kernels.LAUNCHES["flash_attention"]
-        scope = contextlib.nullcontext() if on_kernels else cs.plain_twins()
-        with scope, moe_stats() as stats:
+        with moe_stats() as stats:
             toks, logits = ServeEngine(cfg, model, max_len).generate(
                 prompts, golden.DENSE_NEW_TOKENS, return_logits=True)
         n_attn = (cfg.n_layers // cfg.attn_period if cfg.family == "hybrid"
                   else cfg.n_layers)
         assert kernels.LAUNCHES["flash_attention"] - before \
-            == n_attn * golden.DENSE_NEW_TOKENS * on_kernels
+            == n_attn * golden.DENSE_NEW_TOKENS
         rec = want[cfg.name]
         logits = [x.cpu() for x in logits]
         assert not golden.mismatches(rec, logits[0], logits[1:], toks,
@@ -1136,3 +1181,47 @@ def test_moe_and_mla_goldens_on_the_card(cuda, name):
         if cfg.is_moe:
             assert not golden.moe_mismatches(
                 rec, *golden.call_stats(cfg, stats)), arch
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["vlm", "ssm"])
+def test_vlm_and_ssm_goldens_on_the_card(cuda, name):
+    """``tests/goldens/serve_vlm_smoke.json`` (qwen2-vl's smoke: the
+    served record, every attention call a kernel launch, and the
+    image-style prefill at patch-grid M-RoPE ids with its decode steps)
+    and ``serve_ssm_smoke.json`` (xLSTM's smoke: no kernel launched)
+    through the port on the card: tokens exact, fp32 logits within
+    1e-5."""
+    from repro_torch.configs import get_arch
+    from repro_torch.serve import ServeEngine, golden
+
+    gname, (arch,) = {"vlm": (golden.VLM_GOLDEN_NAME, golden.VLM_ARCHS),
+                      "ssm": (golden.SSM_GOLDEN_NAME, golden.SSM_ARCHS)}[name]
+    with open(os.path.join(os.path.dirname(__file__), "goldens",
+                           gname)) as f:
+        want = json.load(f)
+    cfg = get_arch(arch).smoke
+    tree, prompts = golden.lm_numpy_case(cfg)
+    conv = (convert.xlstm_params_from_numpy if name == "ssm"
+            else convert.dense_params_from_numpy)
+    model = conv(tree, cfg, cuda)
+    max_len = (golden.DENSE_PROMPT_LEN + golden.DENSE_NEW_TOKENS
+               + golden.CACHE_SLACK)
+    before = dict(kernels.LAUNCHES)
+    toks, logits = ServeEngine(cfg, model, max_len).generate(
+        prompts, golden.DENSE_NEW_TOKENS, return_logits=True)
+    grew = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    flash = cfg.n_layers * golden.DENSE_NEW_TOKENS if name == "vlm" else 0
+    assert grew == {k: flash if k == "flash_attention" else 0 for k in grew}
+    logits = [x.cpu() for x in logits]
+    assert not golden.mismatches(want[cfg.name], logits[0], logits[1:],
+                                 toks, 1e-5)
+    if name == "vlm":
+        before = kernels.LAUNCHES["flash_attention"]
+        toks, logits = golden.image_generate(cfg, model,
+                                             *golden.vlm_image_case(cfg))
+        assert kernels.LAUNCHES["flash_attention"] - before == \
+            cfg.n_layers * (1 + golden.IMAGE_STEPS)
+        logits = [x.cpu() for x in logits]
+        assert not golden.mismatches(want["image"], logits[0], logits[1:],
+                                     toks, 1e-5)

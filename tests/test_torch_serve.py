@@ -278,12 +278,6 @@ def test_param_count_matches_reference():
         ref_get_arch("whisper-base").full)
 
 
-def test_unported_families_raise():
-    cfg = get_arch("whisper-base").smoke.replace(family="vlm")
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        registry.init(cfg, 0, "cpu")
-
-
 def test_serve_golden_is_the_reference_record():
     """``serve_whisper_smoke.json`` is, byte for byte, what the reference
     gives for the numpy case today."""
