@@ -189,7 +189,33 @@ wall printed):
               the same 40 tokens, within 2e-3 of a position's largest
               logit), the bf16 logits' error against it, and
               ``tests/goldens/serve_ssm_smoke.json``;
-25. summary — attention end to end (whisper's ``generate`` busy time
+Main path of slice 16 (launch counts from 0; run after the others have
+freed their weights):
+25. train   — internlm2-1.8b at its published widths and depth, nothing
+              cut, bf16, the registry's weights drawn on the card from
+              seed 0: 12 steps through the launcher's loop
+              (``launch.train.train_loop``) on its default batch (8 × 128
+              tokens of ``SyntheticLM``), fp32 moments, remat on, no
+              checkpoint I/O; each step's loss, grad norm, ms and
+              tokens/s; the last loss below the first; 576
+              ``flash_attention`` launches, all on the tensor-core kernel
+              with the lse (each layer twice a step: the first run and
+              the recomputation), 288 ``flash_attention_bwd``; off the
+              count, a full-width step through the kernels against the
+              twins of both (loss and grad norm), ``grad_accum`` 2
+              against 1, the step in parts (forward, backward, optimizer)
+              and profiled, 3 steps with int8 moments, whisper-base at full
+              width for one step (the encoder's and cross-attention's
+              non-causal backward, Skv 1 500) and against its twins, the
+              backward kernel against its twins (bf16 by the ratio rule,
+              fp32 within 1e-4 of the largest gradient) and the forward's
+              lse at the training shape, (B 1, S 2 048), whisper's
+              cross-attention, MLA's (96, 64) and D 192 and 256, timed at
+              the training shape beside its twin, SDPA's backward and the
+              bound, and ``launch.train.main`` at the smoke config
+              preempted by SIGTERM after step 3 and resumed, equal to an
+              uninterrupted run bit for bit;
+26. summary — attention end to end (whisper's ``generate`` busy time
               and a Jamba decode step's, with the ``flash_fwd*`` kernels'
               share); the flit step at 4x4, 5x5, 16x16 and 32x32 (the
               chunk kernel) and 17x17 and 64x64 (the grid kernel): µs
@@ -250,6 +276,7 @@ import argparse
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -267,8 +294,12 @@ BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 
 
+_T0 = time.perf_counter()
+
+
 def log(*parts):
-    print(*parts, flush=True)
+    """A line of output, prefixed with the script's elapsed seconds."""
+    print(f"[{time.perf_counter() - _T0:7.1f}s]", *parts, flush=True)
 
 
 def card_line() -> str:
@@ -4026,6 +4057,571 @@ def run_ssm_checks(torch, np, cuda, main):
                     golden.SSM_ARCHS)
 
 
+
+# --------------------------------------------------------------------- #
+# slice 16: training
+# --------------------------------------------------------------------- #
+TRAIN_ARCH = "internlm2-1.8b"
+TRAIN_STEPS = 12
+TRAIN_B, TRAIN_S = 8, 128     # the launcher's default batch
+BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+BWD_REPLACES = "src/repro/models/layers/attention.py:151-236"
+# (label, B, Sq, Skv, H, KV, Dk, Dv, causal): the training step's shape,
+# a 2 048-token sequence, whisper's cross-attention, MLA's pair, and the
+# wide head dims, which run on the CUDA-core kernels alone
+BWD_SHAPES = (("train", 8, 128, 128, 16, 8, 128, 128, True),
+              ("long", 1, 2048, 2048, 16, 8, 128, 128, True),
+              ("whisper cross", 8, 128, 1500, 8, 8, 64, 64, False),
+              ("mla", 2, 200, 200, 8, 8, 96, 64, True),
+              ("d192", 2, 90, 90, 4, 2, 192, 192, True),
+              ("d256", 2, 90, 90, 4, 2, 256, 256, True))
+# a full-width step through the kernels against the same step through the
+# twins, both bf16: the kernels round P to bf16 for P·V and the twins do
+# not; on an H100 at internlm2-1.8b's width the two part by 4.2e-6 of the
+# loss and 2.1e-4 of the gradient norm (whisper-base 4.1e-5, 7.0e-4), and
+# the limits leave room for other seeds and widths
+TRAIN_LOSS_RTOL = 2e-3
+TRAIN_GNORM_RTOL = 2e-2
+
+
+@contextlib.contextmanager
+def train_twins():
+    """Within this scope the model's attention runs the twins of both
+    kernels, on the card too: the forward twin with its lse and the
+    backward twin (``FlashAttention`` without a kernel path), or the
+    forward twin alone where no gradient is wanted."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (FlashAttention,
+                                                     flash_attention_ref)
+    from repro_torch.models.layers import attention
+
+    def twin(q, k, v, *, causal, mask_len=None, q_chunk=512, kv_chunk=512):
+        if (mask_len is None and torch.is_grad_enabled()
+                and (q.requires_grad or k.requires_grad or v.requires_grad)):
+            return FlashAttention.apply(q, k, v, causal, q.shape[3] ** -0.5,
+                                        q_chunk, kv_chunk, None)
+        return flash_attention_ref(q, k, v, causal=causal, q_chunk=q_chunk,
+                                   kv_chunk=kv_chunk, bias_mask_len=mask_len)
+
+    real = attention.flash_ops
+    attention.flash_ops = SimpleNamespace(flash_attention=twin)
+    try:
+        yield
+    finally:
+        attention.flash_ops = real
+
+
+def _bwd_inputs(torch, cuda, shape, dtype, seed):
+    _, b, sq, skv, h, kv, dk, dv, _ = shape
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return tuple(torch.randn(s, generator=gen, device=cuda).to(dtype)
+                 for s in ((b, sq, h, dk), (b, skv, kv, dk), (b, skv, kv, dv),
+                           (b, sq, h, dv)))
+
+
+def _op_grads(q, k, v, dout, causal):
+    """(out, dq, dk, dv) of ``flash_attention`` differentiated on the card:
+    the forward kernel with its lse, then the backward kernel."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    leaves = [x.detach().clone().requires_grad_(True) for x in (q, k, v)]
+    out = flash_attention(*leaves, causal=causal)
+    out.backward(dout)
+    return (out.detach(), *(x.grad for x in leaves))
+
+
+def _lse_twin(q, k, v, causal):
+    """The forward twin's (out, lse)."""
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+
+    return flash_attention_ref(q, k, v, causal=causal, return_lse=True)
+
+
+def _twin_grads(q, k, v, dout, causal):
+    """(out, dq, dk, dv) of the two twins."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_ref
+
+    o, lse = _lse_twin(q, k, v, causal)
+    return (o, *flash_attention_bwd_ref(q, k, v, o, lse, dout,
+                                        causal=causal))
+
+
+def _wide_forward(torch, cuda, shape, dt):
+    """A head dim above 128 through the op with no gradient, at a decode
+    step (Sq 1 against 80 cached keys, 2-D lengths) and a prefill, at the
+    width itself and 8 below it (padded up): one simt launch each, the
+    twin's result (2e-5 fp32, 8e-3 bf16)."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.flash_attention.kernel import PATH_LAUNCHES
+
+    _, b, _, _, h, kv, d, _, _ = shape
+    tol = FLASH_TOL[str(dt).removeprefix("torch.")]
+    for dk in (d, d - 8):
+        for sq, index in ((1, 79), (40, None)):
+            q, k, v, _ = _bwd_inputs(torch, cuda, ("wide", b, sq, 80, h, kv,
+                                                   dk, dk, False), dt, sq)
+            ml = None if index is None else torch.full(
+                (b, sq), index + 1, dtype=torch.int32, device=cuda)
+            before = PATH_LAUNCHES["simt"]
+            got = flash_attention(q, k, v, causal=index is None, mask_len=ml)
+            want = flash_attention_ref(q, k, v, causal=index is None,
+                                       bias_mask_len=ml)
+            err = float((got.float() - want.float()).abs().max())
+            log(f"flash: D={dk} {dt} Sq={sq} Skv=80 (no gradient): path "
+                f"simt x{PATH_LAUNCHES['simt'] - before}, max_abs_err "
+                f"{err!r} (tol {tol})")
+            if PATH_LAUNCHES["simt"] != before + 1 or not err <= tol:
+                raise SystemExit(f"flash D={dk} {dt} Sq={sq}: {err}")
+
+
+def _bwd_bound(shape, itemsize, flops_per_s):
+    """Least time for the backward on this run's data: 2·(3 Dk + 2 Dv)
+    FLOP a counted (query, key) pair (S, dP, dV, dQ, dK) at the card's
+    peak for the type, or each input (q, k, v, o, dO, the fp32 lse) read
+    once and dq, dk, dv written once at the HBM rate; the larger."""
+    _, b, sq, skv, h, kv, dk, dv, causal = shape
+    pairs = b * h * sum(min(skv, t + skv - sq + 1) if causal else skv
+                        for t in range(sq))
+    flops = 2 * (3 * dk + 2 * dv) * pairs
+    nbytes = (itemsize * (2 * b * sq * h * dk + 2 * b * skv * kv * dk
+                          + 2 * b * skv * kv * dv + 2 * b * sq * h * dv)
+              + 4 * b * sq * h)
+    bound = {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+             "operations": flops / flops_per_s * 1e3}
+    by = max(bound, key=bound.get)
+    return bound[by], by, flops, nbytes
+
+
+def check_flash_bwd(torch, np, cuda):
+    """The backward kernel (through the op's autograd: the forward kernel
+    with its lse, then ``flash_attention_bwd``) against the twins at
+    ``BWD_SHAPES``: bf16 by the ratio rule (each gradient's error against
+    the fp32 twins at most twice the bf16 twins'), fp32 within 1e-4 of
+    the gradient's largest |value|; the forward kernels' lse against the
+    twin's (tc in bf16, simt in fp32 and at 192/256: 1e-4 and 2e-5);
+    at the training shape in bf16 (and fp32) µs a launch (events) beside
+    the twin, ``scaled_dot_product_attention``'s backward (its forward
+    and backward less its forward) and the bound.  Returns the JSON row
+    (the training shape, bf16)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_ref
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ops import (choose_path,
+                                                         padded_dims)
+
+    worst, row = 0.0, None
+    for shape in BWD_SHAPES:
+        label, causal = shape[0], shape[8]
+        for dtype in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype)
+            q, k, v, dout = _bwd_inputs(torch, cuda, shape, dt, len(label))
+            got = _op_grads(q, k, v, dout, causal)
+            twin = _twin_grads(q, k, v, dout, causal)
+            exact = _twin_grads(*(x.float() for x in (q, k, v, dout)),
+                                causal)
+            torch.cuda.synchronize()
+            errs = []
+            for name, g, t, e in zip(("out", "dq", "dk", "dv"), got, twin,
+                                     exact):
+                top = float(e.abs().max())
+                err = float((g.float() - e).abs().max())
+                if dtype == "float32":
+                    ok = err <= 1e-4 * top
+                    errs.append(f"{name} {err:.3e} of {top:.3e}")
+                else:
+                    ref = float((t.float() - e).abs().max())
+                    ok = err <= 2 * ref + 1e-6 * top
+                    errs.append(f"{name} {err:.3e} (twins {ref:.3e}, "
+                                f"{err / max(ref, 1e-30):.3f}x)")
+                if name != "out":
+                    worst = max(worst, float((g.float() - t.float()).abs()
+                                             .max()))
+                if not ok:
+                    raise SystemExit(f"flash_attention_bwd {label} {dtype} "
+                                     f"{name}: {err} from fp32 ({errs[-1]})")
+            dims = padded_dims(shape[6], shape[7])
+            path = choose_path(dt, *shape[1:3], *shape[4:6], shape[3],
+                               dims=dims, grad=True)
+            _, lse = flash_attention_cuda(q, k, v, causal, None,
+                                          shape[6] ** -0.5, path,
+                                          return_lse=True)
+            _, lse_twin = _lse_twin(q, k, v, causal)
+            lse_err = float((lse - lse_twin).abs().max())
+            lse_tol = 2e-5 if dtype == "float32" else 1e-4
+            log(f"flash_bwd: {label} {dtype} B={shape[1]} Sq={shape[2]} "
+                f"Skv={shape[3]} H={shape[4]} KV={shape[5]} Dk={shape[6]} "
+                f"Dv={shape[7]} causal={causal} forward path {path.kind}: "
+                f"against fp32 {'; '.join(errs)}; lse max_abs_err "
+                f"{lse_err!r} (tol {lse_tol})")
+            if not lse_err <= lse_tol:
+                raise SystemExit(f"flash lse {label} {dtype}: {lse_err}")
+            if label in ("d192", "d256"):
+                _wide_forward(torch, cuda, shape, dt)
+            if label != "train":
+                continue
+            o, lse = flash_attention_cuda(q, k, v, causal, None,
+                                          shape[6] ** -0.5, path,
+                                          return_lse=True)
+            o_t, lse_t = _lse_twin(q, k, v, causal)
+            scale = shape[6] ** -0.5
+            fns = [lambda r: flash_attention_bwd_cuda(q, k, v, o, lse, dout,
+                                                      causal, scale)]
+            qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
+                          for x in (q, k, v))
+            dot = dout.transpose(1, 2).contiguous()
+            gqa = shape[4] != shape[5]
+
+            def sdpa(r):
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=causal, enable_gqa=gqa)
+
+            fns += [lambda r: torch.autograd.grad(sdpa(r), (qt, kt, vt), dot),
+                    sdpa]
+            for fn in fns:
+                fn(0)
+            ms, fb_ms, f_ms = time_launches(torch, fns, 40)
+            prof = _profile(torch, lambda: [fns[0](0) for _ in range(10)])
+            dev = "not measured" if prof is None else ", ".join(
+                f"{name.split('<')[0].split('::')[-1]} "
+                f"{kernel_ms / count * 1e3:.2f}us a launch of {count} seen"
+                for name, (count, kernel_ms) in sorted(prof.items())
+                if "flash_bwd" in name)
+            plain_ms = time_wall(torch, lambda: flash_attention_bwd_ref(
+                q, k, v, o_t, lse_t, dout, causal=causal), 3)
+            peak = BF16_FLOPS if dtype == "bfloat16" else F32_FLOPS
+            bound, by, flops, nbytes = _bwd_bound(shape, q.element_size(),
+                                                  peak)
+            lib_ms = fb_ms - f_ms
+            log(f"flash_bwd: {label} {dtype}: {ms * 1e3:.2f}us a launch "
+                f"(device time by kernel, profiler: {dev}), bound "
+                f"{bound * 1e3:.2f}us ({by}: {flops:.3e} FLOP, {nbytes} "
+                f"bytes), {bound / ms:.4f} of it; plain {plain_ms:.3f}ms; "
+                f"scaled_dot_product_attention backward {lib_ms * 1e3:.2f}us "
+                f"(forward + backward {fb_ms * 1e3:.2f}, forward "
+                f"{f_ms * 1e3:.2f})")
+            if dtype == "bfloat16":
+                row = dict(name="flash_attention_bwd", route="cuda",
+                           source=BWD_SOURCE, replaces=BWD_REPLACES, ms=ms,
+                           plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                           library_ms=lib_ms)
+    row["max_abs_err"] = worst
+    return row
+
+
+def _train_setup(torch, cuda, arch=TRAIN_ARCH, **opt_kw):
+    """``arch``'s published configuration (bf16, remat on), its train
+    state from ``registry.init(cfg, seed=0)`` on the card, the launcher's
+    optimizer and data (``SyntheticLM``, 8 × 128 tokens) and its step."""
+    from repro_torch.configs import get_arch
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step)
+
+    cfg = get_arch(arch).full
+    opt_cfg = OptConfig(peak_lr=1e-3, warmup_steps=10,
+                        decay_steps=TRAIN_STEPS, **opt_kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = init_train_state(cfg, opt_cfg, seed=0, device=cuda)
+    torch.cuda.synchronize()
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_S,
+                                  global_batch=TRAIN_B))
+    return (cfg, state, data, make_train_step(cfg, opt_cfg), opt_cfg,
+            time.perf_counter() - t0)
+
+
+def _train_steps(torch, cuda, label, cfg, state, step_fn, data, steps):
+    """``steps`` steps through the launcher's loop (no checkpoint): each
+    step's loss, grad norm, ms and tokens/s printed; returns the state
+    and the per-step (loss, grad norm, seconds)."""
+    from repro_torch.launch.train import train_loop
+
+    rows = []
+
+    def on_step(step, metrics, seconds):
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        rows.append((loss, gnorm, seconds))
+        log(f"{label}: step {step} loss {loss!r} grad_norm {gnorm!r} "
+            f"{seconds * 1e3:.2f}ms {TRAIN_B * TRAIN_S / seconds:.1f} "
+            f"tokens/s")
+        if not (math.isfinite(loss) and math.isfinite(gnorm)):
+            raise SystemExit(f"{label}: step {step} loss {loss} grad_norm "
+                             f"{gnorm}")
+
+    state, _, _ = train_loop(cfg, state, step_fn, data, 0, steps, cuda,
+                             on_step=on_step, log=lambda line: None)
+    return state, rows
+
+
+def run_train_main(torch, np, cuda, out):
+    """Slice 16's main path: internlm2-1.8b at its published widths and
+    depth, bf16, trained for ``TRAIN_STEPS`` steps through the
+    launcher's loop on the launcher's default batch, fp32 moments, remat
+    on, no checkpoint I/O.  Every attention layer's forward runs on the
+    tensor-core kernel with its lse (twice a step: the first run and the
+    recomputation), its gradient on ``flash_attention_bwd``; the last
+    loss must be below the first."""
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention.kernel import PATH_LAUNCHES
+    from repro_torch.models.common import param_count_tree
+
+    t_phase = time.perf_counter()
+    cfg, state, data, step_fn, opt_cfg, init_s = _train_setup(torch, cuda)
+    n = param_count_tree(state["params"])
+    torch.cuda.reset_peak_memory_stats()
+    state, rows = _train_steps(torch, cuda, "train", cfg, state, step_fn,
+                               data, TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    fwd, bwd = kernels.LAUNCHES["flash_attention"], \
+        kernels.LAUNCHES["flash_attention_bwd"]
+    want_fwd = 2 * cfg.n_layers * TRAIN_STEPS
+    if (fwd, bwd, PATH_LAUNCHES["tc"]) != (want_fwd, want_fwd // 2,
+                                           want_fwd):
+        raise SystemExit(f"train: {fwd} forward launches ({PATH_LAUNCHES}) "
+                         f"and {bwd} backward, expected {want_fwd} on tc "
+                         f"and {want_fwd // 2}")
+    losses = [r[0] for r in rows]
+    if not losses[-1] < losses[0]:
+        raise SystemExit(f"train: the loss did not fall: {losses}")
+    warm = sorted(r[2] for r in rows[1:])
+    med = warm[len(warm) // 2]
+    log(f"train: {cfg.name} at published widths ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of "
+        f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab}; {n} "
+        f"parameters, bf16, fp32 moments, remat {cfg.remat}; init "
+        f"{init_s:.2f}s) B={TRAIN_B} S={TRAIN_S}, {TRAIN_STEPS} steps: "
+        f"loss {losses[0]!r} -> {losses[-1]!r}; warm step median "
+        f"{med * 1e3:.2f}ms = {TRAIN_B * TRAIN_S / med:.1f} tokens/s "
+        f"(steps 1-{TRAIN_STEPS - 1}: {min(warm) * 1e3:.2f}-"
+        f"{max(warm) * 1e3:.2f}ms); flash forward launches {fwd} (all tc, "
+        f"{PATH_LAUNCHES['tc']}), backward launches {bwd}; peak device "
+        f"memory {peak:.2f} GiB")
+    out.update(cfg=cfg, state=state, data=data, step_fn=step_fn,
+               opt_cfg=opt_cfg, rows=rows, t0=t_phase)
+
+
+def _rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def _grads_vs_twins(torch, label, cfg, params, batch):
+    """One step's loss and gradient norm through the kernels and through
+    the twins (``train_twins``) on the same parameters and batch."""
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.train_step import value_and_grads
+
+    res = []
+    for twins in (False, True):
+        with train_twins() if twins else contextlib.nullcontext():
+            loss, _, grads = value_and_grads(cfg, params, batch)
+            res.append((float(loss), float(global_norm(grads.values()))))
+            del grads
+    (lk, gk), (lt, gt) = res
+    log(f"{label}: one step through the kernels vs the twins: loss "
+        f"{lk!r} / {lt!r} ({_rel(lk, lt):.3e} relative, limit "
+        f"{TRAIN_LOSS_RTOL}), grad norm {gk!r} / {gt!r} ({_rel(gk, gt):.3e}, "
+        f"limit {TRAIN_GNORM_RTOL})")
+    if not (_rel(lk, lt) <= TRAIN_LOSS_RTOL
+            and _rel(gk, gt) <= TRAIN_GNORM_RTOL):
+        raise SystemExit(f"{label}: kernels and twins part")
+
+
+def _preempt_and_resume(torch):
+    """``launch.train.main`` on the card at the smoke config, whole and
+    with a SIGTERM after step 3 then resumed: the two end with the same
+    parameters and optimizer state, bit for bit.  Checkpoints under
+    ``build/train_smoke/`` (removed after)."""
+    import shutil
+    import signal
+
+    from repro_torch.launch import train as launch
+
+    root = os.path.join(HERE, "build", "train_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+    argv = ["--arch", TRAIN_ARCH, "--smoke", "--steps", "7", "--seq", "32",
+            "--ckpt-every", "100"]
+
+    def stop_after_3(step, metrics, seconds):
+        if step == 3:
+            os.kill(os.getpid(), signal.SIGTERM)
+
+    with contextlib.redirect_stdout(sys.stderr):
+        whole = launch.main(argv + ["--ckpt-dir", f"{root}/whole"])
+        cut = launch.main(argv + ["--ckpt-dir", f"{root}/cut"],
+                          on_step=stop_after_3)
+        cut_step = int(cut["opt"]["step"])
+        resumed = launch.main(argv + ["--ckpt-dir", f"{root}/cut"])
+    shutil.rmtree(root, ignore_errors=True)
+    a = dict(whole["params"].named_parameters())
+    b = dict(resumed["params"].named_parameters())
+    same = all(torch.equal(a[n], b[n]) for n in a) and all(
+        torch.equal(x, y) for part in ("m", "v")
+        for x, y in zip(whole["opt"][part].values(),
+                        resumed["opt"][part].values()))
+    log(f"train: launch.train.main at {TRAIN_ARCH}'s smoke on the card: "
+        f"SIGTERM after step 3 (checkpoint of {cut_step} steps), resumed to "
+        f"{int(resumed['opt']['step'])}: parameters and moments "
+        f"{'equal' if same else 'DIFFER from'} the uninterrupted run's, bit "
+        f"for bit")
+    if not (same and cut_step == 4):
+        raise SystemExit("train: the resumed run parts from the whole one")
+
+
+# the step's kernels by kind, matched on their names in this order
+STEP_KINDS = (("flash_fwd", ("flash_fwd",)), ("flash_bwd", ("flash_bwd",)),
+              ("gemm", ("gemm", "xmma", "nvjet", "cutlass", "cublas")),
+              ("elementwise", ("elementwise",)), ("reduce", ("reduce",)))
+
+
+def _kinds(prof) -> str:
+    """A profile's device ms and kernels by ``STEP_KINDS`` (the rest as
+    "other")."""
+    out: dict = {}
+    for name, (n, ms) in prof.items():
+        kind = next((k for k, subs in STEP_KINDS
+                     if any(t in name for t in subs)), "other")
+        c, t = out.get(kind, (0, 0.0))
+        out[kind] = (c + n, t + ms)
+    return ", ".join(f"{k} {t:.3f}ms x{c}" for k, (c, t) in out.items())
+
+
+def _step_breakdown(torch, label, cfg, state, opt_cfg, batch):
+    """The step's three parts, the forward (``loss_fn``), the backward
+    (``autograd.grad``, recomputing each block) and the optimizer
+    (``adamw_update``): host ms with a synchronise after each, then, on
+    the next step, each part's device ms and kernels by kind under the
+    profiler."""
+    from repro_torch.train.optimizer import adamw_update
+    from repro_torch.train.train_step import loss_fn
+
+    params = state["params"]
+    names, leaves = zip(*params.named_parameters())
+    box = {}
+    parts = {
+        "forward": lambda: box.update(loss=loss_fn(cfg, params, batch)[0]),
+        "backward": lambda: box.update(grads=dict(zip(
+            names, torch.autograd.grad(box.pop("loss"), leaves)))),
+        "optimizer": lambda: state.update(opt=adamw_update(
+            opt_cfg, params, box.pop("grads"), state["opt"])[0])}
+    wall = {}
+    for part, fn in parts.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall[part] = (time.perf_counter() - t0) * 1e3
+    profs = {part: _profile(torch, fn) for part, fn in parts.items()}
+    total = sum(wall.values())
+    if any(p is None for p in profs.values()):
+        log(f"{label}: step in parts (host ms): {json.dumps(wall)}; device "
+            f"profile: not measured")
+        return
+    busy = {k: sum(ms for _, ms in p.values()) for k, p in profs.items()}
+    log(f"{label}: step in parts, host ms (a synchronise after each): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in wall.items())
+        + f" ({total:.2f} in all); device busy "
+        + ", ".join(f"{k} {v:.3f}ms" for k, v in busy.items())
+        + f" ({sum(busy.values()):.3f}ms = {sum(busy.values()) / total:.3f} "
+        f"of the parts' host time), kernels "
+        + ", ".join(f"{k} {sum(n for n, _ in p.values())}"
+                    for k, p in profs.items()))
+    for part, prof in profs.items():
+        log(f"{label}: {part} by kind: {_kinds(prof)}; top: "
+            + "; ".join(f"{k[:110]} {ms:.2f}ms x{n}" for k, (n, ms) in
+                        sorted(prof.items(), key=lambda kv: -kv[1][1])[:3]))
+
+
+def run_train_checks(torch, np, cuda, main):
+    """Off the counted path: the backward kernel against its twin at
+    ``BWD_SHAPES`` and its timings (``check_flash_bwd``); one full-width
+    step through the kernels against the twins (loss, grad norm);
+    the step in parts and its device profile; ``grad_accum`` 2 against 1;
+    3 steps with int8 moments (steps 0 and 1's losses equal to the
+    fp32-moment run's, step 2's finite and its distance shown);
+    whisper-base
+    at full width, one step (the encoder's and cross-attention's
+    non-causal backward, Skv 1 500) and against its twins; ``main()``
+    preempted and resumed.  Returns the backward's JSON row."""
+    from repro_torch.launch.train import make_batch
+    from repro_torch.train.optimizer import global_norm
+    from repro_torch.train.train_step import value_and_grads
+
+    cfg, state, data = main["cfg"], main["state"], main["data"]
+    batch = make_batch(cfg, data.get_batch(TRAIN_STEPS), cuda)
+    _grads_vs_twins(torch, "train", cfg, state["params"], batch)
+    _step_breakdown(torch, "train", cfg, state, main["opt_cfg"], batch)
+    res = {}
+    for accum in (1, 2):
+        loss, _, grads = value_and_grads(cfg, state["params"], batch, accum)
+        res[accum] = (float(loss), float(global_norm(grads.values())))
+        del grads
+    (l1, g1), (l2, g2) = res[1], res[2]
+    log(f"train: grad_accum 2 against 1 on one batch: loss {l2!r} / {l1!r} "
+        f"({_rel(l2, l1):.3e} relative, limit {TRAIN_LOSS_RTOL}), grad norm "
+        f"{g2!r} / {g1!r} ({_rel(g2, g1):.3e}, limit {TRAIN_GNORM_RTOL})")
+    if not (_rel(l2, l1) <= TRAIN_LOSS_RTOL
+            and _rel(g2, g1) <= TRAIN_GNORM_RTOL):
+        raise SystemExit("train: grad_accum 2 parts from 1")
+    rows = main["rows"]
+    del state, batch
+    main.pop("state")
+    torch.cuda.empty_cache()
+
+    # the first update reads the fp32 moments it has just made and
+    # quantizes them after, so the first two losses equal the fp32-moment
+    # run's and the third is the first the int8 codes move; a v code
+    # rounds to 0 where g² is under 1/254 of its block's largest (|g|
+    # under 1/16 of it), so that element's v keeps no history (the
+    # reference's linear absmax codes)
+    cfg, state, data, step_fn, _, _ = _train_setup(torch, cuda,
+                                                   moment_dtype="int8")
+    state, rows8 = _train_steps(torch, cuda, "train int8", cfg, state,
+                                step_fn, data, 3)
+    m, v = state["opt"]["m"], state["opt"]["v"]
+    bare = sum(int(((v[n]["q"] == 0) & (m[n]["q"] != 0)).sum()) for n in m)
+    total = sum(v[n]["q"].numel() for n in v)
+    log(f"train: int8 moments, 3 steps: losses {[r[0] for r in rows8]} "
+        f"against fp32 moments' {[r[0] for r in rows[:3]]} (the first two "
+        f"equal; the third {_rel(rows8[2][0], rows[2][0]):.3e} relative "
+        f"from it, shown); elements whose v code is 0 and m code is not: "
+        f"{bare} of {total} ({bare / total:.4f})")
+    if not (rows8[0][0] == rows[0][0] and rows8[1][0] == rows[1][0]
+            and math.isfinite(rows8[2][0])):
+        raise SystemExit("train: int8 moments part from fp32 moments")
+    del state
+    torch.cuda.empty_cache()
+
+    wcfg, wstate, wdata, wstep, _, _ = _train_setup(torch, cuda,
+                                                     "whisper-base")
+    from repro_torch import kernels
+
+    before = dict(kernels.LAUNCHES)
+    wstate, wrows = _train_steps(torch, cuda, "train whisper", wcfg, wstate,
+                                 wstep, wdata, 1)
+    grew = {k: kernels.LAUNCHES[k] - before[k]
+            for k in ("flash_attention", "flash_attention_bwd")}
+    layers = wcfg.enc_layers + 2 * wcfg.n_layers
+    log(f"train: whisper-base at published widths, one step: flash launches "
+        f"{grew} (expected {2 * layers} forward with remat, {layers} "
+        f"backward)")
+    if grew != {"flash_attention": 2 * layers, "flash_attention_bwd": layers}:
+        raise SystemExit("train whisper: launches")
+    _grads_vs_twins(torch, "train whisper", wcfg, wstate["params"],
+                    make_batch(wcfg, wdata.get_batch(1), cuda))
+    del wstate
+    torch.cuda.empty_cache()
+
+    row = check_flash_bwd(torch, np, cuda)
+    _preempt_and_resume(torch)
+    log(f"train: phase {time.perf_counter() - main['t0']:.1f}s")
+    return row
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4182,6 +4778,17 @@ def main() -> int:
         log(f"{label.split(' (')[0]}: phase {time.perf_counter() - t0:.1f}s")
         del out
         torch.cuda.empty_cache()
+    # slice 16's: internlm2-1.8b trained whole (23 GB of state), then its
+    # checks (the backward against its twins, whisper-base's step, the
+    # launcher preempted and resumed)
+    label = "slice 16 (internlm2-1.8b training)"
+    flash_paths[label] = ("tc",)
+    out = {}
+    drive_path(label, ("flash_attention", "flash_attention_bwd"),
+               lambda: run_train_main(torch, np, cuda, out))
+    flash_bwd = run_train_checks(torch, np, cuda, out)
+    del out
+    torch.cuda.empty_cache()
     log(f"flash: end to end: whisper generate device busy "
         f"{_ms(whisper_e2e, 'busy')}, flash_fwd* {_ms(whisper_e2e, 'flash')}"
         f"; jamba decode step device busy {_ms(jamba_e2e, 'busy')}, "
@@ -4216,7 +4823,7 @@ def main() -> int:
                         (mesh2d(32, 32), "32x32")):
         time_simstep(torch, np, cuda, topo, f"{label} instrumented",
                      watchdog=True, telemetry=True)
-    rows = [poss, weights, *simstep_rows, flash, scan]
+    rows = [poss, weights, *simstep_rows, flash, scan, flash_bwd]
     for row in rows:
         row["launches"] = launches[row["name"]]
         if row["name"] in sizes:

@@ -20,7 +20,10 @@ field names only.  So do a model's parameters:
 :func:`dense_params_from_numpy` and :func:`xlstm_params_from_numpy` take
 the reference's whisper, Jamba, decoder-LM (qwen2-vl's too) and xLSTM
 parameter trees (nested dicts of numpy arrays, layers stacked on leading
-axes; a MoE layer's experts on the axis after them).
+axes; a MoE layer's experts on the axis after them).  A train state
+comes across both ways: :func:`train_state_from_numpy` and
+:func:`train_state_to_numpy` carry the parameters and the optimizer's
+state (m, v — fp32, or int8 codes and scales — and the step).
 """
 
 from __future__ import annotations
@@ -42,7 +45,9 @@ from .noc.sim import Tables, state_from_host, state_to_host
 __all__ = ["tables_from_numpy", "state_from_numpy", "state_to_numpy",
            "plan_from_numpy", "nrank_result", "scenario", "ctrl_snapshot",
            "encdec_params_from_numpy", "hybrid_params_from_numpy",
-           "dense_params_from_numpy", "xlstm_params_from_numpy"]
+           "dense_params_from_numpy", "xlstm_params_from_numpy",
+           "params_from_numpy", "train_state_from_numpy",
+           "train_state_to_numpy"]
 
 
 def tables_from_numpy(tables, device=None) -> Tables:
@@ -139,22 +144,41 @@ def ctrl_snapshot(arrays: dict, meta: dict) -> tuple[dict, dict]:
     return out, meta
 
 
+def _split_name(name: str) -> tuple[list[str], tuple[int, ...]]:
+    """A port parameter's dotted name → (the reference tree's keys, the
+    ``ModuleList`` indices into its stacked arrays, outermost first)."""
+    keys, layers = [], []
+    for key in name.split("."):
+        (layers if key.isdigit() else keys).append(
+            int(key) if key.isdigit() else key)
+    return keys, tuple(layers)
+
+
+def _leaf(tree: dict, name: str):
+    """The reference's leaf for a port parameter: its array (or a dict of
+    arrays, as an int8 moment's codes and scales) sliced at the
+    parameter's layer indices; bfloat16 arrays (numpy's ``ml_dtypes``)
+    as float32, which holds them exactly."""
+    keys, layers = _split_name(name)
+    node = tree
+    for key in keys:
+        node = node[key]
+
+    def cut(x):
+        a = np.asarray(x)[layers]
+        return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
+
+    return ({k: cut(v) for k, v in node.items()} if isinstance(node, dict)
+            else cut(node))
+
+
 def _params_from_numpy(model: torch.nn.Module, tree: dict) -> None:
     """Copy the reference's tree into ``model``: a parameter's dotted name
     walks the tree by its keys, and each integer in it (a ``ModuleList``
     index) indexes the stacked array found there, outermost first.
-    Arrays are cast to the parameter's dtype; bfloat16 arrays (numpy's
-    ``ml_dtypes``) pass through float32, which holds them exactly."""
+    Arrays are cast to the parameter's dtype."""
     for name, param in model.named_parameters():
-        node, layers = tree, []
-        for key in name.split("."):
-            if key.isdigit():
-                layers.append(int(key))
-            else:
-                node = node[key]
-        a = np.asarray(node)[tuple(layers)]
-        if a.dtype.name == "bfloat16":
-            a = a.astype(np.float32)
+        a = _leaf(tree, name)
         if a.shape != tuple(param.shape):
             raise ValueError(f"{name}: reference shape {a.shape}, port "
                              f"{tuple(param.shape)}")
@@ -162,14 +186,33 @@ def _params_from_numpy(model: torch.nn.Module, tree: dict) -> None:
             param.copy_(torch.as_tensor(np.ascontiguousarray(a)))
 
 
+def _stack(named) -> dict:
+    """The reference's nested tree from (port name, numpy array) pairs:
+    arrays of one tree path stacked on leading axes by their layer
+    indices (the inverse of :func:`_leaf`)."""
+    groups: dict[tuple, list] = {}
+    for name, a in named:
+        keys, layers = _split_name(name)
+        groups.setdefault(tuple(keys), []).append((layers, a))
+    tree: dict = {}
+    for keys, items in groups.items():
+        lead = [max(ix[d] for ix, _ in items) + 1
+                for d in range(len(items[0][0]))]
+        arr = np.empty(lead + list(items[0][1].shape), items[0][1].dtype)
+        for ix, a in items:
+            arr[ix] = a
+        node = tree
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = arr
+    return tree
+
+
 def encdec_params_from_numpy(tree: dict, cfg: ModelConfig,
                              device=None) -> encdec.EncDec:
     """The port's whisper parameters from the reference's tree
     (``enc_blocks`` and ``dec_blocks`` stacked on a leading layer axis)."""
-    model = encdec.EncDec(cfg, None, "meta").to_empty(
-        device=resolve_device(device))
-    _params_from_numpy(model, tree)
-    return model
+    return params_from_numpy(tree, cfg, device)
 
 
 def hybrid_params_from_numpy(tree: dict, cfg: ModelConfig,
@@ -178,10 +221,7 @@ def hybrid_params_from_numpy(tree: dict, cfg: ModelConfig,
     stacked on axis 0 by super-block, and inside it ``mamba``,
     ``mamba_ln``, ``ffn_ln``, ``ffn_dense`` and ``ffn_moe`` (with
     experts) on axis 1 by layer, a MoE FFN's experts on axis 2."""
-    model = hybrid.Hybrid(cfg, None, "meta").to_empty(
-        device=resolve_device(device))
-    _params_from_numpy(model, tree)
-    return model
+    return params_from_numpy(tree, cfg, device)
 
 
 def dense_params_from_numpy(tree: dict, cfg: ModelConfig,
@@ -189,9 +229,7 @@ def dense_params_from_numpy(tree: dict, cfg: ModelConfig,
     """The port's decoder-LM parameters (dense, MoE, MLA, or MoE and MLA
     together) from the reference's tree (``blocks`` stacked on a leading
     layer axis; a MoE FFN's experts on axis 1)."""
-    model = lm.LM(cfg, None, "meta").to_empty(device=resolve_device(device))
-    _params_from_numpy(model, tree)
-    return model
+    return params_from_numpy(tree, cfg, device)
 
 
 def xlstm_params_from_numpy(tree: dict, cfg: ModelConfig,
@@ -199,7 +237,70 @@ def xlstm_params_from_numpy(tree: dict, cfg: ModelConfig,
     """The port's xLSTM parameters from the reference's tree: ``blocks``
     stacked on axis 0 by super-block, and inside it ``mlstm`` and
     ``mlstm_ln`` on axis 1 by mLSTM layer."""
-    model = xlstm_model.XLSTM(cfg, None, "meta").to_empty(
+    return params_from_numpy(tree, cfg, device)
+
+
+_MODEL_CLASS = {"dense": lm.LM, "moe": lm.LM, "vlm": lm.LM,
+                "encdec": encdec.EncDec, "hybrid": hybrid.Hybrid,
+                "ssm": xlstm_model.XLSTM}
+
+
+def params_from_numpy(tree: dict, cfg: ModelConfig, device=None):
+    """The port's parameters of any family from the reference's tree."""
+    model = _MODEL_CLASS[cfg.family](cfg, None, "meta").to_empty(
         device=resolve_device(device))
     _params_from_numpy(model, tree)
     return model
+
+
+def train_state_from_numpy(state: dict, cfg: ModelConfig,
+                           device=None) -> dict:
+    """The port's train state from the reference's
+    ``{"params": tree, "opt": {"m": tree, "v": tree, "step": int32}}``
+    (numpy arrays; a moment's leaf an fp32 array or ``{"q": int8 codes,
+    "s": fp32 scales}``): the parameters, gradients on, and the
+    optimizer's state keyed by the port's parameter names."""
+    from .train.train_step import trainable
+
+    dev = resolve_device(device)
+    params = trainable(params_from_numpy(state["params"], cfg, dev))
+
+    def moment(tree, name):
+        leaf = _leaf(tree, name)
+        if isinstance(leaf, dict):
+            return {k: torch.as_tensor(np.ascontiguousarray(a), device=dev)
+                    for k, a in leaf.items()}
+        return torch.as_tensor(np.ascontiguousarray(leaf), device=dev)
+
+    opt = state["opt"]
+    names = [n for n, _ in params.named_parameters()]
+    return {"params": params,
+            "opt": {"m": {n: moment(opt["m"], n) for n in names},
+                    "v": {n: moment(opt["v"], n) for n in names},
+                    "step": torch.as_tensor(np.int32(opt["step"]),
+                                            device=dev)}}
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def train_state_to_numpy(state: dict) -> dict:
+    """The reference's layout of a port train state, numpy arrays (a
+    bfloat16 parameter as float32, which holds it exactly)."""
+
+    def moments(part):
+        pairs = []
+        for n, m in part.items():
+            if isinstance(m, dict):
+                pairs += [(f"{n}.{k}", _host(a)) for k, a in m.items()]
+            else:
+                pairs.append((n, _host(m)))
+        return _stack(pairs)
+
+    opt = state["opt"]
+    return {"params": _stack((n, _host(p)) for n, p in
+                             state["params"].named_parameters()),
+            "opt": {"m": moments(opt["m"]), "v": moments(opt["v"]),
+                    "step": np.int32(int(opt["step"]))}}

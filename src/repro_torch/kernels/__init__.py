@@ -11,7 +11,8 @@ possibility passes' launches by (name, N, C) beside it.
 from collections import Counter
 
 LAUNCHES = {"possibility_v": 0, "possibility_weights": 0, "simstep_chunk": 0,
-            "simstep_grid": 0, "flash_attention": 0, "selective_scan": 0}
+            "simstep_grid": 0, "flash_attention": 0,
+            "flash_attention_bwd": 0, "selective_scan": 0}
 LAUNCH_SIZES: Counter = Counter()
 
 

@@ -32,6 +32,7 @@ SOURCES = {"possibility": "possibility.cu",
            "flash_attention": "flash_attention.cu",
            "flash_attention_split": "flash_attention_split.cu",
            "flash_attention_tc": "flash_attention_tc.cu",
+           "flash_attention_bwd": "flash_attention_bwd.cu",
            "selective_scan": "selective_scan.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",

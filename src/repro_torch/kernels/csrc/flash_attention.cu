@@ -41,6 +41,16 @@
 // softmax runs in base 2 with log2(e) folded into the scale); the output
 // is rounded once to the input type.  No atomics, a fixed order: every run
 // gives the same bits.
+//
+// Training: with a non-null lse pointer each row's natural-log
+// log-sum-exp of its scaled scores, ln 2 * (m + log2 l) of the base-2
+// state, goes to lse[b, i, h] (fp32), the residual the backward kernel
+// (flash_attention_bwd.cu) recomputes P from; a row with no counted key
+// gets +inf, so its recomputed P is 0.
+//
+// Head dims 192 and 256 (D = DV): the tile of 64 query rows would hold
+// 128 fp32 accumulators a thread at 256, so those instances take 32 rows
+// (175 KB of shared memory at 256, under the 227 KB a block may have).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -62,6 +72,7 @@ struct Args {
   const void* v;
   void* o;
   const int* lens;  // null: no length mask
+  float* lse;       // null: no log-sum-exp wanted
   int b, h, kvh, sq, skv;
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
   long long len_sb, len_sq;
@@ -270,6 +281,10 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_kernel(Args a) {
   for (int r = 0; r < RQ; ++r) {
     const int i = q0 + ty * RQ + r;
     if (i >= a.sq) continue;
+    if (a.lse && tx == 0)
+      a.lse[(long long)(bi * a.sq + i) * a.h + hi] =
+          l[r] > 0.f ? (m[r] + log2f(l[r])) * 0.6931471805599453f
+                     : INFINITY;
     const float den = fmaxf(l[r], 1e-30f);
     T* orow = og + ((long long)(bi * a.sq + i) * a.h + hi) * DV;
 #pragma unroll
@@ -314,6 +329,14 @@ int launch_d(const Args& a, int d, int dv, cudaStream_t stream) {
 
 template <typename T>
 int launch_q(const Args& a, int d, int dv, cudaStream_t stream) {
+  if (d > 128) {  // 192 and 256: 16 or 32 query rows a block
+    if (dv != d || (d != 192 && d != 256)) return (int)cudaErrorInvalidValue;
+    if (a.sq <= 16)
+      return d == 192 ? launch_t<T, 12, 12, 16>(a, stream)
+                      : launch_t<T, 16, 16, 16>(a, stream);
+    return d == 192 ? launch_t<T, 12, 12, 32>(a, stream)
+                    : launch_t<T, 16, 16, 32>(a, stream);
+  }
   return a.sq <= 16 ? launch_d<T, 16>(a, d, dv, stream)
                     : launch_d<T, 64>(a, d, dv, stream);
 }
@@ -324,23 +347,25 @@ int launch_q(const Args& a, int d, int dv, cudaStream_t stream) {
 // views whose last dimension is contiguous (strides in elements for batch,
 // sequence, head); o (B, Sq, H, DV) contiguous; dtype 0 = float32, 1 =
 // bfloat16, the same for all four.  lens: null, or int32 (B,) (len_sq = 0)
-// or (B, Sq) valid key lengths.  (D, DV) one of the pairs of launch_d, H a
+// or (B, Sq) valid key lengths.  lse: null, or fp32 (B, Sq, H) contiguous.
+// (D, DV) one of the pairs of launch_d, or (192, 192), (256, 256); H a
 // multiple of KV.  Launches on `stream` and returns cudaGetLastError().
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, const int* lens,
-    int dtype, int b, int h, int kvh, int sq, int skv, int d, int dv,
+    float* lse, int dtype, int b, int h, int kvh, int sq, int skv, int d,
+    int dv,
     long long q_sb,
     long long q_ss, long long q_sh, long long k_sb, long long k_ss,
     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
     long long len_sb, long long len_sq, int causal, float scale,
     void* stream) {
-  if (d <= 0 || d > 128 || d % 16 != 0 || kvh <= 0 || h % kvh != 0 ||
+  if (d <= 0 || d > 256 || d % 16 != 0 || kvh <= 0 || h % kvh != 0 ||
       (long long)b * h > 65535)
     return (int)cudaErrorInvalidValue;
   if (b <= 0 || sq <= 0) return 0;
-  Args a{q,    k,    v,    o,    lens, b,    h,      kvh,    sq,
-         skv,  q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,   v_sb,   v_ss,
-         v_sh, len_sb, len_sq, causal, scale * 1.4426950408889634f};
+  Args a{q,    k,    v,    o,    lens, lse,  b,      h,      kvh,
+         sq,   skv,  q_sb, q_ss, q_sh, k_sb, k_ss,   k_sh,   v_sb,
+         v_ss, v_sh, len_sb, len_sq, causal, scale * 1.4426950408889634f};
   cudaStream_t st = (cudaStream_t)stream;
   switch (dtype) {
     case 0: return launch_q<float>(a, d, dv, st);

@@ -843,6 +843,7 @@ struct FlashArgs {
   void* o;
   float* part;       // split scratch (splits > 1), else null
   const int* lens;   // null: no length mask
+  float* lse;        // the tensor-core kernel's; null here (inference only)
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
   long long len_sb, len_sq;
   int dtype, b, h, kvh, sq, skv, d, dv;
@@ -863,7 +864,8 @@ extern "C" int flash_attention_split_launch(const void* record,
   if (f.d <= 0 || f.d > 128 || f.d % 16 != 0 || f.dv <= 0 || f.kvh <= 0 ||
       f.h % f.kvh != 0 || f.splits <= 0 || f.chunk <= 0 ||
       f.chunk % kBK != 0 || (long long)f.b * f.kvh > 65535 ||
-      (f.splits > 1) != (f.part != nullptr) || (f.dtype != 0 && f.dtype != 1))
+      (f.splits > 1) != (f.part != nullptr) || f.lse != nullptr ||
+      (f.dtype != 0 && f.dtype != 1))
     return (int)cudaErrorInvalidValue;
   const int g = f.h / f.kvh;
   const int rows = f.sq * g;

@@ -50,6 +50,10 @@
 //   and its design well trodden, so this first tensor-core kernel takes
 //   it.  It runs at a part of Hopper's tensor-core rate and issues in
 //   order; wgmma and TMA are the next step for speed.
+// * Training: with a non-null lse pointer the quad's first lane writes
+//   each row's natural-log log-sum-exp, ln 2 * (m + log2 l) of the
+//   base-2 state (+inf for a row with no counted key), fp32 lse[b, i, h],
+//   after the last tile: the backward's residual (flash_attention_bwd.cu).
 // No atomics and a fixed order: every run gives the same bits.
 
 #include <cuda_bf16.h>
@@ -70,6 +74,7 @@ struct Args {
   const __nv_bfloat16* v;
   __nv_bfloat16* o;
   const int* lens;  // null: no length mask
+  float* lse;       // null: no log-sum-exp wanted
   int b, h, kvh, sq, skv;
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
   long long len_sb, len_sq;
@@ -386,6 +391,10 @@ __global__ void __launch_bounds__(32 * W) flash_fwd_tc_kernel(Args a) {
       const float den = fmaxf(lt, 1e-30f);
       const int i = q0 + (warp * MT + mt) * 16 + lane / 4 + 8 * e;
       if (i >= a.sq) continue;
+      if (a.lse && lane % 4 == 0)
+        a.lse[((long long)bi * a.sq + i) * a.h + hi] =
+            lt > 0.f ? (m[mt][e] + log2f(lt)) * 0.6931471805599453f
+                     : INFINITY;
       __nv_bfloat16* orow =
           a.o + (((long long)bi * a.sq + i) * a.h + hi) * DV + 2 * (lane % 4);
 #pragma unroll
@@ -424,6 +433,7 @@ struct FlashArgs {
   void* o;
   float* part;       // unused here
   const int* lens;   // null: no length mask
+  float* lse;        // null: no log-sum-exp wanted, else fp32 (B, Sq, H)
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
   long long len_sb, len_sq;
   int dtype, b, h, kvh, sq, skv, d, dv;
@@ -446,7 +456,7 @@ extern "C" int flash_attention_tc_launch(const void* record, void* stream) {
                static_cast<const __nv_bfloat16*>(f.k),
                static_cast<const __nv_bfloat16*>(f.v),
                static_cast<__nv_bfloat16*>(f.o),
-               f.lens, f.b, f.h, f.kvh, f.sq, f.skv, f.q_sb, f.q_ss, f.q_sh,
+               f.lens, f.lse, f.b, f.h, f.kvh, f.sq, f.skv, f.q_sb, f.q_ss, f.q_sh,
                f.k_sb, f.k_ss, f.k_sh, f.v_sb, f.v_ss, f.v_sh, f.len_sb,
                f.len_sq, f.causal, f.scale * 1.4426950408889634f};
   const cudaStream_t st = (cudaStream_t)stream;

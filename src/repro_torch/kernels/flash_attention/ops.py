@@ -12,15 +12,27 @@ card, :func:`choose_path` picks one of three kernels by shape and dtype:
   is one range).  bf16 and fp32.
 * ``"tc"`` — bf16 prefill and encoder: the tensor-core kernel.
 * ``"simt"`` — fp32 prefill and encoder: the CUDA-core kernel (TF32
-  would not meet fp32's 2e-5).
+  would not meet fp32's 2e-5); and every call with a head dim above
+  :data:`TILED_MAX_HEAD_DIM`, bf16 too (the only kernel built at 192
+  and 256).
 
-Every path is built for the (Dk, Dv) pairs of :data:`HEAD_DIMS`.  Any
-other pair up to :data:`MAX_HEAD_DIM` runs on the built pair of least
-Dk′ + Dv′ that covers it (:func:`padded_dims`): q and k are zero-padded
-to Dk′ and v to Dv′ (:func:`pad_head_dims`), the kernel scales by the
-true Dk^-0.5, and the output is cut back to Dv.  Zero columns add
-nothing to q·k and give zero output columns, so the function is the
-unpadded one; only the unbuilt pairs pay the copy.
+The kernels are built for the (Dk, Dv) pairs of :data:`HEAD_DIMS` (split
+and tc for those up to :data:`TILED_MAX_HEAD_DIM`).  Any other pair up to
+:data:`MAX_HEAD_DIM` runs on the built pair of least Dk′ + Dv′ that
+covers it (:func:`padded_dims`): q and k are zero-padded to Dk′ and v to
+Dv′ (:func:`pad_head_dims`), the kernel scales by the true Dk^-0.5, and
+the output is cut back to Dv.  Zero columns add nothing to q·k and give
+zero output columns, so the function is the unpadded one; only the
+unbuilt pairs pay the copy.
+
+Training: when grad mode is on and an input requires grad, the op runs
+through :class:`FlashAttention`, whose forward also returns each row's
+log-sum-exp (the tc kernel in bf16, simt in fp32 or above 128, whatever
+the row count) and whose backward is ``csrc/flash_attention_bwd.cu``; on
+the CPU the two twins (:func:`flash_attention_ref` with ``return_lse``,
+:func:`flash_attention_bwd_ref`).  Padding and its cut are plain torch
+ops, so autograd carries the gradient through them.  Otherwise every
+path launches exactly what it launches for serving.
 """
 
 from __future__ import annotations
@@ -32,14 +44,17 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from .kernel import flash_attention_cuda
-from .ref import flash_attention_ref
+from .kernel import flash_attention_bwd_cuda, flash_attention_cuda
+from .ref import flash_attention_bwd_ref, flash_attention_ref
 
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 # the (Dk, Dv) pairs the kernels are built for: Dv = Dk at every multiple
-# of 16 up to 128, and MLA's (96, 64) (minicpm3: 64 + 32 rope dims, V 64)
-HEAD_DIMS = tuple((d, d) for d in range(16, 129, 16)) + ((96, 64),)
-MAX_HEAD_DIM = 128      # the widest built tile, for Dk and Dv alike
+# of 16 up to 128, and MLA's (96, 64) (minicpm3: 64 + 32 rope dims, V 64),
+# on every path; (192, 192) and (256, 256) on the CUDA-core kernel alone
+HEAD_DIMS = (tuple((d, d) for d in range(16, 129, 16)) + ((96, 64),)
+             + ((192, 192), (256, 256)))
+TILED_MAX_HEAD_DIM = 128  # the widest pair of the split and tc kernels
+MAX_HEAD_DIM = 256      # the widest built tile, for Dk and Dv alike
 SPLIT_MAX_ROWS = 64     # packed query rows a split block holds
 SPLIT_TILE = 64         # keys a split block loads at a time
 SPLIT_BLOCKS_PER_SM = 1  # one wave of split blocks (see choose_path)
@@ -54,13 +69,21 @@ class Path(NamedTuple):
 
 @functools.lru_cache(maxsize=256)
 def choose_path(dtype: torch.dtype, b: int, sq: int, h: int, kv: int,
-                skv: int, sms: int = H100_SMS) -> Path:
-    """The kernel the op launches for these shapes.  The split path cuts
+                skv: int, sms: int = H100_SMS, *,
+                dims: tuple[int, int] = (0, 0), grad: bool = False) -> Path:
+    """The kernel the op launches for these shapes, at the built head
+    dims ``dims``.  A head dim above :data:`TILED_MAX_HEAD_DIM` takes
+    simt; with ``grad`` (training: the forward writes the lse) bf16
+    takes tc and fp32 simt, whatever the row count.  The split path cuts
     the Skv keys into ranges of whole tiles, as many as keep B·KV·splits
     within ``SPLIT_BLOCKS_PER_SM`` blocks per SM (one wave: a second,
     part-filled wave would take as long as the first); on the card each
     range stops at its rows' largest limit, so the lengths, which live on
     the card, need not be read back."""
+    if max(dims) > TILED_MAX_HEAD_DIM:
+        return Path("simt", 1, 0)
+    if grad:
+        return Path("tc" if dtype == torch.bfloat16 else "simt", 1, 0)
     rows = sq * (h // kv)
     if rows <= SPLIT_MAX_ROWS:
         tiles = max(1, math.ceil(skv / SPLIT_TILE))
@@ -146,6 +169,41 @@ def _check_kernel(q, k, v, mask_len):
         raise TypeError(f"mask_len must be int32, got {mask_len.dtype}")
 
 
+class FlashAttention(torch.autograd.Function):
+    """Attention with the flash backward: ``apply(q, k, v, causal, scale,
+    q_chunk, kv_chunk, path)``.  On the card (``path`` a :class:`Path`,
+    tc or simt, inputs already checked) the forward kernel with its lse
+    and the backward kernel; on the CPU (``path`` None) the twins, whose
+    chunks ``q_chunk``/``kv_chunk`` set.  Saves q, k, v, the output and
+    the lse (the reference's residuals)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, q_chunk, kv_chunk, path):
+        if path is None:
+            o, lse = flash_attention_ref(q, k, v, causal=causal,
+                                         q_chunk=q_chunk, kv_chunk=kv_chunk,
+                                         scale=scale, return_lse=True)
+        else:
+            o, lse = flash_attention_cuda(q, k, v, causal, None, scale, path,
+                                          return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.args = (causal, scale, q_chunk, kv_chunk, path)
+        return o
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, o, lse = ctx.saved_tensors
+        causal, scale, q_chunk, kv_chunk, path = ctx.args
+        if path is None:
+            grads = flash_attention_bwd_ref(q, k, v, o, lse, dout,
+                                            causal=causal, q_chunk=q_chunk,
+                                            kv_chunk=kv_chunk, scale=scale)
+        else:
+            grads = flash_attention_bwd_cuda(q, k, v, o, lse,
+                                             dout.contiguous(), causal, scale)
+        return (*grads, None, None, None, None, None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, mask_len: torch.Tensor | None = None,
                     q_chunk: int = 512, kv_chunk: int = 512) -> torch.Tensor:
@@ -161,23 +219,42 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     :func:`padded_dims`), float32 or bfloat16, each input's last
     dimension contiguous and its rows on 16 bytes (K and V may have
     different strides, as MLA's sliced V does).  The scale is
-    Dk^-0.5."""
+    Dk^-0.5.
+
+    Differentiable: with grad mode on and an input that requires grad,
+    through :class:`FlashAttention` (no length mask on the card: the
+    reference differentiates only its unmasked op, and on the CPU a
+    masked call differentiates through the twin's own ops)."""
     _check(q, k, v, mask_len)
+    grad = torch.is_grad_enabled() and (
+        q.requires_grad or k.requires_grad or v.requires_grad)
     dev = q.device
+    b, sq, h, d = q.shape
     if dev.type == "cpu":
+        if grad and mask_len is None:
+            return FlashAttention.apply(q, k, v, causal, d ** -0.5, q_chunk,
+                                        kv_chunk, None)
         return flash_attention_ref(q, k, v, causal=causal, q_chunk=q_chunk,
                                    kv_chunk=kv_chunk, bias_mask_len=mask_len)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    b, sq, h, d = q.shape
+    if grad and mask_len is not None:
+        raise NotImplementedError(
+            "the flash backward kernel takes no length mask (the "
+            "reference differentiates only its unmasked attention)")
     dv = v.shape[3]
     dims = padded_dims(d, dv)
     if dims != (d, dv):
         q, k, v = pad_head_dims(q, k, v, dims)
     _check_kernel(q, k, v, mask_len)
     skv, kvh = k.shape[1], k.shape[2]
-    path = choose_path(q.dtype, b, sq, h, kvh, skv, sms=_sm_count(dev.index))
-    o = flash_attention_cuda(q, k, v, causal, mask_len, d ** -0.5, path)
+    path = choose_path(q.dtype, b, sq, h, kvh, skv, sms=_sm_count(dev.index),
+                       dims=dims, grad=grad)
+    if grad:
+        o = FlashAttention.apply(q, k, v, causal, d ** -0.5, q_chunk,
+                                 kv_chunk, path)
+    else:
+        o = flash_attention_cuda(q, k, v, causal, mask_len, d ** -0.5, path)
     return o if o.shape[3] == dv else o[..., :dv].contiguous()
 
 

@@ -23,6 +23,10 @@ version of the card's split-KV path: per key range, the base-2 online
 softmax state (m, l, acc) of the packed query rows that share a KV head,
 then one combine in a fixed order.  Composed, they compute the twin's
 function (zeros for a row with no valid key, as the kernels).
+
+:func:`flash_attention_bwd_ref` is the plain twin of the backward
+kernel: the reference's custom VJP of its flash attention
+(``_flash_attn_bwd``), chunk pair for chunk pair.
 """
 
 from __future__ import annotations
@@ -45,13 +49,16 @@ def _pad_to(x: torch.Tensor, n: int, axis: int) -> torch.Tensor:
 
 def flash_attention_ref(q, k, v, *, causal: bool, q_chunk: int = 512,
                         kv_chunk: int = 512, bias_mask_len=None,
-                        scale: float | None = None) -> torch.Tensor:
+                        scale: float | None = None,
+                        return_lse: bool = False):
     """Chunked online-softmax attention.
 
     q: (B, Sq, H, Dk); k: (B, Skv, KV, Dk); v: (B, Skv, KV, Dv), H a
     multiple of KV (GQA).  Scores, (m, l, acc) and the division are
     fp32; returns (B, Sq, H, Dv) in q's dtype.  Chunk pairs run in the
     reference's order (q chunk major), above-diagonal pairs skipped.
+    With ``return_lse`` also the log-sum-exp of each row's scaled
+    scores, m + ln l, fp32 (B, Sq, KV, H/KV): the backward's residual.
     """
     b, sq, h, dk = q.shape
     _, skv, kv, dv = v.shape
@@ -75,7 +82,7 @@ def flash_attention_ref(q, k, v, *, causal: bool, q_chunk: int = 512,
         mask2d = _pad_to(bias_mask_len, sq_p, 1).reshape(b, nq, qc)
     neg = torch.tensor(NEG_INF, dtype=f32, device=dev)
 
-    outs = []
+    outs, lses = [], []
     for i in range(nq):
         acc = torch.zeros((b, qc, kv, g, dv), dtype=f32, device=dev)
         m = torch.full((b, qc, kv, g), NEG_INF, dtype=f32, device=dev)
@@ -103,8 +110,71 @@ def flash_attention_ref(q, k, v, *, causal: bool, q_chunk: int = 512,
                 "bqkgs,bskd->bqkgd", p, vp[:, j])
             m = m_new
         outs.append(acc / torch.clamp(l[..., None], min=1e-30))
-    out = torch.stack(outs, 1).reshape(b, sq_p, h, dv)[:, :sq]
-    return out.to(q.dtype)
+        lses.append(m + torch.log(torch.clamp(l, min=1e-30)))
+    out = torch.stack(outs, 1).reshape(b, sq_p, h, dv)[:, :sq].to(q.dtype)
+    if return_lse:
+        return out, torch.stack(lses, 1).reshape(b, sq_p, kv, g)[:, :sq]
+    return out
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool,
+                            q_chunk: int = 512, kv_chunk: int = 512,
+                            scale: float | None = None):
+    """The flash backward: (dq, dk, dv) in the inputs' dtypes.
+
+    ``out`` and ``lse`` are the forward's (``return_lse``), ``dout`` the
+    output's gradient.  As the reference's ``_flash_attn_bwd``: D =
+    rowsum(dout ⊙ out), then for each chunk pair (q chunk major, the
+    causal pairs only) P recomputed from the lse, dV += Pᵀ dO, dP =
+    dO Vᵀ, dS = P ⊙ (dP − D) · scale, dQ += dS K, dK += dSᵀ Q, all fp32.
+    No length mask: the reference differentiates its masked paths
+    through the plain forward.
+    """
+    b, sq, h, dk = q.shape
+    _, skv, kv, dv = v.shape
+    g = h // kv
+    scale = dk ** -0.5 if scale is None else scale
+    qc = min(q_chunk, sq)
+    kc = min(kv_chunk, skv)
+    nq = -(-sq // qc)
+    nk = -(-skv // kc)
+    sq_p, skv_p = nq * qc, nk * kc
+    offset = skv - sq
+    f32 = torch.float32
+    qp = _pad_to(q, sq_p, 1).reshape(b, nq, qc, kv, g, dk).to(f32)
+    kp = _pad_to(k, skv_p, 1).reshape(b, nk, kc, kv, dk).to(f32)
+    vp = _pad_to(v, skv_p, 1).reshape(b, nk, kc, kv, dv).to(f32)
+    dop = _pad_to(dout, sq_p, 1).reshape(b, nq, qc, kv, g, dv).to(f32)
+    op = _pad_to(out, sq_p, 1).reshape(b, nq, qc, kv, g, dv).to(f32)
+    lsep = _pad_to(lse, sq_p, 1).reshape(b, nq, qc, kv, g).to(f32)
+    dmat = (dop * op).sum(-1)                        # (b, nq, qc, kv, g)
+    dev = q.device
+    q_pos = torch.arange(qc, device=dev)
+    k_pos = torch.arange(kc, device=dev)
+    neg = torch.tensor(NEG_INF, dtype=f32, device=dev)
+    dq = torch.zeros_like(qp)
+    dk_ = torch.zeros_like(kp)
+    dv_ = torch.zeros_like(vp)
+    for i in range(nq):
+        for j in range(nk):
+            if causal and not j * kc <= i * qc + offset + qc - 1:
+                continue
+            qi, kj, vj, doi = qp[:, i], kp[:, j], vp[:, j], dop[:, i]
+            s = torch.einsum("bqkgd,bskd->bqkgs", qi, kj) * scale
+            kabs = (j * kc + k_pos)[None, None, None, None, :]
+            if causal:
+                qabs = (i * qc + q_pos + offset)[None, :, None, None, None]
+                s = torch.where(kabs <= qabs, s, neg)
+            s = torch.where(kabs < skv, s, neg)
+            p = torch.exp(s - lsep[:, i][..., None])     # (b,q,k,g,s)
+            dv_[:, j] += torch.einsum("bqkgs,bqkgd->bskd", p, doi)
+            dp = torch.einsum("bqkgd,bskd->bqkgs", doi, vj)
+            ds = p * (dp - dmat[:, i][..., None]) * scale
+            dq[:, i] += torch.einsum("bqkgs,bskd->bqkgd", ds, kj)
+            dk_[:, j] += torch.einsum("bqkgs,bqkgd->bskd", ds, qi)
+    return (dq.reshape(b, sq_p, h, dk)[:, :sq].to(q.dtype),
+            dk_.reshape(b, skv_p, kv, dk)[:, :skv].to(k.dtype),
+            dv_.reshape(b, skv_p, kv, dv)[:, :skv].to(v.dtype))
 
 
 LOG2E = 1.4426950408889634

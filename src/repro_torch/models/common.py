@@ -14,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -109,7 +110,8 @@ class ModelConfig:
 def dense_init(gen: torch.Generator | None, shape, dtype,
                scale: float | None = None, device=None) -> nn.Parameter:
     """Truncated-normal fan-in init (±2 standard units, then × std), as a
-    frozen parameter.  ``gen`` is None only on the meta device."""
+    frozen parameter (serving; ``train.train_step.trainable`` turns
+    gradients on).  ``gen`` is None only on the meta device."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else fan_in ** -0.5
     x = torch.empty(shape, dtype=torch.float32, device=device)
@@ -123,6 +125,34 @@ def const_param(shape, value: float, dtype, device=None) -> nn.Parameter:
     """A frozen parameter filled with ``value`` (norm scales, biases)."""
     return nn.Parameter(torch.full(shape, value, dtype=dtype, device=device),
                         requires_grad=False)
+
+
+def _wants_grad(args) -> bool:
+    """Whether a gradient can flow from these arguments: a tensor, or a
+    module's parameter, that requires grad."""
+    return any(
+        (isinstance(a, torch.Tensor) and a.requires_grad)
+        or (isinstance(a, nn.Module)
+            and any(p.requires_grad for p in a.parameters()))
+        for a in args)
+
+
+def remat(cfg: ModelConfig, fn, *args, **kw):
+    """``fn(*args, **kw)``, its activations recomputed in the backward
+    when ``cfg.remat`` is set, grad mode is on and a gradient can flow
+    (serving, whose parameters are frozen, calls ``fn`` as it is): the
+    reference's ``jax.checkpoint`` of a whole block (nothing saveable) as
+    ``torch.utils.checkpoint``, non-reentrant.  The recomputation takes
+    the first run's MoE routes and adds no MoE stats
+    (``layers.ffn.recompute_contexts``).  Otherwise a plain call."""
+    if not (cfg.remat and torch.is_grad_enabled()
+            and _wants_grad((*args, *kw.values()))):
+        return fn(*args, **kw)
+    from .layers.ffn import recompute_contexts  # lazy: ffn imports common
+
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False,
+        context_fn=recompute_contexts, **kw)
 
 
 def param_bytes(params: nn.Module) -> int:

@@ -10,7 +10,11 @@ call, as the reference does.  LayerNorm (not RMS) throughout, pre-norm.
 The reference stacks each layer's parameters on a leading axis and scans
 over them; here the layers are ``ModuleList`` entries and the scan is a
 Python loop.  The KV cache keeps the reference's stacked layout,
-(L, B, T, KV, hd), and is updated in place.
+(L, B, T, KV, hd), and is updated in place.  With ``cfg.remat`` and
+grad mode on, each block is recomputed in the backward
+(``common.remat``), as the reference's ``jax.checkpoint`` (a decoder
+block without its ``cross_kv``, which the reference computes outside
+the checkpoint too).
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from .common import ModelConfig, dense_init
+from .common import ModelConfig, dense_init, remat
 from .layers.attention import GQA, cross_apply, cross_kv, gqa_apply
 from .layers.basic import Embedding, LayerNorm, embed, layer_norm, unembed
 from .layers.ffn import GeluMLP, gelu_mlp
@@ -120,7 +124,7 @@ def encode(cfg: ModelConfig, params: EncDec, frames: torch.Tensor):
     x = frames + _sinusoid(frames.shape[1], cfg.d_model,
                            frames.device).to(frames.dtype)
     for p in params.enc_blocks:
-        x = _enc_block_apply(cfg, p, x)
+        x = remat(cfg, _enc_block_apply, cfg, p, x)
     return layer_norm(params.enc_ln, x, cfg.norm_eps)
 
 
@@ -133,8 +137,10 @@ def decode(cfg: ModelConfig, params: EncDec, tokens: torch.Tensor, enc_out,
     x = embed(params.embed, tokens) + params.pos[start:start + s]
     for i, p in enumerate(params.dec_blocks):
         enc_kv = cross_kv(cfg, p.xattn, enc_out)
-        cache = (None if caches is None
-                 else {"k": caches["k"][i], "v": caches["v"][i]})
+        if caches is None:
+            x, _ = remat(cfg, _dec_block_apply, cfg, p, x, enc_kv)
+            continue
+        cache = {"k": caches["k"][i], "v": caches["v"][i]}
         x, _ = _dec_block_apply(cfg, p, x, enc_kv, cache=cache,
                                 cache_index=cache_index)
     x = layer_norm(params.dec_ln, x, cfg.norm_eps)

@@ -5,7 +5,10 @@ layer per ``attn_period`` (Jamba: 1 in 8) and an FFN after every mixer,
 organised as ``n_layers / attn_period`` super-blocks.  The reference
 stacks each super-block's parameters on a leading axis and scans over
 them; here super-blocks are ``ModuleList`` entries and the scan is a
-Python loop.
+Python loop.  With ``cfg.remat`` and grad mode on, each super-block is
+recomputed in the backward (``common.remat``), as the reference's
+``jax.checkpoint``.  Training on the card waits for a backward of the
+selective-scan kernel (``train.train_step`` raises there).
 
 FFN j of a super-block is the top-k MoE where the global layer index is
 MoE (every ``moe_period``-th layer, Jamba: 2), else the dense SwiGLU;
@@ -26,7 +29,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from .common import ModelConfig
+from .common import ModelConfig, remat
 from .layers.attention import GQA, gqa_apply
 from .layers.basic import Embedding, Head, RMSNorm, embed, rms_norm, unembed
 from .layers.ffn import MoE, SwiGLU, moe_apply, swiglu
@@ -135,8 +138,12 @@ def _run(cfg, params: Hybrid, x, positions, cache=None, cache_index=None):
     angles = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for sb, p in enumerate(params.blocks):
-        x, a = _superblock_apply(cfg, p, x, angles=angles, cache=cache,
-                                 sb=sb, cache_index=cache_index)
+        if cache is None:
+            x, a = remat(cfg, _superblock_apply, cfg, p, x, angles=angles,
+                         sb=sb)
+        else:
+            x, a = _superblock_apply(cfg, p, x, angles=angles, cache=cache,
+                                     sb=sb, cache_index=cache_index)
         aux = aux + a
     x = rms_norm(params.ln_f, x, cfg.norm_eps)
     return unembed(params.embed, params.head, x, cfg.tie_embeddings), aux

@@ -92,6 +92,11 @@ class MoE(nn.Module):
 
 _STATS: list | None = None
 _REPLAY: list | None = None
+# a checkpointed block's replayed routes (None where a call took its own
+# top-k): recorded by its first run ("record"), taken back in order by its
+# recomputation in the backward ("replay")
+_TAPE: list | None = None
+_TAPE_MODE = ""
 
 
 @contextlib.contextmanager
@@ -114,6 +119,28 @@ def moe_stats(replay: list | None = None):
         _STATS, _REPLAY = prev
 
 
+@contextlib.contextmanager
+def _taping(routes: list, mode: str):
+    global _TAPE, _TAPE_MODE
+    prev = _TAPE, _TAPE_MODE
+    _TAPE, _TAPE_MODE = routes, mode
+    try:
+        yield
+    finally:
+        _TAPE, _TAPE_MODE = prev
+
+
+def recompute_contexts():
+    """The ``context_fn`` of a checkpointed block (``models.common.
+    remat``): its first run records, for each :func:`moe_apply` call,
+    the routes it replayed (or None: its own top-k), and the
+    recomputation in the backward takes them back in order, so it runs
+    the first run's ops on the first run's routes, and records no
+    :func:`moe_stats` entry, so a step's stats count each call once."""
+    routes: list = []
+    return _taping(routes, "record"), _taping(routes, "replay")
+
+
 def _top_k(probs: torch.Tensor, k: int):
     """The k largest along the last axis, ties to the lower index, as
     ``jax.lax.top_k`` (``torch.topk`` promises no order among ties on
@@ -130,8 +157,14 @@ def moe_apply(cfg: ModelConfig, p: MoE, x: torch.Tensor):
     t = b * s
     xt = x.reshape(t, d)
     probs = torch.softmax(torch.matmul(xt.float(), p.router), dim=-1)
-    if _REPLAY is not None:
-        experts = _REPLAY[len(_STATS)]
+    recomputing = _TAPE_MODE == "replay"
+    if recomputing:
+        experts = _TAPE.pop(0)
+    else:
+        experts = _REPLAY[len(_STATS)] if _REPLAY is not None else None
+        if _TAPE_MODE == "record":
+            _TAPE.append(experts)
+    if experts is not None:
         gate_vals = probs.gather(-1, experts)
     else:
         gate_vals, experts = _top_k(probs, k)                # (T, k)
@@ -167,7 +200,7 @@ def moe_apply(cfg: ModelConfig, p: MoE, x: torch.Tensor):
          * gate_vals[..., None].to(xt.dtype)).sum(1)
     if p.shared is not None:
         y = y + swiglu(p.shared, xt)
-    if _STATS is not None:
+    if _STATS is not None and not recomputing:
         _STATS.append({"experts": experts, "keep": keep.reshape(t, k),
                        "dropped": (~keep).sum(), "aux": aux})
     return y.reshape(b, s, d), aux

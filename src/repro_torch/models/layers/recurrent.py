@@ -212,9 +212,13 @@ def _mlstm_core(cfg: ModelConfig, p: MLSTM, c_in, state):
         # the state to the chunk's end
         wk = torch.exp(cf[:, -1:] - cf + ix)[..., None] * kx
         last = torch.exp(cf[:, -1])                     # (B, H)
-        cmat.mul_(last[..., None, None]).add_(
-            torch.einsum("bshd,bshe->bhde", wk, vx))
-        nvec.mul_(last[..., None]).add_(wk.sum(1))
+        upd = torch.einsum("bshd,bshe->bhde", wk, vx)
+        if state is None:   # a fresh state: new tensors, differentiable
+            cmat = cmat * last[..., None, None] + upd
+            nvec = nvec * last[..., None] + wk.sum(1)
+        else:               # a carried state: written in place
+            cmat.mul_(last[..., None, None]).add_(upd)
+            nvec.mul_(last[..., None]).add_(wk.sum(1))
     y = torch.cat(ys, dim=1)[:, :s]
     return y.reshape(b, s, dp), {"c": cmat, "n": nvec}
 

@@ -9,7 +9,9 @@ Without ids the positions count from the call's cache index, equal on
 all three rows, as the reference's.  Blocks are
 ``ModuleList`` entries and the reference's ``lax.scan`` over stacked
 layers is a Python loop; its ``hint_bsd`` sharding annotation has no
-meaning on one device.  Every attention call goes through
+meaning on one device.  With ``cfg.remat`` and grad mode on, each block
+is recomputed in the backward (``common.remat``), as the reference's
+``jax.checkpoint``.  Every attention call goes through
 ``attention_op``: on the card the hand-written flash kernel, on the CPU
 its plain twin.
 
@@ -34,7 +36,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from .common import ModelConfig
+from .common import ModelConfig, remat
 from .layers.attention import GQA, MLA, gqa_apply, mla_apply
 from .layers.basic import Embedding, Head, RMSNorm, embed, rms_norm, unembed
 from .layers.ffn import MoE, SwiGLU, moe_apply, swiglu
@@ -126,9 +128,13 @@ def _run(cfg, params: LM, x, positions, cache=None, cache_index=None):
     angles = _angles_for(cfg, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(params.blocks):
-        layer = None if cache is None else {k: c[i] for k, c in cache.items()}
-        x, a = _block_apply(cfg, p, x, angles=angles, positions=positions,
-                            cache=layer, cache_index=cache_index)
+        if cache is None:
+            x, a = remat(cfg, _block_apply, cfg, p, x, angles=angles,
+                         positions=positions)
+        else:
+            layer = {k: c[i] for k, c in cache.items()}
+            x, a = _block_apply(cfg, p, x, angles=angles, positions=positions,
+                                cache=layer, cache_index=cache_index)
         if a is not None:
             aux = aux + a
     x = rms_norm(params.ln_f, x, cfg.norm_eps)

@@ -8,7 +8,9 @@ d_ff = int(4d/3).  The model is ``n_layers / slstm_period`` super-blocks
 of 1 sLSTM and ``slstm_period − 1`` mLSTM layers.  The reference stacks
 the super-blocks (and inside each the mLSTM layers) on leading axes and
 scans over them; here they are ``ModuleList`` entries and the scan is a
-Python loop.  Its ``hint_bsd`` and ``remat`` have no meaning here.
+Python loop.  Its ``hint_bsd`` has no meaning here; with ``cfg.remat``
+and grad mode on, each super-block is recomputed in the backward
+(``common.remat``), as the reference's ``jax.checkpoint``.
 
 Decode state, the only cache: per mLSTM layer a matrix memory C
 (H × dh × dh) and a normaliser n (H × dh), per sLSTM layer (c, n, h, m),
@@ -24,7 +26,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from .common import ModelConfig
+from .common import ModelConfig, remat
 from .layers.basic import Embedding, Head, RMSNorm, embed, rms_norm, unembed
 from .layers.ffn import SwiGLU, swiglu
 from .layers.recurrent import (MLSTM, SLSTM, mlstm_apply, mlstm_init_state,
@@ -103,9 +105,11 @@ def init(cfg: ModelConfig, seed: int = 0, device=None) -> XLSTM:
 
 def _run(cfg, params: XLSTM, x, cache=None):
     for sb, p in enumerate(params.blocks):
-        state = (None if cache is None else
-                 {part: {k: a[sb] for k, a in cache[part].items()}
-                  for part in ("slstm", "mlstm")})
+        if cache is None:
+            x = remat(cfg, _superblock_apply, cfg, p, x)
+            continue
+        state = {part: {k: a[sb] for k, a in cache[part].items()}
+                 for part in ("slstm", "mlstm")}
         x = _superblock_apply(cfg, p, x, state)
     x = rms_norm(params.ln_f, x, cfg.norm_eps)
     return unembed(params.embed, params.head, x, cfg.tie_embeddings)

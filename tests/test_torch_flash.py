@@ -233,8 +233,8 @@ def test_padded_head_dims_compute_the_unpadded_function(dims):
 def test_head_dims_past_the_widest_tile_raise():
     from repro_torch.kernels.flash_attention.ops import padded_dims
 
-    for dims in ((136, 136), (128, 160), (256, 64)):
-        with pytest.raises(ValueError, match="up to 128"):
+    for dims in ((264, 264), (128, 272), (512, 64)):
+        with pytest.raises(ValueError, match="up to 256"):
             padded_dims(*dims)
 
 

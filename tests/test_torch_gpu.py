@@ -633,8 +633,8 @@ def test_flash_attention_wrapper_rejects_what_the_kernel_does_not_take(
     assert got.shape == (1, 4, 2, 8)
     np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=2e-5,
                                atol=2e-5)
-    with pytest.raises(ValueError, match="up to 128"):  # past the widest
-        wide = torch.zeros((1, 4, 2, 136), device=cuda)
+    with pytest.raises(ValueError, match="up to 256"):  # past the widest
+        wide = torch.zeros((1, 4, 2, 264), device=cuda)
         flash_attention(wide, wide, wide, causal=True)
     with pytest.raises(TypeError):      # float16 is not a kernel type
         flash_attention(q.half(), k.half(), v.half(), causal=True)
@@ -771,18 +771,22 @@ def test_flash_attention_dv_below_dk_vs_plain(cuda, case, dtype):
 @pytest.mark.gpu
 @pytest.mark.parametrize("kind", ["split", "tc", "simt"])
 def test_flash_attention_every_built_head_dim_pair_launches(cuda, kind):
-    """Each (Dk, Dv) pair of ``ops.HEAD_DIMS`` on each path against
+    """Each (Dk, Dv) pair of ``ops.HEAD_DIMS`` on each path that builds
+    it (split and tc up to ``TILED_MAX_HEAD_DIM``, simt all) against
     the twin (a pair the C side lacks would raise)."""
     from repro_torch.kernels.flash_attention import flash_attention_ref
     from repro_torch.kernels.flash_attention.kernel import (
         flash_attention_cuda)
-    from repro_torch.kernels.flash_attention.ops import HEAD_DIMS, Path
+    from repro_torch.kernels.flash_attention.ops import (HEAD_DIMS, Path,
+                                                         TILED_MAX_HEAD_DIM)
 
     dt = torch.float32 if kind == "simt" else torch.bfloat16
     path = Path(kind, 1, 128) if kind == "split" else Path(kind, 1, 0)
     sq = 2 if kind == "split" else 70
     g = torch.Generator().manual_seed(9)
     for dk, dv in HEAD_DIMS:
+        if kind != "simt" and max(dk, dv) > TILED_MAX_HEAD_DIM:
+            continue
         q, k, v = (torch.randn(s, generator=g).to(dt) for s in (
             (1, sq, 4, dk), (1, 100, 2, dk), (1, 100, 2, dv)))
         want = flash_attention_ref(q, k, v, causal=True)
@@ -1225,3 +1229,238 @@ def test_vlm_and_ssm_goldens_on_the_card(cuda, name):
         logits = [x.cpu() for x in logits]
         assert not golden.mismatches(want["image"], logits[0], logits[1:],
                                      toks, 1e-5)
+
+
+# ---------------------------------------------------------------------- #
+# training: the forward's lse, the backward kernel, the wide head dims
+# ---------------------------------------------------------------------- #
+# name: (B, Sq, Skv, H, KV, Dk, Dv, causal) — causal and full, GQA, Sq ≠
+# Skv (whisper's cross-attention), Dk 96 with Dv 64, a length that fills
+# no 64-row tile, and internlm2's training shape
+BWD_CASES = {
+    "causal_square": (2, 128, 128, 4, 4, 64, 64, True),
+    "full_gqa": (2, 96, 96, 8, 2, 64, 64, False),
+    "causal_sq_lt_skv": (1, 40, 100, 4, 2, 32, 32, True),
+    "cross_sq_ne_skv": (2, 24, 300, 8, 8, 64, 64, False),
+    "dk96_dv64": (1, 70, 70, 4, 2, 96, 64, True),
+    "ragged_length": (2, 77, 77, 4, 2, 128, 128, True),
+    "internlm2_train": (8, 128, 128, 16, 8, 128, 128, True),
+}
+
+
+def _bwd_case(shape, seed):
+    b, sq, skv, h, kv, dk, dv, _ = shape
+    g = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(s, generator=g) for s in (
+        (b, sq, h, dk), (b, skv, kv, dk), (b, skv, kv, dv), (b, sq, h, dv)))
+
+
+def _op_grads(q, k, v, dout, causal):
+    """(out, dq, dk, dv) of ``flash_attention`` differentiated."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    out = flash_attention(*leaves, causal=causal)
+    out.backward(dout)
+    return (out.detach(), *(x.grad for x in leaves))
+
+
+def _twin_grads(q, k, v, dout, causal):
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd_ref,
+                                                     flash_attention_ref)
+
+    o, lse = flash_attention_ref(q, k, v, causal=causal, return_lse=True)
+    return (o, *flash_attention_bwd_ref(q, k, v, o, lse, dout,
+                                        causal=causal))
+
+
+def _hold_grads(got, twin, exact, label):
+    """fp32: each gradient within 1e-4 of its largest |value|; bf16: the
+    kernels' error against the fp32 twin at most twice the bf16 twin's
+    (the ratio rule of the serving checks)."""
+    for name, g, t, e in zip(("out", "dq", "dk", "dv"), got, twin, exact):
+        g, t, e = g.float().cpu(), t.float().cpu(), e.float().cpu()
+        top = e.abs().max().item()
+        if got[0].dtype == torch.float32:
+            err = (g - e).abs().max().item()
+            assert err <= 1e-4 * top, f"{label} {name}: {err} of {top}"
+        else:
+            err, ref = ((g - e).abs().max().item(),
+                        (t - e).abs().max().item())
+            assert err <= 2 * ref + 1e-6 * top, \
+                f"{label} {name}: {err} against the twin's {ref}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", sorted(BWD_CASES))
+def test_flash_backward_kernel_vs_twin(cuda, case, dtype):
+    """The op differentiated on the card (forward kernel with its lse,
+    then ``flash_attention_bwd``: one backward launch) against the twins
+    on the same inputs, by ``_hold_grads``' rules."""
+    dt = getattr(torch, dtype)
+    shape = BWD_CASES[case]
+    causal = shape[-1]
+    q, k, v, dout = (x.to(dt) for x in _bwd_case(shape, seed=len(case)))
+    before = dict(kernels.LAUNCHES)
+    got = _op_grads(*(x.to(cuda) for x in (q, k, v, dout)), causal)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert kernels.LAUNCHES["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 1
+    twin = _twin_grads(*(x.to(cuda) for x in (q, k, v, dout)), causal)
+    exact = _twin_grads(*(x.float().to(cuda) for x in (q, k, v, dout)),
+                        causal)
+    _hold_grads(got, twin, exact, f"{case} {dtype}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["tc", "simt"])
+def test_flash_forward_lse_vs_twin(cuda, kind):
+    """The forward kernels' lse (tc in bf16, simt in fp32 and at 256)
+    against the twin's on the same inputs: natural log, (B, Sq, KV, G);
+    2e-5 in fp32, 1e-4 in bf16 (the scores are fp32 sums of bf16
+    products in both)."""
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_cuda)
+    from repro_torch.kernels.flash_attention.ops import Path
+
+    dims = [(64, 64), (128, 128), (96, 64)] + (
+        [(192, 192), (256, 256)] if kind == "simt" else [])
+    for dt in ((torch.bfloat16,) if kind == "tc"
+               else (torch.float32, torch.bfloat16)):
+        for dk, dv in dims:
+            for causal in (True, False):
+                q, k, v, _ = (x.to(dt) for x in _bwd_case(
+                    (2, 70, 90, 4, 2, dk, dv, causal), seed=dk))
+                o, lse = flash_attention_cuda(
+                    q.to(cuda), k.to(cuda), v.to(cuda), causal, None,
+                    dk ** -0.5, Path(kind, 1, 0), return_lse=True)
+                _, want = flash_attention_ref(q, k, v, causal=causal,
+                                              return_lse=True)
+                tol = 2e-5 if dt == torch.float32 else 1e-4
+                assert lse.shape == want.shape == (2, 70, 2, 2)
+                np.testing.assert_allclose(
+                    lse.cpu().numpy(), want.numpy(), rtol=tol, atol=tol,
+                    err_msg=f"{kind} {dt} {(dk, dv)} causal={causal}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dims", [(192, 192), (256, 256), (136, 136)],
+                         ids=["192", "256", "136_padded"])
+def test_flash_attention_wide_head_dims_on_simt(cuda, dims, dtype):
+    """Head dims above 128 run on the CUDA-core kernel in both dtypes
+    (136 padded to 192), forward (decode and prefill shapes) and backward,
+    against the twins: forward 2e-5 fp32 / 2e-2 bf16, backward by
+    ``_hold_grads``."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_ref)
+    from repro_torch.kernels.flash_attention.kernel import PATH_LAUNCHES
+
+    dt = getattr(torch, dtype)
+    dk, dv = dims
+    for sq, skv, causal in ((1, 80, False), (12, 80, False), (90, 90, True)):
+        q, k, v, dout = (x.to(dt) for x in _bwd_case(
+            (2, sq, skv, 4, 2, dk, dv, causal), seed=sq))
+        before = PATH_LAUNCHES["simt"]
+        got = flash_attention(q.to(cuda), k.to(cuda), v.to(cuda),
+                              causal=causal)
+        assert PATH_LAUNCHES["simt"] == before + 1
+        want = flash_attention_ref(q, k, v, causal=causal)
+        tol = 2e-5 if dt == torch.float32 else 2e-2
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().numpy(), rtol=tol, atol=tol)
+        got = _op_grads(*(x.to(cuda) for x in (q, k, v, dout)), causal)
+        twin = _twin_grads(*(x.to(cuda) for x in (q, k, v, dout)), causal)
+        exact = _twin_grads(*(x.float().to(cuda) for x in (q, k, v, dout)),
+                            causal)
+        _hold_grads(got, twin, exact, f"{dims} {dtype} sq={sq}")
+
+
+@pytest.mark.gpu
+def test_flash_backward_two_runs_give_the_same_bits(cuda):
+    """No atomics, a fixed order: the same call twice, equal bit for
+    bit."""
+    q, k, v, dout = (x.to(torch.bfloat16).to(cuda) for x in _bwd_case(
+        BWD_CASES["internlm2_train"], seed=1))
+    a = _op_grads(q, k, v, dout, True)
+    b = _op_grads(q, k, v, dout, True)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "whisper-base"])
+def test_smoke_train_step_on_the_card_vs_twins(cuda, arch, monkeypatch):
+    """One training step of the smoke config (fp32) on the card: its loss
+    and gradients through the kernels (the forward on simt with its lse,
+    the backward kernel: one launch each a layer's attention call)
+    against the same step through the twins of both kernels (1e-5
+    relative for the loss, 1e-4 of each leaf's largest gradient), then
+    one ``make_train_step`` step whose loss falls on the next batch."""
+    from types import SimpleNamespace
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import FlashAttention
+    from repro_torch.launch.train import make_batch
+    from repro_torch.models.layers import attention
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step,
+                                              value_and_grads)
+
+    cfg = get_arch(arch).smoke
+    state = init_train_state(cfg, OptConfig(peak_lr=1e-2, warmup_steps=0),
+                             seed=0, device=cuda)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=32,
+                                  global_batch=4))
+    batch = make_batch(cfg, data.get_batch(0), cuda)
+    before = dict(kernels.LAUNCHES)
+    loss, _, grads = value_and_grads(cfg, state["params"], batch)
+    calls = (cfg.enc_layers + 2 * cfg.n_layers if cfg.family == "encdec"
+             else cfg.n_layers)
+    assert kernels.LAUNCHES["flash_attention"] - before["flash_attention"] \
+        == calls
+    assert kernels.LAUNCHES["flash_attention_bwd"] \
+        - before["flash_attention_bwd"] == calls
+
+    def twin(q, k, v, *, causal, mask_len=None, q_chunk=512, kv_chunk=512):
+        assert mask_len is None
+        return FlashAttention.apply(q, k, v, causal, q.shape[3] ** -0.5,
+                                    q_chunk, kv_chunk, None)
+
+    with monkeypatch.context() as m:
+        m.setattr(attention, "flash_ops",
+                  SimpleNamespace(flash_attention=twin))
+        want_loss, _, want = value_and_grads(cfg, state["params"], batch)
+    np.testing.assert_allclose(float(loss), float(want_loss), rtol=1e-5)
+    for n, g in grads.items():
+        top = float(want[n].abs().max())
+        assert float((g - want[n]).abs().max()) <= 1e-4 * max(top, 1e-30), n
+    step = make_train_step(cfg, OptConfig(peak_lr=1e-2, warmup_steps=0))
+    state, first = step(state, batch)
+    _, after = step(state, batch)
+    assert float(after["loss"]) < float(first["loss"])
+
+
+@pytest.mark.gpu
+def test_hybrid_training_on_the_card_raises_naming_the_roadmap_item(cuda):
+    """The selective-scan kernel has no backward yet: a Jamba train step
+    on the card raises, naming the roadmap item (on the CPU its twin
+    trains, ``tests/test_torch_train_grads.py``)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.train import make_batch
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import (SCAN_BACKWARD_ITEM,
+                                              init_train_state,
+                                              make_train_step)
+
+    cfg = get_arch("jamba-1.5-large-398b").smoke
+    state = init_train_state(cfg, OptConfig(), seed=0, device=cuda)
+    batch = make_batch(cfg, SyntheticLM(DataConfig(
+        vocab=cfg.vocab, seq_len=16, global_batch=2)).get_batch(0), cuda)
+    with pytest.raises(NotImplementedError, match=SCAN_BACKWARD_ITEM):
+        make_train_step(cfg, OptConfig())(state, batch)
