@@ -1,12 +1,17 @@
 #!/usr/bin/env python3
 """Drive the port on one NVIDIA card and check it end to end.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--full]
 
 Run from a checkout (it imports ``src/repro_torch`` beside this file).
 Each phase prints one or more lines; any mismatch raises, so the script
 exits non-zero, and there is no CPU path: without a CUDA device it stops
-before printing any result.
+before printing any result.  The parts below marked (--full) hold
+nothing against anything and only add numbers (``FULL_ONLY``: the
+serving decoders' device profiles, the flit step's timings by algorithm,
+zoo shape and instrumented instance); they run with ``--full``.  The
+default run keeps every main path, every kernel against its plain
+version and every golden.
 
 1. card     — ``nvidia-smi`` name and power limit;
 2. build    — every CUDA source under ``src/repro_torch/kernels/csrc``
@@ -23,8 +28,8 @@ before printing any result.
               8 x 4 loops' count printed beside it (``cuobjdump -sass``);
               the ``simstep_chunk``
               kernel on the 5x5 edge-I/O, 16x16 and 32x32 meshes and the
-              ``simstep_grid`` kernel on 17x17, 64x64 and 96x96 (no
-              cluster holds their lanes), every routing algorithm at 5x5,
+              ``simstep_grid`` kernel on 17x17, 64x64 and 96x96
+              (no cluster holds their lanes), every routing algorithm at 5x5,
               16x16 and 17x17, XY and BiDOR at 32x32, XY alone at 64x64
               and 96x96, at the auto tile and the largest other one the
               card lays out, chunks of 1 and 50 cycles from a plain
@@ -136,9 +141,10 @@ Main paths of slice 13 (launch counts from 0 before each):
               ``ServeEngine.generate`` for 4 requests of 16 prompt and 24
               new tokens (one ``flash_attention`` launch a layer and
               call); then, off the counted path, the plain twins (logits
-              of every step), warm timings and the profile, the same at
-              4 × 2 048-token prompts, the fp32 run (tokens identical),
-              stablelm-3b and codeqwen1.5-7b one ``generate`` each, and
+              of every step), warm timings and the profile (--full), the
+              same at 4 × 2 048-token prompts, the fp32 run
+              (tokens identical), stablelm-3b and codeqwen1.5-7b one
+              ``generate`` each, and
               ``tests/goldens/serve_dense_smoke.json`` on the card;
 Main paths of slice 14 (launch counts from 0 before each; run after the
 others' checks have freed their weights):
@@ -147,7 +153,8 @@ others' checks have freed their weights):
               card: ``ServeEngine.generate`` for 4 requests of 16 prompt
               and 24 new tokens, 576 ``flash_attention`` launches, all
               split, the dropped (token, slot) pairs a step; then, off
-              the counted path, warm timings and the profile, the plain
+              the counted path, warm timings and the profile (--full),
+              the plain
               twins and the float32 model of the same weights
               (``fp32_weights``: each bf16 weight upcast as an op reads
               it), the routes that differ, fp32 through the kernels and
@@ -158,9 +165,9 @@ others' checks have freed their weights):
               drops of every call included);
 22. mla     — minicpm3-4b whole (MLA: Dk 96, Dv 64): ``generate`` as
               above, 1 488 ``flash_attention`` launches, all split; off
-              the count, warm timings, the twins and fp32, 4 × 2 048-token
-              prompts in bf16 (the tensor-core prefill, split steps) and
-              fp32 (the CUDA-core prefill), and
+              the count, warm timings and the profile (--full), the twins
+              and fp32, 4 × 2 048-token prompts in bf16 (the tensor-core
+              prefill, split steps) and fp32 (the CUDA-core prefill), and
               ``tests/goldens/serve_mla_smoke.json`` through the kernels
               (its smoke's (Dk, Dv) = (24, 16) padded to (32, 32));
 Main paths of slice 15 (launch counts from 0 before each; each phase's
@@ -170,7 +177,8 @@ wall printed):
               drawn on the card: ``generate`` as above on text (equal
               t/h/w ids), 672 ``flash_attention`` launches (the prefill's
               96 packed rows on the tensor-core kernel, the steps split);
-              off the count, warm timings and the profile, an image-style
+              off the count, warm timings and the profile (--full), an
+              image-style
               prompt (4 text tokens, an 8 x 8 grid of stub-frontend patch
               embeddings at patch-grid ids, 4 text tokens) and 8 decode
               steps, it and the served run against the twins and the
@@ -183,7 +191,7 @@ wall printed):
               mLSTM, 7.26 GB in bf16, a 2.82 GB float32 state at batch
               4): ``generate`` as above, which launches no kernel (the
               reference has none for xLSTM); off the count, warm timings
-              and the profile against reading the weights and the state
+              and the profile (--full) against reading the weights and the state
               once a step, the float32 model of the same weights (its
               prefill and 24 decode steps against one ``forward`` over
               the same 40 tokens, within 2e-3 of a position's largest
@@ -215,7 +223,33 @@ freed their weights):
               bound, and ``launch.train.main`` at the smoke config
               preempted by SIGTERM after step 3 and resumed, equal to an
               uninterrupted run bit for bit;
-26. summary — attention end to end (whisper's ``generate`` busy time
+Main paths of slice 17 (launch counts from 0 before each):
+26. train_hybrid — jamba-1.5-large-398b at its published widths, one
+              super-block (7 Mamba + 1 attention layer), no experts,
+              bf16, remat on, int8 moments, the registry's weights drawn
+              on the card from seed 0: 6 steps of 2 × 1 024 tokens of
+              ``SyntheticLM`` through ``launch.train.main`` (``--layers 8
+              --experts 0 --moments int8 --peak-lr 1e-4 --ckpt-every 0``:
+              no checkpoint I/O); 84 ``selective_scan`` launches (each
+              Mamba layer twice a step: the first run and the
+              recomputation), 42 ``selective_scan_bwd`` and 42 of its
+              reduction, 12 ``flash_attention`` on tc with
+              the lse, 6 ``flash_attention_bwd``; the last loss below the
+              first, the peak device memory; off the count, one step
+              through the kernels against the twins of all four (loss
+              within 2e-3, grad norm 2e-2), the step in parts and
+              profiled, and ``selective_scan_bwd`` against its twin and
+              autograd of the forward twin at the training shape (h0 and
+              dh_last absent and given) and three ragged ones (every
+              gradient within 1e-4 of its largest), a second run bit for
+              bit, timed beside the twin and the bound;
+27. examples — the reference's four example programs on the port
+              (``repro_torch.examples``): ``train_lm --preset 100m
+              --steps 20`` (fp32, attention on the CUDA-core kernel with
+              its backward), ``serve_decode`` at its defaults,
+              ``quickstart`` (8 000 cycles), ``qstar_ici_demo`` (torus
+              16x16), their lines and walls;
+28. summary — attention end to end (whisper's ``generate`` busy time
               and a Jamba decode step's, with the ``flash_fwd*`` kernels'
               share); the flit step at 4x4, 5x5, 16x16 and 32x32 (the
               chunk kernel) and 17x17 and 64x64 (the grid kernel): µs
@@ -223,7 +257,8 @@ freed their weights):
               floor, its byte bound, the cycle wall through
               ``run_cycles``; a 100-cycle chunk beside the plain twin at
               32x32 and 64x64; each other routing algorithm's µs a cycle
-              at 5x5 and 32x32;
+              at 5x5 and 32x32, the zoo's shapes and the instrumented
+              instance (--full);
               launches of each kernel on each main path (the
               possibility pair's also by (N, C)),
               event-timed time per launch, the plain version's time and
@@ -275,9 +310,11 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -285,6 +322,15 @@ from types import SimpleNamespace
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(HERE, "src"))
+
+# --full: the timings off every counted path that hold nothing against
+# anything (see ``FULL_ONLY``); the default run keeps every main path,
+# every kernel against its plain version and every golden, so that it
+# ends inside its time limit
+FULL = False
+FULL_ONLY = ("the serving decoders' device profiles (dense, moe, mla, vlm, "
+             "ssm)", "the flit step's timings by algorithm, zoo shape and "
+             "instrumented instance")
 
 # H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth
 HBM_BYTES_PER_S = 3.35e12
@@ -982,12 +1028,10 @@ def check_simstep(torch, np, cuda):
 
     every, both, xy = tuple(Algo), (Algo.XY, Algo.BIDOR), (Algo.XY,)
     worst = {"chunk": 0, "grid": 0}
-    _hold_cells(torch, np, cuda, ((mesh2d_edge_io(5, 5), every, 200),
-                                  (mesh2d(16, 16), every, 200),
-                                  (mesh2d(17, 17), every, 200),
-                                  (mesh2d(32, 32), both, 200),
-                                  (mesh2d(64, 64), xy, 200),
-                                  (mesh2d(96, 96), xy, 60)), worst)
+    cases = ((mesh2d_edge_io(5, 5), every, 200), (mesh2d(16, 16), every, 200),
+             (mesh2d(17, 17), every, 200), (mesh2d(32, 32), both, 200),
+             (mesh2d(64, 64), xy, 200), (mesh2d(96, 96), xy, 60))
+    _hold_cells(torch, np, cuda, cases, worst)
     return worst
 
 
@@ -3360,9 +3404,10 @@ def _warm(torch, cuda, label, cfg, engine, prompts, state_bytes=0,
 
     with torch.inference_mode():
         pre_ms = time_wall(torch, prefill_once, 3)
-        prof_pre = _profile(torch, prefill_once)
-        prof_gen = _profile(torch, lambda: engine.generate(prompts,
-                                                           prof_new))
+        if FULL:
+            prof_pre = _profile(torch, prefill_once)
+            prof_gen = _profile(torch, lambda: engine.generate(prompts,
+                                                               prof_new))
     step_ms = (gen_ms - pre_ms) / (DENSE_NEW - 1)
     wbytes = cfg.param_count() * 2
     state = (f" + the state {state_bytes / 1e9:.3f} GB read and written"
@@ -3372,6 +3417,9 @@ def _warm(torch, cuda, label, cfg, engine, prompts, state_bytes=0,
         f"{DENSE_B * DENSE_NEW / gen_ms * 1e3:.1f} new tokens/s; weights "
         f"{wbytes / 1e9:.3f} GB{state}, once a step at 3.35e12 B/s: "
         f"{(wbytes + 2 * state_bytes) / HBM_BYTES_PER_S * 1e3:.3f}ms")
+    if not FULL:
+        log(f"{label}: profile: not taken (--full)")
+        return
     if prof_pre is None or prof_gen is None:
         log(f"{label}: profile: no device time in the trace (busy share "
             f"and kernel shares not measured)")
@@ -3793,8 +3841,7 @@ def run_mla_checks(torch, np, cuda, main):
     tensor-core prefill, then split decode steps) and, on the same
     weights, fp32 (the CUDA-core prefill and fp32 split steps), each
     held against the twins, every path at Dk 96 / Dv 64; the smoke
-    golden."""
-    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    golden (the profile with ``--full``)."""
     from repro_torch.serve import golden
 
     cfg, engine, prompts = main["cfg"], main["engine"], main["prompts"]
@@ -3804,6 +3851,17 @@ def run_mla_checks(torch, np, cuda, main):
     main.clear()
     del engine
     torch.cuda.empty_cache()
+    _mla_long(torch, np, cuda)
+    _golden_on_card(torch, np, cuda, golden.MLA_GOLDEN_NAME,
+                    golden.MLA_ARCHS)
+
+
+def _mla_long(torch, np, cuda):
+    """minicpm3 at 4 × 2 048-token prompts in bf16 (the tensor-core
+    prefill, then split decode steps) and fp32 on the same weights (the
+    CUDA-core prefill and fp32 split steps), against the twins."""
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+
     lcfg, eng, pr, _ = _dense(torch, np, cuda, MLA, "bfloat16", DENSE_LONG)
     flash_kernel.reset_path_launches()
     toks, logits, first_ms = _generate(torch, eng, pr, DENSE_NEW)
@@ -3824,8 +3882,6 @@ def run_mla_checks(torch, np, cuda, main):
                          f"{flash_kernel.PATH_LAUNCHES}")
     del eng, logits
     torch.cuda.empty_cache()
-    _golden_on_card(torch, np, cuda, golden.MLA_GOLDEN_NAME,
-                    golden.MLA_ARCHS)
 
 
 # --------------------------------------------------------------------- #
@@ -4086,15 +4142,18 @@ TRAIN_GNORM_RTOL = 2e-2
 
 @contextlib.contextmanager
 def train_twins():
-    """Within this scope the model's attention runs the twins of both
-    kernels, on the card too: the forward twin with its lse and the
-    backward twin (``FlashAttention`` without a kernel path), or the
-    forward twin alone where no gradient is wanted."""
+    """Within this scope the model's attention and selective scan run the
+    twins of their kernels, on the card too: attention's forward twin
+    with its lse and its backward twin (``FlashAttention`` without a
+    kernel path), the scan's forward and backward twins
+    (``SelectiveScan`` without the kernels), or the forward twins alone
+    where no gradient is wanted."""
     import torch
 
     from repro_torch.kernels.flash_attention import (FlashAttention,
                                                      flash_attention_ref)
-    from repro_torch.models.layers import attention
+    from repro_torch.kernels.mamba_scan import SelectiveScan
+    from repro_torch.models.layers import attention, recurrent
 
     def twin(q, k, v, *, causal, mask_len=None, q_chunk=512, kv_chunk=512):
         if (mask_len is None and torch.is_grad_enabled()
@@ -4104,12 +4163,16 @@ def train_twins():
         return flash_attention_ref(q, k, v, causal=causal, q_chunk=q_chunk,
                                    kv_chunk=kv_chunk, bias_mask_len=mask_len)
 
-    real = attention.flash_ops
+    def scan_twin(delta, a, b, c, x, h0=None):
+        return SelectiveScan.apply(delta, a, b, c, x, h0, False)
+
+    real = attention.flash_ops, recurrent.scan_ops
     attention.flash_ops = SimpleNamespace(flash_attention=twin)
+    recurrent.scan_ops = SimpleNamespace(selective_scan=scan_twin)
     try:
         yield
     finally:
-        attention.flash_ops = real
+        attention.flash_ops, recurrent.scan_ops = real
 
 
 def _bwd_inputs(torch, cuda, shape, dtype, seed):
@@ -4335,27 +4398,33 @@ def _train_setup(torch, cuda, arch=TRAIN_ARCH, **opt_kw):
             time.perf_counter() - t0)
 
 
-def _train_steps(torch, cuda, label, cfg, state, step_fn, data, steps):
+def _train_steps(torch, cuda, label, cfg, state, step_fn, data, steps,
+                 tokens=TRAIN_B * TRAIN_S):
     """``steps`` steps through the launcher's loop (no checkpoint): each
-    step's loss, grad norm, ms and tokens/s printed; returns the state
-    and the per-step (loss, grad norm, seconds)."""
+    step's loss, grad norm, ms and tokens/s (``tokens`` a step) printed;
+    returns the state and the per-step (loss, grad norm, seconds)."""
     from repro_torch.launch.train import train_loop
 
     rows = []
+    state, _, _ = train_loop(cfg, state, step_fn, data, 0, steps, cuda,
+                             on_step=_step_logger(label, tokens, rows),
+                             log=lambda line: None)
+    return state, rows
 
+
+def _step_logger(label, tokens, rows):
+    """The launcher's ``on_step``: appends each step's (loss, grad norm,
+    seconds) to ``rows`` and prints them with ms and tokens/s (``tokens``
+    a step); a loss or grad norm that is not finite raises."""
     def on_step(step, metrics, seconds):
         loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
         rows.append((loss, gnorm, seconds))
         log(f"{label}: step {step} loss {loss!r} grad_norm {gnorm!r} "
-            f"{seconds * 1e3:.2f}ms {TRAIN_B * TRAIN_S / seconds:.1f} "
-            f"tokens/s")
+            f"{seconds * 1e3:.2f}ms {tokens / seconds:.1f} tokens/s")
         if not (math.isfinite(loss) and math.isfinite(gnorm)):
             raise SystemExit(f"{label}: step {step} loss {loss} grad_norm "
                              f"{gnorm}")
-
-    state, _, _ = train_loop(cfg, state, step_fn, data, 0, steps, cuda,
-                             on_step=on_step, log=lambda line: None)
-    return state, rows
+    return on_step
 
 
 def run_train_main(torch, np, cuda, out):
@@ -4622,6 +4691,319 @@ def run_train_checks(torch, np, cuda, main):
     return row
 
 
+# --------------------------------------------------------------------- #
+# slice 17: Jamba trained on the card, the scan's backward; the examples
+# --------------------------------------------------------------------- #
+HYBRID_STEPS = 6
+HYBRID_B, HYBRID_S = 2, 1024
+# the launcher's command: Jamba cut as for serving (one super-block, no
+# experts), int8 moments (18.0 GB of bf16 weights, 18.0 of gradients,
+# ~18 of moments), no checkpoint; the peak lr a tenth of the launcher's
+# default: at d 8 192 an Adam step of 1e-4 .. 6e-4 in the 10-step warmup
+# moved the loss up from step 2 on and the gradient norm from 4.6 to
+# 5 241
+HYBRID_ARGV = ["--arch", JAMBA, "--layers", "8", "--experts", "0",
+               "--moments", "int8", "--peak-lr", "1e-4", "--global-batch",
+               str(HYBRID_B), "--seq", str(HYBRID_S), "--steps",
+               str(HYBRID_STEPS), "--ckpt-every", "0", "--device", "cuda"]
+SCAN_BWD_SOURCE = "src/repro_torch/kernels/csrc/selective_scan_bwd.cu"
+SCAN_BWD_REPLACES = "src/repro/models/layers/recurrent.py:110-123"
+# (label, B, S, Di, Ds, with h0, with dh_last): the training call (h0 and
+# dh_last absent, as the layer calls it; given), ragged ones (Di not a
+# block multiple, S not a chunk multiple, Ds 5 and 1)
+SCAN_BWD_SHAPES = (
+    ("train", HYBRID_B, HYBRID_S, 16384, 16, False, False),
+    ("train, h0, dh_last", HYBRID_B, HYBRID_S, 16384, 16, True, True),
+    ("ragged", 2, 37, 100, 16, True, False),
+    ("ragged, Ds 5", 1, 29, 130, 5, False, True),
+    ("ragged, Ds 1", 3, 9, 33, 1, True, True),
+)
+# each gradient within 1e-4 of its largest |value|: dB, dC and dA sum
+# over Di, S and B in another order than the twin's
+SCAN_BWD_TOL = 1e-4
+# the walk's float instructions a state (csrc/selective_scan_bwd.cu's
+# header), beside the recomputed forward's (5 and expf's own)
+SCAN_BWD_WALK = 15
+
+
+def _scan_bwd_bound(shape, expf):
+    """Least time for the gradient on this run's inputs, the largest of
+    four terms: delta, x, dy, A, B, C, h0 and dh_last read once, ddelta,
+    dx, dA, dB, dC and dh0 written once, over HBM's rate; one exp a state
+    (b, t, channel, n) on the special-function units (the states
+    recomputed: the gradient needs h_{t-1} and exp(Δ_t A) at every
+    state); float32 instructions, the forward's 5 a state and expf's own
+    plus the walk's ``SCAN_BWD_WALK``; and all of these as warp
+    instructions at one a scheduler a clock."""
+    _, b, s, di, ds, h0, dh = shape
+    nbytes = 4 * (5 * b * s * di + 2 * di * ds + 4 * b * s * ds
+                  + (1 + int(h0) + int(dh)) * b * di * ds)
+    states = b * s * di * ds
+    f32_per_exp = sum(n for op, n in expf.items()
+                      if op.split(".")[0] in ("FFMA", "FADD", "FMUL",
+                                              "FSETP", "FSEL", "FMNMX"))
+    all_per_exp = sum(expf.values())
+    f32 = (5 + f32_per_exp + SCAN_BWD_WALK) * states
+    warp = (5 + all_per_exp + SCAN_BWD_WALK) * states / 32
+    terms = {"sfu": states / SFU_OPS_PER_S * 1e3,
+             "f32": f32 / F32_OPS_PER_S * 1e3,
+             "issue": warp / WARP_ISSUE_PER_S * 1e3,
+             "bytes": nbytes / HBM_BYTES_PER_S * 1e3}
+    top = max(terms, key=terms.get)
+    return terms[top], ("bytes" if top == "bytes" else "operations"), terms
+
+
+def check_scan_bwd(torch, np, cuda):
+    """``selective_scan_bwd`` at ``SCAN_BWD_SHAPES`` against its twin
+    (``selective_scan_bwd_ref``) and against autograd of the forward twin,
+    both on the card: every gradient within ``SCAN_BWD_TOL`` of its
+    largest |value|; a second run bit for bit; at the training shape µs a
+    launch (events) beside the twin and the bound.  Returns the JSON
+    row."""
+    from repro_torch.kernels.mamba_scan import (selective_scan_bwd_ref,
+                                                selective_scan_ref)
+    from repro_torch.kernels.mamba_scan.kernel import selective_scan_bwd_cuda
+
+    expf, _ = _scan_sass()
+    names = ("ddelta", "da", "db", "dc", "dx", "dh0")
+    worst, row = 0.0, None
+    for shape in SCAN_BWD_SHAPES:
+        label, b, s, di, ds, with_h0, with_dh = shape
+        delta, a, bm, cm, x, h0 = _scan_case(
+            torch, cuda, (label, b, s, di, ds, with_h0), len(label))
+        gen = torch.Generator(device=cuda).manual_seed(len(label) + 1)
+        dy = torch.randn((b, s, di), generator=gen, device=cuda)
+        dh = (torch.randn((b, di, ds), generator=gen, device=cuda)
+              if with_dh else None)
+        args = (delta, a, bm, cm, x, h0, dy, dh)
+        got = selective_scan_bwd_cuda(*args)
+        again = selective_scan_bwd_cuda(*args)
+        same = all(torch.equal(p, q) for p, q in zip(got, again))
+        del again
+        twin = selective_scan_bwd_ref(*args)
+        leaves = [t.clone().requires_grad_(True)
+                  for t in (delta, a, bm, cm, x, h0) if t is not None]
+        y, h = selective_scan_ref(*leaves[:5], leaves[5] if with_h0 else None)
+        auto = torch.autograd.grad((y, h), leaves, (
+            dy, torch.zeros_like(h) if dh is None else dh))
+        del y, h, leaves
+        torch.cuda.synchronize()
+        errs = []
+        for i, name in enumerate(names):
+            if name == "dh0" and not with_h0:
+                continue
+            top = float(twin[i].abs().max())
+            e_twin = float((got[i] - twin[i]).abs().max())
+            e_auto = float((got[i] - auto[i]).abs().max())
+            worst = max(worst, e_twin)
+            errs.append(f"{name} {e_twin:.3e} / {e_auto:.3e} of {top:.3e}")
+            if not max(e_twin, e_auto) <= SCAN_BWD_TOL * max(top, 1e-30):
+                raise SystemExit(f"selective_scan_bwd {label} {name}: "
+                                 f"{e_twin!r} (twin), {e_auto!r} (autograd) "
+                                 f"of {top!r}")
+        log(f"scan_bwd: {label} B={b} S={s} Di={di} Ds={ds} h0="
+            f"{'given' if with_h0 else 'zero'} dh_last="
+            f"{'given' if with_dh else 'absent'}: against the twin / "
+            f"autograd of the forward twin: {'; '.join(errs)} (limit "
+            f"{SCAN_BWD_TOL} of the largest); a second run "
+            f"{'bit for bit' if same else 'DIFFERS'}")
+        if not same:
+            raise SystemExit(f"selective_scan_bwd {label}: two runs differ")
+        del auto
+        if label != "train":
+            del got, twin
+            continue
+        ms = time_launches(torch, [lambda r: selective_scan_bwd_cuda(*args)],
+                           10)[0]
+        prof = _profile(torch, lambda: [selective_scan_bwd_cuda(*args)
+                                        for _ in range(3)])
+        dev = "not measured" if prof is None else ", ".join(
+            f"{re.search(r'selective_scan_bwd_[a-z]+', k).group(0)} "
+            f"{t / n * 1e3:.2f}us x{n}"
+            for k, (n, t) in sorted(prof.items()) if "selective_scan" in k)
+        plain_ms = time_wall(torch, lambda: selective_scan_bwd_ref(*args), 1)
+        bound, by, terms = _scan_bwd_bound(shape, expf)
+        log(f"scan_bwd: {label}: {ms * 1e3:.2f}us a launch (device time by "
+            f"kernel, profiler: {dev}); bound {bound * 1e3:.2f}us ({by}; "
+            "terms in us: " + ", ".join(f"{k} {v * 1e3:.2f}"
+                                        for k, v in terms.items())
+            + f"), {bound / ms:.4f} of it; plain {plain_ms:.3f}ms")
+        row = dict(name="selective_scan_bwd", route="cuda",
+                   source=SCAN_BWD_SOURCE, replaces=SCAN_BWD_REPLACES, ms=ms,
+                   plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                   library_ms=None)
+        del got, twin, args, delta, x, dy
+        torch.cuda.empty_cache()
+    row["max_abs_err"] = worst
+    return row
+
+
+def run_train_hybrid_main(torch, np, cuda, out):
+    """Slice 17's main path: Jamba at its published widths, one
+    super-block (7 Mamba + 1 attention layer), no experts, bf16, remat on,
+    int8 moments, trained for ``HYBRID_STEPS`` steps of B 2 × S 1 024 by
+    the launcher, ``launch.train.main(HYBRID_ARGV)``, no checkpoint I/O.
+    Each Mamba layer's scan runs its kernel twice a step (the first run
+    and the recomputation) and its gradient ``selective_scan_bwd`` (two
+    kernels) once; the attention layer the tc forward with its lse and
+    ``flash_attention_bwd``; the last loss must be below the first."""
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention.kernel import PATH_LAUNCHES
+    from repro_torch.launch import train as launch
+    from repro_torch.models.common import param_count_tree
+
+    t_phase = time.perf_counter()
+    cfg, opt_cfg, data = launch.setup(launch.parse_args(HYBRID_ARGV))
+    rows, first = [], []
+    on_step = _step_logger("train_hybrid", HYBRID_B * HYBRID_S, rows)
+
+    def timed(step, metrics, seconds):
+        if not first:       # the first step's start
+            first.append(time.perf_counter() - seconds)
+        on_step(step, metrics, seconds)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = launch.main(HYBRID_ARGV, on_step=timed)     # prints its lines
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    init_s = first[0] - t0
+    n = param_count_tree(state["params"])
+    mamba = cfg.n_layers - cfg.n_layers // cfg.attn_period
+    attn = cfg.n_layers // cfg.attn_period
+    want = {"selective_scan": 2 * mamba * HYBRID_STEPS,
+            "selective_scan_bwd": mamba * HYBRID_STEPS,
+            "selective_scan_bwd_reduce": mamba * HYBRID_STEPS,
+            "flash_attention": 2 * attn * HYBRID_STEPS,
+            "flash_attention_bwd": attn * HYBRID_STEPS}
+    got = {k: kernels.LAUNCHES[k] for k in want}
+    if got != want or PATH_LAUNCHES["tc"] != want["flash_attention"]:
+        raise SystemExit(f"train_hybrid: launches {got} ({PATH_LAUNCHES}), "
+                         f"expected {want}, all flash forwards on tc")
+    losses = [r[0] for r in rows]
+    if len(rows) != HYBRID_STEPS or not losses[-1] < losses[0]:
+        raise SystemExit(f"train_hybrid: the loss did not fall: {losses}")
+    warm = sorted(r[2] for r in rows[1:])
+    med = warm[len(warm) // 2]
+    log(f"train_hybrid: {cfg.name} at published widths, "
+        f"{' '.join(HYBRID_ARGV[2:8])} ({cfg.n_layers} layers: {mamba} "
+        f"Mamba + {attn} attention; d {cfg.d_model}, Di "
+        f"{cfg.mamba_expand * cfg.d_model}, Ds {cfg.mamba_d_state}, "
+        f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}; {n} parameters, bf16, int8 "
+        f"moments, peak lr {opt_cfg.peak_lr}, remat {cfg.remat}; set-up to "
+        f"the first step {init_s:.2f}s) B={HYBRID_B} S={HYBRID_S}, "
+        f"{HYBRID_STEPS} steps: loss {losses[0]!r} -> {losses[-1]!r}; warm "
+        f"step median {med * 1e3:.2f}ms = {HYBRID_B * HYBRID_S / med:.1f} "
+        f"tokens/s (steps 1-{HYBRID_STEPS - 1}: {min(warm) * 1e3:.2f}-"
+        f"{max(warm) * 1e3:.2f}ms); launches {json.dumps(got)}; peak device "
+        f"memory (set-up and steps) {peak:.2f} GiB")
+    out.update(cfg=cfg, state=state, data=data, opt_cfg=opt_cfg, t0=t_phase)
+
+
+def run_train_hybrid_checks(torch, np, cuda, main):
+    """Off the counted path: one step's loss and gradient norm through
+    the kernels against the twins of all four (``train_twins``) on the
+    trained weights, the step in parts and its device profile, then the
+    backward kernel against its twins (``check_scan_bwd``).  Returns its
+    JSON row."""
+    from repro_torch.launch.train import make_batch
+
+    cfg, state = main["cfg"], main["state"]
+    batch = make_batch(cfg, main["data"].get_batch(HYBRID_STEPS), cuda)
+    _grads_vs_twins(torch, "train_hybrid", cfg, state["params"], batch)
+    _step_breakdown(torch, "train_hybrid", cfg, state, main["opt_cfg"],
+                    batch)
+    del state, batch
+    main.pop("state")
+    torch.cuda.empty_cache()
+    row = check_scan_bwd(torch, np, cuda)
+    log(f"train_hybrid: phase {time.perf_counter() - main['t0']:.1f}s")
+    return row
+
+
+EXAMPLES_TRAIN = ["--preset", "100m", "--steps", "20"]
+EXAMPLES_ICI_SIDE = 16
+
+
+def run_examples(torch, np, cuda):
+    """The reference's four example programs on the port, on the card, at
+    their defaults unless named: ``train_lm --preset 100m --steps 20``
+    (fp32: attention's CUDA-core forward with its lse and its backward),
+    ``serve_decode`` (internlm2-1.8b's smoke config), ``quickstart``
+    (8 000 cycles), ``qstar_ici_demo`` (torus 16x16).  Each one's lines go
+    to the log, with its wall; the train loss must fall and every output
+    be finite."""
+    import shutil
+
+    from repro_torch.configs import get_arch
+    from repro_torch.examples import (qstar_ici_demo, quickstart,
+                                      serve_decode, train_lm)
+
+    root = os.path.join(HERE, "build", "examples_smoke")
+    shutil.rmtree(root, ignore_errors=True)
+
+    def run(label, fn, *args, **kw):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = fn(*args, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for line in buf.getvalue().splitlines():
+            if line.strip():
+                log(f"examples: {label}: {line}")
+        log(f"examples: {label}: wall {wall:.2f}s")
+        return res
+
+    rows = []
+    run("train_lm", train_lm.main, EXAMPLES_TRAIN + [
+        "--ckpt-dir", os.path.join(root, "ckpt")],
+        on_step=lambda step, m, s: rows.append((float(m["loss"]), s)))
+    shutil.rmtree(root, ignore_errors=True)
+    warm = sorted(s for _, s in rows[1:])
+    log(f"examples: train_lm 100m: loss {rows[0][0]!r} -> {rows[-1][0]!r}, "
+        f"warm step median {warm[len(warm) // 2] * 1e3:.2f}ms")
+    if not (math.isfinite(rows[-1][0]) and rows[-1][0] < rows[0][0]):
+        raise SystemExit(f"examples: train_lm's loss {rows}")
+    toks = run("serve_decode", serve_decode.main, [])
+    vocab = get_arch("internlm2-1.8b").smoke.vocab
+    if toks.shape != (4, 24) or not ((toks >= 0) & (toks < vocab)).all():
+        raise SystemExit(f"examples: serve_decode tokens {toks}")
+    _, r_xy, r_bd = run("quickstart", quickstart.main)
+    if not all(math.isfinite(v) for v in (r_xy.lcv, r_bd.lcv,
+                                          r_xy.throughput, r_bd.throughput)):
+        raise SystemExit("examples: quickstart's statistics")
+    loads, stale, new = run("qstar_ici_demo", qstar_ici_demo.main,
+                            side=EXAMPLES_ICI_SIDE)
+    if not (loads["Q-StaR BiDOR-G"][0] <= loads["XY (DOR)"][0]
+            and new <= stale):
+        raise SystemExit(f"examples: qstar_ici_demo {loads} {stale} {new}")
+
+
+def _time_simstep_variants(torch, np, cuda):
+    """What each routing algorithm costs the chunk kernel a cycle at 5x5
+    and 32x32, the zoo's router shapes, and the instrumented instance."""
+    from repro_torch.core import (express_mesh, mesh2d, mesh2d_edge_io,
+                                  multipod, torus)
+    from repro_torch.noc import Algo
+
+    for topo, label in ((mesh2d_edge_io(5, 5), "5x5"),
+                        (mesh2d(32, 32), "32x32")):
+        for algo in ("YX", "O1TURN", "VALIANT", "ROMM", "ODDEVEN", "BIDOR"):
+            time_simstep(torch, np, cuda, topo, label,
+                         algo=Algo[algo])
+    for topo, label in ((torus(4, 4, 4), "torus4x4x4"),
+                        (express_mesh(8, 8), "express8x8"),
+                        (multipod(2, 16, 16), "multipod2x16x16"),
+                        (torus(17, 17), "torus17x17"),
+                        (express_mesh(17, 17), "express17x17")):
+        time_simstep(torch, np, cuda, topo, label)
+    for topo, label in ((mesh2d_edge_io(5, 5), "5x5"),
+                        (mesh2d(32, 32), "32x32")):
+        time_simstep(torch, np, cuda, topo, f"{label} instrumented",
+                     watchdog=True, telemetry=True)
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4633,12 +5015,13 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.core import mesh2d, mesh2d_edge_io
-    from repro_torch.noc import Algo
 
     cuda = torch.device("cuda")
     t_all = time.perf_counter()
     card = card_line()
     log(f"card: {card}")
+    log("mode: " + ("--full, every check" if FULL else
+                    "default; with --full also " + "; ".join(FULL_ONLY)))
 
     secs = build.build()
     log(f"build: {json.dumps({k: round(v, 2) for k, v in secs.items()})} s "
@@ -4789,6 +5172,28 @@ def main() -> int:
     flash_bwd = run_train_checks(torch, np, cuda, out)
     del out
     torch.cuda.empty_cache()
+    # slice 17's: Jamba trained at published widths (one super-block, no
+    # experts, int8 moments: ~54 GB of state), then its checks (the step
+    # against the twins, the scan's backward against its twins); then the
+    # four example programs
+    label = "slice 17a (jamba-1.5-large training)"
+    flash_paths[label] = ("tc",)
+    out = {}
+    drive_path(label, ("selective_scan", "selective_scan_bwd",
+                       "selective_scan_bwd_reduce", "flash_attention",
+                       "flash_attention_bwd"),
+               lambda: run_train_hybrid_main(torch, np, cuda, out))
+    scan_bwd = run_train_hybrid_checks(torch, np, cuda, out)
+    del out
+    torch.cuda.empty_cache()
+    label = "slice 17b (the example programs)"
+    flash_paths[label] = ("simt", "split")
+    t0 = time.perf_counter()
+    drive_path(label, ("flash_attention", "flash_attention_bwd",
+                       "possibility_v", "possibility_weights",
+                       "simstep_chunk"),
+               lambda: run_examples(torch, np, cuda))
+    log(f"examples: phase {time.perf_counter() - t0:.1f}s")
     log(f"flash: end to end: whisper generate device busy "
         f"{_ms(whisper_e2e, 'busy')}, flash_fwd* {_ms(whisper_e2e, 'flash')}"
         f"; jamba decode step device busy {_ms(jamba_e2e, 'busy')}, "
@@ -4804,28 +5209,13 @@ def main() -> int:
             kernel = row["name"].removeprefix("simstep_")
             row["max_abs_err"] = float(simstep_err[kernel])
             simstep_rows.append(row)
-    # what each routing algorithm costs the chunk kernel a cycle
-    for topo, label in ((mesh2d_edge_io(5, 5), "5x5"),
-                        (mesh2d(32, 32), "32x32")):
-        for algo in ("YX", "O1TURN", "VALIANT", "ROMM", "ODDEVEN", "BIDOR"):
-            time_simstep(torch, np, cuda, topo, label,
-                         algo=Algo[algo])
-    # the zoo's router shapes, and the instrumented instance
-    from repro_torch.core import express_mesh, multipod, torus
-
-    for topo, label in ((torus(4, 4, 4), "torus4x4x4"),
-                        (express_mesh(8, 8), "express8x8"),
-                        (multipod(2, 16, 16), "multipod2x16x16"),
-                        (torus(17, 17), "torus17x17"),
-                        (express_mesh(17, 17), "express17x17")):
-        time_simstep(torch, np, cuda, topo, label)
-    for topo, label in ((mesh2d_edge_io(5, 5), "5x5"),
-                        (mesh2d(32, 32), "32x32")):
-        time_simstep(torch, np, cuda, topo, f"{label} instrumented",
-                     watchdog=True, telemetry=True)
-    rows = [poss, weights, *simstep_rows, flash, scan, flash_bwd]
+    if FULL:
+        _time_simstep_variants(torch, np, cuda)
+    rows = [poss, weights, *simstep_rows, flash, scan, flash_bwd, scan_bwd]
     for row in rows:
         row["launches"] = launches[row["name"]]
+        if row["name"] == "selective_scan_bwd":     # its second kernel
+            row["reduce_launches"] = launches["selective_scan_bwd_reduce"]
         if row["name"] in sizes:
             row["launches_by_size"] = {k: " + ".join(v) for k, v in
                                        sizes[row["name"]].items()}
@@ -4834,8 +5224,9 @@ def main() -> int:
             "library_ms")
     log(f"total: {time.perf_counter() - t_all:.1f}s")
     # and the possibility pair's launches by size, the scan's decode step
-    # (161 of its 168 launches on slice 4)
-    extra = ("launches_by_size", "decode_ms", "decode_bound_ms")
+    # (161 of its 168 launches on slice 4), the scan backward's reductions
+    extra = ("launches_by_size", "decode_ms", "decode_bound_ms",
+             "reduce_launches")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in rows]}))
     print(card_line())
@@ -5174,7 +5565,11 @@ if __name__ == "__main__":
                     "from this directory")
     ap.add_argument("--rounds", type=int, default=5,
                     help="with a --*-wall option: timed rounds")
+    ap.add_argument("--full", action="store_true",
+                    help="also run the older checks off the counted paths "
+                    "(FULL_ONLY)")
     args = ap.parse_args()
+    FULL = args.full
     if args.src:
         sys.path.insert(0, os.path.abspath(args.src))
     if args.serve_wall:

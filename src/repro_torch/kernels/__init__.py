@@ -4,7 +4,9 @@ Every wrapper launches its kernel for tensors on the card and runs the
 plain-torch version for tensors on the CPU; nothing falls back from one
 to the other.  :data:`LAUNCHES` counts kernel launches by name: a wrapper
 adds one where it launches and nowhere else, so a run can show that the
-main path went through the kernels.  :data:`LAUNCH_SIZES` counts the
+main path went through the kernels.  The scan's backward wrapper
+launches two kernels and counts its second, the reduction, under
+``selective_scan_bwd_reduce``.  :data:`LAUNCH_SIZES` counts the
 possibility passes' launches by (name, N, C) beside it.
 """
 
@@ -12,7 +14,8 @@ from collections import Counter
 
 LAUNCHES = {"possibility_v": 0, "possibility_weights": 0, "simstep_chunk": 0,
             "simstep_grid": 0, "flash_attention": 0,
-            "flash_attention_bwd": 0, "selective_scan": 0}
+            "flash_attention_bwd": 0, "selective_scan": 0,
+            "selective_scan_bwd": 0, "selective_scan_bwd_reduce": 0}
 LAUNCH_SIZES: Counter = Counter()
 
 

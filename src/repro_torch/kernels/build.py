@@ -11,7 +11,8 @@ per source, all at once.
 ``--fmad=false`` keeps nvcc from contracting ``a*b + c`` into one fused
 multiply-add: the flit step's float comparisons must round every step
 as the reference does, and the selective scan's update rounds each
-product as its plain twin does.  Attention's inner products call
+product as its plain twin does (its backward recomputes the states as
+the forward rounds them).  Attention's inner products call
 ``fmaf`` themselves or run on the tensor cores (``mma``), which the flag
 leaves alone.
 """
@@ -33,7 +34,8 @@ SOURCES = {"possibility": "possibility.cu",
            "flash_attention_split": "flash_attention_split.cu",
            "flash_attention_tc": "flash_attention_tc.cu",
            "flash_attention_bwd": "flash_attention_bwd.cu",
-           "selective_scan": "selective_scan.cu"}
+           "selective_scan": "selective_scan.cu",
+           "selective_scan_bwd": "selective_scan_bwd.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")

@@ -4,16 +4,22 @@ Tensors on the card go through the CUDA kernel; tensors on the CPU go
 through the plain twin.  The two never stand in for each other.  Both
 take the same inputs: float32, contiguous, shapes as below; anything
 else raises on either device.
+
+Training: when grad mode is on and an input requires grad, the op runs
+through :class:`SelectiveScan`, whose backward is
+``csrc/selective_scan_bwd.cu`` on the card and
+:func:`selective_scan_bwd_ref` on the CPU.  Otherwise it launches
+exactly what it launches for serving.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .kernel import selective_scan_cuda
-from .ref import selective_scan_ref
+from .kernel import selective_scan_bwd_cuda, selective_scan_cuda
+from .ref import selective_scan_bwd_ref, selective_scan_ref
 
-MAX_STATE = 16      # the kernel keeps a channel's state in registers
+MAX_STATE = 16      # the kernels keep a channel's state in registers
 
 
 def _check(delta, a, b, c, x, h0):
@@ -43,6 +49,31 @@ def _check(delta, a, b, c, x, h0):
         raise ValueError(f"empty scan: B {bs}, S {s}, Di {di}, Ds {ds}")
 
 
+class SelectiveScan(torch.autograd.Function):
+    """The scan with its backward: ``apply(delta, a, b, c, x, h0,
+    kernel)``.  With ``kernel`` (inputs on the card, already checked) the
+    forward and backward kernels; without it the twins, on any device.
+    Saves the forward's inputs: the backward recomputes the states."""
+
+    @staticmethod
+    def forward(ctx, delta, a, b, c, x, h0, kernel):
+        fwd = selective_scan_cuda if kernel else selective_scan_ref
+        y, h_last = fwd(delta, a, b, c, x, h0)
+        ctx.save_for_backward(delta, a, b, c, x, h0)
+        ctx.kernel = kernel
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        delta, a, b, c, x, h0 = ctx.saved_tensors
+        dy = torch.zeros_like(x) if dy is None else dy.contiguous()
+        if dh_last is not None:
+            dh_last = dh_last.contiguous()
+        bwd = selective_scan_bwd_cuda if ctx.kernel else selective_scan_bwd_ref
+        ddelta, da, db, dc, dx, dh0 = bwd(delta, a, b, c, x, h0, dy, dh_last)
+        return ddelta, da, db, dc, dx, (None if h0 is None else dh0), None
+
+
 def selective_scan(delta: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                    c: torch.Tensor, x: torch.Tensor,
                    h0: torch.Tensor | None = None):
@@ -50,14 +81,22 @@ def selective_scan(delta: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
 
     delta, x: (B, S, Di); a: (Di, Ds); b, c: (B, S, Ds); h0: (B, Di, Ds)
     or None (zeros); float32 and contiguous.  Returns (y (B, S, Di),
-    h_last (B, Di, Ds)) as new tensors.  On the card Ds is at most 16."""
+    h_last (B, Di, Ds)) as new tensors.  On the card Ds is at most 16.
+
+    Differentiable with respect to every input: with grad mode on and an
+    input that requires grad, through :class:`SelectiveScan`."""
     _check(delta, a, b, c, x, h0)
     dev = x.device
-    if dev.type == "cpu":
-        return selective_scan_ref(delta, a, b, c, x, h0)
-    if dev.type != "cuda":
+    if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
-    if a.shape[1] > MAX_STATE:
+    kernel = dev.type == "cuda"
+    if kernel and a.shape[1] > MAX_STATE:
         raise ValueError(f"the kernel takes a state of at most {MAX_STATE}, "
                          f"got {a.shape[1]}")
-    return selective_scan_cuda(delta, a, b, c, x, h0)
+    xs = (delta, a, b, c, x, h0)
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in xs):
+        return SelectiveScan.apply(*xs, kernel)
+    if kernel:
+        return selective_scan_cuda(*xs)
+    return selective_scan_ref(*xs)

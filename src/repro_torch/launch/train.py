@@ -8,6 +8,19 @@ checkpoint auto-resume, preemption handling and straggler monitoring.
         --smoke --steps 20 --device cpu
 
 Without ``--smoke`` the published configuration is trained on the card.
+A model that one card cannot hold is cut in depth and experts, never in
+width: ``--layers N`` keeps the first N layers (a hybrid's a multiple of
+its ``attn_period``), ``--experts E`` keeps E experts (0: every FFN the
+dense SwiGLU of the same d_ff), and ``--moments int8`` stores AdamW's
+moments as int8 codes with block scales.  ``chip_smoke.py``'s
+``train_hybrid`` phase runs Jamba so on one H100 80GB, with no
+checkpoint (``--ckpt-every 0``; its state, 9.0e9 bf16 weights and their
+int8 moments, would write ~36 GB):
+
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch jamba-1.5-large-398b --layers 8 --experts 0 --moments int8 \\
+        --global-batch 2 --seq 1024 --peak-lr 1e-4 --steps 6 --ckpt-every 0
+
 The reference's meshes (``--mesh DxM``, ``prod``, ``prod2``) have no
 port: only ``1x1`` runs.  A checkpoint is labelled by the number of
 steps it holds, so a resumed run takes the step after the last one
@@ -15,6 +28,7 @@ done and ends where an uninterrupted run ends (the reference labels the
 checkpoint written after step s as s and repeats step s on resume).
 :func:`train_loop` is the step loop alone (no checkpoint unless a
 manager is given), for a caller that drives it at full width.
+``--ckpt-every 0`` trains with no checkpoint: none read, none written.
 """
 
 from __future__ import annotations
@@ -94,6 +108,19 @@ def train_loop(cfg, state, step_fn, data: SyntheticLM, start: int,
     return state, steps, False
 
 
+def cut_config(cfg, layers: int | None = None, experts: int | None = None):
+    """``cfg`` with ``layers`` layers and ``experts`` MoE experts (top-k
+    kept, at most ``experts``; 0 makes every FFN dense); None leaves a
+    field as it is.  Widths are never cut."""
+    kw = {}
+    if layers is not None:
+        kw["n_layers"] = layers
+    if experts is not None:
+        kw["moe_experts"] = experts
+        kw["moe_topk"] = min(cfg.moe_topk, experts)
+    return cfg.replace(**kw) if kw else cfg
+
+
 def parse_args(argv=None):
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.train")
     ap.add_argument("--arch", default="internlm2-1.8b")
@@ -103,13 +130,38 @@ def parse_args(argv=None):
     ap.add_argument("--seq", type=int, default=128)
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--grad-accum", type=int, default=1)
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to N layers (widths unchanged)")
+    ap.add_argument("--experts", type=int, default=None,
+                    help="cut the MoE experts to E, 0 for dense FFNs "
+                         "(widths unchanged)")
+    ap.add_argument("--peak-lr", type=float, default=1e-3,
+                    help="the schedule's peak (the reference's 1e-3; a "
+                         "wide model wants less: Jamba's d 8 192 1e-4)")
+    ap.add_argument("--moments", default="float32",
+                    choices=("float32", "int8"),
+                    help="AdamW's moment dtype (int8: block-quantized)")
     ap.add_argument("--mesh", default="1x1",
                     help="only 1x1: the port runs on one device")
     ap.add_argument("--ckpt-dir", default=DEFAULT_CKPT_DIR)
-    ap.add_argument("--ckpt-every", type=int, default=25)
+    ap.add_argument("--ckpt-every", type=int, default=25,
+                    help="steps between checkpoints; 0: no checkpoint")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (the plain twins)")
     return ap.parse_args(argv)
+
+
+def setup(args):
+    """The model's config, AdamW's and the data of parsed arguments:
+    what :func:`main` trains."""
+    spec = get_arch(args.arch)
+    cfg = cut_config(spec.smoke if args.smoke else spec.full, args.layers,
+                     args.experts)
+    opt_cfg = OptConfig(peak_lr=args.peak_lr, warmup_steps=10,
+                        decay_steps=args.steps, moment_dtype=args.moments)
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
+                                  global_batch=args.global_batch))
+    return cfg, opt_cfg, data
 
 
 def main(argv=None, on_step=None):
@@ -121,22 +173,19 @@ def main(argv=None, on_step=None):
             f"--mesh {args.mesh}: the port runs on one device; meshes and "
             f"sharding wait for ROADMAP queue 1, items 11.7 and 5")
     device = resolve_device(args.device)
-    spec = get_arch(args.arch)
-    cfg = spec.smoke if args.smoke else spec.full
+    cfg, opt_cfg, data = setup(args)
     mesh = ElasticMesh(model_degree=1).build([device])
     print(f"mesh: {mesh}  arch: {cfg.name} "
           f"({registry.count_params(cfg) / 1e6:.1f}M params)  "
           f"device: {device}", flush=True)
 
-    opt_cfg = OptConfig(peak_lr=1e-3, warmup_steps=10,
-                        decay_steps=args.steps)
     state = init_train_state(cfg, opt_cfg, seed=0, device=device)
-    mgr = CheckpointManager(args.ckpt_dir, keep=2)
-    state, start = resume_or_init(mgr, state)
+    mgr, start = None, 0
+    if args.ckpt_every:
+        mgr = CheckpointManager(args.ckpt_dir, keep=2)
+        state, start = resume_or_init(mgr, state)
     if start:
         print(f"resumed from step {start}")
-    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
-                                  global_batch=args.global_batch))
     step_fn = make_train_step(cfg, opt_cfg, args.grad_accum)
     handler = PreemptionHandler()
     try:
@@ -148,9 +197,11 @@ def main(argv=None, on_step=None):
     finally:
         handler.restore_handlers()
     if not preempted:
-        mgr.save(args.steps, state)
+        if mgr is not None:
+            mgr.save(args.steps, state)
         print("done")
-    mgr.wait()
+    if mgr is not None:
+        mgr.wait()
     return state
 
 

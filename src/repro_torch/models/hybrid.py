@@ -7,8 +7,7 @@ stacks each super-block's parameters on a leading axis and scans over
 them; here super-blocks are ``ModuleList`` entries and the scan is a
 Python loop.  With ``cfg.remat`` and grad mode on, each super-block is
 recomputed in the backward (``common.remat``), as the reference's
-``jax.checkpoint``.  Training on the card waits for a backward of the
-selective-scan kernel (``train.train_step`` raises there).
+``jax.checkpoint``.
 
 FFN j of a super-block is the top-k MoE where the global layer index is
 MoE (every ``moe_period``-th layer, Jamba: 2), else the dense SwiGLU;

@@ -9,7 +9,9 @@ Same contract as the reference's ``layers/recurrent.py``:
 * ``*_init_state(cfg, batch)``    — the zero state.
 
 Mamba's recurrence is one call of the selective-scan op: the CUDA
-kernel on the card, its plain twin on the CPU.  The reference computes
+kernel on the card, its plain twin on the CPU; a gradient flows through
+the op's backward kernel (or twin) to ``a_log``, ``dt_bias``,
+``dt_proj`` and ``x_proj``.  The reference computes
 the same function with an associative scan inside chunks and builds the
 (B, S, d_inner, d_state) decay and input tensors to do so; the op keeps
 the state in registers instead, so nothing of that size is made here.

@@ -16,9 +16,6 @@ from ..models import registry
 from ..models.common import ModelConfig
 from .optimizer import OptConfig, adamw_update, init_opt_state
 
-# the roadmap item that gives the selective scan a backward kernel
-SCAN_BACKWARD_ITEM = "ROADMAP queue 1, item 11.6a"
-
 
 def cross_entropy(logits, labels, mask=None, z_loss: float = 0.0):
     """logits (B, S, V), taken in fp32; labels (B, S) int; mask (B, S)
@@ -105,11 +102,6 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
 
     def train_step(state, batch):
         params, opt = state["params"], state["opt"]
-        if cfg.family == "hybrid" and opt["step"].device.type == "cuda":
-            raise NotImplementedError(
-                f"{cfg.name}: the selective-scan kernel has no backward "
-                f"yet ({SCAN_BACKWARD_ITEM}); train a hybrid model on the "
-                f"CPU, where its plain twin is differentiable")
         loss, metrics, grads = value_and_grads(cfg, params, batch,
                                                grad_accum)
         opt2, opt_metrics = adamw_update(opt_cfg, params, grads, opt)

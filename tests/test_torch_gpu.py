@@ -1445,22 +1445,151 @@ def test_smoke_train_step_on_the_card_vs_twins(cuda, arch, monkeypatch):
     assert float(after["loss"]) < float(first["loss"])
 
 
+# name: (B, S, Di, Ds, h0, dh_last)
+SCAN_BWD_CASES = {
+    "chunks": (2, 64, 256, 16, True, True),
+    "from_zero": (2, 64, 256, 16, False, False),
+    "ragged_di_s": (2, 37, 100, 16, True, False),    # Di, S not multiples
+    "ds5": (1, 29, 130, 5, False, True),
+    "ds1": (3, 9, 33, 1, True, True),
+    "one_step": (2, 1, 70, 13, True, True),
+    "shorter_than_a_chunk": (1, 5, 128, 16, True, False),
+}
+
+
+def _scan_bwd_case(b, s, di, ds, h0, dh_last, seed=0):
+    args = _scan_inputs(b, s, di, ds, h0, seed=seed)
+    g = torch.Generator().manual_seed(seed + 1)
+    dy = torch.randn((b, s, di), generator=g)
+    dh = torch.randn((b, di, ds), generator=g) if dh_last else None
+    return args, dy, dh
+
+
 @pytest.mark.gpu
-def test_hybrid_training_on_the_card_raises_naming_the_roadmap_item(cuda):
-    """The selective-scan kernel has no backward yet: a Jamba train step
-    on the card raises, naming the roadmap item (on the CPU its twin
-    trains, ``tests/test_torch_train_grads.py``)."""
+@pytest.mark.parametrize("case", sorted(SCAN_BWD_CASES))
+def test_selective_scan_backward_kernel_vs_twin(cuda, case):
+    """Through the op's autograd on the card (the forward kernel, then
+    ``selective_scan_bwd``: one launch each) against the backward twin on
+    the card: every gradient within 1e-4 of its largest |value| (dB, dC
+    and dA sum over Di, S and B in another order)."""
+    from repro_torch.kernels.mamba_scan import (selective_scan,
+                                                selective_scan_bwd_ref)
+
+    host, dy, dh = _scan_bwd_case(*SCAN_BWD_CASES[case])
+    args = [None if t is None else t.to(cuda) for t in host]
+    dy, dh = dy.to(cuda), None if dh is None else dh.to(cuda)
+    leaves = [t.clone().requires_grad_(True) for t in args if t is not None]
+    before = dict(kernels.LAUNCHES)
+    y, h = selective_scan(*leaves[:5], h0=leaves[5] if len(leaves) > 5
+                          else None)
+    got = torch.autograd.grad((y, h), leaves, (dy, torch.zeros_like(h)
+                                               if dh is None else dh))
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["selective_scan"] == before["selective_scan"] + 1
+    for name in ("selective_scan_bwd", "selective_scan_bwd_reduce"):
+        assert kernels.LAUNCHES[name] == before[name] + 1
+    want = selective_scan_bwd_ref(*args, dy, dh)
+    for name, g, w in zip(("ddelta", "da", "db", "dc", "dx", "dh0"), got,
+                          want):
+        assert g.shape == w.shape, name
+        top = float(w.abs().max())
+        assert float((g - w).abs().max()) <= 1e-4 * max(top, 1e-30), name
+
+
+@pytest.mark.gpu
+def test_selective_scan_backward_two_runs_give_the_same_bits(cuda):
+    """No atomics, the partials summed in a fixed order: the same call
+    twice, equal bit for bit."""
+    from repro_torch.kernels.mamba_scan.kernel import selective_scan_bwd_cuda
+
+    host, dy, dh = _scan_bwd_case(*SCAN_BWD_CASES["chunks"], seed=3)
+    args = [t.to(cuda) for t in host]
+    a = selective_scan_bwd_cuda(*args, dy.to(cuda), dh.to(cuda))
+    b = selective_scan_bwd_cuda(*args, dy.to(cuda), dh.to(cuda))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+def test_smoke_jamba_train_step_on_the_card_vs_twins(cuda, monkeypatch):
+    """One training step of Jamba's smoke config (fp32, its experts) on
+    the card: its loss and gradients through the kernels (the scan and
+    its backward in each Mamba layer, attention's forward and backward)
+    against the same step through the twins of all four, 1e-5 relative
+    for the loss and 1e-4 of each leaf's largest gradient; then the loss
+    falls over two ``make_train_step`` steps."""
+    from types import SimpleNamespace
+
     from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import FlashAttention
+    from repro_torch.kernels.mamba_scan import SelectiveScan
     from repro_torch.launch.train import make_batch
+    from repro_torch.models.layers import attention, recurrent
     from repro_torch.train.data import DataConfig, SyntheticLM
     from repro_torch.train.optimizer import OptConfig
-    from repro_torch.train.train_step import (SCAN_BACKWARD_ITEM,
-                                              init_train_state,
-                                              make_train_step)
+    from repro_torch.train.train_step import (init_train_state,
+                                              make_train_step,
+                                              value_and_grads)
 
     cfg = get_arch("jamba-1.5-large-398b").smoke
-    state = init_train_state(cfg, OptConfig(), seed=0, device=cuda)
+    state = init_train_state(cfg, OptConfig(peak_lr=1e-2, warmup_steps=0),
+                             seed=0, device=cuda)
     batch = make_batch(cfg, SyntheticLM(DataConfig(
-        vocab=cfg.vocab, seq_len=16, global_batch=2)).get_batch(0), cuda)
-    with pytest.raises(NotImplementedError, match=SCAN_BACKWARD_ITEM):
-        make_train_step(cfg, OptConfig())(state, batch)
+        vocab=cfg.vocab, seq_len=32, global_batch=4)).get_batch(0), cuda)
+    before = dict(kernels.LAUNCHES)
+    loss, _, grads = value_and_grads(cfg, state["params"], batch)
+    n_attn = cfg.n_layers // cfg.attn_period
+    grew = {k: kernels.LAUNCHES[k] - before[k] for k in (
+        "selective_scan", "selective_scan_bwd", "selective_scan_bwd_reduce",
+        "flash_attention", "flash_attention_bwd")}
+    assert grew == {"selective_scan": cfg.n_layers - n_attn,
+                    "selective_scan_bwd": cfg.n_layers - n_attn,
+                    "selective_scan_bwd_reduce": cfg.n_layers - n_attn,
+                    "flash_attention": n_attn, "flash_attention_bwd": n_attn}
+
+    def flash_twin(q, k, v, *, causal, mask_len=None, q_chunk=512,
+                   kv_chunk=512):
+        assert mask_len is None
+        return FlashAttention.apply(q, k, v, causal, q.shape[3] ** -0.5,
+                                    q_chunk, kv_chunk, None)
+
+    def scan_twin(delta, a, b, c, x, h0=None):
+        return SelectiveScan.apply(delta, a, b, c, x, h0, False)
+
+    with monkeypatch.context() as m:
+        m.setattr(attention, "flash_ops",
+                  SimpleNamespace(flash_attention=flash_twin))
+        m.setattr(recurrent, "scan_ops",
+                  SimpleNamespace(selective_scan=scan_twin))
+        mid = dict(kernels.LAUNCHES)
+        want_loss, _, want = value_and_grads(cfg, state["params"], batch)
+        assert kernels.LAUNCHES == mid
+    np.testing.assert_allclose(float(loss), float(want_loss), rtol=1e-5)
+    for n, g in grads.items():
+        top = float(want[n].abs().max())
+        assert float((g - want[n]).abs().max()) <= 1e-4 * max(top, 1e-30), n
+    step = make_train_step(cfg, OptConfig(peak_lr=1e-2, warmup_steps=0))
+    state, first = step(state, batch)
+    _, after = step(state, batch)
+    assert float(after["loss"]) < float(first["loss"])
+
+
+@pytest.mark.gpu
+def test_train_lm_tiny_on_the_card(cuda, tmp_path, capsys):
+    """The ported example on the card: the reference's lines, one
+    forward and one backward flash launch a layer and microbatch, the
+    loss finite."""
+    from repro_torch.examples import train_lm
+
+    before = dict(kernels.LAUNCHES)
+    state = train_lm.main(["--preset", "tiny", "--steps", "3", "--batch",
+                           "2", "--seq", "16", "--ckpt-every", "100",
+                           "--ckpt-dir", str(tmp_path / "ckpt")])
+    out = capsys.readouterr().out
+    assert "step    0 loss" in out and "done; final loss" in out
+    calls = 3 * 2 * train_lm.PRESETS["tiny"].n_layers   # steps × microbatches
+    assert kernels.LAUNCHES["flash_attention"] \
+        - before["flash_attention"] == calls
+    assert kernels.LAUNCHES["flash_attention_bwd"] \
+        - before["flash_attention_bwd"] == calls
+    assert int(state["opt"]["step"]) == 3
+    assert "nan" not in out.split("done; final loss")[1]

@@ -3,7 +3,9 @@
 * One step's loss and gradients against ``jax.value_and_grad`` of the
   reference's ``loss_fn`` at the smoke configs of internlm2 (dense),
   qwen2-moe (aux loss), qwen2-vl (M-RoPE), whisper-base (encoder–
-  decoder, random frame embeddings) and xlstm-1.3b (ssm): loss within
+  decoder, random frame embeddings), xlstm-1.3b (ssm) and
+  jamba-1.5-large-398b (hybrid: the scan's backward twin against the
+  reference's associative scan, its experts' aux loss): loss within
   1e-6 relative, the aux loss within 1e-5, each gradient within 5e-5 of
   its leaf's largest |value| (fp32 sums in another order; xLSTM's
   recurrences the widest, 1.3e-5).
@@ -35,7 +37,7 @@ LOSS_RTOL = 1e-6
 
 
 GRAD_ARCHS = ["internlm2-1.8b", "qwen2-moe-a2.7b", "qwen2-vl-2b",
-              "whisper-base", "xlstm-1.3b"]
+              "whisper-base", "xlstm-1.3b", "jamba-1.5-large-398b"]
 
 
 @pytest.mark.parametrize("arch", GRAD_ARCHS)

@@ -299,3 +299,42 @@ def test_launcher_preempted_and_resumed_equals_uninterrupted(tmp_path,
 def test_launcher_takes_only_the_one_device_mesh():
     with pytest.raises(NotImplementedError, match="11.7 and 5"):
         launch.main(["--smoke", "--device", "cpu", "--mesh", "2x1"])
+
+
+def test_launcher_cuts_depth_and_experts_never_widths(tmp_path, one_thread):
+    """``--layers``, ``--experts``, ``--moments`` and ``--peak-lr``, as
+    ``chip_smoke.py`` trains Jamba on one card: the smoke at one
+    super-block of 4 layers, its experts cut to 0 (every FFN dense, top-k
+    0), int8 moments, no checkpoint (``--ckpt-every 0``); the widths are
+    the smoke's, and the loss falls over 4 steps.  A depth that is not a
+    whole number of super-blocks raises."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import registry
+
+    losses = []
+    argv = ["--arch", "jamba-1.5-large-398b", "--smoke", "--layers", "4",
+            "--experts", "0", "--moments", "int8", "--peak-lr", "2e-3",
+            "--steps", "4", "--seq", "16", "--global-batch", "2",
+            "--device", "cpu", "--ckpt-every", "0", "--ckpt-dir",
+            str(tmp_path / "ckpt")]
+    state = launch.main(argv, on_step=lambda s, m, t: losses.append(
+        float(m["loss"])))
+    assert not (tmp_path / "ckpt").exists()
+    smoke = get_arch("jamba-1.5-large-398b").smoke
+    cut, opt_cfg, data = launch.setup(launch.parse_args(argv))
+    assert cut == launch.cut_config(smoke, 4, 0)
+    assert (opt_cfg.peak_lr, opt_cfg.moment_dtype) == (2e-3, "int8")
+    assert (data.cfg.seq_len, data.cfg.global_batch) == (16, 2)
+    assert (cut.n_layers, cut.moe_experts, cut.moe_topk) == (4, 0, 0)
+    assert cut.replace(n_layers=smoke.n_layers, moe_experts=smoke.moe_experts,
+                       moe_topk=smoke.moe_topk) == smoke
+    assert sum(p.numel() for p in state["params"].parameters()) \
+        == registry.count_params(cut) < registry.count_params(smoke)
+    assert all(m["q"].dtype == torch.int8 for m in state["opt"]["m"].values())
+    assert losses[-1] < losses[0]
+    assert launch.cut_config(smoke) == smoke
+    assert launch.cut_config(smoke, experts=1).moe_topk == 1
+    with pytest.raises(ValueError, match="attn_period"):
+        launch.main(argv[:3] + ["--layers", "6", "--steps", "1",
+                                "--device", "cpu", "--ckpt-dir",
+                                str(tmp_path / "odd")])
