@@ -208,19 +208,23 @@ freed their weights):
               tokens/s; the last loss below the first; 576
               ``flash_attention`` launches, all on the tensor-core kernel
               with the lse (each layer twice a step: the first run and
-              the recomputation), 288 ``flash_attention_bwd``; off the
-              count, a full-width step through the kernels against the
+              the recomputation), 288 ``flash_attention_bwd``, all on the
+              tensor-core route (``csrc/flash_attention_bwd_tc.cu``); off
+              the count, a full-width step through the kernels against the
               twins of both (loss and grad norm), ``grad_accum`` 2
               against 1, the step in parts (forward, backward, optimizer)
               and profiled, 3 steps with int8 moments, whisper-base at full
               width for one step (the encoder's and cross-attention's
               non-causal backward, Skv 1 500) and against its twins, the
-              backward kernel against its twins (bf16 by the ratio rule,
-              fp32 within 1e-4 of the largest gradient) and the forward's
-              lse at the training shape, (B 1, S 2 048), whisper's
-              cross-attention, MLA's (96, 64) and D 192 and 256, timed at
-              the training shape beside its twin, SDPA's backward and the
-              bound, and ``launch.train.main`` at the smoke config
+              backward kernels against their twins (bf16 by the ratio
+              rule, fp32 within 1e-4 of the largest gradient) and the
+              forward's lse at the training shape, Jamba's (B 2, S 1 024,
+              GQA 64/8), (B 1, S 2 048), whisper's cross-attention, MLA's
+              (96, 64) and D 192 and 256; in bf16 at the first three the
+              tc route timed beside the CUDA-core one (route simt, held by
+              the same rule), SDPA's backward and the bound (and the twin
+              at the training shape), and ``launch.train.main`` at the
+              smoke config
               preempted by SIGTERM after step 3 and resumed, equal to an
               uninterrupted run bit for bit;
 Main paths of slice 17 (launch counts from 0 before each):
@@ -234,7 +238,7 @@ Main paths of slice 17 (launch counts from 0 before each):
               Mamba layer twice a step: the first run and the
               recomputation), 42 ``selective_scan_bwd`` and 42 of its
               reduction, 12 ``flash_attention`` on tc with
-              the lse, 6 ``flash_attention_bwd``; the last loss below the
+              the lse, 6 ``flash_attention_bwd`` on tc; the last loss below the
               first, the peak device memory; off the count, one step
               through the kernels against the twins of all four (loss
               within 2e-3, grad norm 2e-2), the step in parts and
@@ -246,7 +250,7 @@ Main paths of slice 17 (launch counts from 0 before each):
 27. examples — the reference's four example programs on the port
               (``repro_torch.examples``): ``train_lm --preset 100m
               --steps 20`` (fp32, attention on the CUDA-core kernel with
-              its backward), ``serve_decode`` at its defaults,
+              its backward, route simt), ``serve_decode`` at its defaults,
               ``quickstart`` (8 000 cycles), ``qstar_ici_demo`` (torus
               16x16), their lines and walls;
 28. summary — attention end to end (whisper's ``generate`` busy time
@@ -4120,12 +4124,15 @@ def run_ssm_checks(torch, np, cuda, main):
 TRAIN_ARCH = "internlm2-1.8b"
 TRAIN_STEPS = 12
 TRAIN_B, TRAIN_S = 8, 128     # the launcher's default batch
-BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd.cu"
+BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd_tc.cu"
 BWD_REPLACES = "src/repro/models/layers/attention.py:151-236"
 # (label, B, Sq, Skv, H, KV, Dk, Dv, causal): the training step's shape,
-# a 2 048-token sequence, whisper's cross-attention, MLA's pair, and the
-# wide head dims, which run on the CUDA-core kernels alone
+# Jamba's training call, a 2 048-token sequence, whisper's
+# cross-attention, MLA's pair, and the wide head dims, which run on the
+# CUDA-core kernels alone; bf16 at the first three is timed on both
+# routes
 BWD_SHAPES = (("train", 8, 128, 128, 16, 8, 128, 128, True),
+              ("jamba", 2, 1024, 1024, 64, 8, 128, 128, True),
               ("long", 1, 2048, 2048, 16, 8, 128, 128, True),
               ("whisper cross", 8, 128, 1500, 8, 8, 64, 64, False),
               ("mla", 2, 200, 200, 8, 8, 96, 64, True),
@@ -4137,6 +4144,8 @@ BWD_SHAPES = (("train", 8, 128, 128, 16, 8, 128, 128, True),
 # loss and 2.1e-4 of the gradient norm (whisper-base 4.1e-5, 7.0e-4), and
 # the limits leave room for other seeds and widths
 TRAIN_LOSS_RTOL = 2e-3
+# the shapes at which the backward's routes are timed
+BWD_TIMED = ("train", "jamba", "long")
 TRAIN_GNORM_RTOL = 2e-2
 
 
@@ -4258,21 +4267,25 @@ def _bwd_bound(shape, itemsize, flops_per_s):
 
 
 def check_flash_bwd(torch, np, cuda):
-    """The backward kernel (through the op's autograd: the forward kernel
-    with its lse, then ``flash_attention_bwd``) against the twins at
+    """The backward kernels (through the op's autograd: the forward
+    kernel with its lse, then ``flash_attention_bwd`` on its route, tc in
+    bf16 up to 128, simt in fp32 and at 192/256) against the twins at
     ``BWD_SHAPES``: bf16 by the ratio rule (each gradient's error against
     the fp32 twins at most twice the bf16 twins'), fp32 within 1e-4 of
     the gradient's largest |value|; the forward kernels' lse against the
-    twin's (tc in bf16, simt in fp32 and at 192/256: 1e-4 and 2e-5);
-    at the training shape in bf16 (and fp32) µs a launch (events) beside
-    the twin, ``scaled_dot_product_attention``'s backward (its forward
-    and backward less its forward) and the bound.  Returns the JSON row
-    (the training shape, bf16)."""
+    twin's (tc in bf16, simt in fp32 and at 192/256: 1e-4 and 2e-5).  In
+    bf16 at ``BWD_TIMED`` µs a launch (events) of the tc route beside the
+    CUDA-core kernel (``route="simt"``, held by the same rule),
+    ``scaled_dot_product_attention``'s backward (its forward and
+    backward less its forward) and the bound; at the training shape also
+    the twin and fp32.  Returns the JSON row (the training shape,
+    bf16)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import flash_attention_bwd_ref
     from repro_torch.kernels.flash_attention.kernel import (
-        flash_attention_bwd_cuda, flash_attention_cuda)
+        BWD_PATH_LAUNCHES, bwd_route, flash_attention_bwd_cuda,
+        flash_attention_cuda)
     from repro_torch.kernels.flash_attention.ops import (choose_path,
                                                          padded_dims)
 
@@ -4282,31 +4295,41 @@ def check_flash_bwd(torch, np, cuda):
         for dtype in ("bfloat16", "float32"):
             dt = getattr(torch, dtype)
             q, k, v, dout = _bwd_inputs(torch, cuda, shape, dt, len(label))
+            dims = padded_dims(shape[6], shape[7])
+            route = bwd_route(dt, *dims)
+            before = BWD_PATH_LAUNCHES[route]
             got = _op_grads(q, k, v, dout, causal)
             twin = _twin_grads(q, k, v, dout, causal)
             exact = _twin_grads(*(x.float() for x in (q, k, v, dout)),
                                 causal)
             torch.cuda.synchronize()
-            errs = []
-            for name, g, t, e in zip(("out", "dq", "dk", "dv"), got, twin,
-                                     exact):
-                top = float(e.abs().max())
-                err = float((g.float() - e).abs().max())
-                if dtype == "float32":
-                    ok = err <= 1e-4 * top
-                    errs.append(f"{name} {err:.3e} of {top:.3e}")
-                else:
-                    ref = float((t.float() - e).abs().max())
-                    ok = err <= 2 * ref + 1e-6 * top
-                    errs.append(f"{name} {err:.3e} (twins {ref:.3e}, "
-                                f"{err / max(ref, 1e-30):.3f}x)")
-                if name != "out":
-                    worst = max(worst, float((g.float() - t.float()).abs()
-                                             .max()))
-                if not ok:
-                    raise SystemExit(f"flash_attention_bwd {label} {dtype} "
-                                     f"{name}: {err} from fp32 ({errs[-1]})")
-            dims = padded_dims(shape[6], shape[7])
+            if BWD_PATH_LAUNCHES[route] != before + 1:
+                raise SystemExit(f"flash_attention_bwd {label} {dtype}: "
+                                 f"not on its route {route}")
+
+            def hold(got, what):
+                errs = []
+                for name, g, t, e in zip(("out", "dq", "dk", "dv"), got,
+                                         twin, exact):
+                    top = float(e.abs().max())
+                    err = float((g.float() - e).abs().max())
+                    if dtype == "float32":
+                        ok = err <= 1e-4 * top
+                        errs.append(f"{name} {err:.3e} of {top:.3e}")
+                    else:
+                        ref = float((t.float() - e).abs().max())
+                        ok = err <= 2 * ref + 1e-6 * top
+                        errs.append(f"{name} {err:.3e} (twins {ref:.3e}, "
+                                    f"{err / max(ref, 1e-30):.3f}x)")
+                    if not ok:
+                        raise SystemExit(f"flash_attention_bwd {label} "
+                                         f"{dtype} {what} {name}: {err} "
+                                         f"from fp32 ({errs[-1]})")
+                return errs
+
+            errs = hold(got, route)
+            worst = max([worst] + [float((g.float() - t.float()).abs().max())
+                                   for g, t in zip(got[1:], twin[1:])])
             path = choose_path(dt, *shape[1:3], *shape[4:6], shape[3],
                                dims=dims, grad=True)
             _, lse = flash_attention_cuda(q, k, v, causal, None,
@@ -4317,22 +4340,29 @@ def check_flash_bwd(torch, np, cuda):
             lse_tol = 2e-5 if dtype == "float32" else 1e-4
             log(f"flash_bwd: {label} {dtype} B={shape[1]} Sq={shape[2]} "
                 f"Skv={shape[3]} H={shape[4]} KV={shape[5]} Dk={shape[6]} "
-                f"Dv={shape[7]} causal={causal} forward path {path.kind}: "
-                f"against fp32 {'; '.join(errs)}; lse max_abs_err "
-                f"{lse_err!r} (tol {lse_tol})")
+                f"Dv={shape[7]} causal={causal} forward path {path.kind}, "
+                f"backward route {route}: against fp32 {'; '.join(errs)}; "
+                f"lse max_abs_err {lse_err!r} (tol {lse_tol})")
             if not lse_err <= lse_tol:
                 raise SystemExit(f"flash lse {label} {dtype}: {lse_err}")
             if label in ("d192", "d256"):
                 _wide_forward(torch, cuda, shape, dt)
-            if label != "train":
+            timed = label in BWD_TIMED and (dtype == "bfloat16"
+                                             or label == "train")
+            if not timed:
                 continue
             o, lse = flash_attention_cuda(q, k, v, causal, None,
                                           shape[6] ** -0.5, path,
                                           return_lse=True)
-            o_t, lse_t = _lse_twin(q, k, v, causal)
             scale = shape[6] ** -0.5
-            fns = [lambda r: flash_attention_bwd_cuda(q, k, v, o, lse, dout,
-                                                      causal, scale)]
+            routes = [route] + (["simt"] if route == "tc" else [])
+            fns = [lambda r, rt=rt: flash_attention_bwd_cuda(
+                q, k, v, o, lse, dout, causal, scale, route=rt)
+                for rt in routes]
+            if route == "tc":   # the CUDA-core kernel on this call, held too
+                errs = hold((got[0], *fns[1](0)), "simt")
+                log(f"flash_bwd: {label} {dtype}: the simt route on the "
+                    f"same call: against fp32 {'; '.join(errs)}")
             qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True)
                           for x in (q, k, v))
             dot = dout.transpose(1, 2).contiguous()
@@ -4346,31 +4376,41 @@ def check_flash_bwd(torch, np, cuda):
                     sdpa]
             for fn in fns:
                 fn(0)
-            ms, fb_ms, f_ms = time_launches(torch, fns, 40)
+            *route_ms, fb_ms, f_ms = time_launches(
+                torch, fns, 40 if label == "train" else 10)
+            ms = route_ms[0]
             prof = _profile(torch, lambda: [fns[0](0) for _ in range(10)])
             dev = "not measured" if prof is None else ", ".join(
                 f"{name.split('<')[0].split('::')[-1]} "
                 f"{kernel_ms / count * 1e3:.2f}us a launch of {count} seen"
                 for name, (count, kernel_ms) in sorted(prof.items())
                 if "flash_bwd" in name)
-            plain_ms = time_wall(torch, lambda: flash_attention_bwd_ref(
-                q, k, v, o_t, lse_t, dout, causal=causal), 3)
+            plain = ""
+            if label == "train":
+                o_t, lse_t = _lse_twin(q, k, v, causal)
+                plain_ms = time_wall(torch, lambda: flash_attention_bwd_ref(
+                    q, k, v, o_t, lse_t, dout, causal=causal), 3)
+                plain = f"; plain {plain_ms:.3f}ms"
             peak = BF16_FLOPS if dtype == "bfloat16" else F32_FLOPS
             bound, by, flops, nbytes = _bwd_bound(shape, q.element_size(),
                                                   peak)
             lib_ms = fb_ms - f_ms
-            log(f"flash_bwd: {label} {dtype}: {ms * 1e3:.2f}us a launch "
-                f"(device time by kernel, profiler: {dev}), bound "
-                f"{bound * 1e3:.2f}us ({by}: {flops:.3e} FLOP, {nbytes} "
-                f"bytes), {bound / ms:.4f} of it; plain {plain_ms:.3f}ms; "
-                f"scaled_dot_product_attention backward {lib_ms * 1e3:.2f}us "
-                f"(forward + backward {fb_ms * 1e3:.2f}, forward "
-                f"{f_ms * 1e3:.2f})")
-            if dtype == "bfloat16":
+            simt = (f"; the CUDA-core kernel (route simt) "
+                    f"{route_ms[1] * 1e3:.2f}"
+                    f"us, {route_ms[1] / ms:.2f}x" if route == "tc" else "")
+            log(f"flash_bwd: {label} {dtype}: route {route} "
+                f"{ms * 1e3:.2f}us a launch (device time by kernel, "
+                f"profiler: {dev}), bound {bound * 1e3:.2f}us ({by}: "
+                f"{flops:.3e} FLOP, {nbytes} bytes), {bound / ms:.4f} of it"
+                f"{simt}{plain}; scaled_dot_product_attention backward "
+                f"{lib_ms * 1e3:.2f}us (forward + backward "
+                f"{fb_ms * 1e3:.2f}, forward {f_ms * 1e3:.2f}), "
+                f"{ms / lib_ms:.2f}x of it")
+            if dtype == "bfloat16" and label == "train":
                 row = dict(name="flash_attention_bwd", route="cuda",
                            source=BWD_SOURCE, replaces=BWD_REPLACES, ms=ms,
                            plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                           library_ms=lib_ms)
+                           library_ms=lib_ms, simt_ms=route_ms[1])
     row["max_abs_err"] = worst
     return row
 
@@ -4754,15 +4794,19 @@ def _scan_bwd_bound(shape, expf):
 
 
 def check_scan_bwd(torch, np, cuda):
-    """``selective_scan_bwd`` at ``SCAN_BWD_SHAPES`` against its twin
-    (``selective_scan_bwd_ref``) and against autograd of the forward twin,
-    both on the card: every gradient within ``SCAN_BWD_TOL`` of its
-    largest |value|; a second run bit for bit; at the training shape µs a
-    launch (events) beside the twin and the bound.  Returns the JSON
+    """``selective_scan_bwd``, walked back from the checkpoints the forward
+    kernel writes as the training path asks it to, at ``SCAN_BWD_SHAPES``
+    against its twin (``selective_scan_bwd_ref``) and against autograd of
+    the forward twin, both on the card: every gradient within
+    ``SCAN_BWD_TOL`` of its largest |value|; a second run bit for bit; the
+    forward's y and h_last with and without checkpoints bit for bit; at
+    the training shape µs a launch (events) beside the twin and the bound,
+    and the forward with and without checkpoints.  Returns the JSON
     row."""
     from repro_torch.kernels.mamba_scan import (selective_scan_bwd_ref,
                                                 selective_scan_ref)
-    from repro_torch.kernels.mamba_scan.kernel import selective_scan_bwd_cuda
+    from repro_torch.kernels.mamba_scan.kernel import (
+        selective_scan_bwd_cuda, selective_scan_cuda)
 
     expf, _ = _scan_sass()
     names = ("ddelta", "da", "db", "dc", "dx", "dh0")
@@ -4775,12 +4819,18 @@ def check_scan_bwd(torch, np, cuda):
         dy = torch.randn((b, s, di), generator=gen, device=cuda)
         dh = (torch.randn((b, di, ds), generator=gen, device=cuda)
               if with_dh else None)
-        args = (delta, a, bm, cm, x, h0, dy, dh)
+        y, h, ckpt = selective_scan_cuda(delta, a, bm, cm, x, h0, ckpt=True)
+        y_plain, h_plain = selective_scan_cuda(delta, a, bm, cm, x, h0)
+        if not (torch.equal(y, y_plain) and torch.equal(h, h_plain)):
+            raise SystemExit(f"selective_scan {label}: writing checkpoints "
+                             f"moved y or h_last")
+        del y, h, y_plain, h_plain
+        args = (delta, a, bm, cm, x, ckpt, dy, dh)
         got = selective_scan_bwd_cuda(*args)
         again = selective_scan_bwd_cuda(*args)
         same = all(torch.equal(p, q) for p, q in zip(got, again))
         del again
-        twin = selective_scan_bwd_ref(*args)
+        twin = selective_scan_bwd_ref(delta, a, bm, cm, x, h0, dy, dh)
         leaves = [t.clone().requires_grad_(True)
                   for t in (delta, a, bm, cm, x, h0) if t is not None]
         y, h = selective_scan_ref(*leaves[:5], leaves[5] if with_h0 else None)
@@ -4811,17 +4861,23 @@ def check_scan_bwd(torch, np, cuda):
             raise SystemExit(f"selective_scan_bwd {label}: two runs differ")
         del auto
         if label != "train":
-            del got, twin
+            del got, twin, ckpt
             continue
-        ms = time_launches(torch, [lambda r: selective_scan_bwd_cuda(*args)],
-                           10)[0]
+        ms, fwd_ms, fwd_ckpt_ms = time_launches(torch, [
+            lambda r: selective_scan_bwd_cuda(*args),
+            lambda r: selective_scan_cuda(delta, a, bm, cm, x, h0),
+            lambda r: selective_scan_cuda(delta, a, bm, cm, x, h0,
+                                          ckpt=True)], 10)
+        log(f"scan_bwd: {label}: the forward {fwd_ms * 1e3:.2f}us, writing "
+            f"the checkpoints {fwd_ckpt_ms * 1e3:.2f}us (events)")
         prof = _profile(torch, lambda: [selective_scan_bwd_cuda(*args)
                                         for _ in range(3)])
         dev = "not measured" if prof is None else ", ".join(
             f"{re.search(r'selective_scan_bwd_[a-z]+', k).group(0)} "
             f"{t / n * 1e3:.2f}us x{n}"
             for k, (n, t) in sorted(prof.items()) if "selective_scan" in k)
-        plain_ms = time_wall(torch, lambda: selective_scan_bwd_ref(*args), 1)
+        plain_ms = time_wall(torch, lambda: selective_scan_bwd_ref(
+            delta, a, bm, cm, x, h0, dy, dh), 1)
         bound, by, terms = _scan_bwd_bound(shape, expf)
         log(f"scan_bwd: {label}: {ms * 1e3:.2f}us a launch (device time by "
             f"kernel, profiler: {dev}); bound {bound * 1e3:.2f}us ({by}; "
@@ -4831,8 +4887,8 @@ def check_scan_bwd(torch, np, cuda):
         row = dict(name="selective_scan_bwd", route="cuda",
                    source=SCAN_BWD_SOURCE, replaces=SCAN_BWD_REPLACES, ms=ms,
                    plain_ms=plain_ms, bound_ms=bound, bound_by=by,
-                   library_ms=None)
-        del got, twin, args, delta, x, dy
+                   library_ms=None, forward_ckpt_ms=fwd_ckpt_ms - fwd_ms)
+        del got, twin, args, delta, x, dy, ckpt
         torch.cuda.empty_cache()
     row["max_abs_err"] = worst
     return row
@@ -5091,6 +5147,10 @@ def main() -> int:
     # flash_attention counts one launch per call whatever its path, the
     # path counts each kernel
     flash_paths = {"slice 13b (internlm2-1.8b serving)": ("split",)}
+    # a path's flash backward calls all take one route: tc in bf16, simt
+    # in fp32 (the examples' train_lm)
+    bwd_routes = {}
+    bwd_launches = {k: 0 for k in flash_kernel.BWD_PATH_LAUNCHES}
     launches = {k: 0 for k in kernels.LAUNCHES}
     sizes = {"possibility_v": {}, "possibility_weights": {}}
 
@@ -5115,6 +5175,14 @@ def main() -> int:
                 f"{json.dumps(per_path)}")
             missing += [f"flash_attention {p}" for p in flash_paths.get(
                 label, ("split", "combine", "tc")) if per_path[p] <= 0]
+        if "flash_attention_bwd" in needed:
+            by_route = dict(flash_kernel.BWD_PATH_LAUNCHES)
+            log(f"main path {label} flash_attention_bwd calls by route: "
+                f"{json.dumps(by_route)}")
+            if by_route[bwd_routes[label]] != counts["flash_attention_bwd"]:
+                missing.append(f"flash_attention_bwd {bwd_routes[label]}")
+            for k, v in by_route.items():
+                bwd_launches[k] += v
         if missing:
             raise SystemExit(f"kernels never launched on the main path "
                              f"{label}: {missing}")
@@ -5166,6 +5234,7 @@ def main() -> int:
     # launcher preempted and resumed)
     label = "slice 16 (internlm2-1.8b training)"
     flash_paths[label] = ("tc",)
+    bwd_routes[label] = "tc"
     out = {}
     drive_path(label, ("flash_attention", "flash_attention_bwd"),
                lambda: run_train_main(torch, np, cuda, out))
@@ -5178,6 +5247,7 @@ def main() -> int:
     # four example programs
     label = "slice 17a (jamba-1.5-large training)"
     flash_paths[label] = ("tc",)
+    bwd_routes[label] = "tc"
     out = {}
     drive_path(label, ("selective_scan", "selective_scan_bwd",
                        "selective_scan_bwd_reduce", "flash_attention",
@@ -5188,6 +5258,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     label = "slice 17b (the example programs)"
     flash_paths[label] = ("simt", "split")
+    bwd_routes[label] = "simt"
     t0 = time.perf_counter()
     drive_path(label, ("flash_attention", "flash_attention_bwd",
                        "possibility_v", "possibility_weights",
@@ -5216,6 +5287,8 @@ def main() -> int:
         row["launches"] = launches[row["name"]]
         if row["name"] == "selective_scan_bwd":     # its second kernel
             row["reduce_launches"] = launches["selective_scan_bwd_reduce"]
+        if row["name"] == "flash_attention_bwd":
+            row["launches_by_route"] = bwd_launches
         if row["name"] in sizes:
             row["launches_by_size"] = {k: " + ".join(v) for k, v in
                                        sizes[row["name"]].items()}
@@ -5225,8 +5298,11 @@ def main() -> int:
     log(f"total: {time.perf_counter() - t_all:.1f}s")
     # and the possibility pair's launches by size, the scan's decode step
     # (161 of its 168 launches on slice 4), the scan backward's reductions
+    # and the checkpoints' cost to the forward, the flash backward's
+    # CUDA-core kernel (simt) and its launches by route
     extra = ("launches_by_size", "decode_ms", "decode_bound_ms",
-             "reduce_launches")
+             "reduce_launches", "forward_ckpt_ms",
+             "simt_ms", "launches_by_route")
     print(json.dumps({"kernels": [
         {k: r[k] for k in keys + extra if k in r} for r in rows]}))
     print(card_line())

@@ -34,6 +34,7 @@ SOURCES = {"possibility": "possibility.cu",
            "flash_attention_split": "flash_attention_split.cu",
            "flash_attention_tc": "flash_attention_tc.cu",
            "flash_attention_bwd": "flash_attention_bwd.cu",
+           "flash_attention_bwd_tc": "flash_attention_bwd_tc.cu",
            "selective_scan": "selective_scan.cu",
            "selective_scan_bwd": "selective_scan_bwd.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -47,6 +47,10 @@
 // parameter (1 to 16) so the state stays in registers; spare states (Ds
 // not a multiple of 4) hold zeros and are never stored; a ragged Di is
 // masked, and pointers not 16-byte aligned take 4-byte copies and loads.
+// For training, a second instance (CKPT) also stores the state at the
+// start of every kCkptChunk steps, the checkpoints the backward
+// (selective_scan_bwd.cu) walks back from, so that it runs no sweep of
+// its own; serving's instance stores nothing more.
 
 #include <cuda_runtime.h>
 
@@ -57,6 +61,7 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kChunk = 16;      // steps a stage holds
 constexpr int kMinBlocks = 4;   // 16 warps an SM: 128 registers a thread
+constexpr int kCkptChunk = 8;   // the backward's chunk (selective_scan_bwd.cu)
 
 // A row of Ds states as kN float4s.  A staged row of B or C is kPitch
 // floats, the states past Ds zeros.
@@ -161,13 +166,15 @@ struct Args {
   const float* h0;   // null: zeros
   float* y;
   float* h_last;
+  float* ckpt;       // (B, ceil(S / kCkptChunk), Di, Ds); CKPT only
   int s, di;
   bool aligned;      // every pointer on 16 bytes
 };
 
 // S steps, the inputs staged a chunk ahead; one lane a (row, channel)
-// pair.  Grid (Di / kThreads, B).
-template <int DS>
+// pair.  Grid (Di / kThreads, B).  With CKPT, the state before every
+// kCkptChunk-th step goes to g.ckpt.
+template <int DS, bool CKPT>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
     selective_scan_staged(const Args g) {
   constexpr int NV = Quads<DS>::kN, P = Quads<DS>::kPitch;
@@ -255,6 +262,15 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
       stage(buf ^ 1, t0 + kChunk, min(kChunk, s - t0 - kChunk));
 #pragma unroll 4
     for (int t = 0; t < len; ++t) {
+      if constexpr (CKPT) {
+        if ((t0 + t) % kCkptChunk == 0 && live) {
+          const int chunks = (s + kCkptChunk - 1) / kCkptChunk;
+          float* ck = g.ckpt + (((size_t)row * chunks + (t0 + t) / kCkptChunk)
+                                * di + d) * DS;
+#pragma unroll
+          for (int v = 0; v < NV; ++v) store_quad<DS>(ck, v, h[v], g.aligned);
+        }
+      }
       const float dl = sdl[buf][t][tid];
       const float dx = dl * sx[buf][t][tid];
       sy[t][tid] = step<NV>(h, av,
@@ -286,7 +302,10 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
 template <int DS>
 int launch(const Args& g, int b, cudaStream_t st) {
   dim3 grid((g.di + kThreads - 1) / kThreads, b);
-  selective_scan_staged<DS><<<grid, kThreads, 0, st>>>(g);
+  if (g.ckpt)
+    selective_scan_staged<DS, true><<<grid, kThreads, 0, st>>>(g);
+  else
+    selective_scan_staged<DS, false><<<grid, kThreads, 0, st>>>(g);
   return (int)cudaGetLastError();
 }
 
@@ -294,16 +313,21 @@ bool on16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 }  // namespace
 
+// ckpt: null, or (B, ceil(S / 8), Di, Ds) float32 for the state at the
+// start of every 8 steps (the backward's checkpoints).
+extern "C" int selective_scan_ckpt_chunk() { return kCkptChunk; }
+
 extern "C" int selective_scan_launch(const float* delta, const float* a,
                                      const float* bm, const float* cm,
                                      const float* x, const float* h0,
-                                     float* y, float* h_last, int b, int s,
-                                     int di, int ds, void* stream) {
+                                     float* y, float* h_last, float* ckpt,
+                                     int b, int s, int di, int ds,
+                                     void* stream) {
   if (b <= 0 || s <= 0 || di <= 0 || b > 65535)
     return (int)cudaErrorInvalidValue;
-  const Args g{delta, a, bm, cm, x, h0, y, h_last, s, di,
+  const Args g{delta, a, bm, cm, x, h0, y, h_last, ckpt, s, di,
                on16(delta) && on16(a) && on16(bm) && on16(cm) && on16(x) &&
-                   on16(h0) && on16(y) && on16(h_last)};
+                   on16(h0) && on16(y) && on16(h_last) && on16(ckpt)};
   cudaStream_t st = (cudaStream_t)stream;
   switch (ds) {
 #define CASE(N) \

@@ -28,7 +28,10 @@ unbuilt pairs pay the copy.
 Training: when grad mode is on and an input requires grad, the op runs
 through :class:`FlashAttention`, whose forward also returns each row's
 log-sum-exp (the tc kernel in bf16, simt in fp32 or above 128, whatever
-the row count) and whose backward is ``csrc/flash_attention_bwd.cu``; on
+the row count) and whose backward is one of two kernels, chosen by
+:func:`.kernel.bwd_route`: ``csrc/flash_attention_bwd_tc.cu`` (bf16 up
+to 128, the tensor cores) or ``csrc/flash_attention_bwd.cu`` (fp32, and
+192 and 256: the CUDA cores); on
 the CPU the two twins (:func:`flash_attention_ref` with ``return_lse``,
 :func:`flash_attention_bwd_ref`).  Padding and its cut are plain torch
 ops, so autograd carries the gradient through them.  Otherwise every
@@ -44,16 +47,10 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from .kernel import flash_attention_bwd_cuda, flash_attention_cuda
+from .kernel import (HEAD_DIMS, KERNEL_DTYPES, TILED_MAX_HEAD_DIM,
+                     flash_attention_bwd_cuda, flash_attention_cuda)
 from .ref import flash_attention_bwd_ref, flash_attention_ref
 
-KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-# the (Dk, Dv) pairs the kernels are built for: Dv = Dk at every multiple
-# of 16 up to 128, and MLA's (96, 64) (minicpm3: 64 + 32 rope dims, V 64),
-# on every path; (192, 192) and (256, 256) on the CUDA-core kernel alone
-HEAD_DIMS = (tuple((d, d) for d in range(16, 129, 16)) + ((96, 64),)
-             + ((192, 192), (256, 256)))
-TILED_MAX_HEAD_DIM = 128  # the widest pair of the split and tc kernels
 MAX_HEAD_DIM = 256      # the widest built tile, for Dk and Dv alike
 SPLIT_MAX_ROWS = 64     # packed query rows a split block holds
 SPLIT_TILE = 64         # keys a split block loads at a time

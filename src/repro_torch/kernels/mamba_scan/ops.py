@@ -6,7 +6,8 @@ take the same inputs: float32, contiguous, shapes as below; anything
 else raises on either device.
 
 Training: when grad mode is on and an input requires grad, the op runs
-through :class:`SelectiveScan`, whose backward is
+through :class:`SelectiveScan`, whose forward on the card also writes
+the backward's checkpoints and whose backward is
 ``csrc/selective_scan_bwd.cu`` on the card and
 :func:`selective_scan_bwd_ref` on the CPU.  Otherwise it launches
 exactly what it launches for serving.
@@ -53,24 +54,33 @@ class SelectiveScan(torch.autograd.Function):
     """The scan with its backward: ``apply(delta, a, b, c, x, h0,
     kernel)``.  With ``kernel`` (inputs on the card, already checked) the
     forward and backward kernels; without it the twins, on any device.
-    Saves the forward's inputs: the backward recomputes the states."""
+    Saves the forward's inputs, and on the card the forward kernel's
+    checkpoints (the state before every 8th step, 268 MB at Jamba's
+    training call): the backward recomputes the states from them."""
 
     @staticmethod
     def forward(ctx, delta, a, b, c, x, h0, kernel):
-        fwd = selective_scan_cuda if kernel else selective_scan_ref
-        y, h_last = fwd(delta, a, b, c, x, h0)
-        ctx.save_for_backward(delta, a, b, c, x, h0)
+        if kernel:
+            y, h_last, ckpt = selective_scan_cuda(delta, a, b, c, x, h0,
+                                                  ckpt=True)
+        else:
+            (y, h_last), ckpt = selective_scan_ref(delta, a, b, c, x, h0), None
+        ctx.save_for_backward(delta, a, b, c, x, h0, ckpt)
         ctx.kernel = kernel
         return y, h_last
 
     @staticmethod
     def backward(ctx, dy, dh_last):
-        delta, a, b, c, x, h0 = ctx.saved_tensors
+        delta, a, b, c, x, h0, ckpt = ctx.saved_tensors
         dy = torch.zeros_like(x) if dy is None else dy.contiguous()
         if dh_last is not None:
             dh_last = dh_last.contiguous()
-        bwd = selective_scan_bwd_cuda if ctx.kernel else selective_scan_bwd_ref
-        ddelta, da, db, dc, dx, dh0 = bwd(delta, a, b, c, x, h0, dy, dh_last)
+        if ctx.kernel:
+            grads = selective_scan_bwd_cuda(delta, a, b, c, x, ckpt, dy,
+                                            dh_last)
+        else:
+            grads = selective_scan_bwd_ref(delta, a, b, c, x, h0, dy, dh_last)
+        ddelta, da, db, dc, dx, dh0 = grads
         return ddelta, da, db, dc, dx, (None if h0 is None else dh0), None
 
 

@@ -24,6 +24,8 @@ from repro_torch.kernels.flash_attention import (FlashAttention,
                                                  flash_attention,
                                                  flash_attention_bwd_ref,
                                                  flash_attention_ref)
+from repro_torch.kernels.flash_attention.kernel import (
+    BWD_PATH_LAUNCHES, bwd_route, bwd_tc_splits, flash_attention_bwd_cuda)
 from repro_torch.kernels.flash_attention.ops import (
     HEAD_DIMS, MAX_HEAD_DIM, Path, choose_path, padded_dims)
 
@@ -164,3 +166,70 @@ def test_path_with_a_gradient_and_above_128():
 def test_wide_head_dims_pad_to_192_or_256(dims, want):
     assert MAX_HEAD_DIM == 256
     assert padded_dims(*dims) == want and want in HEAD_DIMS
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("dims", HEAD_DIMS, ids=lambda p: f"{p[0]}_{p[1]}")
+def test_backward_route_at_every_built_pair(dims, dtype):
+    """bf16 up to 128 takes the tensor-core backward, fp32 and the wide
+    pairs the CUDA-core one."""
+    dt = getattr(torch, dtype)
+    want = "tc" if dt == torch.bfloat16 and max(dims) <= 128 else "simt"
+    assert bwd_route(dt, *dims) == want
+
+
+# name: (dtype, (Dk, Dv), route, the error it raises); every call on CPU
+# tensors, which the last case's route would otherwise take
+REFUSED = {
+    "float16": ("float16", (64, 64), None, TypeError),
+    "unbuilt_pair": ("bfloat16", (100, 100), None, ValueError),
+    "dv_above_a_built_pair": ("bfloat16", (128, 64), None, ValueError),
+    "tc_in_fp32": ("float32", (64, 64), "tc", ValueError),
+    "tc_above_128": ("bfloat16", (192, 192), "tc", ValueError),
+    "no_such_route": ("bfloat16", (64, 64), "wgmma", ValueError),
+    "cpu_tensors": ("bfloat16", (64, 64), "tc", ValueError),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSED))
+def test_backward_wrapper_refuses_what_no_route_takes(case):
+    """The backward's binding raises, before any launch, on a dtype, a
+    head-dim pair or a route that no kernel takes, and on tensors off the
+    card; no launch is counted."""
+    dtype, (dk, dv), route, err = REFUSED[case]
+    dt = getattr(torch, dtype)
+    q, k, v, dout = (torch.as_tensor(x).to(dt) for x in _arrays(
+        1, 8, 8, 2, 2, dk, dv, seed=9))
+    o = torch.zeros_like(dout)
+    lse = torch.zeros((1, 8, 2, 1), dtype=torch.float32)
+    before = dict(BWD_PATH_LAUNCHES), dict(kernels.LAUNCHES)
+    with pytest.raises(err):
+        flash_attention_bwd_cuda(q, k, v, o, lse, dout, True,
+                                 dk ** -0.5, route=route)
+    assert (dict(BWD_PATH_LAUNCHES), dict(kernels.LAUNCHES)) == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cpu_autograd_takes_no_backward_route(dtype):
+    """Differentiated on CPU tensors, the op runs the twins: neither
+    backward route counts a call."""
+    b, sq, skv, h, kv, dk, dv, causal, chunk = CASES["gqa_causal"]
+    q, k, v, dout = (torch.as_tensor(x).to(getattr(torch, dtype))
+                     for x in _arrays(b, sq, skv, h, kv, dk, dv, seed=4))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    before = dict(BWD_PATH_LAUNCHES)
+    flash_attention(*leaves, causal=causal, q_chunk=chunk,
+                    kv_chunk=chunk).backward(dout)
+    assert BWD_PATH_LAUNCHES == before
+    assert all(x.grad is not None for x in leaves)
+
+
+@pytest.mark.parametrize("shape,want", [
+    ((128, 16, 8), 1),      # internlm2's training call: a short walk
+    ((1024, 64, 8), 2),     # Jamba's: 16 query tiles x 8 heads
+    ((2048, 16, 8), 2),     # a 2 048-token sequence, GQA 16/8
+    ((128, 8, 8), 1),       # whisper's MHA: G 1
+    ((77, 16, 2), 2),       # 2 tiles x 8 heads
+    ((2048, 12, 4), 1)])    # G 3: odd
+def test_tc_backward_splits_the_heads_of_long_walks(shape, want):
+    assert bwd_tc_splits(*shape) == want

@@ -1390,6 +1390,101 @@ def test_flash_backward_two_runs_give_the_same_bits(cuda):
     assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
+# the tensor-core backward's (Dk, Dv) pairs; ragged shapes (no length a
+# tile multiple): (B, Sq, Skv, causal) — square causal and full, a query
+# block shorter than the keys, full (cross-attention) and causal (the
+# diagonal aligned at the end)
+TC_BWD_DIMS = tuple((d, d) for d in range(16, 129, 16)) + ((96, 64),)
+TC_BWD_SHAPES = ((2, 77, 77, True), (2, 45, 130, False), (1, 40, 100, True),
+                 (1, 70, 70, False))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dims", TC_BWD_DIMS, ids=lambda p: f"{p[0]}_{p[1]}")
+def test_flash_backward_tc_every_pair_vs_twins(cuda, dims):
+    """The tensor-core backward (bf16, ``route="tc"``, through the op's
+    autograd) at every (Dk, Dv) pair it is built for, causal and full,
+    GQA 1, 2 and 8, ragged Sq and Skv, against the twins by
+    ``_hold_grads``' ratio rule; one tc launch a call."""
+    from repro_torch.kernels.flash_attention.kernel import BWD_PATH_LAUNCHES
+
+    dk, dv = dims
+    for b, sq, skv, causal in TC_BWD_SHAPES:
+        for g in (1, 2, 8):
+            shape = (b, sq, skv, 2 * g, 2, dk, dv, causal)
+            q, k, v, dout = (x.to(torch.bfloat16) for x in _bwd_case(
+                shape, seed=sq + g))
+            before = dict(BWD_PATH_LAUNCHES)
+            got = _op_grads(*(x.to(cuda) for x in (q, k, v, dout)), causal)
+            torch.cuda.synchronize()
+            assert BWD_PATH_LAUNCHES == {"tc": before["tc"] + 1,
+                                         "simt": before["simt"]}
+            twin = _twin_grads(*(x.to(cuda) for x in (q, k, v, dout)), causal)
+            exact = _twin_grads(*(x.float().to(cuda)
+                                  for x in (q, k, v, dout)), causal)
+            _hold_grads(got, twin, exact, f"{dims} {shape}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", ["tc", "simt"])
+def test_flash_backward_routes_at_one_shape(cuda, route):
+    """``flash_attention_bwd_cuda(route=...)`` runs either kernel on the
+    same bf16 call (internlm2's training shape and MLA's pair), each
+    within the ratio rule of the twins, each giving the same bits twice;
+    the tc route refuses fp32."""
+    from repro_torch.kernels.flash_attention import flash_attention_ref
+    from repro_torch.kernels.flash_attention.kernel import (
+        BWD_PATH_LAUNCHES, flash_attention_bwd_cuda)
+
+    for shape in (BWD_CASES["internlm2_train"], BWD_CASES["dk96_dv64"]):
+        causal = shape[-1]
+        q, k, v, dout = (x.to(torch.bfloat16).to(cuda)
+                         for x in _bwd_case(shape, seed=7))
+        o, lse = (x.contiguous() for x in flash_attention_ref(
+            q, k, v, causal=causal, return_lse=True))
+        scale = shape[5] ** -0.5
+        before = BWD_PATH_LAUNCHES[route]
+        got = flash_attention_bwd_cuda(q, k, v, o, lse, dout, causal, scale,
+                                       route=route)
+        again = flash_attention_bwd_cuda(q, k, v, o, lse, dout, causal,
+                                         scale, route=route)
+        torch.cuda.synchronize()
+        assert BWD_PATH_LAUNCHES[route] == before + 2
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+        twin = _twin_grads(q, k, v, dout, causal)
+        exact = _twin_grads(*(x.float() for x in (q, k, v, dout)), causal)
+        _hold_grads((twin[0], *got), twin, exact, f"{route} {shape}")
+        if route == "tc":
+            with pytest.raises(ValueError, match="route 'tc'"):
+                flash_attention_bwd_cuda(q.float(), k.float(), v.float(),
+                                         o.float(), lse, dout.float(),
+                                         causal, scale, route="tc")
+
+
+@pytest.mark.gpu
+def test_bf16_train_step_backward_goes_through_tc(cuda):
+    """A bf16 training step of internlm2's smoke config: every attention
+    call's backward on the tensor-core route."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention.kernel import BWD_PATH_LAUNCHES
+    from repro_torch.launch.train import make_batch
+    from repro_torch.train.data import DataConfig, SyntheticLM
+    from repro_torch.train.optimizer import OptConfig
+    from repro_torch.train.train_step import init_train_state, value_and_grads
+
+    cfg = get_arch("internlm2-1.8b").smoke.replace(dtype="bfloat16")
+    state = init_train_state(cfg, OptConfig(peak_lr=1e-2, warmup_steps=0),
+                             seed=0, device=cuda)
+    batch = make_batch(cfg, SyntheticLM(DataConfig(
+        vocab=cfg.vocab, seq_len=32, global_batch=4)).get_batch(0), cuda)
+    before = dict(BWD_PATH_LAUNCHES)
+    loss, _, grads = value_and_grads(cfg, state["params"], batch)
+    assert BWD_PATH_LAUNCHES == {"tc": before["tc"] + cfg.n_layers,
+                                 "simt": before["simt"]}
+    assert np.isfinite(float(loss))
+    assert all(torch.isfinite(g).all() for g in grads.values())
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("arch", ["internlm2-1.8b", "whisper-base"])
 def test_smoke_train_step_on_the_card_vs_twins(cuda, arch, monkeypatch):
@@ -1496,17 +1591,53 @@ def test_selective_scan_backward_kernel_vs_twin(cuda, case):
         assert float((g - w).abs().max()) <= 1e-4 * max(top, 1e-30), name
 
 
+def _scan_bwd_kernel(args, dy, dh):
+    """The backward kernel on the card as the training path calls it:
+    from the checkpoints the forward kernel writes."""
+    from repro_torch.kernels.mamba_scan.kernel import (
+        selective_scan_bwd_cuda, selective_scan_cuda)
+
+    _, _, ckpt = selective_scan_cuda(*args, ckpt=True)
+    return selective_scan_bwd_cuda(*args[:5], ckpt, dy, dh)
+
+
 @pytest.mark.gpu
 def test_selective_scan_backward_two_runs_give_the_same_bits(cuda):
     """No atomics, the partials summed in a fixed order: the same call
     twice, equal bit for bit."""
-    from repro_torch.kernels.mamba_scan.kernel import selective_scan_bwd_cuda
-
     host, dy, dh = _scan_bwd_case(*SCAN_BWD_CASES["chunks"], seed=3)
     args = [t.to(cuda) for t in host]
-    a = selective_scan_bwd_cuda(*args, dy.to(cuda), dh.to(cuda))
-    b = selective_scan_bwd_cuda(*args, dy.to(cuda), dh.to(cuda))
+    a = _scan_bwd_kernel(args, dy.to(cuda), dh.to(cuda))
+    b = _scan_bwd_kernel(args, dy.to(cuda), dh.to(cuda))
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["chunks", "ragged_di_s", "ds5", "ds1",
+                                  "one_step"])
+def test_selective_scan_forward_writes_the_backwards_checkpoints(cuda, case):
+    """The forward kernel asked for checkpoints gives y and h_last bit for
+    bit as without, and checkpoint k is the state before step 8 k: h0
+    (zeros without one), then the last state of the forward over the
+    first 8 k steps, bit for bit."""
+    from repro_torch.kernels.mamba_scan.kernel import selective_scan_cuda
+
+    host, _, _ = _scan_bwd_case(*SCAN_BWD_CASES[case], seed=5)
+    args = [None if t is None else t.to(cuda) for t in host]
+    y, h = selective_scan_cuda(*args)
+    y2, h2, ckpt = selective_scan_cuda(*args, ckpt=True)
+    assert torch.equal(y, y2) and torch.equal(h, h2)
+    b, s, di, ds = SCAN_BWD_CASES[case][:4]
+    assert ckpt.shape == (b, -(-s // 8), di, ds)
+    h0 = args[5]
+    assert torch.equal(ckpt[:, 0], torch.zeros_like(h) if h0 is None else h0)
+    delta, a, bm, cm, x = args[:5]
+    for k in range(1, ckpt.shape[1]):
+        t = 8 * k
+        _, upto = selective_scan_cuda(
+            delta[:, :t].contiguous(), a, bm[:, :t].contiguous(),
+            cm[:, :t].contiguous(), x[:, :t].contiguous(), h0)
+        assert torch.equal(ckpt[:, k], upto), k
 
 
 @pytest.mark.gpu

@@ -22,6 +22,7 @@ from repro_torch import kernels
 from repro_torch.kernels.mamba_scan import (SelectiveScan, selective_scan,
                                             selective_scan_bwd_ref,
                                             selective_scan_ref)
+from repro_torch.kernels.mamba_scan.kernel import bwd_scratch_shapes
 
 pytestmark = pytest.mark.usefixtures("torch_one_thread")
 
@@ -172,3 +173,24 @@ def test_selective_scan_rejects_what_it_does_not_take():
         selective_scan(*args, h0=inp["h0"][:, :, :2])
     with pytest.raises(ValueError):      # a device the op has no path for
         selective_scan(*(a.detach().to("meta") for a in args))
+
+
+# (B, S, Di, Ds): the training call, ragged Di and S, Ds 5 and 1
+SCRATCH = {"train": (2, 1024, 16384, 16), "ragged": (2, 37, 100, 16),
+           "ds5": (1, 29, 130, 5), "ds1": (3, 9, 33, 1)}
+
+
+@pytest.mark.parametrize("case", sorted(SCRATCH))
+def test_backward_scratch_shapes(case):
+    """The scratch the backward's binding allocates: a block of 64
+    channels' 32 dB/dC terms a (row, step), one dA a (row, channel,
+    state); with the forward's checkpoints (a state every 8 steps) under
+    a few hundred MB at Jamba's call."""
+    b, s, di, ds = SCRATCH[case]
+    got = bwd_scratch_shapes(b, s, di, ds, block=64, terms=32)
+    assert got == {"part_bc": (-(-di // 64), b, s, 32),
+                   "part_a": (b, di, ds)}
+    if case == "train":
+        ckpt = b * -(-s // 8) * di * ds
+        assert 4 * (sum(np.prod(v) for v in got.values()) + ckpt) < 400e6
+
