@@ -227,6 +227,22 @@ freed their weights):
               smoke config
               preempted by SIGTERM after step 3 and resumed, equal to an
               uninterrupted run bit for bit;
+Main path of slice 19 (launch counts from 0 in each rank's process,
+summed):
+25b. train_mesh — the same training through the launcher's ``prepare``
+              and ``run`` on a ``1x2`` (4 steps) and a ``2x1`` mesh (3
+              steps): two ranks on this one card, each a process of its
+              own, over a gloo group the phase brings up (the kernels
+              built first); ``1x2``'s losses and grad norms equal the
+              ``train`` phase's bit for bit, ``2x1``'s within 1e-4 of
+              its losses and 1e-3 of its grad norms, relative (tighter
+              than the phase's own 2e-3 / 2e-2; the rank's shape, B 4,
+              is one of ``flash_bwd``'s); each rank's parameter and
+              moment bytes after init equal to ``sharding.specs``'
+              prediction (the allocator's requested bytes), its tc
+              forward and backward launches (2 and 1 a layer a step), and
+              the step in gather, forward and backward, gradient reduce
+              and update;
 Main paths of slice 17 (launch counts from 0 before each):
 26. train_hybrid — jamba-1.5-large-398b at its published widths, one
               super-block (7 Mamba + 1 attention layer), no experts,
@@ -268,6 +284,11 @@ Main paths of slice 17 (launch counts from 0 before each):
               event-timed time per launch, the plain version's time and
               the bound, as one JSON line; then the card line and the
               result.
+
+    python3 chip_smoke.py --train-mesh
+
+runs the ``train`` phase's main path (its steps are what the mesh is
+held against) and then the ``train_mesh`` phase alone.
 
     python3 chip_smoke.py --serve-wall [--src DIR] [--rounds N]
 
@@ -4127,11 +4148,12 @@ TRAIN_B, TRAIN_S = 8, 128     # the launcher's default batch
 BWD_SOURCE = "src/repro_torch/kernels/csrc/flash_attention_bwd_tc.cu"
 BWD_REPLACES = "src/repro/models/layers/attention.py:151-236"
 # (label, B, Sq, Skv, H, KV, Dk, Dv, causal): the training step's shape,
-# Jamba's training call, a 2 048-token sequence, whisper's
-# cross-attention, MLA's pair, and the wide head dims, which run on the
-# CUDA-core kernels alone; bf16 at the first three is timed on both
-# routes
+# a 2x1 mesh rank's (4 of its 8 rows), Jamba's training call, a 2 048-
+# token sequence, whisper's cross-attention, MLA's pair, and the wide
+# head dims, which run on the CUDA-core kernels alone; bf16 at "train",
+# "jamba" and "long" is timed on both routes
 BWD_SHAPES = (("train", 8, 128, 128, 16, 8, 128, 128, True),
+              ("mesh 2x1", 4, 128, 128, 16, 8, 128, 128, True),
               ("jamba", 2, 1024, 1024, 64, 8, 128, 128, True),
               ("long", 1, 2048, 2048, 16, 8, 128, 128, True),
               ("whisper cross", 8, 128, 1500, 8, 8, 64, 64, False),
@@ -4732,6 +4754,228 @@ def run_train_checks(torch, np, cuda, main):
 
 
 # --------------------------------------------------------------------- #
+# slice 19: internlm2-1.8b trained on a (data, model) mesh, two ranks
+# --------------------------------------------------------------------- #
+# each mesh's steps (the schedule's warmup, 10 steps, does not read
+# --steps, so their learning rates are the train phase's): 1x2 must
+# equal the train phase bit for bit, 2x1 within MESH_*_RTOL (3 steps: its
+# gradient all-reduce, 7.56 GB through gloo, takes ~12 s a step)
+MESH_STEPS = {"1x2": 4, "2x1": 3}
+MESH_PHASES = ("gather", "forward_backward", "reduce", "update")
+# 2x1 against the train phase, relative: on an H100 its steps part from
+# train's by at most 9.757e-6 of the loss and 7.83e-5 of the gradient
+# norm (its ranks' B 4 kernels sum in another order); a rank that
+# trained on its own rows alone, or left its gradient unsummed, would
+# part by far more
+MESH_LOSS_RTOL = 1e-4
+MESH_GNORM_RTOL = 1e-3
+
+
+def mesh_argv(mesh: str) -> list[str]:
+    """The launcher's command of the mesh phase: the train phase's model,
+    batch (8 x 128 tokens), schedule and fp32 moments, no checkpoint."""
+    return ["--arch", TRAIN_ARCH, "--mesh", mesh, "--steps",
+            str(MESH_STEPS[mesh]), "--seq", str(TRAIN_S), "--global-batch",
+            str(TRAIN_B), "--ckpt-every", "0", "--device", "cuda"]
+
+
+def mesh_rank(rank: int, port: int, mesh: str, out: str) -> None:
+    """One rank of the mesh phase, in a process of its own: a gloo group
+    of two ranks on ``cuda:0`` (NCCL takes one rank a card), then the
+    launcher's ``prepare`` and ``run`` as ``main`` runs them, the launch
+    counts set to 0 just before the steps; writes the rank's record to
+    ``out``."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.launch import train as launch
+
+    os.environ["LOCAL_RANK"] = "0"
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=2, rank=rank)
+    try:
+        args = launch.parse_args(mesh_argv(mesh))
+        torch.cuda.synchronize()
+        m0 = torch.cuda.memory_allocated()
+        q0 = torch.cuda.memory_stats()["requested_bytes.all.current"]
+        t0 = time.perf_counter()
+        r = launch.prepare(args, timed=True)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        m1 = torch.cuda.memory_allocated()
+        q1 = torch.cuda.memory_stats()["requested_bytes.all.current"]
+        rows = []
+
+        def on_step(step, metrics, seconds):
+            rows.append({"loss": float(metrics["loss"]),
+                         "grad_norm": float(metrics["grad_norm"]),
+                         "s": seconds, "phase_s": metrics["phase_s"]})
+
+        torch.cuda.reset_peak_memory_stats()
+        kernels.reset_launches()
+        fk.reset_path_launches()
+        launch.run(r, on_step)
+        rec = {"rank": rank, "mesh": mesh, "rows": rows, "init_s": init_s,
+               "state_delta": m1 - m0, "requested_delta": q1 - q0,
+               "state_bytes": r.sharded.state_bytes(r.state),
+               "predicted": r.sharded.predicted_bytes(),
+               "peak": torch.cuda.max_memory_allocated(),
+               "launches": dict(kernels.LAUNCHES),
+               "path_launches": dict(fk.PATH_LAUNCHES),
+               "bwd_path_launches": dict(fk.BWD_PATH_LAUNCHES)}
+        with open(out, "w") as f:
+            json.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _run_ranks(mesh: str, tmp: str, timeout: float = 600) -> list[dict]:
+    """Both ranks of ``mesh`` (``mesh_rank``), started together; every
+    process is waited for or killed; a rank that fails raises."""
+    port = _free_port()
+    outs = [os.path.join(tmp, f"{mesh}-{r}.json") for r in range(2)]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", f"import chip_smoke as cs; cs.mesh_rank("
+         f"{r}, {port}, {mesh!r}, {outs[r]!r})"], cwd=HERE)
+        for r in range(2)]
+    try:
+        rcs = [p.wait(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(rcs):
+        raise SystemExit(f"train mesh {mesh}: ranks exited {rcs}")
+    return [json.load(open(o)) for o in outs]
+
+
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def run_train_mesh(torch, cuda, train_rows) -> dict:
+    """Slice 19's main path: internlm2-1.8b at its published widths and
+    depth trained by the launcher on a ``1x2`` and a ``2x1`` mesh, two
+    ranks on this one card over gloo (the kernels built here first, so
+    no two ranks build at once).  ``1x2``: every rank's losses and grad
+    norms equal the train phase's first 4 bit for bit (each
+    rank sees the whole batch; the gathers are exact and nothing is
+    summed); ``2x1`` (4 of the 8 rows a rank, the gradients summed over
+    the two): within ``MESH_LOSS_RTOL`` / ``MESH_GNORM_RTOL`` of them,
+    relative (its kernels' B 4 shape is held in ``check_flash_bwd``).
+    Each rank's parameter and moment bytes after init against
+    ``sharding.specs``' prediction (the caching allocator's requested
+    bytes, whose delta is the state's exact size; ``memory_allocated``'s
+    delta, in the allocator's blocks, printed beside); each rank's tc
+    forward and backward launches; the step split into gather, forward
+    and backward, gradient reduce and update.  Returns the ranks' launch
+    counts, summed, for ``drive_path``."""
+    import tempfile
+
+    from repro_torch.kernels import build
+    from repro_torch.configs import get_arch
+
+    build.build()
+    cfg = get_arch(TRAIN_ARCH).full
+    total = {"launches": {}, "path_launches": {}, "bwd_path_launches": {}}
+    train_ms = _median([r[2] for r in train_rows[1:]]) * 1e3
+    t_phase = time.perf_counter()
+    fails = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for mesh, steps in MESH_STEPS.items():
+            want_fwd = 2 * cfg.n_layers * steps
+            t0 = time.perf_counter()
+            recs = _run_ranks(mesh, tmp)
+            wall = time.perf_counter() - t0
+            for rec in recs:
+                for key in total:
+                    for k, v in rec[key].items():
+                        total[key][k] = total[key].get(k, 0) + v
+                lab = f"train mesh {mesh} rank {rec['rank']}"
+                fwd = rec["launches"]["flash_attention"]
+                bwd = rec["launches"]["flash_attention_bwd"]
+                tc = rec["path_launches"]["tc"]
+                btc = rec["bwd_path_launches"]["tc"]
+                log(f"{lab}: flash forward launches {fwd} (all tc, {tc}), "
+                    f"backward launches {bwd} (tc {btc}); expected "
+                    f"{want_fwd} and {want_fwd // 2}")
+                if (fwd, tc, bwd, btc) != (want_fwd, want_fwd,
+                                           want_fwd // 2, want_fwd // 2):
+                    fails.append(f"{lab}: launches")
+                log(f"{lab}: parameter and moment bytes after init "
+                    f"{rec['requested_delta']} (the allocator's requested "
+                    f"bytes, delta) against {rec['predicted']} predicted by "
+                    f"sharding.specs (the state's tensors hold "
+                    f"{rec['state_bytes']}; memory_allocated's delta "
+                    f"{rec['state_delta']}, in the allocator's blocks); init "
+                    f"{rec['init_s']:.2f}s; peak device memory "
+                    f"{rec['peak'] / 2**30:.2f} GiB")
+                if not (rec["requested_delta"] == rec["predicted"]
+                        == rec["state_bytes"]):
+                    fails.append(f"{lab}: state bytes")
+                rows = rec["rows"]
+                for i, (row, ref) in enumerate(zip(rows, train_rows)):
+                    log(f"{lab}: step {i} loss {row['loss']!r} grad_norm "
+                        f"{row['grad_norm']!r} (train phase {ref[0]!r}, "
+                        f"{ref[1]!r}) {row['s'] * 1e3:.2f}ms: " + ", ".join(
+                            f"{k} {row['phase_s'][k] * 1e3:.2f}ms"
+                            for k in MESH_PHASES))
+                if len(rows) != steps:
+                    fails.append(f"{lab}: {len(rows)} steps")
+                if mesh == "1x2":
+                    same = all(row["loss"] == ref[0]
+                               and row["grad_norm"] == ref[1]
+                               for row, ref in zip(rows, train_rows))
+                    if not same:
+                        fails.append(f"{lab}: not bit for bit the train "
+                                     f"phase's steps")
+                else:
+                    loss_rel = max(_rel(row["loss"], ref[0])
+                                   for row, ref in zip(rows, train_rows))
+                    gnorm_rel = max(_rel(row["grad_norm"], ref[1])
+                                    for row, ref in zip(rows, train_rows))
+                    log(f"{lab}: largest distance from the train phase, "
+                        f"relative: loss {loss_rel:.3e} (limit "
+                        f"{MESH_LOSS_RTOL}), grad norm {gnorm_rel:.3e} "
+                        f"(limit {MESH_GNORM_RTOL})")
+                    if not (loss_rel <= MESH_LOSS_RTOL
+                            and gnorm_rel <= MESH_GNORM_RTOL):
+                        fails.append(f"{lab}: outside the 2x1 rule")
+            if [r["loss"] for r in recs[0]["rows"]] != \
+                    [r["loss"] for r in recs[1]["rows"]]:
+                fails.append(f"train mesh {mesh}: the ranks' losses differ")
+            med = {k: _median([row["phase_s"][k] for rec in recs
+                               for row in rec["rows"][1:]]) * 1e3
+                   for k in MESH_PHASES}
+            step = _median([row["s"] for rec in recs
+                            for row in rec["rows"][1:]]) * 1e3
+            log(f"train mesh {mesh}: {cfg.name} at published widths, "
+                f"{steps} steps of {TRAIN_B} x {TRAIN_S} tokens, two "
+                f"ranks on one card over gloo; warm step median "
+                f"{step:.2f}ms (" + ", ".join(f"{k} {v:.2f}ms" for k, v in
+                                             med.items())
+                + f") against the train phase's {train_ms:.2f}ms; "
+                f"{wall:.1f}s with the ranks' start")
+    log(f"train mesh: {card_line()}; phase "
+        f"{time.perf_counter() - t_phase:.1f}s")
+    if fails:
+        raise SystemExit("; ".join(fails))
+    return total
+
+
+# --------------------------------------------------------------------- #
 # slice 17: Jamba trained on the card, the scan's backward; the examples
 # --------------------------------------------------------------------- #
 HYBRID_STEPS = 6
@@ -5157,8 +5401,12 @@ def main() -> int:
     def drive_path(label, needed, drive):
         kernels.reset_launches()
         flash_kernel.reset_path_launches()
-        drive()
+        res = drive()
         counts = dict(kernels.LAUNCHES)
+        # a path run in processes of its own returns their counts
+        ranks = res if isinstance(res, dict) and "launches" in res else {}
+        for k, v in ranks.get("launches", {}).items():
+            counts[k] += v
         log(f"main path {label} launches: {json.dumps(counts)}")
         by_size = {}
         for (name, n, c), k in sorted(kernels.LAUNCH_SIZES.items()):
@@ -5171,12 +5419,16 @@ def main() -> int:
         missing = [k for k in needed if counts[k] <= 0]
         if "flash_attention" in needed:
             per_path = dict(flash_kernel.PATH_LAUNCHES)
+            for k, v in ranks.get("path_launches", {}).items():
+                per_path[k] += v
             log(f"main path {label} flash_attention kernels by path: "
                 f"{json.dumps(per_path)}")
             missing += [f"flash_attention {p}" for p in flash_paths.get(
                 label, ("split", "combine", "tc")) if per_path[p] <= 0]
         if "flash_attention_bwd" in needed:
             by_route = dict(flash_kernel.BWD_PATH_LAUNCHES)
+            for k, v in ranks.get("bwd_path_launches", {}).items():
+                by_route[k] += v
             log(f"main path {label} flash_attention_bwd calls by route: "
                 f"{json.dumps(by_route)}")
             if by_route[bwd_routes[label]] != counts["flash_attention_bwd"]:
@@ -5239,8 +5491,16 @@ def main() -> int:
     drive_path(label, ("flash_attention", "flash_attention_bwd"),
                lambda: run_train_main(torch, np, cuda, out))
     flash_bwd = run_train_checks(torch, np, cuda, out)
+    train_rows = out["rows"]
     del out
     torch.cuda.empty_cache()
+    # slice 19's: the same training on a 1x2 and a 2x1 mesh, two ranks
+    # on this card, each in a process of its own
+    label = "slice 19 (internlm2-1.8b training on a mesh)"
+    flash_paths[label] = ("tc",)
+    bwd_routes[label] = "tc"
+    drive_path(label, ("flash_attention", "flash_attention_bwd"),
+               lambda: run_train_mesh(torch, cuda, train_rows))
     # slice 17's: Jamba trained at published widths (one super-block, no
     # experts, int8 moments: ~54 GB of state), then its checks (the step
     # against the twins, the scan's backward against its twins); then the
@@ -5309,6 +5569,31 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def train_mesh_alone() -> int:
+    """``--train-mesh``: the kernels built, the train phase's main path
+    (its rows are what the mesh phase holds against), then slice 19's
+    mesh phase, with no other phase."""
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is visible", file=sys.stderr)
+        return 2
+    from repro_torch.kernels import build
+
+    cuda = torch.device("cuda")
+    log(f"card: {card_line()}")
+    secs = build.build()
+    log(f"build: {json.dumps({k: round(v, 2) for k, v in secs.items()})} s")
+    out = {}
+    run_train_main(torch, np, cuda, out)
+    rows = out["rows"]
+    del out
+    torch.cuda.empty_cache()
+    run_train_mesh(torch, cuda, rows)
     return 0
 
 
@@ -5637,6 +5922,9 @@ if __name__ == "__main__":
     ap.add_argument("--flash-wall", action="store_true",
                     help="time flash_attention alone at the shapes whose V "
                     "has Q's head dim")
+    ap.add_argument("--train-mesh", action="store_true",
+                    help="the train phase's steps, then the mesh phase "
+                    "alone")
     ap.add_argument("--src", help="with a --*-wall option: import the port "
                     "from this directory")
     ap.add_argument("--rounds", type=int, default=5,
@@ -5658,4 +5946,6 @@ if __name__ == "__main__":
         sys.exit(poss_wall(args.rounds))
     if args.flash_wall:
         sys.exit(flash_wall(args.rounds))
+    if args.train_mesh:
+        sys.exit(train_mesh_alone())
     sys.exit(main())

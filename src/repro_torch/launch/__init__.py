@@ -1,1 +1,2 @@
-"""Entry points of the port (training)."""
+"""Entry points of the port: the training launcher (``train``) and its
+(data, model) meshes (``mesh``)."""

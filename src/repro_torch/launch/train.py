@@ -1,11 +1,34 @@
-"""Training launcher, the reference's ``launch/train.py`` on one device.
+"""Training launcher, the reference's ``launch/train.py``.
 
-Runs any architecture with the full substrate: synthetic data, AdamW,
-checkpoint auto-resume, preemption handling and straggler monitoring.
+Runs any architecture on an explicit (data, model) mesh with the full
+substrate: parameters and optimizer moments sharded by
+``sharding.specs``, synthetic data, AdamW, checkpoint auto-resume,
+preemption handling, straggler monitoring, elastic re-meshing on
+restart.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b
     PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \\
         --smoke --steps 20 --device cpu
+
+A mesh runs under ``torch.distributed.run`` with a world of D·M ranks
+(``--mesh DxM``; ``PxDxM`` adds a pod axis, over which the batch splits
+too; ``prod`` is 16x16, ``prod2`` 2x16x16): gloo for
+``--device cpu``, NCCL with one rank a card (``cuda:LOCAL_RANK``).  A
+caller that has brought up its own process group (``chip_smoke.py``
+runs two gloo ranks on one card) keeps it.
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone \\
+        --nproc-per-node 4 -m repro_torch.launch.train --smoke \\
+        --device cpu --mesh 2x2 --steps 6
+
+Each rank holds only its shards between steps; a step gathers the whole
+model on every rank (``sharding.state``), so a model trains on a mesh
+only where one card holds its shards, all its weights and gradients,
+as on one device, and a checkpoint adds one full leaf at a time:
+layer-wise gathering and tensor-parallel compute over ``model`` are
+ROADMAP queue 1, item 11.7c.  A ``1xM`` mesh trains bit for bit as one
+device; a mesh with D > 1 data ranks equals it to fp32 summation
+order.
 
 Without ``--smoke`` the published configuration is trained on the card.
 A model that one card cannot hold is cut in depth and experts, never in
@@ -21,8 +44,7 @@ int8 moments, would write ~36 GB):
         --arch jamba-1.5-large-398b --layers 8 --experts 0 --moments int8 \\
         --global-batch 2 --seq 1024 --peak-lr 1e-4 --steps 6 --ckpt-every 0
 
-The reference's meshes (``--mesh DxM``, ``prod``, ``prod2``) have no
-port: only ``1x1`` runs.  A checkpoint is labelled by the number of
+A checkpoint does not depend on the mesh, and is labelled by the number of
 steps it holds, so a resumed run takes the step after the last one
 done and ends where an uninterrupted run ends (the reference labels the
 checkpoint written after step s as s and repeats step s on resume).
@@ -34,21 +56,29 @@ manager is given), for a caller that drives it at full width.
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import json
+import math
+import os
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs import get_arch
 from ..device import resolve_device
 from ..models import registry
+from ..sharding.specs import axis_sizes
+from ..sharding.state import ShardedTrain
 from ..train.checkpoint import CheckpointManager
 from ..train.data import DataConfig, SyntheticLM
-from ..train.fault_tolerance import (ElasticMesh, PreemptionHandler,
-                                     StragglerMonitor, resume_or_init)
+from ..train.fault_tolerance import (PreemptionHandler, StragglerMonitor,
+                                     resume_or_init)
 from ..train.optimizer import OptConfig
 from ..train.train_step import init_train_state, make_train_step
+from .mesh import make_mesh
 
 DEFAULT_CKPT_DIR = str(Path(__file__).resolve().parents[3] / "artifacts"
                        / "train_torch" / "ckpt")
@@ -81,7 +111,8 @@ def train_loop(cfg, state, step_fn, data: SyntheticLM, start: int,
     straggler monitor and ``on_step(step, metrics, seconds)`` see the
     step's wall time.  A checkpoint every ``ckpt_every`` steps done
     (async) when ``mgr`` is given; on preemption a final one, then
-    returns.  Returns (state, steps done, preempted)."""
+    returns (on a mesh every rank stops after the same step).  Returns
+    (state, steps done, preempted)."""
     for step in range(start, steps):
         t0 = time.perf_counter()
         if monitor is not None:
@@ -100,7 +131,7 @@ def train_loop(cfg, state, step_fn, data: SyntheticLM, start: int,
         done = step + 1
         if mgr is not None and done % ckpt_every == 0:
             mgr.save(done, state, async_=True)
-        if handler is not None and handler.should_stop:
+        if handler is not None and handler.poll(device):
             log("preempted — final checkpoint")
             if mgr is not None:
                 mgr.save(done, state)
@@ -142,7 +173,12 @@ def parse_args(argv=None):
                     choices=("float32", "int8"),
                     help="AdamW's moment dtype (int8: block-quantized)")
     ap.add_argument("--mesh", default="1x1",
-                    help="only 1x1: the port runs on one device")
+                    help="DxM, PxDxM (pods), 'prod' (16x16) or 'prod2' "
+                         "(2x16x16); a world of that many ranks "
+                         "(torch.distributed.run)")
+    ap.add_argument("--metrics", default=None,
+                    help="append each step's loss, ce, aux, grad norm, lr "
+                         "and seconds to this file as a JSON line (rank 0)")
     ap.add_argument("--ckpt-dir", default=DEFAULT_CKPT_DIR)
     ap.add_argument("--ckpt-every", type=int, default=25,
                     help="steps between checkpoints; 0: no checkpoint")
@@ -164,45 +200,147 @@ def setup(args):
     return cfg, opt_cfg, data
 
 
-def main(argv=None, on_step=None):
-    """The launcher; returns the final train state.  ``on_step`` is
-    :func:`train_loop`'s callback."""
-    args = parse_args(argv)
-    if args.mesh != "1x1":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the port runs on one device; meshes and "
-            f"sharding wait for ROADMAP queue 1, items 11.7 and 5")
-    device = resolve_device(args.device)
-    cfg, opt_cfg, data = setup(args)
-    mesh = ElasticMesh(model_degree=1).build([device])
-    print(f"mesh: {mesh}  arch: {cfg.name} "
-          f"({registry.count_params(cfg) / 1e6:.1f}M params)  "
-          f"device: {device}", flush=True)
+def parse_mesh(spec: str) -> tuple[tuple[int, ...], tuple[str, ...]]:
+    """``--mesh``'s (shape, axis names): ``DxM`` (data, model), ``PxDxM``
+    (pod, data, model), ``prod`` (16x16) or ``prod2`` (2x16x16)."""
+    if spec == "prod":
+        return (16, 16), ("data", "model")
+    if spec == "prod2":
+        return (2, 16, 16), ("pod", "data", "model")
+    try:
+        shape = tuple(int(x) for x in spec.split("x"))
+    except ValueError:
+        shape = ()
+    if len(shape) not in (2, 3) or min(shape) < 1:
+        raise ValueError(f"--mesh {spec}: not DxM, PxDxM, prod or prod2")
+    names = ("data", "model") if len(shape) == 2 else ("pod", "data",
+                                                         "model")
+    return shape, names
 
-    state = init_train_state(cfg, opt_cfg, seed=0, device=device)
+
+def _world(device_arg: str) -> tuple[torch.device, bool]:
+    """(this rank's device, whether this call brought the process group
+    up).  Under ``torch.distributed.run`` the group comes up here:
+    gloo on the CPU, NCCL on ``cuda:LOCAL_RANK``; a group already up is
+    kept, its rank's card ``cuda:LOCAL_RANK``."""
+    device = resolve_device(device_arg)
+    started = False
+    if "WORLD_SIZE" in os.environ or dist.is_initialized():
+        if device.type == "cuda":
+            device = torch.device("cuda", int(os.environ.get("LOCAL_RANK",
+                                                             0)))
+            torch.cuda.set_device(device)
+        if not dist.is_initialized():
+            dist.init_process_group(
+                "nccl" if device.type == "cuda" else "gloo")
+            started = True
+    return device, started
+
+
+@dataclasses.dataclass
+class Run:
+    """What :func:`prepare` sets up and :func:`run` trains."""
+    args: argparse.Namespace
+    cfg: object
+    opt_cfg: OptConfig
+    data: SyntheticLM
+    device: torch.device
+    sharded: ShardedTrain | None
+    state: dict
+    start: int
+    mgr: CheckpointManager | None
+    step_fn: object
+    started: bool
+    log: object
+
+
+def prepare(args, timed: bool = False) -> Run:
+    """The run of parsed arguments, up to its first step: the process
+    group and mesh, the train state (sharded on a mesh), a checkpoint
+    resumed.  The world must have the mesh's rank count, else it
+    raises naming both.  ``timed``: the mesh step's ``phase_s``
+    (``train.train_step.sharded_train_step``)."""
+    device, started = _world(args.device)
+    shape, names = parse_mesh(args.mesh)
+    need = math.prod(shape)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != need:
+        raise ValueError(f"--mesh {args.mesh} needs a world of {need} "
+                         f"ranks, this one has {world}")
+    rank0 = not dist.is_initialized() or dist.get_rank() == 0
+
+    def log(line):
+        if rank0:
+            print(line, flush=True)
+
+    cfg, opt_cfg, data = setup(args)
+    sharded = None
+    if need == 1:
+        mesh = dict(zip(names, shape))
+        state = init_train_state(cfg, opt_cfg, seed=0, device=device)
+    else:
+        mesh = make_mesh(shape, names)
+        sharded = ShardedTrain(cfg, opt_cfg, mesh)
+        state = sharded.init_state(seed=0, device=device)
+    log(f"mesh: {axis_sizes(mesh)}  arch: {cfg.name} "
+        f"({registry.count_params(cfg) / 1e6:.1f}M params)  "
+        f"device: {device}")
     mgr, start = None, 0
     if args.ckpt_every:
-        mgr = CheckpointManager(args.ckpt_dir, keep=2)
+        mgr = CheckpointManager(args.ckpt_dir, keep=2, sharded=sharded)
         state, start = resume_or_init(mgr, state)
     if start:
-        print(f"resumed from step {start}")
-    step_fn = make_train_step(cfg, opt_cfg, args.grad_accum)
+        log(f"resumed from step {start}")
+    step_fn = make_train_step(cfg, opt_cfg, args.grad_accum, mesh=sharded,
+                              timed=timed)
+    return Run(args, cfg, opt_cfg, data, device, sharded, state, start, mgr,
+               step_fn, started, log)
+
+
+def _metrics_writer(path: str | None, on_step):
+    if path is None:
+        return on_step
+
+    def write(step, metrics, seconds):
+        if not dist.is_initialized() or dist.get_rank() == 0:
+            row = {"step": step, **{k: float(metrics[k]) for k in
+                                    ("loss", "ce", "aux", "grad_norm",
+                                     "lr")}, "seconds": seconds}
+            with open(path, "a") as f:
+                f.write(json.dumps(row) + "\n")
+        if on_step is not None:
+            on_step(step, metrics, seconds)
+    return write
+
+
+def run(r: Run, on_step=None) -> dict:
+    """Trains a prepared run to ``--steps``; returns the final state (a
+    rank's shards on a mesh)."""
+    args = r.args
     handler = PreemptionHandler()
     try:
         state, _, preempted = train_loop(
-            cfg, state, step_fn, data, start, args.steps, device, mgr=mgr,
-            ckpt_every=args.ckpt_every, handler=handler,
-            monitor=StragglerMonitor(), on_step=on_step,
-            log=lambda line: print(line, flush=True))
+            r.cfg, r.state, r.step_fn, r.data, r.start, args.steps, r.device,
+            mgr=r.mgr, ckpt_every=args.ckpt_every, handler=handler,
+            monitor=StragglerMonitor(),
+            on_step=_metrics_writer(args.metrics, on_step), log=r.log)
     finally:
         handler.restore_handlers()
     if not preempted:
-        if mgr is not None:
-            mgr.save(args.steps, state)
-        print("done")
-    if mgr is not None:
-        mgr.wait()
+        if r.mgr is not None:
+            r.mgr.save(args.steps, state)
+        r.log("done")
+    if r.mgr is not None:
+        r.mgr.wait()
+    if r.started:
+        dist.destroy_process_group()
     return state
+
+
+def main(argv=None, on_step=None):
+    """The launcher; returns the final train state (a rank's shards on a
+    mesh).  ``on_step`` is :func:`train_loop`'s callback."""
+    return run(prepare(parse_args(argv)), on_step)
 
 
 if __name__ == "__main__":

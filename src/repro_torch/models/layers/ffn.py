@@ -7,6 +7,14 @@ buffer, and the outputs are gathered back; pairs past an expert's
 capacity are dropped.  The products are the reference's einsums as
 batched matmuls, no kernel of their own.  :func:`moe_stats` records each
 call's routes, drops and auxiliary loss for a run that asks for them.
+
+On a mesh whose batch is split over data ranks (:func:`data_parallel`),
+the dispatch is the global microbatch's: the capacity comes from the
+global token count, a pair's queue place counts the pairs of the ranks
+below (the global token order is rank 0's rows, then rank 1's, …), and
+the auxiliary loss reads the global means.  Each rank computes its own
+tokens; a token's output depends only on whether it is kept, as in the
+one-device dispatch.
 """
 
 from __future__ import annotations
@@ -91,6 +99,8 @@ class MoE(nn.Module):
 
 
 _STATS: list | None = None
+# the batch's split over data ranks (a ``sharding.state.Grid``)
+_DP = None
 _REPLAY: list | None = None
 # a checkpointed block's replayed routes (None where a call took its own
 # top-k): recorded by its first run ("record"), taken back in order by its
@@ -120,14 +130,28 @@ def moe_stats(replay: list | None = None):
 
 
 @contextlib.contextmanager
-def _taping(routes: list, mode: str):
-    global _TAPE, _TAPE_MODE
-    prev = _TAPE, _TAPE_MODE
-    _TAPE, _TAPE_MODE = routes, mode
+def data_parallel(dp):
+    """Within this scope :func:`moe_apply` dispatches over the global
+    microbatch split over ``dp``'s data ranks (a ``sharding.state.Grid``;
+    None: this rank's tokens are the whole batch)."""
+    global _DP
+    prev = _DP
+    _DP = dp
     try:
         yield
     finally:
-        _TAPE, _TAPE_MODE = prev
+        _DP = prev
+
+
+@contextlib.contextmanager
+def _taping(routes: list, mode: str, dp):
+    global _TAPE, _TAPE_MODE, _DP
+    prev = _TAPE, _TAPE_MODE, _DP
+    _TAPE, _TAPE_MODE, _DP = routes, mode, dp
+    try:
+        yield
+    finally:
+        _TAPE, _TAPE_MODE, _DP = prev
 
 
 def recompute_contexts():
@@ -136,9 +160,13 @@ def recompute_contexts():
     the routes it replayed (or None: its own top-k), and the
     recomputation in the backward takes them back in order, so it runs
     the first run's ops on the first run's routes, and records no
-    :func:`moe_stats` entry, so a step's stats count each call once."""
+    :func:`moe_stats` entry, so a step's stats count each call once.
+    The recomputation also runs under the first run's
+    :func:`data_parallel` split, which the backward is outside of: the
+    global capacity and queue places again, not this rank's own."""
     routes: list = []
-    return _taping(routes, "record"), _taping(routes, "replay")
+    dp = _DP
+    return _taping(routes, "record", dp), _taping(routes, "replay", dp)
 
 
 def _top_k(probs: torch.Tensor, k: int):
@@ -171,15 +199,24 @@ def moe_apply(cfg: ModelConfig, p: MoE, x: torch.Tensor):
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp_min(1e-9)
 
     # the load-balance loss (Switch/GShard) over the unpadded experts
-    me = probs.mean(0)
-    ce = F.one_hot(experts, e).float().sum(1).mean(0)
+    routed = F.one_hot(experts, e).float().sum(1)            # (T, E)
+    flat = experts.reshape(-1)
+    hot = F.one_hot(flat, e_buf)                             # (T·k, E_buf)
+    if _DP is None:
+        me, ce = probs.mean(0), routed.mean(0)
+        cap = capacity(cfg, t)
+        before = 0
+    else:
+        t_all = t * _DP.data_size
+        me = _DP.sum_with_grad(probs.sum(0)) / t_all
+        ce = _DP.sum(routed.sum(0)) / t_all
+        cap = capacity(cfg, t_all)
+        before = _DP.exclusive_prefix(hot.sum(0))            # (E_buf,)
     aux = cfg.router_aux_coef * e * torch.sum(me * ce)
 
-    cap = capacity(cfg, t)
     # each (token, slot) pair's place in its expert's queue, token-major:
     # pairs past the capacity are dropped, the later first
-    flat = experts.reshape(-1)
-    pos = torch.cumsum(F.one_hot(flat, e_buf), 0) - 1        # (T·k, E_buf)
+    pos = torch.cumsum(hot, 0) - 1 + before
     pos = pos.gather(1, flat[:, None])[:, 0]
     keep = pos < cap
     # dropped pairs go to a spare row past the buffers, never read

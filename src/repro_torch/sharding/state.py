@@ -1,0 +1,395 @@
+"""A train state sharded over a (data, model) mesh, with explicit
+collectives where the reference lets XLA's partitioner place them.
+
+Between steps a rank holds only its shards of every parameter and
+optimizer moment, split by ``sharding.specs`` (the reference's
+per-device shapes).  A step (``train.train_step.make_train_step(...,
+mesh=)``) gathers the full weights, runs the forward and backward on the
+rank's rows of the batch, sums the gradients over the ``data`` ranks so
+that every rank holds the whole gradient, takes the global norm from it
+as one device does, and updates the local shards.  On a ``1xM`` mesh
+every rank sees the whole batch and nothing is summed, so a step is bit
+for bit the one-device step.
+
+A leaf's :class:`Placement` is its spec over its own dims and, where the
+reference splits a stacked layer axis, the coordinate that owns it:
+ranks at other coordinates hold an empty tensor, and the owner sends
+the leaf out when it is gathered.
+
+Collectives are ``all_gather`` (list form), ``all_reduce`` and
+``broadcast`` on the mesh's groups: gloo takes them on CPU and CUDA
+tensors, NCCL on CUDA tensors.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.distributed as dist
+from torch import nn
+
+from .specs import (DATA, axes_of, axis_sizes, opt_specs, param_specs,
+                    split_name, stack_extents)
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """A leaf on the mesh: ``shape`` its full shape, ``spec`` one entry
+    per dim of it, ``owner`` the ((axis, coordinate), ...) that alone
+    hold it (empty: every coordinate)."""
+    shape: tuple
+    spec: tuple
+    owner: tuple = ()
+
+
+def _combined(sizes: dict, coords: dict, axes) -> int:
+    """A rank's block index on a dim split over ``axes`` (row-major, the
+    first axis the major)."""
+    idx = 0
+    for a in axes:
+        idx = idx * sizes[a] + coords[a]
+    return idx
+
+
+def placement(sizes: dict, name: str, shape, spec, extents) -> Placement:
+    """The :class:`Placement` of leaf ``name`` (its full ``shape``) under
+    a spec from ``specs.param_specs``/``opt_specs``: leading entries past
+    the leaf's rank split its stacked layer axes, whose ``extents`` are
+    given, and become its owner."""
+    shape = tuple(shape)
+    lead = len(spec) - len(shape)
+    if lead == 0:
+        return Placement(shape, tuple(spec))
+    _, layers = split_name(name)
+    owner = []
+    for ix, ext, entry in zip(layers, extents, spec[:lead]):
+        axes = axes_of(entry)
+        if not axes:
+            continue
+        c = ix // (ext // math.prod(sizes[a] for a in axes))
+        for a in reversed(axes):
+            owner.append((a, c % sizes[a]))
+            c //= sizes[a]
+    return Placement(shape, tuple(spec[lead:]), tuple(owner))
+
+
+class Grid:
+    """This rank's place on a ``DeviceMesh``: axis sizes, its coordinate
+    on each axis, each axis's group, and the joint group of the batch
+    axes (``("pod", "data")`` where both are present)."""
+
+    def __init__(self, mesh):
+        self.mesh = mesh
+        self.sizes = axis_sizes(mesh)
+        names = tuple(mesh.mesh_dim_names)
+        self.coords = dict(zip(names, mesh.get_coordinate()))
+        self.groups = {a: mesh.get_group(a) for a in names}
+        self.data_axes = tuple(a for a in DATA if a in self.sizes)
+        self.data_size = math.prod(self.sizes[a] for a in self.data_axes)
+        self.data_index = _combined(self.sizes, self.coords, self.data_axes)
+        if len(self.data_axes) == 1:
+            self.data_group = self.groups[self.data_axes[0]]
+        else:
+            self.data_group = self._joint_group(self.data_axes)
+
+    def _joint_group(self, axes):
+        """The group of the ranks that differ only on ``axes`` (every
+        rank makes every such group, in one order)."""
+        ranks = self.mesh.mesh
+        names = tuple(self.mesh.mesh_dim_names)
+        keep = [names.index(a) for a in axes]
+        rest = [i for i in range(len(names)) if i not in keep]
+        grouped = ranks.permute(*rest, *keep).reshape(
+            -1, math.prod(ranks.shape[i] for i in keep))
+        mine = None
+        for row in grouped.tolist():
+            g = dist.new_group(row)
+            if dist.get_rank() in row:
+                mine = g
+        return mine
+
+    # ------------------------------------------------------------------ #
+    def holds(self, pl: Placement) -> bool:
+        return all(self.coords[a] == c for a, c in pl.owner)
+
+    def local_shape(self, pl: Placement) -> tuple:
+        if not self.holds(pl):
+            return (0,) * len(pl.shape)
+        return tuple(d // math.prod(self.sizes[a] for a in axes_of(s))
+                     for d, s in zip(pl.shape, pl.spec))
+
+    def shard(self, pl: Placement, full: torch.Tensor) -> torch.Tensor:
+        """This rank's shard of ``full``, a tensor of its own."""
+        if not self.holds(pl):
+            return full.new_empty((0,) * full.ndim)
+        x = full
+        for d, entry in enumerate(pl.spec):
+            axes = axes_of(entry)
+            if axes:
+                n = x.shape[d] // math.prod(self.sizes[a] for a in axes)
+                x = x.narrow(d, _combined(self.sizes, self.coords, axes) * n,
+                             n)
+        return x.clone(memory_format=torch.contiguous_format)
+
+    def gather(self, pl: Placement, local: torch.Tensor) -> torch.Tensor:
+        """The full leaf from every rank's shard (a collective over the
+        leaf's axes: every rank calls it)."""
+        if self.holds(pl):
+            x = local
+            for d, entry in enumerate(pl.spec):
+                for a in reversed(axes_of(entry)):
+                    if self.sizes[a] > 1:
+                        parts = [torch.empty_like(x)
+                                 for _ in range(self.sizes[a])]
+                        dist.all_gather(parts, x.contiguous(),
+                                        group=self.groups[a])
+                        x = torch.cat(parts, dim=d)
+        else:
+            x = local.new_empty(pl.shape)
+        for a, c in pl.owner:
+            if self.sizes[a] > 1:
+                g = self.groups[a]
+                dist.broadcast(x, src=dist.get_global_rank(g, c), group=g)
+        return x
+
+    def data_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the batch ranks, in place."""
+        if self.data_size > 1:
+            dist.all_reduce(x, group=self.data_group)
+        return x
+
+    # the batch split over the data ranks, as the loss and the MoE
+    # dispatch read it (``models.layers.ffn.data_parallel``)
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` (no gradient) summed over the batch ranks, a new
+        tensor."""
+        return self.data_sum(x.detach().clone())
+
+    def sum_with_grad(self, x: torch.Tensor) -> torch.Tensor:
+        return _SumIdentityGrad.apply(x, self)
+
+    def exclusive_prefix(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the batch ranks below this one."""
+        parts = [torch.empty_like(x) for _ in range(self.data_size)]
+        dist.all_gather(parts, x.contiguous(), group=self.data_group)
+        out = torch.zeros_like(x)
+        for p in parts[:self.data_index]:
+            out = out + p
+        return out
+
+    def rows(self, batch: dict) -> dict:
+        """This rank's contiguous rows of a global batch: rows
+        [i·B/D, (i+1)·B/D) at batch coordinate i of D; (3, B, S) M-RoPE
+        positions on axis 1."""
+        n, i = self.data_size, self.data_index
+        if n == 1:
+            return batch
+        out = {}
+        for key, x in batch.items():
+            ax = 1 if (key == "positions" and x.ndim == 3
+                       and x.shape[0] == 3) else 0
+            if x.shape[ax] % n:
+                raise ValueError(f"{key}: batch {x.shape[ax]} does not "
+                                 f"split over {n} data ranks")
+            per = x.shape[ax] // n
+            out[key] = x.narrow(ax, i * per, per)
+        return out
+
+
+class _SumIdentityGrad(torch.autograd.Function):
+    """Sum over the batch ranks forward; the gradient passes through.
+    Each rank's loss holds the summed term once and the parameter
+    gradients are summed over the ranks after, so the identity is the
+    term's exact gradient."""
+
+    @staticmethod
+    def forward(ctx, x, grid):
+        return grid.data_sum(x.clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def _set_param(root: nn.Module, name: str, value: nn.Parameter) -> None:
+    mod, _, leaf = name.rpartition(".")
+    setattr(root.get_submodule(mod) if mod else root, leaf, value)
+
+
+def _meta(p: torch.Tensor) -> nn.Parameter:
+    return nn.Parameter(torch.empty(p.shape, dtype=p.dtype, device="meta"),
+                        requires_grad=False)
+
+
+class ShardedTrain:
+    """A model's train state on a mesh: each leaf's :class:`Placement`,
+    the shard / gather / reduce steps, and the int8 blocks' place on
+    each shard.  ``cfg``'s parameters are read from a model on the meta
+    device; the state is ``{"params": module of local shards, "opt":
+    {"m", "v", "step"} of local shards}``, named as the one-device
+    state, so a checkpoint path is the same on both."""
+
+    def __init__(self, cfg, opt_cfg, mesh):
+        from ..models import registry
+        from ..train.optimizer import init_opt_state
+
+        self.cfg, self.opt_cfg = cfg, opt_cfg
+        self.grid = Grid(mesh)
+        sizes = self.grid.sizes
+        self.work = registry.init(cfg, device="meta")
+        shapes = {n: tuple(p.shape) for n, p in self.work.named_parameters()}
+        ext = stack_extents(shapes)
+        pspecs = param_specs(cfg, mesh, self.work)
+        self.params = {n: placement(sizes, n, s, pspecs[n],
+                                    ext[split_name(n)[0]])
+                       for n, s in shapes.items()}
+        opt_meta = init_opt_state(opt_cfg, self.work)
+        ospecs = opt_specs(cfg, mesh, opt_meta)
+        self.paths = {f"params/{n}": pl for n, pl in self.params.items()}
+        for part in ("m", "v"):
+            for n, mom in opt_meta[part].items():
+                ex = ext[split_name(n)[0]]
+                if isinstance(mom, dict):
+                    for k, a in mom.items():
+                        self.paths[f"opt/{part}/{n}/{k}"] = placement(
+                            sizes, n, a.shape, ospecs[part][n][k], ex)
+                else:
+                    self.paths[f"opt/{part}/{n}"] = placement(
+                        sizes, n, mom.shape, ospecs[part][n], ex)
+        self.paths["opt/step"] = Placement((), ())
+        self.blocks = (self._block_slices() if opt_cfg.moment_dtype == "int8"
+                       else None)
+        # the step's batch split, None where the data ranks are one
+        self.dp = self.grid if self.grid.data_size > 1 else None
+
+    # ------------------------------------------------------------------ #
+    def _block_slices(self) -> dict:
+        """Each held parameter's :class:`train.optimizer.BlockSlice`."""
+        from ..train.optimizer import BlockSlice, block_of
+
+        out = {}
+        for n, pl in self.params.items():
+            if not self.grid.holds(pl) or not pl.shape:
+                continue
+            last, entry = pl.shape[-1], pl.spec[-1]
+            axes = axes_of(entry)
+            parts = math.prod(self.grid.sizes[a] for a in axes)
+            width = last // parts
+            start = _combined(self.grid.sizes, self.grid.coords, axes) * width
+            blk = block_of(pl.shape)
+            aligned = width % blk == 0
+            scale_split = math.prod(
+                self.grid.sizes[a] for a in
+                axes_of(self.paths[f"opt/m/{n}/s"].spec[-1])) > 1
+            if scale_split != (aligned and parts > 1):
+                raise AssertionError(f"{n}: int8 scales split {scale_split} "
+                                     f"where blocks align {aligned}")
+            group = None
+            if not aligned:
+                if len(axes) != 1:
+                    raise NotImplementedError(
+                        f"{n}: int8 blocks across a last axis split over "
+                        f"{axes}")
+                group = self.grid.groups[axes[0]]
+            out[n] = BlockSlice(last=last, start=start,
+                                scale_start=start // blk if scale_split
+                                else 0, group=group)
+        return out
+
+    def local_shape(self, path: str) -> tuple:
+        return self.grid.local_shape(self.paths[path])
+
+    def state_bytes(self, state) -> int:
+        """The bytes of ``state``'s local leaves."""
+        from ..train.checkpoint import flatten
+
+        return sum(t.numel() * t.element_size() for _, t in flatten(state))
+
+    def predicted_bytes(self) -> int:
+        """The bytes of this rank's shards by the specs."""
+        return sum(math.prod(self.grid.local_shape(pl))
+                   * self._dtype(path).itemsize
+                   for path, pl in self.paths.items())
+
+    def _dtype(self, path: str) -> torch.dtype:
+        if path == "opt/step":
+            return torch.int32
+        if path.startswith("params/"):
+            return self.work.get_parameter(path[len("params/"):]).dtype
+        return torch.int8 if path.endswith("/q") else torch.float32
+
+    # ------------------------------------------------------------------ #
+    def shard_params(self, full: nn.Module) -> nn.Module:
+        """A module of this rank's parameter shards (gradients on), named
+        as ``full``'s; ``full``'s own tensors are released."""
+        from ..models import registry
+
+        local = registry.init(self.cfg, device="meta")
+        for n, p in list(full.named_parameters()):
+            _set_param(local, n, nn.Parameter(
+                self.grid.shard(self.params[n], p.detach()),
+                requires_grad=True))
+            _set_param(full, n, _meta(p))
+        return local
+
+    def init_state(self, seed: int = 0, device=None) -> dict:
+        """The one-device state's initial values (``registry.init(cfg,
+        seed)`` on ``device``, zero moments), as this rank's shards."""
+        from ..models import registry
+
+        params = self.shard_params(registry.init(self.cfg, seed, device))
+        dev = torch.device(device) if device is not None else None
+
+        def zeros(path):
+            return torch.zeros(self.local_shape(path), dtype=self._dtype(path),
+                               device=dev)
+
+        opt = {}
+        for part in ("m", "v"):
+            opt[part] = {}
+            for n, _ in params.named_parameters():
+                if self.opt_cfg.moment_dtype == "int8":
+                    opt[part][n] = {k: zeros(f"opt/{part}/{n}/{k}")
+                                    for k in ("q", "s")}
+                else:
+                    opt[part][n] = zeros(f"opt/{part}/{n}")
+        opt["step"] = torch.zeros((), dtype=torch.int32, device=dev)
+        return {"params": params, "opt": opt}
+
+    def gather_params(self, local: nn.Module) -> nn.Module:
+        """The full weights on every rank, as a module whose parameters
+        require gradients (:meth:`release` frees them)."""
+        for n, p in local.named_parameters():
+            full = self.grid.gather(self.params[n], p.detach())
+            _set_param(self.work, n, nn.Parameter(full, requires_grad=True))
+        return self.work
+
+    def release(self, work: nn.Module) -> None:
+        for n, p in list(work.named_parameters()):
+            _set_param(work, n, _meta(p))
+
+    def reduce_grads(self, grads: dict) -> dict:
+        """The gradients summed over the batch ranks (fp32) where there
+        are several; as they are on a ``1xM`` mesh."""
+        if self.grid.data_size == 1:
+            return grads
+        return {n: self.grid.data_sum(g.to(torch.float32, copy=True))
+                for n, g in grads.items()}
+
+    def shard_grads(self, grads: dict) -> dict:
+        return {n: self.grid.shard(self.params[n], g)
+                for n, g in grads.items()}
+
+    def full_leaf(self, path: str, local: torch.Tensor) -> torch.Tensor:
+        """A state leaf gathered to its full shape (a collective)."""
+        return self.grid.gather(self.paths[path], local)
+
+    def local_leaf(self, path: str, full: torch.Tensor) -> torch.Tensor:
+        return self.grid.shard(self.paths[path], full)
+
+    @property
+    def writer(self) -> bool:
+        """Rank 0 writes what every rank gathers."""
+        return dist.get_rank() == 0

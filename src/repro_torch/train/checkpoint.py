@@ -23,6 +23,15 @@ Fault-tolerance contract (the reference's):
     returns the like-state;
   * async mode: the device→host copy is synchronous (a consistent
     snapshot), the file I/O runs on a daemon thread; ``wait()`` joins.
+
+A checkpoint does not depend on the mesh.  With ``sharded`` (a
+``sharding.state.ShardedTrain``) the state's leaves are this rank's
+shards: ``save`` gathers each to its full shape in turn (every rank takes
+part; one full leaf at a time on the device) and rank 0 alone copies
+it to the host and writes, in the one-device layout; ``restore`` reads
+the full leaves on every rank and keeps each rank's shard.  So a
+one-device checkpoint resumes on a mesh and back, and a mesh resumes
+on another.
 """
 
 from __future__ import annotations
@@ -73,9 +82,10 @@ def _dtype_name(t: torch.Tensor) -> str:
 
 
 class CheckpointManager:
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, sharded=None):
         self.dir = directory
         self.keep = keep
+        self.sharded = sharded
         os.makedirs(directory, exist_ok=True)
         self._thread: threading.Thread | None = None
 
@@ -96,14 +106,21 @@ class CheckpointManager:
     def save(self, step: int, state, async_: bool = False) -> None:
         """Snapshot ``state`` (device→host now; file I/O maybe async)."""
         self.wait()
-        leaves = flatten(state)
-        host = [to_host(t) for _, t in leaves]
-        manifest = {
-            "num_leaves": len(host),
-            "step": step,
-            "leaves": [{"path": p, "shape": list(t.shape),
-                        "dtype": _dtype_name(t)} for p, t in leaves],
-        }
+        sh = self.sharded
+        host, metas = [], []
+        for path, t in flatten(state):
+            if sh is not None:
+                # one full leaf at a time: every rank gathers it, the
+                # writer copies it to the host, the next replaces it
+                t = sh.full_leaf(path, t)
+                if not sh.writer:
+                    continue
+            host.append(to_host(t))
+            metas.append({"path": path, "shape": list(t.shape),
+                          "dtype": _dtype_name(t)})
+        if sh is not None and not sh.writer:
+            return
+        manifest = {"num_leaves": len(host), "step": step, "leaves": metas}
 
         def write():
             final = self._step_dir(step)
@@ -156,9 +173,13 @@ class CheckpointManager:
         for i, ((path, ref), meta) in enumerate(zip(leaves,
                                                     manifest["leaves"])):
             a = np.load(os.path.join(d, f"leaf_{i:05d}.npy"))
-            if meta["path"] != path or tuple(a.shape) != tuple(ref.shape):
+            full = (tuple(ref.shape) if self.sharded is None
+                    else self.sharded.paths[path].shape)
+            if meta["path"] != path or tuple(a.shape) != full:
                 raise ValueError(f"leaf {i}: checkpoint {meta['path']} "
-                                 f"{a.shape}, target {path} "
-                                 f"{tuple(ref.shape)}")
-            ref.copy_(from_host(a, meta["dtype"]).to(ref.dtype))
+                                 f"{a.shape}, target {path} {full}")
+            t = from_host(a, meta["dtype"])
+            if self.sharded is not None:
+                t = self.sharded.local_leaf(path, t)
+            ref.copy_(t.to(ref.dtype))
         return like, step

@@ -1,15 +1,14 @@
-"""Fault tolerance, the reference's ``train/fault_tolerance.py`` on one
-process:
+"""Fault tolerance, the reference's ``train/fault_tolerance.py``:
 
 * ``resume_or_init`` — restore the latest complete checkpoint if one
   exists, else start fresh; with the atomic-rename writer this gives
   at-least-once training progress across preemptions.
 * ``PreemptionHandler`` — SIGTERM/SIGINT → finish the in-flight step,
-  write a final checkpoint, exit cleanly.
-* ``ElasticMesh`` — the largest (data, model) shape for the visible
-  device count, and the gradient accumulation that keeps the global
-  batch as the data axis shrinks.  There is no mesh object: the port
-  runs on one card, so the shape is all a caller reads.
+  write a final checkpoint, exit cleanly; on a mesh a stop seen on any
+  rank stops every rank after the same step (``poll``).
+* ``ElasticMesh`` — the largest (data, model) shape for the live ranks
+  (the process group's world, or a device count), and the gradient
+  accumulation that keeps the global batch as the data axis shrinks.
 * ``StragglerMonitor`` — EWMA of per-step wall time; flags steps slower
   than ``threshold ×`` the moving average.
 """
@@ -21,6 +20,7 @@ import signal
 import time
 
 import torch
+import torch.distributed as dist
 
 from .checkpoint import CheckpointManager
 
@@ -55,6 +55,17 @@ class PreemptionHandler:
     def _handle(self, signum, frame):
         self.should_stop = True
 
+    def poll(self, device=None) -> bool:
+        """Whether to stop now: this process's flag or, with a process
+        group of several ranks up, any rank's (a MAX all-reduce on
+        ``device``, so every rank stops after the same step)."""
+        if not dist.is_initialized() or dist.get_world_size() == 1:
+            return self.should_stop
+        flag = torch.tensor([int(self.should_stop)], dtype=torch.int32,
+                            device=device)
+        dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+        return bool(flag.item())
+
     def restore_handlers(self):
         for s, h in self._prev.items():
             signal.signal(s, h)
@@ -71,13 +82,17 @@ class ElasticMesh:
     model_degree: int
 
     def build(self, devices=None) -> dict:
-        """``devices``: a sequence of devices, or None for the visible
-        CUDA devices (one CPU where there are none).  Returns the shape
-        ``{"data": d, "model": m}``."""
-        if devices is None:
-            n = torch.cuda.device_count() or 1
-        else:
+        """The shape ``{"data": d, "model": m}`` for ``devices`` (a
+        sequence) or, with None, for the world's ranks where a process
+        group is up, else the visible CUDA devices (one CPU where there
+        are none).  ``launch.mesh.make_mesh`` builds the mesh of a
+        shape."""
+        if devices is not None:
             n = len(devices)
+        elif dist.is_initialized():
+            n = dist.get_world_size()
+        else:
+            n = torch.cuda.device_count() or 1
         data = n // self.model_degree
         if data < 1:
             raise RuntimeError(
@@ -86,9 +101,12 @@ class ElasticMesh:
         return {"data": data, "model": self.model_degree}
 
     def grad_accum_for(self, global_batch: int, per_chip_batch: int,
-                       mesh: dict) -> int:
-        """Keep the global batch constant as the data axis shrinks."""
-        per_step = mesh["data"] * per_chip_batch
+                       mesh) -> int:
+        """Keep the global batch constant as the data axis shrinks
+        (``mesh``: a shape or a ``DeviceMesh``)."""
+        from ..sharding.specs import axis_sizes
+
+        per_step = axis_sizes(mesh)["data"] * per_chip_batch
         return max(1, -(-global_batch // per_step))
 
 

@@ -24,6 +24,7 @@ import dataclasses
 import math
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 Q_BLOCK = 256
@@ -63,27 +64,66 @@ def schedule(cfg: OptConfig, step: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------- #
 # int8 block quantization
 # ---------------------------------------------------------------------- #
-def _block_of(shape) -> int:
+def block_of(shape) -> int:
     """Block size along the last axis: the codes keep the parameter's
     exact shape."""
     last = shape[-1] if shape else 1
     return Q_BLOCK if last % Q_BLOCK == 0 else last
 
 
-def quantize_i8(x: torch.Tensor):
+@dataclasses.dataclass(frozen=True)
+class BlockSlice:
+    """Where a shard of a parameter lies among the int8 blocks of the
+    parameter's last axis (``sharding.state``): ``last`` the whole axis,
+    ``start`` the shard's first index on it, ``scale_start`` the first
+    block of the shard's scales (0 where the scales keep the whole axis
+    of blocks), ``group`` the process group whose shards share blocks
+    (their block maxima are all-reduced), None where no block spans
+    shards."""
+    last: int
+    start: int
+    scale_start: int
+    group: object = None
+
+
+def _block_ids(part: BlockSlice, width: int, device) -> torch.Tensor:
+    """The parameter's block of each index of a shard ``width`` wide."""
+    blk = block_of((part.last,))
+    return (torch.arange(width, device=device) + part.start) // blk
+
+
+def quantize_i8(x: torch.Tensor, part: BlockSlice | None = None):
     """fp32 → (int8 codes in x.shape, fp32 scales (*, last/block)); codes
-    rounded half to even, as ``jnp.round``."""
-    blk = _block_of(x.shape)
-    xb = x.reshape(*x.shape[:-1], x.shape[-1] // blk, blk)
-    scale = xb.abs().amax(-1) / 127.0
-    codes = torch.round(xb / torch.clamp(scale[..., None], min=1e-12))
-    return codes.to(torch.int8).reshape(x.shape), scale
+    rounded half to even, as ``jnp.round``.  With ``part``, ``x`` is a
+    shard and a block that spans shards takes its maximum over them, so
+    codes and scales equal the whole parameter's."""
+    if part is None:
+        blk = block_of(x.shape)
+        xb = x.reshape(*x.shape[:-1], x.shape[-1] // blk, blk)
+        scale = xb.abs().amax(-1) / 127.0
+        codes = torch.round(xb / torch.clamp(scale[..., None], min=1e-12))
+        return codes.to(torch.int8).reshape(x.shape), scale
+    if part.group is None:       # the shard holds whole blocks
+        return quantize_i8(x)
+    ids = _block_ids(part, x.shape[-1], x.device).expand(x.shape)
+    nblocks = part.last // block_of((part.last,))
+    amax = torch.zeros((*x.shape[:-1], nblocks), dtype=x.dtype,
+                       device=x.device)
+    amax.scatter_reduce_(-1, ids, x.abs(), "amax")
+    dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=part.group)
+    scale = amax / 127.0
+    codes = torch.round(x / torch.clamp(scale.gather(-1, ids), min=1e-12))
+    return codes.to(torch.int8), scale
 
 
-def dequantize_i8(codes: torch.Tensor, scale: torch.Tensor, shape):
-    blk = _block_of(shape)
-    xb = codes.reshape(*shape[:-1], shape[-1] // blk, blk)
-    return (xb.to(torch.float32) * scale[..., None]).reshape(shape)
+def dequantize_i8(codes: torch.Tensor, scale: torch.Tensor, shape,
+                  part: BlockSlice | None = None):
+    if part is None or part.group is None:
+        blk = block_of(shape)
+        xb = codes.reshape(*shape[:-1], shape[-1] // blk, blk)
+        return (xb.to(torch.float32) * scale[..., None]).reshape(shape)
+    ids = _block_ids(part, shape[-1], codes.device) - part.scale_start
+    return codes.to(torch.float32) * scale[..., ids]
 
 
 # ---------------------------------------------------------------------- #
@@ -91,7 +131,7 @@ def dequantize_i8(codes: torch.Tensor, scale: torch.Tensor, shape):
 # ---------------------------------------------------------------------- #
 def _zero_moment(cfg: OptConfig, p: torch.Tensor):
     if cfg.moment_dtype == "int8":
-        blk = _block_of(p.shape)
+        blk = block_of(p.shape)
         sshape = (*p.shape[:-1], p.shape[-1] // blk)
         return {"q": torch.zeros(p.shape, dtype=torch.int8, device=p.device),
                 "s": torch.zeros(sshape, dtype=torch.float32,
@@ -107,15 +147,15 @@ def init_opt_state(cfg: OptConfig, params: nn.Module) -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 
 
-def _read_moment(cfg: OptConfig, mom, shape):
+def _read_moment(cfg: OptConfig, mom, shape, part=None):
     if cfg.moment_dtype == "int8":
-        return dequantize_i8(mom["q"], mom["s"], shape)
+        return dequantize_i8(mom["q"], mom["s"], shape, part)
     return mom
 
 
-def _write_moment(cfg: OptConfig, val):
+def _write_moment(cfg: OptConfig, val, part=None):
     if cfg.moment_dtype == "int8":
-        q, s = quantize_i8(val)
+        q, s = quantize_i8(val, part)
         return {"q": q, "s": s}
     return val
 
@@ -138,17 +178,24 @@ def decay_mask(name: str) -> bool:
 
 @torch.no_grad()
 def adamw_update(cfg: OptConfig, params: nn.Module, grads: dict,
-                 opt_state: dict):
+                 opt_state: dict, gnorm: torch.Tensor | None = None,
+                 blocks: dict | None = None):
     """One AdamW step: writes the new parameters into ``params`` and the
     new moments into ``opt_state["m"]`` and ``["v"]`` (entry by entry);
     returns (the new optimizer state, which holds those dicts, and
     metrics ``grad_norm`` and ``lr``, 0-d fp32 tensors on the
     parameters' device).  ``grads`` maps each parameter's name to its
-    gradient (any float dtype)."""
+    gradient (any float dtype).
+
+    On a mesh (``sharding.state``) ``params``, ``grads`` and the moments
+    are this rank's shards, ``gnorm`` the whole gradient's norm, and
+    ``blocks`` each parameter's :class:`BlockSlice` (int8 moments); a
+    parameter this rank does not hold (empty) is skipped."""
     step = opt_state["step"] + 1
     lr = schedule(cfg, step)
     named = list(params.named_parameters())
-    gnorm = global_norm(grads[n] for n, _ in named)
+    if gnorm is None:
+        gnorm = global_norm(grads[n] for n, _ in named)
     clip = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                        max=1.0)
     b1, b2 = cfg.b1, cfg.b2
@@ -157,9 +204,12 @@ def adamw_update(cfg: OptConfig, params: nn.Module, grads: dict,
 
     moms_m, moms_v = opt_state["m"], opt_state["v"]
     for name, p in named:
+        if p.numel() == 0:
+            continue
+        part = blocks.get(name) if blocks is not None else None
         g = grads[name].to(torch.float32) * clip
-        m = _read_moment(cfg, moms_m[name], p.shape)
-        v = _read_moment(cfg, moms_v[name], p.shape)
+        m = _read_moment(cfg, moms_m[name], p.shape, part)
+        v = _read_moment(cfg, moms_v[name], p.shape, part)
         m = b1 * m + (1 - b1) * g
         v = b2 * v + (1 - b2) * torch.square(g)
         mhat = m / bc1
@@ -168,7 +218,7 @@ def adamw_update(cfg: OptConfig, params: nn.Module, grads: dict,
         if cfg.weight_decay > 0 and decay_mask(name):
             upd = upd + cfg.weight_decay * p.to(torch.float32)
         p.copy_(p.to(torch.float32) - lr * upd)
-        moms_m[name] = _write_moment(cfg, m)
-        moms_v[name] = _write_moment(cfg, v)
+        moms_m[name] = _write_moment(cfg, m, part)
+        moms_v[name] = _write_moment(cfg, v, part)
     opt = {"m": moms_m, "v": moms_v, "step": step}
     return opt, {"grad_norm": gnorm, "lr": lr}

@@ -6,41 +6,62 @@ The step is a plain function on ``(state, batch)``; the state is
 gradients come from ``torch.autograd.grad`` of :func:`loss_fn`, in each
 parameter's dtype; with ``grad_accum > 1`` they are summed in fp32 over
 the microbatches and divided by their count, as the reference's scan.
+
+With ``mesh=`` the state is sharded over a (data, model) mesh
+(``sharding.state.ShardedTrain``) and a step is the global batch's
+math with explicit collectives: the full weights gathered, the
+forward and backward on the rank's rows, the gradients summed over the
+data ranks, the global norm from the whole gradient, the shards
+updated.  The masked mean's denominator is the global microbatch's and
+each rank's loss holds its own tokens' share of the numerator, so the
+summed gradients are the global loss's.
 """
 
 from __future__ import annotations
+
+import time
 
 import torch
 
 from ..models import registry
 from ..models.common import ModelConfig
-from .optimizer import OptConfig, adamw_update, init_opt_state
+from ..models.layers import ffn
+from .optimizer import OptConfig, adamw_update, global_norm, init_opt_state
 
 
-def cross_entropy(logits, labels, mask=None, z_loss: float = 0.0):
+def cross_entropy(logits, labels, mask=None, z_loss: float = 0.0, dp=None):
     """logits (B, S, V), taken in fp32; labels (B, S) int; mask (B, S)
-    {0, 1}.  The log-sum-exp is fp32; ``z_loss`` adds z·lse² a token."""
+    {0, 1}.  The log-sum-exp is fp32; ``z_loss`` adds z·lse² a token.
+    With ``dp`` (a ``sharding.state.Grid``) the rows are one rank's
+    of a batch split over data ranks: the denominator is the global
+    one, so the ranks' results sum to the global masked mean."""
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels[..., None].to(torch.int64))[..., 0]
     nll = lse - gold
     if z_loss:
         nll = nll + z_loss * torch.square(lse)
+    if dp is not None:
+        mask = (torch.ones_like(nll) if mask is None
+                else mask.to(torch.float32))
+        return (nll * mask).sum() / torch.clamp(dp.sum(mask.sum()), min=1.0)
     if mask is None:
         return nll.mean()
     mask = mask.to(torch.float32)
     return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
 
-def loss_fn(cfg: ModelConfig, params, batch):
+def loss_fn(cfg: ModelConfig, params, batch, dp=None):
     """batch: dict(tokens, labels[, mask, positions, embeds]) →
     (ce + aux, {"ce", "aux"}); z_loss is 1e-4, as the reference fixes it
-    (``OptConfig.z_loss`` is unread there too)."""
-    logits, aux = registry.forward(
-        cfg, params, batch["tokens"], positions=batch.get("positions"),
-        embeds=batch.get("embeds"))
-    ce = cross_entropy(logits, batch["labels"], batch.get("mask"),
-                       z_loss=1e-4)
+    (``OptConfig.z_loss`` is unread there too).  With ``dp`` ce is this
+    rank's share (:func:`cross_entropy`) and aux the global one."""
+    with ffn.data_parallel(dp):
+        logits, aux = registry.forward(
+            cfg, params, batch["tokens"], positions=batch.get("positions"),
+            embeds=batch.get("embeds"))
+        ce = cross_entropy(logits, batch["labels"], batch.get("mask"),
+                           z_loss=1e-4, dp=dp)
     return ce + aux, {"ce": ce, "aux": aux}
 
 
@@ -62,20 +83,25 @@ def microbatches(batch: dict, grad_accum: int) -> list[dict]:
 
 
 def value_and_grads(cfg: ModelConfig, params, batch: dict,
-                    grad_accum: int = 1):
+                    grad_accum: int = 1, dp=None):
     """(loss, metrics {"ce", "aux"}, grads by parameter name) of one
     batch: ``torch.autograd.grad`` of :func:`loss_fn`, each gradient in
     its parameter's dtype; with ``grad_accum > 1`` the microbatches'
     gradients summed in fp32 and divided by their count, the loss their
     mean (the reference's scan; its metrics then carry ce = the loss and
-    aux = 0)."""
+    aux = 0).  With ``dp`` the batch is this rank's rows: the loss and
+    ce returned are the global ones, the gradients this rank's share
+    (their sum over the ranks is the global loss's)."""
     names, leaves = zip(*params.named_parameters())
 
     def one(b):
-        loss, metrics = loss_fn(cfg, params, b)
+        loss, metrics = loss_fn(cfg, params, b, dp)
         grads = torch.autograd.grad(loss, leaves)
-        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
-                dict(zip(names, grads)))
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if dp is not None:
+            metrics["ce"] = dp.sum(metrics["ce"])
+            loss = metrics["ce"] + metrics["aux"]
+        return loss.detach(), metrics, dict(zip(names, grads))
 
     if grad_accum == 1:
         return one(batch)
@@ -94,11 +120,17 @@ def value_and_grads(cfg: ModelConfig, params, batch: dict,
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
-                    grad_accum: int = 1):
+                    grad_accum: int = 1, mesh=None, timed: bool = False):
     """``train_step(state, batch) -> (state, metrics)``: the parameters
     are updated in place, ``state["opt"]`` replaced; the metrics (loss,
     ce, aux, grad_norm, lr) are 0-d fp32 tensors on the device, left
-    unread so that a step does not wait on the card."""
+    unread so that a step does not wait on the card.
+
+    ``mesh``: a ``sharding.state.ShardedTrain`` whose state the step
+    takes (:func:`sharded_train_step`); ``batch`` is then the global
+    batch, of which the step takes the rank's rows."""
+    if mesh is not None:
+        return sharded_train_step(cfg, opt_cfg, mesh, grad_accum, timed)
 
     def train_step(state, batch):
         params, opt = state["params"], state["opt"]
@@ -108,6 +140,48 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
         del grads
         out = {"loss": loss, **metrics, **opt_metrics}
         return {"params": params, "opt": opt2}, out
+
+    return train_step
+
+
+def sharded_train_step(cfg: ModelConfig, opt_cfg: OptConfig, sharded,
+                       grad_accum: int = 1, timed: bool = False):
+    """The step on a mesh (see the module's docstring); ``timed`` adds
+    ``phase_s``, the seconds of the gather, the forward and backward,
+    the gradient reduce (with the norm and the slicing) and the update,
+    each ended by a device synchronise."""
+
+    def train_step(state, batch):
+        marks = [time.perf_counter()]
+
+        def mark():
+            if timed:
+                dev = batch["tokens"].device
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                marks.append(time.perf_counter())
+
+        work = sharded.gather_params(state["params"])
+        mark()
+        loss, metrics, grads = value_and_grads(
+            cfg, work, sharded.grid.rows(batch), grad_accum, sharded.dp)
+        sharded.release(work)
+        mark()
+        grads = sharded.reduce_grads(grads)
+        gnorm = global_norm(grads[n] for n in sharded.params)
+        grads = sharded.shard_grads(grads)
+        mark()
+        opt2, opt_metrics = adamw_update(opt_cfg, state["params"], grads,
+                                         state["opt"], gnorm=gnorm,
+                                         blocks=sharded.blocks)
+        del grads
+        mark()
+        out = {"loss": loss, **metrics, **opt_metrics}
+        if timed:
+            out["phase_s"] = dict(zip(
+                ("gather", "forward_backward", "reduce", "update"),
+                (b - a for a, b in zip(marks, marks[1:]))))
+        return {"params": state["params"], "opt": opt2}, out
 
     return train_step
 

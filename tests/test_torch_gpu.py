@@ -1724,3 +1724,76 @@ def test_train_lm_tiny_on_the_card(cuda, tmp_path, capsys):
         - before["flash_attention_bwd"] == calls
     assert int(state["opt"]["step"]) == 3
     assert "nan" not in out.split("done; final loss")[1]
+
+
+_MESH_RANK = """
+import os, sys
+import torch
+import torch.distributed as dist
+from repro_torch.launch import train
+os.environ["LOCAL_RANK"] = "0"
+torch.cuda.set_device(0)
+dist.init_process_group("gloo", init_method=sys.argv[1], world_size=2,
+                        rank=int(sys.argv[2]))
+try:
+    train.main(sys.argv[3:])
+finally:
+    dist.destroy_process_group()
+"""
+
+
+def _checkpoint_leaves(directory) -> list:
+    from repro_torch.train.checkpoint import CheckpointManager
+
+    mgr = CheckpointManager(str(directory))
+    d = mgr._step_dir(mgr.latest_step())
+    with open(os.path.join(d, "manifest.json")) as f:
+        n = json.load(f)["num_leaves"]
+    return [np.load(os.path.join(d, f"leaf_{i:05d}.npy")) for i in range(n)]
+
+
+@pytest.mark.gpu
+def test_model_split_mesh_on_the_card_equals_one_device(cuda, tmp_path):
+    """internlm2's smoke on a 1x2 mesh, two gloo ranks on ``cuda:0`` (the
+    shard, gather and update path on CUDA tensors), against the same
+    run on one device in this process: every step's metrics and every
+    leaf of the final checkpoint bit for bit."""
+    import socket
+    import subprocess
+    import sys
+
+    from repro_torch.launch import train
+
+    argv = ["--arch", "internlm2-1.8b", "--smoke", "--steps", "4", "--seq",
+            "16", "--device", "cuda", "--ckpt-every", "100"]
+    train.main(argv + ["--ckpt-dir", str(tmp_path / "one"), "--metrics",
+                       str(tmp_path / "one.jsonl")])
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    mesh = argv + ["--mesh", "1x2", "--ckpt-dir", str(tmp_path / "mesh"),
+                   "--metrics", str(tmp_path / "mesh.jsonl")]
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _MESH_RANK, f"tcp://localhost:{port}",
+         str(r), *mesh], cwd=root, env=env) for r in range(2)]
+    try:
+        rcs = [p.wait(timeout=300) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert rcs == [0, 0]
+    def steps(name):
+        rows = [json.loads(line) for line in
+                (tmp_path / name).read_text().splitlines()]
+        return [{k: v for k, v in r.items() if k != "seconds"}
+                for r in rows]
+
+    one = steps("one.jsonl")
+    assert len(one) == 4 and steps("mesh.jsonl") == one
+    for a, b in zip(_checkpoint_leaves(tmp_path / "one"),
+                    _checkpoint_leaves(tmp_path / "mesh")):
+        np.testing.assert_array_equal(a, b)

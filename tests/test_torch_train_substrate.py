@@ -8,6 +8,7 @@ uninterrupted run bit for bit.
 
 import os
 import signal
+import weakref
 
 import numpy as np
 import pytest
@@ -162,6 +163,48 @@ def test_checkpoint_roundtrip(tmp_path, dtype):
         assert leaf.dtype == np.uint16
 
 
+class _TwoShards:
+    """A ``sharding.state.ShardedTrain`` stand-in for ``save``: each
+    leaf's full value is its shard twice over, each gather logged."""
+
+    def __init__(self, writer, log):
+        self.writer, self.log, self.gathered = writer, log, []
+
+    def full_leaf(self, path, local):
+        # every leaf gathered before this one has been dropped, or (the
+        # writer) copied to the host first
+        assert all(r() is None for r in self.gathered) or self.writer
+        full = torch.cat([local, local]) if local.ndim else local.clone()
+        self.gathered.append(weakref.ref(full))
+        self.log.append(("gather", path))
+        return full
+
+
+@pytest.mark.parametrize("writer", [True, False])
+def test_sharded_save_holds_one_full_leaf_at_a_time(tmp_path, monkeypatch,
+                                                    writer):
+    """On a mesh each leaf is gathered, copied to the host by rank 0 and
+    dropped before the next is gathered: a save adds one full leaf to a
+    rank's device memory, not the whole state."""
+    from repro_torch.train import checkpoint
+
+    log = []
+    to_host = checkpoint.to_host
+    monkeypatch.setattr(checkpoint, "to_host",
+                        lambda t: (log.append(("host",)), to_host(t))[1])
+    state = _tiny_state()
+    mgr = CheckpointManager(str(tmp_path), sharded=_TwoShards(writer, log))
+    mgr.save(3, state)
+    paths = [p for p, _ in flatten(state)]
+    gathers = [("gather", p) for p in paths]
+    if writer:
+        assert log == [e for g in gathers for e in (g, ("host",))]
+        leaf = np.load(tmp_path / "step_00000003" / "leaf_00000.npy")
+        assert leaf.shape == (8, 8)
+    else:
+        assert log == gathers and mgr.latest_step() is None
+
+
 def test_checkpoint_keep_k_and_latest(tmp_path):
     mgr = CheckpointManager(str(tmp_path), keep=2)
     state = _tiny_state()
@@ -297,7 +340,10 @@ def test_launcher_preempted_and_resumed_equals_uninterrupted(tmp_path,
 
 
 def test_launcher_takes_only_the_one_device_mesh():
-    with pytest.raises(NotImplementedError, match="11.7 and 5"):
+    """Without ``torch.distributed.run`` the world is one process: a
+    larger mesh raises and names both counts."""
+    with pytest.raises(ValueError, match="needs a world of 2 ranks, this "
+                                         "one has 1"):
         launch.main(["--smoke", "--device", "cpu", "--mesh", "2x1"])
 
 
