@@ -52,6 +52,13 @@ Main path of slice 2 (launch counts from 0 again):
 9. ctrl     — ``tests/goldens/ctrl_4x4.json`` through the control plane,
               then ``benchmarks/dynamics.py`` at full size (BiDOR and
               odd-even);
+Main path of slice 20 (launch counts from 0 again):
+9b. lanes   — the lane split (``multi_device=True``) on this card named
+              once a block: the paper's 5x5 campaign in two blocks
+              against ``paper``'s points, and the dynamics link failure
+              under the online policy (BiDOR, its replans hot-swapped
+              into every block's tables) in three blocks against
+              ``ctrl``'s run, every statistic bit for bit;
 10. flash   — ``flash_attention`` against its plain twin at whisper-base's
               shapes (B 4, H = KV = 8, D 64: the encoder, cross-attention
               and cached self-attention at Sq 16 and 1) and at a GQA
@@ -243,6 +250,12 @@ summed):
               forward and backward launches (2 and 1 a layer a step), and
               the step in gather, forward and backward, gradient reduce
               and update;
+Slice 20's dry run (no kernel, no step):
+25c. dryrun — ``launch.dryrun.train_counts`` of the ``train`` cell and of
+              each ``train_mesh`` rank at its coordinates: the state's
+              bytes equal to the measured ones exactly, every warm step
+              at least the roofline's bound (H100 peaks), the peak
+              estimate beside ``max_memory_allocated``;
 Main paths of slice 17 (launch counts from 0 before each):
 26. train_hybrid — jamba-1.5-large-398b at its published widths, one
               super-block (7 Mamba + 1 attention layer), no experts,
@@ -288,7 +301,8 @@ Main paths of slice 17 (launch counts from 0 before each):
     python3 chip_smoke.py --train-mesh
 
 runs the ``train`` phase's main path (its steps are what the mesh is
-held against) and then the ``train_mesh`` phase alone.
+held against), then the ``train_mesh`` phase and the ``dryrun`` phase
+alone.
 
     python3 chip_smoke.py --serve-wall [--src DIR] [--rounds N]
 
@@ -357,12 +371,26 @@ FULL_ONLY = ("the serving decoders' device profiles (dense, moe, mla, vlm, "
              "ssm)", "the flit step's timings by algorithm, zoo shape and "
              "instrumented instance")
 
-# H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 bandwidth
-HBM_BYTES_PER_S = 3.35e12
-# dense tensor-core bf16 FLOP/s, and float32 FLOP/s outside the tensor
-# cores (an fp32 attention has no tensor-core path at fp32 precision)
-BF16_FLOPS = 989e12
-F32_FLOPS = 67e12
+
+
+def _load_peaks():
+    """The H100 SXM peaks of ``repro_torch.analysis.hlo`` (HBM3 bytes/s,
+    dense bf16 tensor-core FLOP/s, float32 FLOP/s outside the tensor
+    cores), the dry run's roofline and these bounds' one source; read
+    from the file beside this script, so that ``--src`` still imports
+    the package itself from another tree."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "_chip_smoke_peaks",
+        os.path.join(HERE, "src", "repro_torch", "analysis", "hlo.py"))
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    return mod.HBM_BYTES_PER_S, mod.BF16_FLOPS, mod.F32_FLOPS
+
+
+HBM_BYTES_PER_S, BF16_FLOPS, F32_FLOPS = _load_peaks()
 
 
 _T0 = time.perf_counter()
@@ -869,6 +897,7 @@ def run_ctrl(torch, np, cuda):
     cfg = SimConfig(cycles=cycles, warmup=cycles // 8)
     plan = build_plan_fast(topo, t, device=cuda)
     peaks = {}
+    kept = {}
     for scen_name, evs in events.items():
         for policy in ("oracle", "stale", "online"):
             scen = Scenario(f"{scen_name}_{policy}", events=evs,
@@ -876,11 +905,14 @@ def run_ctrl(torch, np, cuda):
             for algo in (Algo.BIDOR, Algo.ODDEVEN):
                 bidor = algo == Algo.BIDOR
                 t0 = time.perf_counter()
-                out = run_controlled(
-                    topo, t, cfg.replace(algo=algo), scen, rates=[0.35],
-                    seeds=[0, 1, 2], bidor_table=plan.table if bidor else None,
-                    nrank0=plan.nrank if bidor else None, device=cuda)
+                args = (topo, t, cfg.replace(algo=algo), scen)
+                kw = dict(rates=[0.35], seeds=[0, 1, 2],
+                          bidor_table=plan.table if bidor else None,
+                          nrank0=plan.nrank if bidor else None)
+                out = run_controlled(*args, **kw, device=cuda)
                 wall = time.perf_counter() - t0
+                if scen.name == "linkfail_online" and bidor:
+                    kept.update(args=args, kw=kw, out=out)
                 rs = [out.result_with_peak(i)
                       for i in range(len(out.points))]
                 for r in rs:     # a re-plan may reorder BiDOR's flows
@@ -902,6 +934,7 @@ def run_ctrl(torch, np, cuda):
     if not on < st:
         raise SystemExit("dynamics: online replanning does not beat the "
                          "stale plan under the link failure")
+    return kept
 
 
 def _deployed(cuda, topo, algo):
@@ -4502,8 +4535,12 @@ def run_train_main(torch, np, cuda, out):
     from repro_torch.models.common import param_count_tree
 
     t_phase = time.perf_counter()
+    from repro_torch.train.checkpoint import flatten
+
     cfg, state, data, step_fn, opt_cfg, init_s = _train_setup(torch, cuda)
     n = param_count_tree(state["params"])
+    state_bytes = sum(t.numel() * t.element_size()
+                      for _, t in flatten(state))
     torch.cuda.reset_peak_memory_stats()
     state, rows = _train_steps(torch, cuda, "train", cfg, state, step_fn,
                                data, TRAIN_STEPS)
@@ -4533,7 +4570,8 @@ def run_train_main(torch, np, cuda, out):
         f"{PATH_LAUNCHES['tc']}), backward launches {bwd}; peak device "
         f"memory {peak:.2f} GiB")
     out.update(cfg=cfg, state=state, data=data, step_fn=step_fn,
-               opt_cfg=opt_cfg, rows=rows, t0=t_phase)
+               opt_cfg=opt_cfg, rows=rows, t0=t_phase,
+               state_bytes=state_bytes, peak=peak * 2**30)
 
 
 def _rel(a: float, b: float) -> float:
@@ -4821,6 +4859,7 @@ def mesh_rank(rank: int, port: int, mesh: str, out: str) -> None:
                "state_delta": m1 - m0, "requested_delta": q1 - q0,
                "state_bytes": r.sharded.state_bytes(r.state),
                "predicted": r.sharded.predicted_bytes(),
+               "coords": r.sharded.grid.coords,
                "peak": torch.cuda.max_memory_allocated(),
                "launches": dict(kernels.LAUNCHES),
                "path_launches": dict(fk.PATH_LAUNCHES),
@@ -4889,7 +4928,8 @@ def run_train_mesh(torch, cuda, train_rows) -> dict:
 
     build.build()
     cfg = get_arch(TRAIN_ARCH).full
-    total = {"launches": {}, "path_launches": {}, "bwd_path_launches": {}}
+    total = {"launches": {}, "path_launches": {}, "bwd_path_launches": {},
+             "records": {}}
     train_ms = _median([r[2] for r in train_rows[1:]]) * 1e3
     t_phase = time.perf_counter()
     fails = []
@@ -4899,8 +4939,10 @@ def run_train_mesh(torch, cuda, train_rows) -> dict:
             t0 = time.perf_counter()
             recs = _run_ranks(mesh, tmp)
             wall = time.perf_counter() - t0
+            total["records"][mesh] = recs
             for rec in recs:
-                for key in total:
+                for key in ("launches", "path_launches",
+                            "bwd_path_launches"):
                     for k, v in rec[key].items():
                         total[key][k] = total[key].get(k, 0) + v
                 lab = f"train mesh {mesh} rank {rec['rank']}"
@@ -4973,6 +5015,114 @@ def run_train_mesh(torch, cuda, train_rows) -> dict:
     if fails:
         raise SystemExit("; ".join(fails))
     return total
+
+
+# --------------------------------------------------------------------- #
+# slice 20: the dry run against the measured steps; the lane split
+# --------------------------------------------------------------------- #
+def run_dryrun(train, mesh_records) -> None:
+    """The dry run (``launch.dryrun.train_counts``) of the train phase's
+    cell (internlm2-1.8b, 8 x 128 tokens, fp32 moments, one device) and
+    of each ``train_mesh`` rank (``1x2``, ``2x1``, at its coordinates),
+    held against what those runs measured; no step is run.  The state's
+    bytes must equal the measured ones exactly, and every warm step must
+    take at least the roofline's ``bound_s`` (a bound above a measured
+    time is a count that is wrong).  The peak estimate (argument + temp)
+    is printed beside ``max_memory_allocated`` with their ratio."""
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import dryrun
+    from repro_torch.models import registry
+    from repro_torch.train.optimizer import OptConfig
+
+    t0 = time.perf_counter()
+    cfg = get_arch(TRAIN_ARCH).full
+    opt_cfg = OptConfig(moment_dtype="float32")
+    model_flops = 6.0 * registry.count_params(cfg, active_only=True) \
+        * TRAIN_B * TRAIN_S
+    runs = [("1x1", {"data": 1, "model": 1},
+             [{"coords": {"data": 0, "model": 0},
+               "state_bytes": train["state_bytes"], "peak": train["peak"],
+               "s": [r[2] for r in train["rows"]]}])]
+    for mesh, recs in mesh_records.items():
+        d, m = map(int, mesh.split("x"))
+        runs.append((mesh, {"data": d, "model": m}, [
+            {"coords": rec["coords"], "state_bytes": rec["state_bytes"],
+             "peak": rec["peak"], "s": [r["s"] for r in rec["rows"]],
+             "rank": rec["rank"]} for rec in recs]))
+    fails = []
+    for mesh, sizes, ranks in runs:
+        for rank in ranks:
+            counts = dryrun.train_counts(cfg, opt_cfg, sizes, TRAIN_B,
+                                         TRAIN_S, 1, coords=rank["coords"])
+            rec = dryrun.record_of(counts, {"model_flops": model_flops},
+                                   sizes["data"] * sizes["model"])
+            rl, mem = rec["roofline"], rec["memory"]
+            warm = rank["s"][1:]
+            est = mem["peak_gb"] * 2**30
+            lab = f"dryrun {mesh} rank {rank.get('rank', 0)}"
+            log(f"{lab}: state bytes {counts['state_bytes']} counted, "
+                f"{rank['state_bytes']} measured; FLOPs a device "
+                f"{counts['flops']:.4e} (attention "
+                f"{counts['attention_flops']:.4e}), "
+                f"HBM floor {counts['hbm_bytes']:.4e} B, collectives "
+                f"{rec['per_device']['collective_bytes']:.4e} B "
+                f"{json.dumps(rec['per_device']['collective_counts'])}; "
+                f"roofline compute {rl['compute_s'] * 1e3:.3f}ms, memory "
+                f"{rl['memory_s'] * 1e3:.3f}ms, collective "
+                f"{rl['collective_s'] * 1e3:.3f}ms, bound "
+                f"{rl['bound_s'] * 1e3:.3f}ms ({rl['dominant']}) against "
+                f"warm steps {min(warm) * 1e3:.2f}-{max(warm) * 1e3:.2f}ms "
+                f"(measured / bound {min(warm) / rl['bound_s']:.2f}x at the "
+                f"least); peak estimate {est / 2**30:.2f} GiB (argument "
+                f"{mem['argument_gb']:.2f}, temp {mem['temp_gb']:.2f}) "
+                f"against max_memory_allocated {rank['peak'] / 2**30:.2f} "
+                f"GiB, ratio {est / rank['peak']:.3f}")
+            if counts["state_bytes"] != rank["state_bytes"]:
+                fails.append(f"{lab}: state bytes")
+            if min(warm) < rl["bound_s"]:
+                fails.append(f"{lab}: a step under its bound")
+    log(f"dryrun: phase {time.perf_counter() - t0:.1f}s")
+    if fails:
+        raise SystemExit("; ".join(fails))
+
+
+def run_lanes(torch, np, cuda, paper, ctrl) -> None:
+    """Slice 20's main path: the lane split (``multi_device=True``) on
+    this one card named as many times as there are blocks.  The paper's
+    5x5 campaign (4 lanes a cell, the card twice) against ``run_paper``'s
+    points, and the dynamics benchmark's link failure under the online
+    policy, BiDOR, with its replans (3 lanes, the card three times),
+    against ``run_ctrl``'s run: every statistic bit for bit."""
+    from repro_torch.bench.lane_cards import point_fields
+    from repro_torch.noc import run_campaign, run_controlled
+
+    t0 = time.perf_counter()
+    spec = dataclasses.replace(paper_spec(), multi_device=True)
+    split = run_campaign(spec, device=(cuda, cuda))
+    same = point_fields(split) == point_fields(paper["res"])
+    log(f"lanes: paper 5x5, {len(split.points)} points, 4 lanes a cell in "
+        f"two blocks on {cuda} named twice: "
+        f"{'equal to run_paper, bit for bit' if same else 'DIFFERENT'}; "
+        + ", ".join(f"{'/'.join(k)} {dt:.3f}s"
+                    for k, dt in split.wall_clock_s.items()))
+    args, kw, want = ctrl["args"], ctrl["kw"], ctrl["out"]
+    t1 = time.perf_counter()
+    got = run_controlled(*args, **kw, device=(cuda,) * 3, multi_device=True)
+    wall = time.perf_counter() - t1
+    ok = (np.array_equal(got.link_peak, want.link_peak)
+          and got.epoch_bounds == want.epoch_bounds
+          and [dataclasses.asdict(r) for r in got.replans]
+          == [dataclasses.asdict(r) for r in want.replans]
+          and all(dataclasses.replace(a, node_load=0)
+                  == dataclasses.replace(b, node_load=0)
+                  and np.array_equal(a.node_load, b.node_load)
+                  for a, b in zip(got.results, want.results)))
+    log(f"lanes: dynamics {args[3].name} BiDOR, 3 lanes in three blocks, "
+        f"{len(got.replans)} replans: "
+        f"{'equal to run_ctrl, bit for bit' if ok else 'DIFFERENT'}; "
+        f"wall {wall:.3f}s; phase {time.perf_counter() - t0:.1f}s")
+    if not (same and ok and got.replans):
+        raise SystemExit("lanes: the split parts from the one-block run")
 
 
 # --------------------------------------------------------------------- #
@@ -5345,7 +5495,7 @@ def main() -> int:
 
     # each main path runs with the counts from 0 and must launch every
     # kernel it goes through
-    serve, jamba, paper, dense = {}, {}, {}, {}
+    serve, jamba, paper, dense, ctrl = {}, {}, {}, {}, {}
     paths = {
         "slice 1 (plan, flit step, campaign)": (
             ("possibility_v", "simstep_chunk", "simstep_grid"),
@@ -5356,7 +5506,10 @@ def main() -> int:
             ("possibility_weights", "possibility_v", "simstep_chunk"),
             lambda: (run_fig1(torch, np, cuda,
                               run_nrank(torch, np, cuda, weights_ms)),
-                     run_ctrl(torch, np, cuda))),
+                     ctrl.update(run_ctrl(torch, np, cuda)))),
+        "slice 20b (the lane split, one card named per block)": (
+            ("possibility_v", "simstep_chunk"),
+            lambda: run_lanes(torch, np, cuda, paper, ctrl)),
         "slice 3 (whisper-base serving)": (
             ("flash_attention",),
             lambda: run_serve_main(torch, np, cuda, serve)),
@@ -5440,6 +5593,7 @@ def main() -> int:
                              f"{label}: {missing}")
         for k, v in counts.items():
             launches[k] += v
+        return res
 
     for label, (needed, drive) in paths.items():
         drive_path(label, needed, drive)
@@ -5492,6 +5646,7 @@ def main() -> int:
                lambda: run_train_main(torch, np, cuda, out))
     flash_bwd = run_train_checks(torch, np, cuda, out)
     train_rows = out["rows"]
+    train_meas = {k: out[k] for k in ("rows", "state_bytes", "peak")}
     del out
     torch.cuda.empty_cache()
     # slice 19's: the same training on a 1x2 and a 2x1 mesh, two ranks
@@ -5499,8 +5654,10 @@ def main() -> int:
     label = "slice 19 (internlm2-1.8b training on a mesh)"
     flash_paths[label] = ("tc",)
     bwd_routes[label] = "tc"
-    drive_path(label, ("flash_attention", "flash_attention_bwd"),
-               lambda: run_train_mesh(torch, cuda, train_rows))
+    mesh = drive_path(label, ("flash_attention", "flash_attention_bwd"),
+                      lambda: run_train_mesh(torch, cuda, train_rows))
+    # slice 20's dry run, held against the steps just measured
+    run_dryrun(train_meas, mesh["records"])
     # slice 17's: Jamba trained at published widths (one super-block, no
     # experts, int8 moments: ~54 GB of state), then its checks (the step
     # against the twins, the scan's backward against its twins); then the
@@ -5575,7 +5732,7 @@ def main() -> int:
 def train_mesh_alone() -> int:
     """``--train-mesh``: the kernels built, the train phase's main path
     (its rows are what the mesh phase holds against), then slice 19's
-    mesh phase, with no other phase."""
+    mesh phase and slice 20's dry run of both, with no other phase."""
     import numpy as np
     import torch
 
@@ -5590,10 +5747,11 @@ def train_mesh_alone() -> int:
     log(f"build: {json.dumps({k: round(v, 2) for k, v in secs.items()})} s")
     out = {}
     run_train_main(torch, np, cuda, out)
-    rows = out["rows"]
+    train = {k: out[k] for k in ("rows", "state_bytes", "peak")}
     del out
     torch.cuda.empty_cache()
-    run_train_mesh(torch, cuda, rows)
+    mesh = run_train_mesh(torch, cuda, train["rows"])
+    run_dryrun(train, mesh["records"])
     return 0
 
 

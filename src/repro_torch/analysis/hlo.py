@@ -19,9 +19,14 @@ Accounting model (roofline-oriented):
   * Collectives: per-op bytes (max of result/operand estimate) + ring-wire
     bytes with the group size parsed from ``replica_groups``.
 
-Not here (ROADMAP queue 1, item 11.7): ``xla_cost_analysis``, which reads
-a JAX compiled object, and the roofline terms, which wait for the
-H100's own peaks.
+The roofline terms (:class:`Roofline`, :func:`roofline_terms`) take the
+H100 SXM's peaks in place of the reference's TPU v5e ones; they price
+these stats and the port's own counts (``launch.dryrun``) alike.
+
+Not ported: ``xla_cost_analysis`` (the reference's ``hlo.py:544``),
+which normalises the ``cost_analysis()`` of a JAX compiled object; the
+port compiles no XLA program, so there is nothing for it to read
+(ROADMAP queue 3).
 """
 
 from __future__ import annotations
@@ -543,3 +548,91 @@ def analyze_hlo_text(text: str, num_devices: int = 1) -> HloStats:
     if entry is None:  # fall back to the largest computation
         entry = max(comps.values(), key=lambda c: len(c.instructions))
     return analyze_computation(comps, entry, num_devices, {})
+
+
+# ---------------------------------------------------------------------- #
+# roofline terms (NVIDIA H100 SXM5, 700 W)
+# ---------------------------------------------------------------------- #
+# dense bf16 tensor-core FLOP/s (the H100 data sheet's 1 979 is with
+# sparsity); float32 FLOP/s outside the tensor cores
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
+PEAK_FLOPS = BF16_FLOPS
+# HBM3 bytes/s (data sheet: 3.35 TB/s)
+HBM_BYTES_PER_S = 3.35e12
+HBM_BW = HBM_BYTES_PER_S
+# NVLink 4 within a node: 900 GB/s a card in both directions together,
+# so 450e9 bytes/s each way (data sheet); NODE_CARDS cards to a node
+# (HGX/DGX H100)
+NVLINK_BW = 450e9
+NODE_CARDS = 8
+# across nodes: one 400 Gb/s NIC a card (DGX H100's ConnectX-7), 50e9
+# bytes/s each way
+NIC_BW = 50e9
+
+
+def group_bandwidth(ranks) -> float:
+    """Bytes/s each way a card of a collective group gets: NVLink where
+    every rank of ``ranks`` (global ranks, ``NODE_CARDS`` consecutive
+    ranks to a node) sits on one node, else the NIC.  Under row-major
+    ranks a 16 x 16 (data, model) mesh's groups all cross nodes: a
+    ``model`` group is 16 consecutive ranks (two nodes), a ``data``
+    group ranks 16 apart; so every collective of the production meshes
+    is priced at ``NIC_BW``."""
+    nodes = {int(r) // NODE_CARDS for r in ranks}
+    return NVLINK_BW if len(nodes) <= 1 else NIC_BW
+
+
+@dataclasses.dataclass
+class Roofline:
+    compute_s: float
+    memory_s: float
+    collective_s: float
+    flops: float
+    hbm_bytes: float
+    collective_bytes: float
+    model_flops: float
+    num_chips: int
+
+    @property
+    def dominant(self) -> str:
+        terms = {"compute": self.compute_s, "memory": self.memory_s,
+                 "collective": self.collective_s}
+        return max(terms, key=terms.get)
+
+    @property
+    def bound_s(self) -> float:
+        return max(self.compute_s, self.memory_s, self.collective_s)
+
+    @property
+    def useful_flops_ratio(self) -> float:
+        """MODEL_FLOPS / (FLOPs a device × chips): remat and redundancy
+        waste."""
+        total = self.flops * self.num_chips
+        return self.model_flops / total if total else 0.0
+
+    @property
+    def mfu_bound(self) -> float:
+        """Roofline-implied MFU: model flops / (chips · peak · bound_s)."""
+        denom = self.num_chips * PEAK_FLOPS * self.bound_s
+        return self.model_flops / denom if denom else 0.0
+
+
+def roofline_terms(stats: HloStats, num_chips: int, model_flops: float,
+                   collective_s: float | None = None) -> Roofline:
+    """Per-device stats → the three roofline terms (seconds) at the
+    H100's peaks.  ``collective_s``: the collectives' time where their
+    groups' links differ (``launch.dryrun`` prices each call by
+    :func:`group_bandwidth`); by default the wire bytes over NVLink."""
+    if collective_s is None:
+        collective_s = stats.collective_wire_bytes / NVLINK_BW
+    return Roofline(
+        compute_s=stats.flops / PEAK_FLOPS,
+        memory_s=stats.hbm_bytes / HBM_BW,
+        collective_s=collective_s,
+        flops=stats.flops,
+        hbm_bytes=stats.hbm_bytes,
+        collective_bytes=stats.collective_bytes,
+        model_flops=model_flops,
+        num_chips=num_chips,
+    )

@@ -8,10 +8,13 @@ Runs ``python -m repro_torch.launch.train`` on one card, then under
 launcher's default batch and no checkpoint, each run's steps read from
 its ``--metrics`` file.  A mesh with one data rank must give the
 one-card run's losses and grad norms bit for bit; the others within
-2e-3 (loss) and 2e-2 (grad norm) relative, the train phase's rule in
-``chip_smoke.py``.  Prints each run's warm step median (rank 0's host
-clock, the loss read back) and the largest distance; exits non-zero
-where a mesh fails or fewer than two cards are visible.
+``LOSS_RTOL`` (loss) and ``GNORM_RTOL`` (grad norm) relative, set from
+four H100s' distances (see below).  A control run on one card with half
+the global batch, a batch split that lost a rank's rows, must fall
+outside them: else the rule could not see that fault, and the bench
+fails.  Prints each run's warm step median (rank 0's host clock, the
+loss read back) and the largest distances; exits non-zero where a mesh
+fails, the control passes, or fewer than two cards are visible.
 """
 
 from __future__ import annotations
@@ -25,7 +28,11 @@ import tempfile
 
 import torch
 
-LOSS_RTOL, GNORM_RTOL = 2e-3, 2e-2
+# on four H100s over NCCL `4x1` / `2x2` part from one card by at most
+# 9.757e-6 of the loss and 9.632e-5 of the grad norm, and half the batch
+# by 1.545e-2 / 1.494e-1: ten times the one, a hundredth of the other
+# (``chip_smoke.py``'s ``MESH_LOSS_RTOL`` / ``MESH_GNORM_RTOL`` alike)
+LOSS_RTOL, GNORM_RTOL = 1e-4, 1e-3
 
 
 def _run(nproc: int, argv: list[str], metrics: str) -> list[dict]:
@@ -41,6 +48,14 @@ def _run(nproc: int, argv: list[str], metrics: str) -> list[dict]:
 
 def _rel(a: float, b: float) -> float:
     return abs(a - b) / max(abs(b), 1e-30)
+
+
+def _distances(rows, want) -> tuple[float, float]:
+    """The largest relative distances of ``rows``' losses and grad norms
+    from ``want``'s, step by step."""
+    return (max(_rel(a["loss"], b["loss"]) for a, b in zip(rows, want)),
+            max(_rel(a["grad_norm"], b["grad_norm"])
+                for a, b in zip(rows, want)))
 
 
 def _median(xs):
@@ -70,6 +85,16 @@ def main(argv=None) -> int:
     failed = []
     with tempfile.TemporaryDirectory() as tmp:
         one = _run(1, base, os.path.join(tmp, "1x1.jsonl"))
+        half = _run(1, base + ["--global-batch", "4"],
+                    os.path.join(tmp, "half.jsonl"))
+        loss, gnorm = _distances(half, one)
+        caught = not (loss <= LOSS_RTOL and gnorm <= GNORM_RTOL)
+        print(f"mesh_cards: control, half the batch on one card: loss "
+              f"{loss:.3e}, grad norm {gnorm:.3e} relative from the whole "
+              f"batch's: {'outside' if caught else 'INSIDE'} the limits",
+              flush=True)
+        if not caught:
+            failed.append("control")
         for mesh in ["1x1", *meshes]:
             d, m = map(int, mesh.split("x"))
             rows = one if mesh == "1x1" else _run(
@@ -82,8 +107,7 @@ def main(argv=None) -> int:
                 ok = key == want
                 how = "bit for bit" if ok else "NOT bit for bit"
             else:
-                loss = max(_rel(a[0], b[0]) for a, b in zip(key, want))
-                gnorm = max(_rel(a[1], b[1]) for a, b in zip(key, want))
+                loss, gnorm = _distances(rows, one)
                 ok = loss <= LOSS_RTOL and gnorm <= GNORM_RTOL
                 how = (f"loss within {loss:.3e}, grad norm within "
                        f"{gnorm:.3e} relative (limits {LOSS_RTOL}, "

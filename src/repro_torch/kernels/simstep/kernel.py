@@ -211,8 +211,12 @@ class Launcher:
 
     def launch(self, args: SimArgs) -> None:
         """Advance every lane by ``args.num_cycles`` cycles: one launch of
-        ``simstep_chunk`` or ``simstep_grid``."""
-        err = self.launch_fn(ctypes.byref(args), *self.extra, self._stream())
+        ``simstep_chunk`` or ``simstep_grid``, on the cell's card (the
+        runtime launches, and sets the kernels' attributes, on the
+        calling thread's current device, whatever the stream's)."""
+        with torch.cuda.device(self.device):
+            err = self.launch_fn(ctypes.byref(args), *self.extra,
+                                 self._stream())
         LAUNCHES[f"simstep_{self.kernel}"] += 1
         if err:
             raise RuntimeError(f"simstep_{self.kernel} launch failed: "
@@ -222,7 +226,9 @@ class Launcher:
         """The kernel's launch shape and per-cycle barriers with an empty
         body: its latency floor, for measurement (not counted, and the
         state is untouched)."""
-        err = self.floor_fn(ctypes.byref(args), *self.extra, self._stream())
+        with torch.cuda.device(self.device):
+            err = self.floor_fn(ctypes.byref(args), *self.extra,
+                                self._stream())
         if err:
             raise RuntimeError(f"simstep_{self.kernel} floor launch failed: "
                                f"cudaError {err}")

@@ -261,7 +261,9 @@ class FlitStep:
         if self.device.type == "cuda":
             self.kernel = card_kernel(meta["N"], meta["P"], meta["V"],
                                       cfg.lat_bins)
-            self._bind_cuda()
+            # the occupancy queries act on the current card
+            with torch.cuda.device(self.device):
+                self._bind_cuda()
         elif self.device.type == "cpu":
             self.kernel = "plain"
             self._tile_fn, self._finish_fn = make_cycle_parts(meta, cfg)
@@ -371,20 +373,34 @@ class FlitStep:
         On the card: one launch of the cell's kernel, the keys in and out
         through an 8·L-byte tensor.  On the CPU: the chunk's draws, then
         cycle by cycle the plain parts."""
+        self.start(num_cycles, keys)
+        return self.finish()
+
+    def start(self, num_cycles: int, keys) -> None:
+        """:meth:`run`'s first half: on the card the keys go in and the
+        chunk is launched, nothing is read back, so the chunks of lane
+        groups on other cards run at once (:meth:`finish` reads the
+        keys); on the CPU the whole chunk."""
         keys = np.asarray(keys, np.uint32).reshape(self.lanes, 2)
         if self.kernel != "plain":
-            if num_cycles <= 0:
-                return keys.copy()
-            self.key.copy_(torch.from_numpy(keys.view(np.int32)))
-            self.args.num_cycles = int(num_cycles)
-            self.launcher.launch(self.args)
-            return self.key.cpu().numpy().view(np.uint32).copy()
-        new_keys, rand = draw_chunk(keys, num_cycles, self.meta["N"],
-                                    self.device, self.cfg.algo,
-                                    self.meta["NDIM"])
+            self._keys = keys.copy() if num_cycles <= 0 else None
+            if num_cycles > 0:
+                self.key.copy_(torch.from_numpy(keys.view(np.int32)))
+                self.args.num_cycles = int(num_cycles)
+                self.launcher.launch(self.args)
+            return
+        self._keys, rand = draw_chunk(keys, num_cycles, self.meta["N"],
+                                      self.device, self.cfg.algo,
+                                      self.meta["NDIM"])
         for c in range(num_cycles):
             self._plain_cycle({k: x[c] for k, x in rand.items()}, c)
-        return new_keys
+
+    def finish(self) -> np.ndarray:
+        """The keys after the chunk :meth:`start` began (on the card, a
+        read that waits for it)."""
+        if self._keys is not None:
+            return self._keys
+        return self.key.cpu().numpy().view(np.uint32).copy()
 
     def _plain_cycle(self, rand: dict, cycle: int) -> None:
         """One cycle of the plain twin, tile by tile: stages 1–6 read

@@ -4,7 +4,9 @@ attention, MiniCPM3 / DeepSeek-V2) with its compressed cache.
 
 The reference's ``hint_*`` sharding annotations have no meaning on one
 device and are dropped.  Its training-only custom VJP (the flash
-backward) waits for training (ROADMAP item 11.6).
+backward) is ``kernels.flash_attention.ops.FlashAttention``, which the
+op runs when a gradient is wanted: the backward kernels on the card,
+their plain twin on the CPU.
 """
 
 from __future__ import annotations

@@ -37,13 +37,13 @@ from ..core import traffic as traffic_mod
 from ..core.bidor import dor_table
 from ..core.plan_fast import build_plans_batched
 from ..core.topology import Topology
-from ..device import resolve_device
+from ..device import resolve_devices
 from ..obs.log import EventLog
 from ..obs.trace import NULL_TRACER
 from .ctrl import run_controlled
-from .sim import (build_tables, lane, make_states, postprocess,
-                  queue_occupancy, run_cycles, source_queue_meta,
-                  state_to_host, static_bw_slots)
+from .sim import (LaneGroups, build_tables, lane, lane_devices,
+                  postprocess, queue_occupancy, source_queue_meta,
+                  static_bw_slots)
 from ..obs.probe import Telemetry
 from .simconfig import Algo, SimConfig, SimResult, check_topology
 
@@ -84,6 +84,15 @@ class CampaignSpec:
         items after the patterns (the same plans, plan cache, certifier
         gate and cell enumeration), with their name in the ``workload``
         column.
+      multi_device: the lane split — ``True`` splits each cell's (rate,
+        seed) lanes over every device of the run (``run_campaign(device=)``:
+        by default every visible card; a sequence of devices, the CPU
+        named several times on the host), in contiguous blocks, each
+        device holding a copy of the tables; ``False`` pins the first
+        device; ``None`` (default) splits whenever more than one device
+        is given and the lane count divides evenly.  Results are bit
+        for bit the same either way (``tests/test_torch_lanes.py``);
+        ``True`` with one device, or lanes that do not divide, raises.
     """
 
     topo: Topology | None
@@ -96,6 +105,7 @@ class CampaignSpec:
     sat_occupancy: float = 0.9
     scenarios: tuple = ()
     topos: tuple[Topology, ...] = ()
+    multi_device: bool | None = None
     workloads: tuple = ()
 
     def __post_init__(self):
@@ -313,13 +323,17 @@ def csv_rows(points: Sequence[CampaignPoint]) -> list[list]:
 
 
 def _run_cell(spec: CampaignSpec, cfg: SimConfig, tables, meta,
-              points: list[tuple[float, int]], device):
+              points: list[tuple[float, int]], devices):
     """Advance one (algo, pattern) cell; returns (host state, sat flags).
 
-    The cell is one lane batch over ``points``, advanced in chunk-cycle
-    slices; the host stops the whole batch once every lane is saturated.
+    The cell is one lane batch over ``points``, split over ``devices``
+    as ``spec.multi_device`` says (:func:`repro_torch.noc.sim.lane_devices`),
+    advanced in chunk-cycle slices; the host stops the whole batch once
+    every lane of every group is saturated.
     """
-    state = make_states(meta, cfg, points, device)
+    lanes = LaneGroups.fresh(
+        tables, meta, cfg, points,
+        lane_devices(devices, len(points), spec.multi_device))
     total = int(cfg.cycles)
     chunk = int(spec.chunk) or total
     sat = np.zeros(len(points), bool)
@@ -327,16 +341,18 @@ def _run_cell(spec: CampaignSpec, cfg: SimConfig, tables, meta,
     done = 0
     while done < total:
         step_cycles = min(chunk, total - done)
-        run_cycles(tables, meta, cfg, state, step_cycles)
+        lanes.run(step_cycles)
         done += step_cycles
         if done > cfg.warmup:
             # saturation accumulates from post-warmup reads only — a
-            # transient warmup spike must not latch a lane
-            occ = queue_occupancy(tables, cfg, state["q_size"], q_meta)
+            # transient warmup spike must not latch a lane; the read
+            # comes after every group's chunk was launched
+            occ = queue_occupancy(tables, cfg, lanes.read("q_size"),
+                                  q_meta)
             sat |= occ >= spec.sat_occupancy
             if done < total and sat.all():
                 break  # every lane saturated: verdict reached
-    return state_to_host(state), sat
+    return lanes.to_host(), sat
 
 
 @dataclasses.dataclass(frozen=True)
@@ -429,7 +445,10 @@ class CampaignExecutor:
     fixed point seeds their replans.  ``plan_cache`` serves plans by
     content key; when every pattern of a topology hits, the planner does
     not run for it.  ``tracer`` records each cell as a span, the cache's
-    hits as instants and the scenario cells' control plane."""
+    hits as instants and the scenario cells' control plane.  ``device``
+    is what ``device.resolve_devices`` reads: plans and tables are built
+    on the first device, and a cell's lanes split over all of them as
+    ``spec.multi_device`` says."""
 
     def __init__(self, spec: CampaignSpec, *,
                  bidor_tables: dict[str, np.ndarray] | None = None,
@@ -442,7 +461,8 @@ class CampaignExecutor:
         self.verbose = verbose
         self.tracer = tracer if tracer is not None else NULL_TRACER
         self.log = EventLog(verbose=verbose)
-        self.device = resolve_device(device)
+        self.devices = resolve_devices(device)
+        self.device = self.devices[0]
         self.points = [(float(r), int(s))
                        for r in spec.rates for s in spec.seeds]
         self._prepped: dict[int, list[_ItemPrep]] = {}
@@ -518,7 +538,7 @@ class CampaignExecutor:
                 topo, cell_tm, prep.table if bidor else None, cfg.num_vcs,
                 self.device, escape=cfg.watchdog)
             host, sat = _run_cell(spec, cfg, tables, meta, self.points,
-                                  self.device)
+                                  self.devices)
             results = [postprocess(lane(host, i), cfg, topo, rate=rate,
                                    seed=seed, saturated=bool(sat[i]))
                        for i, (rate, seed) in enumerate(self.points)]
@@ -532,9 +552,10 @@ class CampaignExecutor:
                 seeds=[int(s) for s in spec.seeds],
                 bidor_table=prep.table if bidor else None,
                 nrank0=prep.nrank if bidor else None,
-                sat_occupancy=spec.sat_occupancy, checkpoint=checkpoint,
+                sat_occupancy=spec.sat_occupancy,
+                multi_device=spec.multi_device, checkpoint=checkpoint,
                 verbose=self.verbose, tracer=self.tracer,
-                device=self.device)
+                device=self.devices)
             results = [ctrl.result_with_peak(i)
                        for i in range(len(self.points))]
             telemetry = ctrl.telemetry
@@ -567,7 +588,9 @@ def run_campaign(spec: CampaignSpec, *,
                  bidor_tables: dict[str, np.ndarray] | None = None,
                  plan_cache=None, verbose: bool = False,
                  tracer=None, device=None) -> CampaignResult:
-    """Execute the full campaign grid on ``device`` (default: the card).
+    """Execute the full campaign grid on ``device`` (default: the card,
+    every visible card for the lane split, ``spec.multi_device``; a
+    sequence of devices names them).
 
     BiDOR plans are built per pattern from that pattern's own matrix;
     ``bidor_tables`` (pattern name → (N, N) choice table) overrides them,

@@ -31,9 +31,12 @@ epoch grid cannot change a random draw: an empty schedule reproduces
 :func:`repro_torch.noc.sim.run_sweep` bit for bit.  A run can snapshot
 itself at every epoch boundary (``checkpoint=``) and resume from the
 snapshot bit for bit, and it can record its control-plane events to a
-trace writer (``tracer=``).  Not ported yet: the lane split across cards
-(``multi_device=True``), ROADMAP queue 1, item 5, which raises
-``NotImplementedError``.
+trace writer (``tracer=``).  Its lanes split over several devices as
+the reference's do (``multi_device=``,
+:func:`repro_torch.noc.sim.lane_devices`): each device holds a block of lanes and a copy of the tables, every
+retarget and hot swap reaches every block's tables in the same epoch,
+and a snapshot gathers the lanes, so a run resumes on another device
+count bit for bit.
 """
 
 from __future__ import annotations
@@ -42,20 +45,18 @@ import dataclasses
 import time
 
 import numpy as np
-import torch
 
 from ..core.bidor import BiDORTable, bidor, greedy_refine
 from ..core.certify import CertificationError, apply_repair, certify_table
 from ..core.nrank import NRankResult, initial_weights, nrank_channel
 from ..core.plan_fast import build_plan_fast
 from ..core.topology import Topology
-from ..device import resolve_device
+from ..device import resolve_devices
 from ..obs.log import EventLog
 from ..obs.probe import Telemetry, resolved_epoch
 from ..obs.trace import NULL_TRACER
-from .sim import (build_tables, lane, make_states, postprocess,
-                  queue_occupancy, retarget_tables, run_cycles,
-                  source_queue_meta, state_from_host, state_to_host)
+from .sim import (LaneGroups, build_tables, lane, lane_devices,
+                  postprocess, queue_occupancy, source_queue_meta)
 from .watchdog import WatchdogReport
 from .simconfig import Algo, SimConfig, SimResult
 
@@ -386,16 +387,17 @@ def _bw_slots(bw_hist, epoch: int, slots: int, total: int) -> np.ndarray:
     return out
 
 
-def _counters(state: dict) -> tuple[np.ndarray, ...]:
-    """The counters the controller reads each epoch, as int64 numpy."""
-    return tuple(state[k].cpu().numpy().astype(np.int64)
+def _counters(lanes: LaneGroups) -> tuple[np.ndarray, ...]:
+    """The counters the controller reads each epoch, every lane, as
+    int64 numpy."""
+    return tuple(lanes.read(k).astype(np.int64)
                  for k in ("next_seq", "chan_seen", "chan_fwd", "meas_cnt"))
 
 
 _NR_FIELDS = ("w_nr", "w0", "w_final", "p", "p_drn", "w_possibility")
 
 
-def _ctrl_snapshot(state, *, bound_i, sat, link_peak, bw, cur_traffic,
+def _ctrl_snapshot(host, *, bound_i, sat, link_peak, bw, cur_traffic,
                    cur_gen, cur_unroutable, fault_pending, estimator,
                    detector, replans, replan_ms, table, nr_prev, bw_hist):
     """Serialisable (arrays, meta) state of a controlled run at the top
@@ -405,7 +407,7 @@ def _ctrl_snapshot(state, *, bound_i, sat, link_peak, bw, cur_traffic,
     state as ``s_<key>``, ``rbits`` as uint32, the PRNG keys as a (L, 2)
     uint32 array), plus the replans' host milliseconds in the meta;
     :func:`run_controlled` restores it bit for bit."""
-    arrays = {f"s_{k}": v for k, v in state_to_host(state).items()}
+    arrays = {f"s_{k}": v for k, v in host.items()}
     arrays.update(sat=sat.copy(), link_peak=link_peak.copy(), bw=bw.copy(),
                   cur_traffic=np.asarray(cur_traffic, np.float64),
                   cur_gen=np.asarray(cur_gen, np.float64))
@@ -456,7 +458,14 @@ def run_controlled(topo: Topology, traffic: np.ndarray, cfg: SimConfig,
     event cycles added as extra boundaries).  At each boundary the
     environment applies due events, the controller reads the device
     counters, and — policy permitting — re-plans and hot-swaps tables.
-    ``device`` defaults to the card; ``"cpu"`` runs the plain path.
+    ``device`` defaults to the card (every visible card for the lane
+    split); ``"cpu"`` runs the plain path; a sequence names the devices.
+
+    ``multi_device``: the lane split, as the reference's — ``True``
+    splits the lanes over every device of ``device`` in contiguous
+    blocks (raises with one device or lanes that do not divide),
+    ``False`` pins the first, ``None`` splits where there are several
+    and the lanes divide.  The split is bit for bit the one-device run.
 
     ``checkpoint``: an optional epoch-boundary checkpointer (duck-typed:
     ``save(arrays, meta)`` keeps a flat dict of numpy arrays and a
@@ -476,12 +485,9 @@ def run_controlled(topo: Topology, traffic: np.ndarray, cfg: SimConfig,
     closes, so it times the device's work; without a tracer nothing
     waits.  Tracing never changes a result.
     """
-    if multi_device:
-        raise NotImplementedError(
-            "the lane split across cards is not ported yet (ROADMAP "
-            "queue 1, item 5)")
     tracer = tracer if tracer is not None else NULL_TRACER
-    dev = resolve_device(device)
+    devs = resolve_devices(device)
+    dev = devs[0]
     log = EventLog(verbose=verbose)
     scenario = scenario or Scenario("static")
     rc = scenario.replan or ReplanConfig()
@@ -498,7 +504,8 @@ def run_controlled(topo: Topology, traffic: np.ndarray, cfg: SimConfig,
     tables, meta = build_tables(
         topo, traffic, table if cfg.algo == Algo.BIDOR else None,
         cfg.num_vcs, dev, escape=cfg.watchdog)
-    state = make_states(meta, cfg, points, dev)
+    groups = lane_devices(devs, len(points), multi_device)
+    lanes = LaneGroups.fresh(tables, meta, cfg, points, groups)
     q_meta = source_queue_meta(tables, cfg)   # refresh on gen retargets
 
     # environment state
@@ -539,8 +546,9 @@ def run_controlled(topo: Topology, traffic: np.ndarray, cfg: SimConfig,
     if snap is not None:
         arrays, cmeta = snap
         resume_i = int(cmeta["bound_i"])
-        state = state_from_host({k[2:]: v for k, v in arrays.items()
-                                 if k.startswith("s_")}, dev)
+        lanes = LaneGroups.from_host(
+            tables, meta, cfg, {k[2:]: v for k, v in arrays.items()
+                                if k.startswith("s_")}, groups)
         sat = np.asarray(arrays["sat"], bool).copy()
         link_peak = np.asarray(arrays["link_peak"], np.float64).copy()
         bw = np.asarray(arrays["bw"], np.float64)
@@ -576,12 +584,12 @@ def run_controlled(topo: Topology, traffic: np.ndarray, cfg: SimConfig,
             # records the replanned choice, not the seed plan's
             table = dataclasses.replace(table,
                                         choice=np.asarray(choice, np.int8))
-        tables = retarget_tables(
-            tables, topo, traffic=cur_gen,
+        lanes.retarget(
+            topo, traffic=cur_gen,
             choice=(choice if cfg.algo == Algo.BIDOR
                     and choice is not None else None),
             channel_bw=bw)
-        q_meta = source_queue_meta(tables, cfg)
+        q_meta = source_queue_meta(lanes.tables[0], cfg)
         prev_seq = np.asarray(arrays["s_next_seq"], np.int64)
         prev_seen = np.asarray(arrays["s_chan_seen"], np.int64)
         prev_fwd = np.asarray(arrays["s_chan_fwd"], np.int64)
@@ -596,7 +604,7 @@ def run_controlled(topo: Topology, traffic: np.ndarray, cfg: SimConfig,
         t1 = bounds[bound_i]
         if checkpoint is not None and bound_i > resume_i:
             checkpoint.save(*_ctrl_snapshot(
-                state, bound_i=bound_i, sat=sat, link_peak=link_peak,
+                lanes.to_host(), bound_i=bound_i, sat=sat, link_peak=link_peak,
                 bw=bw, cur_traffic=cur_traffic, cur_gen=cur_gen,
                 cur_unroutable=cur_unroutable,
                 fault_pending=fault_pending, estimator=estimator,
@@ -605,11 +613,10 @@ def run_controlled(topo: Topology, traffic: np.ndarray, cfg: SimConfig,
         # tables swap only here, between chunks: a chunk's draws and its
         # cycles all see the tables it was handed
         te0 = tracer.now_us() if tracer.enabled else 0.0
-        run_cycles(tables, meta, cfg, state, t1 - t0)
+        lanes.run(t1 - t0)
         if tracer.enabled:
-            if dev.type == "cuda":
-                # wait, so the span times the card's work, not the launch
-                torch.cuda.synchronize(dev)
+            # wait, so the span times the cards' work, not the launch
+            lanes.synchronize()
             tracer.complete(
                 "epoch", te0, tracer.now_us() - te0, cat="sim",
                 args={"t0": t0, "t1": t1, "scenario": scenario.name,
@@ -618,7 +625,7 @@ def run_controlled(topo: Topology, traffic: np.ndarray, cfg: SimConfig,
         t0 = t1
 
         # ---- read counters (one small host transfer) ---- #
-        seq, seen, fwd, meas = _counters(state)
+        seq, seen, fwd, meas = _counters(lanes)
         d_seq, d_seen = seq - prev_seq, seen - prev_seen
         d_fwd, d_meas = fwd - prev_fwd, meas - prev_meas
         prev_seq, prev_seen, prev_fwd, prev_meas = seq, seen, fwd, meas
@@ -633,8 +640,8 @@ def run_controlled(topo: Topology, traffic: np.ndarray, cfg: SimConfig,
         if t1 > cfg.warmup:
             # saturation accumulates from post-warmup reads only — a
             # transient warmup spike must not permanently latch a lane
-            sat |= queue_occupancy(tables, cfg, state["q_size"],
-                                   q_meta) >= sat_th
+            sat |= queue_occupancy(lanes.tables[0], cfg,
+                                   lanes.read("q_size"), q_meta) >= sat_th
 
         estimator.update(d_seq.sum(axis=0))
         drifted = detector.update(d_seen.sum(axis=0))
@@ -668,20 +675,18 @@ def run_controlled(topo: Topology, traffic: np.ndarray, cfg: SimConfig,
                 # is still dead, so the new matrix generates under the
                 # same admission-control mask until the next replan
                 gen_traffic = np.where(cur_unroutable, 0.0, new_traffic)
-            tables = retarget_tables(
-                tables, topo, traffic=gen_traffic,
+            lanes.retarget(
+                topo, traffic=gen_traffic,
                 channel_bw=bw if "fault" in event_kinds else None)
             if gen_traffic is not None:
                 cur_gen = gen_traffic
-                q_meta = source_queue_meta(tables, cfg)
+                q_meta = source_queue_meta(lanes.tables[0], cfg)
             if new_traffic is not None:
                 cur_traffic = new_traffic
             if rate_scale is not None:
                 # absolute vs base: rate_scale=1.0 restores the original
                 # injection rates after a previously scaled epoch
-                state["rate"] = torch.tensor(
-                    [r * rate_scale for r, _ in points],
-                    dtype=torch.float32, device=dev)
+                lanes.set_rate([r * rate_scale for r, _ in points])
             fault_pending |= "fault" in event_kinds
 
         # ---- control decision ---- #
@@ -739,10 +744,9 @@ def run_controlled(topo: Topology, traffic: np.ndarray, cfg: SimConfig,
         if table.unroutable is not None and table.unroutable.any():
             cur_unroutable = table.unroutable
             gen = np.where(cur_unroutable, 0.0, cur_traffic)
-        tables = retarget_tables(tables, topo, choice=table.choice,
-                                 traffic=gen)
+        lanes.retarget(topo, choice=table.choice, traffic=gen)
         cur_gen = gen
-        q_meta = source_queue_meta(tables, cfg)
+        q_meta = source_queue_meta(lanes.tables[0], cfg)
         detector.reset()
         fault_pending = False
         replan_ms.append((time.perf_counter() - tr0) * 1e3)
@@ -765,7 +769,7 @@ def run_controlled(topo: Topology, traffic: np.ndarray, cfg: SimConfig,
                   f"({trigger}), {nr_prev.iterations} iters",
                   cycle=t1, trigger=trigger)
 
-    host = state_to_host(state)
+    host = lanes.to_host()
     results = [postprocess(lane(host, i), cfg, topo, rate=rate, seed=seed,
                            saturated=bool(sat[i]))
                for i, (rate, seed) in enumerate(points)]

@@ -19,13 +19,20 @@ What changes in the port:
   runs cycle by cycle, bit-identical to the reference's per-cycle
   ``split_rand``;
 * the PRNG key of each lane is a (2,) uint32 row of ``state["key"]``, a
-  numpy array on the host, copied to the card and back once a chunk.
+  numpy array on the host, copied to the card and back once a chunk;
+* the reference's ``shard_map`` lane split over a ("lane",) device mesh
+  (``get_runner(multi_device=)``) is :class:`LaneGroups`: contiguous
+  blocks of lanes, one a device, each with its own copy of the tables,
+  every block's chunk launched before any is read back.  Lanes are
+  independent, so the split is bit for bit the one-device run
+  (:func:`lane_devices` chooses it as the reference does).
 
 Entry points run on the card unless ``device="cpu"`` is passed.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import NamedTuple
 
 import numpy as np
@@ -34,13 +41,14 @@ import torch
 from ..core.bidor import BiDORTable, dor_table
 from ..core.routes import dimension_orders, next_port_table
 from ..core.topology import Topology
-from ..device import resolve_device
+from ..device import resolve_device, resolve_devices
 from ..obs.probe import Telemetry, telemetry_state
 from .. import prng
 from .simconfig import Algo, SimConfig, SimResult, NF, NQ
 from .watchdog import WatchdogReport, watchdog_state
 
 __all__ = ["Tables", "build_tables", "retarget_tables", "fresh_state",
+           "LaneGroups", "lane_devices", "tables_to",
            "make_states", "point_key", "run_cycles", "run_sweep", "run_sim",
            "state_to_host", "state_from_host",
            "run_trace_sweep", "run_trace", "postprocess", "hist_percentile",
@@ -260,6 +268,140 @@ def run_cycles(tables: Tables, meta: dict, cfg: SimConfig, state: dict,
     state["key"] = step.run(num_cycles, state["key"])
     state["cycle0"] += num_cycles
     return state
+
+
+def lane_devices(device, num_lanes: int,
+                 multi_device: bool | None = None) -> tuple:
+    """The devices a batch of ``num_lanes`` lanes runs on, one block of
+    lanes a device: the reference's ``get_runner(multi_device=)``.
+    ``device`` is what ``device.resolve_devices`` reads (default: every
+    visible card; a sequence names the devices, the CPU or a card
+    possibly more than once).  ``multi_device=True`` splits over them all
+    and raises with one device or lanes that do not divide; ``False``
+    keeps the first; ``None`` splits when there are several and the lanes
+    divide."""
+    devs = resolve_devices(device)
+    ndev = len(devs)
+    want = (multi_device if multi_device is not None
+            else ndev > 1 and num_lanes % ndev == 0)
+    if not want:
+        return devs[:1]
+    if ndev <= 1:
+        raise ValueError("multi_device=True with a single device; on the "
+                         "CPU name it several times, device=('cpu', "
+                         "'cpu', ...)")
+    if num_lanes % ndev:
+        raise ValueError(
+            f"multi_device=True needs the lane count to divide over the "
+            f"devices ({num_lanes} lanes, {ndev} devices)")
+    return devs
+
+
+def tables_to(tables: Tables, device) -> Tables:
+    """A copy of ``tables`` on ``device`` (the same tables where they are
+    there already)."""
+    dev = torch.device(device)
+    if tables.choice.device == dev:
+        return tables
+    return Tables(*(t.to(dev) for t in tables))
+
+
+class LaneGroups:
+    """A lane batch split into contiguous blocks of lanes, one a device
+    (the reference's ``PartitionSpec("lane")``; the rate-major lane
+    order kept): each block holds its lanes' state, its PRNG keys and a
+    copy of the tables on its device.  :meth:`run` launches every
+    block's chunk, each on its own card, before reading any back, so the
+    cards run at once; the reads (:meth:`read`, :meth:`to_host`) join
+    the blocks in lane order.  One block is :func:`run_cycles` itself."""
+
+    def __init__(self, tables: Tables, meta: dict, cfg: SimConfig,
+                 states: list[dict]):
+        self.meta, self.cfg, self.states = meta, cfg, states
+        self.devices = [st["fifo_size"].device for st in states]
+        self.tables = [tables_to(tables, d) for d in self.devices]
+        self.sizes = [st["fifo_size"].shape[0] for st in states]
+
+    @classmethod
+    def fresh(cls, tables: Tables, meta: dict, cfg: SimConfig,
+              points: list[tuple[float, int]], devices) -> "LaneGroups":
+        """Fresh states of ``points`` (:func:`make_states`), split in
+        order over ``devices`` (which divide them)."""
+        per = len(points) // len(devices)
+        return cls(tables, meta, cfg, [
+            make_states(meta, cfg, points[i * per:(i + 1) * per], d)
+            for i, d in enumerate(devices)])
+
+    @classmethod
+    def from_host(cls, tables: Tables, meta: dict, cfg: SimConfig,
+                  host: dict, devices) -> "LaneGroups":
+        """The groups of a host state (:func:`state_to_host`, all lanes),
+        split in order over ``devices``: a state gathered on any device
+        count resumes on any other."""
+        lanes = len(np.asarray(host["key"]).reshape(-1, 2))
+        per = lanes // len(devices)
+        return cls(tables, meta, cfg, [
+            state_from_host({k: np.asarray(v)[i * per:(i + 1) * per]
+                             for k, v in host.items()}, d)
+            for i, d in enumerate(devices)])
+
+    def run(self, num_cycles: int) -> None:
+        """Advance every lane by ``num_cycles`` cycles: each block's chunk
+        launched on its own card (made current around the launch), then
+        each block's keys read back."""
+        from ..kernels.simstep import make_step
+
+        steps = []
+        for dev, tables, st in zip(self.devices, self.tables, self.states):
+            with _current(dev):
+                step = make_step(self.meta, self.cfg, tables, st)
+                step.start(num_cycles, st["key"])
+            steps.append(step)
+        for step, st in zip(steps, self.states):
+            st["key"] = step.finish()
+            st["cycle0"] += num_cycles
+
+    def read(self, key: str) -> np.ndarray:
+        """State ``key`` of every lane, in lane order (numpy)."""
+        return np.concatenate([np.asarray(st[key].cpu().numpy())
+                               for st in self.states])
+
+    def to_host(self) -> dict:
+        """:func:`state_to_host` of every lane, in lane order."""
+        hosts = [state_to_host(st) for st in self.states]
+        return {k: np.concatenate([h[k] for h in hosts]) for k in hosts[0]}
+
+    def retarget(self, topo: Topology, **kw) -> None:
+        """:func:`retarget_tables` on every block's tables (one swap a
+        distinct table set)."""
+        done: dict[int, Tables] = {}
+        out = []
+        for t in self.tables:
+            if id(t) not in done:
+                done[id(t)] = retarget_tables(t, topo, **kw)
+            out.append(done[id(t)])
+        self.tables = out
+
+    def set_rate(self, rates) -> None:
+        """Every lane's injection rate (lane order), float32."""
+        r = np.asarray(rates, np.float32)
+        at = 0
+        for st, n in zip(self.states, self.sizes):
+            st["rate"] = torch.tensor(r[at:at + n], dtype=torch.float32,
+                                      device=st["rate"].device)
+            at += n
+
+    def synchronize(self) -> None:
+        """Wait for every card that holds a block."""
+        for dev in dict.fromkeys(self.devices):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+
+def _current(dev: torch.device):
+    """``dev`` made the current card (nothing on the CPU)."""
+    return (torch.cuda.device(dev) if dev.type == "cuda"
+            else contextlib.nullcontext())
 
 
 def state_to_host(state: dict) -> dict:

@@ -17,8 +17,14 @@ ranks at other coordinates hold an empty tensor, and the owner sends
 the leaf out when it is gathered.
 
 Collectives are ``all_gather`` (list form), ``all_reduce`` and
-``broadcast`` on the mesh's groups: gloo takes them on CPU and CUDA
-tensors, NCCL on CUDA tensors.
+``broadcast`` on the mesh's groups, all through the grid's
+communicator: :class:`DistComm` calls ``torch.distributed`` (gloo takes
+them on CPU and CUDA tensors, NCCL on CUDA tensors); :class:`CountingComm`
+only records each call's kind, bytes and group, so that a
+:meth:`Grid.counting` grid, which needs no process group, runs the
+step's own code on the meta device (``launch.dryrun``).  The bytes a
+rank holds are :func:`shard_bytes` of :func:`train_placements`, a
+function of the axis sizes and the rank's coordinates alone.
 """
 
 from __future__ import annotations
@@ -53,6 +59,34 @@ def _combined(sizes: dict, coords: dict, axes) -> int:
     return idx
 
 
+def local_shape(sizes: dict, coords: dict, pl: Placement) -> tuple:
+    """The shard shape of ``pl`` at ``coords`` (zeros where those
+    coordinates do not own it)."""
+    if not all(coords[a] == c for a, c in pl.owner):
+        return (0,) * len(pl.shape)
+    return tuple(d // math.prod(sizes[a] for a in axes_of(s))
+                 for d, s in zip(pl.shape, pl.spec))
+
+
+def shard_bytes(sizes: dict, coords: dict, placed: dict) -> int:
+    """The bytes of the shards at ``coords`` of ``placed``, a mapping of
+    state paths to (:class:`Placement`, dtype)."""
+    return sum(math.prod(local_shape(sizes, coords, pl)) * dt.itemsize
+               for pl, dt in placed.values())
+
+
+def coordinates(sizes: dict):
+    """Every rank's coordinates on a mesh of ``sizes``, rank order
+    (row-major: the last axis the minor)."""
+    names = list(sizes)
+    for flat in range(math.prod(sizes.values())):
+        c, rest = {}, flat
+        for a in reversed(names):
+            c[a] = rest % sizes[a]
+            rest //= sizes[a]
+        yield {a: c[a] for a in names}
+
+
 def placement(sizes: dict, name: str, shape, spec, extents) -> Placement:
     """The :class:`Placement` of leaf ``name`` (its full ``shape``) under
     a spec from ``specs.param_specs``/``opt_specs``: leading entries past
@@ -75,24 +109,140 @@ def placement(sizes: dict, name: str, shape, spec, extents) -> Placement:
     return Placement(shape, tuple(spec[lead:]), tuple(owner))
 
 
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+
+
+class DistComm:
+    """The grid's collectives on ``torch.distributed`` process groups."""
+
+    def all_gather(self, parts: list, x: torch.Tensor, group) -> None:
+        dist.all_gather(parts, x, group=group)
+
+    def all_reduce(self, x: torch.Tensor, group, op: str = "sum") -> None:
+        dist.all_reduce(x, op=_OPS[op], group=group)
+
+    def broadcast(self, x: torch.Tensor, owner: int, group) -> None:
+        """``x`` from the group's member at coordinate ``owner``."""
+        dist.broadcast(x, src=dist.get_global_rank(group, owner),
+                       group=group)
+
+
+@dataclasses.dataclass(frozen=True)
+class Collective:
+    """One recorded call: ``kind`` (``all_gather``, ``all_reduce``,
+    ``broadcast``), ``nbytes`` the tensor the rank hands in, ``axes``
+    the group's mesh axes and ``size`` its rank count."""
+    kind: str
+    nbytes: int
+    axes: tuple
+    size: int
+
+
+class CountingComm:
+    """Records each call (:class:`Collective`) and moves nothing: a
+    group is the tuple of its mesh axes.  Outputs keep what they held
+    (on the meta device, nothing)."""
+
+    def __init__(self, sizes: dict):
+        self.sizes = dict(sizes)
+        self.calls: list[Collective] = []
+
+    def _record(self, kind: str, x: torch.Tensor, group) -> None:
+        self.calls.append(Collective(
+            kind, x.numel() * x.element_size(), tuple(group),
+            math.prod(self.sizes[a] for a in group)))
+
+    def all_gather(self, parts: list, x: torch.Tensor, group) -> None:
+        self._record("all_gather", x, group)
+
+    def all_reduce(self, x: torch.Tensor, group, op: str = "sum") -> None:
+        self._record("all_reduce", x, group)
+
+    def broadcast(self, x: torch.Tensor, owner: int, group) -> None:
+        self._record("broadcast", x, group)
+
+
+def param_placements(cfg, mesh, work) -> dict:
+    """{``params/<name>``: (:class:`Placement`, dtype)} of ``work``'s
+    parameters (a model, on the meta device or not) on a mesh."""
+    sizes = axis_sizes(mesh)
+    shapes = {n: tuple(p.shape) for n, p in work.named_parameters()}
+    ext = stack_extents(shapes)
+    pspecs = param_specs(cfg, sizes, work)
+    return {f"params/{n}": (placement(sizes, n, s, pspecs[n],
+                                      ext[split_name(n)[0]]),
+                            work.get_parameter(n).dtype)
+            for n, s in shapes.items()}
+
+
+def train_placements(cfg, opt_cfg, mesh, work=None) -> dict:
+    """{state path: (:class:`Placement`, dtype)} of a train state on a
+    mesh (anything ``specs.axis_sizes`` reads: no process group is
+    needed): ``params/<name>``, ``opt/m/<name>`` and ``opt/v/<name>``
+    (``.../q`` and ``.../s`` for int8 moments) and ``opt/step``, named
+    as the one-device state.  ``work`` is the model on the meta device
+    (built where not given)."""
+    from ..models import registry
+    from ..train.optimizer import init_opt_state
+
+    sizes = axis_sizes(mesh)
+    if work is None:
+        work = registry.init(cfg, device="meta")
+    out = param_placements(cfg, sizes, work)
+    ext = stack_extents(n for n, _ in work.named_parameters())
+    opt_meta = init_opt_state(opt_cfg, work)
+    ospecs = opt_specs(cfg, sizes, opt_meta)
+    for part in ("m", "v"):
+        for n, mom in opt_meta[part].items():
+            ex = ext[split_name(n)[0]]
+            if isinstance(mom, dict):
+                for k, a in mom.items():
+                    out[f"opt/{part}/{n}/{k}"] = (placement(
+                        sizes, n, a.shape, ospecs[part][n][k], ex), a.dtype)
+            else:
+                out[f"opt/{part}/{n}"] = (placement(
+                    sizes, n, mom.shape, ospecs[part][n], ex), mom.dtype)
+    out["opt/step"] = (Placement((), ()), torch.int32)
+    return out
+
+
 class Grid:
     """This rank's place on a ``DeviceMesh``: axis sizes, its coordinate
-    on each axis, each axis's group, and the joint group of the batch
-    axes (``("pod", "data")`` where both are present)."""
+    on each axis, each axis's group, the joint group of the batch axes
+    (``("pod", "data")`` where both are present) and the communicator
+    that runs the collectives (:class:`DistComm`)."""
 
     def __init__(self, mesh):
         self.mesh = mesh
+        self.comm = DistComm()
         self.sizes = axis_sizes(mesh)
         names = tuple(mesh.mesh_dim_names)
         self.coords = dict(zip(names, mesh.get_coordinate()))
         self.groups = {a: mesh.get_group(a) for a in names}
-        self.data_axes = tuple(a for a in DATA if a in self.sizes)
-        self.data_size = math.prod(self.sizes[a] for a in self.data_axes)
-        self.data_index = _combined(self.sizes, self.coords, self.data_axes)
+        self._batch_axes()
         if len(self.data_axes) == 1:
             self.data_group = self.groups[self.data_axes[0]]
         else:
             self.data_group = self._joint_group(self.data_axes)
+
+    @classmethod
+    def counting(cls, sizes: dict, coords: dict) -> "Grid":
+        """The grid of the rank at ``coords`` on a mesh of ``sizes`` with
+        no process group: its collectives are recorded
+        (:class:`CountingComm`, ``grid.comm.calls``), not run."""
+        grid = cls.__new__(cls)
+        grid.mesh = None
+        grid.sizes, grid.coords = dict(sizes), dict(coords)
+        grid.comm = CountingComm(grid.sizes)
+        grid.groups = {a: (a,) for a in grid.sizes}
+        grid._batch_axes()
+        grid.data_group = grid.data_axes
+        return grid
+
+    def _batch_axes(self) -> None:
+        self.data_axes = tuple(a for a in DATA if a in self.sizes)
+        self.data_size = math.prod(self.sizes[a] for a in self.data_axes)
+        self.data_index = _combined(self.sizes, self.coords, self.data_axes)
 
     def _joint_group(self, axes):
         """The group of the ranks that differ only on ``axes`` (every
@@ -115,10 +265,7 @@ class Grid:
         return all(self.coords[a] == c for a, c in pl.owner)
 
     def local_shape(self, pl: Placement) -> tuple:
-        if not self.holds(pl):
-            return (0,) * len(pl.shape)
-        return tuple(d // math.prod(self.sizes[a] for a in axes_of(s))
-                     for d, s in zip(pl.shape, pl.spec))
+        return local_shape(self.sizes, self.coords, pl)
 
     def shard(self, pl: Placement, full: torch.Tensor) -> torch.Tensor:
         """This rank's shard of ``full``, a tensor of its own."""
@@ -143,21 +290,20 @@ class Grid:
                     if self.sizes[a] > 1:
                         parts = [torch.empty_like(x)
                                  for _ in range(self.sizes[a])]
-                        dist.all_gather(parts, x.contiguous(),
-                                        group=self.groups[a])
+                        self.comm.all_gather(parts, x.contiguous(),
+                                             self.groups[a])
                         x = torch.cat(parts, dim=d)
         else:
             x = local.new_empty(pl.shape)
         for a, c in pl.owner:
             if self.sizes[a] > 1:
-                g = self.groups[a]
-                dist.broadcast(x, src=dist.get_global_rank(g, c), group=g)
+                self.comm.broadcast(x, c, self.groups[a])
         return x
 
     def data_sum(self, x: torch.Tensor) -> torch.Tensor:
         """``x`` summed over the batch ranks, in place."""
         if self.data_size > 1:
-            dist.all_reduce(x, group=self.data_group)
+            self.comm.all_reduce(x, self.data_group)
         return x
 
     # the batch split over the data ranks, as the loss and the MoE
@@ -173,7 +319,7 @@ class Grid:
     def exclusive_prefix(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of ``x`` over the batch ranks below this one."""
         parts = [torch.empty_like(x) for _ in range(self.data_size)]
-        dist.all_gather(parts, x.contiguous(), group=self.data_group)
+        self.comm.all_gather(parts, x.contiguous(), self.data_group)
         out = torch.zeros_like(x)
         for p in parts[:self.data_index]:
             out = out + p
@@ -231,34 +377,18 @@ class ShardedTrain:
     {"m", "v", "step"} of local shards}``, named as the one-device
     state, so a checkpoint path is the same on both."""
 
-    def __init__(self, cfg, opt_cfg, mesh):
+    def __init__(self, cfg, opt_cfg, mesh, grid: Grid | None = None):
         from ..models import registry
-        from ..train.optimizer import init_opt_state
 
         self.cfg, self.opt_cfg = cfg, opt_cfg
-        self.grid = Grid(mesh)
-        sizes = self.grid.sizes
+        self.grid = Grid(mesh) if grid is None else grid
         self.work = registry.init(cfg, device="meta")
-        shapes = {n: tuple(p.shape) for n, p in self.work.named_parameters()}
-        ext = stack_extents(shapes)
-        pspecs = param_specs(cfg, mesh, self.work)
-        self.params = {n: placement(sizes, n, s, pspecs[n],
-                                    ext[split_name(n)[0]])
-                       for n, s in shapes.items()}
-        opt_meta = init_opt_state(opt_cfg, self.work)
-        ospecs = opt_specs(cfg, mesh, opt_meta)
-        self.paths = {f"params/{n}": pl for n, pl in self.params.items()}
-        for part in ("m", "v"):
-            for n, mom in opt_meta[part].items():
-                ex = ext[split_name(n)[0]]
-                if isinstance(mom, dict):
-                    for k, a in mom.items():
-                        self.paths[f"opt/{part}/{n}/{k}"] = placement(
-                            sizes, n, a.shape, ospecs[part][n][k], ex)
-                else:
-                    self.paths[f"opt/{part}/{n}"] = placement(
-                        sizes, n, mom.shape, ospecs[part][n], ex)
-        self.paths["opt/step"] = Placement((), ())
+        self.placed = train_placements(cfg, opt_cfg, self.grid.sizes,
+                                       self.work)
+        self.paths = {path: pl for path, (pl, _) in self.placed.items()}
+        self.params = {path[len("params/"):]: pl
+                       for path, pl in self.paths.items()
+                       if path.startswith("params/")}
         self.blocks = (self._block_slices() if opt_cfg.moment_dtype == "int8"
                        else None)
         # the step's batch split, None where the data ranks are one
@@ -295,7 +425,7 @@ class ShardedTrain:
                 group = self.grid.groups[axes[0]]
             out[n] = BlockSlice(last=last, start=start,
                                 scale_start=start // blk if scale_split
-                                else 0, group=group)
+                                else 0, group=group, comm=self.grid.comm)
         return out
 
     def local_shape(self, path: str) -> tuple:
@@ -309,16 +439,10 @@ class ShardedTrain:
 
     def predicted_bytes(self) -> int:
         """The bytes of this rank's shards by the specs."""
-        return sum(math.prod(self.grid.local_shape(pl))
-                   * self._dtype(path).itemsize
-                   for path, pl in self.paths.items())
+        return shard_bytes(self.grid.sizes, self.grid.coords, self.placed)
 
     def _dtype(self, path: str) -> torch.dtype:
-        if path == "opt/step":
-            return torch.int32
-        if path.startswith("params/"):
-            return self.work.get_parameter(path[len("params/"):]).dtype
-        return torch.int8 if path.endswith("/q") else torch.float32
+        return self.placed[path][1]
 
     # ------------------------------------------------------------------ #
     def shard_params(self, full: nn.Module) -> nn.Module:

@@ -24,7 +24,6 @@ import dataclasses
 import math
 
 import torch
-import torch.distributed as dist
 from torch import nn
 
 Q_BLOCK = 256
@@ -79,11 +78,13 @@ class BlockSlice:
     block of the shard's scales (0 where the scales keep the whole axis
     of blocks), ``group`` the process group whose shards share blocks
     (their block maxima are all-reduced), None where no block spans
-    shards."""
+    shards, and ``comm`` the grid's communicator that reduces them
+    (``sharding.state.DistComm``, or the dry run's counting one)."""
     last: int
     start: int
     scale_start: int
     group: object = None
+    comm: object = None
 
 
 def _block_ids(part: BlockSlice, width: int, device) -> torch.Tensor:
@@ -110,7 +111,7 @@ def quantize_i8(x: torch.Tensor, part: BlockSlice | None = None):
     amax = torch.zeros((*x.shape[:-1], nblocks), dtype=x.dtype,
                        device=x.device)
     amax.scatter_reduce_(-1, ids, x.abs(), "amax")
-    dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=part.group)
+    part.comm.all_reduce(amax, part.group, "max")
     scale = amax / 127.0
     codes = torch.round(x / torch.clamp(scale.gather(-1, ids), min=1e-12))
     return codes.to(torch.int8), scale

@@ -3,6 +3,8 @@ path: the committed ``ctrl_4x4.json`` fixture, the online-beats-stale
 property, the hot-swap identity, and the re-planner, estimator, detector
 and controlled runs held against the reference's."""
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -302,16 +304,25 @@ def test_scenario_validation_and_conversion():
 
 @pytest.mark.parametrize("what", ["checkpoint", "tracer", "multi_device"])
 def test_unported_control_options_raise(what, tmp_path):
-    """The lane split across cards raises ``NotImplementedError`` naming
-    its ROADMAP item; the epoch-boundary checkpoint and the trace writer,
-    ported since, run and leave the results as they are."""
+    """The control plane's options that came after slice 2 run and leave
+    the results as they are: the epoch-boundary checkpoint, the trace
+    writer, and the lane split over devices (two lanes, each on a CPU
+    device of its own, equal to the unsplit run)."""
     cfg = CFG.replace(algo=Algo.XY, cycles=600, warmup=200)
     scen = Scenario("f", events=(LinkFail(cycle=300, links=FAIL_LINKS,
                                           bw_scale=0.5),),
                     replan=ReplanConfig(epoch=200))
     if what == "multi_device":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            run_controlled(TOPO, UNI, cfg, device="cpu", multi_device=True)
+        kw = dict(rates=[0.2, 0.4])
+        plain = run_controlled(TOPO, UNI, cfg, scen, device="cpu", **kw)
+        got = run_controlled(TOPO, UNI, cfg, scen, device=("cpu", "cpu"),
+                             multi_device=True, **kw)
+        for a, b in zip(got.results, plain.results):
+            assert np.array_equal(a.node_load, b.node_load)
+            assert dataclasses.replace(a, node_load=0) == \
+                dataclasses.replace(b, node_load=0)
+        assert got.epoch_bounds == plain.epoch_bounds
+        assert np.array_equal(got.link_peak, plain.link_peak)
         return
     from repro_torch.noc import CellCheckpoint
     from repro_torch.obs import TraceWriter, read_trace

@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from repro_torch import convert, kernels
+from repro_torch.bench.lane_cards import point_fields
 from repro_torch.core import (build_plans_batched, mesh2d, mesh2d_edge_io,
                               torus)
 from repro_torch.core import traffic
@@ -1797,3 +1798,85 @@ def test_model_split_mesh_on_the_card_equals_one_device(cuda, tmp_path):
     for a, b in zip(_checkpoint_leaves(tmp_path / "one"),
                     _checkpoint_leaves(tmp_path / "mesh")):
         np.testing.assert_array_equal(a, b)
+
+
+# --------------------------------------------------------------------- #
+# the lane split over cards (multi_device)
+# --------------------------------------------------------------------- #
+@pytest.fixture
+def cards():
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n < 2:
+        pytest.skip(f"needs two or more CUDA devices for the lane split "
+                    f"across cards ({n} visible)")
+    return [torch.device("cuda", i) for i in range(n)]
+
+
+def _lane_spec(multi_device):
+    from repro_torch.noc import CampaignSpec
+
+    return CampaignSpec(
+        topo=mesh2d(16, 16), algos=(Algo.XY, Algo.BIDOR),
+        patterns=("uniform", "transpose"), rates=(0.1, 0.3), seeds=(0, 1),
+        base=SimConfig(cycles=1500, warmup=500), chunk=500,
+        multi_device=multi_device)
+
+
+@pytest.mark.gpu
+def test_lane_split_across_cards_bit_for_bit(cards):
+    """4 lanes a cell split over 2 (or 4) cards, each card holding its
+    block and a copy of the tables: every statistic equal to one card's,
+    and every card ran flit-step kernels (the profiler's device index)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.noc import run_campaign
+
+    use = cards[:4] if len(cards) >= 4 else cards[:2]
+    one = run_campaign(_lane_spec(False), device=cards[0])
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        split = run_campaign(_lane_spec(True), device=use)
+    assert point_fields(split) == point_fields(one)
+    busy = {e.device_index for e in prof.events()
+            if "simstep" in e.name
+            and e.device_type == torch.autograd.DeviceType.CUDA}
+    if busy:
+        assert busy == set(range(len(use)))
+
+
+@pytest.mark.gpu
+def test_lane_groups_state_across_cards_bit_for_bit(cards):
+    """The raw state of 4 lanes after two chunks on 2 cards, every key,
+    against one card; a snapshot gathered from the cards resumes on
+    one."""
+    topo = mesh2d(16, 16)
+    cfg = SimConfig(cycles=1000, warmup=200)
+    points = [(r, s) for r in (0.1, 0.3) for s in (0, 1)]
+    tables, meta = sim.build_tables(topo, traffic.uniform(topo), None,
+                                    cfg.num_vcs, cards[0])
+    hosts = []
+    for devs in (cards[:1], cards[:2]):
+        lanes = sim.LaneGroups.fresh(tables, meta, cfg, points, devs)
+        assert [st["fifo_size"].device for st in lanes.states] == devs
+        lanes.run(300)
+        lanes.run(200)
+        hosts.append(lanes.to_host())
+    for k in hosts[0]:
+        assert np.array_equal(hosts[0][k], hosts[1][k]), k
+    back = sim.LaneGroups.from_host(tables, meta, cfg, hosts[1], cards[:1])
+    back.run(100)
+    again = sim.LaneGroups.from_host(tables, meta, cfg, hosts[1], cards[:2])
+    again.run(100)
+    a, b = back.to_host(), again.to_host()
+    for k in a:
+        assert np.array_equal(a[k], b[k]), k
+
+
+@pytest.mark.gpu
+def test_lane_split_on_one_card_named_twice(cuda):
+    """One card named twice holds two blocks, each launched on it: the
+    campaign equals the one-block run, bit for bit."""
+    from repro_torch.noc import run_campaign
+
+    one = run_campaign(_lane_spec(False), device=cuda)
+    two = run_campaign(_lane_spec(True), device=(cuda, cuda))
+    assert point_fields(two) == point_fields(one)

@@ -32,6 +32,10 @@ final checkpoint, which is the whole state whatever the mesh.
   within 5e-5 of a leaf's largest: ``tests/test_torch_train.py``'s
   tolerances).
 * ``--mesh 3x1`` on a world of 2 raises and names both numbers.
+* The dry run (``launch.dryrun.train_counts``) against the ranks of
+  ``1x2``, ``1x4 int8``, ``2x1 accum``, both MoE meshes and the oracle's
+  ``2x2``: each rank's state bytes and every tensor its first step hands
+  to ``torch.distributed``, recorded in the launch (``RANK``), exactly.
 """
 
 import json
@@ -66,19 +70,66 @@ BASE = ["--smoke", "--seq", str(SEQ), "--device", "cpu", "--ckpt-every",
 # at every step, and remat on, so the backward recomputes each block's
 # dispatch: the launcher's own ``main`` on that configuration
 MOE_OVERRIDES = dict(capacity_factor=1.0, remat=True)
-MOE_RANK = f"""
+# a rank of the launcher's own ``main`` that also records, in its first
+# step, every tensor it hands to ``torch.distributed`` (the call's kind,
+# the bytes, the group's size) and its state's bytes, to
+# ``<--metrics>.comm-<rank>.json``; with overrides of the config
+RANK = """
+import json
 import sys
+
+import torch.distributed as dist
 from repro_torch.launch import train
 
-setup = train.setup
+OVERRIDES = {overrides!r}
+setup, prepare = train.setup, train.prepare
+calls, active = [], [False]
 
 
-def moe_setup(args):
+def rank_setup(args):
     cfg, opt_cfg, data = setup(args)
-    return cfg.replace(**{MOE_OVERRIDES!r}), opt_cfg, data
+    return cfg.replace(**OVERRIDES) if OVERRIDES else cfg, opt_cfg, data
 
 
-train.setup = moe_setup
+def recording(kind, fn, pos):
+    def call(*a, **kw):
+        if active[0]:
+            t = a[pos]
+            calls.append([kind, t.numel() * t.element_size(),
+                          dist.get_world_size(kw.get("group"))])
+        return fn(*a, **kw)
+    return call
+
+
+def rank_prepare(args, timed=False):
+    r = prepare(args, timed)
+    if r.sharded is None:
+        return r
+    rec = {{"coords": r.sharded.grid.coords,
+           "state_bytes": r.sharded.state_bytes(r.state),
+           "predicted": r.sharded.predicted_bytes()}}
+    step_fn = r.step_fn
+
+    def step(state, batch):
+        if "calls" in rec:
+            return step_fn(state, batch)
+        active[0] = True
+        out = step_fn(state, batch)
+        active[0] = False
+        rec["calls"] = list(calls)
+        with open(f"{{args.metrics}}.comm-{{dist.get_rank()}}.json",
+                  "w") as f:
+            json.dump(rec, f)
+        return out
+
+    r.step_fn = step
+    return r
+
+
+dist.all_gather = recording("all_gather", dist.all_gather, 1)
+dist.all_reduce = recording("all_reduce", dist.all_reduce, 0)
+dist.broadcast = recording("broadcast", dist.broadcast, 0)
+train.setup, train.prepare = rank_setup, rank_prepare
 train.main(sys.argv[1:])
 """
 MOE = ["--arch", "qwen2-moe-a2.7b"]
@@ -98,6 +149,11 @@ RUNS = {
     "2x1 vlm": (2, VLM + ["--mesh", "2x1"]),
     "2x2x1": (4, ["--mesh", "2x2x1"]),
 }
+
+
+# the launches whose ranks record their first step's collectives (with
+# "oracle 2x2" and the MoE ranks)
+COUNTED = ("1x2", "1x4 int8", "2x1 accum")
 
 
 def _command(nproc: int, argv: list[str], script=None) -> list[str]:
@@ -145,15 +201,18 @@ def runs(tmp_path_factory):
     second after its first); {name: (rc, stdout, stderr)} and the
     directory they wrote to."""
     d = tmp_path_factory.mktemp("mesh")
-    moe_rank = d / "moe_rank.py"
-    moe_rank.write_text(MOE_RANK)
+    moe_rank, comm_rank = d / "moe_rank.py", d / "comm_rank.py"
+    moe_rank.write_text(RANK.format(overrides=MOE_OVERRIDES))
+    comm_rank.write_text(RANK.format(overrides={}))
     procs = {name: _start(n, _argv(d, name.replace(" ", "_"), extra),
-                          moe_rank if extra[:len(MOE)] == MOE else None)
+                          moe_rank if extra[:len(MOE)] == MOE else
+                          comm_rank if name in COUNTED else None)
              for name, (n, extra) in RUNS.items()}
     procs["2x2 then"] = _start(4, _argv(d, "elastic", ["--mesh", "2x2"], 4))
     procs["3x1 on 2"] = _start(2, _argv(d, "bad", ["--mesh", "3x1"]))
     oracle_start = _oracle_start(d / "oracle")
-    procs["oracle 2x2"] = _start(4, _argv(d, "oracle", ["--mesh", "2x2"], 3))
+    procs["oracle 2x2"] = _start(4, _argv(d, "oracle", ["--mesh", "2x2"], 3),
+                                 comm_rank)
     res = {}
     for name in list(procs):
         res[name] = _finish(procs[name])
@@ -318,6 +377,42 @@ def test_remat_recomputes_the_global_dispatch():
     assert torch.equal(out[True][0], out[False][0])
     for n, g in out[False][1].items():
         assert torch.equal(out[True][1][n], g), n
+
+
+@pytest.mark.parametrize("name,mesh,arch,moments,accum", [
+    ("1x2", {"data": 1, "model": 2}, "internlm2-1.8b", "float32", 1),
+    ("1x4 int8", {"data": 1, "model": 4}, "internlm2-1.8b", "int8", 1),
+    ("2x1 accum", {"data": 2, "model": 1}, "internlm2-1.8b", "float32", 2),
+    ("1x2 moe", {"data": 1, "model": 2}, "qwen2-moe-a2.7b", "float32", 1),
+    ("2x1 moe", {"data": 2, "model": 1}, "qwen2-moe-a2.7b", "float32", 1),
+    ("oracle", {"data": 2, "model": 2}, "internlm2-1.8b", "float32", 1)])
+def test_dry_run_counts_what_a_rank_hands_to_torch_distributed(
+        runs, name, mesh, arch, moments, accum):
+    """Each rank's state bytes and the tensors it hands to
+    ``torch.distributed`` in its first step (kind, bytes, group size),
+    recorded in the launch itself, equal ``launch.dryrun``'s counts of
+    the same config, mesh, batch and coordinates exactly: the gathers
+    (and ``1x2 moe``'s owner broadcasts of the shared expert), the
+    gradients' all-reduce, the loss's sums, the int8 blocks' maxima,
+    the MoE dispatch's sums and exclusive prefix."""
+    from repro_torch.launch import dryrun
+
+    d = runs["dir"]
+    cfg = get_arch(arch).smoke
+    if arch == "qwen2-moe-a2.7b":
+        cfg = cfg.replace(**MOE_OVERRIDES)
+    opt_cfg = OptConfig(moment_dtype=moments)
+    stem = name.replace(" ", "_")
+    for rank in range(mesh["data"] * mesh["model"]):
+        with open(d / f"{stem}.jsonl.comm-{rank}.json") as f:
+            rec = json.load(f)
+        counts = dryrun.train_counts(cfg, opt_cfg, mesh, 8, SEQ, accum,
+                                     coords=rec["coords"])
+        assert counts["state_bytes"] == rec["state_bytes"] == \
+            rec["predicted"], (rank, rec["coords"])
+        want = sorted((c.kind, c.nbytes, c.size) for c in counts["calls"])
+        assert sorted(tuple(c) for c in rec["calls"]) == want, rank
+        assert want
 
 
 def test_elastic_restart_on_a_smaller_mesh(runs):
