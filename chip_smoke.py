@@ -247,9 +247,12 @@ summed):
               is one of ``flash_bwd``'s); each rank's parameter and
               moment bytes after init equal to ``sharding.specs``'
               prediction (the allocator's requested bytes), its tc
-              forward and backward launches (2 and 1 a layer a step), and
-              the step in gather, forward and backward, gradient reduce
-              and update;
+              forward and backward launches (2 and 1 a layer a step), its
+              peak device memory below the whole-model step's (slice 21:
+              a layer gathered at a time, the gradients reduce-scattered
+              into fp32 shards), and the step in forward and backward
+              (the gathers and reduces inside), update, and the seconds
+              inside the collectives;
 Slice 20's dry run (no kernel, no step):
 25c. dryrun — ``launch.dryrun.train_counts`` of the ``train`` cell and of
               each ``train_mesh`` rank at its coordinates: the state's
@@ -4797,9 +4800,17 @@ def run_train_checks(torch, np, cuda, main):
 # each mesh's steps (the schedule's warmup, 10 steps, does not read
 # --steps, so their learning rates are the train phase's): 1x2 must
 # equal the train phase bit for bit, 2x1 within MESH_*_RTOL (3 steps: its
-# gradient all-reduce, 7.56 GB through gloo, takes ~12 s a step)
+# gradient reduce-scatters and the layers' gathers, through gloo, take
+# seconds a step)
 MESH_STEPS = {"1x2": 4, "2x1": 3}
-MESH_PHASES = ("gather", "forward_backward", "reduce", "update")
+# a mesh step: forward and backward (each layer's gathers and each
+# gradient's reduce inside), the update (norm and AdamW), and the
+# seconds inside the grid's collectives, a part of the other two
+MESH_PHASES = ("forward_backward", "update", "collectives")
+# each rank's peak device memory must fall below the step that gathered
+# the whole model and all-reduced its fp32 gradient (18.05 / 19.42 GiB
+# on an H100)
+MESH_PEAK_GIB = {"1x2": 18.05, "2x1": 19.42}
 # 2x1 against the train phase, relative: on an H100 its steps part from
 # train's by at most 9.757e-6 of the loss and 7.83e-5 of the gradient
 # norm (its ranks' B 4 kernels sum in another order); a rank that
@@ -4918,9 +4929,10 @@ def run_train_mesh(torch, cuda, train_rows) -> dict:
     ``sharding.specs``' prediction (the caching allocator's requested
     bytes, whose delta is the state's exact size; ``memory_allocated``'s
     delta, in the allocator's blocks, printed beside); each rank's tc
-    forward and backward launches; the step split into gather, forward
-    and backward, gradient reduce and update.  Returns the ranks' launch
-    counts, summed, for ``drive_path``."""
+    forward and backward launches; each rank's peak below
+    ``MESH_PEAK_GIB``; the step split into forward and backward, update
+    and the collectives' seconds (``MESH_PHASES``).  Returns the ranks'
+    launch counts, summed, for ``drive_path``."""
     import tempfile
 
     from repro_torch.kernels import build
@@ -4967,6 +4979,12 @@ def run_train_mesh(torch, cuda, train_rows) -> dict:
                 if not (rec["requested_delta"] == rec["predicted"]
                         == rec["state_bytes"]):
                     fails.append(f"{lab}: state bytes")
+                log(f"{lab}: peak device memory "
+                    f"{rec['peak'] / 2**30:.2f} GiB against the whole-model "
+                    f"step's {MESH_PEAK_GIB[mesh]} GiB")
+                if not rec["peak"] < MESH_PEAK_GIB[mesh] * 2**30:
+                    fails.append(f"{lab}: peak not below the whole-model "
+                                 f"step's")
                 rows = rec["rows"]
                 for i, (row, ref) in enumerate(zip(rows, train_rows)):
                     log(f"{lab}: step {i} loss {row['loss']!r} grad_norm "

@@ -7,10 +7,11 @@ its record's keys.
 The reference lowers and compiles each cell's step for 256 or 512
 placeholder devices and reads XLA's ``memory_analysis()`` and the
 post-SPMD HLO.  Torch has no SPMD compiler, so this module counts the
-port's own step as it runs on a mesh (``sharding.state``: every weight
-gathered whole on every rank, the rank's rows, the gradients
-all-reduced whole in fp32), on the rank whose shards hold the most
-bytes:
+port's own step as it runs on a mesh (``sharding.state``: each layer
+gathered whole just before it runs and again in the backward, the
+rank's rows, each gradient reduced into the rank's fp32 shard; every
+model rank runs the whole model), on the rank whose shards hold the
+most bytes; on one device, the one-device step:
 
 * **The state.**  ``argument`` is that rank's shards by the specs
   (``sharding.state.train_placements`` / ``shard_bytes``: params,
@@ -19,8 +20,10 @@ bytes:
   serving cell), plus its rows of the batch.  ``state_bytes`` is the
   train state alone, the bytes a rank of the launcher holds.
 * **The step, run on the meta device** (no allocation): the step's own
-  code under a counting grid (``Grid.counting``), whose collectives
-  are recorded, not run (``CountingComm``).  Every dot's FLOPs are
+  code (``train_step.value_and_grads`` in the layer-wise scope, then
+  ``train_step.sharded_update``) under a counting grid
+  (``Grid.counting``), whose collectives are recorded, not run
+  (``CountingComm``).  Every dot's FLOPs are
   counted where it dispatches (``mm``, ``bmm``, ``addmm``,
   ``baddbmm``: 2 · prod(result) · prod(contracted), the reference's
   accounting; elementwise work ignored).  The two kernel ops, which take
@@ -33,29 +36,37 @@ bytes:
   recomputation runs as the port runs it.  The microbatches of a step
   are alike, so one is run and its counts taken ``grad_accum`` times.
 * ``temp`` is the peak of the meta tensors alive during the step (the
-  gathered weights, the activations remat keeps and the recomputation's,
-  the gradients), plus the fp32 accumulator of the gradients where
-  there are several microbatches.  The step updates the state and the
+  layer gathered, the activations remat keeps and the recomputation's,
+  the gradients' fp32 shards, the update's temporaries), plus, where
+  there are several microbatches, the fp32 shards the other
+  microbatches' gradients add into (one device: the whole fp32
+  accumulator).  The step updates the state and the
   cache in place, so ``output`` and ``alias`` are 0 and ``peak`` is
   ``argument + temp``; ``fits`` holds it against the card's 79.6 GiB.
-* ``hbm_bytes`` is a floor: the gathered weights read once a pass
-  (forward, remat's second forward, backward) and a microbatch, each
-  microbatch's gradients written (and, with several, the fp32
-  accumulator read and written), the whole fp32 gradient read and
-  written by the reduce (D > 1) and read by the norm, the shards of
-  the parameters and moments read and written and the gradient's shard
-  read by the update; serving: the weights read once, the cache's shard
-  written (prefill) or read (decode).  Activations are left out.
+* ``hbm_bytes`` is a floor: a microbatch reads the weights once a
+  pass (forward, remat's second forward, backward), writes each
+  gathered one twice (the forward's gather and the backward's), writes
+  its gradients whole and their fp32 shards (with several microbatches
+  the shards' accumulator read and written too); then the norm reads
+  the whole gradients (a ``1xM`` mesh at one microbatch) or the shards,
+  and the update reads and writes the shards of the parameters and
+  moments and reads the gradient's shard.  One device: the weights read
+  a pass, the gradients written (the fp32 accumulator read and written
+  with several microbatches), read by the norm, the update.  Serving:
+  the weights read once, the cache's shard written (prefill) or read
+  (decode).  Activations are left out.
 * Collectives: each recorded call's bytes by the reference's rule
   (``collective_bytes`` the larger of what goes in and out: an
-  ``all_gather``'s output, an ``all_reduce``'s or a ``broadcast``'s
-  tensor), its ring wire bytes (all-reduce 2(g−1)/g · size, gather
-  (g−1)/g · size, a broadcast the whole tensor on every link of its
-  chain) and their count by kind; ``collective_s`` prices each call
-  at its group's link (``analysis.hlo.group_bandwidth``).
+  ``all_gather``'s output, a ``reduce_scatter``'s input, an
+  ``all_reduce``'s or a ``broadcast``'s tensor), its ring wire bytes
+  (all-reduce 2(g−1)/g · size, gather and reduce-scatter (g−1)/g ·
+  size, a broadcast the whole tensor on every link of its chain) and
+  their count by kind; ``collective_s`` prices each call at its
+  group's link (``analysis.hlo.group_bandwidth``).
 
-Serving cells: the port has no sharded serving step, so a serving cell
-is counted as its mesh step would run: the weights gathered whole, the
+Serving cells: the port has no sharded serving step (ROADMAP queue 1),
+so a serving cell is counted as such a step would run: the weights
+gathered whole, the
 cache's shard gathered whole over the axes that split it other than
 the batch's, the rank's rows through ``prefill`` or one ``decode_step``
 at the last position of a full cache.
@@ -96,8 +107,9 @@ from ..sharding.state import (DATA, Grid, Placement, ShardedTrain,
                               _set_param, coordinates, local_shape,
                               param_placements, shard_bytes,
                               train_placements)
-from ..train.optimizer import OptConfig, adamw_update, global_norm
-from ..train.train_step import microbatches, value_and_grads
+from ..train.optimizer import OptConfig, adamw_update
+from ..train.train_step import (init_train_state, microbatches,
+                                sharded_update, value_and_grads)
 
 ARTIFACT_DIR = str(Path(__file__).resolve().parents[3] / "artifacts"
                    / "dryrun_torch")
@@ -253,7 +265,7 @@ def counting(alive=()):
 # collectives
 # ---------------------------------------------------------------------- #
 _KINDS = {"all_gather": "all-gather", "all_reduce": "all-reduce",
-          "broadcast": "broadcast"}
+          "reduce_scatter": "reduce-scatter", "broadcast": "broadcast"}
 
 
 def _group_ranks(sizes: dict, coords: dict, axes) -> list[int]:
@@ -272,9 +284,10 @@ def _group_ranks(sizes: dict, coords: dict, axes) -> list[int]:
 
 def collective_totals(calls, sizes: dict, coords: dict) -> dict:
     """A step's recorded calls (``sharding.state.Collective``) by the
-    reference's rule: ``collective_bytes``, ``collective_wire_bytes``,
-    ``collective_counts`` by kind, and ``collective_s``, each call's
-    wire bytes over its group's link."""
+    reference's rule (a call's bytes its larger side: an all-gather's
+    output, a reduce-scatter's input): ``collective_bytes``,
+    ``collective_wire_bytes``, ``collective_counts`` by kind, and
+    ``collective_s``, each call's wire bytes over its group's link."""
     total = wire = secs = 0.0
     counts: dict[str, int] = {}
     bw: dict = {}
@@ -286,6 +299,9 @@ def collective_totals(calls, sizes: dict, coords: dict) -> dict:
         elif c.kind == "all_reduce":
             size = c.nbytes
             w = 2 * (g - 1) / g * size
+        elif c.kind == "reduce_scatter":
+            size = c.nbytes
+            w = (g - 1) / g * size
         else:
             size = w = c.nbytes
         if c.axes not in bw:
@@ -374,9 +390,9 @@ def train_counts(cfg, opt_cfg: OptConfig, mesh, global_batch: int,
                  seq: int, grad_accum: int = 1, coords=None) -> dict:
     """One train step of ``cfg`` on a mesh of ``mesh``'s axis sizes, at
     ``coords`` (default: the fullest rank), as the launcher runs it
-    (``train_step.sharded_train_step``; one device where every axis is
-    1): the state's bytes, the step's FLOPs, live-byte peak, HBM floor
-    and recorded collectives (``calls``).  Microbatches that the rank's
+    (``train_step.sharded_train_step``; the one-device step where every
+    axis is 1): the state's bytes, the step's FLOPs, live-byte peak, HBM
+    floor and recorded collectives (``calls``).  Microbatches that the rank's
     rows do not split into are cut to the largest count that does
     (``microbatches``); xLSTM's counts are extended along the sequence
     (:func:`along_sequence`)."""
@@ -394,65 +410,88 @@ def train_counts(cfg, opt_cfg: OptConfig, mesh, global_batch: int,
     if coords is None:
         coords, _ = fullest(sizes, placed)
     grid = Grid.counting(sizes, coords)
-    sharded = ShardedTrain(cfg, opt_cfg, sizes, grid=grid)
-    state = sharded.init_state(device="meta")
-    state_bytes = sharded.state_bytes(state)
+    one = math.prod(sizes.values()) == 1
+    if one:
+        state = init_train_state(cfg, opt_cfg, device="meta")
+    else:
+        sharded = ShardedTrain(cfg, opt_cfg, sizes, grid=grid)
+        state = sharded.init_state(device="meta")
+    from ..train.checkpoint import flatten
+
+    state_bytes = _nbytes(t for _, t in flatten(state))
     rows = global_batch // grid.data_size
     acc = grad_accum
     while rows % acc:
         acc -= 1
     batch = grid.rows(_batch(cfg, global_batch, seq))
     mb = microbatches(batch, acc)[0] if acc > 1 else batch
-    full_params = sum(math.prod(pl.shape) * dt.itemsize
-                      for path, (pl, dt) in placed.items()
-                      if path.startswith("params/"))
-    n_params = sum(math.prod(pl.shape) for path, (pl, _) in placed.items()
-                   if path.startswith("params/"))
+    params = {p: pl for p, (pl, _) in placed.items()
+              if p.startswith("params/")}
+    full_params = sum(math.prod(pl.shape) * placed[p][1].itemsize
+                      for p, pl in params.items())
+    gathered = sum(math.prod(pl.shape) * placed[p][1].itemsize
+                   for p, pl in params.items() if grid.moves(pl))
+    n_params = sum(math.prod(pl.shape) for pl in params.values())
     calls = grid.comm.calls
-    from ..train.checkpoint import flatten
-
     alive = [t for _, t in flatten(state)] + list(batch.values())
+    # one microbatch of the step, then its update (the step's own code;
+    # the microbatches are alike, so their counts are that one's times
+    # ``acc``)
     with counting(alive) as tally:
         del alive
-        work = sharded.gather_params(state["params"])
-        n_gather = len(calls)
-        f0, a0 = tally.flops, tally.attention_flops
-        loss, _, grads = value_and_grads(cfg, work, mb, 1, sharded.dp)
+        if one:
+            loss, _, grads = value_and_grads(cfg, state["params"], mb, 1)
+            mb_flops, mb_attn = tally.flops, tally.attention_flops
+            n_mb = len(calls)
+            if acc > 1:     # the accumulator's dtype
+                grads = {n: g.to(torch.float32) for n, g in grads.items()}
+            adamw_update(opt_cfg, state["params"], grads, state["opt"])
+            del grads
+        else:
+            with sharded.layerwise(state["params"], acc) as layers:
+                loss, _, _ = value_and_grads(cfg, state["params"], mb, 1,
+                                             sharded.dp, layerwise=True)
+                mb_flops, mb_attn = tally.flops, tally.attention_flops
+                n_mb = len(calls)
+                sharded_update(opt_cfg, sharded, state, layers)
+            whole_norm = layers.whole_norm
+            del layers
         del loss
-        mb_flops = tally.flops - f0
-        mb_attn = tally.attention_flops - a0
-        mb_calls = calls[n_gather:]
-        sharded.release(work)
-        del work
-        if acc > 1:
-            grads = {n: g.to(torch.float32) for n, g in grads.items()}
-        grads = sharded.reduce_grads(grads)
-        gnorm = global_norm(grads[n] for n in sharded.params)
-        grads = sharded.shard_grads(grads)
-        adamw_update(opt_cfg, state["params"], grads, state["opt"],
-                     gnorm=gnorm, blocks=sharded.blocks)
-        del grads
-    post_calls = calls[n_gather + len(mb_calls):]
-    step_calls = (calls[:n_gather] + mb_calls * acc + post_calls)
-    flops = mb_flops * acc
-    temp = tally.peak - tally.base + (4 * n_params if acc > 1 else 0)
+    step_calls = calls[:n_mb] * acc + calls[n_mb:]
     local = {p: math.prod(local_shape(sizes, coords, pl)) * dt.itemsize
              for p, (pl, dt) in placed.items()}
     local_params = sum(v for p, v in local.items()
                        if p.startswith("params/"))
     local_moments = sum(v for p, v in local.items() if p.startswith("opt/"))
     local_n = sum(math.prod(local_shape(sizes, coords, pl))
-                  for p, (pl, _) in placed.items() if p.startswith("params/"))
+                  for pl in params.values())
     passes = 3 if cfg.remat else 2
-    hbm = acc * (passes * full_params + full_params
-                 + (8 * n_params if acc > 1 else 0))
-    hbm += (8 * n_params if grid.data_size > 1 else 0) + 4 * n_params
-    hbm += 2 * local_params + 2 * local_moments + 4 * local_n
+    update = 2 * local_params + 2 * local_moments + 4 * local_n
+    if one:
+        # the weights read each pass, each microbatch's gradients written
+        # (and, with several, the fp32 accumulator read and written), the
+        # norm's read, the update
+        temp = tally.peak - tally.base + (4 * n_params if acc > 1 else 0)
+        hbm = acc * (passes * full_params + full_params
+                     + (8 * n_params if acc > 1 else 0))
+        hbm += 4 * n_params + update
+    else:
+        # the fp32 shards of the other microbatches' gradients
+        temp = tally.peak - tally.base + (4 * local_n if acc > 1 else 0)
+        # a microbatch: the weights read each pass and written by their
+        # two gathers (the forward's; remat's recomputation or the saved
+        # weights unpacked), the gradients written whole, their fp32
+        # shards written (with several microbatches the accumulator read
+        # and written too); then the norm's read (the whole gradients on
+        # a 1xM mesh at one microbatch, else the shards) and the update
+        hbm = acc * (passes * full_params + 2 * gathered + full_params
+                     + 4 * local_n + (8 * local_n if acc > 1 else 0))
+        hbm += (full_params if whole_norm else 4 * local_n) + update
     return {"sizes": sizes, "coords": coords, "state_bytes": state_bytes,
-            "batch_bytes": _nbytes(batch.values()), "flops": flops,
-            "attention_flops": mb_attn * acc, "temp_bytes": temp,
-            "hbm_bytes": float(hbm), "calls": step_calls,
-            "microbatches": acc, "rows": rows}
+            "batch_bytes": _nbytes(batch.values()),
+            "flops": mb_flops * acc, "attention_flops": mb_attn * acc,
+            "temp_bytes": temp, "hbm_bytes": float(hbm),
+            "calls": step_calls, "microbatches": acc, "rows": rows}
 
 
 def _cache_leaves(node, prefix=""):

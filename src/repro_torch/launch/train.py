@@ -21,14 +21,21 @@ runs two gloo ranks on one card) keeps it.
         --nproc-per-node 4 -m repro_torch.launch.train --smoke \\
         --device cpu --mesh 2x2 --steps 6
 
-Each rank holds only its shards between steps; a step gathers the whole
-model on every rank (``sharding.state``), so a model trains on a mesh
-only where one card holds its shards, all its weights and gradients,
-as on one device, and a checkpoint adds one full leaf at a time:
-layer-wise gathering and tensor-parallel compute over ``model`` are
-ROADMAP queue 1, item 11.7c.  A ``1xM`` mesh trains bit for bit as one
-device; a mesh with D > 1 data ranks equals it to fp32 summation
-order.
+Each rank holds only its shards between steps; a step gathers a layer
+at a time, just before it runs, and each gradient leaves the backward as
+the rank's fp32 shard, reduce-scattered over the data ranks
+(``sharding.state.LayerGather``), so a rank holds its shards, their
+fp32 gradients, a layer and the head: codeqwen1.5-7b (8.19e9
+parameters, which one card cannot train) trains on four H100s at
+``4x1`` or ``2x2``.  Every model rank still runs the whole model on its
+rows (no tensor parallelism over ``model``), and a checkpoint adds one
+full leaf at a time.  A ``1xM`` mesh trains bit for bit as one device;
+a mesh with D > 1 data ranks equals it to fp32 summation order.
+
+    PYTHONPATH=src python -m torch.distributed.run --standalone \\
+        --nproc-per-node 4 -m repro_torch.launch.train \\
+        --arch codeqwen1.5-7b --mesh 4x1 --steps 4 --ckpt-every 0 \\
+        --metrics codeqwen-4x1.jsonl
 
 Without ``--smoke`` the published configuration is trained on the card.
 A model that one card cannot hold is cut in depth and experts, never in
@@ -177,8 +184,10 @@ def parse_args(argv=None):
                          "(2x16x16); a world of that many ranks "
                          "(torch.distributed.run)")
     ap.add_argument("--metrics", default=None,
-                    help="append each step's loss, ce, aux, grad norm, lr "
-                         "and seconds to this file as a JSON line (rank 0)")
+                    help="append each step's loss, ce, aux, grad norm, lr, "
+                         "seconds (and on a card the peak device bytes) to "
+                         "this file as a JSON line (rank 0; rank r > 0 to "
+                         "<file>.rank<r>)")
     ap.add_argument("--ckpt-dir", default=DEFAULT_CKPT_DIR)
     ap.add_argument("--ckpt-every", type=int, default=25,
                     help="steps between checkpoints; 0: no checkpoint")
@@ -297,17 +306,21 @@ def prepare(args, timed: bool = False) -> Run:
                step_fn, started, log)
 
 
-def _metrics_writer(path: str | None, on_step):
+def _metrics_writer(path: str | None, on_step, device: torch.device):
     if path is None:
         return on_step
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    if rank:
+        path = f"{path}.rank{rank}"
 
     def write(step, metrics, seconds):
-        if not dist.is_initialized() or dist.get_rank() == 0:
-            row = {"step": step, **{k: float(metrics[k]) for k in
-                                    ("loss", "ce", "aux", "grad_norm",
-                                     "lr")}, "seconds": seconds}
-            with open(path, "a") as f:
-                f.write(json.dumps(row) + "\n")
+        row = {"step": step, **{k: float(metrics[k]) for k in
+                                ("loss", "ce", "aux", "grad_norm",
+                                 "lr")}, "seconds": seconds}
+        if device.type == "cuda":
+            row["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+        with open(path, "a") as f:
+            f.write(json.dumps(row) + "\n")
         if on_step is not None:
             on_step(step, metrics, seconds)
     return write
@@ -315,15 +328,20 @@ def _metrics_writer(path: str | None, on_step):
 
 def run(r: Run, on_step=None) -> dict:
     """Trains a prepared run to ``--steps``; returns the final state (a
-    rank's shards on a mesh)."""
+    rank's shards on a mesh).  On a card the peak device memory counts
+    from here (``--metrics``' ``peak_bytes``: the steps', not the
+    set-up's)."""
     args = r.args
+    if r.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(r.device)
     handler = PreemptionHandler()
     try:
         state, _, preempted = train_loop(
             r.cfg, r.state, r.step_fn, r.data, r.start, args.steps, r.device,
             mgr=r.mgr, ckpt_every=args.ckpt_every, handler=handler,
             monitor=StragglerMonitor(),
-            on_step=_metrics_writer(args.metrics, on_step), log=r.log)
+            on_step=_metrics_writer(args.metrics, on_step, r.device),
+            log=r.log)
     finally:
         handler.restore_handlers()
     if not preempted:

@@ -11,6 +11,7 @@ the reference's parameters across with :mod:`repro_torch.convert`).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -153,6 +154,39 @@ def remat(cfg: ModelConfig, fn, *args, **kw):
     return torch.utils.checkpoint.checkpoint(
         fn, *args, use_reentrant=False, preserve_rng_state=False,
         context_fn=recompute_contexts, **kw)
+
+
+# the mesh step's layer-wise gathering (a ``sharding.state.LayerGather``);
+# None on one device
+_GATHER = None
+
+
+@contextlib.contextmanager
+def gathering(scope):
+    """Within this scope :func:`gather_layer` hands blocks out gathered
+    by ``scope`` (``sharding.state.ShardedTrain.layerwise``)."""
+    global _GATHER
+    prev = _GATHER
+    _GATHER = scope
+    try:
+        yield
+    finally:
+        _GATHER = prev
+
+
+def gather_layer(p, only=None, skip=()):
+    """A block's parameters as its layer runs them: on one device ``p``
+    itself; in a mesh step's scope (:func:`gathering`) a tree of the
+    same attributes whose leaves are gathered whole, once a call
+    (``only`` / ``skip``: the leaves, dotted names under ``p``, to
+    gather / to leave out as None).  The family loops call it inside the
+    function that :func:`remat` wraps, so the recomputation in the
+    backward gathers the layer again, and on the leaves outside the
+    blocks where they are used; a leaf used twice in a forward (a tied
+    embedding) is gathered once."""
+    if _GATHER is None or p is None:
+        return p
+    return _GATHER.module(p, only, skip)
 
 
 def param_bytes(params: nn.Module) -> int:

@@ -26,9 +26,10 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from .common import ModelConfig, dense_init, remat
+from .common import ModelConfig, dense_init, gather_layer, remat
 from .layers.attention import GQA, cross_apply, cross_kv, gqa_apply
-from .layers.basic import Embedding, LayerNorm, embed, layer_norm, unembed
+from .layers.basic import (Embedding, LayerNorm, head_logits, layer_norm,
+                           token_embeddings)
 from .layers.ffn import GeluMLP, gelu_mlp
 
 MAX_DEC_POS = 32768  # learned decoder positions (whisper-base: 448; the
@@ -61,6 +62,7 @@ class EncBlock(nn.Module):
 
 
 def _enc_block_apply(cfg, p: EncBlock, x):
+    p = gather_layer(p)
     h = layer_norm(p.ln1, x, cfg.norm_eps)
     attn, _ = gqa_apply(cfg, p.attn, h, causal=False)
     x = x + attn
@@ -81,6 +83,7 @@ class DecBlock(nn.Module):
 
 def _dec_block_apply(cfg, p: DecBlock, x, enc_kv, cache=None,
                      cache_index=None):
+    p = gather_layer(p, skip=CROSS_KV)
     h = layer_norm(p.ln1, x, cfg.norm_eps)
     attn, new_cache = gqa_apply(cfg, p.attn, h, causal=True, cache=cache,
                                 cache_index=cache_index)
@@ -89,6 +92,11 @@ def _dec_block_apply(cfg, p: DecBlock, x, enc_kv, cache=None,
     x = x + cross_apply(cfg, p.xattn, h, enc_kv)
     h = layer_norm(p.ln2, x, cfg.norm_eps)
     return x + gelu_mlp(p.mlp, h), new_cache
+
+
+# the cross-attention's projections of the encoder output, which
+# ``cross_kv`` applies outside the decoder block
+CROSS_KV = ("xattn.wk", "xattn.wv")
 
 
 # ------------------------------ model --------------------------------- #
@@ -125,7 +133,7 @@ def encode(cfg: ModelConfig, params: EncDec, frames: torch.Tensor):
                            frames.device).to(frames.dtype)
     for p in params.enc_blocks:
         x = remat(cfg, _enc_block_apply, cfg, p, x)
-    return layer_norm(params.enc_ln, x, cfg.norm_eps)
+    return layer_norm(gather_layer(params.enc_ln), x, cfg.norm_eps)
 
 
 def decode(cfg: ModelConfig, params: EncDec, tokens: torch.Tensor, enc_out,
@@ -134,18 +142,19 @@ def decode(cfg: ModelConfig, params: EncDec, tokens: torch.Tensor, enc_out,
     place, or None)."""
     _, s = tokens.shape
     start = cache_index if cache_index is not None else 0
-    x = embed(params.embed, tokens) + params.pos[start:start + s]
+    x, emb = token_embeddings(params, tokens, True)  # whisper ties
+    x = x + gather_layer(params, only=("pos",)).pos[start:start + s]
     for i, p in enumerate(params.dec_blocks):
-        enc_kv = cross_kv(cfg, p.xattn, enc_out)
+        enc_kv = cross_kv(cfg, gather_layer(p.xattn, only=("wk", "wv")),
+                          enc_out)
         if caches is None:
             x, _ = remat(cfg, _dec_block_apply, cfg, p, x, enc_kv)
             continue
         cache = {"k": caches["k"][i], "v": caches["v"][i]}
         x, _ = _dec_block_apply(cfg, p, x, enc_kv, cache=cache,
                                 cache_index=cache_index)
-    x = layer_norm(params.dec_ln, x, cfg.norm_eps)
-    logits = unembed(params.embed, None, x, tie=True)  # whisper ties
-    return logits, caches
+    x = layer_norm(gather_layer(params.dec_ln), x, cfg.norm_eps)
+    return head_logits(params, x, True, emb), caches
 
 
 def forward(cfg: ModelConfig, params: EncDec, tokens, positions=None,

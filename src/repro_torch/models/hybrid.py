@@ -28,9 +28,10 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from .common import ModelConfig, remat
+from .common import ModelConfig, gather_layer, remat
 from .layers.attention import GQA, gqa_apply
-from .layers.basic import Embedding, Head, RMSNorm, embed, rms_norm, unembed
+from .layers.basic import (Embedding, Head, RMSNorm, head_logits, rms_norm,
+                           token_embeddings)
 from .layers.ffn import MoE, SwiGLU, moe_apply, swiglu
 from .layers.recurrent import Mamba, _mamba_dims, mamba_apply, mamba_step
 from .layers.rope import rope_angles
@@ -76,6 +77,7 @@ def _superblock_apply(cfg: ModelConfig, p: SuperBlock, x, *, angles,
     """One super-block: (x, its summed MoE auxiliary loss); with
     ``cache``, super-block ``sb``'s states are read and written in
     place."""
+    p = gather_layer(p)
     eps = cfg.norm_eps
     ap, moe_js, dense_js = _superblock_layout(cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -132,8 +134,10 @@ def init(cfg: ModelConfig, seed: int = 0, device=None) -> Hybrid:
     return Hybrid(cfg, gen, dev)
 
 
-def _run(cfg, params: Hybrid, x, positions, cache=None, cache_index=None):
-    """(logits, the auxiliary loss summed over the super-blocks)."""
+def _run(cfg, params: Hybrid, x, positions, cache=None, cache_index=None,
+         emb=None):
+    """(logits, the auxiliary loss summed over the super-blocks); ``emb``:
+    the tied table where ``token_embeddings`` gathered it."""
     angles = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for sb, p in enumerate(params.blocks):
@@ -144,8 +148,8 @@ def _run(cfg, params: Hybrid, x, positions, cache=None, cache_index=None):
             x, a = _superblock_apply(cfg, p, x, angles=angles, cache=cache,
                                      sb=sb, cache_index=cache_index)
         aux = aux + a
-    x = rms_norm(params.ln_f, x, cfg.norm_eps)
-    return unembed(params.embed, params.head, x, cfg.tie_embeddings), aux
+    x = rms_norm(gather_layer(params.ln_f), x, cfg.norm_eps)
+    return head_logits(params, x, cfg.tie_embeddings, emb), aux
 
 
 def _positions(b, s, start, device):
@@ -157,11 +161,12 @@ def forward(cfg: ModelConfig, params: Hybrid, tokens, positions=None,
             embeds=None):
     """Logits (B, S, vocab) in fp32 and the MoE auxiliary loss (0: no
     experts)."""
-    x = embeds if embeds is not None else embed(params.embed, tokens)
+    x, emb = ((embeds, None) if embeds is not None else
+              token_embeddings(params, tokens, cfg.tie_embeddings))
     b, s = x.shape[:2]
     if positions is None:
         positions = _positions(b, s, 0, x.device)
-    return _run(cfg, params, x, positions)
+    return _run(cfg, params, x, positions, emb=emb)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
@@ -184,11 +189,11 @@ def decode_step(cfg: ModelConfig, params: Hybrid, tokens, cache, index: int,
                 positions=None):
     """Tokens (B, S) appended at ``index``: logits (B, S, vocab) in fp32,
     and the cache (updated in place)."""
-    x = embed(params.embed, tokens)
+    x, emb = token_embeddings(params, tokens, cfg.tie_embeddings)
     b, s = x.shape[:2]
     if positions is None:
         positions = _positions(b, s, index, x.device)
-    return _run(cfg, params, x, positions, cache, index)[0], cache
+    return _run(cfg, params, x, positions, cache, index, emb)[0], cache
 
 
 def prefill(cfg: ModelConfig, params: Hybrid, tokens, cache,

@@ -10,7 +10,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..common import const_param, dense_init
+from ..common import const_param, dense_init, gather_layer
 
 
 class RMSNorm(nn.Module):
@@ -71,6 +71,23 @@ def unembed(p_emb: Embedding, p_head, x: torch.Tensor,
     upcast first: a bf16 matmul would round its output to bf16."""
     w = p_emb.table if tie else p_head.w
     return torch.matmul(x.float(), w.float().t())
+
+
+def token_embeddings(params, tokens: torch.Tensor, tie: bool):
+    """(``params.embed``'s rows of ``tokens``, the table gathered for
+    the head where it is tied to it, else None), the table gathered
+    (``common.gather_layer``) once for both ends of a tied model."""
+    emb = gather_layer(params.embed)
+    return embed(emb, tokens), (emb if tie else None)
+
+
+def head_logits(params, x: torch.Tensor, tie: bool, emb=None):
+    """:func:`unembed` through ``params.head`` gathered here, or the
+    tied table: ``emb`` where :func:`token_embeddings` gathered it."""
+    if not tie:
+        return unembed(None, gather_layer(params.head), x, False)
+    return unembed(emb if emb is not None else gather_layer(params.embed),
+                   None, x, True)
 
 
 class Linear(nn.Module):

@@ -36,9 +36,10 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from .common import ModelConfig, remat
+from .common import ModelConfig, gather_layer, remat
 from .layers.attention import GQA, MLA, gqa_apply, mla_apply
-from .layers.basic import Embedding, Head, RMSNorm, embed, rms_norm, unembed
+from .layers.basic import (Embedding, Head, RMSNorm, head_logits, rms_norm,
+                           token_embeddings)
 from .layers.ffn import MoE, SwiGLU, moe_apply, swiglu
 from .layers.rope import mrope_angles, rope_angles
 
@@ -60,6 +61,7 @@ class Block(nn.Module):
 def _block_apply(cfg: ModelConfig, p: Block, x, *, angles, positions,
                  cache=None, cache_index=None):
     """One layer: (x, the MoE auxiliary loss or None)."""
+    p = gather_layer(p)
     h = rms_norm(p.ln1, x, cfg.norm_eps)
     if cfg.mla:
         attn, _ = mla_apply(cfg, p.attn, h, positions=positions,
@@ -123,8 +125,10 @@ def _angles_for(cfg: ModelConfig, positions):
     return rope_angles(positions, cfg.head_dim, cfg.rope_theta)
 
 
-def _run(cfg, params: LM, x, positions, cache=None, cache_index=None):
-    """(logits, the summed auxiliary loss, fp32)."""
+def _run(cfg, params: LM, x, positions, cache=None, cache_index=None,
+         emb=None):
+    """(logits, the summed auxiliary loss, fp32); ``emb``: the tied
+    table where ``token_embeddings`` gathered it."""
     angles = _angles_for(cfg, positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, p in enumerate(params.blocks):
@@ -137,8 +141,15 @@ def _run(cfg, params: LM, x, positions, cache=None, cache_index=None):
                                 cache=layer, cache_index=cache_index)
         if a is not None:
             aux = aux + a
-    x = rms_norm(params.ln_f, x, cfg.norm_eps)
-    return unembed(params.embed, params.head, x, cfg.tie_embeddings), aux
+    x = rms_norm(gather_layer(params.ln_f), x, cfg.norm_eps)
+    return head_logits(params, x, cfg.tie_embeddings, emb), aux
+
+
+def _inputs(cfg, params: LM, tokens, embeds):
+    """(x, the tied table gathered for the head, or None)."""
+    if embeds is not None:
+        return embeds, None
+    return token_embeddings(params, tokens, cfg.tie_embeddings)
 
 
 def forward(cfg: ModelConfig, params: LM, tokens, positions=None,
@@ -146,11 +157,11 @@ def forward(cfg: ModelConfig, params: LM, tokens, positions=None,
     """tokens (B, S) int, or ``embeds`` (B, S, d): logits (B, S, vocab)
     in fp32 and the MoE auxiliary loss summed over the layers (0: no
     experts)."""
-    x = embeds if embeds is not None else embed(params.embed, tokens)
+    x, emb = _inputs(cfg, params, tokens, embeds)
     b, s = x.shape[:2]
     if positions is None:
         positions = _default_positions(cfg, b, s, 0, x.device)
-    return _run(cfg, params, x, positions)
+    return _run(cfg, params, x, positions, emb=emb)
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
@@ -170,11 +181,11 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, dtype=None,
 
 def _apply_with_cache(cfg, params: LM, tokens, cache, index, positions,
                       embeds):
-    x = embeds if embeds is not None else embed(params.embed, tokens)
+    x, emb = _inputs(cfg, params, tokens, embeds)
     b, s = x.shape[:2]
     if positions is None:
         positions = _default_positions(cfg, b, s, index, x.device)
-    return _run(cfg, params, x, positions, cache, index)[0], cache
+    return _run(cfg, params, x, positions, cache, index, emb)[0], cache
 
 
 def decode_step(cfg: ModelConfig, params: LM, tokens, cache, index: int,

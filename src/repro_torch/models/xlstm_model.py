@@ -26,8 +26,9 @@ import torch
 from torch import nn
 
 from ..device import resolve_device
-from .common import ModelConfig, remat
-from .layers.basic import Embedding, Head, RMSNorm, embed, rms_norm, unembed
+from .common import ModelConfig, gather_layer, remat
+from .layers.basic import (Embedding, Head, RMSNorm, head_logits, rms_norm,
+                           token_embeddings)
 from .layers.ffn import SwiGLU, swiglu
 from .layers.recurrent import (MLSTM, SLSTM, mlstm_apply, mlstm_init_state,
                                mlstm_step, slstm_apply, slstm_init_state,
@@ -61,6 +62,7 @@ class SuperBlock(nn.Module):
 def _superblock_apply(cfg: ModelConfig, p: SuperBlock, x, state=None):
     """One super-block; with ``state`` (this super-block's slices of the
     cache) the layers step from it and write it in place."""
+    p = gather_layer(p)
     eps = cfg.norm_eps
     h = rms_norm(p.slstm_ln, x, eps)
     if state is None:
@@ -103,7 +105,9 @@ def init(cfg: ModelConfig, seed: int = 0, device=None) -> XLSTM:
     return XLSTM(cfg, gen, dev)
 
 
-def _run(cfg, params: XLSTM, x, cache=None):
+def _run(cfg, params: XLSTM, x, cache=None, emb=None):
+    """Logits; ``emb``: the tied table where ``token_embeddings``
+    gathered it."""
     for sb, p in enumerate(params.blocks):
         if cache is None:
             x = remat(cfg, _superblock_apply, cfg, p, x)
@@ -111,16 +115,17 @@ def _run(cfg, params: XLSTM, x, cache=None):
         state = {part: {k: a[sb] for k, a in cache[part].items()}
                  for part in ("slstm", "mlstm")}
         x = _superblock_apply(cfg, p, x, state)
-    x = rms_norm(params.ln_f, x, cfg.norm_eps)
-    return unembed(params.embed, params.head, x, cfg.tie_embeddings)
+    x = rms_norm(gather_layer(params.ln_f), x, cfg.norm_eps)
+    return head_logits(params, x, cfg.tie_embeddings, emb)
 
 
 def forward(cfg: ModelConfig, params: XLSTM, tokens, positions=None,
             embeds=None):
     """Logits (B, S, vocab) in fp32 from a zero state, and an auxiliary
     loss of 0; ``positions`` is unread (no position embedding)."""
-    x = embeds if embeds is not None else embed(params.embed, tokens)
-    logits = _run(cfg, params, x)
+    x, emb = ((embeds, None) if embeds is not None else
+              token_embeddings(params, tokens, cfg.tie_embeddings))
+    logits = _run(cfg, params, x, emb=emb)
     return logits, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -144,7 +149,8 @@ def decode_step(cfg: ModelConfig, params: XLSTM, tokens, cache, index: int,
     """Tokens (B, S) stepped through the recurrent state (``index`` and
     ``positions`` unread): logits (B, S, vocab) in fp32, and the cache
     (updated in place)."""
-    return _run(cfg, params, embed(params.embed, tokens), cache), cache
+    x, emb = token_embeddings(params, tokens, cfg.tie_embeddings)
+    return _run(cfg, params, x, cache, emb), cache
 
 
 def prefill(cfg: ModelConfig, params: XLSTM, tokens, cache, positions=None):

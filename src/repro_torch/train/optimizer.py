@@ -161,10 +161,20 @@ def _write_moment(cfg: OptConfig, val, part=None):
     return val
 
 
+def square_sum(x: torch.Tensor) -> torch.Tensor:
+    """A tensor's fp32 sum of squares, the term :func:`global_norm` takes
+    of it."""
+    return torch.sum(torch.square(x.to(torch.float32)))
+
+
+def norm_of(squares) -> torch.Tensor:
+    """sqrt of the sum of ``squares`` (0-d tensors), in their order."""
+    return torch.sqrt(torch.sum(torch.stack(list(squares))))
+
+
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum of every tensor's fp32 sum of squares."""
-    return torch.sqrt(torch.sum(torch.stack(
-        [torch.sum(torch.square(x.to(torch.float32))) for x in tensors])))
+    return norm_of(square_sum(x) for x in tensors)
 
 
 def decay_mask(name: str) -> bool:
@@ -191,7 +201,12 @@ def adamw_update(cfg: OptConfig, params: nn.Module, grads: dict,
     On a mesh (``sharding.state``) ``params``, ``grads`` and the moments
     are this rank's shards, ``gnorm`` the whole gradient's norm, and
     ``blocks`` each parameter's :class:`BlockSlice` (int8 moments); a
-    parameter this rank does not hold (empty) is skipped."""
+    parameter this rank does not hold (empty) is skipped.
+
+    The caller hands ``grads`` over: the leaves are updated last to
+    first and each gradient is dropped from ``grads`` once applied, so a
+    leaf's temporaries (the embedding's, the largest, come last) sit
+    beside only the gradients still to be applied."""
     step = opt_state["step"] + 1
     lr = schedule(cfg, step)
     named = list(params.named_parameters())
@@ -204,11 +219,12 @@ def adamw_update(cfg: OptConfig, params: nn.Module, grads: dict,
     bc2 = 1 - b2 ** step.to(torch.float32)
 
     moms_m, moms_v = opt_state["m"], opt_state["v"]
-    for name, p in named:
+    for name, p in reversed(named):
+        g = grads.pop(name)
         if p.numel() == 0:
             continue
         part = blocks.get(name) if blocks is not None else None
-        g = grads[name].to(torch.float32) * clip
+        g = g.to(torch.float32) * clip
         m = _read_moment(cfg, moms_m[name], p.shape, part)
         v = _read_moment(cfg, moms_v[name], p.shape, part)
         m = b1 * m + (1 - b1) * g

@@ -9,12 +9,13 @@ the microbatches and divided by their count, as the reference's scan.
 
 With ``mesh=`` the state is sharded over a (data, model) mesh
 (``sharding.state.ShardedTrain``) and a step is the global batch's
-math with explicit collectives: the full weights gathered, the
-forward and backward on the rank's rows, the gradients summed over the
-data ranks, the global norm from the whole gradient, the shards
-updated.  The masked mean's denominator is the global microbatch's and
-each rank's loss holds its own tokens' share of the numerator, so the
-summed gradients are the global loss's.
+math with explicit collectives: the forward and backward on the rank's
+rows in a layer-wise scope (``ShardedTrain.layerwise``: each layer
+gathered just before it runs, each leaf's gradient left as this rank's
+fp32 shard summed over the data ranks and the microbatches), the
+global norm, the shards updated.  The masked mean's denominator is the
+global microbatch's and each rank's loss holds its own tokens' share of
+the numerator, so the summed gradients are the global loss's.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ import torch
 from ..models import registry
 from ..models.common import ModelConfig
 from ..models.layers import ffn
-from .optimizer import OptConfig, adamw_update, global_norm, init_opt_state
+from .optimizer import OptConfig, adamw_update, init_opt_state
 
 
 def cross_entropy(logits, labels, mask=None, z_loss: float = 0.0, dp=None):
@@ -83,7 +84,7 @@ def microbatches(batch: dict, grad_accum: int) -> list[dict]:
 
 
 def value_and_grads(cfg: ModelConfig, params, batch: dict,
-                    grad_accum: int = 1, dp=None):
+                    grad_accum: int = 1, dp=None, layerwise: bool = False):
     """(loss, metrics {"ce", "aux"}, grads by parameter name) of one
     batch: ``torch.autograd.grad`` of :func:`loss_fn`, each gradient in
     its parameter's dtype; with ``grad_accum > 1`` the microbatches'
@@ -91,30 +92,42 @@ def value_and_grads(cfg: ModelConfig, params, batch: dict,
     mean (the reference's scan; its metrics then carry ce = the loss and
     aux = 0).  With ``dp`` the batch is this rank's rows: the loss and
     ce returned are the global ones, the gradients this rank's share
-    (their sum over the ranks is the global loss's)."""
+    (their sum over the ranks is the global loss's).  ``layerwise``: in
+    a mesh step's scope (``ShardedTrain.layerwise``) ``params`` are
+    shards, the gradients go to the scope's fp32 shards as the backward
+    makes them, and grads is None."""
     names, leaves = zip(*params.named_parameters())
 
     def one(b):
         loss, metrics = loss_fn(cfg, params, b, dp)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=layerwise)
+        if layerwise:
+            if any(g is not None for g in grads):
+                raise AssertionError("a shard took a gradient outside "
+                                     "models.common.gather_layer")
+            grads = None
+        else:
+            grads = dict(zip(names, grads))
         metrics = {k: v.detach() for k, v in metrics.items()}
         if dp is not None:
             metrics["ce"] = dp.sum(metrics["ce"])
             loss = metrics["ce"] + metrics["aux"]
-        return loss.detach(), metrics, dict(zip(names, grads))
+        return loss.detach(), metrics, grads
 
     if grad_accum == 1:
         return one(batch)
-    acc = {n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-           for n, p in zip(names, leaves)}
+    acc = None if layerwise else {
+        n: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        for n, p in zip(names, leaves)}
     loss_sum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
     for mb in microbatches(batch, grad_accum):
         loss, _, grads = one(mb)
-        for n, g in grads.items():
+        for n, g in (grads or {}).items():
             acc[n] = acc[n] + g.to(torch.float32)
         loss_sum = loss_sum + loss
         del grads
-    grads = {n: g / grad_accum for n, g in acc.items()}
+    grads = None if acc is None else {n: g / grad_accum
+                                      for n, g in acc.items()}
     loss = loss_sum / grad_accum
     return loss, {"ce": loss, "aux": torch.zeros_like(loss)}, grads
 
@@ -147,11 +160,15 @@ def make_train_step(cfg: ModelConfig, opt_cfg: OptConfig,
 def sharded_train_step(cfg: ModelConfig, opt_cfg: OptConfig, sharded,
                        grad_accum: int = 1, timed: bool = False):
     """The step on a mesh (see the module's docstring); ``timed`` adds
-    ``phase_s``, the seconds of the gather, the forward and backward,
-    the gradient reduce (with the norm and the slicing) and the update,
-    each ended by a device synchronise."""
+    ``phase_s``: the seconds of the forward and backward (their gathers
+    and gradient reduces inside) and of the update (the norm and AdamW),
+    each ended by a device synchronise, and ``collectives``, the seconds
+    inside the grid's collectives over the whole step, each call between
+    two synchronises."""
+    comm = sharded.grid.comm
 
     def train_step(state, batch):
+        params = state["params"]
         marks = [time.perf_counter()]
 
         def mark():
@@ -161,29 +178,35 @@ def sharded_train_step(cfg: ModelConfig, opt_cfg: OptConfig, sharded,
                     torch.cuda.synchronize(dev)
                 marks.append(time.perf_counter())
 
-        work = sharded.gather_params(state["params"])
-        mark()
-        loss, metrics, grads = value_and_grads(
-            cfg, work, sharded.grid.rows(batch), grad_accum, sharded.dp)
-        sharded.release(work)
-        mark()
-        grads = sharded.reduce_grads(grads)
-        gnorm = global_norm(grads[n] for n in sharded.params)
-        grads = sharded.shard_grads(grads)
-        mark()
-        opt2, opt_metrics = adamw_update(opt_cfg, state["params"], grads,
-                                         state["opt"], gnorm=gnorm,
-                                         blocks=sharded.blocks)
-        del grads
+        if timed:
+            comm.seconds = 0.0
+        with sharded.layerwise(params, grad_accum) as layers:
+            loss, metrics, _ = value_and_grads(
+                cfg, params, sharded.grid.rows(batch), grad_accum,
+                sharded.dp, layerwise=True)
+            mark()
+            opt2, opt_metrics = sharded_update(opt_cfg, sharded, state,
+                                               layers)
         mark()
         out = {"loss": loss, **metrics, **opt_metrics}
         if timed:
-            out["phase_s"] = dict(zip(
-                ("gather", "forward_backward", "reduce", "update"),
-                (b - a for a, b in zip(marks, marks[1:]))))
-        return {"params": state["params"], "opt": opt2}, out
+            out["phase_s"] = {"forward_backward": marks[1] - marks[0],
+                              "update": marks[2] - marks[1],
+                              "collectives": comm.seconds}
+            comm.seconds = None
+        return {"params": params, "opt": opt2}, out
 
     return train_step
+
+
+def sharded_update(opt_cfg: OptConfig, sharded, state: dict, layers):
+    """The mesh step's update from a layer-wise scope's gradient shards
+    (``LayerGather.finish``): AdamW on this rank's shards, in place,
+    each shard freed once applied; returns (the optimizer state, its
+    metrics)."""
+    grads, gnorm = layers.finish()
+    return adamw_update(opt_cfg, state["params"], grads, state["opt"],
+                        gnorm=gnorm, blocks=sharded.blocks)
 
 
 def trainable(params: torch.nn.Module) -> torch.nn.Module:

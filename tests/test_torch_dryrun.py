@@ -15,7 +15,10 @@
   own rule beside the rest.
 * A one-device state's bytes against ``init_train_state``'s tensors;
   a ``1xM`` step's FLOPs a device equal to one device's (every rank
-  runs the whole model on its rows: what item 11.7c would cut).
+  runs the whole model on its rows: no tensor parallelism yet).
+* codeqwen1.5-7b at its published widths and depth on four ranks
+  (``4x1``) at the launcher's batch: the step gathers a layer at a
+  time and reduce-scatters the gradients, so a rank fits a card.
 * The CLI in a subprocess on one cell, the reference's
   ``tests/test_launch_distributed.py::test_dryrun_entrypoint_small_cell``
   with the reference's record keys.
@@ -172,6 +175,27 @@ def test_model_axis_runs_the_whole_model_on_every_rank():
     assert two["flops"] == one["flops"] == 2 * half["flops"]
     assert {c.kind for c in two["calls"]} == {"all_gather"}
     assert two["state_bytes"] < one["state_bytes"]
+
+
+def test_codeqwen_fits_a_card_on_four_data_ranks():
+    """A rank of ``4x1`` holds its shards (about 19 GiB), their fp32
+    gradients, one layer gathered and the head: the dry run's peak is
+    under 40 GiB, where the model gathered whole beside its bf16 and
+    fp32 gradients would need about 86 GB; the temp holds less than the
+    bf16 model (16.4 GB), so no step gathers it whole, and the
+    gradients leave the backward by reduce-scatters."""
+    from repro_torch.models import registry
+
+    cfg = get_arch("codeqwen1.5-7b").full
+    counts = dryrun.train_counts(cfg, OptConfig(), {"data": 4, "model": 1},
+                                 8, 128)
+    mem = dryrun.record_of(counts, {"model_flops": 0.0}, 4)["memory"]
+    assert mem["fits"] and mem["peak_gb"] < 40.0, mem
+    assert counts["temp_bytes"] < 2 * registry.count_params(cfg)
+    assert counts["rows"] == 2
+    assert {c.kind for c in counts["calls"]} == {"all_gather",
+                                                 "reduce_scatter",
+                                                 "all_reduce"}
 
 
 REF_KEYS = {"arch", "shape", "mesh", "variant", "kind", "num_chips",

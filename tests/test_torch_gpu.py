@@ -1756,9 +1756,10 @@ def _checkpoint_leaves(directory) -> list:
 @pytest.mark.gpu
 def test_model_split_mesh_on_the_card_equals_one_device(cuda, tmp_path):
     """internlm2's smoke on a 1x2 mesh, two gloo ranks on ``cuda:0`` (the
-    shard, gather and update path on CUDA tensors), against the same
-    run on one device in this process: every step's metrics and every
-    leaf of the final checkpoint bit for bit."""
+    shard, layer-wise gather and update path on CUDA tensors), against
+    the same run on one device in this process: every step's metrics
+    (not their seconds and peak bytes, which are measurements) and
+    every leaf of the final checkpoint bit for bit."""
     import socket
     import subprocess
     import sys
@@ -1790,8 +1791,8 @@ def test_model_split_mesh_on_the_card_equals_one_device(cuda, tmp_path):
     def steps(name):
         rows = [json.loads(line) for line in
                 (tmp_path / name).read_text().splitlines()]
-        return [{k: v for k, v in r.items() if k != "seconds"}
-                for r in rows]
+        return [{k: v for k, v in r.items()
+                 if k not in ("seconds", "peak_bytes")} for r in rows]
 
     one = steps("one.jsonl")
     assert len(one) == 4 and steps("mesh.jsonl") == one

@@ -13,7 +13,14 @@ final checkpoint, which is the whole state whatever the mesh.
   ``1x4`` with int8 moments too (blocks of the smoke's narrow last axes
   span shards, so their scales are maxima over ranks).
   qwen2-moe's smoke on ``1x2`` too (its shared expert's layer axis is
-  split: a layer's shared expert lives on one rank).
+  split: a layer's shared expert lives on one rank), and one smoke of
+  each family no other case launches: Jamba's (hybrid: Mamba, experts
+  split over ``model``, its dense FFNs' layer axis owned), whisper's
+  (encdec: the tied table gathered once for both ends, the cross
+  attention's K/V projections outside the block) and xLSTM's (ssm).
+  Each step gathers a layer at a time: these hold the layer hook, the
+  saved weights gathered again in the backward, and the whole-gradient
+  norm to one device's arithmetic.
 * ``2x1`` with ``--grad-accum 2``, qwen2-moe's smoke on ``2x1`` (the
   capacity factor cut to 1.0, so pairs drop at every step, and remat
   on, so the backward recomputes each block's dispatch; the aux term is
@@ -33,9 +40,11 @@ final checkpoint, which is the whole state whatever the mesh.
   tolerances).
 * ``--mesh 3x1`` on a world of 2 raises and names both numbers.
 * The dry run (``launch.dryrun.train_counts``) against the ranks of
-  ``1x2``, ``1x4 int8``, ``2x1 accum``, both MoE meshes and the oracle's
-  ``2x2``: each rank's state bytes and every tensor its first step hands
-  to ``torch.distributed``, recorded in the launch (``RANK``), exactly.
+  ``1x2``, ``1x4 int8``, ``2x1 accum``, both MoE meshes, the hybrid's
+  ``1x2`` and the oracle's ``2x2``: each rank's state bytes and every
+  tensor its first step hands to ``torch.distributed`` (the gathers, the
+  gradients' reduce-scatters and all-reduces, the norm's sum), recorded
+  in the launch (``RANK``), exactly.
 """
 
 import json
@@ -72,7 +81,8 @@ BASE = ["--smoke", "--seq", str(SEQ), "--device", "cpu", "--ckpt-every",
 MOE_OVERRIDES = dict(capacity_factor=1.0, remat=True)
 # a rank of the launcher's own ``main`` that also records, in its first
 # step, every tensor it hands to ``torch.distributed`` (the call's kind,
-# the bytes, the group's size) and its state's bytes, to
+# the bytes, a reduce-scatter's input, the group's size) and its state's
+# bytes, to
 # ``<--metrics>.comm-<rank>.json``; with overrides of the config
 RANK = """
 import json
@@ -128,12 +138,17 @@ def rank_prepare(args, timed=False):
 
 dist.all_gather = recording("all_gather", dist.all_gather, 1)
 dist.all_reduce = recording("all_reduce", dist.all_reduce, 0)
+dist.reduce_scatter_tensor = recording("reduce_scatter",
+                                       dist.reduce_scatter_tensor, 1)
 dist.broadcast = recording("broadcast", dist.broadcast, 0)
 train.setup, train.prepare = rank_setup, rank_prepare
 train.main(sys.argv[1:])
 """
 MOE = ["--arch", "qwen2-moe-a2.7b"]
 VLM = ["--arch", "qwen2-vl-2b", "--grad-accum", "2"]
+HYBRID = ["--arch", "jamba-1.5-large-398b"]
+ENCDEC = ["--arch", "whisper-base"]
+SSM = ["--arch", "xlstm-1.3b"]
 RUNS = {
     "1x1": (1, []),
     "1x2": (2, ["--mesh", "1x2"]),
@@ -148,12 +163,18 @@ RUNS = {
     "1x1 vlm": (1, VLM),
     "2x1 vlm": (2, VLM + ["--mesh", "2x1"]),
     "2x2x1": (4, ["--mesh", "2x2x1"]),
+    "1x1 hybrid": (1, HYBRID),
+    "1x2 hybrid": (2, HYBRID + ["--mesh", "1x2"]),
+    "1x1 encdec": (1, ENCDEC),
+    "1x2 encdec": (2, ENCDEC + ["--mesh", "1x2"]),
+    "1x1 ssm": (1, SSM),
+    "1x2 ssm": (2, SSM + ["--mesh", "1x2"]),
 }
 
 
 # the launches whose ranks record their first step's collectives (with
 # "oracle 2x2" and the MoE ranks)
-COUNTED = ("1x2", "1x4 int8", "2x1 accum")
+COUNTED = ("1x2", "1x4 int8", "2x1 accum", "1x2 hybrid")
 
 
 def _command(nproc: int, argv: list[str], script=None) -> list[str]:
@@ -283,7 +304,10 @@ def _assert_metrics_close(want: list[dict], got: list[dict]):
     ("1x2", "1x1", "float32", "internlm2-1.8b"),
     ("1x2 int8", "1x1 int8", "int8", "internlm2-1.8b"),
     ("1x4 int8", "1x1 int8", "int8", "internlm2-1.8b"),
-    ("1x2 moe", "1x1 moe", "float32", "qwen2-moe-a2.7b")])
+    ("1x2 moe", "1x1 moe", "float32", "qwen2-moe-a2.7b"),
+    ("1x2 hybrid", "1x1 hybrid", "float32", "jamba-1.5-large-398b"),
+    ("1x2 encdec", "1x1 encdec", "float32", "whisper-base"),
+    ("1x2 ssm", "1x1 ssm", "float32", "xlstm-1.3b")])
 def test_model_split_mesh_equals_one_device_bit_for_bit(runs, mesh, base,
                                                         moments, arch):
     """qwen2-moe's 6 experts divide the model axis, so the reference's
@@ -385,16 +409,19 @@ def test_remat_recomputes_the_global_dispatch():
     ("2x1 accum", {"data": 2, "model": 1}, "internlm2-1.8b", "float32", 2),
     ("1x2 moe", {"data": 1, "model": 2}, "qwen2-moe-a2.7b", "float32", 1),
     ("2x1 moe", {"data": 2, "model": 1}, "qwen2-moe-a2.7b", "float32", 1),
-    ("oracle", {"data": 2, "model": 2}, "internlm2-1.8b", "float32", 1)])
+    ("oracle", {"data": 2, "model": 2}, "internlm2-1.8b", "float32", 1),
+    ("1x2 hybrid", {"data": 1, "model": 2}, "jamba-1.5-large-398b",
+     "float32", 1)])
 def test_dry_run_counts_what_a_rank_hands_to_torch_distributed(
         runs, name, mesh, arch, moments, accum):
     """Each rank's state bytes and the tensors it hands to
     ``torch.distributed`` in its first step (kind, bytes, group size),
     recorded in the launch itself, equal ``launch.dryrun``'s counts of
     the same config, mesh, batch and coordinates exactly: the gathers
-    (and ``1x2 moe``'s owner broadcasts of the shared expert), the
-    gradients' all-reduce, the loss's sums, the int8 blocks' maxima,
-    the MoE dispatch's sums and exclusive prefix."""
+    (and ``1x2 moe``'s and the hybrid's owner broadcasts), the
+    gradients' reduce-scatters and all-reduces, the norm's sum, the
+    loss's sums, the int8 blocks' maxima, the MoE dispatch's sums and
+    exclusive prefix."""
     from repro_torch.launch import dryrun
 
     d = runs["dir"]

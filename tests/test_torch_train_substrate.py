@@ -84,7 +84,7 @@ def test_adamw_int8_matches_fp32_roughly():
         p = _W(w0.clone())
         o = init_opt_state(cfg, p)
         for _ in range(5):
-            o, _ = adamw_update(cfg, p, grads, o)
+            o, _ = adamw_update(cfg, p, dict(grads), o)
         outs[md] = p.w.detach().numpy()
     # int8 moments track fp32 closely but not exactly: compare the update's
     # direction and magnitude, not elementwise equality
